@@ -1,0 +1,233 @@
+"""Flash attention forward: the hand-written Hopper kernel
+(``csrc/flash_fwd.cu``) and its plain PyTorch version.
+
+Replaces the Pallas TPU kernel ``runbooks_tpu/ops/flash_attention.py``
+``_fwd_kernel`` (launched by ``_flash_fwd``). Same contract:
+
+- layout [b, s, h, d] at the public function; k/v stay at kv-head width
+  and query head i reads kv head i // n_rep (never repeated);
+- masking by absolute position: keys at position >= PAD_POS are masked,
+  causal means kv_pos <= q_pos, segments mean q_seg == kv_seg and
+  kv_seg != 0;
+- f32 online softmax; ``out = acc / l`` (0 on a fully masked row) and
+  ``lse = m + log l`` (NEG_INF on a fully masked row), lse [b, h, sq] f32;
+- causal block skip by grid index, exact when storage index i holds
+  position i on both sides; it switches itself off when sq != sk.
+
+A CPU tensor goes to ``flash_attention_reference``; a CUDA tensor goes to
+the kernel or raises. The kernel takes bfloat16 q/k/v with head_dim 64 or
+128. ``flash_attention.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+NEG_INF = -1e30
+PAD_POS = 2 ** 30
+# The plain version blocks by the kernel's tiles (BQ = BK = 64 in
+# csrc/flash_fwd.cu); the TPU kernel's tile hints do not apply here.
+TILE = 64
+KERNEL_HEAD_DIMS = (64, 128)
+
+_ll = ctypes.c_longlong
+_vp = ctypes.c_void_p
+_ARGTYPES = ([_vp] * 9 + [ctypes.c_int] * 6 + [_ll] * 12
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _vp])
+
+
+def _kernel():
+    from runbooks_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load("flash_fwd")
+    fn = lib.flash_fwd_bf16
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_inputs(q, k, v, q_positions, kv_positions, q_segment_ids,
+                  kv_segment_ids):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [b, s, heads, head_dim]")
+    b, sq, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    if h % k.shape[2]:
+        raise ValueError(f"{h} query heads are not a multiple of "
+                         f"{k.shape[2]} kv heads")
+    sk = k.shape[1]
+    if tuple(q_positions.shape) != (b, sq) \
+            or tuple(kv_positions.shape) != (b, sk):
+        raise ValueError("positions must be [b, sq] and [b, sk]")
+    if (q_segment_ids is None) != (kv_segment_ids is None):
+        raise ValueError("pass both segment id arrays or neither")
+    if q_segment_ids is not None and (
+            tuple(q_segment_ids.shape) != (b, sq)
+            or tuple(kv_segment_ids.shape) != (b, sk)):
+        raise ValueError("segment ids must be [b, sq] and [b, sk]")
+
+
+def flash_attention_reference(
+    q, k, v, q_positions, kv_positions, q_segment_ids=None,
+    kv_segment_ids=None, causal: bool = True, scale: Optional[float] = None,
+    block_skip: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: a loop over TILE-wide kv tiles
+    with the same f32 online softmax, masks, GQA mapping, block skip and
+    lse convention. Returns (out [b, sq, h, d] in q's dtype,
+    lse [b, h, sq] f32)."""
+    _check_inputs(q, k, v, q_positions, kv_positions, q_segment_ids,
+                  kv_segment_ids)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    n_rep = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    skip = bool(block_skip and causal and sq == sk)
+    use_seg = q_segment_ids is not None
+
+    qg = q.float().reshape(b, sq, kvh, n_rep, d)
+    kf, vf = k.float(), v.float()
+    out = torch.empty((b, kvh, n_rep, sq, d), dtype=torch.float32,
+                      device=q.device)
+    lse = torch.empty((b, kvh, n_rep, sq), dtype=torch.float32,
+                      device=q.device)
+    num_kv = -(-sk // TILE)
+    # Without the skip every query row sees the same kv range, so all rows
+    # go at once; with it, q tile i stops at kv tile i, its diagonal.
+    q_step = TILE if skip else max(sq, 1)
+    for q0 in range(0, sq, q_step):
+        q1 = min(q0 + q_step, sq)
+        last_kv = min(num_kv - 1, q0 // TILE) if skip else num_kv - 1
+        qp = q_positions[:, q0:q1]
+        m = torch.full((b, kvh, n_rep, q1 - q0), NEG_INF,
+                       dtype=torch.float32, device=q.device)
+        l_run = torch.zeros_like(m)
+        acc = torch.zeros((b, kvh, n_rep, q1 - q0, d), dtype=torch.float32,
+                          device=q.device)
+        for kb in range(last_kv + 1):
+            k0, k1 = kb * TILE, min((kb + 1) * TILE, sk)
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qg[:, q0:q1],
+                             kf[:, k0:k1]) * scale
+            kp = kv_positions[:, k0:k1]
+            mask = (kp < PAD_POS)[:, None, :]
+            if causal:
+                mask = mask & (kp[:, None, :] <= qp[:, :, None])
+            if use_seg:
+                ks = kv_segment_ids[:, k0:k1]
+                mask = mask & (q_segment_ids[:, q0:q1, None]
+                               == ks[:, None, :]) & (ks != 0)[:, None, :]
+            mask = mask[:, None, None]                 # [b, 1, 1, q, k]
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(m_new <= NEG_INF, 0.0, m_new)
+            p = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+            alpha = torch.where(m <= NEG_INF, 0.0, torch.exp(m - m_safe))
+            l_run = alpha * l_run + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bgrqk,bkgd->bgrqd", p, vf[:, k0:k1])
+            m = m_new
+        l_safe = torch.where(l_run == 0.0, 1.0, l_run)
+        out[:, :, :, q0:q1] = acc / l_safe[..., None]
+        lse[:, :, :, q0:q1] = torch.where(l_run == 0.0, NEG_INF,
+                                          m + torch.log(l_safe))
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+    return out, lse.reshape(b, h, sq)
+
+
+def _rows_ok(t: torch.Tensor) -> bool:
+    """16-byte vector loads need a unit last stride, 16-byte aligned base
+    and row strides that are multiples of 8 elements."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s % 8 == 0 for s in t.stride()[:-1]))
+
+
+def _flash_fwd_cuda(q, k, v, q_positions, kv_positions, q_segment_ids,
+                    kv_segment_ids, causal, scale, block_skip):
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the flash kernel takes bfloat16; {name} is "
+                            f"{t.dtype}")
+        if not _rows_ok(t):
+            raise ValueError(f"{name} needs a unit last stride, a 16-byte "
+                             "aligned base and 8-element row strides")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the flash kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    use_seg = q_segment_ids is not None
+    ints = [t.to(device=q.device, dtype=torch.int32).contiguous()
+            for t in (q_positions, kv_positions)]
+    if use_seg:
+        ints += [t.to(device=q.device, dtype=torch.int32).contiguous()
+                 for t in (q_segment_ids, kv_segment_ids)]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    seg_q = ints[2].data_ptr() if use_seg else None
+    seg_k = ints[3].data_ptr() if use_seg else None
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), ints[0].data_ptr(), ints[1].data_ptr(), seg_q, seg_k,
+        b, sq, sk, h, kvh, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
+        float(scale), int(causal), int(block_skip and causal and sq == sk),
+        stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_bf16 launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_fwd(
+    q: torch.Tensor,                   # [b, sq, h, d]
+    k: torch.Tensor,                   # [b, sk, kv_h, d]
+    v: torch.Tensor,
+    q_positions: torch.Tensor,         # [b, sq] int
+    kv_positions: torch.Tensor,        # [b, sk] int
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    causal: bool = True,
+    scale: Optional[float] = None,
+    block_skip: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [b, sq, h, d], lse [b, h, sq] f32): the kernel for a CUDA q,
+    the plain version for a CPU q."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_reference(
+            q, k, v, q_positions, kv_positions, q_segment_ids,
+            kv_segment_ids, causal, scale, block_skip)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    _check_inputs(q, k, v, q_positions, kv_positions, q_segment_ids,
+                  kv_segment_ids)
+    return _flash_fwd_cuda(q, k, v, q_positions, kv_positions,
+                           q_segment_ids, kv_segment_ids, causal, scale,
+                           block_skip)
+
+
+def flash_attention(q, k, v, q_positions, kv_positions, q_segment_ids=None,
+                    kv_segment_ids=None, causal: bool = True,
+                    scale: Optional[float] = None,
+                    block_skip: bool = True) -> torch.Tensor:
+    """Attention output [b, sq, h, d], with the reference's arguments.
+    block_skip skips kv blocks past the causal diagonal by storage index;
+    it is exact only when q index i and kv index i hold the same position,
+    so it switches off when sq != sk and a caller with equal lengths but
+    offset positions passes block_skip=False."""
+    return flash_attention_fwd(q, k, v, q_positions, kv_positions,
+                               q_segment_ids, kv_segment_ids, causal, scale,
+                               block_skip)[0]
+
+
+flash_attention.launches = 0

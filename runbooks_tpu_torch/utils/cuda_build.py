@@ -1,0 +1,88 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by hand
+with ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the root
+of the checkout (listed in ``.gitignore``). The library's file name carries
+a hash of the source and the flags, so an edited source is never served
+from a stale build; the compiler's report (``-Xptxas -v``: registers,
+shared memory, spills) is kept beside it as ``.log``. Sources build in
+parallel: one ``nvcc`` per source, all started together. A failed build
+raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Libraries loaded by this process, by source name.
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                           "bin", "nvcc")
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "on a machine with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, Path]:
+    """Compile every named source that has no current build, all at once,
+    and return each name's library path."""
+    names = list(dict.fromkeys(names))
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in names}
+    todo = [n for n in names if not targets[n].exists()]
+    procs = {}
+    for n in todo:
+        tmp = targets[n].with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp)
+    failures = []
+    for n, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for csrc/{n}.cu "
+                            f"(exit {proc.returncode}):\n{out}")
+        else:
+            targets[n].with_suffix(".log").write_text(out)
+            os.replace(tmp, targets[n])
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return targets
+
+
+def build_report(name: str) -> str:
+    """The compiler's report for the current build of csrc/<name>.cu."""
+    return _target(name).with_suffix(".log").read_text()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed."""
+    if name not in _loaded:
+        path = build([name])[name]
+        _loaded[name] = ctypes.CDLL(str(path))
+    return _loaded[name]
