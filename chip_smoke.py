@@ -7,7 +7,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 
 1. Environment: the card's name and power limit, torch version, device
    count; TF32 is switched off for matmuls and convolutions.
-2. Build: every kernel of the serving path from csrc/, in parallel.
+2. Build: every kernel of the serving and training paths from csrc/, in
+   parallel.
 3. Kernels: each kernel against its plain PyTorch version on the card at
    the shapes the serving path gives it, with its time (CUDA events over
    warm launches), the plain version's time, one PyTorch library call on
@@ -18,6 +19,20 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    plain attention; then the dense InferenceEngine serves 8 requests whose
    prompts span the prefill buckets, greedy and sampled mixed, with the
    kernel launch counts read around that run.
+5. Backward kernels: K2 (dq) and K3 (dk, dv) against their plain version
+   at the training shape (2 packed rows of 2048 tokens of the job's data,
+   32/8 heads, d=128), without segments, a ragged 2000, d=64 with n_rep 2,
+   more keys than queries (unseen keys must get exactly 0) and f32
+   gradients; each kernel's time, bound, the plain version's time and the
+   backward of scaled_dot_product_attention as the yardstick.
+6. Full-width gradient check: llama3-8b cut to 4 layers, one LoRA
+   loss-and-grad over a packed 2048-token row with the flash kernels and
+   with the plain attention.
+7. Training: ``run_training`` runs the repo's LoRA example on llama3-8b
+   at full width and depth (f32 base, rank 16, seq 2048, batch 8 in 4
+   microbatches, packed seeded documents) for 3 steps, with K1/K2/K3
+   launch counts read around it, then resumes from the step-3 checkpoint
+   for one more step.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -27,12 +42,15 @@ no result.
 
 import argparse
 import dataclasses
+import gc
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 
-KERNELS = ["flash_fwd"]
+KERNELS = ["flash_fwd", "flash_bwd"]
 # Prefill logits through the kernel vs the plain attention, full width,
 # 32 bf16 layers: bf16 keeps 8 bits, and ~10 roundings per layer that
 # differ between the two attentions random-walk to ~3.5% of a unit-scale
@@ -46,6 +64,30 @@ KERNEL_OUT_RTOL = 1e-2
 KERNEL_LSE_TOL = 1e-3    # lse stays f32 end to end
 PROMPT_LENS = (20, 90, 120, 300, 700, 1000, 1500, 2000)
 MAX_TOKENS = 32
+# Backward kernels vs their f32 plain version, per gradient tensor:
+# |err| <= BWD_ATOL * max|plain| + BWD_RTOL * |plain|. The kernels round p
+# and ds to bf16 as operands of their products (2**-9 relative each) and
+# the gradients to bf16 at the end (2**-8); sums over up to 2048 rounded
+# terms random-walk to a few such roundings of the largest entry. On an
+# H100 the worst max|err| / max|plain| over cases (a)-(f) was 0.0024.
+BWD_ATOL = 1e-2
+BWD_RTOL = 1e-2
+# Full-width gradient check, flash (K1-K3) vs plain attention under
+# autograd, 4 bf16 layers: the two attentions round at other places (the
+# plain path rounds its f32 output and probabilities, the kernels P, dS
+# and their outputs), each a 2**-8 relative error that the backward
+# carries through 4 layers and the rank-16 projections. The loss, a mean
+# over ~2000 tokens, averages them away. On an H100: loss 1.1e-5 relative,
+# worst leaf 0.0042 in relative L2, cosine 0.99999.
+GRAD_LOSS_RTOL = 1e-3
+GRAD_REL_L2_TOL = 0.03
+GRAD_COS_MIN = 0.99
+# The training job: the repo's LoRA example (examples/llama2-7b/
+# finetuned-model.yaml: rank 16, alpha 32, batch 8, seq 2048, lr 2e-5)
+# applied to llama3-8b, global batch 8 in 4 microbatches of 2.
+TRAIN_STEPS = 3
+TRAIN_DOCS = 300
+TRAIN_SEQ = 2048
 
 
 def card_line():
@@ -317,6 +359,7 @@ def prefill_logits(torch, cfg, params, prompt, bucket, max_seq_len):
 
 
 def e2e_phase(torch, seed):
+    from runbooks_tpu_torch.utils.tree import tree_leaves
     from runbooks_tpu_torch.ops.flash_attention import flash_attention
     from runbooks_tpu_torch.serve.api import load_model
     from runbooks_tpu_torch.serve.engine import InferenceEngine
@@ -326,7 +369,7 @@ def e2e_phase(torch, seed):
                               "model_overrides": {"param_dtype": "bfloat16"},
                               "seed": seed})
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     print(f"load_model llama3-8b bf16: {n_params / 1e9:.3f} B params, "
           f"layers {cfg.num_layers}, hidden {cfg.hidden_size}, heads "
           f"{cfg.num_heads}/{cfg.num_kv_heads}, in "
@@ -417,12 +460,355 @@ def e2e_phase(torch, seed):
     return launches
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
+def write_train_docs(path, seed):
+    """TRAIN_DOCS documents of 100 to 6000 bytes of seeded word text, as
+    jsonl: the training job's data, packed through the byte tokenizer."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    words = ["the", "kernel", "trains", "a", "model", "on", "packed",
+             "rows", "of", "text", "with", "lora", "adapters", "and",
+             "checkpoints", "every", "step", "hopper", "tile", "warp"]
+    with open(path, "w") as f:
+        for _ in range(TRAIN_DOCS):
+            n = int(rng.integers(100, 6001))
+            text = " ".join(rng.choice(words, size=n))[:n]
+            f.write(json.dumps({"text": text}) + "\n")
+
+
+def first_train_batch(path):
+    """The first global batch the training job sees (numpy)."""
+    from runbooks_tpu_torch.train import data
+
+    return next(data.dataset(path, TRAIN_SEQ, 8, epochs=None))
+
+
+def bwd_bound(torch, q, k, q_pos, kv_pos, q_seg, kv_seg):
+    """{kernel: (bound_ms, bound_by, gflop)} on an H100 for the
+    query-key pairs the masks leave open (P): K1 does 4 d h P operations
+    (S, PV), K2 6 d h P (S, dP, dQ), K3 8 d h P (S, dP, dV, dK), against
+    the bytes each must move: its inputs (q, k, v, and for the backward do,
+    lse and delta; positions and segment ids) read once, its outputs (out
+    and lse; dq; dk and dv) written once."""
+    from runbooks_tpu_torch.ops.attention import make_attention_mask
+    from runbooks_tpu_torch.utils.hw import H100_HBM_BW, H100_PEAK_BF16_FLOPS
+
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    pairs = 0
+    for bi in range(b):
+        m = make_attention_mask(
+            q_pos[bi:bi + 1], kv_pos[bi:bi + 1],
+            None if q_seg is None else q_seg[bi:bi + 1],
+            None if kv_seg is None else kv_seg[bi:bi + 1])
+        pairs += int(m.sum().item())
+    ints = 4 * b * (sq + sk) * (2 if q_seg is not None else 1)
+    inputs = 2 * b * sq * h * d * 2 + 2 * b * sk * kvh * d * 2 \
+        + 2 * b * h * sq * 4 + ints
+    fwd_bytes = b * sq * h * d * 2 * 2 + 2 * b * sk * kvh * d * 2 \
+        + b * h * sq * 4 + ints
+    out = {"flash_fwd": (4.0 * d * h * pairs, fwd_bytes),
+           "flash_bwd_dq": (6.0 * d * h * pairs,
+                            inputs + b * sq * h * d * 2),
+           "flash_bwd_dkv": (8.0 * d * h * pairs,
+                             inputs + 2 * b * sk * kvh * d * 2)}
+    res = {}
+    for name, (flops, nbytes) in out.items():
+        t_ops = flops / H100_PEAK_BF16_FLOPS
+        t_bytes = nbytes / H100_HBM_BW
+        res[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes",
+                     flops / 1e9)
+    return res
+
+
+def bwd_cases(torch, dev, gen, batch):
+    """(name, q, k, v, do, q_pos, kv_pos, seg, block_skip, grad_dtype) for
+    the backward kernels. (a) is what the training path gives them: a
+    microbatch of 2 packed rows of the job's data, llama3-8b's 32/8 heads
+    at d=128, causal with the skip."""
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.bfloat16)
+
+    def ar(n, start=0, rows=2):
+        return (start + torch.arange(n, device=dev, dtype=torch.int32)
+                )[None].expand(rows, n).contiguous()
+
+    def qkvd(b, sq, sk, h, kvh, d):
+        return (randn(b, sq, h, d), randn(b, sk, kvh, d),
+                randn(b, sk, kvh, d), randn(b, sq, h, d))
+
+    s = TRAIN_SEQ
+    pos = torch.from_numpy(batch["positions"][:2]).to(dev)
+    seg = torch.from_numpy(batch["segment_ids"][:2]).to(dev)
+    f32 = torch.float32
+    return [
+        ("a_packed_2x2048", *qkvd(2, s, s, 32, 8, 128), pos, pos, seg, True,
+         None),
+        ("b_causal_2x2048", *qkvd(2, s, s, 32, 8, 128), ar(s), ar(s), None,
+         True, None),
+        ("c_ragged_2x2000", *qkvd(2, 2000, 2000, 32, 8, 128), ar(2000),
+         ar(2000), None, True, None),
+        ("d_d64_rep2_2x1024", *qkvd(2, 1024, 1024, 16, 8, 64), ar(1024),
+         ar(1024), None, True, None),
+        ("e_offset_sk_gt_sq", *qkvd(1, 512, s, 32, 8, 128),
+         ar(512, 1000, 1), ar(s, 0, 1), None, False, None),
+        ("f_f32_grads_2x2048", *qkvd(2, s, s, 32, 8, 128), ar(s), ar(s),
+         None, True, f32),
+    ]
+
+
+def library_fwd(torch, q, k, v):
+    """One scaled_dot_product_attention(is_causal=True, enable_gqa=True)
+    forward on the same q, k, v."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+
+def library_bwd(torch, q, k, v, do):
+    """The backward of one scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True) call on the same q, k, v: dq, dk and dv together."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
+def bwd_kernel_phase(torch, dev, seed, batch):
+    """Phase 5: K2 and K3 against the plain backward at cases (a)-(f),
+    with each kernel's time, the plain version's, the bound, and SDPA's
+    backward at (b) as the library yardstick."""
+    from runbooks_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_reference,
+        flash_attention_fwd,
+        flash_bwd_kernels,
+    )
+
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 2)
+    records, worst = {}, {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    for (name, q, k, v, do, qp, kp, seg, skip, gd) in bwd_cases(
+            torch, dev, gen, batch):
+        out, lse = flash_attention_fwd(q, k, v, qp, kp, seg, seg,
+                                       block_skip=skip)
+        got = flash_attention_bwd(q, k, v, qp, kp, seg, seg, out, lse, do,
+                                  block_skip=skip, grad_dtype=gd)
+        ref = flash_attention_bwd_reference(
+            q, k, v, qp, kp, seg, seg, out, lse, do, block_skip=skip,
+            grad_dtype=torch.float32)
+        torch.cuda.synchronize()
+        errs, ok = {}, True
+        for gname, a, r in zip(("dq", "dk", "dv"), got, ref):
+            a, r = a.float(), r.float()
+            diff = (a - r).abs()
+            rmax = r.abs().max().item()
+            excess = (diff - BWD_RTOL * r.abs()).max().item()
+            errs[gname] = (diff.max().item(), rmax)
+            ok &= bool(torch.isfinite(a).all().item())
+            ok &= excess <= BWD_ATOL * rmax
+        zeros = ""
+        if name.startswith("e_"):
+            # Queries at positions 1000..1511 see keys 0..1511 only.
+            exact = bool((got[1][:, 1512:] == 0).all().item()
+                         and (got[2][:, 1512:] == 0).all().item())
+            zeros = f" unseen_keys_exact_zero {exact}"
+            ok &= exact
+        if seg is not None:
+            exact = bool((got[0][seg == 0] == 0).all().item())
+            zeros = f" padding_rows_dq_exact_zero {exact}"
+            ok &= exact
+        launch_dq, launch_dkv = flash_bwd_kernels(
+            q, k, v, qp, kp, seg, seg, out, lse, do, block_skip=skip,
+            grad_dtype=gd)
+        ms = {"flash_fwd": cuda_ms(lambda: flash_attention_fwd(
+                  q, k, v, qp, kp, seg, seg, block_skip=skip), 10),
+              "flash_bwd_dq": cuda_ms(launch_dq, 10),
+              "flash_bwd_dkv": cuda_ms(launch_dkv, 10)}
+        plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
+            q, k, v, qp, kp, seg, seg, out, lse, do, block_skip=skip,
+            grad_dtype=gd), 2)
+        library_ms = library_fwd_ms = None
+        if name.startswith("b_"):
+            library_ms = cuda_ms(library_bwd(torch, q, k, v, do), 10)
+            library_fwd_ms = cuda_ms(library_fwd(torch, q, k, v), 10)
+        bounds = bwd_bound(torch, q, k, qp, kp, seg, seg)
+        err_s = " ".join(f"{g} {e:.3e}/max {m:.3e}"
+                         for g, (e, m) in errs.items())
+        print(f"kernel flash_bwd {name}: q {tuple(q.shape)} k "
+              f"{tuple(k.shape)} skip {skip} grad_dtype "
+              f"{got[0].dtype} | err {err_s} (tol {BWD_ATOL}*max + "
+              f"{BWD_RTOL}*|plain|){zeros} | dq_ms "
+              f"{ms['flash_bwd_dq']:.4f} bound "
+              f"{bounds['flash_bwd_dq'][0]:.4f} "
+              f"({bounds['flash_bwd_dq'][1]}, "
+              f"{bounds['flash_bwd_dq'][2]:.1f} GFLOP) | dkv_ms "
+              f"{ms['flash_bwd_dkv']:.4f} bound "
+              f"{bounds['flash_bwd_dkv'][0]:.4f} "
+              f"({bounds['flash_bwd_dkv'][1]}, "
+              f"{bounds['flash_bwd_dkv'][2]:.1f} GFLOP) | plain_ms (both) "
+              f"{plain_ms:.3f} | K1 forward here: ms "
+              f"{ms['flash_fwd']:.4f} bound {bounds['flash_fwd'][0]:.4f} "
+              f"({bounds['flash_fwd'][1]}, {bounds['flash_fwd'][2]:.1f} "
+              f"GFLOP)"
+              + ("" if library_ms is None else
+                 f" | library_ms SDPA backward, dq+dk+dv together "
+                 f"{library_ms:.4f}, SDPA forward {library_fwd_ms:.4f}")
+              + f" -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"flash_bwd {name} disagrees with its plain "
+                             "version")
+        worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"][0])
+        worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"][0],
+                                     errs["dv"][0])
+        records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             library_fwd_ms=library_fwd_ms, bounds=bounds,
+                             shape=f"q{tuple(q.shape)} k{tuple(k.shape)}")
+    print(f"backward kernel phase peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return records, worst
+
+
+def lora_grads(torch, cfg, base, lora, lora_cfg, batch):
+    """(loss, [grad of each LoRA leaf]) of one loss-and-grad."""
+    from runbooks_tpu_torch.train.lora import deltas
+    from runbooks_tpu_torch.train.step import make_ce_terms
+
+    leaves = {t: {n: x.detach().clone().requires_grad_() for n, x in
+                  ab.items()} for t, ab in lora.items()}
+    ce = make_ce_terms(cfg, remat=True, loss_chunk=0)
+    loss, _ = ce(base, batch, deltas(leaves, lora_cfg))
+    flat = [x for ab in leaves.values() for x in ab.values()]
+    return loss.item(), torch.autograd.grad(loss, flat)
+
+
+def grad_check_phase(torch, dev, seed, batch):
+    """Phase 6: llama3-8b at full width, depth cut to 4 layers, one packed
+    row of 2048 tokens through one LoRA loss-and-grad with the flash
+    kernels (K1-K3) and with the plain attention under autograd."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.transformer import init_params
+    from runbooks_tpu_torch.train.lora import LoraConfig, init_lora
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("llama3-8b", num_layers=4)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 3)
+    base = init_params(cfg, gen, dev)
+    lora_cfg = LoraConfig(rank=16, alpha=32.0)
+    lora = init_lora(base, lora_cfg, gen)
+    # B starts at 0, which gives A no gradient; a small random B makes
+    # every leaf's gradient non-zero.
+    for ab in lora.values():
+        ab["b"] = torch.randn(ab["b"].shape, generator=gen, device=dev) \
+            * 0.02
+    row = {k: torch.from_numpy(v[:1]).to(dev) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    loss_f, g_f = lora_grads(torch, dataclasses.replace(
+        cfg, attention_impl="flash"), base, lora, lora_cfg, row)
+    loss_x, g_x = lora_grads(torch, dataclasses.replace(
+        cfg, attention_impl="xla"), base, lora, lora_cfg, row)
+    torch.cuda.synchronize()
+    loss_rel = abs(loss_f - loss_x) / abs(loss_x)
+    ok = loss_rel <= GRAD_LOSS_RTOL
+    worst_l2, worst_cos = 0.0, 1.0
+    for a, b in zip(g_f, g_x):
+        a, b = a.float().flatten(), b.float().flatten()
+        rel = ((a - b).norm() / b.norm()).item()
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+        worst_l2, worst_cos = max(worst_l2, rel), min(worst_cos, cos)
+    ok &= worst_l2 <= GRAD_REL_L2_TOL and worst_cos >= GRAD_COS_MIN
+    print(f"full-width LoRA gradient check (llama3-8b, 4 layers, 1 x 2048 "
+          f"packed tokens, {time.perf_counter() - t0:.1f} s): loss flash "
+          f"{loss_f:.6f} plain {loss_x:.6f} rel {loss_rel:.2e} (tol "
+          f"{GRAD_LOSS_RTOL}) | {len(g_f)} LoRA leaves: worst rel L2 "
+          f"{worst_l2:.4f} (tol {GRAD_REL_L2_TOL}) worst cosine "
+          f"{worst_cos:.6f} (min {GRAD_COS_MIN}) | peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("full-width gradient check failed")
+
+
+def train_phase(torch, dev, seed, data_path, workdir):
+    """Phase 7: the LoRA fine-tune through run_training, TRAIN_STEPS
+    steps, then a resume to one step more. Returns the kernel launch
+    counts of the first run."""
+    from runbooks_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from runbooks_tpu_torch.train.checkpoint import CheckpointManager
+    from runbooks_tpu_torch.train.lora import LoraConfig
+    from runbooks_tpu_torch.train.optimizer import OptimizerConfig
+    from runbooks_tpu_torch.train.trainer import TrainJobConfig, run_training
+
+    art = f"{workdir}/artifacts"
+    job = TrainJobConfig(
+        model="llama3-8b", lora=LoraConfig(rank=16, alpha=32.0),
+        optimizer=OptimizerConfig(learning_rate=2e-5), batch_size=8,
+        seq_len=TRAIN_SEQ, accumulate_steps=4, loss_chunk=0,
+        steps=TRAIN_STEPS, data_path=data_path, artifacts_dir=art,
+        log_every=1, seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_attention_bwd.dq_launches = 0
+    flash_attention_bwd.dkv_launches = 0
+    t0 = time.perf_counter()
+    summary = run_training(job)
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash_attention.launches,
+                "flash_bwd_dq": flash_attention_bwd.dq_launches,
+                "flash_bwd_dkv": flash_attention_bwd.dkv_launches}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [e["loss"] for e in summary["history"]]
+    intact = CheckpointManager(art).intact_steps()
+    print(f"train llama3-8b LoRA r16: {TRAIN_STEPS} steps in {wall:.1f} s "
+          f"(init included), losses {losses}, peak memory "
+          f"{peak / 1e9:.2f} GB, launches {launches}, intact checkpoints "
+          f"{intact}", flush=True)
+    per_step = {"flash_fwd": 256, "flash_bwd_dq": 128, "flash_bwd_dkv": 128}
+    for name, n in per_step.items():
+        if launches[name] != n * TRAIN_STEPS:
+            raise SystemExit(f"{name} launched {launches[name]} times in "
+                             f"{TRAIN_STEPS} steps; expected "
+                             f"{n * TRAIN_STEPS}")
+    if not all(math.isfinite(x) for x in losses) \
+            or len(losses) != TRAIN_STEPS:
+        raise SystemExit(f"training losses not finite: {losses}")
+    if TRAIN_STEPS not in intact:
+        raise SystemExit(f"no intact checkpoint at step {TRAIN_STEPS}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resumed = run_training(dataclasses.replace(job, steps=TRAIN_STEPS + 1))
+    cursor = CheckpointManager(art).read_cursor(TRAIN_STEPS)
+    r_losses = [e["loss"] for e in resumed["history"]]
+    print(f"resume: restored step {resumed['restored_step']} with cursor "
+          f"{cursor}, ran to step {resumed['history'][-1]['step']} "
+          f"(batches consumed {resumed['batches_consumed']}), loss "
+          f"{r_losses}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    if (resumed["restored_step"] != TRAIN_STEPS
+            or cursor.get("batches_consumed") != TRAIN_STEPS
+            or resumed["batches_consumed"] != TRAIN_STEPS + 1
+            or [e["step"] for e in resumed["history"]] != [TRAIN_STEPS + 1]
+            or not all(math.isfinite(x) for x in r_losses)):
+        raise SystemExit("resume did not continue at the saved step and "
+                         "cursor")
+    return launches, summary, peak
 
 
 def main():
@@ -457,7 +843,21 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     records, worst = kernel_phase(torch, dev, args.seed)
-    launches = e2e_phase(torch, args.seed)
+    serve_launches = e2e_phase(torch, args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        data_path = f"{workdir}/docs.jsonl"
+        write_train_docs(data_path, args.seed)
+        batch = first_train_batch(data_path)
+        bwd_records, bwd_worst = bwd_kernel_phase(torch, dev, args.seed,
+                                                  batch)
+        grad_check_phase(torch, dev, args.seed, batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_launches, summary, peak = train_phase(torch, dev, args.seed,
+                                                    data_path, workdir)
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -465,7 +865,9 @@ def main():
         "route": "cuda",
         "source": "runbooks_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "runbooks_tpu/ops/flash_attention.py:92",
-        "launches": launches,
+        "launches": serve_launches + train_launches["flash_fwd"],
+        "launches_by_path": {"serve": serve_launches,
+                             "train": train_launches["flash_fwd"]},
         "max_abs_err": worst,
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -475,6 +877,39 @@ def main():
         "bound_ms_with_padding": main_case["bound_ms_with_padding"],
         "shape": main_case["shape"],
     }]
+    train_case = bwd_records["a_packed_2x2048"]
+    kernels[0]["train_shape"] = {
+        "ms": train_case["ms"]["flash_fwd"],
+        "bound_ms": train_case["bounds"]["flash_fwd"][0],
+        "bound_by": train_case["bounds"]["flash_fwd"][1],
+        "library_ms_causal_no_segments":
+            bwd_records["b_causal_2x2048"]["library_fwd_ms"],
+        "shape": train_case["shape"]}
+    library = bwd_records["b_causal_2x2048"]["library_ms"]
+    for name, line in (("flash_bwd_dq", 280), ("flash_bwd_dkv", 337)):
+        bound_ms, bound_by, _ = train_case["bounds"][name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "runbooks_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"runbooks_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[name],
+            "launches_by_path": {"train": train_launches[name]},
+            "max_abs_err": bwd_worst[name],
+            "ms": train_case["ms"][name],
+            "plain_ms": train_case["plain_ms"],
+            "plain_ms_covers": "flash_attention_bwd_reference: dq, dk, dv",
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": library,
+            "library_ms_covers": ("backward of scaled_dot_product_attention"
+                                  "(is_causal, enable_gqa) at "
+                                  "b_causal_2x2048: dq, dk, dv together"),
+            "shape": train_case["shape"],
+        })
+    print(f"train summary: tokens/s {summary['tokens_per_sec']:.1f} | "
+          f"history {json.dumps(summary['history'])} | peak memory "
+          f"{peak / 1e9:.2f} GB", flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

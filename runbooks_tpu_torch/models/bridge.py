@@ -1,10 +1,13 @@
-"""Carry a parameter tree between the reference's layout and the port's.
+"""Carry parameter trees and training state between the reference's
+layout and the port's.
 
 The reference keeps parameters as a nested dict of arrays (stacked [L, ...]
-layers, ``init_params`` in runbooks_tpu.models.transformer); the port keeps
-the same nesting with torch tensors. Crossing goes through numpy, so
-neither side imports the other: a caller turns the reference's arrays into
-numpy (``jax.tree.map(np.asarray, params)``) and hands that tree here.
+layers, ``init_params`` in runbooks_tpu.models.transformer), a LoRA tree
+as {target: {"a", "b"}}, and its optimizer state as optax's chain of
+states; the port keeps the same nesting with torch tensors and its own
+Adam state. Crossing goes through numpy, so neither side imports the
+other: a caller turns the reference's arrays into numpy
+(``jax.tree.map(np.asarray, tree)``) and hands that tree here.
 """
 
 from __future__ import annotations
@@ -16,12 +19,7 @@ import torch
 
 from runbooks_tpu_torch.models.config import ModelConfig
 from runbooks_tpu_torch.models.transformer import Params, check_supported
-
-
-def _map(tree, fn):
-    if isinstance(tree, Mapping):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+from runbooks_tpu_torch.utils.tree import tree_map
 
 
 def _shapes(tree, prefix=""):
@@ -59,16 +57,50 @@ def from_jax_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
     if got != want:
         raise ValueError(f"parameter tree does not match config "
                          f"{cfg.name!r}: got {got}, expected {want}")
+    return tree_from_numpy(tree, device)
+
+
+def _leaf_to_torch(a, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # numpy's bfloat16 extension type
+        return torch.from_numpy(a.astype(np.float32)).to(device,
+                                                         torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def tree_from_numpy(tree: Mapping[str, Any],
+                    device: Optional[torch.device] = None) -> dict:
+    """Any nested dict of numpy arrays (a LoRA tree {target: {"a", "b"}},
+    Adam moments) as torch tensors on ``device`` (default: the CPU)."""
     device = torch.device("cpu") if device is None else device
+    return tree_map(lambda a: _leaf_to_torch(a, device), tree)
 
-    def leaf(a):
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":   # numpy's bfloat16 extension type
-            return torch.from_numpy(a.astype(np.float32)).to(
-                device, torch.bfloat16)
-        return torch.from_numpy(np.array(a, copy=True)).to(device)
 
-    return _map(tree, leaf)
+def adam_state_from_optax_numpy(opt_state: Any,
+                                device: Optional[torch.device] = None
+                                ) -> dict:
+    """The port's AdamW state from the reference's optax state with numpy
+    leaves (``jax.tree.map(np.asarray, state.opt_state)``): the chain's
+    Adam entry (the one with ``mu``, ``nu`` and ``count``) gives the count
+    and the moments. The schedule's count advances with Adam's, so it is
+    not carried separately."""
+    def find(node):
+        if all(hasattr(node, f) for f in ("mu", "nu", "count")):
+            return node
+        if isinstance(node, (tuple, list)):
+            for child in node:
+                found = find(child)
+                if found is not None:
+                    return found
+        return None
+
+    adam = find(opt_state)
+    if adam is None:
+        raise ValueError("no Adam state (mu, nu, count) in the optimizer "
+                         "state")
+    return {"count": int(np.asarray(adam.count)),
+            "mu": tree_from_numpy(adam.mu, device),
+            "nu": tree_from_numpy(adam.nu, device)}
 
 
 def to_numpy(params: Params) -> dict:
@@ -80,4 +112,4 @@ def to_numpy(params: Params) -> dict:
             t = t.float()
         return t.numpy()
 
-    return _map(params, leaf)
+    return tree_map(leaf, params)

@@ -123,6 +123,47 @@ class ModelConfig:
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
 
+    @property
+    def num_params(self) -> int:
+        """Parameter count (embedding included once if tied)."""
+        h, v = self.hidden_size, self.vocab_size
+        embed = v * h
+        head = 0 if self.tie_embeddings else v * h
+        pos = self.max_seq_len * h if self.position_type == "learned" else 0
+        attn = h * self.q_dim + 2 * h * self.kv_dim + self.q_dim * h
+        if self.attn_bias:
+            attn += self.q_dim + 2 * self.kv_dim + h
+        mlp_mats = (2 if self.gated_mlp else 1) * h * self.intermediate_size
+        mlp_mats += self.intermediate_size * h
+        if self.mlp_bias:
+            mlp_mats += ((2 if self.gated_mlp else 1) * self.intermediate_size
+                         + h)
+        if self.moe_num_experts:
+            mlp_mats = (self.moe_num_experts * mlp_mats
+                        + h * self.moe_num_experts)
+        norms_per_layer = (h if (self.parallel_block
+                                 and self.shared_layer_norm) else 2 * h)
+        if self.norm_type == "layernorm":
+            norms_per_layer *= 2
+        per_layer = attn + mlp_mats + norms_per_layer
+        final_norm = h * (2 if self.norm_type == "layernorm" else 1)
+        return embed + head + pos + self.num_layers * per_layer + final_norm
+
+    def flops_per_token(self, seq_len: Optional[int] = None) -> float:
+        """Forward-pass matmul FLOPs per token (2*N plus the attention
+        quadratic); a training step counts 3x this for MFU."""
+        s = seq_len or self.max_seq_len
+        h = self.hidden_size
+        attn_proj = 2 * (h * self.q_dim + 2 * h * self.kv_dim
+                         + self.q_dim * h)
+        attn_scores = 2 * 2 * s * self.q_dim
+        mlp = 2 * ((2 if self.gated_mlp else 1) * h * self.intermediate_size
+                   + self.intermediate_size * h)
+        if self.moe_num_experts:
+            mlp = mlp * self.moe_top_k + 2 * h * self.moe_num_experts
+        per_layer = attn_proj + attn_scores + mlp
+        return float(self.num_layers * per_layer + 2 * h * self.vocab_size)
+
 
 def _llama(name, v=32000, h=4096, i=11008, l=32, q=32, kv=32, d=128, s=4096,
            theta=10000.0):

@@ -8,10 +8,14 @@
 - One forward serves the no-cache path and the KV-cache path. The cache
   path writes in place (the reference's donated buffers): the KVCache's
   tensors are updated and a KVCache with the new index is returned.
-- Attention: the hand-written flash kernel (ops/flash_attention.py) on
-  CUDA for the no-cache path and for cached prefill of >= 16 query rows;
-  decode (one query row) and the CPU use the plain dot_product_attention,
-  as the reference routes them.
+- Attention: the hand-written flash kernels (ops/flash_attention.py) on
+  CUDA for the no-cache path (forward and backward) and for cached prefill
+  of >= 16 query rows; decode (one query row) and the CPU use the plain
+  dot_product_attention, as the reference routes them.
+- Training: packed rows (``segment_ids``), per-block activation
+  checkpointing (``remat``), and LoRA deltas merged into each layer's
+  weights inside its block (``lora``), so no merged copy of all layers
+  lives across a step.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from runbooks_tpu_torch.models.config import ModelConfig
 from runbooks_tpu_torch.ops.attention import (
@@ -173,15 +178,59 @@ def _matmul(x: torch.Tensor, w: torch.Tensor, ad: torch.dtype):
     return torch.matmul(x, w.to(ad))
 
 
-def _attention_block(cfg, p, layer_idx, x, positions, mask, layer_cache):
+# Remat policies of the reference (models/transformer.py:_remat_policy)
+# that the port does not implement yet.
+REMAT_POLICIES_TO_PORT = ("dots_saveable",
+                          "dots_with_no_batch_dims_saveable",
+                          "save_attn_out")
+
+
+def _check_remat_policy(name: str) -> None:
+    if name in REMAT_POLICIES_TO_PORT:
+        raise NotImplementedError(
+            f"remat_policy {name!r} is not ported yet; the port has "
+            "'nothing_saveable' and 'none'")
+    if name not in ("nothing_saveable", "none"):
+        raise ValueError(f"unknown remat_policy {name!r}; expected none|"
+                         f"nothing_saveable|{'|'.join(REMAT_POLICIES_TO_PORT)}")
+
+
+class LoraDeltas:
+    """LoRA factors to merge into the base weights, layer by layer:
+    ``factors`` is {"attn.wq": {"a": [L, in, r], "b": [L, r, out]}, ...}
+    and the merged weight of layer l is
+    ``(W[l].f32 + scale * A[l] @ B[l]).to(W.dtype)``, as the reference's
+    ``apply_lora``."""
+
+    def __init__(self, factors: Dict[str, Dict[str, torch.Tensor]],
+                 scale: float):
+        self.factors = factors
+        self.scale = scale
+
+    def weight(self, path: str, w: torch.Tensor, layer_idx: int):
+        f = self.factors.get(path)
+        if f is None:
+            return w[layer_idx]
+        ab = torch.matmul(f["a"][layer_idx].float(),
+                          f["b"][layer_idx].float())
+        return (w[layer_idx].float() + self.scale * ab).to(w.dtype)
+
+
+def _weight(p, group, name, layer_idx, lora):
+    w = p[name]
+    if lora is None:
+        return w[layer_idx]
+    return lora.weight(f"{group}.{name}", w, layer_idx)
+
+
+def _attention_block(cfg, p, layer_idx, x, positions, mask, layer_cache,
+                     segment_ids=None, lora=None):
     b, s, _ = x.shape
     ad = cfg.activation_dtype
-    q = _matmul(x, p["wq"][layer_idx], ad).reshape(
-        b, s, cfg.num_heads, cfg.head_dim)
-    k = _matmul(x, p["wk"][layer_idx], ad).reshape(
-        b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = _matmul(x, p["wv"][layer_idx], ad).reshape(
-        b, s, cfg.num_kv_heads, cfg.head_dim)
+    w = lambda name: _weight(p, "attn", name, layer_idx, lora)  # noqa: E731
+    q = _matmul(x, w("wq"), ad).reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = _matmul(x, w("wk"), ad).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = _matmul(x, w("wv"), ad).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -216,18 +265,20 @@ def _attention_block(cfg, p, layer_idx, x, positions, mask, layer_cache):
         else:
             out = dot_product_attention(q, k, v, mask=mask)
     elif mask is None:
-        out = flash_attention(q, k, v, positions, positions)
+        out = flash_attention(q, k, v, positions, positions, segment_ids,
+                              segment_ids)
     else:
         out = dot_product_attention(q, k, v, mask=mask)
     out = out.reshape(b, s, cfg.q_dim)
-    return _matmul(out, p["wo"][layer_idx], ad)
+    return _matmul(out, w("wo"), ad)
 
 
-def _mlp_block(cfg, p, layer_idx, x):
+def _mlp_block(cfg, p, layer_idx, x, lora=None):
     ad = cfg.activation_dtype
-    gate = _matmul(x, p["wi_gate"][layer_idx], ad)
-    up = _matmul(x, p["wi_up"][layer_idx], ad)
-    return _matmul(F.silu(gate) * up, p["wo"][layer_idx], ad)
+    w = lambda name: _weight(p, "mlp", name, layer_idx, lora)  # noqa: E731
+    gate = _matmul(x, w("wi_gate"), ad)
+    up = _matmul(x, w("wi_up"), ad)
+    return _matmul(F.silu(gate) * up, w("wo"), ad)
 
 
 def lm_head(cfg: ModelConfig, params: Params,
@@ -250,11 +301,21 @@ def forward(
     tokens: torch.Tensor,                       # [b, s] int
     *,
     positions: Optional[torch.Tensor] = None,   # [b, s] absolute positions
+    segment_ids: Optional[torch.Tensor] = None,  # [b, s] packed ids, 0 = pad
     cache: Optional[KVCache] = None,
     cache_view: Optional[int] = None,
+    remat: bool = False,
     return_activations: bool = False,
+    lora: Optional[LoraDeltas] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (logits [b, s, vocab] f32, updated cache or None).
+
+    segment_ids (no-cache path only, as in the reference) keep packed
+    documents apart: the flash kernels take them, the plain path builds
+    them into its mask. remat=True recomputes each block in the backward
+    (``cfg.remat_policy`` "nothing_saveable": only the block's input is
+    kept); "none" turns it off. lora merges LoRA deltas into each layer's
+    weights inside its block.
 
     return_activations=True skips the head and returns the post-final-norm
     activations [b, s, hidden] in place of logits, so a caller that needs
@@ -266,6 +327,13 @@ def forward(
     only cache slots [0, cache_view); exact whenever every query position
     is < cache_view."""
     check_supported(cfg)
+    if cache is not None and segment_ids is not None:
+        raise NotImplementedError(
+            "packed sequences (segment_ids) are not supported together with "
+            "a KV cache: the cache mask is positional-only")
+    if remat:
+        _check_remat_policy(cfg.remat_policy)
+        remat = cfg.remat_policy != "none"
     b, s = tokens.shape
     ad = cfg.activation_dtype
     device = tokens.device
@@ -293,19 +361,27 @@ def forward(
     elif resolve_attention_impl(cfg, device) == "flash":
         mask = None
     else:
-        mask = make_attention_mask(positions, positions, causal=True)
+        mask = make_attention_mask(positions, positions, segment_ids,
+                                   segment_ids, causal=True)
 
     layers = params["layers"]
+
+    def block(x, li, layer_cache):
+        h1 = rms_norm(x, layers["ln1"]["scale"][li], cfg.norm_eps)
+        x = x + _attention_block(cfg, layers["attn"], li, h1, positions,
+                                 mask, layer_cache, segment_ids, lora)
+        h2 = rms_norm(x, layers["ln2"]["scale"][li], cfg.norm_eps)
+        return x + _mlp_block(cfg, layers["mlp"], li, h2, lora)
+
     for li in range(cfg.num_layers):
         layer_cache = None
         if cache is not None:
             layer_cache = (cache.k[li], cache.v[li],
                            None if scatter_mode else cache.index, cache_view)
-        h1 = rms_norm(x, layers["ln1"]["scale"][li], cfg.norm_eps)
-        x = x + _attention_block(cfg, layers["attn"], li, h1, positions,
-                                 mask, layer_cache)
-        h2 = rms_norm(x, layers["ln2"]["scale"][li], cfg.norm_eps)
-        x = x + _mlp_block(cfg, layers["mlp"], li, h2)
+        if remat:
+            x = checkpoint(block, x, li, layer_cache, use_reentrant=False)
+        else:
+            x = block(x, li, layer_cache)
 
     new_cache = None
     if cache is not None:

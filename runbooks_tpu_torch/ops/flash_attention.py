@@ -1,8 +1,10 @@
-"""Flash attention forward: the hand-written Hopper kernel
-(``csrc/flash_fwd.cu``) and its plain PyTorch version.
+"""Flash attention: the hand-written Hopper kernels (forward
+``csrc/flash_fwd.cu``, backward ``csrc/flash_bwd.cu``), their plain PyTorch
+versions, and the autograd Function that joins them.
 
-Replaces the Pallas TPU kernel ``runbooks_tpu/ops/flash_attention.py``
-``_fwd_kernel`` (launched by ``_flash_fwd``). Same contract:
+Replaces the Pallas TPU kernels of ``runbooks_tpu/ops/flash_attention.py``:
+``_fwd_kernel`` (launched by ``_flash_fwd``), and ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel`` (launched by ``flash_attention_bwd``). Same contract:
 
 - layout [b, s, h, d] at the public function; k/v stay at kv-head width
   and query head i reads kv head i // n_rep (never repeated);
@@ -12,11 +14,16 @@ Replaces the Pallas TPU kernel ``runbooks_tpu/ops/flash_attention.py``
 - f32 online softmax; ``out = acc / l`` (0 on a fully masked row) and
   ``lse = m + log l`` (NEG_INF on a fully masked row), lse [b, h, sq] f32;
 - causal block skip by grid index, exact when storage index i holds
-  position i on both sides; it switches itself off when sq != sk.
+  position i on both sides; it switches itself off when sq != sk;
+- backward from the saved (out, lse): ``p = exp(s - lse)`` on the
+  unmasked pairs, ``delta = rowsum(do * out)``, ``ds = p (do v^T - delta)
+  scale``; dq = ds k, dk = ds^T q and dv = p^T do, dk/dv summed over each
+  kv head's n_rep query heads.
 
-A CPU tensor goes to ``flash_attention_reference``; a CUDA tensor goes to
-the kernel or raises. The kernel takes bfloat16 q/k/v with head_dim 64 or
-128. ``flash_attention.launches`` counts kernel launches.
+A CPU tensor goes to the plain versions; a CUDA tensor goes to the kernels
+or raises. The kernels take bfloat16 q/k/v (and do) with head_dim 64 or
+128. ``flash_attention.launches`` counts forward launches,
+``flash_attention_bwd.dq_launches`` and ``.dkv_launches`` the backward's.
 """
 
 from __future__ import annotations
@@ -35,17 +42,25 @@ KERNEL_HEAD_DIMS = (64, 128)
 
 _ll = ctypes.c_longlong
 _vp = ctypes.c_void_p
-_ARGTYPES = ([_vp] * 9 + [ctypes.c_int] * 6 + [_ll] * 12
-             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _vp])
+_ARGTYPES = {
+    "flash_fwd_bf16": ([_vp] * 9 + [ctypes.c_int] * 6 + [_ll] * 12
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _vp]),
+    "flash_bwd_dq_bf16": ([_vp] * 11 + [ctypes.c_int] * 6 + [_ll] * 12
+                          + [ctypes.c_float] + [ctypes.c_int] * 3 + [_vp]),
+    "flash_bwd_dkv_bf16": ([_vp] * 12 + [ctypes.c_int] * 6 + [_ll] * 12
+                           + [ctypes.c_float] + [ctypes.c_int] * 3 + [_vp]),
+}
+_SOURCE = {"flash_fwd_bf16": "flash_fwd", "flash_bwd_dq_bf16": "flash_bwd",
+           "flash_bwd_dkv_bf16": "flash_bwd"}
+GRAD_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _kernel():
+def _kernel(entry: str = "flash_fwd_bf16"):
     from runbooks_tpu_torch.utils import cuda_build
 
-    lib = cuda_build.load("flash_fwd")
-    fn = lib.flash_fwd_bf16
+    fn = getattr(cuda_build.load(_SOURCE[entry]), entry)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = _ARGTYPES[entry]
         fn.restype = ctypes.c_int
     return fn
 
@@ -71,6 +86,17 @@ def _check_inputs(q, k, v, q_positions, kv_positions, q_segment_ids,
             tuple(q_segment_ids.shape) != (b, sq)
             or tuple(kv_segment_ids.shape) != (b, sk)):
         raise ValueError("segment ids must be [b, sq] and [b, sk]")
+
+
+def _tile_mask(qp, kp, qs, ks, causal):
+    """[b, 1, 1, q, k] mask of one (query block, key tile): keys at PAD_POS
+    masked, causal by position, segments equal and non-zero."""
+    mask = (kp < PAD_POS)[:, None, :]
+    if causal:
+        mask = mask & (kp[:, None, :] <= qp[:, :, None])
+    if qs is not None:
+        mask = mask & (qs[:, :, None] == ks[:, None, :]) & (ks != 0)[:, None, :]
+    return mask[:, None, None]
 
 
 def flash_attention_reference(
@@ -114,15 +140,10 @@ def flash_attention_reference(
             k0, k1 = kb * TILE, min((kb + 1) * TILE, sk)
             s = torch.einsum("bqgrd,bkgd->bgrqk", qg[:, q0:q1],
                              kf[:, k0:k1]) * scale
-            kp = kv_positions[:, k0:k1]
-            mask = (kp < PAD_POS)[:, None, :]
-            if causal:
-                mask = mask & (kp[:, None, :] <= qp[:, :, None])
-            if use_seg:
-                ks = kv_segment_ids[:, k0:k1]
-                mask = mask & (q_segment_ids[:, q0:q1, None]
-                               == ks[:, None, :]) & (ks != 0)[:, None, :]
-            mask = mask[:, None, None]                 # [b, 1, 1, q, k]
+            mask = _tile_mask(qp, kv_positions[:, k0:k1],
+                              q_segment_ids[:, q0:q1] if use_seg else None,
+                              kv_segment_ids[:, k0:k1] if use_seg else None,
+                              causal)
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             m_safe = torch.where(m_new <= NEG_INF, 0.0, m_new)
@@ -216,18 +237,204 @@ def flash_attention_fwd(
                            block_skip)
 
 
+def flash_attention_bwd_reference(
+    q, k, v, q_positions, kv_positions, q_segment_ids, kv_segment_ids, out,
+    lse, do, *, causal: bool = True, scale: Optional[float] = None,
+    block_skip: bool = True, grad_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the backward kernels, in f32: the forward
+    reference's TILE-wide loops (with the skip, q tile i meets kv tiles
+    0..i), masks and NEG_INF guard on lse. Returns (dq [b, sq, h, d],
+    dk, dv [b, sk, kvh, d]) in grad_dtype, else in q's, k's and v's dtype;
+    dk/dv are summed over each kv head's query heads in f32."""
+    _check_inputs(q, k, v, q_positions, kv_positions, q_segment_ids,
+                  kv_segment_ids)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    n_rep = h // kvh
+    scale = scale if scale is not None else d ** -0.5
+    skip = bool(block_skip and causal and sq == sk)
+    use_seg = q_segment_ids is not None
+
+    qg = q.float().reshape(b, sq, kvh, n_rep, d)
+    dog = do.float().reshape(b, sq, kvh, n_rep, d)
+    kf, vf = k.float(), v.float()
+    # delta and lse as [b, kvh, n_rep, sq], the layout of s below.
+    delta = (dog * out.float().reshape(b, sq, kvh, n_rep, d)).sum(-1)
+    delta = delta.permute(0, 2, 3, 1)
+    lse = lse.float().reshape(b, kvh, n_rep, sq)
+    lse = torch.where(lse <= NEG_INF, 0.0, lse)
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros_like(kf)
+    dv = torch.zeros_like(vf)
+    num_kv = -(-sk // TILE)
+    q_step = TILE if skip else max(sq, 1)
+    for q0 in range(0, sq, q_step):
+        q1 = min(q0 + q_step, sq)
+        last_kv = min(num_kv - 1, q0 // TILE) if skip else num_kv - 1
+        qp = q_positions[:, q0:q1]
+        for kb in range(last_kv + 1):
+            k0, k1 = kb * TILE, min((kb + 1) * TILE, sk)
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qg[:, q0:q1],
+                             kf[:, k0:k1]) * scale
+            mask = _tile_mask(qp, kv_positions[:, k0:k1],
+                              q_segment_ids[:, q0:q1] if use_seg else None,
+                              kv_segment_ids[:, k0:k1] if use_seg else None,
+                              causal)
+            p = torch.where(mask, torch.exp(s - lse[..., q0:q1, None]), 0.0)
+            dp = torch.einsum("bqgrd,bkgd->bgrqk", dog[:, q0:q1],
+                              vf[:, k0:k1])
+            ds = p * (dp - delta[..., q0:q1, None]) * scale
+            dq[:, q0:q1] += torch.einsum("bgrqk,bkgd->bqgrd", ds,
+                                         kf[:, k0:k1])
+            dk[:, k0:k1] += torch.einsum("bgrqk,bqgrd->bkgd", ds,
+                                         qg[:, q0:q1])
+            dv[:, k0:k1] += torch.einsum("bgrqk,bqgrd->bkgd", p,
+                                         dog[:, q0:q1])
+    return (dq.reshape(b, sq, h, d).to(grad_dtype or q.dtype),
+            dk.to(grad_dtype or k.dtype), dv.to(grad_dtype or v.dtype))
+
+
+def flash_bwd_kernels(q, k, v, q_positions, kv_positions, q_segment_ids,
+                      kv_segment_ids, out, lse, do, *, causal: bool = True,
+                      scale: Optional[float] = None, block_skip: bool = True,
+                      grad_dtype: Optional[torch.dtype] = None):
+    """The two backward kernels on CUDA tensors as separate launches, with
+    their operands checked and prepared once: (launch_dq() -> dq,
+    launch_dkv() -> (dk, dv)). ``flash_attention_bwd`` runs both; a
+    caller that times each kernel alone calls them one by one."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    _check_inputs(q, k, v, q_positions, kv_positions, q_segment_ids,
+                  kv_segment_ids)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    if not _rows_ok(do):
+        do = do.contiguous()
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the flash backward kernels take bfloat16; "
+                            f"{name} is {t.dtype}")
+        if not _rows_ok(t):
+            raise ValueError(f"{name} needs a unit last stride, a 16-byte "
+                             "aligned base and 8-element row strides")
+    if d not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the flash kernels take head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    gd = grad_dtype or q.dtype
+    if gd not in GRAD_DTYPES:
+        raise TypeError(f"the flash backward kernels write {GRAD_DTYPES}, "
+                        f"not {gd}")
+    ints = [t.to(device=q.device, dtype=torch.int32).contiguous()
+            for t in (q_positions, kv_positions, q_segment_ids,
+                      kv_segment_ids) if t is not None]
+    # The JAX package computes delta outside its kernels too.
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    lse = lse.to(torch.float32).contiguous()
+    tail = (b, sq, sk, h, kvh, d, *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], *do.stride()[:3], float(scale), int(causal),
+            int(block_skip and causal and sq == sk),
+            int(gd == torch.float32))
+
+    def launch(entry, outs):
+        # Referencing the prepared operands here keeps them alive for as
+        # long as the launchers are.
+        ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta, *outs,
+                                       *ints)]
+        if len(ints) == 2:
+            ptrs += [None, None]
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _kernel(entry)(*ptrs, *tail, stream)
+        if err != 0:
+            raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
+
+    def launch_dq():
+        dq = torch.empty((b, sq, h, d), dtype=gd, device=q.device)
+        launch("flash_bwd_dq_bf16", (dq,))
+        flash_attention_bwd.dq_launches += 1
+        return dq
+
+    def launch_dkv():
+        dk = torch.empty((b, sk, kvh, d), dtype=gd, device=q.device)
+        dv = torch.empty_like(dk)
+        launch("flash_bwd_dkv_bf16", (dk, dv))
+        flash_attention_bwd.dkv_launches += 1
+        return dk, dv
+
+    return launch_dq, launch_dkv
+
+
+def flash_attention_bwd(
+    q, k, v, q_positions, kv_positions, q_segment_ids, kv_segment_ids, out,
+    lse, do, *, causal: bool = True, scale: Optional[float] = None,
+    block_skip: bool = True, grad_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the forward's (out, lse) and the output gradient
+    do: the kernels for a CUDA q, the plain version for a CPU q.
+    grad_dtype sets the gradients' dtype (bfloat16 or float32 on CUDA)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(
+            q, k, v, q_positions, kv_positions, q_segment_ids,
+            kv_segment_ids, out, lse, do, causal=causal, scale=scale,
+            block_skip=block_skip, grad_dtype=grad_dtype)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    launch_dq, launch_dkv = flash_bwd_kernels(
+        q, k, v, q_positions, kv_positions, q_segment_ids, kv_segment_ids,
+        out, lse, do, causal=causal, scale=scale, block_skip=block_skip,
+        grad_dtype=grad_dtype)
+    return (launch_dq(), *launch_dkv())
+
+
+flash_attention_bwd.dq_launches = 0
+flash_attention_bwd.dkv_launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward K1, backward K2 and K3 (the plain versions on the CPU).
+    Saves (q, k, v, out, lse) as the reference's _vjp_fwd does; under
+    activation checkpointing the forward runs again in the recompute and
+    saves the recomputed (out, lse). Positions and segment ids get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, q_segment_ids,
+                kv_segment_ids, causal, scale, block_skip):
+        out, lse = flash_attention_fwd(q, k, v, q_positions, kv_positions,
+                                       q_segment_ids, kv_segment_ids, causal,
+                                       scale, block_skip)
+        ctx.save_for_backward(q, k, v, q_positions, kv_positions,
+                              q_segment_ids, kv_segment_ids, out, lse)
+        ctx.args = (causal, scale, block_skip)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, qp, kp, qs, ks, out, lse = ctx.saved_tensors
+        causal, scale, block_skip = ctx.args
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, qp, kp, qs, ks, out, lse, do, causal=causal,
+            scale=scale, block_skip=block_skip)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
 def flash_attention(q, k, v, q_positions, kv_positions, q_segment_ids=None,
                     kv_segment_ids=None, causal: bool = True,
                     scale: Optional[float] = None,
                     block_skip: bool = True) -> torch.Tensor:
-    """Attention output [b, sq, h, d], with the reference's arguments.
+    """Attention output [b, sq, h, d], with the reference's arguments;
+    differentiable in q, k and v through the backward kernels.
     block_skip skips kv blocks past the causal diagonal by storage index;
     it is exact only when q index i and kv index i hold the same position,
     so it switches off when sq != sk and a caller with equal lengths but
     offset positions passes block_skip=False."""
-    return flash_attention_fwd(q, k, v, q_positions, kv_positions,
-                               q_segment_ids, kv_segment_ids, causal, scale,
-                               block_skip)[0]
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return _FlashAttention.apply(q, k, v, q_positions, kv_positions,
+                                 q_segment_ids, kv_segment_ids, causal, scale,
+                                 block_skip)
 
 
 flash_attention.launches = 0

@@ -31,6 +31,13 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def chip_peak_flops(device: Union[str, torch.device]) -> Optional[float]:
+    """Dense bf16 peak FLOP/s of the device for MFU: the H100's on CUDA,
+    None on the CPU (no MFU is reported there)."""
+    return H100_PEAK_BF16_FLOPS if torch.device(device).type == "cuda" \
+        else None
+
+
 def backend_tuning(device: torch.device) -> dict:
     """Backend-dependent serving defaults, decided in one place.
 

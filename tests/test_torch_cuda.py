@@ -12,9 +12,20 @@ import torch
 
 from runbooks_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_reference,
 )
+
+# Backward kernels against the f32 plain version, per gradient tensor:
+# |err| <= BWD_ATOL * max|plain| + BWD_RTOL * |plain|. The kernels round p
+# and ds to bf16 as operands of their products (2**-9 relative each) and,
+# unless asked for f32, the gradients themselves (2**-8); sums over up to
+# 2048 rounded terms add a random walk of a few such roundings relative to
+# the largest entry (chip_smoke.py's BWD_ATOL, BWD_RTOL).
+BWD_ATOL = 1e-2
+BWD_RTOL = 1e-2
 
 
 @pytest.mark.cuda
@@ -66,3 +77,104 @@ def test_kernel_launch_is_counted_and_checked():
     with pytest.raises(ValueError):
         flash_attention(q[..., :96], k[..., :96], k[..., :96], pos, pos)
     assert flash_attention.launches == before + 1
+
+
+def _bwd_case(dev, g, b, sq, sk, h, kvh, d, start=0, segments=False):
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+
+    q, k, v, do = (randn(b, sq, h, d), randn(b, sk, kvh, d),
+                   randn(b, sk, kvh, d), randn(b, sq, h, d))
+    q_pos = (start + torch.arange(sq, device=dev,
+                                  dtype=torch.int32)).expand(b, sq)
+    kv_pos = torch.arange(sk, device=dev, dtype=torch.int32).expand(b, sk)
+    seg = None
+    if segments:
+        # Two documents and a padding tail (segment 0), positions restart.
+        cut, end = sq // 3, sq - sq // 5
+        seg = torch.zeros((b, sq), device=dev, dtype=torch.int32)
+        seg[:, :cut], seg[:, cut:end] = 1, 2
+        q_pos = torch.cat([torch.arange(cut), torch.arange(end - cut),
+                           torch.arange(sq - end)]).to(
+                               dev, torch.int32).expand(b, sq).contiguous()
+        kv_pos = q_pos
+    return q, k, v, do, q_pos, kv_pos, seg
+
+
+def _assert_bwd_close(got, ref):
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        a, r = a.float(), r.float()
+        assert torch.isfinite(a).all(), name
+        excess = ((a - r).abs() - BWD_RTOL * r.abs()).max().item()
+        assert excess <= BWD_ATOL * r.abs().max().item(), (name, excess)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["skip_gqa4", "segments", "ragged",
+                                  "d64_rep2", "sk_gt_sq", "f32_grads"])
+def test_backward_kernels_match_plain_version_on_card(case):
+    """K2 (dq) and K3 (dk, dv) against the plain backward: GQA 32/8 at
+    d=128 with the causal skip, packed segments with padding rows, a
+    ragged length, d=64 with n_rep 2, more keys than queries with offset
+    queries (keys no query sees get exactly 0) and f32 gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    shape = {"skip_gqa4": (2, 256, 256, 32, 8, 128),
+             "segments": (2, 320, 320, 32, 8, 128),
+             "ragged": (1, 200, 200, 32, 8, 128),
+             "d64_rep2": (2, 192, 192, 16, 8, 64),
+             "sk_gt_sq": (1, 100, 260, 32, 8, 128),
+             "f32_grads": (1, 128, 128, 32, 8, 128)}[case]
+    start = 100 if case == "sk_gt_sq" else 0
+    q, k, v, do, qp, kp, seg = _bwd_case(dev, g, *shape, start=start,
+                                         segments=case == "segments")
+    skip = case != "sk_gt_sq"
+    gd = torch.float32 if case == "f32_grads" else None
+    out, lse = flash_attention_fwd(q, k, v, qp, kp, seg, seg,
+                                   block_skip=skip)
+    before = (flash_attention_bwd.dq_launches,
+              flash_attention_bwd.dkv_launches)
+    got = flash_attention_bwd(q, k, v, qp, kp, seg, seg, out, lse, do,
+                              block_skip=skip, grad_dtype=gd)
+    assert (flash_attention_bwd.dq_launches,
+            flash_attention_bwd.dkv_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    ref = flash_attention_bwd_reference(q, k, v, qp, kp, seg, seg, out, lse,
+                                        do, block_skip=skip,
+                                        grad_dtype=torch.float32)
+    torch.cuda.synchronize()
+    if gd is not None:
+        assert all(t.dtype == torch.float32 for t in got)
+    _assert_bwd_close(got, ref)
+    if case == "sk_gt_sq":
+        # Queries sit at positions 100..199: keys 200.. are seen by none.
+        assert (got[1][:, 200:] == 0).all() and (got[2][:, 200:] == 0).all()
+    if case == "segments":
+        pad = seg[0] == 0
+        assert (got[0][:, pad] == 0).all()
+
+
+@pytest.mark.cuda
+def test_autograd_function_runs_the_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v, do, qp, kp, _ = _bwd_case(dev, g, 1, 128, 128, 8, 2, 128)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    counts = (flash_attention.launches, flash_attention_bwd.dq_launches,
+              flash_attention_bwd.dkv_launches)
+    out = flash_attention(q, k, v, qp, kp)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert (flash_attention.launches, flash_attention_bwd.dq_launches,
+            flash_attention_bwd.dkv_launches) == tuple(c + 1 for c in counts)
+    ref_out, ref_lse = flash_attention_reference(q.detach(), k.detach(),
+                                                 v.detach(), qp, kp)
+    ref = flash_attention_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                        qp, kp, None, None, ref_out, ref_lse,
+                                        do, grad_dtype=torch.float32)
+    assert all(a.dtype == torch.bfloat16 for a in got)
+    _assert_bwd_close(got, ref)

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no module of runbooks_tpu_torch and
-neither of its root scripts imports jax or runbooks_tpu, the package imports with both
-blocked, and its entry points refuse to fall back to the CPU when no GPU
-exists and no device was named."""
+none of its root scripts imports jax or runbooks_tpu, the package imports
+with both blocked, and its entry points (serving's load_model, training's
+run_training) refuse to fall back to the CPU when no GPU exists and no
+device was named."""
 
 import ast
 import os
@@ -19,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "runbooks_tpu")
 
 def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "profile_torch_serve.py"]
+                                         ROOT / "profile_torch_serve.py",
+                                         ROOT / "profile_torch_train.py"]
 
 
 def _imported(path: Path):
@@ -64,9 +66,13 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     from runbooks_tpu_torch.serve.api import load_model
     from runbooks_tpu_torch.utils.hw import resolve_device
 
+    from runbooks_tpu_torch.train.trainer import TrainJobConfig, run_training
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_model({"model": "debug"})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_training(TrainJobConfig(model="debug", steps=1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     with pytest.raises(RuntimeError, match="not available"):
