@@ -9,11 +9,17 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    count; TF32 is switched off for matmuls and convolutions.
 2. Build: every kernel of the serving and training paths from csrc/, in
    parallel.
-3. Kernels: each kernel against its plain PyTorch version on the card at
-   the shapes the serving path gives it, with its time (CUDA events over
-   warm launches), the plain version's time, one PyTorch library call on
-   the same problem as a yardstick (timed here, never called by the port)
-   and its roofline bound on an H100 (989 TFLOP/s bf16, 3.35 TB/s).
+3. Forward kernel: K1 against its plain PyTorch version on the card at
+   the shapes the serving path gives it, at head_dim 64, with packed
+   segments (padding rows, boundaries inside tiles) and at the training
+   path's shapes (a microbatch of the job's packed rows, and the same
+   shape causal without segments), with its time (CUDA events over warm
+   launches), the plain version's time, one PyTorch library call on the
+   same problem as a yardstick (timed here, never called by the port; at
+   the training shape also SDPA's causal forward), its roofline bound on
+   an H100 (989 TFLOP/s bf16, 3.35 TB/s) and its rate on the operations
+   the masks need. The kv tiles the kernel counts as computed must be the
+   ones fwd_tile_plan, its skip rules' plain twin, predicts.
 4. End to end: llama3-8b at full width and depth in bfloat16 with seeded
    random weights; prefill logits through the flash kernel against the
    plain attention; then the dense InferenceEngine serves 8 requests whose
@@ -45,6 +51,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -113,57 +120,103 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def kernel_cases(torch, dev, gen):
-    """(name, q, k, v, q_pos, kv_pos, q_seg, kv_seg, block_skip, used) at
-    the serving path's shapes: GQA 32/8, d=128, kv length cache_len=2049.
-    used [b, sq] marks the query rows whose output the path keeps (None:
-    all of them)."""
+def fwd_case_layouts(torch, dev, batch):
+    """(name, (b, sq, sk, h, kvh, d), q_pos, kv_pos, q_seg, kv_seg,
+    block_skip, used) of the K1 cases: the serving path's prefill shapes
+    (GQA 32/8, d=128, kv length cache_len=2049), head_dim 64, packed
+    segments, and the training path's microbatch (batch: the job's first
+    global batch). used [b, sq] marks the query rows whose output the path
+    keeps (None: all of them)."""
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev,
-                           dtype=torch.bfloat16)
+    def ar(n, start=0, rows=1):
+        return (start + torch.arange(n, device=dev, dtype=torch.int32)
+                )[None].expand(rows, n).contiguous()
 
-    def ar(n, start=0):
-        return start + torch.arange(n, device=dev, dtype=torch.int32)
+    def packed(doc_lens, s):
+        """Segment ids 1, 2, ... per document, padding (0) to s, and
+        positions restarting per document."""
+        seg = torch.zeros(s, dtype=torch.int32, device=dev)
+        pos = torch.zeros(s, dtype=torch.int32, device=dev)
+        at = 0
+        for i, n in enumerate(doc_lens):
+            seg[at:at + n] = i + 1
+            pos[at:at + n] = ar(n)[0]
+            at += n
+        pos[at:] = ar(s - at)[0]
+        return seg, pos
 
-    cases = []
     sk = 2049
-    kv_pos = ar(sk)[None]
+    kv_pos = ar(sk)
+    cases = []
     # A 2048-token prompt alone: positions from 0.
-    cases.append(("rows1_sq2048", randn(1, 2048, 32, 128),
-                  randn(1, sk, 8, 128), randn(1, sk, 8, 128),
-                  ar(2048)[None].contiguous(), kv_pos.contiguous(),
-                  None, None, False, None))
+    cases.append(("rows1_sq2048", (1, 2048, sk, 32, 8, 128), ar(2048),
+                  kv_pos, None, None, False, None))
     # An 8-row burst of 128-token buckets: rows 0-1 real (90 and 120
     # tokens), the rest of each row and rows 2-7 padding at position 2048.
     pos = torch.full((8, 128), 2048, device=dev, dtype=torch.int32)
-    pos[0, :90] = ar(90)
-    pos[1, :120] = ar(120)
+    pos[0, :90] = ar(90)[0]
+    pos[1, :120] = ar(120)[0]
     # The engine keeps only the real rows' outputs.
-    cases.append(("rows8_sq128", randn(8, 128, 32, 128),
-                  randn(8, sk, 8, 128), randn(8, sk, 8, 128), pos,
+    cases.append(("rows8_sq128", (8, 128, sk, 32, 8, 128), pos,
                   kv_pos.expand(8, sk).contiguous(), None, None, False,
                   pos < 2048))
     # A 16-token bucket whose queries start mid-cache at position 100.
-    cases.append(("rows1_sq16_at100", randn(1, 16, 32, 128),
-                  randn(1, sk, 8, 128), randn(1, sk, 8, 128),
-                  ar(16, 100)[None].contiguous(), kv_pos.contiguous(),
-                  None, None, False, None))
+    cases.append(("rows1_sq16_at100", (1, 16, sk, 32, 8, 128), ar(16, 100),
+                  kv_pos, None, None, False, None))
     # MHA (n_rep 1) at head_dim 64, causal with block skip (sq == sk).
     s = 512
-    p2 = ar(s)[None].expand(2, s).contiguous()
-    cases.append(("mha_d64_skip", randn(2, s, 16, 64), randn(2, s, 16, 64),
-                  randn(2, s, 16, 64), p2, p2, None, None, True, None))
+    p2 = ar(s, rows=2)
+    cases.append(("mha_d64_skip", (2, s, s, 16, 16, 64), p2, p2, None, None,
+                  True, None))
     # Packed segments with a padding tail: fully masked rows.
-    seg = torch.ones((2, s), device=dev, dtype=torch.int32)
-    seg[:, 200:400] = 2
-    seg[:, 400:] = 0
-    pseg = torch.cat([ar(200), ar(200), ar(112)])[None].expand(
+    seg, pseg = packed((200, 200), s)
+    seg, pseg = seg[None].expand(2, s).contiguous(), pseg[None].expand(
         2, s).contiguous()
-    cases.append(("segments_masked_rows", randn(2, s, 32, 128),
-                  randn(2, s, 8, 128), randn(2, s, 8, 128), pseg, pseg,
+    cases.append(("segments_masked_rows", (2, s, s, 32, 8, 128), pseg, pseg,
                   seg, seg, True, None))
+    # Documents whose boundaries fall inside kv tiles and q tiles.
+    s = 1024
+    (s0, p0), (s1, p1) = packed((300, 150, 450), s), packed((77, 700, 200), s)
+    seg, pseg = torch.stack([s0, s1]), torch.stack([p0, p1])
+    cases.append(("segment_inside_tile", (2, s, s, 32, 8, 128), pseg, pseg,
+                  seg, seg, True, None))
+    # The training path: (a) one microbatch of the job's packed rows, (b)
+    # the same shape causal without segments.
+    s = TRAIN_SEQ
+    pos = torch.from_numpy(batch["positions"][:2]).to(dev)
+    seg = torch.from_numpy(batch["segment_ids"][:2]).to(dev)
+    cases.append(("a_packed_2x2048", (2, s, s, 32, 8, 128), pos, pos, seg,
+                  seg, True, None))
+    cases.append(("b_causal_2x2048", (2, s, s, 32, 8, 128), ar(s, rows=2),
+                  ar(s, rows=2), None, None, True, None))
     return cases
+
+
+def kernel_cases(torch, dev, gen, batch):
+    """fwd_case_layouts with seeded bf16 q, k, v, one case at a time:
+    (name, q, k, v, q_pos, kv_pos, q_seg, kv_seg, block_skip, used)."""
+    for (name, (b, sq, sk, h, kvh, d), qp, kp, qs, ks, skip,
+         used) in fwd_case_layouts(torch, dev, batch):
+        q, k, v = (torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+                   for shape in ((b, sq, h, d), (b, sk, kvh, d),
+                                 (b, sk, kvh, d)))
+        yield name, q, k, v, qp, kp, qs, ks, skip, used
+
+
+def tile_counts(torch, q_pos, kv_pos, q_seg, kv_seg, block_skip):
+    """(computed, open, total) kv tiles of K1's launch over the batch rows
+    for one head, as fwd_tile_plan predicts them."""
+    from runbooks_tpu_torch.ops.flash_attention import (
+        TILE_CLOSED,
+        TILE_OPEN,
+        fwd_tile_plan,
+    )
+
+    plan = fwd_tile_plan(q_pos, kv_pos, q_seg, kv_seg, causal=True,
+                         block_skip=block_skip)
+    return (int((plan != TILE_CLOSED).sum().item()),
+            int((plan == TILE_OPEN).sum().item()), plan.numel())
 
 
 def attention_bound(torch, q, k, q_pos, kv_pos, q_seg, kv_seg, used=None):
@@ -216,11 +269,18 @@ def library_attention(torch, q, k, v, q_pos, kv_pos, q_seg, kv_seg):
                                                   attn_mask=mask)
 
 
-def kernel_phase(torch, dev, seed):
+def kernel_phase(torch, dev, seed, batch):
+    """Phase 3: K1 against its plain version at every case of
+    fwd_case_layouts, with its time, the plain version's, SDPA's on the
+    same masked problem (and SDPA's causal forward at the training shape),
+    the bound and the achieved rate on the operations the masks need. The
+    kv tiles the card computed (its own count, fwd_tile_counts) must be
+    those fwd_tile_plan predicts, for every head."""
     from runbooks_tpu_torch.ops.flash_attention import (
         NEG_INF,
         flash_attention_fwd,
         flash_attention_reference,
+        fwd_tile_counts,
     )
 
     gen = torch.Generator(device=dev)
@@ -228,9 +288,11 @@ def kernel_phase(torch, dev, seed):
     records = {}
     worst = 0.0
     for (name, q, k, v, qp, kp, qs, ks, skip, used) in kernel_cases(
-            torch, dev, gen):
+            torch, dev, gen, batch):
+        fwd_tile_counts()
         out, lse = flash_attention_fwd(q, k, v, qp, kp, qs, ks,
                                        block_skip=skip)
+        card_computed, card_opened = fwd_tile_counts()
         ref, ref_lse = flash_attention_reference(q, k, v, qp, kp, qs, ks,
                                                  block_skip=skip)
         torch.cuda.synchronize()
@@ -246,39 +308,58 @@ def kernel_phase(torch, dev, seed):
                                == NEG_INF).all().item()))
         else:
             exact = True
+        del out, lse, ref, ref_lse, diff
+        large = q.shape[1] * k.shape[1] * q.shape[0] >= 2 ** 22
         ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, qp, kp, qs, ks,
                                                  block_skip=skip), 20)
         plain_ms = cuda_ms(lambda: flash_attention_reference(
-            q, k, v, qp, kp, qs, ks, block_skip=skip), 3)
+            q, k, v, qp, kp, qs, ks, block_skip=skip), 2 if large else 3)
         library_ms = cuda_ms(library_attention(torch, q, k, v, qp, kp, qs,
                                                ks), 10)
+        library_causal_ms = None
+        if name.startswith(("a_", "b_")):
+            library_causal_ms = cuda_ms(library_fwd(torch, q, k, v), 10)
         bound_ms, bound_by, needed, done = attention_bound(
             torch, q, k, qp, kp, qs, ks, used)
         # The same over every row, padding included: what the launch is
         # asked to compute.
         padded_ms, padded_by, padded_needed, _ = attention_bound(
             torch, q, k, qp, kp, qs, ks)
+        computed, opened, total = tile_counts(torch, qp, kp, qs, ks, skip)
+        h = q.shape[2]
+        tiles_agree = (card_computed, card_opened) == (h * computed,
+                                                        h * opened)
+        tflops = padded_needed / (ms * 1e-3) / 1e12
         ok = (excess <= KERNEL_OUT_ATOL and lse_err <= KERNEL_LSE_TOL
-              and finite and exact)
+              and finite and exact and tiles_agree)
         print(f"kernel flash_fwd {name}: q {tuple(q.shape)} k "
-              f"{tuple(k.shape)} out_err {err:.3e} (tol {KERNEL_OUT_ATOL} + "
-              f"{KERNEL_OUT_RTOL}*|plain|) "
+              f"{tuple(k.shape)} skip {skip} out_err {err:.3e} (tol "
+              f"{KERNEL_OUT_ATOL} + {KERNEL_OUT_RTOL}*|plain|) "
               f"lse_err {lse_err:.3e} (tol {KERNEL_LSE_TOL}) finite "
-              f"{finite} masked_rows_exact {exact} | ms {ms:.4f} plain_ms "
-              f"{plain_ms:.4f} library_ms {library_ms:.4f} bound_ms "
-              f"{bound_ms:.4f} ({bound_by}) needed_gflop {needed / 1e9:.3f} "
-              f"| with padding rows: bound_ms {padded_ms:.4f} ({padded_by}) "
-              f"needed_gflop {padded_needed / 1e9:.2f} | done_gflop "
-              f"{done / 1e9:.2f} -> {'ok' if ok else 'FAIL'}",
+              f"{finite} masked_rows_exact {exact} | kv tiles per head "
+              f"computed {computed}/{total} (open {opened}) predicted by "
+              f"fwd_tile_plan, card over {h} heads computed "
+              f"{card_computed} (open {card_opened}) agree {tiles_agree} | "
+              f"ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+              f"{library_ms:.4f}"
+              + ("" if library_causal_ms is None else
+                 f" library_causal_ms {library_causal_ms:.4f}")
+              + f" bound_ms {bound_ms:.4f} ({bound_by}) needed_gflop "
+              f"{needed / 1e9:.3f} | with padding rows: bound_ms "
+              f"{padded_ms:.4f} ({padded_by}) needed_gflop "
+              f"{padded_needed / 1e9:.2f} at {tflops:.1f} TFLOP/s | "
+              f"dense_gflop {done / 1e9:.2f} -> {'ok' if ok else 'FAIL'}",
               flush=True)
         if not ok:
             raise SystemExit(f"flash_fwd {name} disagrees with its plain "
-                             "version")
+                             "version or with fwd_tile_plan")
         worst = max(worst, err)
         records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             library_causal_ms=library_causal_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              bound_ms_with_padding=padded_ms,
                              shape=f"q{tuple(q.shape)} k{tuple(k.shape)}")
+        del q, k, v
     return records, worst
 
 
@@ -485,11 +566,10 @@ def first_train_batch(path):
 
 def bwd_bound(torch, q, k, q_pos, kv_pos, q_seg, kv_seg):
     """{kernel: (bound_ms, bound_by, gflop)} on an H100 for the
-    query-key pairs the masks leave open (P): K1 does 4 d h P operations
-    (S, PV), K2 6 d h P (S, dP, dQ), K3 8 d h P (S, dP, dV, dK), against
-    the bytes each must move: its inputs (q, k, v, and for the backward do,
-    lse and delta; positions and segment ids) read once, its outputs (out
-    and lse; dq; dk and dv) written once."""
+    query-key pairs the masks leave open (P): K2 does 6 d h P operations
+    (S, dP, dQ), K3 8 d h P (S, dP, dV, dK), against the bytes each must
+    move: its inputs (q, k, v, do, lse and delta; positions and segment
+    ids) read once, its outputs (dq; dk and dv) written once."""
     from runbooks_tpu_torch.ops.attention import make_attention_mask
     from runbooks_tpu_torch.utils.hw import H100_HBM_BW, H100_PEAK_BF16_FLOPS
 
@@ -505,10 +585,7 @@ def bwd_bound(torch, q, k, q_pos, kv_pos, q_seg, kv_seg):
     ints = 4 * b * (sq + sk) * (2 if q_seg is not None else 1)
     inputs = 2 * b * sq * h * d * 2 + 2 * b * sk * kvh * d * 2 \
         + 2 * b * h * sq * 4 + ints
-    fwd_bytes = b * sq * h * d * 2 * 2 + 2 * b * sk * kvh * d * 2 \
-        + b * h * sq * 4 + ints
-    out = {"flash_fwd": (4.0 * d * h * pairs, fwd_bytes),
-           "flash_bwd_dq": (6.0 * d * h * pairs,
+    out = {"flash_bwd_dq": (6.0 * d * h * pairs,
                             inputs + b * sq * h * d * 2),
            "flash_bwd_dkv": (8.0 * d * h * pairs,
                              inputs + 2 * b * sk * kvh * d * 2)}
@@ -632,17 +709,14 @@ def bwd_kernel_phase(torch, dev, seed, batch):
         launch_dq, launch_dkv = flash_bwd_kernels(
             q, k, v, qp, kp, seg, seg, out, lse, do, block_skip=skip,
             grad_dtype=gd)
-        ms = {"flash_fwd": cuda_ms(lambda: flash_attention_fwd(
-                  q, k, v, qp, kp, seg, seg, block_skip=skip), 10),
-              "flash_bwd_dq": cuda_ms(launch_dq, 10),
+        ms = {"flash_bwd_dq": cuda_ms(launch_dq, 10),
               "flash_bwd_dkv": cuda_ms(launch_dkv, 10)}
         plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
             q, k, v, qp, kp, seg, seg, out, lse, do, block_skip=skip,
             grad_dtype=gd), 2)
-        library_ms = library_fwd_ms = None
+        library_ms = None
         if name.startswith("b_"):
             library_ms = cuda_ms(library_bwd(torch, q, k, v, do), 10)
-            library_fwd_ms = cuda_ms(library_fwd(torch, q, k, v), 10)
         bounds = bwd_bound(torch, q, k, qp, kp, seg, seg)
         err_s = " ".join(f"{g} {e:.3e}/max {m:.3e}"
                          for g, (e, m) in errs.items())
@@ -658,13 +732,10 @@ def bwd_kernel_phase(torch, dev, seed, batch):
               f"{bounds['flash_bwd_dkv'][0]:.4f} "
               f"({bounds['flash_bwd_dkv'][1]}, "
               f"{bounds['flash_bwd_dkv'][2]:.1f} GFLOP) | plain_ms (both) "
-              f"{plain_ms:.3f} | K1 forward here: ms "
-              f"{ms['flash_fwd']:.4f} bound {bounds['flash_fwd'][0]:.4f} "
-              f"({bounds['flash_fwd'][1]}, {bounds['flash_fwd'][2]:.1f} "
-              f"GFLOP)"
+              f"{plain_ms:.3f}"
               + ("" if library_ms is None else
                  f" | library_ms SDPA backward, dq+dk+dv together "
-                 f"{library_ms:.4f}, SDPA forward {library_fwd_ms:.4f}")
+                 f"{library_ms:.4f}")
               + f" -> {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"flash_bwd {name} disagrees with its plain "
@@ -673,7 +744,7 @@ def bwd_kernel_phase(torch, dev, seed, batch):
         worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"][0],
                                      errs["dv"][0])
         records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             library_fwd_ms=library_fwd_ms, bounds=bounds,
+                             bounds=bounds,
                              shape=f"q{tuple(q.shape)} k{tuple(k.shape)}")
     print(f"backward kernel phase peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
@@ -838,19 +909,24 @@ def main():
     print(f"built {KERNELS} for sm_90a in {time.perf_counter() - t0:.1f} s",
           flush=True)
     for name in KERNELS:
+        entry = ""
         for line in cuda_build.build_report(name).splitlines():
+            if "Compiling entry function" in line:
+                m = re.search(r"([a-z_]+kernel)ILi(\d+)E", line)
+                entry = f"{m.group(1)} d={m.group(2)}" if m else ""
             if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}", flush=True)
-
-    records, worst = kernel_phase(torch, dev, args.seed)
-    serve_launches = e2e_phase(torch, args.seed)
-    gc.collect()
-    torch.cuda.empty_cache()
+                print(f"  ptxas {name} {entry}: {line.strip()}", flush=True)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         data_path = f"{workdir}/docs.jsonl"
         write_train_docs(data_path, args.seed)
         batch = first_train_batch(data_path)
+        records, worst = kernel_phase(torch, dev, args.seed, batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_launches = e2e_phase(torch, args.seed)
+        gc.collect()
+        torch.cuda.empty_cache()
         bwd_records, bwd_worst = bwd_kernel_phase(torch, dev, args.seed,
                                                   batch)
         grad_check_phase(torch, dev, args.seed, batch)
@@ -877,14 +953,17 @@ def main():
         "bound_ms_with_padding": main_case["bound_ms_with_padding"],
         "shape": main_case["shape"],
     }]
-    train_case = bwd_records["a_packed_2x2048"]
+    fwd_train = records["a_packed_2x2048"]
     kernels[0]["train_shape"] = {
-        "ms": train_case["ms"]["flash_fwd"],
-        "bound_ms": train_case["bounds"]["flash_fwd"][0],
-        "bound_by": train_case["bounds"]["flash_fwd"][1],
+        "ms": fwd_train["ms"],
+        "plain_ms": fwd_train["plain_ms"],
+        "bound_ms": fwd_train["bound_ms"],
+        "bound_by": fwd_train["bound_by"],
+        "library_ms": fwd_train["library_ms"],
         "library_ms_causal_no_segments":
-            bwd_records["b_causal_2x2048"]["library_fwd_ms"],
-        "shape": train_case["shape"]}
+            records["b_causal_2x2048"]["library_causal_ms"],
+        "shape": fwd_train["shape"]}
+    train_case = bwd_records["a_packed_2x2048"]
     library = bwd_records["b_causal_2x2048"]["library_ms"]
     for name, line in (("flash_bwd_dq", 280), ("flash_bwd_dkv", 337)):
         bound_ms, bound_by, _ = train_case["bounds"][name]

@@ -22,8 +22,11 @@ Replaces the Pallas TPU kernels of ``runbooks_tpu/ops/flash_attention.py``:
 
 A CPU tensor goes to the plain versions; a CUDA tensor goes to the kernels
 or raises. The kernels take bfloat16 q/k/v (and do) with head_dim 64 or
-128. ``flash_attention.launches`` counts forward launches,
-``flash_attention_bwd.dq_launches`` and ``.dkv_launches`` the backward's.
+128, and the forward kernel a scale > 0 (it takes the row max on the raw
+scores). ``flash_attention.launches`` counts forward launches,
+``flash_attention_bwd.dq_launches`` and ``.dkv_launches`` the backward's;
+``fwd_tile_counts`` reads the forward kernel's own count of the kv tiles it
+computed, which ``fwd_tile_plan`` predicts.
 """
 
 from __future__ import annotations
@@ -35,9 +38,15 @@ import torch
 
 NEG_INF = -1e30
 PAD_POS = 2 ** 30
-# The plain version blocks by the kernel's tiles (BQ = BK = 64 in
-# csrc/flash_fwd.cu); the TPU kernel's tile hints do not apply here.
+# The plain versions walk 64-row q tiles and 64-key kv tiles: the backward
+# kernels' tiles (BQ = BK = 64 in csrc/flash_bwd.cu), the forward kernel's
+# kv tile, and the grain of the causal block skip in all three kernels.
+# The TPU kernel's tile hints do not apply here.
 TILE = 64
+# The forward kernel's q rows per block and keys per kv tile
+# (csrc/flash_fwd.cu BQ, BK); fwd_tile_plan classifies its tiles.
+FWD_BQ, FWD_BK = 128, 64
+TILE_CLOSED, TILE_PARTIAL, TILE_OPEN = 0, 1, 2
 KERNEL_HEAD_DIMS = (64, 128)
 
 _ll = ctypes.c_longlong
@@ -49,9 +58,10 @@ _ARGTYPES = {
                           + [ctypes.c_float] + [ctypes.c_int] * 3 + [_vp]),
     "flash_bwd_dkv_bf16": ([_vp] * 12 + [ctypes.c_int] * 6 + [_ll] * 12
                            + [ctypes.c_float] + [ctypes.c_int] * 3 + [_vp]),
+    "flash_fwd_tile_counts": [_vp],
 }
-_SOURCE = {"flash_fwd_bf16": "flash_fwd", "flash_bwd_dq_bf16": "flash_bwd",
-           "flash_bwd_dkv_bf16": "flash_bwd"}
+_SOURCE = {"flash_fwd_bf16": "flash_fwd", "flash_fwd_tile_counts": "flash_fwd",
+           "flash_bwd_dq_bf16": "flash_bwd", "flash_bwd_dkv_bf16": "flash_bwd"}
 GRAD_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -161,6 +171,83 @@ def flash_attention_reference(
     return out, lse.reshape(b, h, sq)
 
 
+def fwd_tile_plan(q_pos, kv_pos, q_seg=None, kv_seg=None, causal=True,
+                  block_skip=True, bq=FWD_BQ, bk=FWD_BK) -> torch.Tensor:
+    """The forward kernel's tile classes, [b, n_q_tiles, n_kv_tiles] int8,
+    by the rules of csrc/flash_fwd.cu's classification pass (this is its
+    plain twin). A q tile's rows past sq, and rows in segment 0, attend no
+    key; the others are its live rows. A kv tile's keys past sk carry
+    PAD_POS; keys below PAD_POS are its valid keys.
+
+    - TILE_CLOSED: never loaded. No live row or no valid key; causal and
+      every valid key after every live row's position; segments and the
+      valid keys' segment interval disjoint from the live rows', or all
+      valid keys in segment 0; or the causal block skip (the storage-index
+      rule of the plain version, by TILE-row groups, when block_skip,
+      causal and sq == sk) leaves the tile to no row.
+    - TILE_OPEN: no per-element mask. Every row below sq is live, every key
+      valid, causal and every key at or before every row's position,
+      segments and one segment id on both sides, and the block skip leaves
+      the whole tile to every row.
+    - TILE_PARTIAL: the rest, masked per element.
+
+    A closed tile holds no open pair and an open tile no masked pair, so
+    skipping the one and not masking the other is exact."""
+    b, sq = q_pos.shape
+    sk = kv_pos.shape[1]
+    nq, nk = -(-sq // bq), -(-sk // bk)
+    dev = q_pos.device
+    big = 2 ** 62
+    use_seg = q_seg is not None
+
+    def tiled(x, n, t, fill):
+        out = torch.full((b, n * t), fill, dtype=torch.int64, device=dev)
+        out[:, :x.shape[1]] = x
+        return out.view(b, n, t)
+
+    def lo_hi(x, keep):
+        return (torch.where(keep, x, big).amin(-1),
+                torch.where(keep, x, -big).amax(-1))
+
+    in_q = tiled(torch.ones_like(q_pos), nq, bq, 0).bool()
+    qp = tiled(q_pos, nq, bq, 0)
+    live = in_q
+    if use_seg:
+        qs = tiled(q_seg, nq, bq, 0)
+        live = live & (qs != 0)
+    qmin, qmax = lo_hi(qp, live)
+    kp = tiled(kv_pos, nk, bk, PAD_POS)
+    valid = kp < PAD_POS
+    kmin, kmax = lo_hi(kp, valid)
+
+    closed = ~(live.any(-1)[:, :, None] & valid.any(-1)[:, None, :])
+    open_ = ((live == in_q).all(-1)[:, :, None]
+             & valid.all(-1)[:, None, :])
+    if causal:
+        closed |= kmin[:, None, :] > qmax[:, :, None]
+        open_ &= kmax[:, None, :] <= qmin[:, :, None]
+    if use_seg:
+        qsmin, qsmax = lo_hi(qs, live)
+        ksmin, ksmax = lo_hi(tiled(kv_seg, nk, bk, 0), valid)
+        closed |= ((ksmin == 0) & (ksmax == 0))[:, None, :]
+        closed |= ksmax[:, None, :] < qsmin[:, :, None]
+        closed |= ksmin[:, None, :] > qsmax[:, :, None]
+        open_ &= ((ksmin == ksmax)[:, None, :] & (qsmin == qsmax)[:, :, None]
+                  & (ksmin[:, None, :] == qsmin[:, :, None]))
+    if block_skip and causal and sq == sk:
+        # Row r sees keys below (r // TILE + 1) * TILE.
+        q0 = torch.arange(nq, device=dev) * bq
+        k0 = torch.arange(nk, device=dev) * bk
+        last_row = torch.clamp(q0 + bq, max=sq) - 1
+        closed |= k0[None, :] >= ((last_row // TILE + 1) * TILE)[:, None]
+        open_ &= k0[None, :] + bk <= ((q0 // TILE + 1) * TILE)[:, None]
+    plan = torch.full((b, nq, nk), TILE_PARTIAL, dtype=torch.int8,
+                      device=dev)
+    plan[open_] = TILE_OPEN
+    plan[closed] = TILE_CLOSED
+    return plan
+
+
 def _rows_ok(t: torch.Tensor) -> bool:
     """16-byte vector loads need a unit last stride, 16-byte aligned base
     and row strides that are multiples of 8 elements."""
@@ -184,6 +271,8 @@ def _flash_fwd_cuda(q, k, v, q_positions, kv_positions, q_segment_ids,
     if d not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the flash kernel takes head_dim in "
                          f"{KERNEL_HEAD_DIMS}, got {d}")
+    if not scale > 0:
+        raise ValueError(f"the flash kernel takes a scale > 0, got {scale}")
     use_seg = q_segment_ids is not None
     ints = [t.to(device=q.device, dtype=torch.int32).contiguous()
             for t in (q_positions, kv_positions)]
@@ -206,6 +295,19 @@ def _flash_fwd_cuda(q, k, v, q_positions, kv_positions, q_segment_ids,
         raise RuntimeError(f"flash_fwd_bf16 launch failed: CUDA error {err}")
     flash_attention.launches += 1
     return out, lse
+
+
+def fwd_tile_counts() -> Tuple[int, int]:
+    """(computed, open): the kv tiles the forward kernel's launches since
+    the last call left to compute (not closed) and, of those, the open
+    ones, counted on the card by every block (each q head counts its own).
+    Waits for the device and clears the counts. fwd_tile_plan predicts
+    them: computed = heads * (plan != TILE_CLOSED).sum()."""
+    counts = (ctypes.c_ulonglong * 2)()
+    err = _kernel("flash_fwd_tile_counts")(ctypes.addressof(counts))
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_tile_counts failed: CUDA error {err}")
+    return int(counts[0]), int(counts[1])
 
 
 def flash_attention_fwd(

@@ -11,11 +11,16 @@ import pytest
 import torch
 
 from runbooks_tpu_torch.ops.flash_attention import (
+    NEG_INF,
+    TILE_CLOSED,
+    TILE_OPEN,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_reference,
     flash_attention_fwd,
     flash_attention_reference,
+    fwd_tile_counts,
+    fwd_tile_plan,
 )
 
 # Backward kernels against the f32 plain version, per gradient tensor:
@@ -28,37 +33,93 @@ BWD_ATOL = 1e-2
 BWD_RTOL = 1e-2
 
 
+def _fwd_case(dev, g, case):
+    """(q, k, v, q_pos, kv_pos, seg, block_skip) of a K1 case: the serving
+    prefill's shapes (GQA 32/8, d=128, ragged kv of 2049), and the tile
+    skips: segments that close tiles, cached prefill at an offset, a ragged
+    sk with the causal skip, and d=64."""
+    rows, sq, sk, start, h, hk, d = {
+        "prompt_kv2049": (1, 256, 2049, 0, 32, 8, 128),
+        "cached_prefill_at100": (2, 128, 2049, 100, 32, 8, 128),
+        "mha_kv300": (1, 64, 300, 7, 32, 32, 128),
+        "segment_closed_tiles": (2, 640, 640, 0, 32, 8, 128),
+        "position_skip_at1000": (1, 200, 1500, 1000, 32, 8, 128),
+        "ragged_skip": (2, 333, 333, 0, 32, 8, 128),
+        "d64_skip": (2, 300, 300, 0, 16, 8, 64),
+    }[case]
+    q = torch.randn((rows, sq, h, d), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    k = torch.randn((rows, sk, hk, d), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn_like(k)
+    q_pos = (start + torch.arange(sq, device=dev,
+                                  dtype=torch.int32)).expand(rows, sq)
+    kv_pos = torch.arange(sk, device=dev, dtype=torch.int32).expand(rows, sk)
+    seg = None
+    if case == "segment_closed_tiles":
+        # Documents of 70, 300 and 150 tokens, positions restarting, and a
+        # padding tail: boundaries inside tiles, whole tiles closed.
+        seg = torch.zeros((rows, sq), device=dev, dtype=torch.int32)
+        pos = torch.zeros((rows, sq), device=dev, dtype=torch.int32)
+        at = 0
+        for i, n in enumerate((70, 300, 150)):
+            seg[:, at:at + n] = i + 1
+            pos[:, at:at + n] = torch.arange(n, device=dev, dtype=torch.int32)
+            at += n
+        q_pos = kv_pos = pos
+    skip = case in ("segment_closed_tiles", "ragged_skip", "d64_skip")
+    return q, k, v, q_pos.contiguous(), kv_pos.contiguous(), seg, skip
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_version_on_card():
-    """The CUDA kernel against its plain version at the serving prefill's
-    shapes (bf16, GQA 32/8, d=128, ragged kv of 2049). out within
+@pytest.mark.parametrize("case", ["prompt_kv2049", "cached_prefill_at100",
+                                  "mha_kv300", "segment_closed_tiles",
+                                  "position_skip_at1000", "ragged_skip",
+                                  "d64_skip"])
+def test_kernel_matches_plain_version_on_card(case):
+    """The CUDA kernel against its plain version. out within
     1e-2 + 1e-2 * |plain| (bf16 output, one ulp is 2**-7 relative, and bf16
-    P in the value product), lse within 1e-3 (f32 throughout)."""
+    P in the value product), lse within 1e-3 (f32 throughout); rows in
+    segment 0 exactly 0 and NEG_INF; the kv tiles the kernel counts as
+    computed and open are those fwd_tile_plan gives, for every head."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; the kernel has no CPU mode")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    for rows, sq, sk, start, hk in ((1, 256, 2049, 0, 8),
-                                    (2, 128, 2049, 100, 8),
-                                    (1, 64, 300, 7, 32)):
-        q = torch.randn((rows, sq, 32, 128), generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        k = torch.randn((rows, sk, hk, 128), generator=g, device=dev,
-                        dtype=torch.bfloat16)
-        v = torch.randn_like(k)
-        q_pos = (start + torch.arange(sq, device=dev,
-                                      dtype=torch.int32)).expand(rows, sq)
-        kv_pos = torch.arange(sk, device=dev,
-                              dtype=torch.int32).expand(rows, sk)
-        out, lse = flash_attention_fwd(q, k, v, q_pos, kv_pos,
-                                       block_skip=False)
-        ref, ref_lse = flash_attention_reference(
-            q, k, v, q_pos, kv_pos, block_skip=False)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
-                                   rtol=1e-2)
-        assert torch.isfinite(out.float()).all()
-        assert (lse - ref_lse).abs().max().item() < 1e-3
+    q, k, v, q_pos, kv_pos, seg, skip = _fwd_case(dev, g, case)
+    fwd_tile_counts()
+    out, lse = flash_attention_fwd(q, k, v, q_pos, kv_pos, seg, seg,
+                                   block_skip=skip)
+    plan = fwd_tile_plan(q_pos, kv_pos, seg, seg, causal=True,
+                         block_skip=skip)
+    h = q.shape[2]
+    assert fwd_tile_counts() == (
+        h * int((plan != TILE_CLOSED).sum().item()),
+        h * int((plan == TILE_OPEN).sum().item()))
+    ref, ref_lse = flash_attention_reference(q, k, v, q_pos, kv_pos, seg,
+                                             seg, block_skip=skip)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+    assert torch.isfinite(out.float()).all()
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+    if seg is not None:
+        pad = seg[0] == 0
+        assert (out[:, pad] == 0).all()
+        assert (lse[:, :, pad] == NEG_INF).all()
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_nonpositive_scale():
+    """The forward kernel takes the row max on the raw scores, so it needs
+    scale > 0; the wrapper says so instead of a bare launch error."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    q = torch.zeros((1, 64, 8, 64), device=dev, dtype=torch.bfloat16)
+    pos = torch.arange(64, device=dev, dtype=torch.int32)[None]
+    with pytest.raises(ValueError, match="scale > 0"):
+        flash_attention_fwd(q, q, q, pos, pos, scale=-0.125)
 
 
 @pytest.mark.cuda
