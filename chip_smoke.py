@@ -29,8 +29,11 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    at the training shape (2 packed rows of 2048 tokens of the job's data,
    32/8 heads, d=128), without segments, a ragged 2000, d=64 with n_rep 2,
    more keys than queries (unseen keys must get exactly 0) and f32
-   gradients; each kernel's time, bound, the plain version's time and the
-   backward of scaled_dot_product_attention as the yardstick.
+   gradients; each kernel's time, bound, rate on the operations the masks
+   need, the plain version's time and the backward of
+   scaled_dot_product_attention as the yardstick. The (q tile, kv tile)
+   pairs each kernel counts as computed and open on the card must be the
+   ones fwd_tile_plan predicts at the backward's tiles.
 6. Full-width gradient check: llama3-8b cut to 4 layers, one LoRA
    loss-and-grad over a packed 2048-token row with the flash kernels and
    with the plain attention.
@@ -204,17 +207,24 @@ def kernel_cases(torch, dev, gen, batch):
         yield name, q, k, v, qp, kp, qs, ks, skip, used
 
 
-def tile_counts(torch, q_pos, kv_pos, q_seg, kv_seg, block_skip):
-    """(computed, open, total) kv tiles of K1's launch over the batch rows
-    for one head, as fwd_tile_plan predicts them."""
+def tile_counts(torch, q_pos, kv_pos, q_seg, kv_seg, block_skip,
+                backward=False):
+    """(computed, open, total) tiles of one launch over the batch rows for
+    one head, as fwd_tile_plan predicts them: K1's kv tiles, or with
+    backward the (q tile, kv tile) pairs of K2 and K3."""
     from runbooks_tpu_torch.ops.flash_attention import (
+        BWD_BK,
+        BWD_BQ,
+        FWD_BK,
+        FWD_BQ,
         TILE_CLOSED,
         TILE_OPEN,
         fwd_tile_plan,
     )
 
+    bq, bk = (BWD_BQ, BWD_BK) if backward else (FWD_BQ, FWD_BK)
     plan = fwd_tile_plan(q_pos, kv_pos, q_seg, kv_seg, causal=True,
-                         block_skip=block_skip)
+                         block_skip=block_skip, bq=bq, bk=bk)
     return (int((plan != TILE_CLOSED).sum().item()),
             int((plan == TILE_OPEN).sum().item()), plan.numel())
 
@@ -599,42 +609,46 @@ def bwd_bound(torch, q, k, q_pos, kv_pos, q_seg, kv_seg):
     return res
 
 
-def bwd_cases(torch, dev, gen, batch):
-    """(name, q, k, v, do, q_pos, kv_pos, seg, block_skip, grad_dtype) for
-    the backward kernels. (a) is what the training path gives them: a
-    microbatch of 2 packed rows of the job's data, llama3-8b's 32/8 heads
-    at d=128, causal with the skip."""
-
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev,
-                           dtype=torch.bfloat16)
+def bwd_case_layouts(torch, dev, batch):
+    """(name, (b, sq, sk, h, kvh, d), q_pos, kv_pos, seg, block_skip,
+    grad_dtype) of the backward kernels' cases. (a) is what the training
+    path gives them: a microbatch of 2 packed rows of the job's data,
+    llama3-8b's 32/8 heads at d=128, causal with the skip."""
 
     def ar(n, start=0, rows=2):
         return (start + torch.arange(n, device=dev, dtype=torch.int32)
                 )[None].expand(rows, n).contiguous()
-
-    def qkvd(b, sq, sk, h, kvh, d):
-        return (randn(b, sq, h, d), randn(b, sk, kvh, d),
-                randn(b, sk, kvh, d), randn(b, sq, h, d))
 
     s = TRAIN_SEQ
     pos = torch.from_numpy(batch["positions"][:2]).to(dev)
     seg = torch.from_numpy(batch["segment_ids"][:2]).to(dev)
     f32 = torch.float32
     return [
-        ("a_packed_2x2048", *qkvd(2, s, s, 32, 8, 128), pos, pos, seg, True,
+        ("a_packed_2x2048", (2, s, s, 32, 8, 128), pos, pos, seg, True,
          None),
-        ("b_causal_2x2048", *qkvd(2, s, s, 32, 8, 128), ar(s), ar(s), None,
-         True, None),
-        ("c_ragged_2x2000", *qkvd(2, 2000, 2000, 32, 8, 128), ar(2000),
-         ar(2000), None, True, None),
-        ("d_d64_rep2_2x1024", *qkvd(2, 1024, 1024, 16, 8, 64), ar(1024),
+        ("b_causal_2x2048", (2, s, s, 32, 8, 128), ar(s), ar(s), None, True,
+         None),
+        ("c_ragged_2x2000", (2, 2000, 2000, 32, 8, 128), ar(2000), ar(2000),
+         None, True, None),
+        ("d_d64_rep2_2x1024", (2, 1024, 1024, 16, 8, 64), ar(1024),
          ar(1024), None, True, None),
-        ("e_offset_sk_gt_sq", *qkvd(1, 512, s, 32, 8, 128),
-         ar(512, 1000, 1), ar(s, 0, 1), None, False, None),
-        ("f_f32_grads_2x2048", *qkvd(2, s, s, 32, 8, 128), ar(s), ar(s),
-         None, True, f32),
+        ("e_offset_sk_gt_sq", (1, 512, s, 32, 8, 128), ar(512, 1000, 1),
+         ar(s, 0, 1), None, False, None),
+        ("f_f32_grads_2x2048", (2, s, s, 32, 8, 128), ar(s), ar(s), None,
+         True, f32),
     ]
+
+
+def bwd_cases(torch, dev, gen, batch):
+    """bwd_case_layouts with seeded bf16 q, k, v, do, one case at a time:
+    (name, q, k, v, do, q_pos, kv_pos, seg, block_skip, grad_dtype)."""
+    for (name, (b, sq, sk, h, kvh, d), qp, kp, seg, skip,
+         gd) in bwd_case_layouts(torch, dev, batch):
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev,
+                                   dtype=torch.bfloat16)
+                       for shape in ((b, sq, h, d), (b, sk, kvh, d),
+                                     (b, sk, kvh, d), (b, sq, h, d)))
+        yield name, q, k, v, do, qp, kp, seg, skip, gd
 
 
 def library_fwd(torch, q, k, v):
@@ -663,9 +677,13 @@ def library_bwd(torch, q, k, v, do):
 
 def bwd_kernel_phase(torch, dev, seed, batch):
     """Phase 5: K2 and K3 against the plain backward at cases (a)-(f),
-    with each kernel's time, the plain version's, the bound, and SDPA's
-    backward at (b) as the library yardstick."""
+    with each kernel's time, the plain version's, the bound, the rate on
+    the operations the masks need, and SDPA's backward at (b) as the
+    library yardstick. The (q tile, kv tile) pairs each kernel counts as
+    computed and open on the card (bwd_tile_counts) must be those
+    fwd_tile_plan predicts at the backward's tiles, for every head."""
     from runbooks_tpu_torch.ops.flash_attention import (
+        bwd_tile_counts,
         flash_attention_bwd,
         flash_attention_bwd_reference,
         flash_attention_fwd,
@@ -680,8 +698,10 @@ def bwd_kernel_phase(torch, dev, seed, batch):
             torch, dev, gen, batch):
         out, lse = flash_attention_fwd(q, k, v, qp, kp, seg, seg,
                                        block_skip=skip)
+        bwd_tile_counts()
         got = flash_attention_bwd(q, k, v, qp, kp, seg, seg, out, lse, do,
                                   block_skip=skip, grad_dtype=gd)
+        card = bwd_tile_counts()
         ref = flash_attention_bwd_reference(
             q, k, v, qp, kp, seg, seg, out, lse, do, block_skip=skip,
             grad_dtype=torch.float32)
@@ -718,34 +738,48 @@ def bwd_kernel_phase(torch, dev, seed, batch):
         if name.startswith("b_"):
             library_ms = cuda_ms(library_bwd(torch, q, k, v, do), 10)
         bounds = bwd_bound(torch, q, k, qp, kp, seg, seg)
+        computed, opened, total = tile_counts(torch, qp, kp, seg, seg, skip,
+                                              backward=True)
+        h = q.shape[2]
+        tiles_agree = all(card[n] == (h * computed, h * opened)
+                          for n in card)
         err_s = " ".join(f"{g} {e:.3e}/max {m:.3e}"
                          for g, (e, m) in errs.items())
+        kern_s = " | ".join(
+            f"{n[10:]}_ms {ms[n]:.4f} bound {bounds[n][0]:.4f} "
+            f"({bounds[n][1]}, {bounds[n][2]:.1f} GFLOP) at "
+            f"{bounds[n][2] / ms[n]:.1f} TFLOP/s, card tiles "
+            f"{card[n][0]} (open {card[n][1]})" for n in ms)
         print(f"kernel flash_bwd {name}: q {tuple(q.shape)} k "
               f"{tuple(k.shape)} skip {skip} grad_dtype "
               f"{got[0].dtype} | err {err_s} (tol {BWD_ATOL}*max + "
-              f"{BWD_RTOL}*|plain|){zeros} | dq_ms "
-              f"{ms['flash_bwd_dq']:.4f} bound "
-              f"{bounds['flash_bwd_dq'][0]:.4f} "
-              f"({bounds['flash_bwd_dq'][1]}, "
-              f"{bounds['flash_bwd_dq'][2]:.1f} GFLOP) | dkv_ms "
-              f"{ms['flash_bwd_dkv']:.4f} bound "
-              f"{bounds['flash_bwd_dkv'][0]:.4f} "
-              f"({bounds['flash_bwd_dkv'][1]}, "
-              f"{bounds['flash_bwd_dkv'][2]:.1f} GFLOP) | plain_ms (both) "
-              f"{plain_ms:.3f}"
+              f"{BWD_RTOL}*|plain|){zeros} | tile pairs per head computed "
+              f"{computed}/{total} (open {opened}) predicted by "
+              f"fwd_tile_plan, x {h} heads agree with the card "
+              f"{tiles_agree} | {kern_s} | plain_ms (both) {plain_ms:.3f}"
               + ("" if library_ms is None else
                  f" | library_ms SDPA backward, dq+dk+dv together "
                  f"{library_ms:.4f}")
-              + f" -> {'ok' if ok else 'FAIL'}", flush=True)
+              + f" -> {'ok' if ok and tiles_agree else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"flash_bwd {name} disagrees with its plain "
                              "version")
+        if not tiles_agree:
+            raise SystemExit(f"flash_bwd {name}: the card's tile counts "
+                             f"{card} are not {h} x fwd_tile_plan's "
+                             f"({computed}, {opened})")
         worst["flash_bwd_dq"] = max(worst["flash_bwd_dq"], errs["dq"][0])
         worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"][0],
                                      errs["dv"][0])
         records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             bounds=bounds,
+                             bounds=bounds, card_tiles=card,
                              shape=f"q{tuple(q.shape)} k{tuple(k.shape)}")
+    b = records["b_causal_2x2048"]
+    both = sum(b["ms"].values())
+    print(f"backward at (b) {b['shape']}: K2 {b['ms']['flash_bwd_dq']:.4f} "
+          f"+ K3 {b['ms']['flash_bwd_dkv']:.4f} = {both:.4f} ms against "
+          f"SDPA's backward {b['library_ms']:.4f} ms: "
+          f"{both / b['library_ms']:.2f}x", flush=True)
     print(f"backward kernel phase peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     return records, worst
@@ -964,7 +998,8 @@ def main():
             records["b_causal_2x2048"]["library_causal_ms"],
         "shape": fwd_train["shape"]}
     train_case = bwd_records["a_packed_2x2048"]
-    library = bwd_records["b_causal_2x2048"]["library_ms"]
+    causal_case = bwd_records["b_causal_2x2048"]
+    library = causal_case["library_ms"]
     for name, line in (("flash_bwd_dq", 280), ("flash_bwd_dkv", 337)):
         bound_ms, bound_by, _ = train_case["bounds"][name]
         kernels.append({
@@ -985,6 +1020,13 @@ def main():
                                   "(is_causal, enable_gqa) at "
                                   "b_causal_2x2048: dq, dk, dv together"),
             "shape": train_case["shape"],
+            "card_tiles_computed_open": train_case["card_tiles"][name],
+            "causal_shape": {
+                "ms": causal_case["ms"][name],
+                "bound_ms": causal_case["bounds"][name][0],
+                "library_ms": library,
+                "card_tiles_computed_open": causal_case["card_tiles"][name],
+                "shape": causal_case["shape"]},
         })
     print(f"train summary: tokens/s {summary['tokens_per_sec']:.1f} | "
           f"history {json.dumps(summary['history'])} | peak memory "

@@ -25,8 +25,9 @@ or raises. The kernels take bfloat16 q/k/v (and do) with head_dim 64 or
 128, and the forward kernel a scale > 0 (it takes the row max on the raw
 scores). ``flash_attention.launches`` counts forward launches,
 ``flash_attention_bwd.dq_launches`` and ``.dkv_launches`` the backward's;
-``fwd_tile_counts`` reads the forward kernel's own count of the kv tiles it
-computed, which ``fwd_tile_plan`` predicts.
+``fwd_tile_counts`` and ``bwd_tile_counts`` read the kernels' own counts of
+the tiles they computed, which ``fwd_tile_plan`` predicts at each kernel's
+tile sizes.
 """
 
 from __future__ import annotations
@@ -39,13 +40,15 @@ import torch
 NEG_INF = -1e30
 PAD_POS = 2 ** 30
 # The plain versions walk 64-row q tiles and 64-key kv tiles: the backward
-# kernels' tiles (BQ = BK = 64 in csrc/flash_bwd.cu), the forward kernel's
-# kv tile, and the grain of the causal block skip in all three kernels.
-# The TPU kernel's tile hints do not apply here.
+# kernels' tiles, the forward kernel's kv tile, and the grain of the causal
+# block skip in all three kernels. The TPU kernel's tile hints do not apply
+# here.
 TILE = 64
 # The forward kernel's q rows per block and keys per kv tile
-# (csrc/flash_fwd.cu BQ, BK); fwd_tile_plan classifies its tiles.
+# (csrc/flash_fwd.cu BQ, BK), and the backward kernels' q and kv tiles
+# (csrc/flash_bwd.cu BQ, BK); fwd_tile_plan classifies the tiles of both.
 FWD_BQ, FWD_BK = 128, 64
+BWD_BQ, BWD_BK = 64, 64
 TILE_CLOSED, TILE_PARTIAL, TILE_OPEN = 0, 1, 2
 KERNEL_HEAD_DIMS = (64, 128)
 
@@ -59,9 +62,11 @@ _ARGTYPES = {
     "flash_bwd_dkv_bf16": ([_vp] * 12 + [ctypes.c_int] * 6 + [_ll] * 12
                            + [ctypes.c_float] + [ctypes.c_int] * 3 + [_vp]),
     "flash_fwd_tile_counts": [_vp],
+    "flash_bwd_tile_counts": [_vp],
 }
 _SOURCE = {"flash_fwd_bf16": "flash_fwd", "flash_fwd_tile_counts": "flash_fwd",
-           "flash_bwd_dq_bf16": "flash_bwd", "flash_bwd_dkv_bf16": "flash_bwd"}
+           "flash_bwd_dq_bf16": "flash_bwd", "flash_bwd_dkv_bf16": "flash_bwd",
+           "flash_bwd_tile_counts": "flash_bwd"}
 GRAD_DTYPES = (torch.bfloat16, torch.float32)
 
 
@@ -173,11 +178,12 @@ def flash_attention_reference(
 
 def fwd_tile_plan(q_pos, kv_pos, q_seg=None, kv_seg=None, causal=True,
                   block_skip=True, bq=FWD_BQ, bk=FWD_BK) -> torch.Tensor:
-    """The forward kernel's tile classes, [b, n_q_tiles, n_kv_tiles] int8,
-    by the rules of csrc/flash_fwd.cu's classification pass (this is its
-    plain twin). A q tile's rows past sq, and rows in segment 0, attend no
-    key; the others are its live rows. A kv tile's keys past sk carry
-    PAD_POS; keys below PAD_POS are its valid keys.
+    """The kernels' tile classes, [b, n_q_tiles, n_kv_tiles] int8, by the
+    rules of the classification passes of csrc/flash_fwd.cu (at the
+    default tiles, FWD_BQ x FWD_BK) and csrc/flash_bwd.cu (at BWD_BQ x
+    BWD_BK); this is their plain twin. A q tile's rows past sq, and rows in
+    segment 0, attend no key; the others are its live rows. A kv tile's
+    keys past sk carry PAD_POS; keys below PAD_POS are its valid keys.
 
     - TILE_CLOSED: never loaded. No live row or no valid key; causal and
       every valid key after every live row's position; segments and the
@@ -308,6 +314,22 @@ def fwd_tile_counts() -> Tuple[int, int]:
     if err != 0:
         raise RuntimeError(f"flash_fwd_tile_counts failed: CUDA error {err}")
     return int(counts[0]), int(counts[1])
+
+
+def bwd_tile_counts() -> dict:
+    """{"flash_bwd_dq": (computed, open), "flash_bwd_dkv": (computed,
+    open)}: the (q tile, kv tile) pairs the backward kernels' launches
+    since the last call left to compute (not closed) and, of those, the
+    open ones, counted on the card by every block (K2 per query head, K3
+    once per query head of its group it walks). Waits for the device and
+    clears the counts. For one launch of each, fwd_tile_plan at (BWD_BQ,
+    BWD_BK) predicts both: computed = heads * (plan != TILE_CLOSED).sum()."""
+    counts = (ctypes.c_ulonglong * 4)()
+    err = _kernel("flash_bwd_tile_counts")(ctypes.addressof(counts))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_tile_counts failed: CUDA error {err}")
+    return {"flash_bwd_dq": (int(counts[0]), int(counts[1])),
+            "flash_bwd_dkv": (int(counts[2]), int(counts[3]))}
 
 
 def flash_attention_fwd(

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by hand
 with ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at the root
 of the checkout (listed in ``.gitignore``). The library's file name carries
-a hash of the source and the flags, so an edited source is never served
-from a stale build; the compiler's report (``-Xptxas -v``: registers,
-shared memory, spills) is kept beside it as ``.log``. Sources build in
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so an edited source or header is never served from a stale build; the
+compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
+kept beside it as ``.log``. Sources build in
 parallel: one ``nvcc`` per source, all started together. A failed build
 raises with the compiler's output.
 """
@@ -42,8 +43,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -11,9 +11,12 @@ import pytest
 import torch
 
 from runbooks_tpu_torch.ops.flash_attention import (
+    BWD_BK,
+    BWD_BQ,
     NEG_INF,
     TILE_CLOSED,
     TILE_OPEN,
+    bwd_tile_counts,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_reference,
@@ -140,7 +143,10 @@ def test_kernel_launch_is_counted_and_checked():
     assert flash_attention.launches == before + 1
 
 
-def _bwd_case(dev, g, b, sq, sk, h, kvh, d, start=0, segments=False):
+def _bwd_case(dev, g, b, sq, sk, h, kvh, d, start=0, docs=None):
+    """Seeded q, k, v, do and positions; with docs, documents of those
+    lengths packed from row 0 (segment ids 1, 2, ..., positions restarting)
+    and a padding tail in segment 0."""
     def randn(*shape):
         return torch.randn(shape, generator=g, device=dev,
                            dtype=torch.bfloat16)
@@ -151,15 +157,17 @@ def _bwd_case(dev, g, b, sq, sk, h, kvh, d, start=0, segments=False):
                                   dtype=torch.int32)).expand(b, sq)
     kv_pos = torch.arange(sk, device=dev, dtype=torch.int32).expand(b, sk)
     seg = None
-    if segments:
-        # Two documents and a padding tail (segment 0), positions restart.
-        cut, end = sq // 3, sq - sq // 5
-        seg = torch.zeros((b, sq), device=dev, dtype=torch.int32)
-        seg[:, :cut], seg[:, cut:end] = 1, 2
-        q_pos = torch.cat([torch.arange(cut), torch.arange(end - cut),
-                           torch.arange(sq - end)]).to(
-                               dev, torch.int32).expand(b, sq).contiguous()
-        kv_pos = q_pos
+    if docs:
+        seg = torch.zeros(sq, dtype=torch.int32)
+        pos = torch.zeros(sq, dtype=torch.int32)
+        at = 0
+        for i, n in enumerate(docs):
+            seg[at:at + n] = i + 1
+            pos[at:at + n] = torch.arange(n)
+            at += n
+        pos[at:] = torch.arange(sq - at)
+        seg = seg.to(dev).expand(b, sq).contiguous()
+        q_pos = kv_pos = pos.to(dev).expand(b, sq).contiguous()
     return q, k, v, do, q_pos, kv_pos, seg
 
 
@@ -173,12 +181,17 @@ def _assert_bwd_close(got, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["skip_gqa4", "segments", "ragged",
-                                  "d64_rep2", "sk_gt_sq", "f32_grads"])
+                                  "d64_rep2", "sk_gt_sq", "f32_grads",
+                                  "segment_closed_tiles"])
 def test_backward_kernels_match_plain_version_on_card(case):
     """K2 (dq) and K3 (dk, dv) against the plain backward: GQA 32/8 at
     d=128 with the causal skip, packed segments with padding rows, a
     ragged length, d=64 with n_rep 2, more keys than queries with offset
-    queries (keys no query sees get exactly 0) and f32 gradients."""
+    queries (keys no query sees get exactly 0), f32 gradients, and
+    documents of 70, 300 and 150 tokens with a padding tail, whose
+    boundaries fall inside tiles and close whole ones. The (q tile, kv
+    tile) pairs each kernel counts as computed and open on the card are
+    those fwd_tile_plan gives at the backward's tiles, for every head."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -188,21 +201,33 @@ def test_backward_kernels_match_plain_version_on_card(case):
              "ragged": (1, 200, 200, 32, 8, 128),
              "d64_rep2": (2, 192, 192, 16, 8, 64),
              "sk_gt_sq": (1, 100, 260, 32, 8, 128),
-             "f32_grads": (1, 128, 128, 32, 8, 128)}[case]
+             "f32_grads": (1, 128, 128, 32, 8, 128),
+             "segment_closed_tiles": (2, 640, 640, 32, 8, 128)}[case]
     start = 100 if case == "sk_gt_sq" else 0
+    # Documents packed from row 0; the rest of each row is padding.
+    docs = {"segments": (106, 150),
+            "segment_closed_tiles": (70, 300, 150)}.get(case)
     q, k, v, do, qp, kp, seg = _bwd_case(dev, g, *shape, start=start,
-                                         segments=case == "segments")
+                                         docs=docs)
     skip = case != "sk_gt_sq"
     gd = torch.float32 if case == "f32_grads" else None
     out, lse = flash_attention_fwd(q, k, v, qp, kp, seg, seg,
                                    block_skip=skip)
     before = (flash_attention_bwd.dq_launches,
               flash_attention_bwd.dkv_launches)
+    bwd_tile_counts()
     got = flash_attention_bwd(q, k, v, qp, kp, seg, seg, out, lse, do,
                               block_skip=skip, grad_dtype=gd)
     assert (flash_attention_bwd.dq_launches,
             flash_attention_bwd.dkv_launches) == (before[0] + 1,
                                                   before[1] + 1)
+    plan = fwd_tile_plan(qp, kp, seg, seg, causal=True, block_skip=skip,
+                         bq=BWD_BQ, bk=BWD_BK)
+    h = q.shape[2]
+    predicted = (h * int((plan != TILE_CLOSED).sum().item()),
+                 h * int((plan == TILE_OPEN).sum().item()))
+    assert bwd_tile_counts() == {"flash_bwd_dq": predicted,
+                                 "flash_bwd_dkv": predicted}
     ref = flash_attention_bwd_reference(q, k, v, qp, kp, seg, seg, out, lse,
                                         do, block_skip=skip,
                                         grad_dtype=torch.float32)
@@ -213,9 +238,18 @@ def test_backward_kernels_match_plain_version_on_card(case):
     if case == "sk_gt_sq":
         # Queries sit at positions 100..199: keys 200.. are seen by none.
         assert (got[1][:, 200:] == 0).all() and (got[2][:, 200:] == 0).all()
-    if case == "segments":
+    if seg is not None:
+        # Padding rows see no key and padding keys are seen by no row: their
+        # gradients are exactly 0, and so are the plain version's.
         pad = seg[0] == 0
         assert (got[0][:, pad] == 0).all()
+        assert (got[1][:, pad] == 0).all() and (got[2][:, pad] == 0).all()
+    if case == "segment_closed_tiles":
+        # Whole tiles are closed here: the counts say the kernels skipped
+        # some pairs the causal skip alone leaves.
+        causal_only = fwd_tile_plan(qp, qp, causal=True, block_skip=True,
+                                    bq=BWD_BQ, bk=BWD_BK)
+        assert predicted[0] < h * int((causal_only != TILE_CLOSED).sum())
 
 
 @pytest.mark.cuda

@@ -1,6 +1,7 @@
-"""The forward kernel's tile classes (``fwd_tile_plan``, the plain twin of
-csrc/flash_fwd.cu's classification pass) against the JAX package's
-attention mask.
+"""The kernels' tile classes (``fwd_tile_plan``, the plain twin of the
+classification passes of csrc/flash_fwd.cu and csrc/flash_bwd.cu) against
+the JAX package's attention mask, at the forward's tiles, the backward's
+and a small odd pair.
 
 Inputs come from numpy with a seed. The oracle is the reference's
 ``make_attention_mask`` with the kernel contract's two further rules: keys
@@ -10,9 +11,9 @@ version's storage-index rule. A closed tile must hold no open pair (the
 kernel never loads it) and an open tile no masked pair among its rows
 below sq (the kernel does not mask it). For causal masks over aligned
 positions the closed tiles are exactly the tiles with no open pair. The
-computed-tile counts of chip_smoke.py's K1 cases are pinned: on the card
-the kernel's own count must equal them times the heads (chip_smoke.py
-phase 3).
+computed-tile counts of chip_smoke.py's K1 cases and of its K2/K3 cases
+are pinned: on the card each kernel's own count must equal them times the
+heads (chip_smoke.py phases 3 and 5).
 """
 
 import re
@@ -27,6 +28,8 @@ from runbooks_tpu.ops.attention import make_attention_mask
 
 import chip_smoke
 from runbooks_tpu_torch.ops.flash_attention import (
+    BWD_BK,
+    BWD_BQ,
     FWD_BK,
     FWD_BQ,
     PAD_POS,
@@ -39,7 +42,7 @@ from runbooks_tpu_torch.ops.flash_attention import (
 
 torch.set_num_threads(2)
 
-TILES = [(FWD_BQ, FWD_BK), (32, 16)]
+TILES = [(FWD_BQ, FWD_BK), (BWD_BQ, BWD_BK), (32, 16)]
 
 
 def _oracle(q_pos, kv_pos, q_seg, kv_seg, causal, block_skip):
@@ -201,14 +204,25 @@ def test_random_positions_and_segments(seed, bq, bk):
 
 
 @pytest.fixture(scope="module")
-def smoke_layouts(tmp_path_factory):
-    """chip_smoke.py's K1 cases (positions and segment ids only), with the
-    training job's first batch of packed rows."""
+def train_batch(tmp_path_factory):
+    """The training job's first batch of packed rows."""
     path = tmp_path_factory.mktemp("docs") / "docs.jsonl"
     chip_smoke.write_train_docs(str(path), 0)
-    batch = chip_smoke.first_train_batch(str(path))
+    return chip_smoke.first_train_batch(str(path))
+
+
+@pytest.fixture(scope="module")
+def smoke_layouts(train_batch):
+    """chip_smoke.py's K1 cases (positions and segment ids only)."""
     return {case[0]: case for case in chip_smoke.fwd_case_layouts(
-        torch, torch.device("cpu"), batch)}
+        torch, torch.device("cpu"), train_batch)}
+
+
+@pytest.fixture(scope="module")
+def smoke_bwd_layouts(train_batch):
+    """chip_smoke.py's K2/K3 cases (positions and segment ids only)."""
+    return {case[0]: case for case in chip_smoke.bwd_case_layouts(
+        torch, torch.device("cpu"), train_batch)}
 
 
 # (computed, open, total) kv tiles over the batch rows, per head.
@@ -234,6 +248,36 @@ def test_chip_smoke_cases(smoke_layouts, name):
         == SMOKE_TILES[name]
 
 
+# (computed, open, total) (q tile, kv tile) pairs of K2 and K3 at the
+# backward's tiles over the batch rows, per head.
+SMOKE_BWD_TILES = {
+    "a_packed_2x2048": (822, 727, 2048),
+    "b_causal_2x2048": (1056, 992, 2048),
+    "c_ragged_2x2000": (1056, 992, 2048),
+    "d_d64_rep2_2x1024": (272, 240, 512),
+    "e_offset_sk_gt_sq": (164, 148, 256),
+    "f_f32_grads_2x2048": (1056, 992, 2048),
+}
+
+
+@pytest.mark.parametrize("name", list(SMOKE_BWD_TILES))
+def test_chip_smoke_bwd_cases(smoke_bwd_layouts, name):
+    (_, _, qp, kp, seg, skip, _) = smoke_bwd_layouts[name]
+    np_ = lambda a: None if a is None else a.numpy()  # noqa: E731
+    _check(np_(qp), np_(kp), np_(seg), np_(seg), block_skip=skip,
+           bq=BWD_BQ, bk=BWD_BK, tight=seg is None)
+    assert chip_smoke.tile_counts(torch, qp, kp, seg, seg, skip,
+                                  backward=True) == SMOKE_BWD_TILES[name]
+
+
+def test_segments_close_backward_pairs_on_the_training_path():
+    # At the training microbatch (a) the job's document boundaries leave
+    # K2 and K3 822 of the 1056 pairs the causal skip alone leaves (b): 78%.
+    a = SMOKE_BWD_TILES["a_packed_2x2048"][0]
+    b = SMOKE_BWD_TILES["b_causal_2x2048"][0]
+    assert a < b and a / b == pytest.approx(0.778, abs=1e-3)
+
+
 def test_closed_fractions_on_the_main_paths(smoke_layouts):
     # The training microbatch (a): the causal skip and the job's document
     # boundaries close 58% of the kv tiles, causal alone (b) 47%. Cached
@@ -250,18 +294,23 @@ def test_closed_fractions_on_the_main_paths(smoke_layouts):
     assert closed("rows1_sq16_at100") == pytest.approx(31 / 33)
 
 
-def test_plan_constants_are_the_kernels():
+@pytest.mark.parametrize("source,tiles", [("flash_fwd", (FWD_BQ, FWD_BK)),
+                                          ("flash_bwd", (BWD_BQ, BWD_BK))])
+def test_plan_constants_are_the_kernels(source, tiles):
     """The twin's tile sizes, skip grain, class codes and PAD_POS are the
-    ones csrc/flash_fwd.cu compiles with."""
-    src = (Path(chip_smoke.__file__).resolve().parent / "runbooks_tpu_torch"
-           / "csrc" / "flash_fwd.cu").read_text()
+    ones each kernel source compiles with (the last two from the header
+    both include)."""
+    csrc = (Path(chip_smoke.__file__).resolve().parent / "runbooks_tpu_torch"
+            / "csrc")
+    src = (csrc / f"{source}.cu").read_text()
+    assert '#include "flash_common.cuh"' in src
+    src += (csrc / "flash_common.cuh").read_text()
 
     def const(name):
         return int(re.search(rf"\b{name} = ([^;,]+)[;,]", src).group(1)
                    .replace("1 << 30", str(1 << 30)))
 
-    assert (const("BQ"), const("BK"), const("SKIP_ROWS")) == (FWD_BQ, FWD_BK,
-                                                              TILE)
+    assert (const("BQ"), const("BK"), const("SKIP_ROWS")) == (*tiles, TILE)
     assert (const("CLOSED"), const("PARTIAL"), const("OPEN")) == (
         TILE_CLOSED, TILE_PARTIAL, TILE_OPEN)
     assert const("PAD_POS") == PAD_POS
