@@ -42,6 +42,20 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    microbatches, packed seeded documents) for 3 steps, with K1/K2/K3
    launch counts read around it, then resumes from the step-3 checkpoint
    for one more step.
+8. Serving the fine-tune over HTTP: (a) ``load_model`` with ``adapter:``
+   pointing at phase 7's artifacts folds the adapter into the seeded f32
+   base at full width and depth; sampled slices must equal base + (alpha /
+   rank) A B. (b) ``create_server`` serves the merged model (warmup
+   included in its readiness time) and takes phase 4's 8 prompts at once
+   from client threads: greedy and sampled, one stream, one chat, one
+   multi-prompt body, with K1's launches read around the mix. The greedy
+   requests, sent again as one body to the idle server, must give the
+   token ids and text of ``InferenceEngine.generate`` on the same params
+   (the concurrent mix's greedy answers too, or differ first at a
+   near-tie). (c) ``python -m runbooks_tpu_torch.serve.api`` restores a
+   bf16 checkpoint of llama3-8b cut to 2 layers from the contract's model
+   mount, answers one greedy completion exactly as this process decodes
+   the saved params, and exits 0 on SIGTERM within its drain timeout.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -54,11 +68,17 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 KERNELS = ["flash_fwd", "flash_bwd"]
 # Prefill logits through the kernel vs the plain attention, full width,
@@ -98,6 +118,16 @@ GRAD_COS_MIN = 0.99
 TRAIN_STEPS = 3
 TRAIN_DOCS = 300
 TRAIN_SEQ = 2048
+# Phase 8: the adapter fold is checked on these (group, name, layer)
+# slices of the base, in f32 against base + (alpha / rank) A B. Both sides
+# sum the rank-16 product in f32 and round once to f32: at most one ulp of
+# a unit-scale weight apart.
+FOLD_SLICES = (("attn", "wq", 0), ("attn", "wk", 15), ("attn", "wv", 31),
+               ("attn", "wo", 7))
+FOLD_TOL = 1e-6
+HTTP_TIMEOUT = 600
+ENTRY_LAYERS = 2
+ENTRY_DRAIN_S = 30.0
 
 
 def card_line():
@@ -916,6 +946,376 @@ def train_phase(torch, dev, seed, data_path, workdir):
     return launches, summary, peak
 
 
+def http_call(base, path, body=None, headers=None):
+    """(status, headers, text, seconds to the first body bytes) of one
+    HTTP call; for an event stream, to its first data chunk."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        base + path, data=data,
+        headers={"Content-Type": "application/json", **(headers or {})})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=HTTP_TIMEOUT) as r:
+            first = r.readline()
+            t_first = time.perf_counter() - t0
+            return r.status, r.headers, (first + r.read()).decode(), t_first
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers, e.read().decode(), \
+            time.perf_counter() - t0
+
+
+def fold_check(torch, seed, adapter_dir):
+    """Phase 8 (a): the adapter fold at full width and depth, on slices
+    of the seeded f32 base. Returns (cfg, merged params)."""
+    from runbooks_tpu_torch.serve.api import load_model
+    from runbooks_tpu_torch.serve.lora_pool import read_adapter_meta
+    from runbooks_tpu_torch.train.checkpoint import CheckpointManager
+
+    t0 = time.perf_counter()
+    cfg, base = load_model({"model": "llama3-8b", "seed": seed})
+    base_slices = {k: base["layers"][k[0]][k[1]][k[2]].float().cpu()
+                   for k in FOLD_SLICES}
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, merged = load_model({"model": "llama3-8b", "seed": seed,
+                              "adapter": adapter_dir})
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    lora = CheckpointManager(adapter_dir).restore_with_cursor(
+        device=torch.device("cpu"))[0]["params"]
+    meta = read_adapter_meta(adapter_dir)
+    scale = float(meta["alpha"]) / int(meta["rank"])
+    worst, moved = 0.0, []
+    for group, name, layer in FOLD_SLICES:
+        ab = lora[f"{group}.{name}"]
+        want = (base_slices[group, name, layer] + scale * torch.matmul(
+            ab["a"][layer].float(), ab["b"][layer].float()))
+        got = merged["layers"][group][name][layer].float().cpu()
+        worst = max(worst, (got - want).abs().max().item())
+        moved.append((got - base_slices[group, name, layer]).abs().max()
+                     .item())
+    ok = worst <= FOLD_TOL and min(moved) > 0.0
+    print(f"fold: llama3-8b f32 base + adapter r{meta['rank']} alpha "
+          f"{meta['alpha']} (scale {scale}) from {adapter_dir}; slices "
+          f"{FOLD_SLICES}: max |merged - (base + scale A B)| {worst:.3g} "
+          f"(tol {FOLD_TOL}), max |merged - base| per slice "
+          f"{[f'{m:.3g}' for m in moved]}; both loads {load_s:.1f} s -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("the adapter fold does not match base + scale A B")
+    return cfg, merged
+
+
+def http_mix(prompts):
+    """Phase 4's 8 prompts as HTTP calls: (name, path, body, ids of the
+    prompts it carries). Even prompts greedy, odd sampled; prompt 0
+    streamed, prompt 2 as chat, prompts 4 and 6 as one body."""
+    from runbooks_tpu_torch.train.data import ByteTokenizer
+
+    tok = ByteTokenizer()
+    texts = [tok.decode(p[1:]) for p in prompts]
+    for p, t in zip(prompts, texts):
+        assert tok.encode(t, add_eos=False) == p, "prompt text round trip"
+    greedy = {"max_tokens": MAX_TOKENS, "temperature": 0}
+    sampled = {"max_tokens": MAX_TOKENS, "temperature": 0.8, "top_p": 0.9}
+    return [
+        ("r0", "/v1/completions", {"prompt": texts[0], "stream": True,
+                                   **greedy}, [0]),
+        ("r1", "/v1/completions", {"prompt": texts[1], **sampled}, [1]),
+        ("r2", "/v1/chat/completions",
+         {"messages": [{"role": "user", "content": texts[2]}], **greedy},
+         [2]),
+        ("r3", "/v1/completions", {"prompt": texts[3], **sampled}, [3]),
+        ("r4", "/v1/completions", {"prompt": [texts[4], texts[6]],
+                                   **greedy}, [4, 6]),
+        ("r5", "/v1/completions", {"prompt": texts[5], **sampled}, [5]),
+        ("r7", "/v1/completions", {"prompt": texts[7], **sampled}, [7]),
+    ]
+
+
+def serve_http(torch, cfg, params, seed):
+    """Phase 8 (b): the merged model behind create_server; phase 4's mix
+    over HTTP at once, then the greedy requests again as one body to the
+    idle server, both held to InferenceEngine.generate. Returns K1's
+    launches in the mix."""
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.api import create_server
+    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
+    from runbooks_tpu_torch.train.data import ByteTokenizer
+
+    t0 = time.perf_counter()
+    srv = create_server(cfg, params, host="127.0.0.1", port=0, max_slots=8,
+                        max_seq_len=2048, warmup=True)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    status, _, text, _ = http_call(base, "/")
+    ready_s = time.perf_counter() - t0
+    if status != 200 or json.loads(text)["status"] != "ok":
+        raise SystemExit(f"readiness: GET / answered {status} {text}")
+    # The engine requests the handlers submit, to read their token ids.
+    submitted = []
+    submit_many = srv.worker.submit_many
+
+    def recording_submit_many(reqs):
+        submitted.extend(reqs)
+        return submit_many(reqs)
+
+    srv.worker.submit_many = recording_submit_many
+    engine = srv.worker.engine
+    try:
+        mix = http_mix(smoke_prompts(seed))
+        results = {}
+        go = threading.Barrier(len(mix))
+
+        def client(name, path, body):
+            go.wait()
+            results[name] = http_call(base, path, body,
+                                      {"X-Request-Id": name})
+
+        engine.ttft_seconds.clear()
+        decode0, steps0 = engine.dispatch_seconds["decode"], engine.steps
+        prefill0 = engine.dispatch_seconds["prefill"]
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        threads = [threading.Thread(target=client, args=(n, p, b))
+                   for n, p, b, _ in mix]
+        t_mix = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=HTTP_TIMEOUT)
+        wall = time.perf_counter() - t_mix
+        launches = flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        decode_s = engine.dispatch_seconds["decode"] - decode0
+        ttft = sorted(engine.ttft_seconds)
+        stream_text_chunks = None
+        for name, path, body, ids in mix:
+            if name not in results:
+                raise SystemExit(f"HTTP request {name} did not answer")
+            status, headers, text, t_first = results[name]
+            if status != 200 or headers["X-Request-Id"] != name:
+                raise SystemExit(f"HTTP request {name}: {status} {text}")
+            if body.get("stream"):
+                events = [ln[6:] for ln in text.split("\n")
+                          if ln.startswith("data: ")]
+                chunks = [json.loads(e) for e in events[:-1]]
+                finish = [c["choices"][0]["finish_reason"] for c in chunks]
+                if events[-1] != "[DONE]" or finish[-1] != "length":
+                    raise SystemExit(f"stream {name} ended {events[-1:]}")
+                stream_text_chunks = len(chunks) - 1
+                continue
+            payload = json.loads(text)
+            choices = payload["choices"]
+            if (len(choices) != len(ids) or any(
+                    c["finish_reason"] != "length" for c in choices)
+                    or payload["usage"]["completion_tokens"]
+                    != MAX_TOKENS * len(ids)):
+                raise SystemExit(f"HTTP request {name}: {payload}")
+        by_rid = {r.request_id: r for r in submitted}
+        if len(by_rid) != 8 or not all(
+                r.finished and len(r.output_tokens) == MAX_TOKENS
+                for r in by_rid.values()):
+            got = [(r.request_id, r.finish_reason) for r in submitted]
+            raise SystemExit(f"the mix's engine requests: {got}")
+        if launches < 1:
+            raise SystemExit("K1 was not launched while serving over HTTP")
+        stats = {
+            "http_requests": len(mix), "prompts": len(by_rid),
+            "ready_s": ready_s, "wall_s": wall,
+            "ttft_s_median": ttft[len(ttft) // 2], "ttft_s_max": ttft[-1],
+            # Only byte ids decode to text, so with random weights the
+            # stream's first chunk is often its finish chunk.
+            "stream_first_chunk_s": results["r0"][3],
+            "stream_text_chunks": stream_text_chunks,
+            "prefill_s": engine.dispatch_seconds["prefill"] - prefill0,
+            "decode_s": decode_s,
+            "decode_tokens_per_s": (len(by_rid) * (MAX_TOKENS - 1)
+                                    / decode_s),
+            "decode_steps": engine.steps - steps0,
+            "flash_fwd_launches": launches,
+            "max_memory_allocated_gb": peak / 1e9}
+        print("http " + json.dumps(stats), flush=True)
+
+        # The greedy prompts as the engine saw them (the chat one
+        # rendered), sent again as one body to the now idle server: its
+        # engine then admits them exactly as generate() does.
+        tok = ByteTokenizer()
+        greedy = [by_rid[k] for k in ("r0", "r2", "r4/0", "r4/1")]
+        submitted.clear()
+        status, _, text, _ = http_call(base, "/v1/completions", {
+            "prompt": [tok.decode(r.prompt_tokens[1:]) for r in greedy],
+            "max_tokens": MAX_TOKENS, "temperature": 0},
+            {"X-Request-Id": "idle"})
+        if status != 200:
+            raise SystemExit(f"idle greedy body: {status} {text}")
+        idle = submitted[:]
+        idle_text = [c["text"] for c in json.loads(text)["choices"]]
+    finally:
+        srv.shutdown()
+        thread.join(timeout=60)
+    del srv, engine, submit_many
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ref_engine = InferenceEngine(cfg, params, max_slots=8, max_seq_len=2048,
+                                 seed=seed)
+    ref = [Request(prompt_tokens=list(r.prompt_tokens),
+                   max_tokens=MAX_TOKENS, eos_id=r.eos_id) for r in greedy]
+    with torch.no_grad():
+        ref_engine.generate(ref)
+    for r, i, t in zip(ref, idle, idle_text):
+        same = (r.output_tokens == i.output_tokens
+                and tok.decode(r.output_tokens) == t)
+        print(f"greedy {i.request_id}: generate {r.output_tokens[:6]}... vs "
+              f"idle server {i.output_tokens[:6]}... -> "
+              f"{'identical' if same else 'DIFFERENT'}", flush=True)
+        if not same:
+            raise SystemExit("the server's greedy tokens differ from "
+                             "InferenceEngine.generate's")
+    # In the concurrent mix the admission grouping (prefill rows, cache
+    # views) follows arrival order, so its greedy answers are held to
+    # generate() up to the first divergence, which must be a near-tie.
+    for r, g in zip(ref, greedy):
+        a, b = r.output_tokens, g.output_tokens
+        j = next((k for k in range(len(a)) if a[k] != b[k]), None)
+        if j is None:
+            print(f"greedy {g.request_id} in the mix: identical", flush=True)
+            continue
+        ctx = list(r.prompt_tokens) + a[:j]
+        with torch.no_grad():
+            plain = prefill_logits(torch, cfg, params, ctx,
+                                   ref_engine._bucket_for(len(ctx)), 2048)
+        top = plain.max().item()
+        gaps = (top - plain[a[j]].item(), top - plain[b[j]].item())
+        ok = max(gaps) < LOGIT_TOL
+        print(f"greedy {g.request_id} in the mix: first differs at token "
+              f"{j} ({a[j]} vs {b[j]}), logit gaps to the max {gaps} -> "
+              f"{'near-tie' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"greedy {g.request_id} in the mix differs "
+                             "from generate() away from a near-tie")
+    return launches
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def entry_point_check(torch, dev, seed, workdir):
+    """Phase 8 (c): the container's entry point against the model
+    mount, at full width, depth ENTRY_LAYERS, bf16."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.transformer import init_params
+    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
+    from runbooks_tpu_torch.train.checkpoint import CheckpointManager
+    from runbooks_tpu_torch.train.data import ByteTokenizer
+
+    overrides = {"num_layers": ENTRY_LAYERS, "param_dtype": "bfloat16"}
+    cfg = get_config("llama3-8b", **overrides)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 8)
+    params = init_params(cfg, gen, dev)
+    # Only byte ids decode to text: the head's other columns are zeroed so
+    # the greedy tokens show in the answer's text.
+    params["head"][:, 256:] = 0
+    content = f"{workdir}/entry_content"
+    t0 = time.perf_counter()
+    CheckpointManager(f"{content}/model").save(
+        1, {"step": 1, "params": params})
+    save_s = time.perf_counter() - t0
+    tok = ByteTokenizer()
+    prompt = tok.decode(smoke_prompts(seed)[3][1:])
+    ref = Request(prompt_tokens=tok.encode(prompt, add_eos=False),
+                  max_tokens=MAX_TOKENS, eos_id=tok.eos_id)
+    with torch.no_grad():
+        InferenceEngine(cfg, params, max_slots=8, max_seq_len=2048,
+                        seed=seed).generate([ref])
+    out_ids = ref.output_tokens[:-1] if ref.output_tokens[-1] == tok.eos_id \
+        else ref.output_tokens
+    want_text = tok.decode(out_ids)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    port = free_port()
+    with open(f"{content}/params.json", "w") as f:
+        json.dump({"model": "llama3-8b", "model_overrides": overrides,
+                   "seed": seed, "port": port, "max_slots": 8,
+                   "max_seq_len": 2048, "drain_timeout_s": ENTRY_DRAIN_S},
+                  f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RBT_CONTENT_DIR=content,
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    log_path = f"{workdir}/entry_point.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "runbooks_tpu_torch.serve.api"],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        ready_s = None
+        while time.perf_counter() - t0 < 120 and proc.poll() is None:
+            try:
+                if http_call(base, "/")[0] == 200:
+                    ready_s = time.perf_counter() - t0
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+        if ready_s is None:
+            raise SystemExit("the entry point was not ready within 120 s")
+        status, _, text, _ = http_call(base, "/v1/completions", {
+            "prompt": prompt, "max_tokens": MAX_TOKENS, "temperature": 0})
+        if status != 200:
+            raise SystemExit(f"entry point completion: {status} {text}")
+        choice = json.loads(text)["choices"][0]
+        usage = json.loads(text)["usage"]["completion_tokens"]
+        same = (choice["text"] == want_text
+                and usage == len(ref.output_tokens)
+                and choice["finish_reason"] == ref.finish_reason)
+        t_term = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=ENTRY_DRAIN_S)
+        exit_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        with open(log_path) as f:
+            log_tail = f.read()[-3000:]
+    restored = "restored params of step 1" in log_tail
+    print(f"entry point: checkpoint of llama3-8b x{ENTRY_LAYERS} layers bf16 "
+          f"saved in {save_s:.1f} s; ready in {ready_s:.1f} s (start, "
+          f"restore, build, warmup); restored from the mount: {restored}; "
+          f"greedy completion ({usage} tokens, {choice['finish_reason']}) "
+          f"{'equals' if same else 'DIFFERS FROM'} this process's decode; "
+          f"SIGTERM -> exit {rc} in {exit_s:.1f} s", flush=True)
+    if not (same and rc == 0 and restored):
+        print(log_tail, flush=True)
+        raise SystemExit("the entry point check failed")
+
+
+def http_phase(torch, dev, seed, workdir):
+    """Phase 8: serving phase 7's fine-tune over HTTP. Returns K1's
+    launches in the HTTP mix."""
+    t0 = time.perf_counter()
+    cfg, merged = fold_check(torch, seed, f"{workdir}/artifacts")
+    launches = serve_http(torch, cfg, merged, seed)
+    del merged
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry_point_check(torch, dev, seed, workdir)
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -952,6 +1352,9 @@ def main():
                 print(f"  ptxas {name} {entry}: {line.strip()}", flush=True)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        # An empty contract root: load_model finds no model mount.
+        os.makedirs(f"{workdir}/content")
+        os.environ["RBT_CONTENT_DIR"] = f"{workdir}/content"
         data_path = f"{workdir}/docs.jsonl"
         write_train_docs(data_path, args.seed)
         batch = first_train_batch(data_path)
@@ -968,6 +1371,9 @@ def main():
         torch.cuda.empty_cache()
         train_launches, summary, peak = train_phase(torch, dev, args.seed,
                                                     data_path, workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        http_launches = http_phase(torch, dev, args.seed, workdir)
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -975,9 +1381,11 @@ def main():
         "route": "cuda",
         "source": "runbooks_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "runbooks_tpu/ops/flash_attention.py:92",
-        "launches": serve_launches + train_launches["flash_fwd"],
+        "launches": (serve_launches + train_launches["flash_fwd"]
+                     + http_launches),
         "launches_by_path": {"serve": serve_launches,
-                             "train": train_launches["flash_fwd"]},
+                             "train": train_launches["flash_fwd"],
+                             "http": http_launches},
         "max_abs_err": worst,
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],

@@ -17,14 +17,19 @@
   step-at-a-time exactly. One host sync per chunk.
 - Sampling takes per-slot temperature/top_k/top_p, so mixed request
   parameters batch together.
+- Admission orders the queue by QoS class (PRIORITY_RANK, FIFO within a
+  class), bounds each class by its share of ``max_queue``, and gives shed
+  requests a load-derived Retry-After hint.
 
 Later slices add the shared-prefix cache, speculation, grammar, the LoRA
-pool, QoS classes, paged KV, quantization, the mesh and the observability
-planes; their knobs are absent here, not ignored.
+pool, preemption, paged KV, quantization, the mesh and the observability
+planes; their knobs are absent here, and requests that need them are
+refused by ``validate``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import time
@@ -42,12 +47,29 @@ from runbooks_tpu_torch.models.transformer import (
     lm_head,
 )
 from runbooks_tpu_torch.ops.sampling import sample
+from runbooks_tpu_torch.utils import cuda_build
 from runbooks_tpu_torch.utils.hw import backend_tuning
+
+# QoS classes, best first: admission orders the queue by class (FIFO
+# within a class). The strings are the public API (the HTTP `priority`
+# field and the X-Priority header).
+PRIORITY_RANK = {"interactive": 0, "standard": 1, "batch": 2}
 
 
 class EngineOverloaded(RuntimeError):
     """Typed admission rejection: the bounded queue is full (an HTTP front
     end maps it to 429 with Retry-After)."""
+
+
+class EngineDraining(EngineOverloaded):
+    """The server is draining (SIGTERM): no new admissions; in-flight
+    requests finish before exit. Maps to HTTP 503."""
+
+
+class EngineStepFailed(RuntimeError):
+    """An engine step raised: the KV cache may be half-written and the
+    slot bookkeeping half-applied, so the engine needs a full reset()
+    before it serves again."""
 
 
 @dataclasses.dataclass
@@ -64,6 +86,14 @@ class Request:
     # and the tokens it has; a queued one finishes empty-handed.
     deadline_s: Optional[float] = None
     request_id: str = ""
+    # Name or path of a LoRA adapter to decode through. Only a pooled
+    # engine serves it (not ported): validate() refuses any non-None.
+    adapter: Optional[str] = None
+    # QoS class (PRIORITY_RANK): orders the admission queue.
+    priority: str = "standard"
+    # Grammar-constrained output; grammar is not ported, so validate()
+    # refuses any non-None.
+    response_format: Optional[dict] = None
     # Filled by the engine:
     output_tokens: List[int] = dataclasses.field(default_factory=list)
     finished: bool = False
@@ -173,7 +203,8 @@ class InferenceEngine:
                  max_slots: int = 8, max_seq_len: Optional[int] = None,
                  seed: int = 0, prefill_budget: Optional[int] = None,
                  decode_chunk: Optional[int] = None,
-                 max_queue: Optional[int] = None):
+                 max_queue: Optional[int] = None,
+                 queue_shares: Optional[dict] = None):
         """params live on the engine's device (CUDA, or the CPU when the
         caller put them there); every tensor the engine makes follows.
 
@@ -182,7 +213,9 @@ class InferenceEngine:
         alone. decode_chunk: decode steps per host round-trip (default 8
         on CUDA, 1 on the CPU). max_queue: bound on waiting requests;
         submit() past it raises EngineOverloaded (default
-        max(16, 4 * max_slots))."""
+        max(16, 4 * max_slots)). queue_shares: {class: share in (0, 1]}
+        bounding the queued requests of each QoS class to that share of
+        max_queue (missing classes: the whole queue)."""
         check_supported(cfg)
         self.cfg = cfg
         self.params = params
@@ -199,13 +232,31 @@ class InferenceEngine:
                                else self.max_seq_len)
         self.max_queue = (max_queue if max_queue is not None
                           else max(16, 4 * max_slots))
-        self.cache = KVCache.create(cfg, max_slots, self.max_seq_len,
-                                    self.device, trash_slot=True)
+        shares = dict(queue_shares or {})
+        for cls, share in shares.items():
+            if cls not in PRIORITY_RANK:
+                raise ValueError(
+                    f"queue_shares: unknown class {cls!r} (expected one "
+                    f"of {sorted(PRIORITY_RANK)})")
+            if not 0.0 < float(share) <= 1.0:
+                raise ValueError(
+                    f"queue_shares[{cls!r}] must be in (0, 1], got "
+                    f"{share}")
+        self.queue_shares = {
+            cls: float(shares.get(cls, 1.0)) for cls in PRIORITY_RANK}
+        self._class_bounds = {
+            cls: max(1, int(np.ceil(self.max_queue * s)))
+            for cls, s in self.queue_shares.items()}
+        self.cache = self._new_cache()
         self.deadline_expired = 0
         self.prefill_dispatches = 0
         # Host seconds inside prefill and decode dispatches, each ending in
         # its host sync; the profiler sees the same spans by these names.
         self.dispatch_seconds = {"prefill": 0.0, "decode": 0.0}
+        # Time to first token (submit to the first sampled token, host
+        # clock) of the latest requests.
+        self.ttft_seconds: collections.deque = collections.deque(
+            maxlen=4096)
         self.lengths = np.zeros(max_slots, np.int32)       # tokens in cache
         self.active = np.zeros(max_slots, bool)
         self.last_token = np.zeros(max_slots, np.int32)
@@ -218,6 +269,10 @@ class InferenceEngine:
         self.steps = 0
         self._prefill = make_prefill_fn(cfg, self.max_seq_len + 1)
         self._decode_fns: dict = {}
+
+    def _new_cache(self) -> KVCache:
+        return KVCache.create(self.cfg, self.max_slots, self.max_seq_len,
+                              self.device, trash_slot=True)
 
     def _decode_for(self, view: int):
         if view not in self._decode_fns:
@@ -259,6 +314,19 @@ class InferenceEngine:
         if bad:
             raise ValueError(f"prompt token ids {bad[:4]} outside the "
                              f"vocabulary [0, {self.cfg.vocab_size})")
+        if req.priority not in PRIORITY_RANK:
+            raise ValueError(
+                f"priority must be one of {sorted(PRIORITY_RANK)}, got "
+                f"{req.priority!r}")
+        if req.adapter is not None:
+            raise ValueError(
+                "this server has no adapter pool (adapter_pool: 0); "
+                "request-level `adapter` needs a pooled engine or a "
+                "dedicated server with the adapter folded at load")
+        if req.response_format is not None:
+            raise ValueError(
+                "this server has grammar-constrained decoding off "
+                "(grammar: off); `response_format` needs grammar: on")
 
     def submit(self, req: Request) -> None:
         self.validate(req)
@@ -266,8 +334,82 @@ class InferenceEngine:
             raise EngineOverloaded(
                 f"admission queue full ({len(self.queue)} waiting, "
                 f"bound {self.max_queue}); retry later")
+        bound = self._class_bounds[req.priority]
+        queued = sum(1 for q in self.queue if q.priority == req.priority)
+        if queued >= bound:
+            # A flood of one class cannot fill the whole queue against
+            # the others.
+            raise EngineOverloaded(
+                f"{req.priority} queue share full ({queued} waiting, "
+                f"class bound {bound} of {self.max_queue}); retry later")
         req._submitted = time.monotonic()
-        self.queue.append(req)
+        self._queue_insert(req)
+
+    def _queue_insert(self, req: Request) -> None:
+        """Behind every queued request of the same or a better class,
+        ahead of strictly worse ones."""
+        rank = PRIORITY_RANK[req.priority]
+        idx = len(self.queue)
+        for i, q in enumerate(self.queue):
+            if PRIORITY_RANK[q.priority] > rank:
+                idx = i
+                break
+        self.queue.insert(idx, req)
+
+    def retry_after_hint(self) -> int:
+        """Retry-After seconds for a shed request: the queue depth in
+        units of slot drains (each freed slot admits one queued request),
+        clamped to [1, 30]."""
+        backlog = len(self.queue)
+        hint = -(-backlog // max(self.max_slots, 1))
+        return int(min(max(hint, 1), 30))
+
+    def reset(self) -> None:
+        """Recover from a failed step: drop every queued and active
+        request and reallocate the cache, which the step may have left
+        half-written."""
+        self.cache = None
+        self.cache = self._new_cache()
+        self.lengths[:] = 0
+        self.active[:] = False
+        self.last_token[:] = 0
+        self.slot_req = [None] * self.max_slots
+        self.queue.clear()
+
+    def warmup(self) -> None:
+        """Build the kernels, then run one prefill per bucket at both row
+        counts (1 and max_slots) and one decode chunk per cache view
+        before traffic, so the first request pays for no kernel build and
+        no first launch. Slot state is reset afterwards; the engine's
+        sampling stream is untouched."""
+        if self.device.type == "cuda":
+            cuda_build.build(["flash_fwd"])
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        t = self._tensor
+        for bucket in self.prefill_buckets:
+            for rows in sorted({1, self.max_slots}):
+                positions = np.full((rows, bucket), self._pad_slot,
+                                    np.int32)
+                positions[:, :2] = [0, 1]
+                first, self.cache = self._prefill(
+                    self.params, self.cache,
+                    t(np.zeros((rows, bucket), np.int32)), t(positions),
+                    [0] * rows, t(np.ones(rows, np.int64)), gen,
+                    t(np.zeros(rows, np.float32)),
+                    t(np.zeros(rows, np.int32)),
+                    t(np.ones(rows, np.float32)))
+        n = self.max_slots
+        idle = np.zeros(n, np.int32)
+        for view in self.view_buckets:
+            first, _, self.cache = self._decode_for(view)(
+                self.params, self.cache, t(idle),
+                t(np.full(n, self._pad_slot, np.int32)), gen,
+                t(np.zeros(n, np.float32)), t(idle),
+                t(np.ones(n, np.float32)), t(np.full(n, -1, np.int32)),
+                t(idle), t(np.zeros(n, bool)))
+        first.cpu()
+        self.reset()
 
     def has_work(self) -> bool:
         return bool(self.queue) or bool(self.active.any())
@@ -355,6 +497,8 @@ class InferenceEngine:
         if req is None:
             raise RuntimeError(f"token recorded for empty slot {slot}")
         req.output_tokens.append(tok)
+        if len(req.output_tokens) == 1:
+            self.ttft_seconds.append(time.monotonic() - req._submitted)
         if req.on_token is not None:
             req.on_token(tok)
         hit_eos = req.eos_id is not None and tok == req.eos_id

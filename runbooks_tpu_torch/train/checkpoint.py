@@ -19,6 +19,8 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from runbooks_tpu_torch.utils.tree import tree_map
+
 STATE_FILE = "state.pt"
 
 
@@ -85,10 +87,12 @@ class CheckpointManager:
         return True
 
     def restore_with_cursor(self, step: Optional[int] = None,
-                            device: Optional[torch.device] = None
-                            ) -> Tuple[Any, dict, int]:
+                            device: Optional[torch.device] = None,
+                            mmap: bool = False) -> Tuple[Any, dict, int]:
         """(state, cursor, step) of ``step``, or of the newest intact step
-        that loads, falling back to older intact steps."""
+        that loads, falling back to older intact steps. ``mmap`` maps the
+        file on the host instead of reading it (``device`` must then be
+        the CPU), so leaves the caller never touches cost no memory."""
         candidates = ([int(step)] if step is not None
                       else sorted(self.intact_steps(), reverse=True))
         if not candidates:
@@ -104,7 +108,7 @@ class CheckpointManager:
             path = os.path.join(self._step_dir(s), STATE_FILE)
             try:
                 state = torch.load(path, map_location=device,
-                                   weights_only=True)
+                                   weights_only=True, mmap=mmap)
             except Exception as exc:  # noqa: BLE001 - corrupt step
                 print(f"checkpoint: step {s} failed to restore ({exc!r}); "
                       "trying the previous one", flush=True)
@@ -113,3 +117,34 @@ class CheckpointManager:
             return state, self.read_cursor(s), s
         raise RuntimeError(f"no checkpoint under {self.directory} could be "
                            f"restored (tried {candidates})") from last_exc
+
+
+def restore_params(directory: str, device: torch.device
+                   ) -> Optional[Tuple[Any, int]]:
+    """(params, step) of the newest intact step under
+    ``{directory}/checkpoints`` with its params on ``device``, or None when
+    that directory is missing or empty (nothing to load). Only the params
+    are read: the file is mapped, so a full fine-tune's optimizer state
+    never reaches host or device memory.
+
+    A ``checkpoints/`` that holds anything else this port cannot read (the
+    reference's orbax steps, saves that were cut off, a state without
+    params) raises: serving random weights behind a healthy server in its
+    place would be silent garbage."""
+    ckpt_dir = os.path.join(directory, "checkpoints")
+    if not os.path.isdir(ckpt_dir) or not os.listdir(ckpt_dir):
+        return None
+    mgr = CheckpointManager(directory)
+    if mgr.latest_intact_step() is None:
+        raise RuntimeError(
+            f"{ckpt_dir} holds {sorted(os.listdir(ckpt_dir))[:8]} but no "
+            f"intact step in this port's layout (<step>/{STATE_FILE} with "
+            f"{CheckpointManager.MARKER}); reading other layouts, such as "
+            "the reference's orbax checkpoints, is not ported")
+    state, _, step = mgr.restore_with_cursor(device=torch.device("cpu"),
+                                             mmap=True)
+    params = state.get("params") if isinstance(state, dict) else None
+    if not isinstance(params, dict):
+        raise RuntimeError(f"checkpoint step {step} under {ckpt_dir} holds "
+                           "no params tree")
+    return tree_map(lambda t: t.to(device, copy=True), params), step

@@ -4,7 +4,9 @@ the operator and a workload (the port's copy of
 
   /content/params.json   run parameters
   /content/data          dataset mount (read-only)
+  /content/model         base or saved model mount (read-only)
   /content/artifacts     output mount (read-write, durable)
+  ports: 8080 (serve), 8888 (notebook)
 
 plus the PARAM_{NAME} environment convention. ``RBT_CONTENT_DIR`` moves
 /content, as in the reference.
@@ -15,6 +17,9 @@ from __future__ import annotations
 import json
 import os
 from typing import Any, Dict, Optional
+
+SERVE_PORT = 8080
+NOTEBOOK_PORT = 8888
 
 # The trainer's exit code after a SIGTERM/SIGINT stop with an emergency
 # checkpoint: the controller's Job policy restarts on it and fails the Job
@@ -32,6 +37,10 @@ def content_path(*parts: str) -> str:
 
 def data_dir() -> str:
     return content_path("data")
+
+
+def model_dir() -> str:
+    return content_path("model")
 
 
 def artifacts_dir() -> str:

@@ -1,11 +1,16 @@
 """Card-only tests of the port's CUDA kernels against their plain PyTorch
-versions. They import neither jax nor runbooks_tpu, so they run on a
-machine without JAX, skipping the JAX-pinning tests/conftest.py:
+versions, and of the HTTP server that serves through them. They import
+neither jax nor runbooks_tpu, so they run on a machine without JAX,
+skipping the JAX-pinning tests/conftest.py:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Without a GPU each test skips (the kernels have no CPU mode).
 """
+
+import json
+import threading
+import urllib.request
 
 import pytest
 import torch
@@ -273,3 +278,48 @@ def test_autograd_function_runs_the_kernels():
                                         do, grad_dtype=torch.float32)
     assert all(a.dtype == torch.bfloat16 for a in got)
     _assert_bwd_close(got, ref)
+
+
+def _post(base, body):
+    req = urllib.request.Request(
+        base + "/v1/completions", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return r.status, r.read().decode()
+
+
+@pytest.mark.cuda
+def test_http_server_serves_through_the_kernel():
+    """The stdlib server on a 2-layer model with head_dim 128: a greedy
+    completion and the same request streamed give the same text, and the
+    prefill went through K1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the kernels have no CPU mode")
+    from runbooks_tpu_torch.serve.api import create_server, load_model
+
+    cfg, params = load_model({"model": "debug", "model_overrides": {
+        "head_dim": 128, "num_layers": 2}, "seed": 0})
+    srv = create_server(cfg, params, host="127.0.0.1", port=0, max_slots=2,
+                        max_seq_len=256, warmup=True)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        launches = flash_attention.launches
+        body = {"prompt": "the kernel serves a token", "max_tokens": 12,
+                "temperature": 0}
+        status, text = _post(base, body)
+        assert status == 200
+        choice = json.loads(text)["choices"][0]
+        assert flash_attention.launches >= launches + cfg.num_layers
+        status, text = _post(base, {**body, "stream": True})
+        assert status == 200
+        events = [ln[6:] for ln in text.split("\n") if ln.startswith("data: ")]
+        assert events[-1] == "[DONE]"
+        chunks = [json.loads(e)["choices"][0] for e in events[:-1]]
+        assert "".join(c["text"] for c in chunks) == choice["text"]
+        assert chunks[-1]["finish_reason"] == choice["finish_reason"]
+    finally:
+        srv.shutdown()
+        thread.join(timeout=60)
+    assert not thread.is_alive()

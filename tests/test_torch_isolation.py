@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no module of runbooks_tpu_torch and
 none of its root scripts imports jax or runbooks_tpu, the package imports
-with both blocked, and its entry points (serving's load_model, training's
-run_training) refuse to fall back to the CPU when no GPU exists and no
-device was named."""
+with both blocked, and its entry points (serving's load_model,
+create_server and main, training's run_training) refuse to fall back to
+the CPU when no GPU exists and no device was named."""
 
 import ast
 import os
@@ -62,15 +62,21 @@ def test_package_imports_with_jax_blocked():
     assert out.stdout.strip() == "ok"
 
 
-def test_entry_points_raise_without_a_gpu(monkeypatch):
-    from runbooks_tpu_torch.serve.api import load_model
+def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
+    from runbooks_tpu_torch.serve.api import create_server, load_model, main
     from runbooks_tpu_torch.utils.hw import resolve_device
 
     from runbooks_tpu_torch.train.trainer import TrainJobConfig, run_training
 
+    cfg, params = load_model({"model": "debug"}, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("RBT_CONTENT_DIR", str(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_model({"model": "debug"})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_server(cfg, params, port=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_training(TrainJobConfig(model="debug", steps=1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -83,9 +89,12 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
 def test_load_model_refuses_what_it_cannot_do():
     from runbooks_tpu_torch.serve.api import load_model
 
-    with pytest.raises(NotImplementedError):
-        load_model({"model": "debug", "checkpoint": "/nonexistent"},
-                   device="cpu")
+    # A checkpoint path with nothing under it takes the seeded init, as
+    # the reference's load_model does.
+    nothing = load_model({"model": "debug", "checkpoint": "/nonexistent",
+                          "seed": 1}, device="cpu")[1]
+    assert torch.equal(nothing["embed"], load_model(
+        {"model": "debug", "seed": 1}, device="cpu")[1]["embed"])
     with pytest.raises(NotImplementedError):
         load_model({"model": "debug", "quantize": "int8"}, device="cpu")
     with pytest.raises(NotImplementedError):
