@@ -10,7 +10,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
 2. Build: every kernel of the serving and training paths from csrc/, in
    parallel.
 3. Forward kernel: K1 against its plain PyTorch version on the card at
-   the shapes the serving path gives it, at head_dim 64, with packed
+   the shapes the serving path gives it (the suffix prefill after a
+   shared prefix among them), at head_dim 64, with packed
    segments (padding rows, boundaries inside tiles) and at the training
    path's shapes (a microbatch of the job's packed rows, and the same
    shape causal without segments), with its time (CUDA events over warm
@@ -56,6 +57,24 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    bf16 checkpoint of llama3-8b cut to 2 layers from the contract's model
    mount, answers one greedy completion exactly as this process decodes
    the saved params, and exits 0 on SIGTERM within its drain timeout.
+9. Import: an HF llama3-8b directory at full width cut to 2 layers, BF16,
+   in two safetensors shards with their index (written here from the
+   seed), goes through ``python -m runbooks_tpu_torch.models.loader``;
+   its model.json, every restored leaf against the source transposed and
+   cast (bit for bit), and the greedy ids of the restored params against
+   params converted in memory, with the import's time, its end-to-end
+   and convert rates, checkpoint size, and the loader's spans (read,
+   convert, save) with its resident and peak host memory after each.
+10. Shared prefix: phase 4's engine (llama3-8b bf16, full width and
+   depth) behind ``create_server(warm_prefix=True)`` takes 8 prompts
+   that extend a 1024-token system prompt as one greedy body, with no
+   prefix registered and again after ``POST /v1/prefix``: every prompt
+   reuses 1024 tokens, K1's kv tiles on the card equal fwd_tile_plan's
+   for every dispatch, the first-token logits of the engine's own
+   prefill dispatches (recorded at each real row, with and without the
+   prefix) are within LOGIT_TOL of a full prefill's, and the greedy ids with
+   and without the prefix agree up to near-ties; TTFT, prefill seconds,
+   K1's launches and peak memory with and without the prefix.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -72,6 +91,7 @@ import os
 import re
 import signal
 import socket
+import struct
 import subprocess
 import sys
 import tempfile
@@ -128,6 +148,16 @@ FOLD_TOL = 1e-6
 HTTP_TIMEOUT = 600
 ENTRY_LAYERS = 2
 ENTRY_DRAIN_S = 30.0
+# Phase 9: the HF directory of llama3-8b is written at full width, cut to
+# IMPORT_LAYERS layers so that it writes in seconds, in BF16 as every
+# llama2/llama3 checkpoint ships.
+IMPORT_LAYERS = 2
+IMPORT_SHARDS = 2
+IMPORT_TIMEOUT_S = 600
+# Phase 10: one registered prefix of PREFIX_LEN tokens (a chat system
+# prompt) and 8 requests that extend it by SUFFIX_LENS tokens.
+PREFIX_LEN = 1024
+SUFFIX_LENS = (16, 40, 90, 120, 200, 400, 700, 900)
 
 
 def card_line():
@@ -196,6 +226,13 @@ def fwd_case_layouts(torch, dev, batch):
     # A 16-token bucket whose queries start mid-cache at position 100.
     cases.append(("rows1_sq16_at100", (1, 16, sk, 32, 8, 128), ar(16, 100),
                   kv_pos, None, None, False, None))
+    # The suffix prefill after a 1024-token shared prefix: 8 rows of 128
+    # suffix tokens at positions 1024-1151 over cache rows that hold the
+    # prefix's K/V (phase 10).
+    cases.append(("rows8_sq128_at1024", (8, 128, sk, 32, 8, 128),
+                  ar(128, PREFIX_LEN, rows=8),
+                  kv_pos.expand(8, sk).contiguous(), None, None, False,
+                  None))
     # MHA (n_rep 1) at head_dim 64, causal with block skip (sq == sk).
     s = 512
     p2 = ar(s, rows=2)
@@ -1179,25 +1216,36 @@ def serve_http(torch, cfg, params, seed):
     # views) follows arrival order, so its greedy answers are held to
     # generate() up to the first divergence, which must be a near-tie.
     for r, g in zip(ref, greedy):
-        a, b = r.output_tokens, g.output_tokens
-        j = next((k for k in range(len(a)) if a[k] != b[k]), None)
-        if j is None:
-            print(f"greedy {g.request_id} in the mix: identical", flush=True)
-            continue
-        ctx = list(r.prompt_tokens) + a[:j]
-        with torch.no_grad():
-            plain = prefill_logits(torch, cfg, params, ctx,
-                                   ref_engine._bucket_for(len(ctx)), 2048)
-        top = plain.max().item()
-        gaps = (top - plain[a[j]].item(), top - plain[b[j]].item())
-        ok = max(gaps) < LOGIT_TOL
-        print(f"greedy {g.request_id} in the mix: first differs at token "
-              f"{j} ({a[j]} vs {b[j]}), logit gaps to the max {gaps} -> "
-              f"{'near-tie' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise SystemExit(f"greedy {g.request_id} in the mix differs "
-                             "from generate() away from a near-tie")
+        near_tie_check(torch, cfg, params, f"greedy {g.request_id} in the "
+                       "mix vs generate()", r.prompt_tokens, r.output_tokens,
+                       g.output_tokens)
     return launches
+
+
+def near_tie_check(torch, cfg, params, name, prompt, a, b):
+    """Greedy ids a and b of one prompt are identical, or differ first at
+    a near-tie: both tokens within LOGIT_TOL of the top logit of a full
+    prefill of the context before them."""
+    from runbooks_tpu_torch.serve.engine import _buckets, bucket_for
+
+    j = next((k for k in range(len(a)) if a[k] != b[k]), None)
+    if j is None and len(a) == len(b):
+        print(f"{name}: identical", flush=True)
+        return
+    if j is None:
+        raise SystemExit(f"{name}: {len(a)} vs {len(b)} tokens")
+    ctx = list(prompt) + a[:j]
+    with torch.no_grad():
+        plain = prefill_logits(torch, cfg, params, ctx,
+                               bucket_for(_buckets(2048), len(ctx)), 2048)
+    top = plain.max().item()
+    gaps = (top - plain[a[j]].item(), top - plain[b[j]].item())
+    ok = max(gaps) < LOGIT_TOL
+    print(f"{name}: first differs at token {j} ({a[j]} vs {b[j]}), logit "
+          f"gaps to the max {gaps} -> {'near-tie' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit(f"{name}: differs away from a near-tie")
 
 
 def free_port():
@@ -1316,6 +1364,425 @@ def http_phase(torch, dev, seed, workdir):
     return launches
 
 
+def write_safetensors(torch, path, tensors):
+    """A minimal safetensors writer (the format's specification: u64
+    little-endian header length, JSON header, raw little-endian buffers):
+    {name: CPU tensor} of F32, F16 or BF16 in the order given, the header
+    padded with spaces to 8 bytes. The package has no writer: HF writes
+    checkpoints, the port only reads them."""
+    names = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(memoryview(t.contiguous().reshape(-1).view(torch.uint8)
+                               .numpy()))
+    return offset
+
+
+def hf_llama_names(cfg):
+    """HF LlamaForCausalLM's tensor names and [out, in] shapes."""
+    h, m, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    shapes = {"model.embed_tokens.weight": (cfg.vocab_size, h)}
+    for i in range(L):
+        pre = f"model.layers.{i}."
+        shapes.update({
+            pre + "self_attn.q_proj.weight": (cfg.q_dim, h),
+            pre + "self_attn.k_proj.weight": (cfg.kv_dim, h),
+            pre + "self_attn.v_proj.weight": (cfg.kv_dim, h),
+            pre + "self_attn.o_proj.weight": (h, cfg.q_dim),
+            pre + "mlp.gate_proj.weight": (m, h),
+            pre + "mlp.up_proj.weight": (m, h),
+            pre + "mlp.down_proj.weight": (h, m),
+            pre + "input_layernorm.weight": (h,),
+            pre + "post_attention_layernorm.weight": (h,)})
+    shapes["model.norm.weight"] = (h,)
+    shapes["lm_head.weight"] = (cfg.vocab_size, h)
+    return shapes
+
+
+def write_hf_llama(torch, dev, cfg, directory, seed, shards):
+    """An HF llama checkpoint directory of ``cfg`` in BF16, drawn on
+    ``dev`` from the seed: ``shards`` safetensors files and their index.
+    Returns ({name: CPU tensor}, bytes of tensor data)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 9)
+    tensors = {}
+    for name, shape in hf_llama_names(cfg).items():
+        if name.endswith("norm.weight"):
+            t = 1 + 0.1 * torch.randn(shape, generator=gen, device=dev)
+        else:
+            t = torch.randn(shape, generator=gen, device=dev) \
+                * shape[-1] ** -0.5
+        tensors[name] = t.to(torch.bfloat16).cpu()
+    os.makedirs(directory, exist_ok=True)
+    names = list(tensors)
+    per = -(-len(names) // shards)
+    weight_map, total = {}, 0
+    for k in range(shards):
+        fname = f"model-{k + 1:05d}-of-{shards:05d}.safetensors"
+        part = {n: tensors[n] for n in names[k * per:(k + 1) * per]}
+        total += write_safetensors(torch, os.path.join(directory, fname),
+                                   part)
+        weight_map.update({n: fname for n in part})
+    with open(os.path.join(directory, "model.safetensors.index.json"),
+              "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    return tensors, total
+
+
+def import_expected(torch, tensors, cfg):
+    """(dotted leaf, layer or None, what that leaf must hold) for every
+    leaf of the port's params: the HF tensor, transposed to [in, out] for
+    the linear layers, in the params' dtype."""
+    pairs = [("embed", None, "model.embed_tokens.weight", False),
+             ("final_norm.scale", None, "model.norm.weight", False),
+             ("head", None, "lm_head.weight", True)]
+    hf = {"attn.wq": "self_attn.q_proj", "attn.wk": "self_attn.k_proj",
+          "attn.wv": "self_attn.v_proj", "attn.wo": "self_attn.o_proj",
+          "mlp.wi_gate": "mlp.gate_proj", "mlp.wi_up": "mlp.up_proj",
+          "mlp.wo": "mlp.down_proj", "ln1.scale": "input_layernorm",
+          "ln2.scale": "post_attention_layernorm"}
+    for leaf, name in hf.items():
+        for i in range(cfg.num_layers):
+            pairs.append((f"layers.{leaf}", i,
+                          f"model.layers.{i}.{name}.weight",
+                          not leaf.endswith("scale")))
+    for leaf, layer, name, transpose in pairs:
+        t = tensors[name]
+        yield leaf, layer, t.T if transpose else t
+
+
+def import_phase(torch, dev, seed, workdir):
+    """Phase 9: an HF llama3-8b directory (full width, IMPORT_LAYERS
+    layers, BF16, sharded) through ``python -m
+    runbooks_tpu_torch.models.loader``; the restored leaves against the
+    source tensors, and greedy ids of the restored params against params
+    converted in memory. Returns K1's launches serving the import."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.convert import convert
+    from runbooks_tpu_torch.models.safetensors_io import load_state_dict
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.api import load_model
+    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
+    from runbooks_tpu_torch.utils.tree import tree_map
+
+    t0 = time.perf_counter()
+    overrides = {"num_layers": IMPORT_LAYERS}
+    cfg = get_config("llama3-8b", **overrides)
+    src = f"{workdir}/hf_llama3_8b"
+    tensors, src_bytes = write_hf_llama(torch, dev, cfg, src, seed,
+                                        IMPORT_SHARDS)
+    write_s = time.perf_counter() - t0
+    content = f"{workdir}/import_content"
+    os.makedirs(content)
+    with open(f"{content}/params.json", "w") as f:
+        json.dump({"model": "llama3-8b", "model_overrides": overrides,
+                   "source": "dir", "dir": src}, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RBT_CONTENT_DIR=content,
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    log_path = f"{workdir}/loader.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "runbooks_tpu_torch.models.loader"],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    killer = threading.Timer(IMPORT_TIMEOUT_S, proc.kill)
+    killer.start()
+    try:
+        # wait4: this child's own peak resident set, not the largest of
+        # every child this process has waited for.
+        _, status, usage = os.wait4(proc.pid, 0)
+    finally:
+        killer.cancel()
+    proc.returncode = os.waitstatus_to_exitcode(status)
+    import_s = time.perf_counter() - t0
+    with open(log_path) as f:
+        log_text = f.read()
+    artifacts = f"{content}/artifacts"
+    ckpt_bytes = os.path.getsize(f"{artifacts}/checkpoints/0/state.pt")
+    with open(f"{artifacts}/model.json") as f:
+        meta = json.load(f)
+    lines = log_text.strip().splitlines()
+    done = json.loads(lines[-1])
+    spans = next((json.loads(ln)["spans"] for ln in reversed(lines)
+                  if ln.startswith('{"spans"')), {})
+    want_meta = {"model": "llama3-8b", "num_params": cfg.num_params,
+                 "vocab_size": cfg.vocab_size, "quantize": "none",
+                 "weight_bytes": 4 * cfg.num_params, "source": "dir"}
+    meta_ok = (proc.returncode == 0 and meta == want_meta
+               and done == {"done": True, **want_meta}
+               and set(spans) == {"start", "read", "convert", "save"})
+    stats = {"layers": IMPORT_LAYERS, "shards": IMPORT_SHARDS,
+             "source_bytes": src_bytes, "write_s": write_s,
+             "import_s": import_s,
+             # Source bytes over the loader's wall time, interpreter start,
+             # imports and the checkpoint write included.
+             "import_gb_per_s_end_to_end": src_bytes / import_s / 1e9,
+             # Source bytes over the convert span alone: the mapped source
+             # paged in, cast and transposed into the stacks.
+             "convert_gb_per_s": (src_bytes / spans["convert"]["s"] / 1e9
+                                  if "convert" in spans else None),
+             "loader_spans": spans,
+             "checkpoint_bytes": ckpt_bytes,
+             "loader_peak_rss_gb": usage.ru_maxrss * 1024 / 1e9,
+             "exit_code": proc.returncode}
+    print("import " + json.dumps(stats), flush=True)
+    if not meta_ok:
+        print(log_text[-3000:], flush=True)
+        raise SystemExit(f"the loader's model.json {meta} or its done line "
+                         f"{done} is not {want_meta}")
+
+    cfg, restored = load_model({"model": "llama3-8b",
+                                "model_overrides": overrides,
+                                "checkpoint": artifacts})
+    n_leaves = n_equal = 0
+    for leaf, layer, want in import_expected(torch, tensors, cfg):
+        got = restored
+        for k in leaf.split("."):
+            got = got[k]
+        if layer is not None:
+            got = got[layer]
+        n_leaves += 1
+        n_equal += int(got.dtype == torch.float32 and torch.equal(
+            got, want.to(dev, torch.float32)))
+    print(f"import: {n_equal} of {n_leaves} restored leaves (per layer) "
+          "equal the BF16 source, transposed and cast to float32, bit for "
+          "bit", flush=True)
+    if n_equal != n_leaves:
+        raise SystemExit("the imported checkpoint differs from its source")
+
+    prompts = smoke_prompts(seed)[:4]
+
+    def greedy(params):
+        reqs = [Request(prompt_tokens=p, max_tokens=MAX_TOKENS)
+                for p in prompts]
+        with torch.no_grad():
+            InferenceEngine(cfg, params, max_slots=8, max_seq_len=2048,
+                            seed=seed).generate(reqs)
+        return [r.output_tokens for r in reqs]
+
+    flash_attention.launches = 0
+    got = greedy(restored)
+    launches = flash_attention.launches
+    del restored
+    in_memory = tree_map(lambda t: t.to(dev), convert(
+        cfg, load_state_dict(src), cfg.param_dtype))
+    want = greedy(in_memory)
+    del in_memory, tensors
+    same = got == want
+    print(f"import: greedy ids of {len(prompts)} prompts from the restored "
+          f"checkpoint {'equal' if same else 'DIFFER FROM'} those of the "
+          f"params converted in memory ({got[0][:6]}...); K1 launches "
+          f"{launches}", flush=True)
+    if not same or launches < 1:
+        raise SystemExit("serving the import failed")
+    return launches
+
+
+def prefix_prompts(seed):
+    """(prefix text, prompt texts): a PREFIX_LEN-token system prompt
+    (ByteTokenizer: BOS and one token per byte) and 8 prompts that extend
+    it by SUFFIX_LENS tokens of seeded word text."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 10)
+    words = ["you", "are", "a", "helpful", "assistant", "answer", "briefly",
+             "cite", "the", "kernel", "cache", "prefix", "tokens", "hopper"]
+
+    def text(n):
+        return " ".join(rng.choice(words, size=n))[:n]
+
+    prefix = text(PREFIX_LEN - 1)
+    return prefix, [prefix + text(n) for n in SUFFIX_LENS]
+
+
+def prefix_phase(torch, seed):
+    """Phase 10: the serving cell's engine (llama3-8b bf16, full width
+    and depth) behind create_server(warm_prefix=True); 8 prompts that
+    extend a PREFIX_LEN-token system prompt, as one greedy body, first with
+    no prefix registered, then after POST /v1/prefix. The engine's own
+    prefill dispatches are recorded: each real row's first-token logits
+    are held to a full prefill of its prompt. Returns K1's launches:
+    (registration, with the prefix, without it)."""
+    from runbooks_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        fwd_tile_counts,
+    )
+    from runbooks_tpu_torch.serve.api import create_server, load_model
+    from runbooks_tpu_torch.serve.engine import bucket_for
+    from runbooks_tpu_torch.train.data import ByteTokenizer
+
+    cfg, params = load_model({"model": "llama3-8b",
+                              "model_overrides": {"param_dtype": "bfloat16"},
+                              "seed": seed})
+    tok = ByteTokenizer()
+    prefix_text, texts = prefix_prompts(seed)
+    prefix_ids = tok.encode(prefix_text, add_eos=False)
+    prompts = [tok.encode(t, add_eos=False) for t in texts]
+    if len(prefix_ids) != PREFIX_LEN or not all(
+            p[:PREFIX_LEN] == prefix_ids for p in prompts):
+        raise SystemExit("the prefix prompts do not extend the prefix")
+    t0 = time.perf_counter()
+    srv = create_server(cfg, params, host="127.0.0.1", port=0, max_slots=8,
+                        max_seq_len=2048, warmup=True, warm_prefix=True)
+    ready_s = time.perf_counter() - t0
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    engine = srv.worker.engine
+    submitted = []
+    submit_many = srv.worker.submit_many
+
+    def recording_submit_many(reqs):
+        submitted.extend(reqs)
+        return submit_many(reqs)
+
+    srv.worker.submit_many = recording_submit_many
+    dispatch_pos = []
+    # Per mix: {prompt index: the engine's first-token logits}.
+    first_logits = {}
+    prefill = engine._prefill
+
+    def recording_prefill(params_, pool, tokens, positions, slots, last_pos,
+                          *args, **kw):
+        dispatch_pos.append(positions.clone())
+        first, pool, logits = prefill(params_, pool, tokens, positions,
+                                      slots, last_pos, *args, **kw)
+        prefix = kw.get("prefix")
+        plen = prefix[0].shape[1] if prefix is not None else 0
+        toks, pos0 = tokens.tolist(), positions[:, 0].tolist()
+        for r, m in enumerate(x + 1 for x in last_pos.tolist()):
+            if pos0[r] == engine._pad_slot:
+                continue    # a padding row
+            # The row's prompt: the registered prefix (when spliced) and
+            # the row's m real tokens.
+            row = (prefix_ids[:plen] if plen else []) + toks[r][:m]
+            first_logits[prompts.index(row)] = logits[r].float().clone()
+        return first, pool, logits
+
+    engine._prefill = recording_prefill
+    body = {"prompt": texts, "max_tokens": MAX_TOKENS, "temperature": 0}
+
+    def mix(name):
+        submitted.clear()
+        dispatch_pos.clear()
+        first_logits.clear()
+        engine.ttft_seconds.clear()
+        prefill0 = engine.dispatch_seconds["prefill"]
+        decode0 = engine.dispatch_seconds["decode"]
+        reused0 = engine.prefix_tokens_reused
+        fwd_tile_counts()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        t_mix = time.perf_counter()
+        status, _, text, _ = http_call(base, "/v1/completions", body,
+                                       {"X-Request-Id": name})
+        wall = time.perf_counter() - t_mix
+        launches = flash_attention.launches
+        card_tiles = fwd_tile_counts()[0]
+        if status != 200 or not all(
+                c["finish_reason"] == "length"
+                for c in json.loads(text)["choices"]):
+            raise SystemExit(f"prefix mix {name}: {status} {text[:300]}")
+        ttft = sorted(engine.ttft_seconds)
+        predicted = sum(
+            cfg.num_layers * cfg.num_heads * tile_counts(
+                torch, pos, torch.arange(
+                    2049, dtype=torch.int32, device=pos.device)[None].expand(
+                        pos.shape[0], 2049), None, None, False)[0]
+            for pos in dispatch_pos)
+        return {"wall_s": wall, "ttft_s_median": ttft[len(ttft) // 2],
+                "ttft_s_max": ttft[-1],
+                "prefill_s": engine.dispatch_seconds["prefill"] - prefill0,
+                "decode_s": engine.dispatch_seconds["decode"] - decode0,
+                "prefill_dispatches": len(dispatch_pos),
+                "prefill_query_rows": [list(p.shape) for p in dispatch_pos],
+                "flash_fwd_launches": launches,
+                "kv_tiles_card": card_tiles, "kv_tiles_predicted": predicted,
+                "prefix_tokens_reused":
+                    engine.prefix_tokens_reused - reused0,
+                "max_memory_allocated_gb":
+                    torch.cuda.max_memory_allocated() / 1e9}, \
+            [list(r.output_tokens) for r in submitted], dict(first_logits)
+
+    try:
+        off, off_ids, off_logits = mix("no_prefix")
+        flash_attention.launches = 0
+        t_reg = time.perf_counter()
+        status, _, text, _ = http_call(base, "/v1/prefix",
+                                       {"prompt": prefix_text})
+        register_s = time.perf_counter() - t_reg
+        build_launches = flash_attention.launches
+        if status != 200 or json.loads(text) != {
+                "cached_prefix_len": PREFIX_LEN}:
+            raise SystemExit(f"/v1/prefix answered {status} {text}")
+        on, on_ids, on_logits = mix("prefix")
+        key = tuple(prefix_ids)
+        pk, pv = engine._prefix_cache[key]
+        hits = (engine.prefix_lookups, engine.prefix_hits)
+    finally:
+        srv.shutdown()
+        thread.join(timeout=60)
+    stats = {"ready_s": ready_s, "register_s": register_s,
+             "register_flash_fwd_launches": build_launches,
+             "prefix_kv_bytes": 2 * pk.numel() * pk.element_size(),
+             "lookups_hits": hits, "without_prefix": off,
+             "with_prefix": on}
+    print("prefix " + json.dumps(stats), flush=True)
+    ok = (on["prefix_tokens_reused"] == len(prompts) * PREFIX_LEN
+          and off["prefix_tokens_reused"] == 0
+          and hits == (2 * len(prompts), len(prompts))
+          and on["kv_tiles_card"] == on["kv_tiles_predicted"]
+          and off["kv_tiles_card"] == off["kv_tiles_predicted"]
+          and min(on["flash_fwd_launches"], off["flash_fwd_launches"],
+                  build_launches) >= cfg.num_layers)
+    print(f"prefix: reused {on['prefix_tokens_reused']} tokens (want "
+          f"{len(prompts)} x {PREFIX_LEN}); K1 kv tiles on the card "
+          f"{on['kv_tiles_card']} / {off['kv_tiles_card']} vs fwd_tile_plan "
+          f"{on['kv_tiles_predicted']} / {off['kv_tiles_predicted']} (with "
+          f"/ without) -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("the shared-prefix path failed its counts")
+    # The first token: the engine's own prefill logits, with the prefix
+    # spliced and without it, against a one-row full prefill; then the
+    # greedy ids with and without the prefix.
+    for name, got in (("with", on_logits), ("without", off_logits)):
+        if sorted(got) != list(range(len(prompts))):
+            raise SystemExit(f"the engine's prefills {name} the prefix "
+                             f"covered prompts {sorted(got)}")
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            full = prefill_logits(torch, cfg, params, p,
+                                  bucket_for(engine.prefill_buckets, len(p)),
+                                  2048).float()
+            for name, got in (("with", on_logits), ("without", off_logits)):
+                gap_check(f"prefix prompt {i} ({len(p)} tokens): the "
+                          f"engine's first-token logits {name} the prefix "
+                          "vs a full prefill", got[i], full)
+    for i, p in enumerate(prompts):
+        near_tie_check(torch, cfg, params, f"prefix prompt {i}: greedy ids "
+                       "with vs without the prefix", p, off_ids[i],
+                       on_ids[i])
+    del srv, engine, params, pk, pv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return build_launches, on["flash_fwd_launches"], \
+        off["flash_fwd_launches"]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1374,6 +1841,16 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
         http_launches = http_phase(torch, dev, args.seed, workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        import_launches = import_phase(torch, dev, args.seed, workdir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        build_launches, prefix_launches, no_prefix_launches = prefix_phase(
+            torch, args.seed)
+        print(f"phases 9 and 10 took {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -1382,10 +1859,15 @@ def main():
         "source": "runbooks_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "runbooks_tpu/ops/flash_attention.py:92",
         "launches": (serve_launches + train_launches["flash_fwd"]
-                     + http_launches),
+                     + http_launches + import_launches + build_launches
+                     + prefix_launches + no_prefix_launches),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
-                             "http": http_launches},
+                             "http": http_launches,
+                             "import": import_launches,
+                             "prefix_register": build_launches,
+                             "prefix": prefix_launches,
+                             "prefix_off": no_prefix_launches},
         "max_abs_err": worst,
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1395,6 +1877,10 @@ def main():
         "bound_ms_with_padding": main_case["bound_ms_with_padding"],
         "shape": main_case["shape"],
     }]
+    suffix = records["rows8_sq128_at1024"]
+    kernels[0]["suffix_shape"] = {
+        k: suffix[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms", "shape")}
     fwd_train = records["a_packed_2x2048"]
     kernels[0]["train_shape"] = {
         "ms": fwd_train["ms"],

@@ -1,0 +1,151 @@
+"""Model-loader workload: import weights into the artifact store (the port
+of ``runbooks_tpu.models.loader``). Runs under the container contract:
+
+  params.json: {"model": "<config name>", "model_overrides": {...},
+                "source": "huggingface" | "dir" | "random",
+                "hf_name": "meta-llama/Meta-Llama-3-8B",  # huggingface
+                "dir": "/content/model",                  # dir
+                "seed": 0}                                # random
+
+Writes the port's checkpoint ``{"params": ...}`` at step 0 under
+``/content/artifacts`` (train/checkpoint.py) plus ``model.json``, which
+``serve.api.load_model`` and the trainer restore from the model mount.
+
+Run: ``python -m runbooks_tpu_torch.models.loader``. It runs on CUDA
+unless the caller names another device and raises when no GPU exists; a
+random init is drawn on that device, an HF checkpoint is converted on the
+host. Before the reference's ``{"done": true, ...}`` line it prints one
+``{"spans": ...}`` line: each stage's seconds and the process's resident
+and peak resident host memory at its end (start: before the import;
+read: map the source files;
+convert: page the source in and cast it into the stacks; save: write the
+checkpoint).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import resource
+import time
+from typing import Any, Optional, Tuple, Union
+
+import torch
+
+from runbooks_tpu_torch.models.config import ModelConfig, get_config
+from runbooks_tpu_torch.models.convert import QUANTIZE_MODES, convert
+from runbooks_tpu_torch.models.safetensors_io import load_state_dict
+from runbooks_tpu_torch.models.transformer import init_params
+from runbooks_tpu_torch.train.checkpoint import CheckpointManager
+from runbooks_tpu_torch.utils import contract
+from runbooks_tpu_torch.utils.hw import resolve_device
+from runbooks_tpu_torch.utils.tree import tree_leaves
+
+# What an HF snapshot needs for an import (the reference's patterns).
+HF_PATTERNS = ["*.safetensors", "*.bin", "*.json", "tokenizer*"]
+
+
+def resolve_quantize_mode(params_cfg: dict, cfg: ModelConfig) -> str:
+    """The params value, else the config's field, else "none"; anything
+    outside QUANTIZE_MODES raises (the reference's rule)."""
+    mode = str(params_cfg.get("quantize", cfg.quantize) or "none")
+    if mode not in QUANTIZE_MODES:
+        raise ValueError(f"unknown quantize mode {mode!r}; expected one of "
+                         f"{'|'.join(QUANTIZE_MODES)}")
+    return mode
+
+
+def _rss_gb() -> Tuple[float, float]:
+    """(resident, peak resident) host memory of this process, GB."""
+    try:
+        with open("/proc/self/statm") as f:
+            rss = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    except OSError:
+        rss = 0
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    return rss / 1e9, peak / 1e9
+
+
+def _mark(spans: Optional[dict], name: str, t0: float) -> float:
+    """Record span ``name`` (seconds since t0, memory now); returns now."""
+    now = time.perf_counter()
+    if spans is not None:
+        rss, peak = _rss_gb()
+        spans[name] = {"s": now - t0, "rss_gb": rss, "peak_rss_gb": peak}
+    return now
+
+
+def load_weights(params_cfg: dict,
+                 device: Optional[Union[str, torch.device]] = None,
+                 spans: Optional[dict] = None
+                 ) -> Tuple[ModelConfig, Any]:
+    """(cfg, params) of the import ``params_cfg`` describes. Weight
+    quantization is not ported: any mode but "none" raises by name.
+    ``spans``, when given, receives the read and convert stages."""
+    dev = resolve_device(device)
+    cfg = get_config(params_cfg.get("model", "debug"),
+                     **params_cfg.get("model_overrides", {}))
+    quantize = resolve_quantize_mode(params_cfg, cfg)
+    if quantize != "none":
+        raise NotImplementedError(
+            f"weight quantization ({quantize!r}) is not ported yet")
+    # The resolved mode wins over an override (model.json reports it).
+    cfg = dataclasses.replace(cfg, quantize=quantize)
+    source = params_cfg.get("source", "random")
+    t0 = time.perf_counter()
+    if source == "huggingface":
+        hf_name = params_cfg["hf_name"]
+        try:
+            from huggingface_hub import snapshot_download
+        except ImportError as exc:
+            raise RuntimeError(
+                "source: huggingface needs the huggingface_hub package, "
+                "which is not installed; download the checkpoint and use "
+                "source: dir") from exc
+        local_dir = snapshot_download(hf_name, allow_patterns=HF_PATTERNS)
+        sd = load_state_dict(local_dir)
+        t0 = _mark(spans, "read", t0)
+        weights = convert(cfg, sd, cfg.param_dtype)
+        _mark(spans, "convert", t0)
+    elif source == "dir":
+        sd = load_state_dict(params_cfg.get("dir", contract.model_dir()))
+        t0 = _mark(spans, "read", t0)
+        weights = convert(cfg, sd, cfg.param_dtype)
+        _mark(spans, "convert", t0)
+    elif source == "random":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(params_cfg.get("seed", 0)))
+        weights = init_params(cfg, gen, dev)
+    else:
+        raise ValueError(f"unknown source {source!r}")
+    return cfg, weights
+
+
+def main(device: Optional[Union[str, torch.device]] = None) -> int:
+    params_cfg = contract.load_params()
+    spans: dict = {}
+    _mark(spans, "start", time.perf_counter())
+    cfg, weights = load_weights(params_cfg, device, spans)
+    artifacts = params_cfg.get("artifacts_dir") or contract.artifacts_dir()
+    os.makedirs(artifacts, exist_ok=True)
+    t0 = time.perf_counter()
+    CheckpointManager(artifacts).save(0, {"params": weights}, force=True)
+    _mark(spans, "save", t0)
+    leaves = list(tree_leaves(weights))
+    meta = {"model": cfg.name,
+            "num_params": sum(t.numel() for t in leaves),
+            "vocab_size": cfg.vocab_size,
+            "quantize": cfg.quantize,
+            "weight_bytes": sum(t.numel() * t.element_size()
+                                for t in leaves),
+            "source": params_cfg.get("source", "random")}
+    with open(os.path.join(artifacts, "model.json"), "w") as f:
+        json.dump(meta, f, indent=2)
+    print(json.dumps({"spans": spans}), flush=True)
+    print(json.dumps({"done": True, **meta}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

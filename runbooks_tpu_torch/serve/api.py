@@ -3,18 +3,18 @@
 
 The surface a Server resource expects of its container: readiness at
 ``GET /`` on port 8080, ``/v1/completions`` and ``/v1/chat/completions``
-(``"stream": true`` answers with server-sent events), and weights from the
-contract's model mount. One worker thread owns the dense InferenceEngine
-and makes every device call; HTTP handler threads (the standard library's
-``ThreadingHTTPServer``) only parse, enqueue and wait.
+(``"stream": true`` answers with server-sent events), ``/v1/prefix`` to
+register a shared prompt prefix, and weights from the contract's model
+mount. One worker thread owns the dense InferenceEngine and makes every
+device call, prefix registrations included; HTTP handler threads (the
+standard library's ``ThreadingHTTPServer``) only parse, enqueue and wait.
 
 Run: ``python -m runbooks_tpu_torch.serve.api`` (reads
 ``{RBT_CONTENT_DIR}/params.json``: model, model_overrides, seed,
 checkpoint, adapter, port, tokenizer and the engine knobs), or build one
-with ``create_server``. Features the port has not ported yet (the
-shared-prefix cache, speculation, grammar, paging, the adapter pool,
-quantization, the mesh, ``/metrics`` and ``/debug/*``) are refused by
-name rather than ignored.
+with ``create_server``. Features the port has not ported yet
+(speculation, grammar, paging, the adapter pool, quantization, the mesh,
+``/metrics`` and ``/debug/*``) are refused by name rather than ignored.
 """
 
 from __future__ import annotations
@@ -70,6 +70,8 @@ Reply = Tuple[int, dict, Dict[str, str]]
 
 
 def _encode(tok, text: str) -> list:
+    """One tokenize path for completions and prefix registration: they
+    must agree exactly, or registered prefixes never match prompts."""
     ids = tok.encode(text, add_bos=True, add_eos=False) \
         if hasattr(tok, "bos_id") else tok.encode(text)
     return list(ids)
@@ -204,15 +206,22 @@ def _check_params_fit(cfg: ModelConfig, params: Any, where: str) -> None:
 # The engine worker
 # ---------------------------------------------------------------------------
 
+class WorkerStopped(RuntimeError):
+    """The engine worker stopped before it ran this job. Maps to HTTP
+    503; a failure of the job itself is an engine failure (500)."""
+
+
 class EngineWorker:
     """The one thread that owns the engine: it runs warmup, admits
-    requests, steps the decode loop and resolves the futures of finished
-    requests. HTTP threads only call submit_many, drain and stop."""
+    requests, registers prefixes, steps the decode loop and resolves the
+    futures of finished requests. HTTP threads only call submit_many,
+    register_prefix, drain and stop."""
 
     def __init__(self, engine: InferenceEngine, warmup: bool = False):
         self.engine = engine
         self._pending: List[Tuple[Request, Future]] = []   # guarded-by: _lock
         self._inflight: List[Tuple[Request, Future]] = []  # guarded-by: _lock
+        self._prefix_jobs: List[Tuple[list, Future]] = []  # guarded-by: _lock
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = False
@@ -253,6 +262,22 @@ class EngineWorker:
         self._wake.set()
         return futs
 
+    def register_prefix(self, tokens: list) -> Future:
+        """Queue a shared prompt prefix for registration on the worker
+        thread (the engine is single-threaded: registering from a handler
+        thread would race the step loop). Resolves to the cached
+        length."""
+        fut: Future = Future()
+        with self._lock:
+            if self._stop:
+                # stop() has failed the queued jobs, or is about to: a job
+                # queued now would never run.
+                fut.set_exception(WorkerStopped("engine worker stopped"))
+                return fut
+            self._prefix_jobs.append((tokens, fut))
+        self._wake.set()
+        return fut
+
     def _run(self) -> None:
         if self.engine.device.type == "cuda":
             torch.cuda.set_device(self.engine.device)
@@ -274,6 +299,7 @@ class EngineWorker:
 
     def _tick(self) -> None:
         with self._lock:
+            prefix_jobs, self._prefix_jobs = self._prefix_jobs, []
             for req, fut in self._pending:
                 try:
                     self.engine.submit(req)
@@ -284,6 +310,13 @@ class EngineWorker:
                     continue
                 self._inflight.append((req, fut))
             self._pending.clear()
+        for tokens, fut in prefix_jobs:
+            # A prefix build writes only tensors of its own, never the pool:
+            # a failed registration fails its job alone.
+            try:
+                fut.set_result(self.engine.register_prefix(tokens))
+            except Exception as exc:  # noqa: BLE001 - the job's own error
+                fut.set_exception(exc)
         if not self.engine.has_work():
             self._wake.wait(timeout=0.05)
             self._wake.clear()
@@ -295,18 +328,29 @@ class EngineWorker:
                 self._inflight = [(r, f) for r, f in self._inflight
                                   if not r.finished]
         for req, fut in done:
+            if req.auto_prefix and req._slot >= 0 and req.adapter is None:
+                # Multi-turn chat: lift the prompt's K/V out of the slot
+                # before the next admission (at the next step) can reuse
+                # it. Adapter requests never seed the cache: their K/V
+                # came through the adapter's deltas.
+                try:
+                    self.engine.register_prefix_from_slot(
+                        req._slot, req.prompt_tokens)
+                except Exception as exc:  # noqa: BLE001 - best effort
+                    print(f"serve: auto-prefix registration failed: "
+                          f"{exc!r}", flush=True)
             fut.set_result(req)
 
     def _contain(self, exc: Exception) -> None:
-        """Fail every waiting request with the error (a hanging future
-        would wedge its HTTP handler), then reset the engine so later
-        requests get a clean one."""
+        """Fail every waiting request and queued prefix job with the error
+        (a hanging future would wedge its HTTP handler), then reset the
+        engine so later requests get a clean one."""
         print("serve: engine step failed; failing every waiting request "
               "and resetting the engine:\n" + traceback.format_exc(),
               flush=True)
         with self._lock:
-            doomed = self._inflight + self._pending
-            self._inflight, self._pending = [], []
+            doomed = self._inflight + self._pending + self._prefix_jobs
+            self._inflight, self._pending, self._prefix_jobs = [], [], []
         for _, fut in doomed:
             if not fut.done():
                 fut.set_exception(exc)
@@ -333,11 +377,11 @@ class EngineWorker:
         self._wake.set()
         self._thread.join(timeout=30)
         with self._lock:
-            doomed = self._inflight + self._pending
-            self._inflight, self._pending = [], []
+            doomed = self._inflight + self._pending + self._prefix_jobs
+            self._inflight, self._pending, self._prefix_jobs = [], [], []
         for _, fut in doomed:
             if not fut.done():
-                fut.set_exception(RuntimeError("engine worker stopped"))
+                fut.set_exception(WorkerStopped("engine worker stopped"))
 
 
 # ---------------------------------------------------------------------------
@@ -354,12 +398,14 @@ class _Api:
     reference's JSON and SSE answers."""
 
     def __init__(self, worker: EngineWorker, tokenizer, model_name: str,
-                 request_timeout_s: Optional[float]):
+                 request_timeout_s: Optional[float],
+                 auto_prefix_chat: bool = False):
         self.worker = worker
         self.tokenizer = tokenizer
         self.eos = _eos_id(tokenizer)
         self.model_name = model_name
         self.request_timeout_s = request_timeout_s
+        self.auto_prefix_chat = auto_prefix_chat
         self.started = time.time()
 
     def readiness(self) -> Reply:
@@ -424,6 +470,39 @@ class _Api:
             eos_id=self.eos, deadline_s=deadline, adapter=adapter,
             priority=priority.lower(), response_format=response_format)
             for p in prompts], None
+
+    def register_prefix(self, body: dict) -> Reply:
+        """Register a shared prompt prefix (a deployment's chat system
+        prompt) so that later requests starting with it prefill only their
+        suffix. Body: {"prompt": "..."} (tokenized like /v1/completions)
+        or {"tokens": [...]}. Answers {"cached_prefix_len": n} (0: too
+        short to cache)."""
+        tokens = body.get("tokens")
+        if tokens is None:
+            prompt = body.get("prompt")
+            if not isinstance(prompt, str):
+                return _error(400, "provide prompt (string) or tokens "
+                                   "(list of ints)")
+            tokens = _encode(self.tokenizer, prompt)
+        if not (isinstance(tokens, list)
+                and all(isinstance(t, int) for t in tokens)):
+            return _error(400, "tokens must be a list of ints")
+        vocab = self.worker.engine.cfg.vocab_size
+        bad = [t for t in tokens if not 0 <= t < vocab]
+        if bad:
+            # An id past the embedding would fault the device.
+            return _error(400, f"token ids {bad[:4]} outside the "
+                               f"vocabulary [0, {vocab})")
+        fut = self.worker.register_prefix(tokens)
+        try:
+            plen = fut.result(timeout=_GENERATION_TIMEOUT_S)
+        except TimeoutError:
+            return _error(504, "prefix registration timed out")
+        except WorkerStopped as exc:
+            return _error(503, str(exc))
+        except Exception as exc:  # noqa: BLE001 - answered, not raised
+            return _error(500, f"prefix registration failed: {exc}")
+        return 200, {"cached_prefix_len": plen}, {}
 
     def submit(self, reqs: List[Request]
                ) -> Tuple[Optional[List[Future]], Optional[Reply]]:
@@ -638,10 +717,7 @@ def _make_handler(api: _Api):
             if body is None:
                 return
             if path == "/v1/prefix":
-                self._send(_error(
-                    501, "the shared-prefix cache (/v1/prefix) is not "
-                         "ported to this server yet",
-                    type="not_implemented"))
+                self._send(api.register_prefix(body))
                 return
             chat = path == "/v1/chat/completions"
             if chat:
@@ -690,6 +766,9 @@ def _make_handler(api: _Api):
             rid = scope[0]
             for i, r in enumerate(reqs):
                 r.request_id = rid if len(reqs) == 1 else f"{rid}/{i}"
+                # Multi-turn chat: this turn's prompt K/V becomes the next
+                # turn's prefix (the rendered history extends it).
+                r.auto_prefix = api.auto_prefix_chat and chat
             if body.get("stream"):
                 err = api.stream(reqs, chat, self._sse_writer(scope))
                 if err is not None:
@@ -781,7 +860,10 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
                   max_queue: Optional[int] = None,
                   request_timeout_s: Optional[float] = None,
                   drain_timeout_s: float = 30.0,
-                  queue_shares: Optional[dict] = None) -> Server:
+                  queue_shares: Optional[dict] = None,
+                  warm_prefix: bool = False,
+                  auto_prefix_chat: bool = False,
+                  prefix_cache_size: Optional[int] = None) -> Server:
     """An HTTP server bound to (host, port; 0 picks a free port) over a
     dense InferenceEngine on ``device`` (CUDA unless the caller names
     another; params move there). With ``warmup`` the worker builds the
@@ -793,7 +875,15 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
     request_timeout_s is the default per-request deadline (the body's
     "timeout" overrides it; 0/None = none); drain_timeout_s bounds the
     graceful drain of ``Server.shutdown``; queue_shares bounds each QoS
-    class's share of the queue."""
+    class's share of the queue.
+
+    Shared prefixes: warm_prefix is accepted for parity with the
+    reference and adds nothing to ``warmup``: eager PyTorch has no
+    compile to hoist, and the prefix build and the suffix prefill launch
+    the shapes warmup already runs (so with warmup, a /v1/prefix
+    registration under traffic pays no first launch). auto_prefix_chat registers each finished
+    chat turn's prompt K/V from its slot, so the next turn prefills only
+    what it adds. prefix_cache_size bounds the prefixes kept (LRU)."""
     dev = resolve_device(device)
     model_params = tree_map(lambda t: t.to(dev), model_params)
     tokenizer = tokenizer or load_tokenizer(None)
@@ -801,13 +891,15 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
                              max_seq_len=max_seq_len,
                              prefill_budget=prefill_budget,
                              decode_chunk=decode_chunk, max_queue=max_queue,
-                             queue_shares=queue_shares)
+                             queue_shares=queue_shares,
+                             prefix_cache_size=prefix_cache_size)
     worker = EngineWorker(engine, warmup=warmup)
     worker.ready.wait()
     if worker.warmup_error is not None:
         raise RuntimeError("serve: engine warmup failed") \
             from worker.warmup_error
-    api = _Api(worker, tokenizer, cfg.name, request_timeout_s or None)
+    api = _Api(worker, tokenizer, cfg.name, request_timeout_s or None,
+               auto_prefix_chat)
     try:
         httpd = _HTTPServer((host, port), _make_handler(api))
     except OSError:
@@ -838,9 +930,6 @@ def refuse_unported(params: dict) -> None:
         bad.append("grammar: on")
     if on("adapter_pool", "adapterPool", "adapterpool"):
         bad.append("adapter_pool")
-    for key in ("auto_prefix_chat", "warm_prefix", "prefix_cache_size"):
-        if on(key):
-            bad.append(key)
     if str(params.get("preemption", "off")).lower() == "swap":
         bad.append("preemption: swap")
     if on("kv_host_pages", "kvHostPages", "kvhostpages"):
@@ -849,9 +938,9 @@ def refuse_unported(params: dict) -> None:
             if k.startswith("mesh_") and int(v) > 1]
     if bad:
         raise NotImplementedError(
-            f"params {bad}: not ported to this server yet (the shared-"
-            "prefix cache, speculation, grammar, paging, preemption, the "
-            "adapter pool and the mesh wait for later work)")
+            f"params {bad}: not ported to this server yet (speculation, "
+            "grammar, paging, preemption, the adapter pool and the mesh "
+            "wait for later work)")
 
 
 def main() -> int:
@@ -880,7 +969,10 @@ def main() -> int:
         max_queue=opt("max_queue", int),
         request_timeout_s=opt("request_timeout_s", float),
         drain_timeout_s=float(params.get("drain_timeout_s", 30.0)),
-        queue_shares=queue_shares or None)
+        queue_shares=queue_shares or None,
+        warm_prefix=bool(params.get("warm_prefix", False)),
+        auto_prefix_chat=bool(params.get("auto_prefix_chat", False)),
+        prefix_cache_size=opt("prefix_cache_size", int))
     stopper: List[threading.Thread] = []
 
     def on_signal(signum, frame):

@@ -20,11 +20,14 @@
 - Admission orders the queue by QoS class (PRIORITY_RANK, FIFO within a
   class), bounds each class by its share of ``max_queue``, and gives shed
   requests a load-derived Retry-After hint.
+- Shared-prefix cache: registered prompt prefixes (chat system prompts)
+  keep their per-layer K/V on the device in an LRU; an admission whose
+  prompt starts with one prefills only its suffix, at positions from the
+  prefix's length, over scratch rows that hold the prefix's K/V.
 
-Later slices add the shared-prefix cache, speculation, grammar, the LoRA
-pool, preemption, paged KV, quantization, the mesh and the observability
-planes; their knobs are absent here, and requests that need them are
-refused by ``validate``.
+Later slices add speculation, grammar, the LoRA pool, preemption, paged
+KV, quantization, the mesh and the observability planes; their knobs are
+absent here, and requests that need them are refused by ``validate``.
 """
 
 from __future__ import annotations
@@ -81,6 +84,10 @@ class Request:
     top_k: int = 0
     top_p: float = 1.0
     eos_id: Optional[int] = None
+    # Multi-turn hint: once this request finishes, the serving worker
+    # registers its prompt's K/V as a shared prefix straight from the slot
+    # (the next turn's prompt extends this one). No effect in the engine.
+    auto_prefix: bool = False
     # Wall-clock budget in seconds from submit(), enforced between decode
     # chunks: an expired request finishes with finish_reason "deadline"
     # and the tokens it has; a queued one finishes empty-handed.
@@ -102,6 +109,7 @@ class Request:
     # output_tokens. It runs inside the decode loop: keep it cheap.
     on_token: Optional[Callable[[int], None]] = None
     _submitted: float = 0.0   # monotonic submit time (deadline anchor)
+    _slot: int = -1           # the slot it was admitted to
 
 
 def _buckets(max_prefill: int) -> List[int]:
@@ -128,12 +136,35 @@ def view_buckets_for(max_seq_len: int) -> List[int]:
                   | {max_seq_len})
 
 
+def auto_prefix_plens(buckets: List[int], max_seq_len: int) -> List[int]:
+    """The prefix lengths the auto-prefix path can register: prefill
+    buckets that leave >= 16 prompt tokens."""
+    return [b for b in buckets if b <= max_seq_len - 16]
+
+
+def _scratch_rows(cfg: ModelConfig, rows: int, cache_len: int,
+                  device) -> KVCache:
+    shape = (cfg.num_layers, rows, cache_len, cfg.num_kv_heads,
+             cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=cfg.activation_dtype,
+                                 device=device),
+                   v=torch.zeros(shape, dtype=cfg.activation_dtype,
+                                 device=device))
+
+
 def make_prefill_fn(cfg: ModelConfig, cache_len: int):
     """Batched prefill + splice + first-token sample for one admission
-    group. ``pool`` is the slot cache, updated in place and returned."""
+    group. ``pool`` is the slot cache, updated in place and returned.
+    With ``prefix`` = (pk, pv, n): a registered shared prefix's K/V
+    [L, plen, kv_h, d] goes into slots [0, plen) of the first n scratch
+    rows (the real ones; padding rows get none), and ``tokens`` holds only
+    the suffixes, at positions from plen. Returns the sampled first
+    tokens, the pool, and each row's last-position logits [rows, vocab]
+    f32."""
 
     def prefill_fn(params, pool: KVCache, tokens, positions, slots,
-                   last_pos, generator, temps, top_ks, top_ps):
+                   last_pos, generator, temps, top_ks, top_ps,
+                   prefix=None):
         # Prefill `rows` requests into fresh zero rows, then splice each
         # row into the pool. Stale data from a slot's previous occupant
         # needs no clearing: these queries attend only slots <= their own
@@ -141,13 +172,14 @@ def make_prefill_fn(cfg: ModelConfig, cache_len: int):
         # Padding rows carry slots[0] as their destination; the splice
         # runs in DESCENDING row order so the real row 0 lands last.
         rows = tokens.shape[0]
-        row_shape = (cfg.num_layers, rows, cache_len, cfg.num_kv_heads,
-                     cfg.head_dim)
-        scratch = KVCache(
-            k=torch.zeros(row_shape, dtype=cfg.activation_dtype,
-                          device=tokens.device),
-            v=torch.zeros(row_shape, dtype=cfg.activation_dtype,
-                          device=tokens.device))
+        scratch = _scratch_rows(cfg, rows, cache_len, tokens.device)
+        if prefix is not None:
+            # Exactly plen slots: no padding key a suffix query could
+            # attend.
+            pk, pv, n = prefix
+            plen = pk.shape[1]
+            scratch.k[:, :n, :plen] = pk[:, None]
+            scratch.v[:, :n, :plen] = pv[:, None]
         x, scratch = forward(cfg, params, tokens, positions=positions,
                              cache=scratch, return_activations=True)
         for r in range(rows - 1, -1, -1):
@@ -158,9 +190,24 @@ def make_prefill_fn(cfg: ModelConfig, cache_len: int):
         rows_idx = torch.arange(rows, device=tokens.device)
         last_logits = lm_head(cfg, params, x[rows_idx, last_pos])
         first = sample(last_logits, generator, temps, top_ks, top_ps)
-        return first, pool
+        return first, pool, last_logits
 
     return prefill_fn
+
+
+def make_prefix_build_fn(cfg: ModelConfig, cache_len: int):
+    """The prefix-K/V build: one bucket-width row (padding at the trash
+    slot), K/V [L, cache_len, kv_h, d] returned whole; the caller slices
+    to the prefix's length. Its launch shapes are the one-row prefill's
+    at each bucket."""
+
+    def prefix_build_fn(params, tokens, positions):
+        scratch = _scratch_rows(cfg, 1, cache_len, tokens.device)
+        _, scratch = forward(cfg, params, tokens, positions=positions,
+                             cache=scratch, return_activations=True)
+        return scratch.k[:, 0], scratch.v[:, 0]
+
+    return prefix_build_fn
 
 
 def make_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
@@ -204,7 +251,8 @@ class InferenceEngine:
                  seed: int = 0, prefill_budget: Optional[int] = None,
                  decode_chunk: Optional[int] = None,
                  max_queue: Optional[int] = None,
-                 queue_shares: Optional[dict] = None):
+                 queue_shares: Optional[dict] = None,
+                 prefix_cache_size: Optional[int] = None):
         """params live on the engine's device (CUDA, or the CPU when the
         caller put them there); every tensor the engine makes follows.
 
@@ -215,7 +263,11 @@ class InferenceEngine:
         submit() past it raises EngineOverloaded (default
         max(16, 4 * max_slots)). queue_shares: {class: share in (0, 1]}
         bounding the queued requests of each QoS class to that share of
-        max_queue (missing classes: the whole queue)."""
+        max_queue (missing classes: the whole queue). prefix_cache_size:
+        registered shared prefixes kept (LRU; default max(4, 2 *
+        max_slots), so every live conversation under auto-prefix chat can
+        hold an entry between its turns); each costs [L, plen, kv_h, d]
+        x 2 of device memory."""
         check_supported(cfg)
         self.cfg = cfg
         self.params = params
@@ -268,7 +320,21 @@ class InferenceEngine:
         self.view_buckets = view_buckets_for(self.max_seq_len)
         self.steps = 0
         self._prefill = make_prefill_fn(cfg, self.max_seq_len + 1)
+        self._prefix_build = make_prefix_build_fn(cfg, self.max_seq_len + 1)
         self._decode_fns: dict = {}
+        self.prefix_cache_size = (prefix_cache_size
+                                  if prefix_cache_size is not None
+                                  else max(4, 2 * max_slots))
+        # Insertion order is the LRU order: the last key is the most
+        # recently used (registrations and admission hits refresh it), the
+        # first is evicted. Keys are token tuples, values (k, v) tensors
+        # of their own [L, plen, kv_h, d].
+        self._prefix_cache: "dict[tuple, tuple]" = {}
+        self.prefix_tokens_reused = 0
+        # Admissions that looked for a registered prefix, and that found
+        # one.
+        self.prefix_lookups = 0
+        self.prefix_hits = 0
 
     def _new_cache(self) -> KVCache:
         return KVCache.create(self.cfg, self.max_slots, self.max_seq_len,
@@ -367,7 +433,8 @@ class InferenceEngine:
     def reset(self) -> None:
         """Recover from a failed step: drop every queued and active
         request and reallocate the cache, which the step may have left
-        half-written."""
+        half-written. Registered prefixes stay: their K/V are tensors of
+        their own, which no step writes."""
         self.cache = None
         self.cache = self._new_cache()
         self.lengths[:] = 0
@@ -381,7 +448,14 @@ class InferenceEngine:
         counts (1 and max_slots) and one decode chunk per cache view
         before traffic, so the first request pays for no kernel build and
         no first launch. Slot state is reset afterwards; the engine's
-        sampling stream is untouched."""
+        sampling stream is untouched.
+
+        This covers shared prefixes too: the prefix-K/V build launches the
+        one-row prefill's shapes at the prefix's bucket, and a suffix
+        prefill the plain prefill's. Eager PyTorch compiles nothing per
+        shape; what a first launch pays is the kernel build and the
+        library's first call at a shape (cuBLAS's kernel choice and
+        module load)."""
         if self.device.type == "cuda":
             cuda_build.build(["flash_fwd"])
         gen = torch.Generator(device=self.device)
@@ -392,7 +466,7 @@ class InferenceEngine:
                 positions = np.full((rows, bucket), self._pad_slot,
                                     np.int32)
                 positions[:, :2] = [0, 1]
-                first, self.cache = self._prefill(
+                first, self.cache, _ = self._prefill(
                     self.params, self.cache,
                     t(np.zeros((rows, bucket), np.int32)), t(positions),
                     [0] * rows, t(np.ones(rows, np.int64)), gen,
@@ -421,40 +495,146 @@ class InferenceEngine:
     def _bucket_for(self, n: int) -> int:
         return bucket_for(self.prefill_buckets, n)
 
+    # -- shared-prefix cache -------------------------------------------
+
+    def _prefix_len_for(self, n: int, quantize: bool = False) -> int:
+        """Usable prefix length for an n-token prompt, leaving >= 16
+        tokens to prefill. Explicit registrations round down to a multiple
+        of 16; the per-turn auto-prefix path (quantize=True) floors to the
+        prefill bucket set, so the prefix lengths stay a bounded set when
+        every chat turn registers a new one."""
+        n = min(n, self.max_seq_len - 16)
+        if not quantize:
+            return n // 16 * 16
+        best = 0
+        for b in self.prefill_buckets:
+            if b <= n:
+                best = b
+        return best
+
+    def _prefix_cache_hit(self, key: tuple) -> None:
+        """LRU refresh: the most recently used key moves to the end."""
+        self._prefix_cache[key] = self._prefix_cache.pop(key)
+
+    def _prefix_cache_put(self, key: tuple, kv: tuple) -> None:
+        self._prefix_cache[key] = kv
+        if len(self._prefix_cache) > self.prefix_cache_size:
+            self._prefix_cache.pop(next(iter(self._prefix_cache)))
+
+    def register_prefix(self, tokens: List[int]) -> int:
+        """Compute and cache the K/V of a shared prompt prefix (a chat
+        system prompt). Returns the cached length (0: too short).
+
+        The length rounds down to a multiple of 16 and leaves at least 16
+        prompt tokens past it. Later requests whose prompt starts with the
+        cached tokens prefill only their suffix."""
+        plen = self._prefix_len_for(len(tokens))
+        if plen < 16:
+            return 0
+        key = tuple(int(t) for t in tokens[:plen])
+        if key in self._prefix_cache:
+            self._prefix_cache_hit(key)
+            return plen
+        bucket = self._bucket_for(plen)
+        toks = np.zeros((1, bucket), np.int32)
+        toks[0, :plen] = key
+        pos = np.full((1, bucket), self._pad_slot, np.int32)
+        pos[0, :plen] = np.arange(plen)
+        pk, pv = self._prefix_build(self.params, self._tensor(toks),
+                                    self._tensor(pos))
+        # Copies: the cache keeps [L, plen, kv_h, d], not the whole row.
+        self._prefix_cache_put(key, (pk[:, :plen].clone(),
+                                     pv[:, :plen].clone()))
+        return plen
+
+    def register_prefix_from_slot(self, slot: int,
+                                  tokens: List[int]) -> int:
+        """Register tokens[:plen] as a prefix by copying its K/V out of a
+        slot's cache, with no forward pass: a finished request's prompt
+        K/V is still in its slot (prefill wrote positions 0..m-1; decode
+        writes later positions), and the next chat turn's prompt extends
+        it. Call between the request finishing and the slot's next
+        admission. Returns the cached length (0: too short, or already
+        cached)."""
+        plen = self._prefix_len_for(len(tokens), quantize=True)
+        if plen < 16:
+            return 0
+        key = tuple(int(t) for t in tokens[:plen])
+        if key in self._prefix_cache:
+            self._prefix_cache_hit(key)
+            return 0
+        # Copies, not views of the pool, which a failed step may leave
+        # broken and reset() replaces.
+        self._prefix_cache_put(key, (self.cache.k[:, slot, :plen].clone(),
+                                     self.cache.v[:, slot, :plen].clone()))
+        return plen
+
+    def has_prefix(self, tokens: List[int]) -> bool:
+        """True when register_prefix(tokens) would be a cache hit."""
+        plen = self._prefix_len_for(len(tokens))
+        return (plen >= 16
+                and tuple(int(t) for t in tokens[:plen])
+                in self._prefix_cache)
+
+    def _find_prefix(self, prompt: List[int]) -> Optional[tuple]:
+        """Longest registered prefix this prompt starts with, leaving at
+        least one suffix token; None if none matches."""
+        best = None
+        for key in self._prefix_cache:
+            if len(key) < len(prompt) and (best is None
+                                           or len(key) > len(best)):
+                if tuple(prompt[:len(key)]) == key:
+                    best = key
+        return best
+
     def _admit(self, exclude_slots=()) -> None:
         budget = self.prefill_budget
         admitted: List[tuple] = []
         for slot in self._free_slots(exclude_slots):
             if not self.queue:
                 break
-            # Budget in bucket-padded tokens (what the prefill computes).
-            # The first admission always goes through so an over-budget
-            # prompt cannot starve.
-            need = self._bucket_for(len(self.queue[0].prompt_tokens))
+            # Budget in bucket-padded tokens (what the prefill computes:
+            # only the suffix when a registered prefix covers the front of
+            # the prompt). The first admission always goes through so an
+            # over-budget prompt cannot starve. Adapter requests never
+            # match a prefix: its K/V came from the base weights.
+            head = self.queue[0]
+            pkey = (None if head.adapter is not None
+                    else self._find_prefix(head.prompt_tokens))
+            need = self._bucket_for(
+                len(head.prompt_tokens) - (len(pkey) if pkey else 0))
             if admitted and need > budget:
                 break
             req = self.queue.pop(0)
             budget -= need
-            admitted.append((slot, req))
-        # One [rows, bucket] prefill dispatch per bucket.
-        by_bucket: dict = {}
-        for slot, req in admitted:
-            by_bucket.setdefault(self._bucket_for(len(req.prompt_tokens)),
-                                 []).append((slot, req))
-        for bucket, group in by_bucket.items():
+            admitted.append((slot, req, pkey))
+        # One [rows, bucket] prefill dispatch per (bucket, prefix).
+        by_group: dict = {}
+        for slot, req, pkey in admitted:
+            b = self._bucket_for(
+                len(req.prompt_tokens) - (len(pkey) if pkey else 0))
+            by_group.setdefault((b, pkey), []).append((slot, req))
+        for (bucket, pkey), group in by_group.items():
             with self._dispatch("prefill"):
-                self._prefill_group(bucket, group)
+                self._prefill_group(bucket, group, pkey)
 
-    def _prefill_group(self, bucket: int, group: List[tuple]) -> None:
+    def _prefill_group(self, bucket: int, group: List[tuple],
+                       pkey: Optional[tuple] = None) -> None:
         """Prefill same-bucket requests as one batched forward. The row
         count is 1 (single request) or max_slots (any burst), the
         reference's two compiled shapes. Padding rows aim at group[0]'s
-        slot and are overwritten by the real row 0 (descending splice)."""
+        slot and are overwritten by the real row 0 (descending splice).
+        With pkey (a registered prefix), rows hold only the suffixes, at
+        positions from the prefix's length, over the prefix's K/V."""
         n = len(group)
+        plen = len(pkey) if pkey else 0
+        self.prefix_lookups += n
+        if pkey:
+            self.prefix_hits += n
         rows = 1 if n == 1 else self.max_slots
         tokens = np.zeros((rows, bucket), np.int32)
-        # Real tokens at positions 0..len-1; padding scatters to the trash
-        # slot of each row's scratch cache.
+        # Real tokens at positions plen..len-1; padding scatters to the
+        # trash slot of each row's scratch cache.
         positions = np.full((rows, bucket), self._pad_slot, np.int32)
         slots = [group[0][0]] * rows
         last_pos = np.zeros(rows, np.int64)
@@ -462,19 +642,27 @@ class InferenceEngine:
         top_ks = np.zeros(rows, np.int32)
         top_ps = np.ones(rows, np.float32)
         for i, (slot, req) in enumerate(group):
-            m = len(req.prompt_tokens)
-            tokens[i, :m] = req.prompt_tokens
-            positions[i, :m] = np.arange(m)
+            m = len(req.prompt_tokens) - plen
+            tokens[i, :m] = req.prompt_tokens[plen:]
+            positions[i, :m] = np.arange(plen, plen + m)
             slots[i] = slot
             last_pos[i] = m - 1
             temps[i] = req.temperature
             top_ks[i] = req.top_k
             top_ps[i] = req.top_p
-        first, self.cache = self._prefill(
+        prefix = None
+        if pkey:
+            # An admission hit refreshes the LRU: the prefix serving live
+            # traffic is not the one evicted.
+            pk, pv = self._prefix_cache[pkey]
+            self._prefix_cache_hit(pkey)
+            prefix = (pk, pv, n)
+        first, self.cache, _ = self._prefill(
             self.params, self.cache, self._tensor(tokens),
             self._tensor(positions), slots, self._tensor(last_pos),
             self.generator, self._tensor(temps), self._tensor(top_ks),
-            self._tensor(top_ps))
+            self._tensor(top_ps), prefix=prefix)
+        self.prefix_tokens_reused += plen * n
         self.prefill_dispatches += 1
         # The first tokens must reach the host to stream: the dispatch's
         # one sync.
@@ -489,6 +677,7 @@ class InferenceEngine:
         self.active[slot] = True
         self.lengths[slot] = len(req.prompt_tokens)
         self.slot_req[slot] = req
+        req._slot = slot
         self.last_token[slot] = first_tok
         self._record_token(slot, first_tok)
 

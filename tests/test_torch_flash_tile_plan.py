@@ -230,6 +230,7 @@ SMOKE_TILES = {
     "rows1_sq2048": (272, 240, 528),
     "rows8_sq128": (264, 192, 264),
     "rows1_sq16_at100": (2, 1, 33),
+    "rows8_sq128_at1024": (144, 128, 264),
     "mha_d64_skip": (40, 24, 64),
     "segments_masked_rows": (26, 0, 64),
     "segment_inside_tile": (93, 28, 256),
@@ -282,7 +283,8 @@ def test_closed_fractions_on_the_main_paths(smoke_layouts):
     # The training microbatch (a): the causal skip and the job's document
     # boundaries close 58% of the kv tiles, causal alone (b) 47%. Cached
     # prefill of a 2048-token prompt (block skip off): the position skip
-    # closes 48%; a 16-token bucket at position 100 walks 2 of 33 tiles.
+    # closes 48%; a 16-token bucket at position 100 walks 2 of 33 tiles;
+    # 128 suffix tokens after a 1024-token prefix walk 18 of 33.
     def closed(name):
         (_, _, qp, kp, qs, ks, skip, _) = smoke_layouts[name]
         plan = fwd_tile_plan(qp, kp, qs, ks, block_skip=skip)
@@ -292,6 +294,7 @@ def test_closed_fractions_on_the_main_paths(smoke_layouts):
     assert closed("b_causal_2x2048") == pytest.approx(480 / 1024)
     assert closed("rows1_sq2048") == pytest.approx(256 / 528)
     assert closed("rows1_sq16_at100") == pytest.approx(31 / 33)
+    assert closed("rows8_sq128_at1024") == pytest.approx(15 / 33)
 
 
 @pytest.mark.parametrize("source,tiles", [("flash_fwd", (FWD_BQ, FWD_BK)),

@@ -276,8 +276,10 @@ def test_bad_bodies_and_routes(servers):
             == {"status", "model", "uptime_s"})
     assert json.loads(tt)["model"] == "debug"
     assert _call(servers[1].base, "/healthz")[0] == 200
-    status, _, text = _call(servers[1].base, "/v1/prefix", {"prompt": "x"})
-    assert status == 501 and "shared-prefix" in text
+    # A prompt too short to cache registers nothing, on both servers.
+    (js, _, jt), (ts, _, tt) = _both(servers, "/v1/prefix", {"prompt": "x"})
+    assert js == ts == 200
+    assert json.loads(tt) == json.loads(jt) == {"cached_prefix_len": 0}
     assert _call(servers[1].base, "/metrics")[0] == 404
 
 
@@ -458,6 +460,15 @@ def test_shutdown_drains_in_flight_requests(weights):
     streaming.start()
     plain.start()
     assert started.wait(HTTP_TIMEOUT)
+    # The first step starts once one request is in; the drain may begin
+    # only when the worker holds both.
+    worker = srv.srv.worker
+    deadline = time.monotonic() + HTTP_TIMEOUT
+    while time.monotonic() < deadline:
+        with worker._lock:
+            if len(worker._pending) + len(worker._inflight) == 2:
+                break
+        time.sleep(0.01)
     closer = threading.Thread(target=srv.close)
     closer.start()
     deadline = time.monotonic() + HTTP_TIMEOUT
@@ -478,8 +489,7 @@ def test_shutdown_drains_in_flight_requests(weights):
 
 @pytest.mark.parametrize("knob", [
     {"kv_paging": "paged"}, {"kvPaging": True}, {"speculative": "ngram"},
-    {"grammar": "on"}, {"adapter_pool": 2}, {"auto_prefix_chat": True},
-    {"warm_prefix": True}, {"prefix_cache_size": 8},
+    {"grammar": "on"}, {"adapter_pool": 2},
     {"preemption": "swap"}, {"kv_host_pages": 64}, {"mesh_tensor": 2}])
 def test_main_refuses_unported_knobs_by_name(tmp_path, monkeypatch, knob):
     (tmp_path / "params.json").write_text(json.dumps({"model": "debug",
