@@ -75,6 +75,30 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    prefix) are within LOGIT_TOL of a full prefill's, and the greedy ids with
    and without the prefix agree up to near-ties; TTFT, prefill seconds,
    K1's launches and peak memory with and without the prefix.
+11. Speculation and grammar: llama3-8b bf16 at full width and depth,
+   ``InferenceEngine(max_slots=8, max_seq_len=2048)``, each engine warmed
+   up. (a) 8 greedy prompts of 200-1500 tokens that repeat seeded spans,
+   128 new tokens each, with speculation off and with ``"ngram"``
+   (draft_tokens 4): greedy ids equal up to near-ties; drafted, accepted,
+   accept rate, verify steps, decode tokens/s both ways, median host ms
+   per verify dispatch and per decode step, K1's launches. (b) The same
+   engine with an oracle draft source (run (a)'s ids without speculation,
+   one slot wrong from its 10th token): ids equal to (a)'s up to
+   near-ties, the accept rate and decode tokens/s of near-perfect drafts.
+   (c) ``speculative_verify`` at vocab 128256 on fixed synthetic logits,
+   20,000 rows at temperature 0.8 with top_p 0.9 and with top_p 1.0: the
+   accept frequency within 4 sigma of pi(draft), the emitted tokens'
+   histogram within 4 sigma of ``sample``'s own, greedy rows equal to the
+   argmax. (d) ``grammar="on"``: 8 requests with response_formats (4
+   bounded objects of enum, const and boolean; 4 unbounded), half greedy,
+   half at temperature 0.7, 256 tokens at most, with speculation off and
+   on: bounded ones finish grammar_complete with JSON whose keys and types
+   are checked, unbounded ones likewise or end with every token legal;
+   greedy ids equal up to near-ties among the allowed tokens; DFA compile
+   seconds at vocab 128256, host mask build ms per dispatch, constrained
+   tokens/s both ways. (e) ``create_server(speculative="ngram",
+   grammar="on")``: a chat completion with a response_format answers 200
+   and grammar_complete, an unsupported construct 400 naming it.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -158,6 +182,16 @@ IMPORT_TIMEOUT_S = 600
 # prompt) and 8 requests that extend it by SUFFIX_LENS tokens.
 PREFIX_LEN = 1024
 SUFFIX_LENS = (16, 40, 90, 120, 200, 400, 700, 900)
+# Phase 11: speculation (prompts of SPEC_LENS tokens, SPEC_NEW new tokens
+# each; the oracle's wrong slot and the index its drafts go wrong from),
+# the verify check's rows, and grammar's token budget.
+SPEC_LENS = (200, 400, 600, 800, 1000, 1200, 1400, 1500)
+SPEC_NEW = 128
+ORACLE_WRONG_SLOT, ORACLE_WRONG_AT = 3, 10
+VERIFY_ROWS = 20000
+VERIFY_CHUNK = 1000
+VERIFY_SIGMAS = 4
+GRAMMAR_MAX = 256
 
 
 def card_line():
@@ -1222,10 +1256,12 @@ def serve_http(torch, cfg, params, seed):
     return launches
 
 
-def near_tie_check(torch, cfg, params, name, prompt, a, b):
+def near_tie_check(torch, cfg, params, name, prompt, a, b, allowed=None):
     """Greedy ids a and b of one prompt are identical, or differ first at
     a near-tie: both tokens within LOGIT_TOL of the top logit of a full
-    prefill of the context before them."""
+    prefill of the context before them. ``allowed(ids)`` (grammar) gives
+    the allowed-token row after the generated ids, and the top logit is
+    then the top allowed one."""
     from runbooks_tpu_torch.serve.engine import _buckets, bucket_for
 
     j = next((k for k in range(len(a)) if a[k] != b[k]), None)
@@ -1238,6 +1274,9 @@ def near_tie_check(torch, cfg, params, name, prompt, a, b):
     with torch.no_grad():
         plain = prefill_logits(torch, cfg, params, ctx,
                                bucket_for(_buckets(2048), len(ctx)), 2048)
+    if allowed is not None:
+        plain = plain.masked_fill(~torch.as_tensor(
+            allowed(a[:j]), device=plain.device), float("-inf"))
     top = plain.max().item()
     gaps = (top - plain[a[j]].item(), top - plain[b[j]].item())
     ok = max(gaps) < LOGIT_TOL
@@ -1783,6 +1822,482 @@ def prefix_phase(torch, seed):
         off["flash_fwd_launches"]
 
 
+def spec_prompts(seed):
+    """SPEC_LENS prompts (ByteTokenizer ids) that repeat seeded spans: four
+    spans of seeded code-like words, quoted again and again in a seeded
+    order, as code edits and answers that quote their context do."""
+    import numpy as np
+
+    from runbooks_tpu_torch.train.data import ByteTokenizer
+
+    rng = np.random.default_rng(seed + 11)
+    tok = ByteTokenizer()
+    words = ["def", "return", "self", "cache", "token", "slot", "if", "else",
+             "for", "in", "range", "draft", "verify", "kernel", "(", ")"]
+    prompts = []
+    for n in SPEC_LENS:
+        spans = [" ".join(rng.choice(words, size=int(rng.integers(8, 30))))
+                 for _ in range(4)]
+        text = ""
+        while len(text) < n:
+            text += spans[int(rng.integers(0, 4))] + "\n"
+        prompts.append(tok.encode(text, add_eos=False)[:n])
+    return prompts
+
+
+def median(xs):
+    return sorted(xs)[len(xs) // 2] if xs else None
+
+
+def warm_engine(torch, cfg, params, seed, **kw):
+    """A warmed-up InferenceEngine(max_slots=8, max_seq_len=2048) and the
+    list its dispatches record their host seconds in ({kind: [s, ...]},
+    around the engine's own dispatch spans)."""
+    import contextlib
+
+    from runbooks_tpu_torch.serve.engine import InferenceEngine
+
+    engine = InferenceEngine(cfg, params, max_slots=8, max_seq_len=2048,
+                             seed=seed, **kw)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        engine.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    samples = {}
+    spans = engine._dispatch
+
+    @contextlib.contextmanager
+    def recording(kind):
+        t = time.perf_counter()
+        with spans(kind):
+            yield
+        samples.setdefault(kind, []).append(time.perf_counter() - t)
+
+    engine._dispatch = recording
+    return engine, samples, warm_s
+
+
+def timed_generate(torch, engine, samples, reqs):
+    """engine.generate(reqs) with K1's launches and the engine's counters
+    read around it: (stats, output ids)."""
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+
+    secs0 = dict(engine.dispatch_seconds)
+    spec0 = (engine.spec_drafted, engine.spec_accepted,
+             engine.spec_verify_steps)
+    samples.clear()
+    engine.grammar_mask_seconds.clear()
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        engine.generate(reqs)
+    wall = time.perf_counter() - t0
+    launches = flash_attention.launches
+    decode_s = sum(engine.dispatch_seconds[k] - secs0[k]
+                   for k in ("decode", "verify"))
+    decode_tokens = sum(len(r.output_tokens) - 1 for r in reqs)
+    drafted, accepted, verify_steps = (
+        now - before for now, before in zip(
+            (engine.spec_drafted, engine.spec_accepted,
+             engine.spec_verify_steps), spec0))
+    med = {k: (median(v) * 1000 if v else None) for k, v in
+           (("verify", samples.get("verify", [])),
+            ("decode", samples.get("decode", [])))}
+    masks = list(engine.grammar_mask_seconds)
+    stats = {
+        "wall_s": wall,
+        "prefill_s": engine.dispatch_seconds["prefill"] - secs0["prefill"],
+        "decode_and_verify_s": decode_s,
+        "decode_tokens": decode_tokens,
+        "decode_tokens_per_s": decode_tokens / decode_s,
+        "decode_steps": len(samples.get("decode", [])),
+        "verify_steps": verify_steps,
+        "drafted": drafted,
+        "accepted": accepted,
+        "accept_rate": accepted / drafted if drafted else None,
+        "median_verify_dispatch_ms": med["verify"],
+        "median_decode_step_ms": med["decode"],
+        "mask_builds": len(masks),
+        "median_mask_build_ms": median(masks) * 1000 if masks else None,
+        "flash_fwd_launches": launches,
+        "finish_reasons": [r.finish_reason for r in reqs],
+    }
+    return stats, [list(r.output_tokens) for r in reqs]
+
+
+def free_engine(torch, *engines):
+    for e in engines:
+        e.cache = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def filtered_pi(torch, row, temp, top_k, top_p, max_top_k=64):
+    """The distribution ``sample`` draws from for one logits row, in
+    float64: the sorted lane of max_top_k tokens cut by top-k and top-p,
+    or the full vocabulary when neither restricts."""
+    scaled = row.double() / temp
+    if top_k <= 0 and top_p >= 1.0:
+        return torch.softmax(scaled, dim=-1)
+    vals, idx = torch.topk(scaled, max_top_k)
+    k_eff = max_top_k if top_k <= 0 else min(top_k, max_top_k)
+    probs = torch.softmax(vals[:k_eff], dim=-1)
+    keep = (torch.cumsum(probs, 0) - probs) < top_p
+    keep[0] = True
+    pi = torch.zeros_like(scaled)
+    pi[idx[:k_eff][keep]] = torch.softmax(vals[:k_eff][keep], dim=-1)
+    return pi
+
+
+def verify_check(torch, dev, seed):
+    """Phase 11 (c): speculative_verify on the card at vocab 128256."""
+    from runbooks_tpu_torch.ops.sampling import sample, speculative_verify
+
+    vocab = 128256
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+    # One fixed row: 8 boosted tokens over a normal background, so the
+    # filtered distribution has a few tokens of real mass; the draft is
+    # the second most likely.
+    row = torch.randn(vocab, generator=g, device=dev)
+    top = torch.randperm(vocab, generator=g, device=dev)[:8]
+    row[top] = torch.tensor([16.0, 15.5, 15.0, 14.5, 14.0, 13.0, 12.0, 11.0],
+                            device=dev)
+    draft = int(top[1])
+    n = VERIFY_CHUNK
+    drafts = torch.full((n, 1), draft, dtype=torch.int64, device=dev)
+    temps = torch.full((n,), 0.8, device=dev)
+    ks = torch.zeros(n, dtype=torch.int32, device=dev)
+    out = {}
+    for top_p in (0.9, 1.0):
+        pi = filtered_pi(torch, row, 0.8, 0, top_p)
+        ps = torch.full((n,), top_p, device=dev)
+        logits = row.expand(n, 2, vocab).contiguous()
+        accepted = 0
+        emitted_hist = torch.zeros(9, dtype=torch.int64, device=dev)
+        sample_hist = torch.zeros(9, dtype=torch.int64, device=dev)
+        bins = torch.full((vocab,), 8, dtype=torch.int64, device=dev)
+        bins[top] = torch.arange(8, device=dev)
+        for _ in range(VERIFY_ROWS // n):
+            accept, resid, _ = speculative_verify(logits, drafts, g, temps,
+                                                  ks, ps)
+            emitted = torch.where(accept[:, 0], drafts[:, 0], resid[:, 0])
+            accepted += int(accept.sum())
+            emitted_hist += torch.bincount(bins[emitted], minlength=9)
+            ref = sample(logits[:, 0], g, temps, ks, ps)
+            sample_hist += torch.bincount(bins[ref], minlength=9)
+        rows = VERIFY_ROWS
+        p = float(pi[draft])
+        rate = accepted / rows
+        accept_sigma = math.sqrt(p * (1 - p) / rows)
+        e = emitted_hist.double().cpu() / rows
+        r = sample_hist.double().cpu() / rows
+        pooled = (e + r) / 2
+        sigma = (pooled * (1 - pooled) * 2 / rows).sqrt()
+        worst = float(((e - r).abs() / sigma.clamp(min=1e-12)).max())
+        ok = (abs(rate - p) <= VERIFY_SIGMAS * accept_sigma
+              and bool(((e - r).abs()
+                        <= VERIFY_SIGMAS * sigma + 1e-12).all()))
+        key = f"top_p_{top_p}"
+        out[key] = {"pi_draft": p, "accept_rate": rate,
+                    "accept_sigmas": abs(rate - p) / accept_sigma,
+                    "histogram_worst_sigmas": worst,
+                    "emitted_top8_other": e.tolist(),
+                    "sample_top8_other": r.tolist(), "ok": ok}
+        print(f"verify at vocab {vocab}, temperature 0.8, {key}: accept "
+              f"rate {rate:.4f} vs pi(draft) {p:.4f} "
+              f"({out[key]['accept_sigmas']:.2f} sigma); emitted histogram "
+              f"vs sample's, worst {worst:.2f} sigma -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"speculative_verify ({key}) is not "
+                             "distributed as sample")
+        del logits
+    # Greedy rows: the verdicts are the argmax exactly.
+    logits = torch.randn((64, 5, vocab), generator=g, device=dev)
+    argmax = logits.argmax(-1)
+    gd = argmax[:, :4].clone()
+    gd[1::2, 1:] = (gd[1::2, 1:] + 1) % vocab
+    zeros = torch.zeros(64, device=dev)
+    accept, resid, full = speculative_verify(
+        logits, gd, g, zeros, torch.zeros(64, dtype=torch.int32,
+                                          device=dev),
+        torch.ones(64, device=dev))
+    greedy_ok = (torch.equal(accept, gd == argmax[:, :4])
+                 and torch.equal(resid, argmax[:, :4])
+                 and torch.equal(full, argmax))
+    # The verify sampling's own time at the engine's shape.
+    lg = torch.randn((8, 5, vocab), generator=g, device=dev)
+    ld = lg[:, :4].argmax(-1)
+    vt, vk = torch.full((8,), 0.8, device=dev), torch.zeros(
+        8, dtype=torch.int32, device=dev)
+    vp = torch.full((8,), 0.9, device=dev)
+    out["greedy_rows_equal_argmax"] = greedy_ok
+    out["verify_sampling_ms_8x5"] = cuda_ms(
+        lambda: speculative_verify(lg, ld, g, vt, vk, vp), 20)
+    print(f"verify greedy rows equal argmax: {greedy_ok}; verify sampling "
+          f"[8, 5, {vocab}] {out['verify_sampling_ms_8x5']:.4f} ms",
+          flush=True)
+    if not greedy_ok:
+        raise SystemExit("speculative_verify's greedy rows differ from the "
+                         "argmax")
+    return out
+
+
+def _object(props):
+    return {"type": "json_schema", "json_schema": {"schema": {
+        "type": "object", "properties": props, "required": sorted(props),
+        "additionalProperties": False}}}
+
+
+# Phase 11 (d)'s response formats: (format, bounded, check of the parsed
+# value). The bounded ones are objects of enum, const and boolean.
+GRAMMAR_FORMATS = [
+    (_object({"ok": {"type": "boolean"},
+              "mode": {"enum": ["fast", "slow"]}}), True,
+     lambda v: set(v) == {"ok", "mode"} and isinstance(v["ok"], bool)
+     and v["mode"] in ("fast", "slow")),
+    (_object({"kind": {"const": "edit"}, "valid": {"type": "boolean"}}),
+     True, lambda v: v["kind"] == "edit" and isinstance(v["valid"], bool)
+     and set(v) == {"kind", "valid"}),
+    (_object({"lang": {"enum": ["en", "de", "fr"]},
+              "done": {"type": "boolean"}, "v": {"const": 1}}), True,
+     lambda v: set(v) == {"lang", "done", "v"} and v["lang"] in
+     ("en", "de", "fr") and isinstance(v["done"], bool) and v["v"] == 1),
+    (_object({"answer": {"enum": ["yes", "no"]},
+              "sure": {"type": "boolean"}, "n": {"type": "null"}}), True,
+     lambda v: set(v) == {"answer", "sure", "n"} and v["answer"] in
+     ("yes", "no") and isinstance(v["sure"], bool) and v["n"] is None),
+    (_object({"id": {"type": "integer"},
+              "tags": {"type": "array", "items": {"enum": ["a", "b"]}}}),
+     False, lambda v: set(v) == {"id", "tags"} and isinstance(v["id"], int)
+     and all(t in ("a", "b") for t in v["tags"])),
+    ({"type": "json_schema", "json_schema": {"schema": {
+        "type": "array", "items": {"type": "boolean"}}}}, False,
+     lambda v: all(isinstance(x, bool) for x in v)),
+    (_object({"name": {"type": "string"}}), False,
+     lambda v: set(v) == {"name"} and isinstance(v["name"], str)),
+    ({"type": "ebnf", "grammar": 'root ::= "[" [0-9] ("," [0-9])* "]"'},
+     False, lambda v: all(0 <= x <= 9 for x in v)),
+]
+
+
+def grammar_requests(prompts, eos):
+    """One request per format over the spec prompts' first 200 tokens,
+    greedy and temperature 0.7 alternating."""
+    from runbooks_tpu_torch.serve.engine import Request
+
+    return [Request(prompt_tokens=list(prompts[0][:200]) + [ord("\n")],
+                    max_tokens=GRAMMAR_MAX,
+                    temperature=0.0 if i % 2 == 0 else 0.7, eos_id=eos,
+                    response_format=rf, request_id=f"g{i}")
+            for i, (rf, _, _) in enumerate(GRAMMAR_FORMATS)]
+
+
+def grammar_gate(engine, reqs, name):
+    """Every token legal under a fresh cursor (EOS only at an accepting
+    state); bounded formats finish grammar_complete with JSON that passes
+    their check; unbounded ones likewise (or by EOS at an accepting
+    state), or run to GRAMMAR_MAX tokens."""
+    for r, (rf, bounded, check) in zip(reqs, GRAMMAR_FORMATS):
+        cur = engine._grammar_cache.cursor(rf)
+        legal = True
+        for t in r.output_tokens:
+            if t == r.eos_id:
+                legal = cur.accepting
+                break
+            if not cur.advance(t):
+                legal = False
+                break
+        text = bytes(t for t in r.output_tokens if t < 256).decode()
+        parsed = None
+        if r.finish_reason in ("grammar_complete", "stop"):
+            try:
+                parsed = check(json.loads(text))
+            except (ValueError, KeyError, TypeError):
+                parsed = False
+        if bounded:
+            ok = legal and r.finish_reason == "grammar_complete" and parsed
+        else:
+            ok = legal and (parsed or (r.finish_reason == "length" and len(
+                r.output_tokens) == GRAMMAR_MAX))
+        kind = "bounded" if bounded else "unbounded"
+        print(f"grammar {name} {r.request_id} ({kind}, temperature "
+              f"{r.temperature}): {r.finish_reason}, "
+              f"{len(r.output_tokens)} tokens, {text[:60]!r} -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise SystemExit(f"grammar {name}: request {r.request_id} "
+                             "broke its format")
+
+
+def spec_grammar_phase(torch, dev, seed):
+    """Phase 11: speculation and grammar at full width and depth. Returns
+    K1's launches by run."""
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.api import create_server, load_model
+    from runbooks_tpu_torch.serve.engine import Request
+    from runbooks_tpu_torch.train.data import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    cfg, params = load_model({"model": "llama3-8b",
+                              "model_overrides": {"param_dtype": "bfloat16"},
+                              "seed": seed})
+    prompts = spec_prompts(seed)
+    launches = {}
+
+    def greedy(name):
+        return [Request(prompt_tokens=list(p), max_tokens=SPEC_NEW,
+                        request_id=f"{name}{i}")
+                for i, p in enumerate(prompts)]
+
+    def finished_all(stats, reqs_ids, name):
+        if not all(len(ids) == SPEC_NEW for ids in reqs_ids):
+            raise SystemExit(f"speculation run {name}: not every request "
+                             f"got {SPEC_NEW} tokens: {stats}")
+
+    # (a) n-gram speculation against none, greedy.
+    engine, samples, warm_off = warm_engine(torch, cfg, params, seed)
+    off, off_ids = timed_generate(torch, engine, samples, greedy("off"))
+    finished_all(off, off_ids, "off")
+    free_engine(torch, engine)
+    del engine
+    engine, samples, warm_on = warm_engine(torch, cfg, params, seed,
+                                           speculative="ngram",
+                                           draft_tokens=4)
+    on, on_ids = timed_generate(torch, engine, samples, greedy("ngram"))
+    finished_all(on, on_ids, "ngram")
+    launches["spec_off"] = off["flash_fwd_launches"]
+    launches["spec_ngram"] = on["flash_fwd_launches"]
+    print("speculation " + json.dumps({
+        "warmup_s": {"off": warm_off, "ngram": warm_on},
+        "off": off, "ngram": on}), flush=True)
+    for i, p in enumerate(prompts):
+        near_tie_check(torch, cfg, params, f"spec prompt {i} ({len(p)} "
+                       "tokens): greedy ids off vs ngram", p, off_ids[i],
+                       on_ids[i])
+
+    # (b) The oracle: run (a)'s ids without speculation as drafts, one
+    # slot's going wrong from its ORACLE_WRONG_AT-th token.
+    def oracle(slot, max_tokens):
+        req = engine.slot_req[slot]
+        done = len(req.output_tokens)
+        out = []
+        for j, t in enumerate(req.oracle[done:done + max_tokens]):
+            wrong = req.wrong_at is not None and done + j >= req.wrong_at
+            out.append((t + 1) % cfg.vocab_size if wrong else t)
+        return out
+
+    engine._draft_for = oracle
+    reqs = greedy("oracle")
+    for i, r in enumerate(reqs):
+        r.oracle = off_ids[i]
+        r.wrong_at = ORACLE_WRONG_AT if i == ORACLE_WRONG_SLOT else None
+    orc, orc_ids = timed_generate(torch, engine, samples, reqs)
+    finished_all(orc, orc_ids, "oracle")
+    launches["spec_oracle"] = orc["flash_fwd_launches"]
+    print("speculation oracle " + json.dumps(orc), flush=True)
+    for i, p in enumerate(prompts):
+        near_tie_check(torch, cfg, params, f"oracle prompt {i}: greedy ids "
+                       "off vs oracle drafts", p, off_ids[i], orc_ids[i])
+    free_engine(torch, engine)
+    del engine
+
+    # (c) The verify sampling on the card.
+    verify = verify_check(torch, dev, seed)
+
+    # (d) Grammar, speculation off and on.
+    tok = ByteTokenizer()
+    grammar = {}
+    g_ids = {}
+    for spec in ("off", "ngram"):
+        engine, samples, warm = warm_engine(
+            torch, cfg, params, seed, grammar="on", tokenizer=tok,
+            speculative=spec)
+        reqs = grammar_requests(prompts, tok.eos_id)
+        # Each format compiles in submit's validate (an LRU miss).
+        stats, g_ids[spec] = timed_generate(torch, engine, samples, reqs)
+        gs = engine.grammar_stats()
+        stats.update({"warmup_s": warm,
+                      "dfa_compiles": gs["misses"],
+                      "dfa_compile_s_total": gs["compile_seconds_total"],
+                      "dfa_compile_s_each": (gs["compile_seconds_total"]
+                                             / max(gs["misses"], 1)),
+                      "dfa_states": [r._grammar.dfa.num_states
+                                     for r in reqs],
+                      "draft_truncations": gs["draft_truncations_total"]})
+        grammar[spec] = stats
+        launches[f"grammar_{spec}"] = stats["flash_fwd_launches"]
+        grammar_gate(engine, reqs, spec)
+        cursors = engine._grammar_cache
+        free_engine(torch, engine)
+        del engine
+    print("grammar " + json.dumps(grammar), flush=True)
+
+    def allowed_after(rf):
+        def allowed(ids):
+            cur = cursors.cursor(rf)
+            for t in ids:
+                cur.advance(t)
+            return cur.mask_row().copy()
+        return allowed
+
+    reqs = grammar_requests(prompts, tok.eos_id)
+    for i, r in enumerate(reqs):
+        if r.temperature == 0.0:
+            near_tie_check(torch, cfg, params, f"grammar request {i}: "
+                           "greedy ids speculation off vs on",
+                           r.prompt_tokens, g_ids["off"][i],
+                           g_ids["ngram"][i],
+                           allowed=allowed_after(r.response_format))
+
+    # (e) Over HTTP.
+    srv = create_server(cfg, params, host="127.0.0.1", port=0, max_slots=8,
+                        max_seq_len=2048, speculative="ngram", grammar="on")
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    rf, _, check = GRAMMAR_FORMATS[0]
+    body = {"messages": [{"role": "user", "content": "Reply in JSON."}],
+            "max_tokens": 64, "temperature": 0, "response_format": rf}
+    bad = {**body, "response_format": {"type": "json_schema", "json_schema": {
+        "schema": {"type": "string", "pattern": "a+"}}}}
+    try:
+        flash_attention.launches = 0
+        status, _, text, _ = http_call(base, "/v1/chat/completions", body)
+        launches["grammar_http"] = flash_attention.launches
+        bad_status, _, bad_text, _ = http_call(base, "/v1/chat/completions",
+                                               bad)
+    finally:
+        srv.shutdown()
+        thread.join(timeout=60)
+    ok = status == 200
+    if ok:
+        choice = json.loads(text)["choices"][0]
+        try:
+            ok = (choice["finish_reason"] == "grammar_complete"
+                  and check(json.loads(choice["message"]["content"])))
+        except (ValueError, KeyError, TypeError):
+            ok = False
+    bad_ok = bad_status == 400 and "pattern" in json.loads(
+        bad_text)["error"]["message"]
+    print(f"grammar over HTTP: {status} {text[:200]} -> "
+          f"{'ok' if ok else 'FAIL'}; unsupported construct: {bad_status} "
+          f"{bad_text[:200]} -> {'ok' if bad_ok else 'FAIL'}", flush=True)
+    if not (ok and bad_ok):
+        raise SystemExit("grammar over HTTP failed")
+    if min(launches.values()) < cfg.num_layers:
+        raise SystemExit(f"phase 11 ran K1 too rarely: {launches}")
+    print("phase 11 " + json.dumps({
+        "verify": verify, "flash_fwd_launches": launches,
+        "seconds": time.perf_counter() - t_phase}), flush=True)
+    del srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1851,6 +2366,7 @@ def main():
             torch, args.seed)
         print(f"phases 9 and 10 took {time.perf_counter() - t0:.1f} s",
               flush=True)
+        spec_launches = spec_grammar_phase(torch, dev, args.seed)
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -1860,14 +2376,16 @@ def main():
         "replaces": "runbooks_tpu/ops/flash_attention.py:92",
         "launches": (serve_launches + train_launches["flash_fwd"]
                      + http_launches + import_launches + build_launches
-                     + prefix_launches + no_prefix_launches),
+                     + prefix_launches + no_prefix_launches
+                     + sum(spec_launches.values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
                              "import": import_launches,
                              "prefix_register": build_launches,
                              "prefix": prefix_launches,
-                             "prefix_off": no_prefix_launches},
+                             "prefix_off": no_prefix_launches,
+                             **spec_launches},
         "max_abs_err": worst,
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],

@@ -4,8 +4,8 @@
 Same ``ModelConfig`` fields and the same ``CONFIGS`` registry, so a config
 name or override means the same model in both packages. Dtype strings map
 to torch dtypes. Fields this slice of the port does not act on (MoE,
-quantization, speculation, the LoRA pool, mesh and training knobs) stay as
-inert fields; ``models.transformer.check_supported`` rejects a config that
+quantization, the LoRA pool, mesh and training knobs) stay as inert
+fields; ``models.transformer.check_supported`` rejects a config that
 needs an architecture feature the port's forward does not implement yet.
 """
 
@@ -28,6 +28,22 @@ def torch_dtype(name: str) -> torch.dtype:
         raise ValueError(f"unknown dtype {name!r}; expected one of "
                          f"{sorted(_DTYPES)}")
     return _DTYPES[name]
+
+
+# Speculative decoding on the serving decode path (serve/engine.py): "off"
+# or "ngram" (prompt-lookup drafting and one batched verify forward).
+SPECULATIVE_MODES = ("off", "ngram")
+
+
+def check_speculative(mode: str) -> str:
+    """Validate a speculative mode string (the engine's one error message
+    for a mode it does not know)."""
+    mode = str(mode)
+    if mode not in SPECULATIVE_MODES:
+        raise ValueError(
+            f"unknown speculative {mode!r}; expected "
+            f"{'|'.join(SPECULATIVE_MODES)}")
+    return mode
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,10 +11,11 @@ standard library's ``ThreadingHTTPServer``) only parse, enqueue and wait.
 
 Run: ``python -m runbooks_tpu_torch.serve.api`` (reads
 ``{RBT_CONTENT_DIR}/params.json``: model, model_overrides, seed,
-checkpoint, adapter, port, tokenizer and the engine knobs), or build one
-with ``create_server``. Features the port has not ported yet
-(speculation, grammar, paging, the adapter pool, quantization, the mesh,
-``/metrics`` and ``/debug/*``) are refused by name rather than ignored.
+checkpoint, adapter, port, tokenizer and the engine knobs, speculation
+and grammar among them), or build one with ``create_server``. Features the
+port has not ported yet (paging, preemption, the adapter pool,
+quantization, the mesh, ``/metrics`` and ``/debug/*``) are refused by name
+rather than ignored.
 """
 
 from __future__ import annotations
@@ -863,7 +864,13 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
                   queue_shares: Optional[dict] = None,
                   warm_prefix: bool = False,
                   auto_prefix_chat: bool = False,
-                  prefix_cache_size: Optional[int] = None) -> Server:
+                  prefix_cache_size: Optional[int] = None,
+                  speculative: Optional[str] = None,
+                  draft_tokens: Optional[int] = None,
+                  ngram_max: Optional[int] = None,
+                  ngram_min: Optional[int] = None,
+                  grammar: str = "off",
+                  grammar_cache_size: Optional[int] = None) -> Server:
     """An HTTP server bound to (host, port; 0 picks a free port) over a
     dense InferenceEngine on ``device`` (CUDA unless the caller names
     another; params move there). With ``warmup`` the worker builds the
@@ -883,7 +890,15 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
     the shapes warmup already runs (so with warmup, a /v1/prefix
     registration under traffic pays no first launch). auto_prefix_chat registers each finished
     chat turn's prompt K/V from its slot, so the next turn prefills only
-    what it adds. prefix_cache_size bounds the prefixes kept (LRU)."""
+    what it adds. prefix_cache_size bounds the prefixes kept (LRU).
+
+    speculative="ngram" drafts up to draft_tokens tokens per slot from an
+    n-gram index (ngram_max/ngram_min) over each request's own context and
+    verifies them in one batched forward; None follows the model config.
+    grammar="on" lets bodies carry `response_format` (a JSON-schema subset
+    or EBNF), compiled into a token DFA over this tokenizer's vocabulary
+    (an LRU of grammar_cache_size entries) that masks sampling;
+    constrained requests finish with finish_reason "grammar_complete"."""
     dev = resolve_device(device)
     model_params = tree_map(lambda t: t.to(dev), model_params)
     tokenizer = tokenizer or load_tokenizer(None)
@@ -892,7 +907,12 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
                              prefill_budget=prefill_budget,
                              decode_chunk=decode_chunk, max_queue=max_queue,
                              queue_shares=queue_shares,
-                             prefix_cache_size=prefix_cache_size)
+                             prefix_cache_size=prefix_cache_size,
+                             speculative=speculative,
+                             draft_tokens=draft_tokens, ngram_max=ngram_max,
+                             ngram_min=ngram_min, grammar=grammar,
+                             grammar_cache_size=grammar_cache_size,
+                             tokenizer=tokenizer)
     worker = EngineWorker(engine, warmup=warmup)
     worker.ready.wait()
     if worker.warmup_error is not None:
@@ -924,10 +944,6 @@ def refuse_unported(params: dict) -> None:
     bad = []
     if on("kv_paging", "kvPaging", "kvpaging"):
         bad.append("kv_paging")
-    if on("speculative"):
-        bad.append("speculative")
-    if str(params.get("grammar", "off")).lower() == "on":
-        bad.append("grammar: on")
     if on("adapter_pool", "adapterPool", "adapterpool"):
         bad.append("adapter_pool")
     if str(params.get("preemption", "off")).lower() == "swap":
@@ -938,9 +954,9 @@ def refuse_unported(params: dict) -> None:
             if k.startswith("mesh_") and int(v) > 1]
     if bad:
         raise NotImplementedError(
-            f"params {bad}: not ported to this server yet (speculation, "
-            "grammar, paging, preemption, the adapter pool and the mesh "
-            "wait for later work)")
+            f"params {bad}: not ported to this server yet (paging, "
+            "preemption, the adapter pool and the mesh wait for later "
+            "work)")
 
 
 def main() -> int:
@@ -955,8 +971,9 @@ def main() -> int:
         if raw is not None:
             queue_shares[cls] = float(raw)
 
-    def opt(key, kind):
-        return kind(params[key]) if params.get(key) is not None else None
+    def opt(key, kind, *spellings):
+        raw = _param_any(params, key, *spellings)
+        return kind(raw) if raw is not None else None
 
     srv = create_server(
         cfg, model_params, tokenizer,
@@ -972,7 +989,15 @@ def main() -> int:
         queue_shares=queue_shares or None,
         warm_prefix=bool(params.get("warm_prefix", False)),
         auto_prefix_chat=bool(params.get("auto_prefix_chat", False)),
-        prefix_cache_size=opt("prefix_cache_size", int))
+        prefix_cache_size=opt("prefix_cache_size", int),
+        # The engine validates both modes before it allocates anything.
+        speculative=opt("speculative", str),
+        draft_tokens=opt("draft_tokens", int, "draftTokens", "drafttokens"),
+        ngram_max=opt("ngram_max", int, "ngramMax", "ngrammax"),
+        ngram_min=opt("ngram_min", int, "ngramMin", "ngrammin"),
+        grammar=opt("grammar", str) or "off",
+        grammar_cache_size=opt("grammar_cache_size", int,
+                               "grammarCacheSize", "grammarcachesize"))
     stopper: List[threading.Thread] = []
 
     def on_signal(signum, frame):

@@ -24,10 +24,18 @@
   keep their per-layer K/V on the device in an LRU; an admission whose
   prompt starts with one prefills only its suffix, at positions from the
   prefix's length, over scratch rows that hold the prefix's K/V.
+- Speculative decoding (``speculative="ngram"``): a prompt-lookup index
+  (serve/speculative.py) drafts up to ``draft_tokens`` tokens per slot and
+  one ``[B, K+1]`` verify forward scores every slot's drafts at once;
+  steps with no draft anywhere run the plain decode chunk.
+- Grammar-constrained output (``grammar="on"``): a request's
+  ``response_format`` compiles into a token DFA (serve/grammar.py), and
+  every dispatch takes a per-row allowed-token mask (all-True rows for
+  unconstrained slots).
 
-Later slices add speculation, grammar, the LoRA pool, preemption, paged
-KV, quantization, the mesh and the observability planes; their knobs are
-absent here, and requests that need them are refused by ``validate``.
+Later slices add the LoRA pool, preemption, paged KV, quantization, the
+mesh and the observability planes; their knobs are absent here, and
+requests that need them are refused by ``validate``.
 """
 
 from __future__ import annotations
@@ -36,12 +44,12 @@ import collections
 import contextlib
 import dataclasses
 import time
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
 import torch
 
-from runbooks_tpu_torch.models.config import ModelConfig
+from runbooks_tpu_torch.models.config import ModelConfig, check_speculative
 from runbooks_tpu_torch.models.transformer import (
     KVCache,
     Params,
@@ -49,7 +57,12 @@ from runbooks_tpu_torch.models.transformer import (
     forward,
     lm_head,
 )
-from runbooks_tpu_torch.ops.sampling import sample
+from runbooks_tpu_torch.ops.sampling import sample, speculative_verify
+from runbooks_tpu_torch.serve.grammar import GrammarCache, TokenVocab
+from runbooks_tpu_torch.serve.speculative import (
+    NgramDraftIndex,
+    legal_draft_prefix,
+)
 from runbooks_tpu_torch.utils import cuda_build
 from runbooks_tpu_torch.utils.hw import backend_tuning
 
@@ -57,6 +70,10 @@ from runbooks_tpu_torch.utils.hw import backend_tuning
 # within a class). The strings are the public API (the HTTP `priority`
 # field and the X-Priority header).
 PRIORITY_RANK = {"interactive": 0, "standard": 1, "batch": 2}
+
+# spec_stats' accept-rate buckets (verify steps by their accepted share of
+# drafted tokens).
+_ACCEPT_RATE_BUCKETS = ("0-25%", "25-50%", "50-75%", "75-100%")
 
 
 class EngineOverloaded(RuntimeError):
@@ -98,8 +115,9 @@ class Request:
     adapter: Optional[str] = None
     # QoS class (PRIORITY_RANK): orders the admission queue.
     priority: str = "standard"
-    # Grammar-constrained output; grammar is not ported, so validate()
-    # refuses any non-None.
+    # Grammar-constrained output: {"type": "json_schema"|"ebnf", ...}.
+    # validate() compiles it (through the LRU cache) into a token DFA and
+    # pins the cursor below; None decodes unconstrained.
     response_format: Optional[dict] = None
     # Filled by the engine:
     output_tokens: List[int] = dataclasses.field(default_factory=list)
@@ -110,6 +128,9 @@ class Request:
     on_token: Optional[Callable[[int], None]] = None
     _submitted: float = 0.0   # monotonic submit time (deadline anchor)
     _slot: int = -1           # the slot it was admitted to
+    # The compiled DFA's cursor (serve/grammar.GrammarCursor) when
+    # response_format is set.
+    _grammar: Any = None
 
 
 def _buckets(max_prefill: int) -> List[int]:
@@ -160,11 +181,12 @@ def make_prefill_fn(cfg: ModelConfig, cache_len: int):
     rows (the real ones; padding rows get none), and ``tokens`` holds only
     the suffixes, at positions from plen. Returns the sampled first
     tokens, the pool, and each row's last-position logits [rows, vocab]
-    f32."""
+    f32. ``gmask`` [rows, vocab] bool (grammar on): each row's allowed
+    first tokens."""
 
     def prefill_fn(params, pool: KVCache, tokens, positions, slots,
                    last_pos, generator, temps, top_ks, top_ps,
-                   prefix=None):
+                   prefix=None, gmask=None):
         # Prefill `rows` requests into fresh zero rows, then splice each
         # row into the pool. Stale data from a slot's previous occupant
         # needs no clearing: these queries attend only slots <= their own
@@ -189,7 +211,8 @@ def make_prefill_fn(cfg: ModelConfig, cache_len: int):
         # [rows, bucket, vocab] f32 logits are never built.
         rows_idx = torch.arange(rows, device=tokens.device)
         last_logits = lm_head(cfg, params, x[rows_idx, last_pos])
-        first = sample(last_logits, generator, temps, top_ks, top_ps)
+        first = sample(last_logits, generator, temps, top_ks, top_ps,
+                       gmask=gmask)
         return first, pool, last_logits
 
     return prefill_fn
@@ -215,10 +238,16 @@ def make_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
     """`chunk` decode steps with per-slot liveness tracked on the device by
     exactly the host's finish rules (EOS, max_tokens budget, cache out of
     room), so the host can replay (tokens, valid) and land in the same
-    slot state as chunk=1 stepping. Nothing here waits for the device."""
+    slot state as chunk=1 stepping. Nothing here waits for the device.
+
+    ``gmask`` [B, vocab] (grammar on) is each slot's allowed-token row at
+    the chunk's start. It stays fixed over the chunk, so it is exact for
+    the first step only: the host takes one token per chunk from a
+    constrained slot (InferenceEngine._replay_chunk)."""
 
     def decode_fn(params, cache, tokens, positions, generator,
-                  temperature, top_k, top_p, eos_ids, remaining, active):
+                  temperature, top_k, top_p, eos_ids, remaining, active,
+                  gmask=None):
         tok, pos, alive = tokens, positions, active
         emitted = torch.zeros_like(remaining)
         toks, valid = [], []
@@ -228,7 +257,7 @@ def make_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
                                     positions=p[:, None], cache=cache,
                                     cache_view=view)
             nxt = sample(logits[:, -1], generator, temperature, top_k,
-                         top_p).to(tok.dtype)
+                         top_p, gmask=gmask).to(tok.dtype)
             nxt = torch.where(alive, nxt, tok)
             toks.append(nxt)
             valid.append(alive)
@@ -242,6 +271,42 @@ def make_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
     return decode_fn
 
 
+def make_verify_fn(cfg: ModelConfig, draft_tokens: int, pad_slot: int,
+                   view: int):
+    """One batched draft-verify forward for speculative decoding: K
+    drafted tokens per slot scored in a single ``[B, K+1]`` forward.
+    ``tokens[:, 0]`` is each slot's carry-in token (the last sampled one,
+    whose K/V the cache is still owed) and ``tokens[:, 1:1+d]`` its d
+    drafts; positions past a row's draft length, and inactive rows, park
+    at the trash slot, so slots drafting K tokens and slots drafting none
+    run as one forward.
+
+    The forward writes K/V at every live position. The host accepts the
+    longest verified prefix per slot and does not advance ``lengths``
+    past it: the rejected drafts' K/V beyond the cursor is rewritten by
+    the next dispatch before anything attends it, so rollback costs no
+    device work. Verdicts come from ops/sampling.speculative_verify
+    (greedy: exact argmax matches; temperature: rejection sampling against
+    the engine's own filtered distribution). ``gmask`` [B, K+1, vocab]
+    (grammar on): the allowed tokens at each verify position."""
+    K = draft_tokens
+
+    def verify_fn(params, cache, tokens, positions, draft_len, generator,
+                  temperature, top_k, top_p, active, gmask=None):
+        offs = torch.arange(K + 1, dtype=positions.dtype,
+                            device=positions.device)[None, :]
+        live = active[:, None] & (offs <= draft_len[:, None])
+        pos = torch.where(live, positions[:, None] + offs, pad_slot)
+        logits, cache = forward(cfg, params, tokens, positions=pos,
+                                cache=cache, cache_view=view)
+        accept, resid, full = speculative_verify(
+            logits, tokens[:, 1:], generator, temperature, top_k, top_p,
+            gmask=gmask)
+        return accept, resid, full, cache
+
+    return verify_fn
+
+
 class InferenceEngine:
     """Batched generation over a fixed slot pool. Thread-unsafe by design;
     drive it from one loop."""
@@ -252,7 +317,14 @@ class InferenceEngine:
                  decode_chunk: Optional[int] = None,
                  max_queue: Optional[int] = None,
                  queue_shares: Optional[dict] = None,
-                 prefix_cache_size: Optional[int] = None):
+                 prefix_cache_size: Optional[int] = None,
+                 speculative: Optional[str] = None,
+                 draft_tokens: Optional[int] = None,
+                 ngram_max: Optional[int] = None,
+                 ngram_min: Optional[int] = None,
+                 grammar: str = "off",
+                 grammar_cache_size: Optional[int] = None,
+                 tokenizer=None):
         """params live on the engine's device (CUDA, or the CPU when the
         caller put them there); every tensor the engine makes follows.
 
@@ -267,16 +339,80 @@ class InferenceEngine:
         registered shared prefixes kept (LRU; default max(4, 2 *
         max_slots), so every live conversation under auto-prefix chat can
         hold an entry between its turns); each costs [L, plen, kv_h, d]
-        x 2 of device memory."""
+        x 2 of device memory.
+
+        speculative / draft_tokens / ngram_max / ngram_min: speculative
+        decoding. None follows the config (cfg.speculative etc.;
+        draft_tokens then defaults through utils/hw.backend_tuning).
+        "ngram" drafts up to draft_tokens tokens per slot from a
+        prompt-lookup index over n-grams of ngram_min..ngram_max tokens
+        and verifies them in one [B, K+1] forward; greedy outputs are the
+        same with it on or off.
+
+        grammar / grammar_cache_size / tokenizer: grammar-constrained
+        output. "on" compiles each request's `response_format` (a
+        JSON-schema subset or EBNF) into a token DFA over the tokenizer's
+        vocabulary, kept in an LRU of grammar_cache_size entries (default
+        64) keyed on (grammar hash, tokenizer fingerprint); every dispatch
+        then takes a [rows, vocab] allowed-token mask (all-True rows for
+        unconstrained slots). Constrained requests finish with
+        "grammar_complete" when their grammar admits nothing but EOS."""
         check_supported(cfg)
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
+        tuning = backend_tuning(self.device)
         if decode_chunk is None:
-            decode_chunk = backend_tuning(self.device)["decode_chunk"]
+            decode_chunk = tuning["decode_chunk"]
         if decode_chunk < 1:
             raise ValueError(f"decode_chunk must be >= 1, got {decode_chunk}")
         self.decode_chunk = decode_chunk
+        self.speculative = check_speculative(
+            speculative if speculative is not None else cfg.speculative)
+        self.draft_tokens = int(
+            draft_tokens if draft_tokens is not None
+            else cfg.draft_tokens if cfg.draft_tokens is not None
+            else tuning["draft_tokens"])
+        if self.draft_tokens < 1:
+            raise ValueError(
+                f"draft_tokens must be >= 1, got {self.draft_tokens}")
+        self.ngram_max = int(ngram_max if ngram_max is not None
+                             else cfg.ngram_max)
+        self.ngram_min = int(ngram_min if ngram_min is not None
+                             else cfg.ngram_min)
+        # The index checks 1 <= ngram_min <= ngram_max: built even with
+        # speculation off, so a bad config fails here, not when someone
+        # turns speculation on.
+        self._spec_index: Optional[NgramDraftIndex] = NgramDraftIndex(
+            max_slots, self.ngram_max, self.ngram_min)
+        if self.speculative == "off":
+            self._spec_index = None
+        self.spec_drafted = 0        # draft tokens proposed
+        self.spec_accepted = 0       # draft tokens accepted
+        self.spec_verify_steps = 0   # verify dispatches
+        # accept-rate bucket -> [tokens emitted, dispatch seconds]
+        self._spec_rate_buckets = {b: [0, 0.0]
+                                   for b in _ACCEPT_RATE_BUCKETS}
+        if grammar not in ("off", "on"):
+            raise ValueError(
+                f"grammar must be 'off' or 'on', got {grammar!r}")
+        self.grammar = grammar
+        self._grammar_cache: Optional[GrammarCache] = None
+        self.grammar_requests = 0           # requests with a compiled DFA
+        self.grammar_completed = 0          # grammar_complete finishes
+        self.grammar_draft_truncations = 0  # drafts cut at an illegal token
+        # Host seconds of each gmask build (one per dispatch).
+        self.grammar_mask_seconds: collections.deque = collections.deque(
+            maxlen=4096)
+        if grammar == "on":
+            if tokenizer is None:
+                raise ValueError(
+                    "grammar: on needs the tokenizer (the DFA compiler "
+                    "maps grammar bytes onto token ids); pass tokenizer=")
+            self._grammar_cache = GrammarCache(
+                TokenVocab.from_tokenizer(tokenizer), cfg.vocab_size,
+                capacity=(int(grammar_cache_size)
+                          if grammar_cache_size is not None else 64))
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len or cfg.max_seq_len
         self._pad_slot = self.max_seq_len  # trash slot index
@@ -302,9 +438,11 @@ class InferenceEngine:
         self.cache = self._new_cache()
         self.deadline_expired = 0
         self.prefill_dispatches = 0
-        # Host seconds inside prefill and decode dispatches, each ending in
-        # its host sync; the profiler sees the same spans by these names.
-        self.dispatch_seconds = {"prefill": 0.0, "decode": 0.0}
+        # Host seconds inside prefill, decode and verify dispatches, each
+        # ending in its host sync; the profiler sees the same spans by
+        # these names.
+        self.dispatch_seconds = {"prefill": 0.0, "decode": 0.0,
+                                 "verify": 0.0}
         # Time to first token (submit to the first sampled token, host
         # clock) of the latest requests.
         self.ttft_seconds: collections.deque = collections.deque(
@@ -322,6 +460,7 @@ class InferenceEngine:
         self._prefill = make_prefill_fn(cfg, self.max_seq_len + 1)
         self._prefix_build = make_prefix_build_fn(cfg, self.max_seq_len + 1)
         self._decode_fns: dict = {}
+        self._verify_fns: dict = {}
         self.prefix_cache_size = (prefix_cache_size
                                   if prefix_cache_size is not None
                                   else max(4, 2 * max_slots))
@@ -346,6 +485,12 @@ class InferenceEngine:
                 self.cfg, self.decode_chunk, self.max_seq_len,
                 self._pad_slot, view)
         return self._decode_fns[view]
+
+    def _verify_for(self, view: int):
+        if view not in self._verify_fns:
+            self._verify_fns[view] = make_verify_fn(
+                self.cfg, self.draft_tokens, self._pad_slot, view)
+        return self._verify_fns[view]
 
     @contextlib.contextmanager
     def _dispatch(self, kind: str):
@@ -390,9 +535,16 @@ class InferenceEngine:
                 "request-level `adapter` needs a pooled engine or a "
                 "dedicated server with the adapter folded at load")
         if req.response_format is not None:
-            raise ValueError(
-                "this server has grammar-constrained decoding off "
-                "(grammar: off); `response_format` needs grammar: on")
+            if self._grammar_cache is None:
+                raise ValueError(
+                    "this server has grammar-constrained decoding off "
+                    "(grammar: off); `response_format` needs grammar: on")
+            # Compiled (or an LRU hit) here, at the 400 boundary: a
+            # GrammarError names the unsupported construct and the request
+            # never enters the queue. The cursor holds the DFA, so a cache
+            # eviction cannot strand the slot.
+            req._grammar = self._grammar_cache.cursor(req.response_format)
+            self.grammar_requests += 1
 
     def submit(self, req: Request) -> None:
         self.validate(req)
@@ -442,12 +594,89 @@ class InferenceEngine:
         self.last_token[:] = 0
         self.slot_req = [None] * self.max_slots
         self.queue.clear()
+        if self._spec_index is not None:
+            self._spec_index.reset()
+
+    # -- grammar masks -------------------------------------------------
+    #
+    # Empty when grammar is off. When on, every dispatch takes a mask:
+    # all-True rows for unconstrained slots, where masking is the identity.
+
+    def _mask_kwargs(self, mask: np.ndarray, t0: float) -> dict:
+        self.grammar_mask_seconds.append(time.perf_counter() - t0)
+        return {"gmask": self._tensor(mask)}
+
+    def _grammar_prefill_kwargs(self, group: List[tuple], rows: int) -> dict:
+        """[rows, vocab] allowed first tokens of one admission group."""
+        if self._grammar_cache is None:
+            return {}
+        t0 = time.perf_counter()
+        mask = np.ones((rows, self.cfg.vocab_size), bool)
+        for i, (_, req) in enumerate(group):
+            if req._grammar is not None:
+                mask[i] = req._grammar.mask_row()
+        return self._mask_kwargs(mask, t0)
+
+    def _grammar_decode_kwargs(self) -> dict:
+        """[max_slots, vocab] allowed tokens at each slot's cursor."""
+        if self._grammar_cache is None:
+            return {}
+        t0 = time.perf_counter()
+        mask = np.ones((self.max_slots, self.cfg.vocab_size), bool)
+        for slot in range(self.max_slots):
+            req = self.slot_req[slot]
+            if self.active[slot] and req is not None \
+                    and req._grammar is not None:
+                mask[slot] = req._grammar.mask_row()
+        return self._mask_kwargs(mask, t0)
+
+    def _grammar_verify_kwargs(self, drafts: dict) -> dict:
+        """[max_slots, K+1, vocab] verify masks: position 0 is the slot's
+        cursor state, position i the state after the draft prefix d[:i].
+        Drafts were cut to legal prefixes (_collect_drafts), so the walk
+        covers every drafted position; rows past a slot's draft stay
+        all-True (their samples are never emitted)."""
+        if self._grammar_cache is None:
+            return {}
+        t0 = time.perf_counter()
+        mask = np.ones((self.max_slots, self.draft_tokens + 1,
+                        self.cfg.vocab_size), bool)
+        for slot, d in drafts.items():
+            req = self.slot_req[slot]
+            cur = None if req is None else req._grammar
+            if cur is None:
+                continue
+            for i, state in enumerate([cur.state] + cur.walk(d)):
+                mask[slot, i] = cur.dfa.masks[state]
+        return self._mask_kwargs(mask, t0)
+
+    def _grammar_warm_kwargs(self, shape: tuple) -> dict:
+        """An all-True mask for warmup's dispatches, so they launch what
+        the masked dispatches of traffic launch."""
+        if self._grammar_cache is None:
+            return {}
+        return {"gmask": torch.ones(shape, dtype=torch.bool,
+                                    device=self.device)}
+
+    def grammar_stats(self) -> dict:
+        """Grammar-mode snapshot: the compile cache's hits, misses, size
+        and compile seconds, and the engine's counters."""
+        out = {"mode": self.grammar}
+        if self._grammar_cache is None:
+            return out
+        out.update(self._grammar_cache.stats())
+        out.update({"requests_total": self.grammar_requests,
+                    "completed_total": self.grammar_completed,
+                    "draft_truncations_total":
+                        self.grammar_draft_truncations})
+        return out
 
     def warmup(self) -> None:
         """Build the kernels, then run one prefill per bucket at both row
         counts (1 and max_slots) and one decode chunk per cache view
-        before traffic, so the first request pays for no kernel build and
-        no first launch. Slot state is reset afterwards; the engine's
+        (and, with speculation on, one verify forward per view) before
+        traffic, so the first request pays for no kernel build and no
+        first launch. Slot state is reset afterwards; the engine's
         sampling stream is untouched.
 
         This covers shared prefixes too: the prefix-K/V build launches the
@@ -461,6 +690,7 @@ class InferenceEngine:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(0)
         t = self._tensor
+        vocab = self.cfg.vocab_size
         for bucket in self.prefill_buckets:
             for rows in sorted({1, self.max_slots}):
                 positions = np.full((rows, bucket), self._pad_slot,
@@ -472,7 +702,8 @@ class InferenceEngine:
                     [0] * rows, t(np.ones(rows, np.int64)), gen,
                     t(np.zeros(rows, np.float32)),
                     t(np.zeros(rows, np.int32)),
-                    t(np.ones(rows, np.float32)))
+                    t(np.ones(rows, np.float32)),
+                    **self._grammar_warm_kwargs((rows, vocab)))
         n = self.max_slots
         idle = np.zeros(n, np.int32)
         for view in self.view_buckets:
@@ -481,7 +712,17 @@ class InferenceEngine:
                 t(np.full(n, self._pad_slot, np.int32)), gen,
                 t(np.zeros(n, np.float32)), t(idle),
                 t(np.ones(n, np.float32)), t(np.full(n, -1, np.int32)),
-                t(idle), t(np.zeros(n, bool)))
+                t(idle), t(np.zeros(n, bool)),
+                **self._grammar_warm_kwargs((n, vocab)))
+            if self._spec_index is not None:
+                first, _, _, self.cache = self._verify_for(view)(
+                    self.params, self.cache,
+                    t(np.zeros((n, self.draft_tokens + 1), np.int32)),
+                    t(idle), t(idle), gen, t(np.zeros(n, np.float32)),
+                    t(idle), t(np.ones(n, np.float32)),
+                    t(np.zeros(n, bool)),
+                    **self._grammar_warm_kwargs(
+                        (n, self.draft_tokens + 1, vocab)))
         first.cpu()
         self.reset()
 
@@ -661,7 +902,8 @@ class InferenceEngine:
             self.params, self.cache, self._tensor(tokens),
             self._tensor(positions), slots, self._tensor(last_pos),
             self.generator, self._tensor(temps), self._tensor(top_ks),
-            self._tensor(top_ps), prefix=prefix)
+            self._tensor(top_ps), prefix=prefix,
+            **self._grammar_prefill_kwargs(group, rows))
         self.prefix_tokens_reused += plen * n
         self.prefill_dispatches += 1
         # The first tokens must reach the host to stream: the dispatch's
@@ -672,35 +914,64 @@ class InferenceEngine:
 
     def _activate_slot(self, slot: int, req: Request,
                        first_tok: int) -> None:
-        """Post-prefill slot activation and the first token's recording
-        (which may immediately finish a max_tokens=1 request)."""
+        """Post-prefill slot activation: bookkeeping, the draft index's
+        context (the whole prompt, a shared prefix included), and the
+        first token's recording (which may immediately finish a
+        max_tokens=1 request)."""
         self.active[slot] = True
         self.lengths[slot] = len(req.prompt_tokens)
         self.slot_req[slot] = req
         req._slot = slot
         self.last_token[slot] = first_tok
+        if self._spec_index is not None:
+            self._spec_index.begin(slot, req.prompt_tokens)
         self._record_token(slot, first_tok)
+
+    def _finish(self, slot: int, req: Request, reason: str) -> None:
+        req.finished = True
+        req.finish_reason = reason
+        self.active[slot] = False
+        self.slot_req[slot] = None
+        if self._spec_index is not None:
+            self._spec_index.clear(slot)
 
     def _record_token(self, slot: int, tok: int) -> None:
         req = self.slot_req[slot]
         if req is None:
             raise RuntimeError(f"token recorded for empty slot {slot}")
         req.output_tokens.append(tok)
+        if self._spec_index is not None:
+            self._spec_index.extend(slot, tok)
         if len(req.output_tokens) == 1:
             self.ttft_seconds.append(time.monotonic() - req._submitted)
         if req.on_token is not None:
             req.on_token(tok)
         hit_eos = req.eos_id is not None and tok == req.eos_id
+        # The grammar cursor advances here and only here (draft gating and
+        # verify masks preview with the non-mutating walk). EOS is not a
+        # grammar token: masks allow it exactly at accepting states, and it
+        # finishes through "stop". A terminal state (accepting, nothing
+        # may follow) finishes the slot here, so its mask row, which
+        # allows only EOS, is never dispatched.
+        grammar_done = False
+        if req._grammar is not None and not hit_eos:
+            if not req._grammar.advance(tok):
+                # Masked sampling makes this unreachable; one request's
+                # error must not take the engine down.
+                self._finish(slot, req, "error")
+                return
+            grammar_done = req._grammar.at_terminal
         # lengths[slot] counts tokens written to the cache; the next decode
         # writes at position lengths[slot], which must stay < max_seq_len
         # (slot max_seq_len is the trash slot).
         out_of_room = self.lengths[slot] >= self.max_seq_len
-        if hit_eos or len(req.output_tokens) >= req.max_tokens \
-                or out_of_room:
-            req.finished = True
-            req.finish_reason = "stop" if hit_eos else "length"
-            self.active[slot] = False
-            self.slot_req[slot] = None
+        if hit_eos:
+            self._finish(slot, req, "stop")
+        elif grammar_done:
+            self.grammar_completed += 1
+            self._finish(slot, req, "grammar_complete")
+        elif len(req.output_tokens) >= req.max_tokens or out_of_room:
+            self._finish(slot, req, "length")
 
     def _expire_deadlines(self) -> List[int]:
         """Finish requests whose deadline passed (between decode chunks).
@@ -726,10 +997,7 @@ class InferenceEngine:
         for slot in range(self.max_slots):
             req = self.slot_req[slot]
             if self.active[slot] and req is not None and expired(req):
-                req.finished = True
-                req.finish_reason = "deadline"
-                self.active[slot] = False
-                self.slot_req[slot] = None
+                self._finish(slot, req, "deadline")
                 freed.append(slot)
                 n += 1
         self.deadline_expired += n
@@ -753,12 +1021,25 @@ class InferenceEngine:
     def _replay_chunk(self, toks: np.ndarray, valid: np.ndarray) -> int:
         """Replay one decode chunk on the host: `valid[k]` is exactly the
         set of slots alive at device step k, so this lands in the same
-        bookkeeping state as chunk=1 stepping. Returns tokens generated."""
+        bookkeeping state as chunk=1 stepping. Returns tokens generated.
+
+        A grammar-constrained slot takes only the chunk's first token: its
+        mask was exact for step 0 only, so later steps may have sampled
+        illegal tokens. Skipped steps do not advance `lengths`; their K/V
+        lies past the cursor and the next dispatch rewrites it. The device
+        cannot see a grammar_complete finish either, so a slot the host
+        just finished skips the rest of its chunk."""
         generated = 0
+        taken: set = set()
         for k in range(toks.shape[0]):
             for slot in np.nonzero(valid[k])[0]:
                 if not self.active[slot]:
                     continue
+                req = self.slot_req[slot]
+                if req is not None and req._grammar is not None:
+                    if slot in taken:
+                        continue
+                    taken.add(slot)
                 generated += 1
                 self.lengths[slot] += 1
                 tok = int(toks[k, slot])
@@ -767,15 +1048,153 @@ class InferenceEngine:
         return generated
 
     def step(self) -> int:
-        """Admit queued requests, then run one decode chunk over every
-        active slot. Returns the number of tokens generated."""
+        """Admit queued requests, then advance every active slot: one
+        verify forward when speculation is on and any slot has a draft
+        (slots without one ride the same forward and advance one token),
+        else one decode chunk. Returns the number of tokens generated."""
         self._admit(exclude_slots=self._expire_deadlines())
         if not self.active.any():
             return 0
-        with self._dispatch("decode"):
-            generated = self._decode_chunk_step()
+        generated: Optional[int] = None
+        if self._spec_index is not None:
+            drafts = self._collect_drafts()
+            if drafts is not None:
+                with self._dispatch("verify"):
+                    generated = self._verify_step(drafts)
+        if generated is None:
+            with self._dispatch("decode"):
+                generated = self._decode_chunk_step()
         self.steps += 1
         return generated
+
+    # -- speculative decoding ------------------------------------------
+
+    def _draft_for(self, slot: int, max_tokens: int) -> List[int]:
+        """Draft proposal for one slot (<= max_tokens tokens): the
+        prompt-lookup index's. Overridable, so a test or a measurement can
+        substitute drafts of known accuracy and still run the real verify
+        path."""
+        return self._spec_index.draft(slot, max_tokens)
+
+    def _collect_drafts(self) -> Optional[dict]:
+        """{active slot: draft}, each capped so that a verify step can
+        neither overrun the request's budget (emitting d + 1 tokens must
+        fit max_tokens) nor write past the context window (positions
+        L..L+d stay below the trash slot). None when no slot drafts
+        anything: the caller then runs the plain decode chunk."""
+        K = self.draft_tokens
+        drafts: dict = {}
+        any_draft = False
+        for slot in range(self.max_slots):
+            if not self.active[slot]:
+                continue
+            req = self.slot_req[slot]
+            cap = min(K, self.max_seq_len - 1 - int(self.lengths[slot]),
+                      req.max_tokens - len(req.output_tokens) - 1)
+            d = self._draft_for(slot, cap) if cap >= 1 else []
+            d = [int(t) for t in d[:max(cap, 0)]]
+            if req._grammar is not None and d:
+                # Cut at the first token the grammar refuses (and at a
+                # terminal state) before dispatch, so every drafted token
+                # has mass under its verify position's mask.
+                legal = legal_draft_prefix(req._grammar, d)
+                if len(legal) < len(d):
+                    self.grammar_draft_truncations += 1
+                d = legal
+            drafts[slot] = d
+            any_draft = any_draft or bool(d)
+        return drafts if any_draft else None
+
+    def _verify_step(self, drafts: dict) -> int:
+        """One batched verify step: the [B, K+1] operands (carry-in token
+        and each slot's draft), the verify forward, and each slot's
+        verdict replayed on the host: the longest accepted prefix, then
+        the correction or bonus token; `lengths` advances only past what
+        was emitted."""
+        B, K = self.max_slots, self.draft_tokens
+        tokens = np.zeros((B, K + 1), np.int32)
+        draft_len = np.zeros(B, np.int32)
+        for slot, d in drafts.items():
+            tokens[slot, 0] = self.last_token[slot]
+            if d:
+                tokens[slot, 1:1 + len(d)] = d
+                draft_len[slot] = len(d)
+        positions = np.where(self.active, self.lengths, 0).astype(np.int32)
+        temps, top_ks, top_ps, _, _ = self._sampling_operands()
+        step_drafted = int(draft_len.sum())
+        gkw = self._grammar_verify_kwargs(drafts)
+        t_dispatch = time.perf_counter()
+        accept, resid, full = self._verify_dispatch(
+            tokens, positions, draft_len, temps, top_ks, top_ps, gkw)
+        wall = time.perf_counter() - t_dispatch
+        generated = 0
+        step_accepted = 0
+        for slot, d in drafts.items():
+            if not self.active[slot] or self.slot_req[slot] is None:
+                continue
+            nd = len(d)
+            a = 0
+            while a < nd and bool(accept[slot, a]):
+                a += 1
+            # The accepted drafts, then the model's own next token: the
+            # residual at the first rejection, or the bonus sample after
+            # a clean sweep (nd == 0: a plain one-token decode).
+            emitted = d[:a] + [int(resid[slot, a]) if a < nd
+                               else int(full[slot, nd])]
+            self.spec_drafted += nd
+            self.spec_accepted += a
+            step_accepted += a
+            for tok in emitted:
+                if not self.active[slot]:
+                    break   # EOS, budget or room finished it mid-replay
+                generated += 1
+                self.lengths[slot] += 1
+                self.last_token[slot] = tok
+                self._record_token(slot, tok)
+        self.spec_verify_steps += 1
+        if step_drafted:
+            idx = min(int(step_accepted / step_drafted * 4), 3)
+            bucket = self._spec_rate_buckets[_ACCEPT_RATE_BUCKETS[idx]]
+            bucket[0] += generated
+            bucket[1] += wall
+        return generated
+
+    def _verify_dispatch(self, tokens, positions, draft_len, temps,
+                         top_ks, top_ps, gkw: dict):
+        """The verify forward at the smallest view covering every position
+        this step can write (L + K), with the verdicts on the host."""
+        view = self._view_for(int(self.lengths[self.active].max())
+                              + self.draft_tokens + 1)
+        t = self._tensor
+        accept, resid, full, self.cache = self._verify_for(view)(
+            self.params, self.cache, t(tokens), t(positions), t(draft_len),
+            self.generator, t(temps), t(top_ks), t(top_ps), t(self.active),
+            **gkw)
+        # One host sync per verify step.
+        return accept.cpu().numpy(), resid.cpu().numpy(), full.cpu().numpy()
+
+    def spec_stats(self) -> dict:
+        """Speculation snapshot: draft volume, accept rate, verify steps
+        and decode tokens/s by accept-rate bucket."""
+        out = {"mode": self.speculative}
+        if self.speculative == "off":
+            return out
+        out.update({
+            "draft_tokens": self.draft_tokens,
+            "ngram_max": self.ngram_max,
+            "ngram_min": self.ngram_min,
+            "drafted_total": self.spec_drafted,
+            "accepted_total": self.spec_accepted,
+            "accept_rate": (round(self.spec_accepted / self.spec_drafted,
+                                  4) if self.spec_drafted else None),
+            "verify_steps": self.spec_verify_steps,
+            "tokens_per_sec_by_accept_rate": {
+                name: {"tokens": tok, "seconds": round(sec, 6),
+                       "tokens_per_sec": (round(tok / sec, 1)
+                                          if sec > 0 else None)}
+                for name, (tok, sec) in self._spec_rate_buckets.items()},
+        })
+        return out
 
     def _decode_chunk_step(self) -> int:
         # Inactive rows decode into the trash slot; mid-chunk, rows that
@@ -790,7 +1209,7 @@ class InferenceEngine:
             self._tensor(positions), self.generator, self._tensor(temps),
             self._tensor(top_ks), self._tensor(top_ps),
             self._tensor(eos_ids), self._tensor(remaining),
-            self._tensor(self.active))
+            self._tensor(self.active), **self._grammar_decode_kwargs())
         # One host sync per chunk.
         toks = toks.cpu().numpy()            # [chunk, slots]
         valid = valid.cpu().numpy()          # [chunk, slots] bool

@@ -43,6 +43,7 @@ def backend_tuning(device: torch.device) -> dict:
 
     ``decode_chunk``: decode steps per host round-trip. 8 on CUDA, where a
     host sync per step would dominate small-batch inter-token latency; 1
-    on the CPU, where tests want step-at-a-time."""
+    on the CPU, where tests want step-at-a-time. ``draft_tokens``: the
+    default speculative draft window K, 4 on every device."""
     on_cuda = torch.device(device).type == "cuda"
-    return {"decode_chunk": 8 if on_cuda else 1}
+    return {"decode_chunk": 8 if on_cuda else 1, "draft_tokens": 4}

@@ -323,3 +323,88 @@ def test_http_server_serves_through_the_kernel():
         srv.shutdown()
         thread.join(timeout=60)
     assert not thread.is_alive()
+
+
+@pytest.mark.cuda
+def test_verify_greedy_rows_equal_argmax_on_card():
+    """speculative_verify at llama3's vocabulary: with temperature 0 the
+    verdicts are the argmax exactly (accept = draft == argmax, resid and
+    full = argmax)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.ops.sampling import speculative_verify
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    vocab = 128256
+    logits = torch.randn((8, 5, vocab), generator=g, device=dev)
+    argmax = logits.argmax(-1)
+    drafts = argmax[:, :4].clone()
+    drafts[1::2, 2:] = (drafts[1::2, 2:] + 1) % vocab
+    accept, resid, full = speculative_verify(
+        logits, drafts, g, torch.zeros(8, device=dev),
+        torch.zeros(8, dtype=torch.int32, device=dev),
+        torch.ones(8, device=dev))
+    assert torch.equal(accept, drafts == argmax[:, :4])
+    assert torch.equal(resid, argmax[:, :4])
+    assert torch.equal(full, argmax)
+
+
+def _two_layer_llama3(seed=0):
+    """llama3-8b at full width cut to 2 layers, f32 with the plain
+    attention: the decode step's [8, 1] and the verify forward's [8, 5]
+    products then agree to f32 rounding, far below the gaps between
+    greedy candidates, so greedy ids must be identical."""
+    from runbooks_tpu_torch.serve.api import load_model
+
+    return load_model({"model": "llama3-8b", "seed": seed,
+                       "model_overrides": {"num_layers": 2,
+                                           "dtype": "float32",
+                                           "attention_impl": "xla"}})
+
+
+@pytest.mark.cuda
+def test_speculation_keeps_greedy_ids_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
+
+    cfg, params = _two_layer_llama3()
+    prompts = [[5, 6, 7, 8] * 40, list(range(100, 160)) * 3]
+    outs = {}
+    for spec in ("off", "ngram"):
+        eng = InferenceEngine(cfg, params, max_slots=2, max_seq_len=512,
+                              speculative=spec)
+        reqs = [Request(prompt_tokens=p, max_tokens=40) for p in prompts]
+        with torch.no_grad():
+            eng.generate(reqs)
+        outs[spec] = [r.output_tokens for r in reqs]
+        if spec == "ngram":
+            assert eng.spec_verify_steps > 0 and eng.spec_drafted > 0
+        del eng
+    assert outs["ngram"] == outs["off"]
+
+
+@pytest.mark.cuda
+def test_constrained_request_completes_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
+    from runbooks_tpu_torch.train.data import ByteTokenizer
+
+    cfg, params = _two_layer_llama3()
+    tok = ByteTokenizer()
+    rf = {"type": "json_schema", "json_schema": {"schema": {
+        "type": "object",
+        "properties": {"ok": {"type": "boolean"},
+                       "mode": {"enum": ["a", "b"]}},
+        "required": ["ok", "mode"], "additionalProperties": False}}}
+    eng = InferenceEngine(cfg, params, max_slots=2, max_seq_len=512,
+                          grammar="on", tokenizer=tok, speculative="ngram")
+    req = Request(prompt_tokens=tok.encode("emit json: ", add_eos=False),
+                  max_tokens=64, eos_id=tok.eos_id, response_format=rf)
+    with torch.no_grad():
+        eng.generate([req])
+    assert req.finish_reason == "grammar_complete"
+    out = json.loads(tok.decode(req.output_tokens))
+    assert set(out) == {"ok", "mode"} and out["mode"] in ("a", "b")

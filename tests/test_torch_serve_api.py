@@ -488,8 +488,7 @@ def test_shutdown_drains_in_flight_requests(weights):
 
 
 @pytest.mark.parametrize("knob", [
-    {"kv_paging": "paged"}, {"kvPaging": True}, {"speculative": "ngram"},
-    {"grammar": "on"}, {"adapter_pool": 2},
+    {"kv_paging": "paged"}, {"kvPaging": True}, {"adapter_pool": 2},
     {"preemption": "swap"}, {"kv_host_pages": 64}, {"mesh_tensor": 2}])
 def test_main_refuses_unported_knobs_by_name(tmp_path, monkeypatch, knob):
     (tmp_path / "params.json").write_text(json.dumps({"model": "debug",
@@ -498,6 +497,49 @@ def test_main_refuses_unported_knobs_by_name(tmp_path, monkeypatch, knob):
     name = next(iter(knob)).replace("kvPaging", "kv_paging")
     with pytest.raises(NotImplementedError, match=name):
         api.main()
+
+
+@pytest.mark.parametrize("knob", [
+    {"speculative": "ngram", "draft_tokens": 4, "ngram_max": 3},
+    {"grammar": "on", "grammar_cache_size": 8}],
+    ids=["speculative", "grammar"])
+def test_main_takes_ported_knobs(tmp_path, monkeypatch, knob):
+    """Speculation and grammar are ported: main passes them on and stops
+    only where every CPU run of main stops, at the missing GPU."""
+    params = {"model": "debug", **knob}
+    (tmp_path / "params.json").write_text(json.dumps(params))
+    monkeypatch.setenv("RBT_CONTENT_DIR", str(tmp_path))
+    api.refuse_unported(params)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        api.main()
+
+
+def test_main_passes_speculation_and_grammar_knobs(tmp_path, monkeypatch):
+    """The params' spellings reach create_server typed."""
+    params = {"model": "debug", "speculative": "ngram", "draftTokens": 3,
+              "ngram_max": 4, "ngramMin": 2, "grammar": "on",
+              "grammarCacheSize": 8}
+    (tmp_path / "params.json").write_text(json.dumps(params))
+    monkeypatch.setenv("RBT_CONTENT_DIR", str(tmp_path))
+    got = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_create_server(cfg, model_params, tokenizer, **kw):
+        got.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(api, "load_model", lambda p: ("cfg", "params"))
+    monkeypatch.setattr(api, "create_server", fake_create_server)
+    with pytest.raises(Stop):
+        api.main()
+    assert {k: got[k] for k in ("speculative", "draft_tokens", "ngram_max",
+                                "ngram_min", "grammar",
+                                "grammar_cache_size")} == {
+        "speculative": "ngram", "draft_tokens": 3, "ngram_max": 4,
+        "ngram_min": 2, "grammar": "on", "grammar_cache_size": 8}
 
 
 def test_main_takes_knobs_that_are_off(tmp_path, monkeypatch):
