@@ -99,6 +99,32 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    tokens/s both ways. (e) ``create_server(speculative="ngram",
    grammar="on")``: a chat completion with a response_format answers 200
    and grammar_complete, an unsupported construct 400 naming it.
+12. Paged serving: llama3-8b bf16 at full width and depth,
+   ``max_slots=8``, ``max_seq_len=2048``, pages of 16, every engine warmed
+   up. (a) Phase 4's 8 requests through the dense engine and the
+   ``PagedInferenceEngine`` (1024 pages), both resident, run dense,
+   paged, paged, dense: greedy ids equal up to near-ties, K1's launches
+   equal, decode tokens/s and decode step times both ways, and the
+   device ms of the decode view's gather (8 slots x 2049) and of one
+   chunk's write-backs against their HBM bounds. (b) Phase 10's prefix
+   and 8 prompts with no registration: on an empty tree, and after one
+   request of the prefix alone finished and seeded it (8 x 64 pages
+   reused); K1's kv tiles on the card equal fwd_tile_plan's for every
+   dispatch, the engine's first-token logits within LOGIT_TOL of a full
+   prefill, TTFT both ways. (c) 256 device pages and a 256-page pinned
+   host tier: a 1024-token session finishes, two 2000-token requests
+   evict its pages to the host (>= 64 swapped out), and its next turn
+   swaps them back in (>= 64); per-page swap ms each way and GB/s
+   against PCIe Gen5 x16, one page's round trip bit-identical, the
+   turn's TTFT and greedy ids against the same engine with no host tier
+   (which recomputes). (d) ``preemption="swap"``, 512 pages: 8 batch
+   requests of 256 new tokens fill the slots and 4 interactive ones
+   arrive two steps later; preemptions >= 1, every one resumed, batch
+   ids equal to the run with preemption off up to near-ties, finish
+   reasons unchanged, interactive TTFT both ways. (e)
+   ``create_server(kv_paging=True, kv_host_pages=256,
+   preemption="swap")`` answers an ``X-Priority: interactive``
+   completion.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -192,6 +218,17 @@ VERIFY_ROWS = 20000
 VERIFY_CHUNK = 1000
 VERIFY_SIGMAS = 4
 GRAMMAR_MAX = 256
+# Phase 12: paged serving.
+PAGE_SIZE = 16
+HOST_PAGES = 256           # (c) device pool and host tier; (d), (e) host
+OTHER_LEN = 2000           # (c) two such requests, the second admitted
+OTHER_NEW = 48             # while the first runs, evict the session
+PREEMPT_PAGES = 512
+PREEMPT_NEW = 256
+PREEMPT_BATCH_LEN = 200
+PREEMPT_INTERACTIVE_LEN = 100
+SWAP_TIMED_PAGES = 64
+PCIE_GEN5_X16 = 64e9       # bytes/s in each direction
 
 
 def card_line():
@@ -478,6 +515,12 @@ def smoke_prompts(seed):
     """The serving mix's prompts: seeded word text through ByteTokenizer,
     cut to PROMPT_LENS tokens (buckets 32 to 2048; the 90- and 120-token
     prompts share the 128 bucket and prefill as one 8-row burst)."""
+    return seeded_prompts(seed, PROMPT_LENS)
+
+
+def seeded_prompts(seed, lens):
+    """Seeded word text through ByteTokenizer (BOS first), one prompt of
+    each length in lens."""
     import numpy as np
 
     from runbooks_tpu_torch.train.data import ByteTokenizer
@@ -487,7 +530,7 @@ def smoke_prompts(seed):
     words = ["tpu", "kernel", "serve", "token", "cache", "prefill", "decode",
              "hopper", "warp", "tile", "batch", "slot", "queue", "model"]
     prompts = []
-    for n in PROMPT_LENS:
+    for n in lens:
         text = " ".join(rng.choice(words, size=n))
         prompts.append(tok.encode(text, add_bos=True, add_eos=False)[:n])
     return prompts
@@ -1849,16 +1892,17 @@ def median(xs):
     return sorted(xs)[len(xs) // 2] if xs else None
 
 
-def warm_engine(torch, cfg, params, seed, **kw):
-    """A warmed-up InferenceEngine(max_slots=8, max_seq_len=2048) and the
-    list its dispatches record their host seconds in ({kind: [s, ...]},
-    around the engine's own dispatch spans)."""
+def warm_engine(torch, cfg, params, seed, cls=None, **kw):
+    """A warmed-up InferenceEngine(max_slots=8, max_seq_len=2048) (or of
+    the engine class ``cls``) and the list its dispatches record their
+    host seconds in ({kind: [s, ...]}, around the engine's own dispatch
+    spans)."""
     import contextlib
 
     from runbooks_tpu_torch.serve.engine import InferenceEngine
 
-    engine = InferenceEngine(cfg, params, max_slots=8, max_seq_len=2048,
-                             seed=seed, **kw)
+    engine = (cls or InferenceEngine)(cfg, params, max_slots=8,
+                                      max_seq_len=2048, seed=seed, **kw)
     t0 = time.perf_counter()
     with torch.no_grad():
         engine.warmup()
@@ -2298,6 +2342,454 @@ def spec_grammar_phase(torch, dev, seed):
     return launches
 
 
+def view_timing(torch, engine):
+    """Device ms of the paged decode's per-chunk memory traffic at the
+    largest view (8 slots x 128 pages, each slot's own pages): the gather
+    into the [8, 2049] view, and one chunk of write-backs (decode_chunk
+    steps of 8 tokens), each against its HBM bound (every byte read once
+    and written once, over 3.35 TB/s)."""
+    from runbooks_tpu_torch.serve import paging
+    from runbooks_tpu_torch.utils.hw import H100_HBM_BW
+
+    pool = engine.cache
+    L, _, ps, kvh, d = pool.k.shape
+    B, vp = engine.max_slots, engine.view_page_buckets[-1]
+    dev = pool.k.device
+    tables = (torch.arange(B * engine.pages_per_slot, dtype=torch.int32,
+                           device=dev).view(B, -1) % engine.num_pages)
+    with torch.no_grad():
+        gather_ms = cuda_ms(lambda: paging.gather_view(pool, tables, vp), 20)
+        view = paging.gather_view(pool, tables, vp)
+        pos = torch.full((B,), 100, dtype=torch.int32, device=dev)
+        live = torch.ones(B, dtype=torch.bool, device=dev)
+
+        def chunk():
+            # The view holds the pages' own values, so this rewrites the
+            # pool with what it holds.
+            for k in range(engine.decode_chunk):
+                paging.write_back(pool, view, tables, pos + k, live)
+
+        write_ms = cuda_ms(chunk, 20)
+    esz = pool.k.element_size()
+    gather_bytes = 2 * 2 * L * B * (vp * ps + 1) * kvh * d * esz
+    write_bytes = 2 * 2 * engine.decode_chunk * L * B * kvh * d * esz
+    del view
+    return {"view_tokens": vp * ps, "gather_ms": gather_ms,
+            "gather_bytes": gather_bytes,
+            "gather_bound_ms": gather_bytes / H100_HBM_BW * 1e3,
+            "write_back_chunk_ms": write_ms,
+            "write_back_chunk_bytes": write_bytes,
+            "write_back_bound_ms": write_bytes / H100_HBM_BW * 1e3}
+
+
+def paged_vs_dense(torch, cfg, params, seed, launches):
+    """Phase 12 (a): phase 4's 8 requests through the dense engine and the
+    paged one (1024 pages of 16), both warmed up and both resident, run in
+    the order dense, paged, paged, dense so that host drift falls on both
+    sides. Returns the paged engine and its dispatch samples."""
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+
+    prompts = smoke_prompts(seed)
+    engines = {name: warm_engine(torch, cfg, params, seed, cls=cls)
+               for name, cls in (("dense", None),
+                                 ("paged", PagedInferenceEngine))}
+    runs = {"dense": [], "paged": []}
+    steps = {"dense": [], "paged": []}
+    ids = {}
+    for name in ("dense", "paged", "paged", "dense"):
+        engine, samples, warm_s = engines[name]
+        # An empty radix tree for every run: a repeat would otherwise
+        # prefill only the prompts' last pages.
+        engine.reset()
+        reqs = smoke_requests(prompts, {})
+        engine.ttft_seconds.clear()
+        torch.cuda.reset_peak_memory_stats()
+        st, run_ids = timed_generate(torch, engine, samples, reqs)
+        steps[name] += samples.get("decode", [])
+        st.update(warmup_s=warm_s,
+                  ttft_s_median=median(list(engine.ttft_seconds)),
+                  max_memory_allocated_gb=(
+                      torch.cuda.max_memory_allocated() / 1e9))
+        if not all(len(x) == MAX_TOKENS for x in run_ids):
+            raise SystemExit(f"paged (a) {name}: not every request got "
+                             f"{MAX_TOKENS} tokens: {st}")
+        ids.setdefault(name, run_ids)
+        runs[name].append(st)
+        launches[f"paged_a_{name}"] = st["flash_fwd_launches"]
+    free_engine(torch, engines["dense"][0])
+    engine, samples, _ = engines["paged"]
+    stats = {name: {"runs": runs[name],
+                    "median_decode_step_ms_all_runs":
+                        median(steps[name]) * 1000}
+             for name in runs}
+    stats["paged"]["kv_occupancy"] = engine.kv_occupancy()
+    stats["paged"]["view_traffic"] = view_timing(torch, engine)
+    print("paged (a) " + json.dumps(stats), flush=True)
+    per_run = {st["flash_fwd_launches"] for r in runs.values() for st in r}
+    if len(per_run) != 1:
+        raise SystemExit(f"paged (a): K1 launched {per_run} times per run; "
+                         "the paged prefill must launch it as the dense one")
+    for i in range(0, len(prompts), 2):      # the greedy requests
+        near_tie_check(torch, cfg, params, f"paged (a) request r{i}: "
+                       "greedy ids dense vs paged", prompts[i],
+                       ids["dense"][i], ids["paged"][i])
+    return engine, samples
+
+
+def radix_phase(torch, cfg, params, engine, samples, seed, launches):
+    """Phase 12 (b): phase 10's 1024-token prefix and its 8 prompts on the
+    paged engine, without POST /v1/prefix: once on an empty tree, once
+    after one request of the prefix alone has finished and seeded it."""
+    from runbooks_tpu_torch.ops.flash_attention import fwd_tile_counts
+    from runbooks_tpu_torch.serve.engine import Request, bucket_for
+    from runbooks_tpu_torch.train.data import ByteTokenizer
+
+    tok = ByteTokenizer()
+    prefix_text, texts = prefix_prompts(seed)
+    prefix_ids = tok.encode(prefix_text, add_eos=False)
+    prompts = [tok.encode(t, add_eos=False) for t in texts]
+    dispatch_pos, first_logits = [], {}
+    prefill = engine._paged_prefill
+
+    def recording_prefill(params_, pool, tokens, positions, dest, last_pos,
+                          *args, prefix_len=None, **kw):
+        dispatch_pos.append(positions.clone())
+        first, pool, logits = prefill(params_, pool, tokens, positions, dest,
+                                      last_pos, *args, prefix_len=prefix_len,
+                                      **kw)
+        plens = (prefix_len.tolist() if prefix_len is not None
+                 else [0] * tokens.shape[0])
+        toks, pos0 = tokens.tolist(), positions[:, 0].tolist()
+        for r, m in enumerate(x + 1 for x in last_pos.tolist()):
+            row = prefix_ids[:plens[r]] + toks[r][:m]
+            if pos0[r] != engine._pad_slot and row in prompts:
+                first_logits[prompts.index(row)] = logits[r].float().clone()
+        return first, pool, logits
+
+    engine._paged_prefill = recording_prefill
+    runs, run_ids, run_logits = {}, {}, {}
+    try:
+        for name in ("no_seed", "seed"):
+            engine.reset()
+            if name == "seed":
+                with torch.no_grad():
+                    engine.generate([Request(prompt_tokens=prefix_ids,
+                                             max_tokens=1)])
+            dispatch_pos.clear()
+            first_logits.clear()
+            engine.ttft_seconds.clear()
+            reused0 = engine.pager.pages_reused_total
+            fwd_tile_counts()
+            reqs = [Request(prompt_tokens=p, max_tokens=MAX_TOKENS)
+                    for p in prompts]
+            st, run_ids[name] = timed_generate(torch, engine, samples, reqs)
+            st.update(
+                kv_tiles_card=fwd_tile_counts()[0],
+                kv_tiles_predicted=sum(
+                    cfg.num_layers * cfg.num_heads * tile_counts(
+                        torch, pos, torch.arange(
+                            2049, dtype=torch.int32,
+                            device=pos.device)[None].expand(
+                                pos.shape[0], 2049), None, None, False)[0]
+                    for pos in dispatch_pos),
+                prefill_dispatches=len(dispatch_pos),
+                pages_reused=engine.pager.pages_reused_total - reused0,
+                ttft_s_median=median(list(engine.ttft_seconds)),
+                ttft_s_max=max(engine.ttft_seconds))
+            launches[f"paged_b_{name}"] = st["flash_fwd_launches"]
+            runs[name] = st
+            run_logits[name] = dict(first_logits)
+    finally:
+        engine._paged_prefill = prefill
+    print("paged (b) " + json.dumps(runs), flush=True)
+    want = len(prompts) * PREFIX_LEN // PAGE_SIZE
+    ok = (runs["seed"]["pages_reused"] == want
+          and all(r["kv_tiles_card"] == r["kv_tiles_predicted"]
+                  for r in runs.values()))
+    print(f"paged (b): pages reused {runs['seed']['pages_reused']} (want "
+          f"{want}); K1 kv tiles on the card equal fwd_tile_plan's -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("paged (b): radix sharing failed its counts")
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            full = prefill_logits(torch, cfg, params, p,
+                                  bucket_for(engine.prefill_buckets, len(p)),
+                                  2048).float()
+            for name, got in run_logits.items():
+                if i not in got:
+                    raise SystemExit(f"paged (b) {name}: no prefill logits "
+                                     f"for prompt {i}")
+                gap_check(f"paged (b) prompt {i} ({len(p)} tokens), "
+                          f"{name}: first-token logits vs a full prefill",
+                          got[i], full)
+    for i, p in enumerate(prompts):
+        near_tie_check(torch, cfg, params, f"paged (b) prompt {i}: greedy "
+                       "ids without vs with the seed", p,
+                       run_ids["no_seed"][i], run_ids["seed"][i])
+
+
+def swap_timing(torch, cfg, engine):
+    """Per-page swap ms each way over SWAP_TIMED_PAGES pages of the
+    engine's pool (pinned host buffers; a swap-out waits for its copy, the
+    swap-ins are timed to one synchronize after the last), and whether
+    every page came back bit-identical in another page."""
+    from runbooks_tpu_torch.serve import paging
+
+    pool = engine.cache
+    n = SWAP_TIMED_PAGES
+    host = paging.HostPagePool(cfg, n, PAGE_SIZE, pin_memory=True)
+    out_fn, in_fn = paging.make_kv_swap_out_fn(), paging.make_kv_swap_in_fn()
+    slots = [host.alloc() for _ in range(n)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for h, page in zip(slots, range(n)):
+        host.store(h, *out_fn(pool, page))
+    out_ms = (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for h, page in zip(slots, range(n, 2 * n)):
+        in_fn(pool, page, *host.load(h))
+    torch.cuda.synchronize()
+    in_ms = (time.perf_counter() - t0) * 1e3 / n
+    same = all(torch.equal(pool.k[:, p], pool.k[:, p + n])
+               and torch.equal(pool.v[:, p], pool.v[:, p + n])
+               for p in range(n))
+    return {"pages": n, "bytes_per_page": host.bytes_per_page,
+            "swap_out_ms_per_page": out_ms, "swap_in_ms_per_page": in_ms,
+            "swap_out_gb_per_s": host.bytes_per_page / out_ms / 1e6,
+            "swap_in_gb_per_s": host.bytes_per_page / in_ms / 1e6,
+            "pcie_gen5_x16_gb_per_s": PCIE_GEN5_X16 / 1e9,
+            "round_trip_bit_identical": same}
+
+
+def host_tier_phase(torch, cfg, params, seed, launches):
+    """Phase 12 (c): a 1024-token session finishes, two 2000-token
+    requests evict its pages, and its next turn comes back: with a host
+    tier of 256 pages (swapped out, then in) and with none (recomputed),
+    each engine of 256 device pages warmed up."""
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.engine import Request
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+    from runbooks_tpu_torch.train.data import ByteTokenizer
+
+    prefix_text, _ = prefix_prompts(seed)
+    session = ByteTokenizer().encode(prefix_text, add_eos=False)
+    others = seeded_prompts(seed + 12, (OTHER_LEN, OTHER_LEN))
+    follow_up = seeded_prompts(seed + 13, (16,))[0]
+    runs, turn2 = {}, {}
+    prompt2 = None
+    for name, host_pages in (("host", HOST_PAGES), ("recompute", 0)):
+        engine, _, warm_s = warm_engine(
+            torch, cfg, params, seed, cls=PagedInferenceEngine,
+            num_pages=HOST_PAGES, kv_host_pages=host_pages)
+        flash_attention.launches = 0
+        with torch.no_grad():
+            t1 = Request(prompt_tokens=session, max_tokens=16)
+            engine.generate([t1])
+            engine.generate([Request(prompt_tokens=p, max_tokens=OTHER_NEW)
+                             for p in others])
+            mid = engine.pager.occupancy()
+            # Both engines take the first one's next turn: the session,
+            # its reply, and a follow-up.
+            if prompt2 is None:
+                prompt2 = session + t1.output_tokens + follow_up
+            t2 = Request(prompt_tokens=prompt2, max_tokens=MAX_TOKENS)
+            engine.ttft_seconds.clear()
+            engine.generate([t2])
+        torch.cuda.synchronize()
+        launches[f"paged_c_{name}"] = flash_attention.launches
+        st = {"warmup_s": warm_s, "turn2_ttft_s": engine.ttft_seconds[-1],
+              "turn2_prompt_tokens": len(t2.prompt_tokens),
+              "occupancy_before_turn2": mid,
+              "occupancy_after": engine.pager.occupancy(),
+              "swap_out_host_ms_median": (
+                  median(list(engine.swap_seconds["out"])) * 1e3
+                  if engine.swap_seconds["out"] else None),
+              "swap_in_host_ms_median": (
+                  median(list(engine.swap_seconds["in"])) * 1e3
+                  if engine.swap_seconds["in"] else None),
+              "flash_fwd_launches": flash_attention.launches}
+        turn2[name] = t2.output_tokens
+        if host_pages:
+            st["swap_timing"] = swap_timing(torch, cfg, engine)
+        runs[name] = st
+        free_engine(torch, engine)
+    print("paged (c) " + json.dumps(runs), flush=True)
+    host = runs["host"]
+    pages = PREFIX_LEN // PAGE_SIZE
+    ok = (host["occupancy_before_turn2"]["swap_out_pages_total"] >= pages
+          and host["occupancy_after"]["swap_in_pages_total"] >= pages
+          and host["swap_timing"]["round_trip_bit_identical"]
+          and len(turn2["host"]) == MAX_TOKENS)
+    print(f"paged (c): swapped out "
+          f"{host['occupancy_before_turn2']['swap_out_pages_total']}, in "
+          f"{host['occupancy_after']['swap_in_pages_total']} (want >= "
+          f"{pages} each); round trip bit-identical "
+          f"{host['swap_timing']['round_trip_bit_identical']} -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("paged (c): the host tier failed its counts")
+    near_tie_check(torch, cfg, params, "paged (c) turn 2: greedy ids "
+                   "swapped in vs recomputed", prompt2, turn2["host"],
+                   turn2["recompute"])
+
+
+def preemption_phase(torch, cfg, params, seed, launches):
+    """Phase 12 (d): 8 batch requests of PREEMPT_NEW new tokens fill the
+    slots, and 4 interactive requests arrive two steps later; preemption
+    on ("swap") and off on one warmed-up engine of 512 pages with a host
+    tier (the knob is read at each admission)."""
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.engine import Request
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+
+    batch_prompts = seeded_prompts(seed + 14, (PREEMPT_BATCH_LEN,) * 8)
+    inter_prompts = seeded_prompts(seed + 15,
+                                   (PREEMPT_INTERACTIVE_LEN,) * 4)
+    engine, _, warm_s = warm_engine(
+        torch, cfg, params, seed, cls=PagedInferenceEngine,
+        num_pages=PREEMPT_PAGES, kv_host_pages=HOST_PAGES,
+        preemption="swap")
+    runs, ids, reasons = {}, {}, {}
+    for mode in ("swap", "off"):
+        engine.reset()
+        engine.preemption = mode
+        counts0 = (engine.preemptions, engine.preempted_resumed)
+        first = {}
+        batch = [Request(prompt_tokens=p, max_tokens=PREEMPT_NEW,
+                         priority="batch") for p in batch_prompts]
+        inter = [Request(prompt_tokens=p, max_tokens=MAX_TOKENS,
+                         priority="interactive",
+                         on_token=(lambda t, i=i: first.setdefault(
+                             i, time.perf_counter())))
+                 for i, p in enumerate(inter_prompts)]
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for r in batch:
+                engine.submit(r)
+            engine.step()
+            engine.step()
+            t_inter = time.perf_counter()
+            for r in inter:
+                engine.submit(r)
+            while engine.has_work():
+                engine.step()
+        torch.cuda.synchronize()
+        launches[f"paged_d_{mode}"] = flash_attention.launches
+        ttft = sorted(first[i] - t_inter for i in range(len(inter)))
+        runs[mode] = {
+            "wall_s": time.perf_counter() - t0,
+            "interactive_ttft_s_median": ttft[len(ttft) // 2],
+            "interactive_ttft_s_max": ttft[-1],
+            "preemptions": engine.preemptions - counts0[0],
+            "preempted_resumed": engine.preempted_resumed - counts0[1],
+            "batch_tokens": sum(len(r.output_tokens) for r in batch),
+            "flash_fwd_launches": flash_attention.launches,
+            "occupancy": engine.pager.occupancy()}
+        ids[mode] = [r.output_tokens for r in batch]
+        reasons[mode] = [r.finish_reason for r in batch + inter]
+    free_engine(torch, engine)
+    runs["warmup_s"] = warm_s
+    print("paged (d) " + json.dumps(runs), flush=True)
+    on = runs["swap"]
+    ok = (on["preemptions"] >= 1
+          and on["preempted_resumed"] == on["preemptions"]
+          and runs["off"]["preemptions"] == 0
+          and reasons["swap"] == reasons["off"] == ["length"] * 12)
+    print(f"paged (d): {on['preemptions']} preemptions, "
+          f"{on['preempted_resumed']} resumed; finish reasons unchanged "
+          f"-> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise SystemExit("paged (d): preemption failed its counts")
+    for i, p in enumerate(batch_prompts):
+        near_tie_check(torch, cfg, params, f"paged (d) batch request {i}: "
+                       "greedy ids with vs without preemption", p,
+                       ids["swap"][i], ids["off"][i])
+
+
+def paged_http(torch, cfg, params, launches):
+    """Phase 12 (e): create_server(kv_paging=True, kv_host_pages=256,
+    preemption="swap") answers an X-Priority: interactive completion."""
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.api import create_server
+
+    t0 = time.perf_counter()
+    srv = create_server(cfg, params, host="127.0.0.1", port=0, max_slots=8,
+                        max_seq_len=2048, warmup=True, kv_paging=True,
+                        kv_host_pages=HOST_PAGES, preemption="swap")
+    ready_s = time.perf_counter() - t0
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    engine = srv.worker.engine
+    seen = []
+    submit = engine.submit
+
+    def recording_submit(req):
+        seen.append(req.priority)
+        submit(req)
+
+    engine.submit = recording_submit
+    body = {"prompt": " ".join(["the paged engine serves"] * 20),
+            "max_tokens": MAX_TOKENS, "temperature": 0}
+    try:
+        flash_attention.launches = 0
+        status, _, text, first_s = http_call(
+            f"http://127.0.0.1:{srv.port}", "/v1/completions", body,
+            {"X-Priority": "interactive"})
+        launches["paged_http"] = flash_attention.launches
+        occ = engine.kv_occupancy()
+    finally:
+        srv.shutdown()
+        thread.join(timeout=60)
+    ok = (status == 200 and seen == ["interactive"]
+          and type(engine).__name__ == "PagedInferenceEngine"
+          and json.loads(text)["choices"][0]["finish_reason"] == "length"
+          and launches["paged_http"] >= cfg.num_layers)
+    print("paged (e) " + json.dumps({
+        "ready_s": ready_s, "status": status, "wall_s": first_s,
+        "priorities": seen, "pages_total": occ["pages_total"],
+        "host_pages_total": occ["host_pages_total"],
+        "kv_pool_bytes": occ["kv_pool_bytes"],
+        "flash_fwd_launches": launches["paged_http"]}) + " -> "
+        + ("ok" if ok else "FAIL"), flush=True)
+    if not ok:
+        raise SystemExit(f"paged (e): {status} {text[:300]}")
+    del srv, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def paged_phase(torch, seed):
+    """Phase 12: paged serving of llama3-8b bf16 at full width and depth
+    (max_slots 8, max_seq_len 2048, pages of 16, every engine warmed up).
+    Returns K1's launches by run."""
+    from runbooks_tpu_torch.serve.api import load_model
+
+    t_phase = time.perf_counter()
+    cfg, params = load_model({"model": "llama3-8b",
+                              "model_overrides": {"param_dtype": "bfloat16"},
+                              "seed": seed})
+    launches = {}
+    engine, samples = paged_vs_dense(torch, cfg, params, seed, launches)
+    radix_phase(torch, cfg, params, engine, samples, seed, launches)
+    free_engine(torch, engine)
+    del engine
+    host_tier_phase(torch, cfg, params, seed, launches)
+    preemption_phase(torch, cfg, params, seed, launches)
+    paged_http(torch, cfg, params, launches)
+    if min(launches.values()) < cfg.num_layers:
+        raise SystemExit(f"phase 12 ran K1 too rarely: {launches}")
+    print("phase 12 " + json.dumps({
+        "flash_fwd_launches": launches,
+        "seconds": time.perf_counter() - t_phase}), flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2367,6 +2859,7 @@ def main():
         print(f"phases 9 and 10 took {time.perf_counter() - t0:.1f} s",
               flush=True)
         spec_launches = spec_grammar_phase(torch, dev, args.seed)
+        paged_launches = paged_phase(torch, args.seed)
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -2377,7 +2870,8 @@ def main():
         "launches": (serve_launches + train_launches["flash_fwd"]
                      + http_launches + import_launches + build_launches
                      + prefix_launches + no_prefix_launches
-                     + sum(spec_launches.values())),
+                     + sum(spec_launches.values())
+                     + sum(paged_launches.values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
@@ -2385,7 +2879,7 @@ def main():
                              "prefix_register": build_launches,
                              "prefix": prefix_launches,
                              "prefix_off": no_prefix_launches,
-                             **spec_launches},
+                             **spec_launches, **paged_launches},
         "max_abs_err": worst,
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],

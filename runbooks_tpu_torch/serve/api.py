@@ -5,17 +5,19 @@ The surface a Server resource expects of its container: readiness at
 ``GET /`` on port 8080, ``/v1/completions`` and ``/v1/chat/completions``
 (``"stream": true`` answers with server-sent events), ``/v1/prefix`` to
 register a shared prompt prefix, and weights from the contract's model
-mount. One worker thread owns the dense InferenceEngine and makes every
-device call, prefix registrations included; HTTP handler threads (the
-standard library's ``ThreadingHTTPServer``) only parse, enqueue and wait.
+mount. One worker thread owns the engine (the dense InferenceEngine, or
+with ``kv_paging`` the PagedInferenceEngine of serve/paging.py) and makes
+every device call, prefix registrations included; HTTP handler threads
+(the standard library's ``ThreadingHTTPServer``) only parse, enqueue and
+wait.
 
 Run: ``python -m runbooks_tpu_torch.serve.api`` (reads
 ``{RBT_CONTENT_DIR}/params.json``: model, model_overrides, seed,
-checkpoint, adapter, port, tokenizer and the engine knobs, speculation
-and grammar among them), or build one with ``create_server``. Features the
-port has not ported yet (paging, preemption, the adapter pool,
-quantization, the mesh, ``/metrics`` and ``/debug/*``) are refused by name
-rather than ignored.
+checkpoint, adapter, port, tokenizer and the engine knobs, speculation,
+grammar, paging, the host tier and preemption among them), or build one
+with ``create_server``. Features the port has not ported yet (the adapter
+pool, weight and KV quantization, the mesh, ``/metrics`` and ``/debug/*``)
+are refused by name rather than ignored.
 """
 
 from __future__ import annotations
@@ -43,9 +45,11 @@ from runbooks_tpu_torch.serve.engine import (
     PRIORITY_RANK,
     EngineDraining,
     EngineOverloaded,
+    EngineStepFailed,
     InferenceEngine,
     Request,
 )
+from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
 from runbooks_tpu_torch.serve.lora_pool import load_merge_adapter
 from runbooks_tpu_torch.train.checkpoint import restore_params
 from runbooks_tpu_torch.train.data import load_tokenizer
@@ -311,18 +315,28 @@ class EngineWorker:
                     continue
                 self._inflight.append((req, fut))
             self._pending.clear()
-        for tokens, fut in prefix_jobs:
-            # A prefix build writes only tensors of its own, never the pool:
-            # a failed registration fails its job alone.
+        for i, (tokens, fut) in enumerate(prefix_jobs):
+            # The dense prefix build writes only tensors of its own, so a
+            # failed registration fails its job alone. The paged one steps
+            # the engine: its EngineStepFailed poisons the engine like a
+            # failed step, so the jobs not reached fail with it and the
+            # error goes to _contain (doom every request, reset).
             try:
                 fut.set_result(self.engine.register_prefix(tokens))
+            except EngineStepFailed as exc:
+                for _, f in prefix_jobs[i:]:
+                    if not f.done():
+                        f.set_exception(exc)
+                raise
             except Exception as exc:  # noqa: BLE001 - the job's own error
                 fut.set_exception(exc)
-        if not self.engine.has_work():
+        if self.engine.has_work():
+            self.engine.step()
+        else:
             self._wake.wait(timeout=0.05)
             self._wake.clear()
-            return
-        self.engine.step()
+        # A paged registration steps the engine too, so requests may
+        # finish on either branch.
         with self._lock:
             done = [(r, f) for r, f in self._inflight if r.finished]
             if done:
@@ -870,10 +884,16 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
                   ngram_max: Optional[int] = None,
                   ngram_min: Optional[int] = None,
                   grammar: str = "off",
-                  grammar_cache_size: Optional[int] = None) -> Server:
-    """An HTTP server bound to (host, port; 0 picks a free port) over a
-    dense InferenceEngine on ``device`` (CUDA unless the caller names
-    another; params move there). With ``warmup`` the worker builds the
+                  grammar_cache_size: Optional[int] = None,
+                  kv_paging: bool = False,
+                  page_size: int = 16,
+                  num_pages: Optional[int] = None,
+                  kv_host_pages: int = 0,
+                  preemption: str = "off") -> Server:
+    """An HTTP server bound to (host, port; 0 picks a free port) over an
+    InferenceEngine on ``device`` (CUDA unless the caller names another;
+    params move there): the dense one, or with ``kv_paging`` the paged
+    one. With ``warmup`` the worker builds the
     kernels and runs every prefill bucket and decode view before this
     returns, so readiness flips only when the first request is cheap; a
     warmup failure raises here.
@@ -898,21 +918,39 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
     grammar="on" lets bodies carry `response_format` (a JSON-schema subset
     or EBNF), compiled into a token DFA over this tokenizer's vocabulary
     (an LRU of grammar_cache_size entries) that masks sampling;
-    constrained requests finish with finish_reason "grammar_complete"."""
+    constrained requests finish with finish_reason "grammar_complete".
+
+    kv_paging=True serves from the paged engine (serve/paging.py): the
+    cache is num_pages pages of page_size tokens (default num_pages: the
+    dense worst case, max_slots * max_seq_len / page_size) with radix-tree
+    prefix sharing across requests, and admission gates on free pages.
+    kv_host_pages >= 1 (paged only) adds the host swap tier: evicted pages
+    copy to pinned host buffers, and a returning session copies them back
+    instead of re-prefilling. preemption="swap" (paged only) lets a queue
+    head of a better QoS class displace the worst-class active slot, which
+    resumes later with its generated tokens intact. With the paged engine,
+    /v1/prefix registrations run through normal admission, and auto-prefix
+    chat needs no registration (finished turns seed the tree)."""
     dev = resolve_device(device)
     model_params = tree_map(lambda t: t.to(dev), model_params)
     tokenizer = tokenizer or load_tokenizer(None)
-    engine = InferenceEngine(cfg, model_params, max_slots=max_slots,
-                             max_seq_len=max_seq_len,
-                             prefill_budget=prefill_budget,
-                             decode_chunk=decode_chunk, max_queue=max_queue,
-                             queue_shares=queue_shares,
-                             prefix_cache_size=prefix_cache_size,
-                             speculative=speculative,
-                             draft_tokens=draft_tokens, ngram_max=ngram_max,
-                             ngram_min=ngram_min, grammar=grammar,
-                             grammar_cache_size=grammar_cache_size,
-                             tokenizer=tokenizer)
+    engine_kw = dict(max_slots=max_slots, max_seq_len=max_seq_len,
+                     prefill_budget=prefill_budget,
+                     decode_chunk=decode_chunk, max_queue=max_queue,
+                     queue_shares=queue_shares,
+                     prefix_cache_size=prefix_cache_size,
+                     speculative=speculative, draft_tokens=draft_tokens,
+                     ngram_max=ngram_max, ngram_min=ngram_min,
+                     grammar=grammar, grammar_cache_size=grammar_cache_size,
+                     tokenizer=tokenizer, preemption=preemption)
+    if kv_paging:
+        engine = PagedInferenceEngine(cfg, model_params,
+                                      page_size=page_size,
+                                      num_pages=num_pages,
+                                      kv_host_pages=kv_host_pages,
+                                      **engine_kw)
+    else:
+        engine = InferenceEngine(cfg, model_params, **engine_kw)
     worker = EngineWorker(engine, warmup=warmup)
     worker.ready.wait()
     if worker.warmup_error is not None:
@@ -942,21 +980,16 @@ def refuse_unported(params: dict) -> None:
             "0", "off", "false", "none", "")
 
     bad = []
-    if on("kv_paging", "kvPaging", "kvpaging"):
-        bad.append("kv_paging")
     if on("adapter_pool", "adapterPool", "adapterpool"):
         bad.append("adapter_pool")
-    if str(params.get("preemption", "off")).lower() == "swap":
-        bad.append("preemption: swap")
-    if on("kv_host_pages", "kvHostPages", "kvhostpages"):
-        bad.append("kv_host_pages")
+    if on("quantize_kv", "quantizeKv", "quantizekv"):
+        bad.append("quantize_kv")
     bad += [k for k, v in sorted(params.items())
             if k.startswith("mesh_") and int(v) > 1]
     if bad:
         raise NotImplementedError(
-            f"params {bad}: not ported to this server yet (paging, "
-            "preemption, the adapter pool and the mesh wait for later "
-            "work)")
+            f"params {bad}: not ported to this server yet (the adapter "
+            "pool, int8 KV and the mesh wait for later work)")
 
 
 def main() -> int:
@@ -997,7 +1030,18 @@ def main() -> int:
         ngram_min=opt("ngram_min", int, "ngramMin", "ngrammin"),
         grammar=opt("grammar", str) or "off",
         grammar_cache_size=opt("grammar_cache_size", int,
-                               "grammarCacheSize", "grammarcachesize"))
+                               "grammarCacheSize", "grammarcachesize"),
+        # `kv_paging: paged` is the validated spelling; bools are taken
+        # for hand-written params.json.
+        kv_paging=str(_param_any(params, "kv_paging", "kvPaging",
+                                 "kvpaging", default="off")).lower()
+        in ("paged", "on", "true", "1"),
+        page_size=int(_param_any(params, "page_size", "pageSize",
+                                 "pagesize", default=16)),
+        num_pages=opt("num_pages", int, "numPages", "numpages"),
+        kv_host_pages=opt("kv_host_pages", int, "kvHostPages",
+                          "kvhostpages") or 0,
+        preemption=opt("preemption", str) or "off")
     stopper: List[threading.Thread] = []
 
     def on_signal(signum, frame):

@@ -33,9 +33,14 @@
   every dispatch takes a per-row allowed-token mask (all-True rows for
   unconstrained slots).
 
-Later slices add the LoRA pool, preemption, paged KV, quantization, the
-mesh and the observability planes; their knobs are absent here, and
-requests that need them are refused by ``validate``.
+- QoS preemption hooks: ``preemption="swap"`` is served by the paged
+  engine (serve/paging.py), which displaces a worse-class slot at a step
+  boundary and resumes it later from its own adopted pages; this module
+  holds the request state and the resume branch they share.
+
+Later slices add the LoRA pool, quantization, the mesh and the
+observability planes; their knobs are absent here, and requests that need
+them are refused by ``validate``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import os
 import time
 from typing import Any, Callable, List, Optional
 
@@ -127,10 +133,31 @@ class Request:
     # output_tokens. It runs inside the decode loop: keep it cheap.
     on_token: Optional[Callable[[int], None]] = None
     _submitted: float = 0.0   # monotonic submit time (deadline anchor)
+    _admitted: float = 0.0    # monotonic admission time
     _slot: int = -1           # the slot it was admitted to
     # The compiled DFA's cursor (serve/grammar.GrammarCursor) when
     # response_format is set.
     _grammar: Any = None
+    # Preempted and re-queued (paged engine, preemption="swap"): the
+    # tokens generated so far stay in output_tokens and the written pages
+    # live on in the radix tree, so re-admission resumes from a radix match
+    # on the request's own history with no token lost or resampled.
+    _preempted: bool = False
+
+
+def _parse_swap_fault(spec: str) -> Optional[int]:
+    """K of ``RBT_FAULT_INJECT=swapfail:K`` (the K-th host-tier page copy
+    fails), None for any other value."""
+    if not spec.startswith("swapfail:"):
+        return None
+    try:
+        k = int(spec.split(":", 1)[1])
+    except ValueError as exc:
+        raise ValueError(
+            f"RBT_FAULT_INJECT={spec!r}: expected swapfail:K") from exc
+    if k < 1:
+        raise ValueError(f"RBT_FAULT_INJECT={spec!r}: K must be >= 1")
+    return k
 
 
 def _buckets(max_prefill: int) -> List[int]:
@@ -311,6 +338,10 @@ class InferenceEngine:
     """Batched generation over a fixed slot pool. Thread-unsafe by design;
     drive it from one loop."""
 
+    # Pages are the unit a preempted slot's state swaps at, so only the
+    # paged engine (serve/paging.py) supports preemption="swap".
+    _supports_preemption = False
+
     def __init__(self, cfg: ModelConfig, params: Params, *,
                  max_slots: int = 8, max_seq_len: Optional[int] = None,
                  seed: int = 0, prefill_budget: Optional[int] = None,
@@ -324,7 +355,8 @@ class InferenceEngine:
                  ngram_min: Optional[int] = None,
                  grammar: str = "off",
                  grammar_cache_size: Optional[int] = None,
-                 tokenizer=None):
+                 tokenizer=None,
+                 preemption: str = "off"):
         """params live on the engine's device (CUDA, or the CPU when the
         caller put them there); every tensor the engine makes follows.
 
@@ -356,7 +388,18 @@ class InferenceEngine:
         64) keyed on (grammar hash, tokenizer fingerprint); every dispatch
         then takes a [rows, vocab] allowed-token mask (all-True rows for
         unconstrained slots). Constrained requests finish with
-        "grammar_complete" when their grammar admits nothing but EOS."""
+        "grammar_complete" when their grammar admits nothing but EOS.
+
+        preemption: "off" (default) or "swap" (paged engine only). With
+        "swap", a queue head blocked on pages or slots preempts the
+        lowest-class active slot at a step boundary: the victim's written
+        pages are adopted into the radix tree (and may later swap to the
+        host tier), the request re-queues with its generated tokens, and
+        it resumes from a radix match on its own history.
+
+        RBT_FAULT_INJECT=swapfail:K (environment) makes the K-th host-tier
+        page copy fail once, so the degrade-to-drop and
+        degrade-to-recompute paths can be exercised."""
         check_supported(cfg)
         self.cfg = cfg
         self.params = params
@@ -435,6 +478,18 @@ class InferenceEngine:
         self._class_bounds = {
             cls: max(1, int(np.ceil(self.max_queue * s)))
             for cls, s in self.queue_shares.items()}
+        if preemption not in ("off", "swap"):
+            raise ValueError(
+                f"preemption must be 'off' or 'swap', got {preemption!r}")
+        if preemption == "swap" and not self._supports_preemption:
+            raise ValueError(
+                "preemption: swap needs the paged engine (pages are the "
+                "unit a preempted slot swaps at); set kv_paging: paged")
+        self.preemption = preemption
+        self.preemptions = 0          # slots preempted
+        self.preempted_resumed = 0    # preempted requests re-admitted
+        self._swap_fault = _parse_swap_fault(
+            os.environ.get("RBT_FAULT_INJECT", ""))
         self.cache = self._new_cache()
         self.deadline_expired = 0
         self.prefill_dispatches = 0
@@ -613,7 +668,10 @@ class InferenceEngine:
         t0 = time.perf_counter()
         mask = np.ones((rows, self.cfg.vocab_size), bool)
         for i, (_, req) in enumerate(group):
-            if req._grammar is not None:
+            # A resumed (preempted) row's prefill-sampled token is
+            # discarded (_activate_slot), so its row stays all-True.
+            if req._grammar is not None and not (req._preempted
+                                                 and req.output_tokens):
                 mask[i] = req._grammar.mask_row()
         return self._mask_kwargs(mask, t0)
 
@@ -729,9 +787,58 @@ class InferenceEngine:
     def has_work(self) -> bool:
         return bool(self.queue) or bool(self.active.any())
 
+    def kv_occupancy(self) -> dict:
+        """Token-level occupancy of the dense slot pool: the [max_slots,
+        max_seq_len] reservation against the tokens actually cached."""
+        capacity = self.max_slots * self.max_seq_len
+        tokens = int(self.lengths[self.active].sum())
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (self.cache.k, self.cache.v))
+        return {"slots_total": self.max_slots,
+                "slots_active": int(self.active.sum()),
+                "kv_tokens": tokens,
+                "kv_capacity_tokens": capacity,
+                "kv_pool_bytes": nbytes,
+                # One device holds the whole pool (no mesh in the port).
+                "kv_pool_bytes_per_device": nbytes,
+                "occupancy_ratio": tokens / capacity if capacity else 0.0}
+
     def _free_slots(self, exclude=()) -> List[int]:
         return [i for i in range(self.max_slots)
                 if not self.active[i] and i not in exclude]
+
+    @staticmethod
+    def _admit_tokens(req: Request) -> List[int]:
+        """The token history admission plans against: the prompt, or for
+        a preempted request the prompt plus every generated token already
+        written to the cache (all outputs but the last, the carry token
+        that lives in last_token; see _activate_slot)."""
+        if req._preempted and req.output_tokens:
+            return req.prompt_tokens + req.output_tokens[:-1]
+        return req.prompt_tokens
+
+    @staticmethod
+    def _admit_budget(req: Request) -> int:
+        """Token budget past _admit_tokens for page reservation: a resumed
+        request's generated tokens moved into the effective prompt, so the
+        budget shrinks by as many (+1 for the carry token) and the total
+        reserve stays prompt + max_tokens."""
+        if req._preempted and req.output_tokens:
+            return req.max_tokens - len(req.output_tokens) + 1
+        return req.max_tokens
+
+    def _swap_fault_hit(self) -> bool:
+        """RBT_FAULT_INJECT=swapfail:K: True exactly once, on the K-th
+        host-tier copy attempt (swap-outs and swap-ins count together).
+        The caller degrades as for a failed copy: drop instead of
+        swap-out, recompute instead of swap-in."""
+        if self._swap_fault is None:
+            return False
+        self._swap_fault -= 1
+        if self._swap_fault <= 0:
+            self._swap_fault = None
+            return True
+        return False
 
     def _bucket_for(self, n: int) -> int:
         return bucket_for(self.prefill_buckets, n)
@@ -847,6 +954,7 @@ class InferenceEngine:
             if admitted and need > budget:
                 break
             req = self.queue.pop(0)
+            req._admitted = time.monotonic()
             budget -= need
             admitted.append((slot, req, pkey))
         # One [rows, bucket] prefill dispatch per (bucket, prefix).
@@ -918,10 +1026,27 @@ class InferenceEngine:
         context (the whole prompt, a shared prefix included), and the
         first token's recording (which may immediately finish a
         max_tokens=1 request)."""
+        resumed = bool(req._preempted and req.output_tokens)
+        eff = self._admit_tokens(req)
         self.active[slot] = True
-        self.lengths[slot] = len(req.prompt_tokens)
+        self.lengths[slot] = len(eff)
         self.slot_req[slot] = req
         req._slot = slot
+        if resumed:
+            # Resume after preemption: the cache again holds the written
+            # history (prompt + outputs[:-1]). The carry token, sampled
+            # and streamed before preemption but never written, goes back
+            # into last_token so the next decode writes it at
+            # lengths[slot]. The prefill's freshly sampled token is
+            # discarded: that position's token was already recorded.
+            carry = int(req.output_tokens[-1])
+            self.last_token[slot] = carry
+            if self._spec_index is not None:
+                self._spec_index.begin(slot, eff)
+                self._spec_index.extend(slot, carry)
+            req._preempted = False
+            self.preempted_resumed += 1
+            return
         self.last_token[slot] = first_tok
         if self._spec_index is not None:
             self._spec_index.begin(slot, req.prompt_tokens)
@@ -932,6 +1057,14 @@ class InferenceEngine:
         req.finish_reason = reason
         self.active[slot] = False
         self.slot_req[slot] = None
+        self._on_slot_finished(slot, req)
+
+    def _on_slot_finished(self, slot: int, req: Request) -> None:
+        """Called once per slot whose request just finished (any reason,
+        deadline expiry included), after its bookkeeping is cleared and
+        before the slot can be admitted again. The dense pool needs no
+        cache work; the paged engine also releases the slot's pages and
+        adopts its written ones into the radix tree."""
         if self._spec_index is not None:
             self._spec_index.clear(slot)
 

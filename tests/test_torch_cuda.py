@@ -408,3 +408,129 @@ def test_constrained_request_completes_on_card():
     assert req.finish_reason == "grammar_complete"
     out = json.loads(tok.decode(req.output_tokens))
     assert set(out) == {"ok", "mode"} and out["mode"] in ("a", "b")
+
+
+def _paged_pool_case(dev, seed=0):
+    """A bf16 page pool at llama3's head shape (8 kv heads of 128), two
+    layers, 8 pages of 16 plus the trash page, with 3 slots' page tables
+    (a shared page, trash-padded tails)."""
+    from runbooks_tpu_torch.serve.paging import PagePool
+
+    g = torch.Generator().manual_seed(seed)
+    shape = (2, 9, 16, 8, 128)
+    k = torch.randn(shape, generator=g).to(torch.bfloat16)
+    v = torch.randn(shape, generator=g).to(torch.bfloat16)
+    tables = torch.tensor([[3, 1, 8, 8], [3, 5, 6, 8], [0, 2, 4, 7]],
+                          dtype=torch.int32)
+    return PagePool(k=k.to(dev), v=v.to(dev)), tables.to(dev)
+
+
+@pytest.mark.cuda
+def test_paged_gather_and_write_back_match_cpu_on_card():
+    """The decode view's gather and the per-step write-back on the card
+    equal the CPU's bit for bit (both are copies)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.serve.paging import gather_view, write_back
+
+    got = {}
+    for name, dev in (("cpu", torch.device("cpu")),
+                      ("cuda", torch.device("cuda"))):
+        pool, tables = _paged_pool_case(dev)
+        view = gather_view(pool, tables, 3)
+        assert view.k.shape == (2, 3, 49, 8, 128)
+        view.k[:, :, 20] += 1
+        view.v[:, :, 21] -= 1
+        pos = torch.tensor([20, 21, 48], dtype=torch.int32, device=dev)
+        write_back(pool, view, tables, pos,
+                   torch.tensor([True, True, False], device=dev))
+        pos2 = torch.tensor([[20, 21], [20, 48], [5, 6]], dtype=torch.int32,
+                            device=dev)
+        live2 = torch.tensor([[True, True], [True, False], [False, True]],
+                             device=dev)
+        write_back(pool, view, tables, pos2, live2)
+        got[name] = [t.cpu() for t in (view.k, view.v, pool.k[:, :8],
+                                       pool.v[:, :8])]
+    for a, b in zip(got["cpu"], got["cuda"]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_pinned_swap_round_trip_is_bit_identical_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.serve.paging import (
+        HostPagePool,
+        make_kv_swap_in_fn,
+        make_kv_swap_out_fn,
+    )
+
+    dev = torch.device("cuda")
+    pool, _ = _paged_pool_case(dev)
+    cfg = get_config("llama3-8b", num_layers=2)
+    host = HostPagePool(cfg, 4, 16, pin_memory=True)
+    assert host.k.is_pinned() and host.k.dtype == torch.bfloat16
+    want_k, want_v = pool.k[:, 3].clone(), pool.v[:, 3].clone()
+    h = host.alloc()
+    host.store(h, *make_kv_swap_out_fn()(pool, 3))
+    # The device page may be reused at once: store() waited for the copy.
+    pool.k[:, 3].zero_()
+    pool.v[:, 3].zero_()
+    make_kv_swap_in_fn()(pool, 6, *host.load(h))
+    torch.cuda.synchronize()
+    assert torch.equal(pool.k[:, 6], want_k)
+    assert torch.equal(pool.v[:, 6], want_v)
+
+
+@pytest.mark.cuda
+def test_paged_engine_writes_the_pool_in_place_on_card():
+    """A decode chunk leaves the pool's storage where it was (no
+    out-of-place copy of the pool), and the paged engine's greedy ids
+    equal the dense engine's (f32, plain attention)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+
+    cfg, params = _two_layer_llama3()
+    prompts = [list(range(100, 160)), [5, 6, 7] * 30]
+    outs = {}
+    for cls in (InferenceEngine, PagedInferenceEngine):
+        eng = cls(cfg, params, max_slots=2, max_seq_len=512)
+        reqs = [Request(prompt_tokens=p, max_tokens=24) for p in prompts]
+        with torch.no_grad():
+            for r in reqs:
+                eng.submit(r)
+            eng.step()                  # prefill, then a decode chunk
+            ptrs = (eng.cache.k.data_ptr(), eng.cache.v.data_ptr())
+            while eng.has_work():
+                eng.step()
+        assert (eng.cache.k.data_ptr(), eng.cache.v.data_ptr()) == ptrs
+        outs[cls.__name__] = [r.output_tokens for r in reqs]
+        del eng
+    assert outs["PagedInferenceEngine"] == outs["InferenceEngine"]
+
+
+@pytest.mark.cuda
+def test_paged_prefill_runs_the_kernel_on_card():
+    """Paged prefill, with and without a shared prefix gathered from
+    pages, launches K1 once per layer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.serve.api import load_model
+    from runbooks_tpu_torch.serve.engine import Request
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+
+    cfg, params = load_model({"model": "debug", "model_overrides": {
+        "head_dim": 128, "num_layers": 2}, "seed": 0})
+    eng = PagedInferenceEngine(cfg, params, max_slots=2, max_seq_len=256)
+    prompt = list(range(1, 60))
+    with torch.no_grad():
+        for _ in range(2):
+            launches = flash_attention.launches
+            req = Request(prompt_tokens=prompt, max_tokens=4)
+            eng.generate([req])
+            assert flash_attention.launches == launches + cfg.num_layers
+            assert req.finish_reason == "length"
+        assert eng.pager.pages_reused_total == 3

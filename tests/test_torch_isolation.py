@@ -86,6 +86,21 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_paged_entry_point_raises_without_a_gpu(monkeypatch):
+    """The paged server runs on CUDA unless a device is named; the paged
+    engine runs where its params live."""
+    from runbooks_tpu_torch.serve.api import create_server, load_model
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+
+    cfg, params = load_model({"model": "debug"}, device="cpu")
+    assert PagedInferenceEngine(cfg, params, max_slots=1,
+                                max_seq_len=64).cache.k.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_server(cfg, params, port=0, kv_paging=True,
+                      kv_host_pages=4, preemption="swap")
+
+
 def test_load_model_refuses_what_it_cannot_do():
     from runbooks_tpu_torch.serve.api import load_model
 

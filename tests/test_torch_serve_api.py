@@ -488,8 +488,7 @@ def test_shutdown_drains_in_flight_requests(weights):
 
 
 @pytest.mark.parametrize("knob", [
-    {"kv_paging": "paged"}, {"kvPaging": True}, {"adapter_pool": 2},
-    {"preemption": "swap"}, {"kv_host_pages": 64}, {"mesh_tensor": 2}])
+    {"adapter_pool": 2}, {"mesh_tensor": 2}, {"quantize_kv": True}])
 def test_main_refuses_unported_knobs_by_name(tmp_path, monkeypatch, knob):
     (tmp_path / "params.json").write_text(json.dumps({"model": "debug",
                                                       **knob}))
@@ -501,11 +500,17 @@ def test_main_refuses_unported_knobs_by_name(tmp_path, monkeypatch, knob):
 
 @pytest.mark.parametrize("knob", [
     {"speculative": "ngram", "draft_tokens": 4, "ngram_max": 3},
-    {"grammar": "on", "grammar_cache_size": 8}],
-    ids=["speculative", "grammar"])
+    {"grammar": "on", "grammar_cache_size": 8},
+    {"kv_paging": "paged", "page_size": 16, "num_pages": 64},
+    {"kvPaging": True, "kv_host_pages": 8},
+    {"kv_paging": "paged", "preemption": "swap"},
+    {"kv_paging": "on", "kvHostPages": 64, "preemption": "swap"}],
+    ids=["speculative", "grammar", "kv_paging", "kvPaging_host_pages",
+         "preemption", "host_tier_and_preemption"])
 def test_main_takes_ported_knobs(tmp_path, monkeypatch, knob):
-    """Speculation and grammar are ported: main passes them on and stops
-    only where every CPU run of main stops, at the missing GPU."""
+    """Speculation, grammar, paging, the host tier and preemption are
+    ported: main passes them on and stops only where every CPU run of main
+    stops, at the missing GPU."""
     params = {"model": "debug", **knob}
     (tmp_path / "params.json").write_text(json.dumps(params))
     monkeypatch.setenv("RBT_CONTENT_DIR", str(tmp_path))
@@ -552,3 +557,113 @@ def test_main_takes_knobs_that_are_off(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.main()
+
+
+def test_main_passes_paging_knobs(tmp_path, monkeypatch):
+    """The params' spellings of the paging knobs reach create_server
+    typed; paging stays off unless asked for."""
+    got = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_create_server(cfg, model_params, tokenizer, **kw):
+        got.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(api, "load_model", lambda p: ("cfg", "params"))
+    monkeypatch.setattr(api, "create_server", fake_create_server)
+    monkeypatch.setenv("RBT_CONTENT_DIR", str(tmp_path))
+    keys = ("kv_paging", "page_size", "num_pages", "kv_host_pages",
+            "preemption")
+    for params, want in (
+            ({"kvPaging": "paged", "pageSize": 32, "numPages": "96",
+              "kvHostPages": "128", "preemption": "swap"},
+             (True, 32, 96, 128, "swap")),
+            ({"kv_paging": "off"}, (False, 16, None, 0, "off"))):
+        (tmp_path / "params.json").write_text(json.dumps(
+            {"model": "debug", **params}))
+        with pytest.raises(Stop):
+            api.main()
+        assert tuple(got[k] for k in keys) == want
+
+
+def test_paged_server_answers_like_jax_paged(weights):
+    """create_server(kv_paging=True, kv_host_pages=..., preemption="swap")
+    on both sides: the same greedy completion with X-Priority:
+    interactive, the same /v1/prefix registration through admission, the
+    request carried at the header's class."""
+    jcfg, jparams, tcfg, tparams = weights
+    kw = dict(kv_paging=True, kv_host_pages=8, preemption="swap")
+    jax_srv = _JaxServer(jax_create_server(jcfg, jparams, max_slots=2,
+                                           max_seq_len=MAX_SEQ, **kw))
+    torch_srv = _TorchServer(api.create_server(
+        tcfg, tparams, host="127.0.0.1", port=0, device="cpu", max_slots=2,
+        max_seq_len=MAX_SEQ, **kw))
+    engine = torch_srv.srv.worker.engine
+    seen = []
+    submit = engine.submit
+
+    def recording_submit(req):
+        seen.append(req.priority)
+        submit(req)
+
+    engine.submit = recording_submit
+    try:
+        assert type(engine).__name__ == "PagedInferenceEngine"
+        assert engine.preemption == "swap" and engine.host_pool is not None
+        body = {"prompt": "the kernel serves a token " * 2, "max_tokens": 8,
+                **GREEDY}
+        (js, _, jt), (ts, _, tt) = _both(
+            (jax_srv, torch_srv), "/v1/completions", body,
+            {"X-Priority": "interactive"})
+        assert js == ts == 200
+        assert _stable(json.loads(tt)) == _stable(json.loads(jt))
+        assert seen == ["interactive"]
+        prefix = {"tokens": list(range(1, 40))}
+        (js, _, jt), (ts, _, tt) = _both((jax_srv, torch_srv),
+                                         "/v1/prefix", prefix)
+        assert js == ts == 200
+        assert json.loads(tt) == json.loads(jt) == {"cached_prefix_len": 32}
+        assert engine.has_prefix(prefix["tokens"])
+    finally:
+        torch_srv.close()
+        jax_srv.close()
+
+
+def test_paged_prefix_failure_resets_the_engine(weights):
+    """A paged registration steps the engine; a step failure there fails
+    the job (500) and every waiting request, and resets the engine, which
+    then serves again."""
+    _, _, tcfg, tparams = weights
+    srv = _TorchServer(api.create_server(
+        tcfg, tparams, host="127.0.0.1", port=0, device="cpu", max_slots=2,
+        max_seq_len=MAX_SEQ, kv_paging=True))
+    engine = srv.srv.worker.engine
+    resets = []
+    reset, prefill = engine.reset, engine._prefill_group_paged
+
+    def counting_reset():
+        resets.append(1)
+        reset()
+
+    def broken_prefill(*args):
+        raise RuntimeError("device fault")
+
+    engine.reset = counting_reset
+    engine._prefill_group_paged = broken_prefill
+    try:
+        status, _, text = _call(srv.base, "/v1/prefix",
+                                {"tokens": list(range(1, 40))})
+        assert status == 500 and "prefix registration failed" in text
+        # The job fails first; the worker then resets the engine.
+        deadline = time.monotonic() + HTTP_TIMEOUT
+        while not resets and time.monotonic() < deadline:
+            time.sleep(0.01)
+        assert resets == [1] and not engine.has_work()
+        engine._prefill_group_paged = prefill
+        status, _, _ = _call(srv.base, "/v1/completions",
+                             {"prompt": "x", "max_tokens": 2, **GREEDY})
+        assert status == 200
+    finally:
+        srv.close()
