@@ -125,6 +125,33 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``create_server(kv_paging=True, kv_host_pages=256,
    preemption="swap")`` answers an ``X-Priority: interactive``
    completion.
+13. Multi-tenant LoRA: llama3-8b bf16 at full width and depth, four
+   tenants' adapters written with ``save_adapter`` (attention targets;
+   three at rank 16 and alpha 32, one at rank 8 and alpha 16, B seeded
+   non-zero). (a) A pooled ``InferenceEngine(adapter_pool=4,
+   lora_rank=16, max_slots=8, max_seq_len=2048)`` and a no-pool one, both
+   warmed up and resident, run no-pool, pooled, pooled, no-pool twice on 8
+   greedy prompts of 150-250 tokens (two rows each for tenants 0 and 1,
+   one each for tenants 2 and 3, two base-only rows), 32 new tokens: one
+   prefill dispatch carries every tenant's lane, K1's launches equal the
+   no-pool run's, base-only rows give the no-pool ids with bit-identical
+   first-token logits, some tenant's ids differ from the base's, and each
+   tenant's ids equal those of a dedicated engine over its folded weights
+   up to near-ties; decode tokens/s both ways, kernel launches and
+   device busy ms per decode forward both ways (torch.profiler over one
+   decode chunk), the delta's ms per decode forward (CUDA events, and
+   the profiler's device busy time) against its HBM bound, pool bytes
+   and peak memory. (b) A 2-lane pool, the 4 tenants in a fixed rotation one
+   request at a time: loads, evictions and hits as the LRU predicts, the
+   pool's storage unmoved; each tenant's artifact read and lane write (ms
+   against its PCIe bound). (c) ``PagedInferenceEngine`` with the same
+   pool and mix: ids equal (a)'s up to near-ties, the same prompt under
+   another adapter reuses no page, the tenant's next turn reuses its own,
+   and with ``preemption="swap"`` a preempted tenant row waits with its
+   lane pinned and resumes. (d) ``speculative="ngram"`` on the pooled
+   engine: ids equal (a)'s up to near-ties, the accept rate. (e)
+   ``create_server(adapter_pool=4, adapter_dir=...)``: ``"adapter":
+   "tenant0"`` answers 200 with (a)'s ids, an unknown adapter 400.
 
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
@@ -228,6 +255,19 @@ PREEMPT_NEW = 256
 PREEMPT_BATCH_LEN = 200
 PREEMPT_INTERACTIVE_LEN = 100
 SWAP_TIMED_PAGES = 64
+# Phase 13 (multi-tenant LoRA): the pool, its rank bucket, the tenants'
+# (rank, alpha), each prompt's tenant (None: base only), prompt lengths
+# (all in the 256 bucket), new tokens, B's seeded scale, the 2-lane
+# rotation's order, and the preemption run's batch rows' new tokens.
+LORA_POOL = 4
+LORA_RANK = 16
+LORA_TENANTS = ((16, 32.0), (16, 32.0), (16, 32.0), (8, 16.0))
+LORA_MIX = (0, 0, 1, 1, 2, 3, None, None)
+LORA_LENS = (150, 165, 180, 195, 210, 225, 240, 250)
+LORA_NEW = 32
+LORA_B_STD = 0.03
+LORA_ROTATION = (0, 1, 0, 2, 1, 3, 3, 0, 2, 1)
+LORA_PREEMPT_NEW = 64
 PCIE_GEN5_X16 = 64e9       # bytes/s in each direction
 
 
@@ -570,10 +610,12 @@ def gap_check(name, got_logits, plain_logits):
                          "attention")
 
 
-def prefill_logits(torch, cfg, params, prompt, bucket, max_seq_len):
+def prefill_logits(torch, cfg, params, prompt, bucket, max_seq_len,
+                   adapters=None):
     """Last-position logits of one prompt prefilled as the engine does:
     a [1, bucket] row, padding at the trash slot, scratch cache of
-    max_seq_len + 1 positions."""
+    max_seq_len + 1 positions; ``adapters`` (pool, [lane]) as the pooled
+    engine passes them."""
     from runbooks_tpu_torch.models.transformer import (
         KVCache,
         forward,
@@ -589,7 +631,7 @@ def prefill_logits(torch, cfg, params, prompt, bucket, max_seq_len):
     pos[0, :m] = torch.arange(m, dtype=torch.int32, device=dev)
     cache = KVCache.create(cfg, 1, max_seq_len, dev, trash_slot=True)
     x, _ = forward(cfg, params, tokens, positions=pos, cache=cache,
-                   return_activations=True)
+                   return_activations=True, adapters=adapters)
     return lm_head(cfg, params, x[:, m - 1])[0]
 
 
@@ -1299,12 +1341,14 @@ def serve_http(torch, cfg, params, seed):
     return launches
 
 
-def near_tie_check(torch, cfg, params, name, prompt, a, b, allowed=None):
+def near_tie_check(torch, cfg, params, name, prompt, a, b, allowed=None,
+                   adapters=None):
     """Greedy ids a and b of one prompt are identical, or differ first at
     a near-tie: both tokens within LOGIT_TOL of the top logit of a full
     prefill of the context before them. ``allowed(ids)`` (grammar) gives
     the allowed-token row after the generated ids, and the top logit is
-    then the top allowed one."""
+    then the top allowed one. ``adapters`` (pool, [lane]): the prefill
+    runs through that pool lane."""
     from runbooks_tpu_torch.serve.engine import _buckets, bucket_for
 
     j = next((k for k in range(len(a)) if a[k] != b[k]), None)
@@ -1316,7 +1360,8 @@ def near_tie_check(torch, cfg, params, name, prompt, a, b, allowed=None):
     ctx = list(prompt) + a[:j]
     with torch.no_grad():
         plain = prefill_logits(torch, cfg, params, ctx,
-                               bucket_for(_buckets(2048), len(ctx)), 2048)
+                               bucket_for(_buckets(2048), len(ctx)), 2048,
+                               adapters)
     if allowed is not None:
         plain = plain.masked_fill(~torch.as_tensor(
             allowed(a[:j]), device=plain.device), float("-inf"))
@@ -2790,6 +2835,585 @@ def paged_phase(torch, seed):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: multi-tenant LoRA
+# ---------------------------------------------------------------------------
+
+def lora_prompts(seed):
+    """LORA_LENS prompts (ByteTokenizer ids, BOS first) of seeded
+    code-like spans quoted again and again, all in the 256-token prefill
+    bucket, so one admission tick prefills the whole mix as one
+    dispatch."""
+    import numpy as np
+
+    from runbooks_tpu_torch.train.data import ByteTokenizer
+
+    rng = np.random.default_rng(seed + 13)
+    tok = ByteTokenizer()
+    words = ["def", "return", "self", "lane", "adapter", "tenant", "if",
+             "else", "for", "in", "pool", "rank", "(", ")", "delta", "base"]
+    prompts = []
+    for n in LORA_LENS:
+        spans = [" ".join(rng.choice(words, size=int(rng.integers(6, 20))))
+                 for _ in range(3)]
+        text = ""
+        while len(text) < n:
+            text += spans[int(rng.integers(0, 3))] + "\n"
+        prompts.append(tok.encode(text, add_eos=False)[:n])
+    return prompts
+
+
+def write_tenants(torch, cfg, root, seed):
+    """LORA_TENANTS' artifacts (rank, alpha) for the attention targets,
+    written with the port's save_adapter as a LoRA training run leaves
+    them: A ~ N(0, 1/d_in), B seeded non-zero (a trained adapter's B has
+    moved off its zero init). Returns their paths."""
+    from runbooks_tpu_torch.ops.lora import target_dims
+    from runbooks_tpu_torch.serve.lora_pool import save_adapter
+
+    g = torch.Generator().manual_seed(seed + 130)
+    paths = []
+    for i, (rank, alpha) in enumerate(LORA_TENANTS):
+        tree = {}
+        for t in cfg.lora_targets:
+            d_in, d_out = target_dims(cfg, t)
+            tree[t] = {
+                "a": torch.randn((cfg.num_layers, d_in, rank),
+                                 generator=g) * d_in ** -0.5,
+                "b": torch.randn((cfg.num_layers, rank, d_out),
+                                 generator=g) * LORA_B_STD}
+        path = os.path.join(root, f"tenant{i}")
+        save_adapter(path, tree, rank=rank, alpha=alpha)
+        paths.append(path)
+    return paths
+
+
+def lora_requests(prompts, paths):
+    """Phase 13's mix: LORA_MIX's tenant (or None: base only) per prompt,
+    greedy, LORA_NEW tokens each (no EOS)."""
+    from runbooks_tpu_torch.serve.engine import Request
+
+    return [Request(prompt_tokens=list(p), max_tokens=LORA_NEW,
+                    temperature=0.0, request_id=f"l{i}",
+                    adapter=None if t is None else paths[t])
+            for i, (p, t) in enumerate(zip(prompts, LORA_MIX))]
+
+
+def record_prefills(engine, records):
+    """Record each prefill dispatch's lanes (None: no pool operand) and
+    its rows' first-token logits."""
+    name = "_paged_prefill" if hasattr(engine, "_paged_prefill") \
+        else "_prefill"
+    prefill = getattr(engine, name)
+
+    def recording(*args, **kw):
+        first, pool, last = prefill(*args, **kw)
+        lanes = kw.get("adapters")
+        records.append((None if lanes is None else lanes[1].tolist(),
+                        last.clone()))
+        return first, pool, last
+
+    setattr(engine, name, recording)
+
+
+def device_activity(torch, prof):
+    """(CUDA activities, their device ms) of a torch.profiler run: kernels,
+    copies and memsets, without the dispatch spans' ranges."""
+    from torch.autograd import DeviceType
+
+    acts = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.endswith("_dispatch")]
+    return (sum(e.count for e in acts),
+            sum(e.self_device_time_total for e in acts) / 1e3)
+
+
+def decode_forward_activity(torch, engine, reqs):
+    """Kernel launches and device busy ms of one decode chunk of the mix
+    (every slot live), per forward: the mix is admitted and prefilled by
+    one step, the next step (a decode chunk alone) runs under
+    torch.profiler, the rest is drained untraced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        for r in reqs:
+            engine.submit(r)
+        engine.step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            engine.step()
+            torch.cuda.synchronize()
+        while engine.has_work():
+            engine.step()
+    n, ms = device_activity(torch, prof)
+    return {"launches_per_decode_forward": n / engine.decode_chunk,
+            "device_ms_per_decode_forward": ms / engine.decode_chunk}
+
+
+def delta_timing(torch, cfg, engine, lanes):
+    """One decode forward's adapter work at the mix's lanes (the [L, rows]
+    gather and, per layer and target, the two products and the add on
+    [rows, 1, d] operands): its time between CUDA events over warm runs
+    (the host makes ~400 small launches, so this is the launch rate),
+    its device busy time (torch.profiler's kernel time), and its bound:
+    the distinct tenant lanes' bytes read once (the trash lane needs no
+    read) over HBM against its operations over the bf16 peak."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from runbooks_tpu_torch.ops.lora import (
+        gather_lanes,
+        lane_delta,
+        map_lane_indices,
+        pool_lanes,
+        target_dims,
+    )
+    from runbooks_tpu_torch.utils.hw import H100_HBM_BW, H100_PEAK_BF16_FLOPS
+
+    pool = engine.adapters.tree
+    dev = engine.device
+    ad = cfg.activation_dtype
+    rows = len(lanes)
+    g = torch.Generator(device=dev).manual_seed(0)
+    xs, ys = {}, {}
+    for t in cfg.lora_targets:
+        d_in, d_out = target_dims(cfg, t)
+        xs[t] = torch.randn((rows, 1, d_in), generator=g, device=dev).to(ad)
+        ys[t] = torch.randn((rows, 1, d_out), generator=g, device=dev).to(ad)
+    idx_raw = torch.tensor(lanes, device=dev)
+
+    def delta():
+        sel = gather_lanes(pool, map_lane_indices(idx_raw, pool_lanes(pool)))
+        for li in range(cfg.num_layers):
+            for t in cfg.lora_targets:
+                group, name = t.split(".")
+                a, b = sel[group][name]
+                ys[t] + lane_delta(xs[t], a[li], b[li], ad)
+
+    with torch.no_grad():
+        ms = cuda_ms(delta, 20)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                delta()
+            torch.cuda.synchronize()
+    n, busy_ms = device_activity(torch, prof)
+    r, esz = engine.adapters.rank, torch.finfo(ad).bits // 8
+    used = len({x for x in lanes if x >= 0})
+    lane_bytes = sum(cfg.num_layers * r * sum(target_dims(cfg, t)) * esz
+                     for t in cfg.lora_targets)
+    io_bytes = sum(cfg.num_layers * rows * (target_dims(cfg, t)[0]
+                                            + 2 * target_dims(cfg, t)[1])
+                   * esz for t in cfg.lora_targets)
+    flops = sum(2 * cfg.num_layers * rows * r * sum(target_dims(cfg, t))
+                for t in cfg.lora_targets)
+    by_bytes = (used * lane_bytes + io_bytes) / H100_HBM_BW * 1e3
+    by_ops = flops / H100_PEAK_BF16_FLOPS * 1e3
+    return {"delta_ms_per_forward": ms,
+            "delta_ms_per_decode_step": ms * engine.decode_chunk,
+            "delta_device_busy_ms_per_forward": busy_ms / 5,
+            "delta_launches_per_forward": n / 5,
+            "bound_ms_per_forward": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "tenant_lanes_read": used, "lane_bytes": lane_bytes}
+
+
+def lora_dense(torch, cfg, params, paths, prompts, seed, launches):
+    """Phase 13 (a): the mix through a pooled dense engine and a no-pool
+    one, both warmed up and resident, run no-pool, pooled, pooled,
+    no-pool twice (host drift falls on both sides); then each tenant
+    against a dedicated engine over its folded weights. Returns the
+    pooled engine and its greedy ids."""
+    from runbooks_tpu_torch.serve.engine import InferenceEngine
+    from runbooks_tpu_torch.serve.lora_pool import load_merge_adapter
+
+    engines = {"plain": warm_engine(torch, cfg, params, seed),
+               "pooled": warm_engine(torch, cfg, params, seed,
+                                     adapter_pool=LORA_POOL,
+                                     lora_rank=LORA_RANK)}
+    records = {name: [] for name in engines}
+    for name, (engine, _, _) in engines.items():
+        record_prefills(engine, records[name])
+    runs = {"plain": [], "pooled": []}
+    ids, first_records = {}, {}
+    for name in ("plain", "pooled", "pooled", "plain") * 2:
+        engine, samples, warm_s = engines[name]
+        reqs = lora_requests(prompts, paths if name == "pooled"
+                             else [None] * len(LORA_TENANTS))
+        records[name].clear()
+        d0 = engine.prefill_dispatches
+        torch.cuda.reset_peak_memory_stats()
+        st, run_ids = timed_generate(torch, engine, samples, reqs)
+        st.update(warmup_s=warm_s, prefill_dispatches=(
+            engine.prefill_dispatches - d0),
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if not all(len(x) == LORA_NEW for x in run_ids):
+            raise SystemExit(f"lora (a) {name}: not every request got "
+                             f"{LORA_NEW} tokens: {st}")
+        ids.setdefault(name, run_ids)
+        first_records.setdefault(name, list(records[name]))
+        runs[name].append(st)
+        launches[f"lora_a_{name}"] = st["flash_fwd_launches"]
+    pooled, _, _ = engines["pooled"]
+    lanes = first_records["pooled"][0][0]
+    tenant_lanes = sorted({x for x in lanes if x >= 0})
+    per_run = {st["flash_fwd_launches"] for r in runs.values() for st in r}
+    base_rows = [i for i, t in enumerate(LORA_MIX) if t is None]
+    base_logits_equal = all(
+        torch.equal(first_records["pooled"][0][1][i],
+                    first_records["plain"][0][1][i]) for i in base_rows)
+    changed = [i for i, t in enumerate(LORA_MIX)
+               if t is not None and ids["pooled"][i] != ids["plain"][i]]
+    gates = {
+        "one_prefill_dispatch_every_tenant": (
+            all(st["prefill_dispatches"] == 1 for st in runs["pooled"])
+            and len(tenant_lanes) == len(LORA_TENANTS)),
+        "k1_launches_equal": len(per_run) == 1,
+        "base_rows_ids_equal": all(ids["pooled"][i] == ids["plain"][i]
+                                   for i in base_rows),
+        "base_rows_logits_bitwise": base_logits_equal,
+        "a_tenant_changes_ids": bool(changed),
+    }
+    t_engine = decode_forward_activity(
+        torch, pooled, lora_requests(prompts, paths))
+    plain_engine = engines["plain"][0]
+    p_engine = decode_forward_activity(
+        torch, plain_engine, lora_requests(prompts, [None] * 4))
+    stats = {name: {"runs": runs[name]} for name in runs}
+    stats["pooled"].update(
+        pool_bytes=pooled.adapters.pool_bytes(),
+        adapter_stats=pooled.adapter_stats(),
+        decode_forward=t_engine,
+        delta=delta_timing(torch, cfg, pooled, lanes))
+    stats["plain"]["decode_forward"] = p_engine
+    for name in runs:
+        tps = [st["decode_tokens_per_s"] for st in runs[name]]
+        steps = [st["median_decode_step_ms"] for st in runs[name]]
+        stats[name].update(decode_tokens_per_s_median=median(tps),
+                           decode_step_ms_median=median(steps))
+    stats["prefill_lanes"] = lanes
+    stats["tenant_rows_changed_vs_base"] = changed
+    stats["gates"] = gates
+    print("lora (a) " + json.dumps(stats), flush=True)
+    if not all(gates.values()):
+        raise SystemExit(f"lora (a): gates failed: {gates}")
+    free_engine(torch, plain_engine)
+    del engines, plain_engine
+    # Each tenant against a dedicated engine over its folded weights, one
+    # at a time.
+    for t, path in enumerate(paths):
+        merged = load_merge_adapter(path, cfg, params)
+        dedicated = InferenceEngine(cfg, merged, max_slots=8,
+                                    max_seq_len=2048, seed=seed)
+        rows = [i for i, x in enumerate(LORA_MIX) if x == t]
+        reqs = lora_requests([prompts[i] for i in rows], [None] * 4)
+        with torch.no_grad():
+            dedicated.generate(reqs)
+        for i, r in zip(rows, reqs):
+            near_tie_check(torch, cfg, merged, f"lora (a) l{i} tenant{t}: "
+                           "greedy ids pooled vs folded", prompts[i],
+                           ids["pooled"][i], r.output_tokens)
+        free_engine(torch, dedicated)
+        del dedicated, merged
+        gc.collect()
+        torch.cuda.empty_cache()
+    return pooled, ids["pooled"]
+
+
+def lru_prediction(order, pool_size):
+    """(loads, evictions, hits) of an LRU pool of pool_size lanes (empty
+    lanes first) for adapters requested one at a time in ``order``."""
+    lanes, used = [None] * pool_size, [0] * pool_size
+    loads = evictions = hits = 0
+    for clock, name in enumerate(order, 1):
+        if name in lanes:
+            hits += 1
+            used[lanes.index(name)] = clock
+            continue
+        lane = (lanes.index(None) if None in lanes
+                else min(range(pool_size), key=lambda i: used[i]))
+        evictions += lanes[lane] is not None
+        lanes[lane], used[lane] = name, clock
+        loads += 1
+    return loads, evictions, hits
+
+
+def lora_rotation(torch, cfg, params, paths, prompts):
+    """Phase 13 (b): a 2-lane pool, the 4 tenants in LORA_ROTATION order,
+    one request at a time: loads, evictions and hits as the LRU predicts,
+    the pool's storage where it was. Then, on a pool of its own, each
+    tenant's load (artifact read, and the lane write with CUDA events)
+    against the write's bound."""
+    from runbooks_tpu_torch.ops.lora import write_lane
+    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
+    from runbooks_tpu_torch.serve.lora_pool import (
+        AdapterPool,
+        load_adapter_tree,
+    )
+    from runbooks_tpu_torch.utils.hw import H100_HBM_BW
+
+    engine = InferenceEngine(cfg, params, max_slots=2, max_seq_len=512,
+                             adapter_pool=2, lora_rank=LORA_RANK)
+
+    def ptrs(pool):
+        return [ab[k].data_ptr() for sub in pool.tree.values()
+                for ab in sub.values() for k in ("a", "b")]
+
+    before = ptrs(engine.adapters)
+    with torch.no_grad():
+        for t in LORA_ROTATION:
+            engine.generate([Request(prompt_tokens=prompts[t][:64],
+                                     max_tokens=4, adapter=paths[t])])
+    st = engine.adapters.stats()
+    got = (st["loads"], st["evictions"], st["hits"])
+    want = lru_prediction(LORA_ROTATION, 2)
+    in_place = ptrs(engine.adapters) == before
+    free_engine(torch, engine)
+    del engine
+    # Per-tenant load timing on a 1-lane pool of its own.
+    pool = AdapterPool(cfg, pool_size=1, rank=LORA_RANK,
+                       device=params["embed"].device)
+    loads = []
+    for t, path in enumerate(paths):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = load_adapter_tree(path, cfg, pool.targets, LORA_RANK)
+        t1 = time.perf_counter()
+        write_lane(pool.tree, tree, 0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        write_ms = cuda_ms(lambda: write_lane(pool.tree, tree, 0), 5)
+        host_bytes = sum(v.numel() * v.element_size()
+                         for sub in tree.values() for ab in sub.values()
+                         for v in ab.values())
+        dev_bytes = host_bytes // 2         # the lane, written in bf16
+        loads.append({
+            "tenant": t, "rank": LORA_TENANTS[t][0],
+            "read_s": t1 - t0, "artifact_to_lane_s": t2 - t0,
+            "write_ms": write_ms, "host_bytes": host_bytes,
+            "write_bound_ms": max(host_bytes / PCIE_GEN5_X16,
+                                  dev_bytes / H100_HBM_BW) * 1e3,
+            "write_gb_per_s": host_bytes / write_ms / 1e6})
+    ok = got == want and in_place
+    print("lora (b) " + json.dumps({
+        "order": list(LORA_ROTATION), "loads_evictions_hits": got,
+        "lru_prediction": want, "storage_in_place": in_place,
+        "loads": loads,
+        "pcie_gen5_x16_gb_per_s": PCIE_GEN5_X16 / 1e9}) + " -> "
+        + ("ok" if ok else "FAIL"), flush=True)
+    if not ok:
+        raise SystemExit("lora (b): pool counters or storage off")
+    del pool
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lora_paged(torch, cfg, params, paths, prompts, seed, dense_ids,
+               launches):
+    """Phase 13 (c): the mix through a pooled PagedInferenceEngine
+    (preemption on): greedy ids against (a)'s, radix pages never shared
+    across adapters and reused within one, and a preempted tenant row
+    resuming with its lane still pinned."""
+    from runbooks_tpu_torch.serve.engine import Request
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+
+    engine, samples, warm_s = warm_engine(
+        torch, cfg, params, seed, cls=PagedInferenceEngine,
+        adapter_pool=LORA_POOL, lora_rank=LORA_RANK, preemption="swap")
+    reqs = lora_requests(prompts, paths)
+    st, ids = timed_generate(torch, engine, samples, reqs)
+    launches["lora_c_paged"] = st["flash_fwd_launches"]
+    pool = engine.adapters
+    for i, t in enumerate(LORA_MIX):
+        lane = None if t is None else pool._by_name[paths[t]]
+        near_tie_check(torch, cfg, params, f"lora (c) l{i}: greedy ids "
+                       "paged vs dense, pooled", prompts[i], dense_ids[i],
+                       ids[i], adapters=None if lane is None else (
+                           pool.tree, torch.tensor([lane])))
+    pager = engine.pager
+
+    def turn(tokens, adapter):
+        before = pager.pages_reused_total
+        r = Request(prompt_tokens=list(tokens), max_tokens=8,
+                    temperature=0.0, adapter=adapter)
+        with torch.no_grad():
+            engine.generate([r])
+        return pager.pages_reused_total - before, r
+    # Tenant 0's first prompt is in the tree under tenant 0 only.
+    other, _ = turn(prompts[0], paths[1])
+    same, _ = turn(prompts[0] + ids[0] + prompts[2][1:40], paths[0])
+    # Preemption: 8 batch-class tenant rows fill the slots, an interactive
+    # tenant arrives two steps later.
+    held = []
+    preempt = engine._preempt_slot
+
+    def recording(slot):
+        req = engine.slot_req[slot]
+        preempt(slot)
+        lane = req._adapter_lane
+        held.append((req.request_id, lane, lane >= 0 and req in engine.queue
+                     and pool._lane_ref[lane] >= 1))
+
+    engine._preempt_slot = recording
+    batch = [Request(prompt_tokens=list(p), max_tokens=LORA_PREEMPT_NEW,
+                     temperature=0.0, priority="batch",
+                     request_id=f"b{i}", adapter=paths[i % len(paths)])
+             for i, p in enumerate(prompts)]
+    inter = Request(prompt_tokens=list(prompts[3][:100]), max_tokens=8,
+                    temperature=0.0, priority="interactive",
+                    request_id="i0", adapter=paths[3])
+    n0, r0 = engine.preemptions, engine.preempted_resumed
+    with torch.no_grad():
+        for r in batch:
+            engine.submit(r)
+        engine.step()
+        engine.step()
+        engine.submit(inter)
+        while engine.has_work():
+            engine.step()
+    preemptions = engine.preemptions - n0
+    resumed = engine.preempted_resumed - r0
+    refs_after = list(pool._lane_ref)
+    ok = (other == 0 and same > 0 and preemptions >= 1
+          and resumed == preemptions and all(h[2] for h in held)
+          and all(r.finish_reason == "length" for r in batch + [inter])
+          and refs_after == [0] * LORA_POOL)
+    print("lora (c) " + json.dumps({
+        "run": st, "warmup_s": warm_s,
+        "pages_reused_other_adapter": other,
+        "pages_reused_same_tenant_turn2": same,
+        "preemptions": preemptions, "resumed": resumed,
+        "preempted_lane_pinned": held, "lane_refs_after": refs_after,
+        "kv_occupancy": engine.kv_occupancy()}) + " -> "
+        + ("ok" if ok else "FAIL"), flush=True)
+    if not ok:
+        raise SystemExit("lora (c): paged pool gates failed")
+    free_engine(torch, engine)
+
+
+def lora_spec(torch, cfg, params, paths, prompts, seed, dense_ids,
+              launches):
+    """Phase 13 (d): the mix on a pooled engine with n-gram speculation:
+    greedy ids against (a)'s (no speculation), and the accept rate."""
+    engine, samples, warm_s = warm_engine(
+        torch, cfg, params, seed, adapter_pool=LORA_POOL,
+        lora_rank=LORA_RANK, speculative="ngram")
+    st, ids = timed_generate(torch, engine, samples,
+                             lora_requests(prompts, paths))
+    launches["lora_d_spec"] = st["flash_fwd_launches"]
+    pool = engine.adapters
+    print("lora (d) " + json.dumps({"run": st, "warmup_s": warm_s}),
+          flush=True)
+    if not st["verify_steps"]:
+        raise SystemExit("lora (d): no verify step ran")
+    for i, t in enumerate(LORA_MIX):
+        lane = None if t is None else pool._by_name[paths[t]]
+        near_tie_check(torch, cfg, params, f"lora (d) l{i}: greedy ids "
+                       "speculative vs not, pooled", prompts[i],
+                       dense_ids[i], ids[i], adapters=None if lane is None
+                       else (pool.tree, torch.tensor([lane])))
+    free_engine(torch, engine)
+
+
+def lora_http(torch, cfg, params, root, prompts, dense_ids, pooled,
+              launches):
+    """Phase 13 (e): create_server(adapter_pool=4, adapter_dir=root):
+    `"adapter": "tenant0"` answers 200 with (a)'s ids, an unknown adapter
+    400."""
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.api import create_server
+    from runbooks_tpu_torch.train.data import ByteTokenizer
+
+    t0 = time.perf_counter()
+    srv = create_server(cfg, params, host="127.0.0.1", port=0, max_slots=8,
+                        max_seq_len=2048, warmup=True,
+                        adapter_pool=LORA_POOL, lora_rank=LORA_RANK,
+                        adapter_dir=root)
+    ready_s = time.perf_counter() - t0
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    engine = srv.worker.engine
+    seen = []
+    submit = engine.submit
+
+    def recording_submit(req):
+        seen.append(req)
+        submit(req)
+
+    engine.submit = recording_submit
+    i = LORA_MIX.index(0)
+    body = {"prompt": ByteTokenizer().decode(prompts[i][1:]),
+            "max_tokens": LORA_NEW, "temperature": 0, "adapter": "tenant0"}
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        flash_attention.launches = 0
+        status, _, text, wall = http_call(base, "/v1/completions", body)
+        launches["lora_e_http"] = flash_attention.launches
+        bad, _, bad_text, _ = http_call(base, "/v1/completions",
+                                        {**body, "adapter": "tenant9"})
+        stats = engine.adapter_stats()
+    finally:
+        srv.shutdown()
+        thread.join(timeout=60)
+    # The server stops at the byte tokenizer's EOS; (a)'s requests had
+    # none, so its ids are cut after their first EOS, if any.
+    eos = ByteTokenizer().eos_id
+    want = dense_ids[i][:dense_ids[i].index(eos) + 1] \
+        if eos in dense_ids[i] else dense_ids[i]
+    ok = (status == 200 and bad == 400 and len(seen) == 1
+          and seen[0].prompt_tokens == prompts[i]
+          and json.loads(text)["choices"][0]["finish_reason"] in (
+              "length", "stop"))
+    print("lora (e) " + json.dumps({
+        "ready_s": ready_s, "status": status, "wall_s": wall,
+        "unknown_adapter_status": bad, "unknown_adapter_reply":
+            bad_text[:200], "adapter_stats": stats,
+        "flash_fwd_launches": launches["lora_e_http"]}) + " -> "
+        + ("ok" if ok else "FAIL"), flush=True)
+    if not ok:
+        raise SystemExit(f"lora (e): {status} {text[:300]}")
+    lane = pooled.adapters._by_name[os.path.join(root, "tenant0")]
+    near_tie_check(torch, cfg, params, f"lora (e) l{i}: greedy ids over "
+                   "HTTP vs (a)", prompts[i], want, seen[0].output_tokens,
+                   adapters=(pooled.adapters.tree, torch.tensor([lane])))
+    del srv, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lora_phase(torch, seed, workdir):
+    """Phase 13: multi-tenant LoRA on llama3-8b bf16 at full width and
+    depth. Returns K1's launches by run."""
+    from runbooks_tpu_torch.serve.api import load_model
+
+    t_phase = time.perf_counter()
+    cfg, params = load_model({"model": "llama3-8b",
+                              "model_overrides": {"param_dtype": "bfloat16"},
+                              "seed": seed})
+    root = os.path.join(workdir, "adapters")
+    paths = write_tenants(torch, cfg, root, seed)
+    prompts = lora_prompts(seed)
+    launches = {}
+    pooled, ids = lora_dense(torch, cfg, params, paths, prompts, seed,
+                             launches)
+    # Its pool stays resident for (c)-(e)'s near-tie references.
+    free_engine(torch, pooled)
+    lora_rotation(torch, cfg, params, paths, prompts)
+    lora_paged(torch, cfg, params, paths, prompts, seed, ids, launches)
+    lora_spec(torch, cfg, params, paths, prompts, seed, ids, launches)
+    lora_http(torch, cfg, params, root, prompts, ids, pooled, launches)
+    del pooled
+    if min(launches.values()) < cfg.num_layers:
+        raise SystemExit(f"phase 13 ran K1 too rarely: {launches}")
+    print("phase 13 " + json.dumps({
+        "flash_fwd_launches": launches,
+        "seconds": time.perf_counter() - t_phase}), flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2860,6 +3484,7 @@ def main():
               flush=True)
         spec_launches = spec_grammar_phase(torch, dev, args.seed)
         paged_launches = paged_phase(torch, args.seed)
+        lora_launches = lora_phase(torch, args.seed, workdir)
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -2871,7 +3496,8 @@ def main():
                      + http_launches + import_launches + build_launches
                      + prefix_launches + no_prefix_launches
                      + sum(spec_launches.values())
-                     + sum(paged_launches.values())),
+                     + sum(paged_launches.values())
+                     + sum(lora_launches.values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
@@ -2879,7 +3505,8 @@ def main():
                              "prefix_register": build_launches,
                              "prefix": prefix_launches,
                              "prefix_off": no_prefix_launches,
-                             **spec_launches, **paged_launches},
+                             **spec_launches, **paged_launches,
+                             **lora_launches},
         "max_abs_err": worst,
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],

@@ -16,6 +16,9 @@
   checkpointing (``remat``), and LoRA deltas merged into each layer's
   weights inside its block (``lora``), so no merged copy of all layers
   lives across a step.
+- Serving many LoRA tenants on one base (``adapters``): each row adds its
+  own adapter's delta, gathered from a stacked pool by lane
+  (ops/lora.py), to the projections the pool targets.
 """
 
 from __future__ import annotations
@@ -33,6 +36,12 @@ from runbooks_tpu_torch.ops.attention import (
     make_attention_mask,
 )
 from runbooks_tpu_torch.ops.flash_attention import flash_attention
+from runbooks_tpu_torch.ops.lora import (
+    gather_lanes,
+    lane_delta,
+    map_lane_indices,
+    pool_lanes,
+)
 from runbooks_tpu_torch.ops.norms import rms_norm
 from runbooks_tpu_torch.ops.rotary import apply_rope
 
@@ -223,14 +232,32 @@ def _weight(p, group, name, layer_idx, lora):
     return lora.weight(f"{group}.{name}", w, layer_idx)
 
 
+def _adapter_delta(adapter, name: str, layer_idx: int, x_in: torch.Tensor,
+                   y: torch.Tensor, ad) -> torch.Tensor:
+    """Add the grouped per-row LoRA delta of one target to the base
+    projection's output (before any bias, as the reference). ``adapter``
+    is None (off) or one block group's gathered operands {name: (a [L,
+    rows, d_in, r], b [L, rows, r, d_out])} (ops/lora.gather_lanes).
+    Targets absent from the pool pass through untouched."""
+    if adapter is None or name not in adapter:
+        return y
+    a_sel, b_sel = adapter[name]
+    return y + lane_delta(x_in, a_sel[layer_idx], b_sel[layer_idx], ad)
+
+
 def _attention_block(cfg, p, layer_idx, x, positions, mask, layer_cache,
-                     segment_ids=None, lora=None):
+                     segment_ids=None, lora=None, adapter=None):
     b, s, _ = x.shape
     ad = cfg.activation_dtype
     w = lambda name: _weight(p, "attn", name, layer_idx, lora)  # noqa: E731
-    q = _matmul(x, w("wq"), ad).reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = _matmul(x, w("wk"), ad).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = _matmul(x, w("wv"), ad).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+
+    def proj(name):
+        return _adapter_delta(adapter, name, layer_idx, x,
+                              _matmul(x, w(name), ad), ad)
+
+    q = proj("wq").reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = proj("wk").reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = proj("wv").reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
@@ -270,15 +297,20 @@ def _attention_block(cfg, p, layer_idx, x, positions, mask, layer_cache,
     else:
         out = dot_product_attention(q, k, v, mask=mask)
     out = out.reshape(b, s, cfg.q_dim)
-    return _matmul(out, w("wo"), ad)
+    return _adapter_delta(adapter, "wo", layer_idx, out,
+                          _matmul(out, w("wo"), ad), ad)
 
 
-def _mlp_block(cfg, p, layer_idx, x, lora=None):
+def _mlp_block(cfg, p, layer_idx, x, lora=None, adapter=None):
     ad = cfg.activation_dtype
     w = lambda name: _weight(p, "mlp", name, layer_idx, lora)  # noqa: E731
-    gate = _matmul(x, w("wi_gate"), ad)
-    up = _matmul(x, w("wi_up"), ad)
-    return _matmul(F.silu(gate) * up, w("wo"), ad)
+
+    def proj(y, name):
+        return _adapter_delta(adapter, name, layer_idx, y,
+                              _matmul(y, w(name), ad), ad)
+
+    hidden = F.silu(proj(x, "wi_gate")) * proj(x, "wi_up")
+    return proj(hidden, "wo")
 
 
 def lm_head(cfg: ModelConfig, params: Params,
@@ -307,6 +339,7 @@ def forward(
     remat: bool = False,
     return_activations: bool = False,
     lora: Optional[LoraDeltas] = None,
+    adapters: Optional[Tuple[Params, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (logits [b, s, vocab] f32, updated cache or None).
 
@@ -316,6 +349,12 @@ def forward(
     (``cfg.remat_policy`` "nothing_saveable": only the block's input is
     kept); "none" turns it off. lora merges LoRA deltas into each layer's
     weights inside its block.
+
+    adapters (serving): (pool, lane_idx), an adapter pool
+    (ops/lora.init_adapter_pool) and each row's lane [b] (-1: base only).
+    Each projection the pool targets adds the row's grouped LoRA delta;
+    the lanes are trash-mapped and the pool's operands gathered once per
+    forward (the same lanes serve every layer).
 
     return_activations=True skips the head and returns the post-final-norm
     activations [b, s, hidden] in place of logits, so a caller that needs
@@ -365,13 +404,20 @@ def forward(
                                    segment_ids, causal=True)
 
     layers = params["layers"]
+    rows = {}
+    if adapters is not None:
+        pool, lane_idx = adapters
+        rows = gather_lanes(pool, map_lane_indices(
+            torch.as_tensor(lane_idx, device=device), pool_lanes(pool)))
 
     def block(x, li, layer_cache):
         h1 = rms_norm(x, layers["ln1"]["scale"][li], cfg.norm_eps)
         x = x + _attention_block(cfg, layers["attn"], li, h1, positions,
-                                 mask, layer_cache, segment_ids, lora)
+                                 mask, layer_cache, segment_ids, lora,
+                                 rows.get("attn"))
         h2 = rms_norm(x, layers["ln2"]["scale"][li], cfg.norm_eps)
-        return x + _mlp_block(cfg, layers["mlp"], li, h2, lora)
+        return x + _mlp_block(cfg, layers["mlp"], li, h2, lora,
+                              rows.get("mlp"))
 
     for li in range(cfg.num_layers):
         layer_cache = None

@@ -14,10 +14,13 @@ wait.
 Run: ``python -m runbooks_tpu_torch.serve.api`` (reads
 ``{RBT_CONTENT_DIR}/params.json``: model, model_overrides, seed,
 checkpoint, adapter, port, tokenizer and the engine knobs, speculation,
-grammar, paging, the host tier and preemption among them), or build one
-with ``create_server``. Features the port has not ported yet (the adapter
-pool, weight and KV quantization, the mesh, ``/metrics`` and ``/debug/*``)
-are refused by name rather than ignored.
+grammar, paging, the host tier, preemption and the multi-tenant adapter
+pool among them), or build one with ``create_server``. With
+``adapter_pool`` a body's ``"adapter"`` names the tenant's LoRA adapter
+(under ``adapter_dir``, or a path) and the engine serves it from its pool;
+without one, ``adapter:`` in params folds one adapter at load. Features
+the port has not ported yet (weight and KV quantization, the mesh,
+``/metrics`` and ``/debug/*``) are refused by name rather than ignored.
 """
 
 from __future__ import annotations
@@ -144,9 +147,11 @@ def load_model(params: dict,
     plus ``model_overrides``; the params of the newest intact checkpoint
     under ``{checkpoint or model mount}/checkpoints``, else (nothing there)
     a random init seeded by ``seed``; then ``adapter: <path>`` folded in.
-    A checkpoint that is present but unreadable raises. Runs on CUDA
-    unless ``device`` names another; raises when no device is named and
-    no GPU exists."""
+    With ``adapter_pool`` set the base is returned as it is (the pooled
+    engine serves the adapters per request); setting both raises. A
+    checkpoint that is present but unreadable raises. Runs on CUDA unless
+    ``device`` names another; raises when no device is named and no GPU
+    exists."""
     dev = resolve_device(device)
     quantize = params.get("quantize", "none")
     if quantize not in (None, "none"):
@@ -161,10 +166,6 @@ def load_model(params: dict,
             "fold and the pooled engine are mutually exclusive serving "
             "modes — drop `adapter` (clients pass it per request) or the "
             "pool")
-    if pool:
-        raise NotImplementedError(
-            f"adapter_pool: {pool}: the multi-tenant adapter pool is not "
-            "ported yet; fold one adapter at load with `adapter:`")
     cfg = get_config(params.get("model", "debug"),
                      **params.get("model_overrides", {}))
     cfg = dataclasses.replace(cfg, quantize="none")
@@ -889,7 +890,10 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
                   page_size: int = 16,
                   num_pages: Optional[int] = None,
                   kv_host_pages: int = 0,
-                  preemption: str = "off") -> Server:
+                  preemption: str = "off",
+                  adapter_pool: Optional[int] = None,
+                  lora_rank: Optional[int] = None,
+                  adapter_dir: Optional[str] = None) -> Server:
     """An HTTP server bound to (host, port; 0 picks a free port) over an
     InferenceEngine on ``device`` (CUDA unless the caller names another;
     params move there): the dense one, or with ``kv_paging`` the paged
@@ -930,7 +934,14 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
     head of a better QoS class displace the worst-class active slot, which
     resumes later with its generated tokens intact. With the paged engine,
     /v1/prefix registrations run through normal admission, and auto-prefix
-    chat needs no registration (finished turns seed the tree)."""
+    chat needs no registration (finished turns seed the tree).
+
+    adapter_pool > 0 (None follows cfg.adapter_pool) serves many LoRA
+    tenants on these base params from one device-resident pool of that
+    many adapters, padded to the rank bucket lora_rank: a body's
+    "adapter" (a name under adapter_dir, or a path) selects the tenant,
+    an adapter the pool cannot resolve answers 400, and tenants batch
+    with each other and with base-only requests (serve/lora_pool.py)."""
     dev = resolve_device(device)
     model_params = tree_map(lambda t: t.to(dev), model_params)
     tokenizer = tokenizer or load_tokenizer(None)
@@ -942,7 +953,9 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
                      speculative=speculative, draft_tokens=draft_tokens,
                      ngram_max=ngram_max, ngram_min=ngram_min,
                      grammar=grammar, grammar_cache_size=grammar_cache_size,
-                     tokenizer=tokenizer, preemption=preemption)
+                     tokenizer=tokenizer, preemption=preemption,
+                     adapter_pool=adapter_pool, lora_rank=lora_rank,
+                     adapter_dir=adapter_dir)
     if kv_paging:
         engine = PagedInferenceEngine(cfg, model_params,
                                       page_size=page_size,
@@ -980,16 +993,14 @@ def refuse_unported(params: dict) -> None:
             "0", "off", "false", "none", "")
 
     bad = []
-    if on("adapter_pool", "adapterPool", "adapterpool"):
-        bad.append("adapter_pool")
     if on("quantize_kv", "quantizeKv", "quantizekv"):
         bad.append("quantize_kv")
     bad += [k for k, v in sorted(params.items())
             if k.startswith("mesh_") and int(v) > 1]
     if bad:
         raise NotImplementedError(
-            f"params {bad}: not ported to this server yet (the adapter "
-            "pool, int8 KV and the mesh wait for later work)")
+            f"params {bad}: not ported to this server yet (int8 KV and "
+            "the mesh wait for later work)")
 
 
 def main() -> int:
@@ -1041,7 +1052,13 @@ def main() -> int:
         num_pages=opt("num_pages", int, "numPages", "numpages"),
         kv_host_pages=opt("kv_host_pages", int, "kvHostPages",
                           "kvhostpages") or 0,
-        preemption=opt("preemption", str) or "off")
+        preemption=opt("preemption", str) or "off",
+        # The multi-tenant adapter pool: its size, the rank bucket and the
+        # root of relative adapter names. (A pool-less `adapter: <path>`
+        # was folded by load_model.)
+        adapter_pool=opt("adapter_pool", int, "adapterPool", "adapterpool"),
+        lora_rank=opt("lora_rank", int, "loraRank", "lorarank"),
+        adapter_dir=opt("adapter_dir", str, "adapterDir", "adapterdir"))
     stopper: List[threading.Thread] = []
 
     def on_signal(signum, frame):

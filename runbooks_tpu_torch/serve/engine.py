@@ -37,10 +37,13 @@
   engine (serve/paging.py), which displaces a worse-class slot at a step
   boundary and resumes it later from its own adopted pages; this module
   holds the request state and the resume branch they share.
+- Multi-tenant LoRA (``adapter_pool`` > 0): a device-resident pool of
+  adapters (serve/lora_pool.AdapterPool); a request's ``adapter`` pins a
+  pool lane at admission, and every prefill, decode and verify dispatch
+  takes each row's lane, so tenants and base-only rows share one batch.
 
-Later slices add the LoRA pool, quantization, the mesh and the
-observability planes; their knobs are absent here, and requests that need
-them are refused by ``validate``.
+Later slices add quantization, the mesh and the observability planes;
+their knobs are absent here.
 """
 
 from __future__ import annotations
@@ -65,6 +68,7 @@ from runbooks_tpu_torch.models.transformer import (
 )
 from runbooks_tpu_torch.ops.sampling import sample, speculative_verify
 from runbooks_tpu_torch.serve.grammar import GrammarCache, TokenVocab
+from runbooks_tpu_torch.serve.lora_pool import AdapterLoadError, AdapterPool
 from runbooks_tpu_torch.serve.speculative import (
     NgramDraftIndex,
     legal_draft_prefix,
@@ -116,8 +120,9 @@ class Request:
     # and the tokens it has; a queued one finishes empty-handed.
     deadline_s: Optional[float] = None
     request_id: str = ""
-    # Name or path of a LoRA adapter to decode through. Only a pooled
-    # engine serves it (not ported): validate() refuses any non-None.
+    # Name or path of a LoRA adapter to decode through (a pooled engine
+    # only): admission pins the adapter's pool lane, paging it in if
+    # needed, and the slot decodes through that lane.
     adapter: Optional[str] = None
     # QoS class (PRIORITY_RANK): orders the admission queue.
     priority: str = "standard"
@@ -135,6 +140,7 @@ class Request:
     _submitted: float = 0.0   # monotonic submit time (deadline anchor)
     _admitted: float = 0.0    # monotonic admission time
     _slot: int = -1           # the slot it was admitted to
+    _adapter_lane: int = -1   # pool lane pinned at admission (-1: base)
     # The compiled DFA's cursor (serve/grammar.GrammarCursor) when
     # response_format is set.
     _grammar: Any = None
@@ -209,11 +215,12 @@ def make_prefill_fn(cfg: ModelConfig, cache_len: int):
     the suffixes, at positions from plen. Returns the sampled first
     tokens, the pool, and each row's last-position logits [rows, vocab]
     f32. ``gmask`` [rows, vocab] bool (grammar on): each row's allowed
-    first tokens."""
+    first tokens. ``adapters`` (a pooled engine): (adapter pool, each
+    row's lane [rows], -1 for base-only and padding rows)."""
 
     def prefill_fn(params, pool: KVCache, tokens, positions, slots,
                    last_pos, generator, temps, top_ks, top_ps,
-                   prefix=None, gmask=None):
+                   prefix=None, gmask=None, adapters=None):
         # Prefill `rows` requests into fresh zero rows, then splice each
         # row into the pool. Stale data from a slot's previous occupant
         # needs no clearing: these queries attend only slots <= their own
@@ -230,7 +237,8 @@ def make_prefill_fn(cfg: ModelConfig, cache_len: int):
             scratch.k[:, :n, :plen] = pk[:, None]
             scratch.v[:, :n, :plen] = pv[:, None]
         x, scratch = forward(cfg, params, tokens, positions=positions,
-                             cache=scratch, return_activations=True)
+                             cache=scratch, return_activations=True,
+                             adapters=adapters)
         for r in range(rows - 1, -1, -1):
             pool.k[:, slots[r]] = scratch.k[:, r]
             pool.v[:, slots[r]] = scratch.v[:, r]
@@ -270,11 +278,12 @@ def make_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
     ``gmask`` [B, vocab] (grammar on) is each slot's allowed-token row at
     the chunk's start. It stays fixed over the chunk, so it is exact for
     the first step only: the host takes one token per chunk from a
-    constrained slot (InferenceEngine._replay_chunk)."""
+    constrained slot (InferenceEngine._replay_chunk). ``adapters`` (a
+    pooled engine): (adapter pool, each slot's lane [B])."""
 
     def decode_fn(params, cache, tokens, positions, generator,
                   temperature, top_k, top_p, eos_ids, remaining, active,
-                  gmask=None):
+                  gmask=None, adapters=None):
         tok, pos, alive = tokens, positions, active
         emitted = torch.zeros_like(remaining)
         toks, valid = [], []
@@ -282,7 +291,7 @@ def make_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
             p = torch.where(alive, pos, pad_slot)
             logits, cache = forward(cfg, params, tok[:, None],
                                     positions=p[:, None], cache=cache,
-                                    cache_view=view)
+                                    cache_view=view, adapters=adapters)
             nxt = sample(logits[:, -1], generator, temperature, top_k,
                          top_p, gmask=gmask).to(tok.dtype)
             nxt = torch.where(alive, nxt, tok)
@@ -315,17 +324,20 @@ def make_verify_fn(cfg: ModelConfig, draft_tokens: int, pad_slot: int,
     device work. Verdicts come from ops/sampling.speculative_verify
     (greedy: exact argmax matches; temperature: rejection sampling against
     the engine's own filtered distribution). ``gmask`` [B, K+1, vocab]
-    (grammar on): the allowed tokens at each verify position."""
+    (grammar on): the allowed tokens at each verify position. ``adapters``
+    (a pooled engine): (adapter pool, each slot's lane [B])."""
     K = draft_tokens
 
     def verify_fn(params, cache, tokens, positions, draft_len, generator,
-                  temperature, top_k, top_p, active, gmask=None):
+                  temperature, top_k, top_p, active, gmask=None,
+                  adapters=None):
         offs = torch.arange(K + 1, dtype=positions.dtype,
                             device=positions.device)[None, :]
         live = active[:, None] & (offs <= draft_len[:, None])
         pos = torch.where(live, positions[:, None] + offs, pad_slot)
         logits, cache = forward(cfg, params, tokens, positions=pos,
-                                cache=cache, cache_view=view)
+                                cache=cache, cache_view=view,
+                                adapters=adapters)
         accept, resid, full = speculative_verify(
             logits, tokens[:, 1:], generator, temperature, top_k, top_p,
             gmask=gmask)
@@ -356,7 +368,10 @@ class InferenceEngine:
                  grammar: str = "off",
                  grammar_cache_size: Optional[int] = None,
                  tokenizer=None,
-                 preemption: str = "off"):
+                 preemption: str = "off",
+                 adapter_pool: Optional[int] = None,
+                 lora_rank: Optional[int] = None,
+                 adapter_dir: Optional[str] = None):
         """params live on the engine's device (CUDA, or the CPU when the
         caller put them there); every tensor the engine makes follows.
 
@@ -396,6 +411,16 @@ class InferenceEngine:
         pages are adopted into the radix tree (and may later swap to the
         host tier), the request re-queues with its generated tokens, and
         it resumes from a radix match on its own history.
+
+        adapter_pool / lora_rank / adapter_dir: multi-tenant LoRA
+        serving. adapter_pool > 0 (None follows cfg.adapter_pool) keeps
+        that many adapters resident on the device as a stacked pool
+        (serve/lora_pool.AdapterPool), each padded to the rank bucket
+        lora_rank (None: cfg.lora_rank) over cfg.lora_targets; a request's
+        `adapter` (a name under adapter_dir, or a path) pins a lane at
+        admission, paged in from its artifact and evicted by LRU when no
+        request pins it, and mixed-tenant traffic batches in one dispatch.
+        With the pool off, a request naming an adapter is refused.
 
         RBT_FAULT_INJECT=swapfail:K (environment) makes the K-th host-tier
         page copy fail once, so the degrade-to-drop and
@@ -490,6 +515,19 @@ class InferenceEngine:
         self.preempted_resumed = 0    # preempted requests re-admitted
         self._swap_fault = _parse_swap_fault(
             os.environ.get("RBT_FAULT_INJECT", ""))
+        pool_size = int(adapter_pool if adapter_pool is not None
+                        else cfg.adapter_pool)
+        if pool_size < 0:
+            raise ValueError(f"adapter_pool must be >= 0, got {pool_size}")
+        # None when off: requests that carry an `adapter` 400 at
+        # validation.
+        self.adapters: Optional[AdapterPool] = (
+            AdapterPool(cfg, pool_size=pool_size, rank=lora_rank,
+                        root=adapter_dir, device=self.device)
+            if pool_size else None)
+        # Each slot's adapter lane (-1: base only), the operand every
+        # pooled dispatch gathers A/B by.
+        self.adapter_slots = np.full(max_slots, -1, np.int32)
         self.cache = self._new_cache()
         self.deadline_expired = 0
         self.prefill_dispatches = 0
@@ -585,10 +623,14 @@ class InferenceEngine:
                 f"priority must be one of {sorted(PRIORITY_RANK)}, got "
                 f"{req.priority!r}")
         if req.adapter is not None:
-            raise ValueError(
-                "this server has no adapter pool (adapter_pool: 0); "
-                "request-level `adapter` needs a pooled engine or a "
-                "dedicated server with the adapter folded at load")
+            if self.adapters is None:
+                raise ValueError(
+                    "this server has no adapter pool (adapter_pool: 0); "
+                    "request-level `adapter` needs a pooled engine or a "
+                    "dedicated server with the adapter folded at load")
+            err = self.adapters.can_resolve(req.adapter)
+            if err is not None:
+                raise ValueError(err)
         if req.response_format is not None:
             if self._grammar_cache is None:
                 raise ValueError(
@@ -615,6 +657,8 @@ class InferenceEngine:
             raise EngineOverloaded(
                 f"{req.priority} queue share full ({queued} waiting, "
                 f"class bound {bound} of {self.max_queue}); retry later")
+        if req.adapter is not None and self.adapters is not None:
+            self.adapters.count_request(req.adapter)
         req._submitted = time.monotonic()
         self._queue_insert(req)
 
@@ -651,6 +695,61 @@ class InferenceEngine:
         self.queue.clear()
         if self._spec_index is not None:
             self._spec_index.reset()
+        self._reset_adapters()
+
+    def _reset_adapters(self) -> None:
+        """Every in-flight request is gone, so no adapter lane stays
+        pinned. Residency survives (no step writes the pool): the next
+        admission of a resident adapter hits instead of reloading."""
+        self.adapter_slots[:] = -1
+        if self.adapters is not None:
+            self.adapters.reset_refs()
+
+    # -- adapter pool --------------------------------------------------
+
+    def _adapter_kwargs(self, aslots: Optional[np.ndarray] = None) -> dict:
+        """A pooled engine's extra operand on every dispatch: (pool, each
+        row's lane), default the slots' lanes (-1: the trash lane). Empty
+        with the pool off."""
+        if self.adapters is None:
+            return {}
+        if aslots is None:
+            aslots = self.adapter_slots
+        return {"adapters": (self.adapters.tree, self._tensor(aslots))}
+
+    def adapter_stats(self) -> Optional[dict]:
+        """Adapter pool snapshot (residency, loads, evictions, hits,
+        requests per adapter); None with the pool off."""
+        return None if self.adapters is None else self.adapters.stats()
+
+    def _acquire_adapter(self, req: Request) -> bool:
+        """Pin the request's adapter lane ahead of admission. True:
+        proceed (lane pinned, or no adapter involved). False: every lane
+        is pinned; the caller stops admitting (queue backpressure). A
+        load failure finishes the request with finish_reason "error" and
+        returns True with req.finished set: the caller drops it from the
+        queue."""
+        if req.adapter is None or self.adapters is None:
+            return True
+        if req._adapter_lane >= 0:
+            return True
+        try:
+            lane = self.adapters.acquire(req.adapter)
+        except AdapterLoadError as exc:
+            req.finished = True
+            req.finish_reason = "error"
+            print(f"serve: adapter {req.adapter!r} failed to load at "
+                  f"admission: {exc}", flush=True)
+            return True
+        if lane is None:
+            return False
+        req._adapter_lane = lane
+        return True
+
+    def _release_adapter(self, req: Request) -> None:
+        if self.adapters is not None and req._adapter_lane >= 0:
+            self.adapters.release(req._adapter_lane)
+            req._adapter_lane = -1
 
     # -- grammar masks -------------------------------------------------
     #
@@ -742,9 +841,13 @@ class InferenceEngine:
         prefill the plain prefill's. Eager PyTorch compiles nothing per
         shape; what a first launch pays is the kernel build and the
         library's first call at a shape (cuBLAS's kernel choice and
-        module load)."""
+        module load). A pooled engine runs every one of them through the
+        adapter delta (on trash lanes) and warms the lane write
+        (AdapterPool.warm)."""
         if self.device.type == "cuda":
             cuda_build.build(["flash_fwd"])
+        if self.adapters is not None:
+            self.adapters.warm()
         gen = torch.Generator(device=self.device)
         gen.manual_seed(0)
         t = self._tensor
@@ -761,9 +864,11 @@ class InferenceEngine:
                     t(np.zeros(rows, np.float32)),
                     t(np.zeros(rows, np.int32)),
                     t(np.ones(rows, np.float32)),
-                    **self._grammar_warm_kwargs((rows, vocab)))
+                    **self._grammar_warm_kwargs((rows, vocab)),
+                    **self._adapter_kwargs(np.full(rows, -1, np.int32)))
         n = self.max_slots
         idle = np.zeros(n, np.int32)
+        akw = self._adapter_kwargs(np.full(n, -1, np.int32))
         for view in self.view_buckets:
             first, _, self.cache = self._decode_for(view)(
                 self.params, self.cache, t(idle),
@@ -771,7 +876,7 @@ class InferenceEngine:
                 t(np.zeros(n, np.float32)), t(idle),
                 t(np.ones(n, np.float32)), t(np.full(n, -1, np.int32)),
                 t(idle), t(np.zeros(n, bool)),
-                **self._grammar_warm_kwargs((n, vocab)))
+                **self._grammar_warm_kwargs((n, vocab)), **akw)
             if self._spec_index is not None:
                 first, _, _, self.cache = self._verify_for(view)(
                     self.params, self.cache,
@@ -780,7 +885,7 @@ class InferenceEngine:
                     t(idle), t(np.ones(n, np.float32)),
                     t(np.zeros(n, bool)),
                     **self._grammar_warm_kwargs(
-                        (n, self.draft_tokens + 1, vocab)))
+                        (n, self.draft_tokens + 1, vocab)), **akw)
         first.cpu()
         self.reset()
 
@@ -953,6 +1058,15 @@ class InferenceEngine:
                 len(head.prompt_tokens) - (len(pkey) if pkey else 0))
             if admitted and need > budget:
                 break
+            if not self._acquire_adapter(head):
+                # Every pool lane is pinned by an in-flight request: the
+                # head waits (FIFO) and the queue backs up until submit()
+                # sheds with the typed 429.
+                break
+            if head.finished:
+                # Its adapter failed to load: finished with an error.
+                self.queue.pop(0)
+                continue
             req = self.queue.pop(0)
             req._admitted = time.monotonic()
             budget -= need
@@ -990,7 +1104,10 @@ class InferenceEngine:
         temps = np.zeros(rows, np.float32)
         top_ks = np.zeros(rows, np.int32)
         top_ps = np.ones(rows, np.float32)
+        # Padding rows take the trash lane.
+        aslots = np.full(rows, -1, np.int32)
         for i, (slot, req) in enumerate(group):
+            aslots[i] = req._adapter_lane
             m = len(req.prompt_tokens) - plen
             tokens[i, :m] = req.prompt_tokens[plen:]
             positions[i, :m] = np.arange(plen, plen + m)
@@ -1011,7 +1128,8 @@ class InferenceEngine:
             self._tensor(positions), slots, self._tensor(last_pos),
             self.generator, self._tensor(temps), self._tensor(top_ks),
             self._tensor(top_ps), prefix=prefix,
-            **self._grammar_prefill_kwargs(group, rows))
+            **self._grammar_prefill_kwargs(group, rows),
+            **self._adapter_kwargs(aslots))
         self.prefix_tokens_reused += plen * n
         self.prefill_dispatches += 1
         # The first tokens must reach the host to stream: the dispatch's
@@ -1032,6 +1150,7 @@ class InferenceEngine:
         self.lengths[slot] = len(eff)
         self.slot_req[slot] = req
         req._slot = slot
+        self.adapter_slots[slot] = req._adapter_lane
         if resumed:
             # Resume after preemption: the cache again holds the written
             # history (prompt + outputs[:-1]). The carry token, sampled
@@ -1067,6 +1186,8 @@ class InferenceEngine:
         adopts its written ones into the radix tree."""
         if self._spec_index is not None:
             self._spec_index.clear(slot)
+        self.adapter_slots[slot] = -1
+        self._release_adapter(req)
 
     def _record_token(self, slot: int, tok: int) -> None:
         req = self.slot_req[slot]
@@ -1122,6 +1243,10 @@ class InferenceEngine:
             if expired(r):
                 r.finished = True
                 r.finish_reason = "deadline"
+                # A queued request may already hold a lane pin (acquired
+                # while it waited for a slot or pages, or kept across a
+                # preemption): release it, or the lane is never evictable.
+                self._release_adapter(r)
                 n += 1
             else:
                 keep.append(r)
@@ -1302,7 +1427,7 @@ class InferenceEngine:
         accept, resid, full, self.cache = self._verify_for(view)(
             self.params, self.cache, t(tokens), t(positions), t(draft_len),
             self.generator, t(temps), t(top_ks), t(top_ps), t(self.active),
-            **gkw)
+            **gkw, **self._adapter_kwargs())
         # One host sync per verify step.
         return accept.cpu().numpy(), resid.cpu().numpy(), full.cpu().numpy()
 
@@ -1342,7 +1467,8 @@ class InferenceEngine:
             self._tensor(positions), self.generator, self._tensor(temps),
             self._tensor(top_ks), self._tensor(top_ps),
             self._tensor(eos_ids), self._tensor(remaining),
-            self._tensor(self.active), **self._grammar_decode_kwargs())
+            self._tensor(self.active), **self._grammar_decode_kwargs(),
+            **self._adapter_kwargs())
         # One host sync per chunk.
         toks = toks.cpu().numpy()            # [chunk, slots]
         valid = valid.cpu().numpy()          # [chunk, slots] bool

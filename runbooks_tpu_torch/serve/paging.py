@@ -623,6 +623,7 @@ def make_paged_prefill_fn(cfg: ModelConfig, cache_len: int,
     only the SUFFIX tokens' K/V are written to the row's private pages:
     shared pages are never written. Padding rows and pad tokens write to
     the trash page. The head runs on each row's last real position only.
+    ``adapters`` (a pooled engine): (adapter pool, each row's lane).
     Returns (first tokens, pool, last-position logits [rows, vocab] f32)."""
     trash_flat = num_pages * page_size      # token 0 of the trash page
     scratch_trash = cache_len - 1           # scratch rows' trash slot
@@ -630,7 +631,7 @@ def make_paged_prefill_fn(cfg: ModelConfig, cache_len: int,
     def paged_prefill_fn(params, pool: PagePool, tokens, positions,
                          dest_pages, last_pos, generator, temps, top_ks,
                          top_ps, prefix_pages=None, prefix_len=None,
-                         gmask=None):
+                         gmask=None, adapters=None):
         rows = tokens.shape[0]
         dev = tokens.device
         flat_k, flat_v = pool.flat()
@@ -649,7 +650,8 @@ def make_paged_prefill_fn(cfg: ModelConfig, cache_len: int,
             scratch.k[:, r_idx, sp] = flat_k[:, fidx]
             scratch.v[:, r_idx, sp] = flat_v[:, fidx]
         x, scratch = forward(cfg, params, tokens, positions=positions,
-                             cache=scratch, return_activations=True)
+                             cache=scratch, return_activations=True,
+                             adapters=adapters)
         # The suffix K/V to the rows' private pages, by the positions the
         # forward wrote them at; pad tokens sit at the scratch trash slot
         # and go to the trash page.
@@ -676,12 +678,14 @@ def make_paged_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
     step attends the view and writes the token it wrote there back to its
     page, so the pool is exact when the chunk returns. Liveness (EOS,
     budget, room) is tracked on the device exactly as the dense decode
-    does, and dead rows park at the view's trash slot V."""
+    does, and dead rows park at the view's trash slot V. ``adapters``: as
+    the dense decode's."""
     V = view_pages * page_size
 
     def paged_decode_fn(params, pool: PagePool, page_tables, tokens,
                         positions, generator, temperature, top_k, top_p,
-                        eos_ids, remaining, active, gmask=None):
+                        eos_ids, remaining, active, gmask=None,
+                        adapters=None):
         view = gather_view(pool, page_tables, view_pages)
         tok, pos, alive = tokens, positions, active
         emitted = torch.zeros_like(remaining)
@@ -689,7 +693,8 @@ def make_paged_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
         for _ in range(chunk):
             p = torch.where(alive, pos, V)
             logits, view = forward(cfg, params, tok[:, None],
-                                   positions=p[:, None], cache=view)
+                                   positions=p[:, None], cache=view,
+                                   adapters=adapters)
             nxt = sample(logits[:, -1], generator, temperature, top_k,
                          top_p, gmask=gmask).to(tok.dtype)
             nxt = torch.where(alive, nxt, tok)
@@ -716,20 +721,20 @@ def make_paged_verify_fn(cfg: ModelConfig, draft_tokens: int,
     rolls back rejected tokens by not advancing the slot's length; live
     positions are past every shared page, so rollback never touches one.
     The verdicts are the dense ``make_verify_fn``'s
-    (ops/sampling.speculative_verify)."""
+    (ops/sampling.speculative_verify); ``adapters`` as its."""
     K = draft_tokens
     V = view_pages * page_size
 
     def paged_verify_fn(params, pool: PagePool, page_tables, tokens,
                         positions, draft_len, generator, temperature, top_k,
-                        top_p, active, gmask=None):
+                        top_p, active, gmask=None, adapters=None):
         view = gather_view(pool, page_tables, view_pages)
         offs = torch.arange(K + 1, dtype=positions.dtype,
                             device=positions.device)[None, :]
         live = active[:, None] & (offs <= draft_len[:, None])
         pos = torch.where(live, positions[:, None] + offs, V)
         logits, view = forward(cfg, params, tokens, positions=pos,
-                               cache=view)
+                               cache=view, adapters=adapters)
         write_back(pool, view, page_tables, pos, live)
         accept, resid, full = speculative_verify(
             logits, tokens[:, 1:], generator, temperature, top_k, top_p,
@@ -933,23 +938,20 @@ class PagedInferenceEngine(InferenceEngine):
     size it down to overcommit on sharing. ``kv_host_pages`` > 0 adds the
     host swap tier (pinned host buffers of that many pages);
     ``preemption="swap"`` lets a better-class queue head displace a
-    worse-class slot. Runs on the device of ``params`` (CUDA unless the
-    caller put them on the CPU)."""
+    worse-class slot. With an adapter pool (``adapter_pool``, as the
+    dense engine's), radix matches are namespaced by adapter, so a
+    tenant's pages only serve the same adapter's prompts. Runs on the
+    device of ``params`` (CUDA unless the caller put them on the CPU)."""
 
     _supports_preemption = True
 
     def __init__(self, cfg: ModelConfig, params: Params, *,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 kv_host_pages: int = 0, mesh=None,
-                 adapter_pool: Optional[int] = None, **kwargs):
+                 kv_host_pages: int = 0, mesh=None, **kwargs):
         if mesh is not None:
             raise NotImplementedError(
                 "a serving mesh is not ported yet (ROADMAP.md §1, "
                 "multi-device): the paged engine runs on one device")
-        if adapter_pool:
-            raise NotImplementedError(
-                "the multi-tenant adapter pool is not ported yet "
-                "(ROADMAP.md §1); fold one adapter at load")
         if cfg.quantize_kv:
             raise NotImplementedError(
                 "int8 KV pages (quantize_kv) are not ported yet "
@@ -1081,6 +1083,8 @@ class PagedInferenceEngine(InferenceEngine):
         have the shapes of the suffix bucket, which this covers."""
         if self.device.type == "cuda":
             cuda_build.build(["flash_fwd"])
+        if self.adapters is not None:
+            self.adapters.warm()
         gen = torch.Generator(device=self.device)
         gen.manual_seed(0)
         t = self._tensor
@@ -1101,17 +1105,19 @@ class PagedInferenceEngine(InferenceEngine):
                         t(np.zeros(rows, np.float32)),
                         t(np.zeros(rows, np.int32)),
                         t(np.ones(rows, np.float32)),
-                        **self._grammar_warm_kwargs((rows, vocab)))
+                        **self._grammar_warm_kwargs((rows, vocab)),
+                        **self._adapter_kwargs(np.full(rows, -1, np.int32)))
             n = self.max_slots
             idle = np.zeros(n, np.int32)
             tables = t(np.full((n, self.pages_per_slot), trash, np.int32))
+            akw = self._adapter_kwargs(np.full(n, -1, np.int32))
             for vp in self.view_page_buckets:
                 first, _, self.cache = self._decode_for(vp)(
                     self.params, self.cache, tables, t(idle), t(idle), gen,
                     t(np.zeros(n, np.float32)), t(idle),
                     t(np.ones(n, np.float32)), t(np.full(n, -1, np.int32)),
                     t(idle), t(np.zeros(n, bool)),
-                    **self._grammar_warm_kwargs((n, vocab)))
+                    **self._grammar_warm_kwargs((n, vocab)), **akw)
                 if self._spec_index is not None:
                     first, _, _, self.cache = self._verify_for(vp)(
                         self.params, self.cache, tables,
@@ -1120,7 +1126,7 @@ class PagedInferenceEngine(InferenceEngine):
                         t(idle), t(np.ones(n, np.float32)),
                         t(np.zeros(n, bool)),
                         **self._grammar_warm_kwargs(
-                            (n, self.draft_tokens + 1, vocab)))
+                            (n, self.draft_tokens + 1, vocab)), **akw)
             if self.host_pool is not None:
                 h = self.host_pool.alloc()
                 self.host_pool.store(h, *self._swap_out_fn(self.cache,
@@ -1212,9 +1218,10 @@ class PagedInferenceEngine(InferenceEngine):
             if not self.queue:
                 break
             head = self.queue[0]
-            # A preempted head plans against prompt + written outputs, so
-            # its own adopted pages match and it resumes on the
-            # shared-prefix path.
+            # Radix matches are namespaced by adapter: the same tokens
+            # have other K/V under another adapter. A preempted head plans
+            # against prompt + written outputs, so its own adopted pages
+            # match and it resumes on the shared-prefix path.
             eff = self._admit_tokens(head)
             shared, private_n = self.pager.plan(
                 eff, self._admit_budget(head), self.max_seq_len,
@@ -1223,9 +1230,17 @@ class PagedInferenceEngine(InferenceEngine):
             if admitted and need > budget:
                 budget_blocked = True
                 break
+            if not self._acquire_adapter(head):
+                # Every adapter lane is pinned: the same backpressure as
+                # page exhaustion below.
+                break
+            if head.finished:       # its adapter failed to load
+                self.queue.pop(0)
+                continue
             if self.pager.admit(slot, shared, private_n) is None:
                 # Page pressure even after eviction: the head waits (FIFO)
-                # and the queue backs up until submit() sheds.
+                # and the queue backs up until submit() sheds. Its adapter
+                # lane stays pinned on the request for the next try.
                 break
             req = self.queue.pop(0)
             req._admitted = time.monotonic()
@@ -1266,7 +1281,9 @@ class PagedInferenceEngine(InferenceEngine):
         (prompt + outputs[:-1]: the last sampled token is never written)
         goes into the radix tree as a finished request's would, and the
         request re-queues with its generated tokens, to resume later from
-        a radix match on its own history with finish_reason unchanged."""
+        a radix match on its own history with finish_reason unchanged. Its
+        adapter lane stays pinned: releasing it could park the resume
+        behind the very traffic that preempted it."""
         req = self.slot_req[slot]
         m = len(req.output_tokens)
         written = len(req.prompt_tokens) + max(0, m - 1)
@@ -1274,6 +1291,7 @@ class PagedInferenceEngine(InferenceEngine):
         self.pager.release(slot, written_tokens=toks, ns=req.adapter)
         self.active[slot] = False
         self.slot_req[slot] = None
+        self.adapter_slots[slot] = -1
         if self._spec_index is not None:
             self._spec_index.clear(slot)
         req._slot = -1
@@ -1303,7 +1321,9 @@ class PagedInferenceEngine(InferenceEngine):
         temps = np.zeros(rows, np.float32)
         top_ks = np.zeros(rows, np.int32)
         top_ps = np.ones(rows, np.float32)
+        aslots = np.full(rows, -1, np.int32)     # padding: the trash lane
         for i, (slot, req) in enumerate(group):
+            aslots[i] = req._adapter_lane
             nshared = int(self.pager.slot_shared[slot])
             plen = nshared * ps
             # A resumed row prefills its own written history past its
@@ -1330,7 +1350,8 @@ class PagedInferenceEngine(InferenceEngine):
         first, self.cache, _ = self._paged_prefill(
             self.params, self.cache, t(tokens), t(positions), t(dest_pages),
             t(last_pos), self.generator, t(temps), t(top_ks), t(top_ps),
-            **prefix, **self._grammar_prefill_kwargs(group, rows))
+            **prefix, **self._grammar_prefill_kwargs(group, rows),
+            **self._adapter_kwargs(aslots))
         self.prefill_dispatches += 1
         # The first tokens must reach the host to stream: the dispatch's
         # one sync.
@@ -1363,7 +1384,8 @@ class PagedInferenceEngine(InferenceEngine):
         accept, resid, full, self.cache = self._verify_for(vp)(
             self.params, self.cache, t(self.pager.page_table), t(tokens),
             t(positions), t(draft_len), self.generator, t(temps),
-            t(top_ks), t(top_ps), t(self.active), **gkw)
+            t(top_ks), t(top_ps), t(self.active), **gkw,
+            **self._adapter_kwargs())
         # One host sync per verify step.
         return accept.cpu().numpy(), resid.cpu().numpy(), full.cpu().numpy()
 
@@ -1379,7 +1401,7 @@ class PagedInferenceEngine(InferenceEngine):
             self.params, self.cache, t(self.pager.page_table),
             t(self.last_token), t(positions), self.generator, t(temps),
             t(top_ks), t(top_ps), t(eos_ids), t(remaining), t(self.active),
-            **self._grammar_decode_kwargs())
+            **self._grammar_decode_kwargs(), **self._adapter_kwargs())
         # One host sync per chunk.
         return self._replay_chunk(toks.cpu().numpy(), valid.cpu().numpy())
 

@@ -534,3 +534,91 @@ def test_paged_prefill_runs_the_kernel_on_card():
             assert flash_attention.launches == launches + cfg.num_layers
             assert req.finish_reason == "length"
         assert eng.pager.pages_reused_total == 3
+
+
+def _adapter_artifacts(cfg, root, ranks=(16, 8), seed=0):
+    """Adapter artifacts for cfg's attention targets (rank, alpha 2 *
+    rank), written by the port's save_adapter; B non-zero."""
+    from runbooks_tpu_torch.ops.lora import target_dims
+    from runbooks_tpu_torch.serve.lora_pool import save_adapter
+
+    g = torch.Generator().manual_seed(seed)
+    paths = []
+    for i, rank in enumerate(ranks):
+        tree = {}
+        for t in ("attn.wq", "attn.wk", "attn.wv", "attn.wo"):
+            d_in, d_out = target_dims(cfg, t)
+            tree[t] = {
+                "a": torch.randn((cfg.num_layers, d_in, rank),
+                                 generator=g) * d_in ** -0.5,
+                "b": torch.randn((cfg.num_layers, rank, d_out),
+                                 generator=g) * 0.02}
+        path = f"{root}/tenant{i}"
+        save_adapter(path, tree, rank=rank, alpha=2.0 * rank)
+        paths.append(path)
+    return paths
+
+
+@pytest.mark.cuda
+def test_adapter_lane_write_is_in_place_on_card(tmp_path):
+    """Loading an adapter into a pool lane on the card writes the existing
+    bf16 pool tensors in place (the storage pointers do not move) and
+    leaves the lane equal to the CPU's cast of the padded, scaled tree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.serve.lora_pool import (
+        AdapterPool,
+        load_adapter_tree,
+    )
+
+    cfg = get_config("llama3-8b", num_layers=2, adapter_pool=2,
+                     lora_rank=16)
+    paths = _adapter_artifacts(cfg, str(tmp_path))
+    pool = AdapterPool(cfg, device=torch.device("cuda"))
+    ptrs = {(g, n, k): ab[k].data_ptr() for g, sub in pool.tree.items()
+            for n, ab in sub.items() for k in ("a", "b")}
+    lanes = [pool.acquire(p) for p in paths]
+    torch.cuda.synchronize()
+    assert lanes == [0, 1]
+    for (g, n, k), ptr in ptrs.items():
+        leaf = pool.tree[g][n][k]
+        assert leaf.data_ptr() == ptr and leaf.dtype == torch.bfloat16
+        for lane, path in zip(lanes, paths):
+            want = load_adapter_tree(path, cfg, cfg.lora_targets, 16)
+            assert torch.equal(leaf[:, lane].cpu(),
+                               want[g][n][k].to(torch.bfloat16))
+        assert not leaf[:, 2].any()          # the trash lane
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_pooled_ids_equal_folded_ids_on_card(tmp_path, paged):
+    """f32, plain attention: two tenants (ranks 16 and 8) and a base-only
+    row in one pooled batch give the greedy ids of dedicated engines over
+    the folded weights, and the base row the no-pool engine's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
+    from runbooks_tpu_torch.serve.lora_pool import load_merge_adapter
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+
+    cfg, params = _two_layer_llama3()
+    paths = _adapter_artifacts(cfg, str(tmp_path))
+    prompts = [list(range(100, 160)), [5, 6, 7] * 30, list(range(7, 40))]
+    cls = PagedInferenceEngine if paged else InferenceEngine
+    eng = cls(cfg, params, max_slots=4, max_seq_len=512, adapter_pool=2,
+              lora_rank=16)
+    reqs = [Request(prompt_tokens=p, max_tokens=24, adapter=a)
+            for p, a in zip(prompts, paths + [None])]
+    with torch.no_grad():
+        eng.generate(reqs)
+    del eng
+    for i, a in enumerate(paths + [None]):
+        p = load_merge_adapter(a, cfg, params) if a else params
+        ref = InferenceEngine(cfg, p, max_slots=4, max_seq_len=512)
+        want = Request(prompt_tokens=prompts[i], max_tokens=24)
+        with torch.no_grad():
+            ref.generate([want])
+        assert reqs[i].output_tokens == want.output_tokens, i
+        del ref, p

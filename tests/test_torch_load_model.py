@@ -220,8 +220,11 @@ def test_adapter_refusals(tmp_path):
     with pytest.raises(RuntimeError, match="mutually exclusive"):
         load_model({"model": "debug", "adapter": str(tmp_path),
                     "adapter_pool": 2}, device="cpu")
-    with pytest.raises(NotImplementedError, match="adapter pool"):
-        load_model({"model": "debug", "adapterPool": 1}, device="cpu")
+    # With the pool on, load_model serves the base as it is: the pooled
+    # engine applies adapters per request.
+    _assert_tree_equal(
+        load_model({"model": "debug", "adapterPool": 1}, device="cpu")[1],
+        load_model({"model": "debug"}, device="cpu")[1])
     with pytest.raises(lora_pool.AdapterLoadError, match="checkpoints/"):
         load_model({"model": "debug", "adapter": str(tmp_path)},
                    device="cpu")

@@ -455,12 +455,14 @@ def test_geometry_and_knob_validation(weights):
             cls(cfg, params, max_slots=2, kv_host_pages=-1)
         with pytest.raises(ValueError, match="preemption must be"):
             cls(cfg, params, max_slots=2, preemption="maybe")
-    # The port has no serving mesh and no adapter pool yet: both raise by
-    # name instead of serving something else.
+    # The port has no serving mesh yet: it raises by name instead of
+    # serving something else. The adapter pool is ported: the paged
+    # engine builds one.
     with pytest.raises(NotImplementedError, match="mesh"):
         PagedInferenceEngine(tcfg, tparams, max_slots=2, mesh=object())
-    with pytest.raises(NotImplementedError, match="adapter pool"):
-        PagedInferenceEngine(tcfg, tparams, max_slots=2, adapter_pool=2)
+    pooled = PagedInferenceEngine(tcfg, tparams, max_slots=2, adapter_pool=2)
+    assert pooled.adapters.pool_size == 2
+    assert pooled.adapter_stats()["resident"] == []
     eng = PagedInferenceEngine(tcfg, tparams, max_slots=2, page_size=16)
     assert eng.cache.k.shape == (2, 9, 16, 2, 16)   # 8 pages + trash
     assert eng.kv_occupancy()["paged"] is True

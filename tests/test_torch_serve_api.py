@@ -488,7 +488,7 @@ def test_shutdown_drains_in_flight_requests(weights):
 
 
 @pytest.mark.parametrize("knob", [
-    {"adapter_pool": 2}, {"mesh_tensor": 2}, {"quantize_kv": True}])
+    {"mesh_data": 2}, {"mesh_tensor": 2}, {"quantize_kv": True}])
 def test_main_refuses_unported_knobs_by_name(tmp_path, monkeypatch, knob):
     (tmp_path / "params.json").write_text(json.dumps({"model": "debug",
                                                       **knob}))
@@ -504,13 +504,14 @@ def test_main_refuses_unported_knobs_by_name(tmp_path, monkeypatch, knob):
     {"kv_paging": "paged", "page_size": 16, "num_pages": 64},
     {"kvPaging": True, "kv_host_pages": 8},
     {"kv_paging": "paged", "preemption": "swap"},
-    {"kv_paging": "on", "kvHostPages": 64, "preemption": "swap"}],
+    {"kv_paging": "on", "kvHostPages": 64, "preemption": "swap"},
+    {"adapter_pool": 2, "lora_rank": 16, "adapter_dir": "/srv/adapters"}],
     ids=["speculative", "grammar", "kv_paging", "kvPaging_host_pages",
-         "preemption", "host_tier_and_preemption"])
+         "preemption", "host_tier_and_preemption", "adapter_pool"])
 def test_main_takes_ported_knobs(tmp_path, monkeypatch, knob):
-    """Speculation, grammar, paging, the host tier and preemption are
-    ported: main passes them on and stops only where every CPU run of main
-    stops, at the missing GPU."""
+    """Speculation, grammar, paging, the host tier, preemption and the
+    adapter pool are ported: main passes them on and stops only where
+    every CPU run of main stops, at the missing GPU."""
     params = {"model": "debug", **knob}
     (tmp_path / "params.json").write_text(json.dumps(params))
     monkeypatch.setenv("RBT_CONTENT_DIR", str(tmp_path))
@@ -545,6 +546,30 @@ def test_main_passes_speculation_and_grammar_knobs(tmp_path, monkeypatch):
                                 "grammar_cache_size")} == {
         "speculative": "ngram", "draft_tokens": 3, "ngram_max": 4,
         "ngram_min": 2, "grammar": "on", "grammar_cache_size": 8}
+
+
+def test_main_passes_adapter_pool_knobs(tmp_path, monkeypatch):
+    """The pool's params spellings reach create_server typed."""
+    params = {"model": "debug", "adapterPool": "3", "lorarank": 16,
+              "adapter_dir": "/srv/adapters"}
+    (tmp_path / "params.json").write_text(json.dumps(params))
+    monkeypatch.setenv("RBT_CONTENT_DIR", str(tmp_path))
+    got = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_create_server(cfg, model_params, tokenizer, **kw):
+        got.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(api, "load_model", lambda p: ("cfg", "params"))
+    monkeypatch.setattr(api, "create_server", fake_create_server)
+    with pytest.raises(Stop):
+        api.main()
+    assert {k: got[k] for k in ("adapter_pool", "lora_rank",
+                                "adapter_dir")} == {
+        "adapter_pool": 3, "lora_rank": 16, "adapter_dir": "/srv/adapters"}
 
 
 def test_main_takes_knobs_that_are_off(tmp_path, monkeypatch):
