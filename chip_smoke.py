@@ -152,11 +152,40 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    engine: ids equal (a)'s up to near-ties, the accept rate. (e)
    ``create_server(adapter_pool=4, adapter_dir=...)``: ``"adapter":
    "tenant0"`` answers 200 with (a)'s ids, an unknown adapter 400.
+14. Quantized serving: llama3-8b at full width and depth from the seed,
+   bf16 activations. (a) ``quantized_matmul`` at int8 and int4 on x [8,
+   4096] and [2048, 4096] through ``wi_gate`` (4096 -> 14336) and x [8,
+   14336] and [2048, 14336] through the MLP ``wo``, within QMM_TOL of
+   ``x.float() @ dequantize(w)``; its time against its bound (bytes over
+   HBM at 8 rows, operations over the bf16 peak at 2048) and against
+   ``torch.matmul`` on the bf16 dequantized weight (a yardstick). (b)
+   ``quantize_params`` on the card at int8 and int4: seconds, peak
+   memory, weight bytes and each tree's decode HBM bound. (c) Phase 4's
+   mix through four warmed-up ``InferenceEngine(max_slots=8,
+   max_seq_len=2048)``: int8 weights (int8 KV by default), int4 weights
+   with int8 KV, bf16 weights with ``quantize_kv=True``, bf16; greedy
+   ids of the quantized-weight engines equal those of a bf16-KV engine
+   over their own dequantized weights up to near-ties, the int8-KV
+   engine's the baseline's; first-token logits of every engine's own
+   dispatches within LOGIT_TOL of a full prefill; K1's launches equal;
+   cache bytes as reckoned; decode tokens/s, launches and device ms per
+   decode forward, peak memory. (d) ``PagedInferenceEngine`` on the int8
+   tree with int8 pages: ids equal (c)'s int8 engine's up to near-ties,
+   K1's launches equal; int8 pages with their scales through the pinned
+   host tier bit-identical, swap ms and GB/s. (e) Phase 13's four tenants
+   in a pool over the int8 base: base-only rows give the no-pool int8
+   engine's ids and bit-identical first-token logits, every tenant row
+   differs. (f) Phase 9's directory imported with ``quantize: int8`` by
+   ``python -m runbooks_tpu_torch.models.loader``: ``load_model``
+   restores it packed, every leaf bit-equal to the source quantized in
+   memory, the same greedy ids; and ``model_overrides: {"quantize":
+   "int8"}`` serves int8 weights over an int8 cache.
 
-The last two lines of standard output are the kernels' JSON record and
-{"ok": true, "device": {...}}. Without a CUDA device, or without the
-runbooks_tpu_torch package beside it, the script exits nonzero and prints
-no result.
+The last three lines of standard output are the card's name and power
+limit, the kernels' JSON record and {"ok": true, "device": {...}};
+quantized_matmul's records ({"quantized_ops": [...]}) stand on the line
+before them. Without a CUDA device, or without the runbooks_tpu_torch
+package beside it, the script exits nonzero and prints no result.
 """
 
 import argparse
@@ -269,6 +298,12 @@ LORA_B_STD = 0.03
 LORA_ROTATION = (0, 1, 0, 2, 1, 3, 3, 0, 2, 1)
 LORA_PREEMPT_NEW = 64
 PCIE_GEN5_X16 = 64e9       # bytes/s in each direction
+# Phase 14: quantized_matmul at llama3-8b's wi_gate and MLP wo, at decode
+# and prefill rows. Its f32 partial sums run in another order than the
+# oracle's single product: |err| <= QMM_TOL * max|oracle|.
+QMM_MATS = (("wi_gate", 4096, 14336), ("mlp_wo", 14336, 4096))
+QMM_ROWS = (8, 2048)
+QMM_TOL = 1e-5
 
 
 def card_line():
@@ -1590,6 +1625,39 @@ def import_expected(torch, tensors, cfg):
         yield leaf, layer, t.T if transpose else t
 
 
+def run_loader(content, params):
+    """``python -m runbooks_tpu_torch.models.loader`` on params.json =
+    ``params`` under the contract root ``content``, killed after
+    IMPORT_TIMEOUT_S: (exit code, seconds, the child's peak resident GB,
+    its output)."""
+    os.makedirs(content)
+    with open(f"{content}/params.json", "w") as f:
+        json.dump(params, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RBT_CONTENT_DIR=content,
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    log_path = f"{content}/loader.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "runbooks_tpu_torch.models.loader"],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    killer = threading.Timer(IMPORT_TIMEOUT_S, proc.kill)
+    killer.start()
+    try:
+        # wait4: this child's own peak resident set, not the largest of
+        # every child this process has waited for.
+        _, status, usage = os.wait4(proc.pid, 0)
+    finally:
+        killer.cancel()
+    seconds = time.perf_counter() - t0
+    with open(log_path) as f:
+        log_text = f.read()
+    return (os.waitstatus_to_exitcode(status), seconds,
+            usage.ru_maxrss * 1024 / 1e9, log_text)
+
+
 def import_phase(torch, dev, seed, workdir):
     """Phase 9: an HF llama3-8b directory (full width, IMPORT_LAYERS
     layers, BF16, sharded) through ``python -m
@@ -1612,32 +1680,9 @@ def import_phase(torch, dev, seed, workdir):
                                         IMPORT_SHARDS)
     write_s = time.perf_counter() - t0
     content = f"{workdir}/import_content"
-    os.makedirs(content)
-    with open(f"{content}/params.json", "w") as f:
-        json.dump({"model": "llama3-8b", "model_overrides": overrides,
-                   "source": "dir", "dir": src}, f)
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, RBT_CONTENT_DIR=content,
-               PYTHONPATH=os.pathsep.join(
-                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    log_path = f"{workdir}/loader.log"
-    t0 = time.perf_counter()
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "runbooks_tpu_torch.models.loader"],
-            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
-    killer = threading.Timer(IMPORT_TIMEOUT_S, proc.kill)
-    killer.start()
-    try:
-        # wait4: this child's own peak resident set, not the largest of
-        # every child this process has waited for.
-        _, status, usage = os.wait4(proc.pid, 0)
-    finally:
-        killer.cancel()
-    proc.returncode = os.waitstatus_to_exitcode(status)
-    import_s = time.perf_counter() - t0
-    with open(log_path) as f:
-        log_text = f.read()
+    returncode, import_s, peak_rss_gb, log_text = run_loader(
+        content, {"model": "llama3-8b", "model_overrides": overrides,
+                  "source": "dir", "dir": src})
     artifacts = f"{content}/artifacts"
     ckpt_bytes = os.path.getsize(f"{artifacts}/checkpoints/0/state.pt")
     with open(f"{artifacts}/model.json") as f:
@@ -1649,7 +1694,7 @@ def import_phase(torch, dev, seed, workdir):
     want_meta = {"model": "llama3-8b", "num_params": cfg.num_params,
                  "vocab_size": cfg.vocab_size, "quantize": "none",
                  "weight_bytes": 4 * cfg.num_params, "source": "dir"}
-    meta_ok = (proc.returncode == 0 and meta == want_meta
+    meta_ok = (returncode == 0 and meta == want_meta
                and done == {"done": True, **want_meta}
                and set(spans) == {"start", "read", "convert", "save"})
     stats = {"layers": IMPORT_LAYERS, "shards": IMPORT_SHARDS,
@@ -1664,8 +1709,8 @@ def import_phase(torch, dev, seed, workdir):
                                   if "convert" in spans else None),
              "loader_spans": spans,
              "checkpoint_bytes": ckpt_bytes,
-             "loader_peak_rss_gb": usage.ru_maxrss * 1024 / 1e9,
-             "exit_code": proc.returncode}
+             "loader_peak_rss_gb": peak_rss_gb,
+             "exit_code": returncode}
     print("import " + json.dumps(stats), flush=True)
     if not meta_ok:
         print(log_text[-3000:], flush=True)
@@ -2578,12 +2623,14 @@ def swap_timing(torch, cfg, engine):
     """Per-page swap ms each way over SWAP_TIMED_PAGES pages of the
     engine's pool (pinned host buffers; a swap-out waits for its copy, the
     swap-ins are timed to one synchronize after the last), and whether
-    every page came back bit-identical in another page."""
+    every page (with its scales, for an int8 pool) came back
+    bit-identical in another page."""
     from runbooks_tpu_torch.serve import paging
 
     pool = engine.cache
     n = SWAP_TIMED_PAGES
-    host = paging.HostPagePool(cfg, n, PAGE_SIZE, pin_memory=True)
+    host = paging.HostPagePool(cfg, n, PAGE_SIZE, pin_memory=True,
+                               quantize_kv=pool.quantized)
     out_fn, in_fn = paging.make_kv_swap_out_fn(), paging.make_kv_swap_in_fn()
     slots = [host.alloc() for _ in range(n)]
     torch.cuda.synchronize()
@@ -2597,9 +2644,8 @@ def swap_timing(torch, cfg, engine):
         in_fn(pool, page, *host.load(h))
     torch.cuda.synchronize()
     in_ms = (time.perf_counter() - t0) * 1e3 / n
-    same = all(torch.equal(pool.k[:, p], pool.k[:, p + n])
-               and torch.equal(pool.v[:, p], pool.v[:, p + n])
-               for p in range(n))
+    same = all(torch.equal(a, b) for p in range(n)
+               for a, b in zip(pool.page(p), pool.page(p + n)))
     return {"pages": n, "bytes_per_page": host.bytes_per_page,
             "swap_out_ms_per_page": out_ms, "swap_in_ms_per_page": in_ms,
             "swap_out_gb_per_s": host.bytes_per_page / out_ms / 1e6,
@@ -3414,6 +3460,477 @@ def lora_phase(torch, seed, workdir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: quantized serving
+# ---------------------------------------------------------------------------
+
+def qmm_phase(torch, dev, seed):
+    """Phase 14 (a): quantized_matmul at int8 and int4 on llama3-8b's
+    wi_gate and MLP wo shapes, at decode and prefill rows, against the f32
+    oracle ``x.float() @ dequantize(w)``; its time against its bound and
+    against torch.matmul on the bf16 dequantized weight (a yardstick timed
+    here, never called by the port). Returns the records."""
+    from runbooks_tpu_torch.ops.quantization import (
+        dequantize,
+        quantize,
+        quantized_matmul,
+    )
+    from runbooks_tpu_torch.utils.hw import H100_HBM_BW, H100_PEAK_BF16_FLOPS
+
+    g = torch.Generator(device=dev).manual_seed(seed + 140)
+    records = []
+    for name, d_in, d_out in QMM_MATS:
+        w = (torch.randn((d_in, d_out), generator=g, device=dev)
+             * d_in ** -0.5).to(torch.bfloat16)
+        for mode, bits in (("int8", 8), ("int4", 4)):
+            qa = quantize(w, bits)
+            oracle_w = dequantize(qa)
+            yard_w = dequantize(qa, torch.bfloat16)
+            for rows in QMM_ROWS:
+                x = torch.randn((rows, d_in), generator=g,
+                                device=dev).to(torch.bfloat16)
+                with torch.no_grad():
+                    got = quantized_matmul(x, qa, torch.bfloat16)
+                    want = x.float() @ oracle_w
+                    err = (got - want).abs().max().item()
+                    scale = want.abs().max().item()
+                    iters = 50 if rows <= 8 else 5
+                    ms = cuda_ms(lambda: quantized_matmul(
+                        x, qa, torch.bfloat16), iters)
+                    lib_ms = cuda_ms(lambda: torch.matmul(x, yard_w), iters)
+                nbytes = qa.nbytes + x.numel() * 2 + rows * d_out * 4
+                flops = 2 * rows * d_in * d_out
+                t_bytes = nbytes / H100_HBM_BW * 1e3
+                t_ops = flops / H100_PEAK_BF16_FLOPS * 1e3
+                rec = {"name": f"quantized_matmul_{mode}", "matrix": name,
+                       "shape": [rows, d_in, d_out], "ms": ms,
+                       "bound_ms": max(t_bytes, t_ops),
+                       "bound_by": ("bytes" if t_bytes >= t_ops
+                                    else "operations"),
+                       "bf16_matmul_ms": lib_ms,
+                       "max_abs_err": err, "max_abs_oracle": scale,
+                       "tol": QMM_TOL * scale,
+                       "ok": err <= QMM_TOL * scale}
+                records.append(rec)
+                print(f"quantized_matmul {mode} {name} x[{rows}, {d_in}]: "
+                      f"{ms:.4f} ms (bound {rec['bound_ms']:.4f} by "
+                      f"{rec['bound_by']}; bf16 matmul {lib_ms:.4f}) max "
+                      f"|err| {err:.3e} (tol {QMM_TOL * scale:.3e}) -> "
+                      f"{'ok' if rec['ok'] else 'FAIL'}", flush=True)
+            del qa, oracle_w, yard_w
+    if not all(r["ok"] for r in records):
+        raise SystemExit("quantized_matmul disagrees with its f32 oracle")
+    return records
+
+
+def quantizable_bytes(params):
+    """Bytes of the tree's quantizable matrices (QUANTIZABLE_KEYS), packed
+    or not: what one decode forward must read of them."""
+    from runbooks_tpu_torch.ops.quantization import (
+        QUANTIZABLE_KEYS,
+        QuantizedArray,
+    )
+
+    total = 0
+    for group, keys in QUANTIZABLE_KEYS.items():
+        for key in keys:
+            w = params["layers"].get(group, {}).get(key)
+            if isinstance(w, QuantizedArray):
+                total += w.nbytes
+            elif w is not None:
+                total += w.numel() * w.element_size()
+    return total
+
+
+def quantize_load_phase(torch, params):
+    """Phase 14 (b): quantize_params on the device at int8 and int4, each
+    on a copy of the bf16 tree's dicts (the bf16 leaves stay): seconds,
+    peak memory above the resident trees, weight bytes and the HBM bound
+    of one decode forward's quantizable weights. Returns {mode: tree}."""
+    from runbooks_tpu_torch.ops.quantization import (
+        quantize_params,
+        tree_weight_bytes,
+    )
+    from runbooks_tpu_torch.utils.hw import H100_HBM_BW
+    from runbooks_tpu_torch.utils.tree import tree_map
+
+    trees = {}
+    stats = {"bf16": {"weight_bytes": tree_weight_bytes(params),
+                      "quantizable_bytes": quantizable_bytes(params)}}
+    for mode in ("int8", "int4"):
+        tree = tree_map(lambda t: t, params)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        quantize_params(tree, mode)
+        torch.cuda.synchronize()
+        stats[mode] = {
+            "seconds": time.perf_counter() - t0,
+            "peak_gb_above_resident": (torch.cuda.max_memory_allocated()
+                                       - base) / 1e9,
+            "weight_bytes": tree_weight_bytes(tree),
+            "quantizable_bytes": quantizable_bytes(tree)}
+        trees[mode] = tree
+    for st in stats.values():
+        st["decode_weights_hbm_bound_ms"] = (st["quantizable_bytes"]
+                                             / H100_HBM_BW * 1e3)
+    print("quantize (b) " + json.dumps(stats), flush=True)
+    return trees
+
+
+def record_first_logits(engine, prompts, store):
+    """Record the first-token logits of each real row of the engine's
+    prefill dispatches, by prompt index, into ``store``."""
+    prefill = engine._prefill
+
+    def recording(params_, pool, tokens, positions, slots, last_pos, *args,
+                  **kw):
+        first, pool, logits = prefill(params_, pool, tokens, positions,
+                                      slots, last_pos, *args, **kw)
+        toks, pos0 = tokens.tolist(), positions[:, 0].tolist()
+        for r, m in enumerate(x + 1 for x in last_pos.tolist()):
+            row = toks[r][:m]
+            if pos0[r] != engine._pad_slot and row in prompts:
+                store.setdefault(prompts.index(row),
+                                 logits[r].float().clone())
+        return first, pool, logits
+
+    engine._prefill = recording
+
+
+def cache_bytes_expected(cfg, quantized):
+    """The dense slot pool's bytes at max_slots=8, max_seq_len=2048 (+1
+    trash slot): K and V, with one f32 scale per (layer, slot, position,
+    kv head) beside int8 values."""
+    per = cfg.head_dim + 4 if quantized else cfg.head_dim * 2
+    return 2 * cfg.num_layers * 8 * 2049 * cfg.num_kv_heads * per
+
+
+def quant_dense_phase(torch, cfg, params, trees, seed, launches):
+    """Phase 14 (c): phase 4's mix through four warmed-up dense engines,
+    all resident, run bf16, kv8, w8, w4, kv8, bf16 (the two close ones
+    twice, host drift on both sides): int8 weights (int8 KV by default),
+    int4 weights (int8 KV), bf16 weights with int8 KV, and the bf16
+    baseline. Returns the w8 engine and its ids."""
+    from runbooks_tpu_torch.ops.quantization import (
+        QuantizedArray,
+        dequantize,
+    )
+    from runbooks_tpu_torch.serve.engine import (
+        InferenceEngine,
+        _buckets,
+        bucket_for,
+    )
+    from runbooks_tpu_torch.utils.tree import tree_map
+
+    prompts = smoke_prompts(seed)
+    setups = {"bf16": (cfg, params, {}),
+              "kv8": (cfg, params, {"quantize_kv": True}),
+              "w8": (dataclasses.replace(cfg, quantize="int8"),
+                     trees["int8"], {}),
+              "w4": (dataclasses.replace(cfg, quantize="int4"),
+                     trees["int4"], {"quantize_kv": True})}
+    engines, first = {}, {}
+    for name, (c, p, kw) in setups.items():
+        engines[name] = warm_engine(torch, c, p, seed, **kw)
+        first[name] = {}
+        record_first_logits(engines[name][0], prompts, first[name])
+    runs = {name: [] for name in setups}
+    ids = {}
+    for name in ("bf16", "kv8", "w8", "w4", "kv8", "bf16"):
+        engine, samples, warm_s = engines[name]
+        reqs = smoke_requests(prompts, {})
+        torch.cuda.reset_peak_memory_stats()
+        st, run_ids = timed_generate(torch, engine, samples, reqs)
+        st.update(warmup_s=warm_s, max_memory_allocated_gb=(
+            torch.cuda.max_memory_allocated() / 1e9))
+        if not all(len(x) == MAX_TOKENS for x in run_ids):
+            raise SystemExit(f"quantized (c) {name}: not every request got "
+                             f"{MAX_TOKENS} tokens: {st}")
+        ids.setdefault(name, run_ids)
+        runs[name].append(st)
+        launches[f"quant_c_{name}"] = st["flash_fwd_launches"]
+    stats = {}
+    for name, (c, p, kw) in setups.items():
+        engine = engines[name][0]
+        occ = engine.kv_occupancy()
+        # One decode chunk of 8 live rows admitted in one step, traced;
+        # the requests end after the next chunk.
+        mix = lora_requests(lora_prompts(seed), [None] * len(LORA_TENANTS))
+        for r in mix:
+            r.max_tokens = 2 * engine.decode_chunk + 1
+        stats[name] = {
+            "runs": runs[name],
+            "decode_tokens_per_s": [st["decode_tokens_per_s"]
+                                    for st in runs[name]],
+            "kv_pool_bytes": occ["kv_pool_bytes"],
+            "kv_bytes_per_token": occ["kv_pool_bytes"] // (8 * 2049),
+            "decode_forward": decode_forward_activity(torch, engine, mix),
+            "greedy_rows_equal_bf16": sum(
+                ids[name][i] == ids["bf16"][i]
+                for i in range(0, len(prompts), 2))}
+    print("quantized (c) " + json.dumps(stats), flush=True)
+    per_run = {st["flash_fwd_launches"] for r in runs.values() for st in r}
+    gates = {
+        "k1_launches_equal": len(per_run) == 1,
+        "cache_bytes": all(
+            stats[name]["kv_pool_bytes"] == cache_bytes_expected(
+                cfg, name != "bf16") for name in setups)}
+    # First-token logits of each engine's own dispatches against a full
+    # prefill of the prompt on the same params.
+    worst = {}
+    with torch.no_grad():
+        for name, (c, p, kw) in setups.items():
+            if sorted(first[name]) != list(range(len(prompts))):
+                raise SystemExit(f"quantized (c) {name}: first-token "
+                                 f"logits of {sorted(first[name])} only")
+            worst[name] = max(
+                (first[name][i] - prefill_logits(
+                    torch, c, p, prompt, bucket_for(_buckets(2048),
+                                                    len(prompt)),
+                    2048)).abs().max().item()
+                for i, prompt in enumerate(prompts))
+    gates["first_logits_within_tol"] = max(worst.values()) <= LOGIT_TOL
+    print(f"quantized (c): first-token logits vs a full prefill, max "
+          f"|diff| by engine {worst} (tol {LOGIT_TOL}); gates {gates}",
+          flush=True)
+    if not all(gates.values()):
+        raise SystemExit(f"quantized (c): gates failed: {gates}")
+    for i in range(0, len(prompts), 2):      # the greedy requests
+        near_tie_check(torch, cfg, params, f"quantized (c) r{i}: greedy "
+                       "ids int8 KV vs bf16", prompts[i], ids["bf16"][i],
+                       ids["kv8"][i])
+    w8 = engines["w8"][0]
+    for name in ("kv8", "bf16", "w4"):
+        free_engine(torch, engines[name][0])
+    del engines
+    # Each quantized tree against a bf16-KV engine over its own
+    # dequantized weights.
+    for name, mode in (("w8", "int8"), ("w4", "int4")):
+        deq = tree_map(lambda t: dequantize(t, torch.bfloat16)
+                       if isinstance(t, QuantizedArray) else t, trees[mode])
+        engine = InferenceEngine(cfg, deq, max_slots=8, max_seq_len=2048,
+                                 seed=seed, quantize_kv=False)
+        reqs = smoke_requests(prompts, {})
+        with torch.no_grad():
+            engine.generate(reqs)
+        for i in range(0, len(prompts), 2):
+            near_tie_check(torch, cfg, deq, f"quantized (c) r{i}: greedy "
+                           f"ids {mode} vs its dequantized weights",
+                           prompts[i], reqs[i].output_tokens, ids[name][i])
+        free_engine(torch, engine)
+        del engine, deq
+    return w8, ids["w8"]
+
+
+def quant_paged_phase(torch, cfg, params, seed, dense_ids, launches):
+    """Phase 14 (d): the int8 tree through the paged engine with int8
+    pages; one int8 page's round trip through the pinned host tier."""
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+
+    prompts = smoke_prompts(seed)
+    engine = PagedInferenceEngine(cfg, params, max_slots=8,
+                                  max_seq_len=2048, seed=seed)
+    if not engine.cache.quantized:
+        raise SystemExit("quantized (d): the int8 tree's pages are not int8")
+    st, ids = timed_generate(torch, engine, {}, smoke_requests(prompts, {}))
+    launches["quant_d_paged"] = st["flash_fwd_launches"]
+    swap = swap_timing(torch, cfg, engine)
+    print("quantized (d) " + json.dumps({
+        "run": st, "kv_occupancy": engine.kv_occupancy(),
+        "swap_timing": swap}), flush=True)
+    if st["flash_fwd_launches"] != launches["quant_c_w8"]:
+        raise SystemExit("quantized (d): K1 launched "
+                         f"{st['flash_fwd_launches']} times, the dense "
+                         f"engine {launches['quant_c_w8']}")
+    if not swap["round_trip_bit_identical"]:
+        raise SystemExit("quantized (d): an int8 page came back changed")
+    for i in range(0, len(prompts), 2):
+        near_tie_check(torch, cfg, params, f"quantized (d) r{i}: greedy "
+                       "ids paged vs dense (int8)", prompts[i],
+                       dense_ids[i], ids[i])
+    free_engine(torch, engine)
+
+
+def quant_lora_phase(torch, cfg, params, plain, seed, workdir, launches):
+    """Phase 14 (e): phase 13's four tenants in a pool over the int8 base,
+    against the no-pool int8 engine ``plain`` on the same mix."""
+    from runbooks_tpu_torch.serve.engine import InferenceEngine
+
+    paths = write_tenants(torch, cfg, os.path.join(workdir, "adapters14"),
+                          seed)
+    prompts = lora_prompts(seed)
+    pooled = InferenceEngine(cfg, params, max_slots=8, max_seq_len=2048,
+                             seed=seed, adapter_pool=LORA_POOL,
+                             lora_rank=LORA_RANK)
+    records = {"pooled": [], "plain": []}
+    record_prefills(pooled, records["pooled"])
+    record_prefills(plain, records["plain"])
+    ids = {}
+    for name, engine, tenants in (("plain", plain, [None] * 4),
+                                  ("pooled", pooled, paths)):
+        st, ids[name] = timed_generate(torch, engine, {},
+                                       lora_requests(prompts, tenants))
+        launches[f"quant_e_{name}"] = st["flash_fwd_launches"]
+    base_rows = [i for i, t in enumerate(LORA_MIX) if t is None]
+    tenant_rows = [i for i, t in enumerate(LORA_MIX) if t is not None]
+    gates = {
+        "one_prefill_dispatch_each": (len(records["pooled"]) == 1
+                                      and len(records["plain"]) == 1),
+        "base_rows_ids_equal": all(ids["pooled"][i] == ids["plain"][i]
+                                   for i in base_rows),
+        "base_rows_logits_bitwise": all(
+            torch.equal(records["pooled"][0][1][i],
+                        records["plain"][0][1][i]) for i in base_rows),
+        "every_tenant_row_differs": all(ids["pooled"][i] != ids["plain"][i]
+                                        for i in tenant_rows),
+        "k1_launches_equal": (launches["quant_e_pooled"]
+                              == launches["quant_e_plain"])}
+    print(f"quantized (e): pool over the int8 base, prefill lanes "
+          f"{records['pooled'][0][0]}; gates {gates}", flush=True)
+    if not all(gates.values()):
+        raise SystemExit(f"quantized (e): gates failed: {gates}")
+    free_engine(torch, pooled)
+
+
+def quant_entry_phase(torch, dev, seed, workdir, launches):
+    """Phase 14 (f): phase 9's HF directory imported with quantize: int8
+    through ``python -m runbooks_tpu_torch.models.loader``, restored
+    packed by load_model and held to the same source quantized in memory;
+    then P3's case, ``model_overrides: {"quantize": "int8"}``."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.convert import convert
+    from runbooks_tpu_torch.models.safetensors_io import load_state_dict
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.ops.quantization import QuantizedArray
+    from runbooks_tpu_torch.serve.api import load_model
+    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
+    from runbooks_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    overrides = {"num_layers": IMPORT_LAYERS}
+    cfg = get_config("llama3-8b", **overrides)
+    src = f"{workdir}/hf_llama3_8b"
+    if not os.path.isdir(src):
+        write_hf_llama(torch, dev, cfg, src, seed, IMPORT_SHARDS)
+    content = f"{workdir}/import_int8_content"
+    params = {"model": "llama3-8b", "model_overrides": overrides,
+              "source": "dir", "dir": src, "quantize": "int8"}
+    returncode, import_s, peak_rss_gb, log_text = run_loader(content,
+                                                             params)
+    artifacts = f"{content}/artifacts"
+    if returncode != 0:
+        print(log_text[-3000:], flush=True)
+        raise SystemExit(f"the int8 import exited {returncode}")
+    with open(f"{artifacts}/model.json") as f:
+        meta = json.load(f)
+    lines = log_text.strip().splitlines()
+    spans = next((json.loads(ln)["spans"] for ln in reversed(lines)
+                  if ln.startswith('{"spans"')), {})
+    qcfg, restored = load_model({**params, "checkpoint": artifacts})
+    in_memory = tree_map(lambda t: t.to(dev), convert(
+        cfg, load_state_dict(src), cfg.param_dtype, "int8"))
+    n_leaves = n_equal = 0
+    for a, b in zip(tree_leaves(restored), tree_leaves(in_memory)):
+        n_leaves += 1
+        if isinstance(b, QuantizedArray):
+            n_equal += int(isinstance(a, QuantizedArray)
+                           and (a.bits, a.block_size) == (b.bits,
+                                                          b.block_size)
+                           and torch.equal(a.values, b.values)
+                           and torch.equal(a.scales, b.scales))
+        else:
+            n_equal += int(torch.equal(a, b))
+    prompts = smoke_prompts(seed)[:4]
+
+    def greedy(p):
+        reqs = [Request(prompt_tokens=x, max_tokens=MAX_TOKENS)
+                for x in prompts]
+        with torch.no_grad():
+            InferenceEngine(qcfg, p, max_slots=8, max_seq_len=2048,
+                            seed=seed).generate(reqs)
+        return [r.output_tokens for r in reqs]
+
+    flash_attention.launches = 0
+    got = greedy(restored)
+    launches["quant_f_import"] = flash_attention.launches
+    want = greedy(in_memory)
+    stats = {"import_s": import_s, "loader_peak_rss_gb": peak_rss_gb,
+             "loader_spans": spans, "model_json": meta,
+             "checkpoint_bytes": os.path.getsize(
+                 f"{artifacts}/checkpoints/0/state.pt"),
+             "leaves_equal": f"{n_equal}/{n_leaves}",
+             "greedy_ids_equal": got == want}
+    print("quantized (f) import " + json.dumps(stats), flush=True)
+    if (meta.get("quantize") != "int8" or qcfg.quantize != "int8"
+            or n_equal != n_leaves or got != want):
+        raise SystemExit("quantized (f): the int8 import does not restore "
+                         "as the source quantized in memory")
+    del restored, in_memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    # P3: the mode in the config's overrides, not in params.
+    cfg, p3 = load_model({"model": "llama3-8b", "seed": seed,
+                          "model_overrides": {"quantize": "int8",
+                                              "param_dtype": "bfloat16"}})
+    engine = InferenceEngine(cfg, p3, max_slots=8, max_seq_len=2048,
+                             seed=seed)
+    wq = p3["layers"]["attn"]["wq"]
+    reqs = [Request(prompt_tokens=x, max_tokens=8) for x in prompts[:2]]
+    flash_attention.launches = 0
+    with torch.no_grad():
+        engine.generate(reqs)
+    launches["quant_f_p3"] = flash_attention.launches
+    ok = (cfg.quantize == "int8" and isinstance(wq, QuantizedArray)
+          and wq.bits == 8 and engine.cache.quantized
+          and all(len(r.output_tokens) == 8 for r in reqs))
+    print(f"quantized (f) P3: model_overrides quantize int8 -> cfg "
+          f"{cfg.quantize}, wq {type(wq).__name__} bits "
+          f"{getattr(wq, 'bits', None)}, cache int8 "
+          f"{engine.cache.quantized} -> {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise SystemExit("quantized (f): P3's case does not serve int8")
+    free_engine(torch, engine)
+
+
+def quant_phase(torch, dev, seed, workdir):
+    """Phase 14: quantized serving on llama3-8b bf16 at full width and
+    depth. Returns (K1's launches by run, quantized_matmul records)."""
+    from runbooks_tpu_torch.serve.api import load_model
+
+    t_phase = time.perf_counter()
+    launches = {}
+    records = qmm_phase(torch, dev, seed)
+    cfg, params = load_model({"model": "llama3-8b",
+                              "model_overrides": {"param_dtype": "bfloat16"},
+                              "seed": seed})
+    trees = quantize_load_phase(torch, params)
+    w8, w8_ids = quant_dense_phase(torch, cfg, params, trees, seed,
+                                   launches)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg8 = dataclasses.replace(cfg, quantize="int8")
+    quant_paged_phase(torch, cfg8, trees["int8"], seed, w8_ids, launches)
+    quant_lora_phase(torch, cfg8, trees["int8"], w8, seed, workdir,
+                     launches)
+    free_engine(torch, w8)
+    del w8, trees
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant_entry_phase(torch, dev, seed, workdir, launches)
+    if min(launches.values()) < 1:
+        raise SystemExit(f"phase 14 ran K1 too rarely: {launches}")
+    print("phase 14 " + json.dumps({
+        "flash_fwd_launches": launches,
+        "seconds": time.perf_counter() - t_phase}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, records
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3485,6 +4002,8 @@ def main():
         spec_launches = spec_grammar_phase(torch, dev, args.seed)
         paged_launches = paged_phase(torch, args.seed)
         lora_launches = lora_phase(torch, args.seed, workdir)
+        quant_launches, qmm_records = quant_phase(torch, dev, args.seed,
+                                                  workdir)
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -3497,7 +4016,8 @@ def main():
                      + prefix_launches + no_prefix_launches
                      + sum(spec_launches.values())
                      + sum(paged_launches.values())
-                     + sum(lora_launches.values())),
+                     + sum(lora_launches.values())
+                     + sum(quant_launches.values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
@@ -3506,7 +4026,7 @@ def main():
                              "prefix": prefix_launches,
                              "prefix_off": no_prefix_launches,
                              **spec_launches, **paged_launches,
-                             **lora_launches},
+                             **lora_launches, **quant_launches},
         "max_abs_err": worst,
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -3564,6 +4084,9 @@ def main():
     print(f"train summary: tokens/s {summary['tokens_per_sec']:.1f} | "
           f"history {json.dumps(summary['history'])} | peak memory "
           f"{peak / 1e9:.2f} GB", flush=True)
+    # quantized_matmul is plain PyTorch (no Pallas kernel in the
+    # reference): its records stand on their own line.
+    print(json.dumps({"quantized_ops": qmm_records}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

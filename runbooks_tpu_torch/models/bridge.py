@@ -8,6 +8,11 @@ states; the port keeps the same nesting with torch tensors and its own
 Adam state. Crossing goes through numpy, so neither side imports the
 other: a caller turns the reference's arrays into numpy
 (``jax.tree.map(np.asarray, tree)``) and hands that tree here.
+
+Weight-only quantized leaves cross too: any leaf with ``values``,
+``scales``, ``bits`` and ``block_size`` (the reference's QuantizedArray
+with numpy members) becomes the port's ops/quantization.QuantizedArray,
+and ``to_numpy`` gives the port's back with numpy members.
 """
 
 from __future__ import annotations
@@ -19,7 +24,13 @@ import torch
 
 from runbooks_tpu_torch.models.config import ModelConfig
 from runbooks_tpu_torch.models.transformer import Params, check_supported
+from runbooks_tpu_torch.ops.quantization import QuantizedArray
 from runbooks_tpu_torch.utils.tree import tree_map
+
+
+def _is_quantized(leaf) -> bool:
+    return all(hasattr(leaf, f)
+               for f in ("values", "scales", "bits", "block_size"))
 
 
 def _shapes(tree, prefix=""):
@@ -53,14 +64,20 @@ def from_jax_numpy(cfg: ModelConfig, tree: Mapping[str, Any],
     port's params on ``device`` (default: the CPU). Raises when the tree's
     leaves or shapes differ from the layout the config implies."""
     check_supported(cfg)
-    got, want = _shapes(tree), expected_shapes(cfg)
+    params = tree_from_numpy(tree, device)
+    got, want = _shapes(params), expected_shapes(cfg)
     if got != want:
         raise ValueError(f"parameter tree does not match config "
                          f"{cfg.name!r}: got {got}, expected {want}")
-    return tree_from_numpy(tree, device)
+    return params
 
 
-def _leaf_to_torch(a, device: torch.device) -> torch.Tensor:
+def _leaf_to_torch(a, device: torch.device):
+    if _is_quantized(a):
+        return QuantizedArray(values=_leaf_to_torch(a.values, device),
+                              scales=_leaf_to_torch(a.scales, device),
+                              bits=int(a.bits),
+                              block_size=int(a.block_size))
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":   # numpy's bfloat16 extension type
         return torch.from_numpy(a.astype(np.float32)).to(device,
@@ -105,8 +122,13 @@ def adam_state_from_optax_numpy(opt_state: Any,
 
 def to_numpy(params: Params) -> dict:
     """The port's params as a nested dict of numpy arrays (the reference's
-    layout). bfloat16 leaves widen to float32, which numpy can hold."""
+    layout). bfloat16 leaves widen to float32, which numpy can hold; a
+    QuantizedArray stays one, with numpy values and scales."""
     def leaf(t: torch.Tensor):
+        if isinstance(t, QuantizedArray):
+            return QuantizedArray(values=leaf(t.values),
+                                  scales=leaf(t.scales), bits=t.bits,
+                                  block_size=t.block_size)
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()

@@ -9,6 +9,11 @@ in ``dtype`` and filled layer by layer, so an import never holds a list of
 per-layer copies beside the stack (at 8B in f32 a list plus its stack is
 twice the model). A cast here rounds as numpy's ``astype`` does (to
 nearest, ties to even), so the result equals the reference's bit for bit.
+With ``quantize`` int8/int4 the attention and MLP matrices go straight
+into their packed form layer by layer (ops/quantization.quantize_stack):
+each layer is cast to ``dtype`` and quantized as the reference's
+quantize-after-convert does, so the codes and scales equal its, and the
+import never holds the full-precision stack of a quantized weight.
 """
 
 from __future__ import annotations
@@ -18,6 +23,11 @@ from typing import Dict, Mapping, Optional
 import torch
 
 from runbooks_tpu_torch.models.config import ModelConfig, torch_dtype
+from runbooks_tpu_torch.ops.quantization import (
+    QUANTIZE_MODES,
+    mode_bits,
+    quantize_stack,
+)
 
 StateDict = Mapping[str, torch.Tensor]
 
@@ -25,7 +35,6 @@ StateDict = Mapping[str, torch.Tensor]
 # gemma before llama: their names and keys extend llama's). Only llama's
 # converter is ported; the others land with their forward features.
 FAMILIES = ("mixtral", "gemma", "gpt2", "llama", "falcon", "opt")
-QUANTIZE_MODES = ("none", "int8", "int4")
 
 
 def family_of(cfg: ModelConfig) -> str:
@@ -43,8 +52,8 @@ def family_of(cfg: ModelConfig) -> str:
     return "llama"
 
 
-def convert_llama(cfg: ModelConfig, sd: StateDict,
-                  dtype: torch.dtype) -> Dict:
+def convert_llama(cfg: ModelConfig, sd: StateDict, dtype: torch.dtype,
+                  quantize: str = "none") -> Dict:
     L = cfg.num_layers
 
     def cast(w, transpose=False):
@@ -52,6 +61,11 @@ def convert_llama(cfg: ModelConfig, sd: StateDict,
         return torch.empty(w.shape, dtype=dtype).copy_(w)
 
     def stacked(name, transpose=True):
+        if quantize != "none" and transpose:
+            # Every transposed stack is one of the quantizable matrices.
+            return quantize_stack(
+                lambda i: cast(sd[f"model.layers.{i}.{name}"], True), L,
+                mode_bits(quantize))
         first = sd[f"model.layers.0.{name}"]
         shape = first.T.shape if transpose else first.shape
         out = torch.empty((L, *shape), dtype=dtype)
@@ -91,18 +105,16 @@ def convert_llama(cfg: ModelConfig, sd: StateDict,
 def convert(cfg: ModelConfig, state_dict: StateDict,
             dtype: Optional[str] = "float32",
             quantize: str = "none") -> Dict:
-    """HF state dict -> param tree on the host, every leaf in ``dtype``.
-    Raises NotImplementedError, by name, for a family whose converter is
-    not ported and for weight quantization."""
+    """HF state dict -> param tree on the host, every leaf in ``dtype``;
+    ``quantize`` int8/int4 packs the attention and MLP matrices
+    (QuantizedArray leaves). Raises NotImplementedError, by name, for a
+    family whose converter is not ported."""
     if quantize not in QUANTIZE_MODES:
         raise ValueError(f"unknown quantize mode {quantize!r}; expected one "
                          f"of {'|'.join(QUANTIZE_MODES)}")
-    if quantize != "none":
-        raise NotImplementedError(
-            f"weight quantization ({quantize!r}) is not ported yet")
     family = family_of(cfg)
     if family != "llama":
         raise NotImplementedError(
             f"the {family} converter is not ported yet (config "
             f"{cfg.name!r}); the PyTorch port imports the llama family")
-    return convert_llama(cfg, state_dict, torch_dtype(dtype))
+    return convert_llama(cfg, state_dict, torch_dtype(dtype), quantize)

@@ -10,6 +10,9 @@ of ``runbooks_tpu.models.loader``). Runs under the container contract:
 Writes the port's checkpoint ``{"params": ...}`` at step 0 under
 ``/content/artifacts`` (train/checkpoint.py) plus ``model.json``, which
 ``serve.api.load_model`` and the trainer restore from the model mount.
+``quantize: int8|int4`` (params, else the config's field) writes the
+packed checkpoint (ops/quantization.pack_for_checkpoint): an HF source is
+quantized layer by layer as it converts, a random init after it is drawn.
 
 Run: ``python -m runbooks_tpu_torch.models.loader``. It runs on CUDA
 unless the caller names another device and raises when no GPU exists; a
@@ -34,9 +37,15 @@ from typing import Any, Optional, Tuple, Union
 import torch
 
 from runbooks_tpu_torch.models.config import ModelConfig, get_config
-from runbooks_tpu_torch.models.convert import QUANTIZE_MODES, convert
+from runbooks_tpu_torch.models.convert import convert
 from runbooks_tpu_torch.models.safetensors_io import load_state_dict
 from runbooks_tpu_torch.models.transformer import init_params
+from runbooks_tpu_torch.ops.quantization import (
+    pack_for_checkpoint,
+    quantize_params,
+    resolve_quantize_mode,
+    tree_weight_bytes,
+)
 from runbooks_tpu_torch.train.checkpoint import CheckpointManager
 from runbooks_tpu_torch.utils import contract
 from runbooks_tpu_torch.utils.hw import resolve_device
@@ -44,16 +53,6 @@ from runbooks_tpu_torch.utils.tree import tree_leaves
 
 # What an HF snapshot needs for an import (the reference's patterns).
 HF_PATTERNS = ["*.safetensors", "*.bin", "*.json", "tokenizer*"]
-
-
-def resolve_quantize_mode(params_cfg: dict, cfg: ModelConfig) -> str:
-    """The params value, else the config's field, else "none"; anything
-    outside QUANTIZE_MODES raises (the reference's rule)."""
-    mode = str(params_cfg.get("quantize", cfg.quantize) or "none")
-    if mode not in QUANTIZE_MODES:
-        raise ValueError(f"unknown quantize mode {mode!r}; expected one of "
-                         f"{'|'.join(QUANTIZE_MODES)}")
-    return mode
 
 
 def _rss_gb() -> Tuple[float, float]:
@@ -80,16 +79,13 @@ def load_weights(params_cfg: dict,
                  device: Optional[Union[str, torch.device]] = None,
                  spans: Optional[dict] = None
                  ) -> Tuple[ModelConfig, Any]:
-    """(cfg, params) of the import ``params_cfg`` describes. Weight
-    quantization is not ported: any mode but "none" raises by name.
-    ``spans``, when given, receives the read and convert stages."""
+    """(cfg, params) of the import ``params_cfg`` describes, quantized
+    to the resolved ``quantize`` mode. ``spans``, when given, receives
+    the read and convert stages."""
     dev = resolve_device(device)
     cfg = get_config(params_cfg.get("model", "debug"),
                      **params_cfg.get("model_overrides", {}))
     quantize = resolve_quantize_mode(params_cfg, cfg)
-    if quantize != "none":
-        raise NotImplementedError(
-            f"weight quantization ({quantize!r}) is not ported yet")
     # The resolved mode wins over an override (model.json reports it).
     cfg = dataclasses.replace(cfg, quantize=quantize)
     source = params_cfg.get("source", "random")
@@ -106,17 +102,17 @@ def load_weights(params_cfg: dict,
         local_dir = snapshot_download(hf_name, allow_patterns=HF_PATTERNS)
         sd = load_state_dict(local_dir)
         t0 = _mark(spans, "read", t0)
-        weights = convert(cfg, sd, cfg.param_dtype)
+        weights = convert(cfg, sd, cfg.param_dtype, quantize)
         _mark(spans, "convert", t0)
     elif source == "dir":
         sd = load_state_dict(params_cfg.get("dir", contract.model_dir()))
         t0 = _mark(spans, "read", t0)
-        weights = convert(cfg, sd, cfg.param_dtype)
+        weights = convert(cfg, sd, cfg.param_dtype, quantize)
         _mark(spans, "convert", t0)
     elif source == "random":
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(params_cfg.get("seed", 0)))
-        weights = init_params(cfg, gen, dev)
+        weights = quantize_params(init_params(cfg, gen, dev), quantize)
     else:
         raise ValueError(f"unknown source {source!r}")
     return cfg, weights
@@ -130,15 +126,17 @@ def main(device: Optional[Union[str, torch.device]] = None) -> int:
     artifacts = params_cfg.get("artifacts_dir") or contract.artifacts_dir()
     os.makedirs(artifacts, exist_ok=True)
     t0 = time.perf_counter()
-    CheckpointManager(artifacts).save(0, {"params": weights}, force=True)
+    # Packed leaves save as plain dicts of tensors; restore_params
+    # rebuilds them.
+    CheckpointManager(artifacts).save(
+        0, {"params": pack_for_checkpoint(weights)}, force=True)
     _mark(spans, "save", t0)
-    leaves = list(tree_leaves(weights))
     meta = {"model": cfg.name,
-            "num_params": sum(t.numel() for t in leaves),
+            # A QuantizedArray counts its logical (pre-packing) params.
+            "num_params": sum(t.numel() for t in tree_leaves(weights)),
             "vocab_size": cfg.vocab_size,
             "quantize": cfg.quantize,
-            "weight_bytes": sum(t.numel() * t.element_size()
-                                for t in leaves),
+            "weight_bytes": tree_weight_bytes(weights),
             "source": params_cfg.get("source", "random")}
     with open(os.path.join(artifacts, "model.json"), "w") as f:
         json.dump(meta, f, indent=2)

@@ -19,6 +19,10 @@
 - Serving many LoRA tenants on one base (``adapters``): each row adds its
   own adapter's delta, gathered from a stacked pool by lane
   (ops/lora.py), to the projections the pool targets.
+- Weight-only quantized layers (ops/quantization.QuantizedArray) take
+  ``quantized_matmul``; an int8 KV cache (``KVCache.create(...,
+  quantize_kv=True)``) quantizes K/V on write and dequantizes the read
+  view to the activation dtype before attention.
 """
 
 from __future__ import annotations
@@ -43,6 +47,12 @@ from runbooks_tpu_torch.ops.lora import (
     pool_lanes,
 )
 from runbooks_tpu_torch.ops.norms import rms_norm
+from runbooks_tpu_torch.ops.quantization import (
+    QuantizedArray,
+    dequantize_kv,
+    quantize_kv,
+    quantized_matmul,
+)
 from runbooks_tpu_torch.ops.rotary import apply_rope
 
 Params = Dict[str, Any]
@@ -61,7 +71,7 @@ def check_supported(cfg: ModelConfig) -> None:
         "mlp_bias": False, "moe_num_experts": 0, "attn_bias": False,
         "qk_norm": False, "logit_softcap": None, "position_type": "rope",
         "parallel_block": False, "tie_embeddings": False,
-        "embed_scale": False, "quantize": "none",
+        "embed_scale": False,
     }
     bad = {k: getattr(cfg, k) for k, v in wanted.items()
            if getattr(cfg, k) != v}
@@ -124,8 +134,11 @@ class KVCache:
     """Per-model KV cache, layers stacked on the leading axis.
 
     k, v: [num_layers, batch, cache_len, num_kv_heads, head_dim]
-    index: tokens already written (the same for the whole batch). Two write
-    modes in ``forward``:
+    index: tokens already written (the same for the whole batch).
+    k_scale, v_scale: with ``quantize_kv`` k/v are int8 and these hold one
+    f32 scale per (layer, row, slot, kv head), [num_layers, batch,
+    cache_len, num_kv_heads]; None otherwise. ``forward`` quantizes on
+    write and dequantizes on read. Two write modes in ``forward``:
 
     - scalar-index mode (positions omitted): tokens append at ``index``.
     - position-scatter mode (positions given): token j of row b writes to
@@ -138,17 +151,39 @@ class KVCache:
     k: torch.Tensor
     v: torch.Tensor
     index: int = 0
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, cfg: ModelConfig, batch: int, max_len: int,
-               device: torch.device, trash_slot: bool = False) -> "KVCache":
+               device: torch.device, trash_slot: bool = False,
+               quantize_kv: bool = False) -> "KVCache":
         cache_len = max_len + 1 if trash_slot else max_len
         shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
                  cfg.head_dim)
+        if quantize_kv:
+            return cls(
+                k=torch.zeros(shape, dtype=torch.int8, device=device),
+                v=torch.zeros(shape, dtype=torch.int8, device=device),
+                k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                    device=device),
+                v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                    device=device))
         return cls(
             k=torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
             v=torch.zeros(shape, dtype=cfg.activation_dtype, device=device),
             index=0)
+
+    @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the values and, when quantized, the scales."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k, self.v, self.k_scale, self.v_scale)
+                   if t is not None)
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +218,9 @@ def use_flash_cached_prefill(cfg: ModelConfig, q_len: int,
 # Blocks
 # ---------------------------------------------------------------------------
 
-def _matmul(x: torch.Tensor, w: torch.Tensor, ad: torch.dtype):
+def _matmul(x: torch.Tensor, w, ad: torch.dtype):
+    if isinstance(w, QuantizedArray):
+        return quantized_matmul(x, w, ad).to(ad)
     return torch.matmul(x, w.to(ad))
 
 
@@ -220,6 +257,11 @@ class LoraDeltas:
         f = self.factors.get(path)
         if f is None:
             return w[layer_idx]
+        if isinstance(w, QuantizedArray):
+            raise NotImplementedError(
+                f"LoRA training over a quantized base ({path} is int"
+                f"{w.bits}): the reference never trains one; train on the "
+                "unquantized weights")
         ab = torch.matmul(f["a"][layer_idx].float(),
                           f["b"][layer_idx].float())
         return (w[layer_idx].float() + self.scale * ab).to(w.dtype)
@@ -262,24 +304,45 @@ def _attention_block(cfg, p, layer_idx, x, positions, mask, layer_cache,
     k = apply_rope(k, positions, cfg.rope_theta)
 
     if layer_cache is not None:
-        ck, cv, index, view = layer_cache      # [b, cache_len, kvh, d]
+        # [b, cache_len, kvh, d]; the scales [b, cache_len, kvh] or None.
+        ck, cv, ck_s, cv_s, index, view = layer_cache
         cache_len = ck.shape[1]
+        quantized = ck.dtype == torch.int8
+        if quantized:
+            # int8 KV: one f32 scale per (row, slot, kv head) beside the
+            # int8 values; both are written with the same indices.
+            k_w, k_s = quantize_kv(k)
+            v_w, v_s = quantize_kv(v)
+        else:
+            k_w, v_w = k, v
         if index is None:
             # Position-scatter mode: row b token j -> slot positions[b, j].
             slot = positions.clamp(0, cache_len - 1).long()
             b_idx = torch.arange(b, device=x.device)[:, None]
-            ck[b_idx, slot] = k
-            cv[b_idx, slot] = v
+            ck[b_idx, slot] = k_w
+            cv[b_idx, slot] = v_w
+            if quantized:
+                ck_s[b_idx, slot] = k_s
+                cv_s[b_idx, slot] = v_s
         else:
             # Append at index; like the reference's dynamic_update_slice,
             # a write that would run off the end is shifted back to fit.
             start = max(0, min(index, cache_len - s))
-            ck[:, start:start + s] = k
-            cv[:, start:start + s] = v
+            ck[:, start:start + s] = k_w
+            cv[:, start:start + s] = v_w
+            if quantized:
+                ck_s[:, start:start + s] = k_s
+                cv_s[:, start:start + s] = v_s
         # Writes go to the full cache; attention reads only [0, view):
         # exact for any view > max query position, since slot s is
         # attended only by queries at positions >= s.
         k, v = (ck, cv) if view is None else (ck[:, :view], cv[:, :view])
+        if quantized:
+            # Dequantize the read view to the activation dtype; the plain
+            # attention and K1 then read it as an unquantized cache.
+            # (A view of None slices the whole cache.)
+            k = dequantize_kv(k, ck_s[:, :view], ad)
+            v = dequantize_kv(v, cv_s[:, :view], ad)
         if mask is None:
             # Flash cached prefill: cache slot i holds position i, so the
             # kernel's causal-by-position masking is the plain mask. Block
@@ -422,7 +485,9 @@ def forward(
     for li in range(cfg.num_layers):
         layer_cache = None
         if cache is not None:
-            layer_cache = (cache.k[li], cache.v[li],
+            scales = ((cache.k_scale[li], cache.v_scale[li])
+                      if cache.quantized else (None, None))
+            layer_cache = (cache.k[li], cache.v[li], *scales,
                            None if scatter_mode else cache.index, cache_view)
         if remat:
             x = checkpoint(block, x, li, layer_cache, use_reentrant=False)
@@ -433,7 +498,8 @@ def forward(
     if cache is not None:
         new_cache = KVCache(k=cache.k, v=cache.v,
                             index=cache.index if scatter_mode
-                            else cache.index + s)
+                            else cache.index + s,
+                            k_scale=cache.k_scale, v_scale=cache.v_scale)
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     if return_activations:
         return x, new_cache

@@ -23,6 +23,10 @@ adapters (or none) share one forward dispatch:
   every layer, so ``gather_lanes`` gathers a forward's ``[L, rows, ...]``
   operands once and ``lane_delta`` runs the per-layer products on them;
   it is ``grouped_lora_delta`` on that layer, op for op.
+- **Quantized bases**: the delta adds to the base projection's output, so
+  it composes with weight-only int8/int4 base params (QuantizedArray,
+  ops/quantization.py) unchanged; base-only rows get the no-pool
+  quantized engine's outputs bit for bit.
 
 The reference's ``adapter_pool_logical_axes`` (the pool's sharding under
 a serving mesh) waits for the port's mesh (ROADMAP.md §1, multi-device).

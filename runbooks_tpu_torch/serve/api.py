@@ -18,9 +18,11 @@ grammar, paging, the host tier, preemption and the multi-tenant adapter
 pool among them), or build one with ``create_server``. With
 ``adapter_pool`` a body's ``"adapter"`` names the tenant's LoRA adapter
 (under ``adapter_dir``, or a path) and the engine serves it from its pool;
-without one, ``adapter:`` in params folds one adapter at load. Features
-the port has not ported yet (weight and KV quantization, the mesh,
-``/metrics`` and ``/debug/*``) are refused by name rather than ignored.
+without one, ``adapter:`` in params folds one adapter at load.
+``quantize: int8|int4`` serves weight-only quantized weights and
+``quantize_kv`` an int8 KV cache (on by default with quantized weights).
+Features the port has not ported yet (the mesh, ``/metrics`` and
+``/debug/*``) are refused by name rather than ignored.
 """
 
 from __future__ import annotations
@@ -44,6 +46,11 @@ import torch
 
 from runbooks_tpu_torch.models.config import ModelConfig, get_config
 from runbooks_tpu_torch.models.transformer import check_supported, init_params
+from runbooks_tpu_torch.ops.quantization import (
+    quantize_params,
+    resolve_quantize_mode,
+    tree_quantize_mode,
+)
 from runbooks_tpu_torch.serve.engine import (
     PRIORITY_RANK,
     EngineDraining,
@@ -104,6 +111,12 @@ def _param_any(params: dict, *keys: str, default=None):
     return default
 
 
+def _param_on(value) -> bool:
+    """A params switch: bools as they are; the strings "0", "off",
+    "false", "none" and "" are off."""
+    return str(value).lower() not in ("0", "off", "false", "none", "")
+
+
 # ---------------------------------------------------------------------------
 # Request scope (W3C trace context and X-Request-Id)
 # ---------------------------------------------------------------------------
@@ -151,12 +164,16 @@ def load_model(params: dict,
     engine serves the adapters per request); setting both raises. A
     checkpoint that is present but unreadable raises. Runs on CUDA unless
     ``device`` names another; raises when no device is named and no GPU
-    exists."""
+    exists.
+
+    ``quantize`` ("none"|"int8"|"int4": params, else the config's field)
+    selects weight-only quantization: a checkpoint the loader packed
+    restores packed; anything else is quantized here, after the adapter
+    fold, one stacked weight at a time on the device. A packed checkpoint
+    at another mode than the one asked for serves its stored mode and
+    says so. ``quantize_kv`` in params sets the config's field, which the
+    engines read (default: on with quantized weights)."""
     dev = resolve_device(device)
-    quantize = params.get("quantize", "none")
-    if quantize not in (None, "none"):
-        raise NotImplementedError(
-            f"weight quantization ({quantize!r}) is not ported yet")
     adapter = params.get("adapter")
     pool = int(_param_any(params, "adapter_pool", "adapterPool",
                           "adapterpool", default=0) or 0)
@@ -168,7 +185,13 @@ def load_model(params: dict,
             "pool")
     cfg = get_config(params.get("model", "debug"),
                      **params.get("model_overrides", {}))
-    cfg = dataclasses.replace(cfg, quantize="none")
+    quantize = resolve_quantize_mode(params, cfg)
+    overrides = {"quantize": quantize}
+    quantize_kv = _param_any(params, "quantize_kv", "quantizeKv",
+                             "quantizekv")
+    if quantize_kv is not None:
+        overrides["quantize_kv"] = _param_on(quantize_kv)
+    cfg = dataclasses.replace(cfg, **overrides)
     check_supported(cfg)
     ckpt_dir = params.get("checkpoint") or contract.model_dir()
     restored = restore_params(ckpt_dir, dev)
@@ -182,7 +205,25 @@ def load_model(params: dict,
         gen.manual_seed(int(params.get("seed", 0)))
         model_params = init_params(cfg, gen, dev)
     if adapter:
+        # The fold goes in before quantization, so the quantizer sees the
+        # merged weights; packed weights have no headroom to fold into.
+        if tree_quantize_mode(model_params) != "none":
+            raise RuntimeError(
+                "cannot fold adapter into a pre-quantized checkpoint "
+                "(packed int8/int4 weights have no headroom); serve it "
+                "with adapter_pool >= 1 instead")
         model_params = load_merge_adapter(str(adapter), cfg, model_params)
+    stored = tree_quantize_mode(model_params)
+    if stored == "none" and quantize != "none":
+        model_params = quantize_params(model_params, quantize)
+    elif stored != quantize:
+        # A packed checkpoint cannot be re-quantized to another tier
+        # (int4 -> int8 has nothing to recover): serve what is stored,
+        # and say so.
+        print(f"serve: checkpoint is quantized {stored} but params "
+              f"requested quantize={quantize}; serving the stored "
+              f"{stored} weights", flush=True)
+        cfg = dataclasses.replace(cfg, quantize=stored)
     return cfg, model_params
 
 
@@ -987,20 +1028,12 @@ def refuse_unported(params: dict) -> None:
     """Raise NotImplementedError naming every params knob whose feature
     this port does not serve yet (serving without it would silently
     change what the deployment asked for)."""
-    def on(*keys):
-        v = _param_any(params, *keys)
-        return v is not None and str(v).lower() not in (
-            "0", "off", "false", "none", "")
-
-    bad = []
-    if on("quantize_kv", "quantizeKv", "quantizekv"):
-        bad.append("quantize_kv")
-    bad += [k for k, v in sorted(params.items())
-            if k.startswith("mesh_") and int(v) > 1]
+    bad = [k for k, v in sorted(params.items())
+           if k.startswith("mesh_") and int(v) > 1]
     if bad:
         raise NotImplementedError(
-            f"params {bad}: not ported to this server yet (int8 KV and "
-            "the mesh wait for later work)")
+            f"params {bad}: not ported to this server yet (the mesh waits "
+            "for later work)")
 
 
 def main() -> int:

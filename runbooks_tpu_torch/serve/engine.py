@@ -42,8 +42,15 @@
   pool lane at admission, and every prefill, decode and verify dispatch
   takes each row's lane, so tenants and base-only rows share one batch.
 
-Later slices add quantization, the mesh and the observability planes;
-their knobs are absent here.
+- Quantized serving: weight-only int8/int4 params (QuantizedArray
+  leaves, ops/quantization.py) run through the forward as they are, and
+  ``quantize_kv`` stores the slot pool as int8 with one f32 scale per
+  (layer, slot, position, kv head). Prefill still attends full-precision
+  scratch rows (K1 unchanged); each row is quantized once at the splice,
+  and decode dequantizes the read view.
+
+Later slices add the mesh and the observability planes; their knobs are
+absent here.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from runbooks_tpu_torch.models.transformer import (
     forward,
     lm_head,
 )
+from runbooks_tpu_torch.ops.quantization import dequantize_kv, quantize_kv
 from runbooks_tpu_torch.ops.sampling import sample, speculative_verify
 from runbooks_tpu_torch.serve.grammar import GrammarCache, TokenVocab
 from runbooks_tpu_torch.serve.lora_pool import AdapterLoadError, AdapterPool
@@ -216,7 +224,11 @@ def make_prefill_fn(cfg: ModelConfig, cache_len: int):
     tokens, the pool, and each row's last-position logits [rows, vocab]
     f32. ``gmask`` [rows, vocab] bool (grammar on): each row's allowed
     first tokens. ``adapters`` (a pooled engine): (adapter pool, each
-    row's lane [rows], -1 for base-only and padding rows)."""
+    row's lane [rows], -1 for base-only and padding rows).
+
+    The scratch rows stay in the activation dtype when the pool is int8,
+    so prefill attention runs at full precision; each row is quantized
+    exactly once at the splice."""
 
     def prefill_fn(params, pool: KVCache, tokens, positions, slots,
                    last_pos, generator, temps, top_ks, top_ps,
@@ -240,8 +252,12 @@ def make_prefill_fn(cfg: ModelConfig, cache_len: int):
                              cache=scratch, return_activations=True,
                              adapters=adapters)
         for r in range(rows - 1, -1, -1):
-            pool.k[:, slots[r]] = scratch.k[:, r]
-            pool.v[:, slots[r]] = scratch.v[:, r]
+            k, v = scratch.k[:, r], scratch.v[:, r]
+            if pool.quantized:
+                k, pool.k_scale[:, slots[r]] = quantize_kv(k)
+                v, pool.v_scale[:, slots[r]] = quantize_kv(v)
+            pool.k[:, slots[r]] = k
+            pool.v[:, slots[r]] = v
         # The head runs on each row's last real position only: the
         # [rows, bucket, vocab] f32 logits are never built.
         rows_idx = torch.arange(rows, device=tokens.device)
@@ -371,7 +387,8 @@ class InferenceEngine:
                  preemption: str = "off",
                  adapter_pool: Optional[int] = None,
                  lora_rank: Optional[int] = None,
-                 adapter_dir: Optional[str] = None):
+                 adapter_dir: Optional[str] = None,
+                 quantize_kv: Optional[bool] = None):
         """params live on the engine's device (CUDA, or the CPU when the
         caller put them there); every tensor the engine makes follows.
 
@@ -422,6 +439,13 @@ class InferenceEngine:
         request pins it, and mixed-tenant traffic batches in one dispatch.
         With the pool off, a request naming an adapter is refused.
 
+        quantize_kv: store the KV cache as int8 with one f32 scale per
+        (layer, slot, position, kv head), about half the bytes of a bf16
+        cache. None follows cfg.quantize_kv, and when that is None too,
+        the weights: a quantized-weight tier (cfg.quantize != "none")
+        quantizes its cache as well. Pairs with weight-only quantized
+        params (ops/quantization.py), which the forward takes as they are.
+
         RBT_FAULT_INJECT=swapfail:K (environment) makes the K-th host-tier
         page copy fail once, so the degrade-to-drop and
         degrade-to-recompute paths can be exercised."""
@@ -429,6 +453,10 @@ class InferenceEngine:
         self.cfg = cfg
         self.params = params
         self.device = params["embed"].device
+        if quantize_kv is None:
+            quantize_kv = (cfg.quantize_kv if cfg.quantize_kv is not None
+                           else cfg.quantize != "none")
+        self.quantize_kv = bool(quantize_kv)
         tuning = backend_tuning(self.device)
         if decode_chunk is None:
             decode_chunk = tuning["decode_chunk"]
@@ -570,7 +598,8 @@ class InferenceEngine:
 
     def _new_cache(self) -> KVCache:
         return KVCache.create(self.cfg, self.max_slots, self.max_seq_len,
-                              self.device, trash_slot=True)
+                              self.device, trash_slot=True,
+                              quantize_kv=self.quantize_kv)
 
     def _decode_for(self, view: int):
         if view not in self._decode_fns:
@@ -894,11 +923,11 @@ class InferenceEngine:
 
     def kv_occupancy(self) -> dict:
         """Token-level occupancy of the dense slot pool: the [max_slots,
-        max_seq_len] reservation against the tokens actually cached."""
+        max_seq_len] reservation against the tokens actually cached; its
+        bytes count an int8 pool's scales."""
         capacity = self.max_slots * self.max_seq_len
         tokens = int(self.lengths[self.active].sum())
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in (self.cache.k, self.cache.v))
+        nbytes = self.cache.nbytes
         return {"slots_total": self.max_slots,
                 "slots_active": int(self.active.sum()),
                 "kv_tokens": tokens,
@@ -1017,9 +1046,18 @@ class InferenceEngine:
             self._prefix_cache_hit(key)
             return 0
         # Copies, not views of the pool, which a failed step may leave
-        # broken and reset() replaces.
-        self._prefix_cache_put(key, (self.cache.k[:, slot, :plen].clone(),
-                                     self.cache.v[:, slot, :plen].clone()))
+        # broken and reset() replaces. An int8 pool's rows are
+        # dequantized: the prefix cache stays in the activation dtype (the
+        # splice prefill quantizes it again on admission).
+        c = self.cache
+        pk, pv = c.k[:, slot, :plen], c.v[:, slot, :plen]
+        if c.quantized:
+            ad = self.cfg.activation_dtype
+            pk = dequantize_kv(pk, c.k_scale[:, slot, :plen], ad)
+            pv = dequantize_kv(pv, c.v_scale[:, slot, :plen], ad)
+        else:
+            pk, pv = pk.clone(), pv.clone()
+        self._prefix_cache_put(key, (pk, pv))
         return plen
 
     def has_prefix(self, tokens: List[int]) -> bool:

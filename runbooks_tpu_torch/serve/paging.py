@@ -40,6 +40,11 @@ it, and writes each newly written token back to its page. Prefill runs the
 normal cached ``forward`` on scratch rows (through K1, the flash kernel, on
 CUDA) after gathering a shared prefix into them. Every write into the pool
 is an in-place ``index_put_`` on a flat view of its storage.
+
+int8 KV (``quantize_kv``) composes: pages hold int8 K/V plus one f32 scale
+per (layer, page, token, kv head); the view, the write-back, the host tier
+and the swaps carry the scales beside the values. A prefill dequantizes
+the shared prefix pages it gathers and quantizes the suffix it scatters.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ import torch
 
 from runbooks_tpu_torch.models.config import ModelConfig
 from runbooks_tpu_torch.models.transformer import KVCache, forward, lm_head
+from runbooks_tpu_torch.ops.quantization import dequantize_kv, quantize_kv
 from runbooks_tpu_torch.ops.sampling import sample, speculative_verify
 from runbooks_tpu_torch.serve.engine import (
     PRIORITY_RANK,
@@ -76,26 +82,44 @@ class PagePool:
     """Device-side paged KV storage.
 
     k, v: [num_layers, num_pages + 1, page_size, num_kv_heads, head_dim]
-    in the activation dtype. Page ``num_pages`` is the TRASH page: the
-    write target of padding rows and parked decode slots, never handed out
-    by the allocator."""
+    in the activation dtype, or int8 with ``quantize_kv``; then k_scale,
+    v_scale [num_layers, num_pages + 1, page_size, num_kv_heads] f32 hold
+    one scale per token and kv head (None otherwise). Page ``num_pages``
+    is the TRASH page: the write target of padding rows and parked decode
+    slots, never handed out by the allocator."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def create(cls, cfg: ModelConfig, num_pages: int, page_size: int,
-               device) -> "PagePool":
+               device, quantize_kv: bool = False) -> "PagePool":
         shape = (cfg.num_layers, num_pages + 1, page_size,
                  cfg.num_kv_heads, cfg.head_dim)
+        if quantize_kv:
+            return cls(
+                k=torch.zeros(shape, dtype=torch.int8, device=device),
+                v=torch.zeros(shape, dtype=torch.int8, device=device),
+                k_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                    device=device),
+                v_scale=torch.zeros(shape[:-1], dtype=torch.float32,
+                                    device=device))
         return cls(k=torch.zeros(shape, dtype=cfg.activation_dtype,
                                  device=device),
                    v=torch.zeros(shape, dtype=cfg.activation_dtype,
                                  device=device))
 
     @property
+    def quantized(self) -> bool:
+        return self.k.dtype == torch.int8
+
+    @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (self.k, self.v))
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k, self.v, self.k_scale, self.v_scale)
+                   if t is not None)
 
     def flat(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """k and v as [L, (num_pages+1)*page_size, kvh, d] views of the same
@@ -103,6 +127,25 @@ class PagePool:
         L, n, ps, kvh, d = self.k.shape
         return (self.k.view(L, n * ps, kvh, d),
                 self.v.view(L, n * ps, kvh, d))
+
+    def flat_scales(self) -> Tuple[Optional[torch.Tensor],
+                                   Optional[torch.Tensor]]:
+        """k_scale and v_scale as [L, (num_pages+1)*page_size, kvh] views
+        of their storage ((None, None) for an unquantized pool)."""
+        if not self.quantized:
+            return None, None
+        L, n, ps, kvh = self.k_scale.shape
+        return (self.k_scale.view(L, n * ps, kvh),
+                self.v_scale.view(L, n * ps, kvh))
+
+    def page(self, page: int) -> tuple:
+        """One page's payload, views of the pool: (k, v) [L, page_size,
+        kvh, d], plus (k_scale, v_scale) [L, page_size, kvh] when
+        quantized."""
+        out = (self.k[:, page], self.v[:, page])
+        if self.quantized:
+            out += (self.k_scale[:, page], self.v_scale[:, page])
+        return out
 
 
 class PageAllocator:
@@ -174,13 +217,14 @@ class HostPagePool:
     one of these buffers instead of dropping: the node survives as
     host-resident, and a later admission that matches it copies the page
     back instead of recomputing the prefix. The buffers are CPU tensors of
-    the device pool's dtype, allocated once (pinned when the engine runs on
-    CUDA, so copies in both directions are DMA transfers), so a round trip
-    is bit-identical and steady swap traffic allocates nothing. Used on the
-    engine's thread only."""
+    the device pool's dtype (int8 plus f32 scales with ``quantize_kv``),
+    allocated once (pinned when the engine runs on CUDA, so copies in both
+    directions are DMA transfers), so a round trip is bit-identical and
+    steady swap traffic allocates nothing. Used on the engine's thread
+    only."""
 
     def __init__(self, cfg: ModelConfig, host_pages: int, page_size: int,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, quantize_kv: bool = False):
         if host_pages < 1:
             raise ValueError(
                 f"kv_host_pages must be >= 1 to enable the host tier, "
@@ -189,10 +233,16 @@ class HostPagePool:
         self.page_size = int(page_size)
         shape = (self.num_pages, cfg.num_layers, self.page_size,
                  cfg.num_kv_heads, cfg.head_dim)
-        self.k = torch.zeros(shape, dtype=cfg.activation_dtype,
-                             pin_memory=pin_memory)
-        self.v = torch.zeros(shape, dtype=cfg.activation_dtype,
-                             pin_memory=pin_memory)
+        self.quantized = bool(quantize_kv)
+        dtype = torch.int8 if self.quantized else cfg.activation_dtype
+        self.k = torch.zeros(shape, dtype=dtype, pin_memory=pin_memory)
+        self.v = torch.zeros(shape, dtype=dtype, pin_memory=pin_memory)
+        self.k_scale = self.v_scale = None
+        if self.quantized:
+            self.k_scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       pin_memory=pin_memory)
+            self.v_scale = torch.zeros(shape[:-1], dtype=torch.float32,
+                                       pin_memory=pin_memory)
         self.reset()
 
     def reset(self) -> None:
@@ -212,7 +262,9 @@ class HostPagePool:
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (self.k, self.v))
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k, self.v, self.k_scale, self.v_scale)
+                   if t is not None)
 
     @property
     def bytes_per_page(self) -> int:
@@ -233,22 +285,36 @@ class HostPagePool:
         self._used[slot] = False
         self._free.append(slot)
 
-    def store(self, slot: int, k: torch.Tensor, v: torch.Tensor) -> None:
+    def store(self, slot: int, k: torch.Tensor, v: torch.Tensor,
+              k_scale: Optional[torch.Tensor] = None,
+              v_scale: Optional[torch.Tensor] = None) -> None:
         """Copy one page's K/V ([layers, page_size, kv_heads, head_dim], on
-        any device) into the slot's buffers. The copy has completed when
-        this returns (a device-to-host copy_ without non_blocking waits
-        for it), so the device page may be freed and reused at once."""
+        any device; with the scales [layers, page_size, kv_heads] exactly
+        when quantized) into the slot's buffers. The copy has completed
+        when this returns (a device-to-host copy_ without non_blocking
+        waits for it), so the device page may be freed and reused at
+        once."""
         if not self._used[slot]:
             raise RuntimeError(f"store to unallocated host page {slot}")
+        if (k_scale is not None) != self.quantized:
+            raise ValueError(
+                "a quantized host tier stores int8 pages with their "
+                "scales, an unquantized one pages without")
         self.k[slot].copy_(k)
         self.v[slot].copy_(v)
+        if self.quantized:
+            self.k_scale[slot].copy_(k_scale)
+            self.v_scale[slot].copy_(v_scale)
 
-    def load(self, slot: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    def load(self, slot: int) -> tuple:
         """The slot's page payload (views of the buffers), as the swap-in
-        function takes it."""
+        function takes it: (k, v), plus the scales when quantized."""
         if not self._used[slot]:
             raise RuntimeError(f"load of unallocated host page {slot}")
-        return self.k[slot], self.v[slot]
+        out = (self.k[slot], self.v[slot])
+        if self.quantized:
+            out += (self.k_scale[slot], self.v_scale[slot])
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -572,7 +638,8 @@ def gather_view(pool: PagePool, page_tables: torch.Tensor,
     V + 1, kvh, d], V = view_pages * page_size. Position V is the view's
     trash slot, where parked rows write: it is gathered from the trash
     page, whose content no live query attends. One index_select per
-    tensor straight into the view (no second copy)."""
+    tensor straight into the view (no second copy); an int8 pool's view
+    is int8 with its scales gathered the same way."""
     L, n_pages, ps, kvh, d = pool.k.shape
     B = page_tables.shape[0]
     V = view_pages * ps
@@ -581,15 +648,18 @@ def gather_view(pool: PagePool, page_tables: torch.Tensor,
     fidx = torch.empty((B, V + 1), dtype=torch.long, device=dev)
     fidx[:, :V] = page_tables[:, t // ps].long() * ps + t % ps
     fidx[:, V] = (n_pages - 1) * ps
-    flat_k, flat_v = pool.flat()
     out = []
-    for flat in (flat_k, flat_v):
-        view = torch.empty((L, B, V + 1, kvh, d), dtype=flat.dtype,
+    for flat in (*pool.flat(), *pool.flat_scales()):
+        if flat is None:
+            out.append(None)
+            continue
+        inner = tuple(flat.shape[2:])
+        view = torch.empty((L, B, V + 1, *inner), dtype=flat.dtype,
                            device=dev)
         torch.index_select(flat, 1, fidx.view(-1),
-                           out=view.view(L, B * (V + 1), kvh, d))
+                           out=view.view(L, B * (V + 1), *inner))
         out.append(view)
-    return KVCache(k=out[0], v=out[1])
+    return KVCache(k=out[0], v=out[1], k_scale=out[2], v_scale=out[3])
 
 
 def write_back(pool: PagePool, view: KVCache, page_tables: torch.Tensor,
@@ -609,9 +679,11 @@ def write_back(pool: PagePool, view: KVCache, page_tables: torch.Tensor,
     page = page_tables[b_idx, (pos // ps).clamp(
         0, page_tables.shape[1] - 1)].long()
     fi = torch.where(live, page * ps + pos % ps, trash_flat)
-    flat_k, flat_v = pool.flat()
-    flat_k[:, fi] = view.k[:, b_idx, pos]
-    flat_v[:, fi] = view.v[:, b_idx, pos]
+    # K, V and, for an int8 pool, their scales.
+    for flat, src in zip((*pool.flat(), *pool.flat_scales()),
+                         (view.k, view.v, view.k_scale, view.v_scale)):
+        if flat is not None:
+            flat[:, fi] = src[:, b_idx, pos]
 
 
 def make_paged_prefill_fn(cfg: ModelConfig, cache_len: int,
@@ -624,7 +696,10 @@ def make_paged_prefill_fn(cfg: ModelConfig, cache_len: int,
     shared pages are never written. Padding rows and pad tokens write to
     the trash page. The head runs on each row's last real position only.
     ``adapters`` (a pooled engine): (adapter pool, each row's lane).
-    Returns (first tokens, pool, last-position logits [rows, vocab] f32)."""
+    Returns (first tokens, pool, last-position logits [rows, vocab] f32).
+    An int8 pool's prefix pages are dequantized into the scratch rows,
+    which stay in the activation dtype (K1 runs as ever), and the suffix
+    is quantized as it scatters."""
     trash_flat = num_pages * page_size      # token 0 of the trash page
     scratch_trash = cache_len - 1           # scratch rows' trash slot
 
@@ -634,7 +709,9 @@ def make_paged_prefill_fn(cfg: ModelConfig, cache_len: int,
                          gmask=None, adapters=None):
         rows = tokens.shape[0]
         dev = tokens.device
+        ad = cfg.activation_dtype
         flat_k, flat_v = pool.flat()
+        flat_ks, flat_vs = pool.flat_scales()
         scratch = _scratch_rows(cfg, rows, cache_len, dev)
         r_idx = torch.arange(rows, device=dev)[:, None]
         if prefix_pages is not None and prefix_pages.shape[1] > 0:
@@ -647,8 +724,12 @@ def make_paged_prefill_fn(cfg: ModelConfig, cache_len: int,
                     + t % page_size)                      # [rows, ppw]
             sp = torch.where(t[None, :] < prefix_len[:, None].long(),
                              t[None, :], scratch_trash)   # [rows, ppw]
-            scratch.k[:, r_idx, sp] = flat_k[:, fidx]
-            scratch.v[:, r_idx, sp] = flat_v[:, fidx]
+            gk, gv = flat_k[:, fidx], flat_v[:, fidx]
+            if pool.quantized:
+                gk = dequantize_kv(gk, flat_ks[:, fidx], ad)
+                gv = dequantize_kv(gv, flat_vs[:, fidx], ad)
+            scratch.k[:, r_idx, sp] = gk
+            scratch.v[:, r_idx, sp] = gv
         x, scratch = forward(cfg, params, tokens, positions=positions,
                              cache=scratch, return_activations=True,
                              adapters=adapters)
@@ -661,8 +742,12 @@ def make_paged_prefill_fn(cfg: ModelConfig, cache_len: int,
             (wpos // page_size).clamp(0, dest_pages.shape[1] - 1))
         fi = torch.where(positions < scratch_trash,
                          page * page_size + wpos % page_size, trash_flat)
-        flat_k[:, fi] = scratch.k[:, r_idx, wpos]
-        flat_v[:, fi] = scratch.v[:, r_idx, wpos]
+        sk, sv = scratch.k[:, r_idx, wpos], scratch.v[:, r_idx, wpos]
+        if pool.quantized:
+            sk, flat_ks[:, fi] = quantize_kv(sk)
+            sv, flat_vs[:, fi] = quantize_kv(sv)
+        flat_k[:, fi] = sk
+        flat_v[:, fi] = sv
         last_logits = lm_head(cfg, params, x[r_idx[:, 0], last_pos.long()])
         first = sample(last_logits, generator, temps, top_ks, top_ps,
                        gmask=gmask)
@@ -746,23 +831,25 @@ def make_paged_verify_fn(cfg: ModelConfig, draft_tokens: int,
 
 def make_kv_swap_out_fn():
     """One page, pool -> host: the page's K and V ([L, page_size, kvh, d]
-    views of the pool, no copy); HostPagePool.store copies them out."""
+    views of the pool, no copy), with its scales when the pool is int8;
+    HostPagePool.store copies them out."""
 
     def kv_swap_out_fn(pool: PagePool, page: int):
-        return pool.k[:, page], pool.v[:, page]
+        return pool.page(page)
 
     return kv_swap_out_fn
 
 
 def make_kv_swap_in_fn():
-    """One page, host -> pool: copy a host slot's K/V into page ``page`` in
-    place. From pinned memory the copy is asynchronous on the current
-    stream; every later kernel that reads the page, and every later copy
-    that writes the host slot, is queued behind it on that stream."""
+    """One page, host -> pool: copy a host slot's K/V (and scales, for an
+    int8 pool) into page ``page`` in place. From pinned memory the copy is
+    asynchronous on the current stream; every later kernel that reads the
+    page, and every later copy that writes the host slot, is queued behind
+    it on that stream."""
 
-    def kv_swap_in_fn(pool: PagePool, page: int, k_page, v_page):
-        pool.k[:, page].copy_(k_page, non_blocking=True)
-        pool.v[:, page].copy_(v_page, non_blocking=True)
+    def kv_swap_in_fn(pool: PagePool, page: int, *payload):
+        for dst, src in zip(pool.page(page), payload, strict=True):
+            dst.copy_(src, non_blocking=True)
         return pool
 
     return kv_swap_in_fn
@@ -952,10 +1039,6 @@ class PagedInferenceEngine(InferenceEngine):
             raise NotImplementedError(
                 "a serving mesh is not ported yet (ROADMAP.md §1, "
                 "multi-device): the paged engine runs on one device")
-        if cfg.quantize_kv:
-            raise NotImplementedError(
-                "int8 KV pages (quantize_kv) are not ported yet "
-                "(ROADMAP.md §1, quantization)")
         self.page_size = int(page_size)
         self._num_pages_arg = num_pages
         if int(kv_host_pages) < 0:
@@ -1005,13 +1088,15 @@ class PagedInferenceEngine(InferenceEngine):
             if self.host_pool is None:
                 self.host_pool = HostPagePool(
                     self.cfg, self._kv_host_pages_arg, ps,
-                    pin_memory=self.device.type == "cuda")
+                    pin_memory=self.device.type == "cuda",
+                    quantize_kv=self.quantize_kv)
             else:
                 self.host_pool.reset()
             self.pager.radix.host = self.host_pool
             self.pager.radix.swap_out = self._kv_swap_out
             self.pager.swap_in = self._kv_swap_in
-        return PagePool.create(self.cfg, self.num_pages, ps, self.device)
+        return PagePool.create(self.cfg, self.num_pages, ps, self.device,
+                               quantize_kv=self.quantize_kv)
 
     # -- host swap tier ------------------------------------------------
 

@@ -19,6 +19,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from runbooks_tpu_torch.ops.quantization import unpack_from_checkpoint
 from runbooks_tpu_torch.utils.tree import tree_map
 
 STATE_FILE = "state.pt"
@@ -125,7 +126,9 @@ def restore_params(directory: str, device: torch.device
     ``{directory}/checkpoints`` with its params on ``device``, or None when
     that directory is missing or empty (nothing to load). Only the params
     are read: the file is mapped, so a full fine-tune's optimizer state
-    never reaches host or device memory.
+    never reaches host or device memory. A loader-quantized tree (packed
+    leaves under ops/quantization's marker) comes back with its
+    QuantizedArray leaves.
 
     A ``checkpoints/`` that holds anything else this port cannot read (the
     reference's orbax steps, saves that were cut off, a state without
@@ -147,4 +150,5 @@ def restore_params(directory: str, device: torch.device
     if not isinstance(params, dict):
         raise RuntimeError(f"checkpoint step {step} under {ckpt_dir} holds "
                            "no params tree")
+    params = unpack_from_checkpoint(params)
     return tree_map(lambda t: t.to(device, copy=True), params), step

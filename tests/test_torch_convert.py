@@ -304,9 +304,33 @@ def test_other_families_raise_by_name(name, family):
 
 
 @pytest.mark.parametrize("mode", ["int8", "int4"])
-def test_quantize_raises_by_name(mode):
-    with pytest.raises(NotImplementedError, match=mode):
-        convert(get_config("debug"), {}, quantize=mode)
+def test_convert_quantizes_like_jax_convert(mode):
+    """convert(..., quantize=mode) packs the attention and MLP matrices
+    layer by layer as it converts: codes, scales and every other leaf
+    equal the reference's quantize-after-convert, in f32 and bf16."""
+    from runbooks_tpu_torch.ops.quantization import QuantizedArray
+
+    tcfg = get_config("debug", dtype="float32")
+    jcfg = jax_get_config("debug", dtype="float32")
+    sd = _hf_state_dict(tcfg, 7, True)
+    t_sd = {k: torch.from_numpy(v) for k, v in sd.items()}
+    for dtype in ("float32", "bfloat16"):
+        want = jax_convert(jcfg, sd, dtype=dtype, quantize=mode)
+        got = convert(tcfg, t_sd, dtype, quantize=mode)
+        flat_w, flat_g = _flat(want), _flat(got)
+        assert flat_g.keys() == flat_w.keys()
+        for k, w in flat_w.items():
+            g = flat_g[k]
+            if k.split(".")[-1] in ("wq", "wk", "wv", "wo", "wi_gate",
+                                    "wi_up"):
+                assert isinstance(g, QuantizedArray), k
+                assert (g.bits, g.block_size) == (w.bits, w.block_size)
+                assert torch.equal(g.values,
+                                   torch.from_numpy(np.array(w.values)))
+                assert torch.equal(g.scales,
+                                   torch.from_numpy(np.array(w.scales)))
+            else:
+                assert _same(g, bridge.tree_from_numpy({"x": w})["x"]), k
 
 
 def test_unknown_quantize_mode_raises():

@@ -622,3 +622,71 @@ def test_pooled_ids_equal_folded_ids_on_card(tmp_path, paged):
             ref.generate([want])
         assert reqs[i].output_tokens == want.output_tokens, i
         del ref, p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_matmul_matches_f32_oracle_on_card(bits):
+    """quantized_matmul on the card (TF32 off, as chip_smoke.py sets it)
+    against x.float() @ dequantize(w) within 1e-5 of the output's largest
+    entry, and against the CPU port on the same inputs; the card's codes
+    and scales equal the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.ops.quantization import (
+        dequantize,
+        quantize,
+        quantized_matmul,
+    )
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = torch.Generator(device="cuda").manual_seed(bits)
+        w = (torch.randn((4096, 1024), generator=g, device="cuda")
+             * 4096 ** -0.5).to(torch.bfloat16)
+        x = torch.randn((300, 4096), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        qa = quantize(w, bits)
+        cpu_qa = quantize(w.cpu(), bits)
+        assert torch.equal(qa.values.cpu(), cpu_qa.values)
+        assert torch.equal(qa.scales.cpu(), cpu_qa.scales)
+        got = quantized_matmul(x, qa, torch.bfloat16)
+        want = x.float() @ dequantize(qa)
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-5 * scale
+        cpu = quantized_matmul(x.cpu(), cpu_qa, torch.bfloat16)
+        assert (got.cpu() - cpu).abs().max().item() <= 1e-5 * scale
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_int8_engine_matches_cpu_port_on_card():
+    """f32 (plain attention) on the debug config widened to head_dim 64:
+    int8 weights and an int8 KV cache on the card, dense and paged, give
+    the CPU port's greedy ids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.serve.api import load_model
+    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+    from runbooks_tpu_torch.utils.tree import tree_map
+
+    cfg, params = load_model({
+        "model": "debug", "seed": 3, "quantize": "int8",
+        "model_overrides": {"head_dim": 64, "dtype": "float32",
+                            "attention_impl": "xla"}}, device="cpu")
+    prompts = [list(range(1, 60)), [5, 6, 7] * 20, [9, 4]]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        for cls in (InferenceEngine, PagedInferenceEngine):
+            eng = cls(cfg, p, max_slots=4, max_seq_len=256)
+            assert eng.cache.quantized
+            reqs = [Request(prompt_tokens=x, max_tokens=24)
+                    for x in prompts]
+            with torch.no_grad():
+                eng.generate(reqs)
+            outs[dev, cls.__name__] = [r.output_tokens for r in reqs]
+    assert len(set(map(str, outs.values()))) == 1, outs

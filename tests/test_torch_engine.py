@@ -170,3 +170,50 @@ def test_engine_takes_params_device(weights):
     eng = InferenceEngine(tcfg, tparams, max_slots=1, max_seq_len=MAX_SEQ)
     assert eng.device.type == "cpu" and eng.decode_chunk == 1
     assert eng.cache.k.device.type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# int8 KV: the config's quantize_kv and the reference's default rule
+# ---------------------------------------------------------------------------
+
+def test_quantize_kv_override_gives_an_int8_cache():
+    """``model_overrides: {"quantize_kv": true}`` with bf16 weights: the
+    dense engine keeps its cache as int8 with f32 scales, and counts the
+    scales in its bytes."""
+    from runbooks_tpu_torch.serve.api import load_model
+
+    cfg, params = load_model({"model": "debug", "model_overrides": {
+        "quantize_kv": True, "param_dtype": "bfloat16"}}, device="cpu")
+    assert params["layers"]["attn"]["wq"].dtype == torch.bfloat16
+    eng = InferenceEngine(cfg, params, max_slots=2, max_seq_len=32)
+    c = eng.cache
+    assert c.quantized and c.k.dtype == torch.int8
+    assert c.k_scale.dtype == torch.float32
+    assert c.k_scale.shape == c.k.shape[:-1] == (
+        cfg.num_layers, 2, 33, cfg.num_kv_heads)
+    assert eng.kv_occupancy()["kv_pool_bytes"] == (
+        2 * c.k.numel() + 2 * 4 * c.k_scale.numel())
+    reqs = [Request(prompt_tokens=[5, 9, 17], max_tokens=4)]
+    eng.generate(reqs)
+    assert len(reqs[0].output_tokens) == 4
+
+
+@pytest.mark.parametrize("quantize,cfg_kv,arg,want", [
+    ("none", None, None, False), ("int8", None, None, True),
+    ("int4", None, None, True), ("int8", False, None, False),
+    ("none", True, None, True), ("int8", None, False, False),
+    ("none", False, True, True)])
+def test_quantize_kv_default_follows_the_reference(weights, quantize, cfg_kv,
+                                                   arg, want):
+    """quantize_kv = the argument, else cfg.quantize_kv, else
+    cfg.quantize != "none" (the JAX engine's rule, asked of it too)."""
+    import dataclasses
+
+    jcfg, jparams, tcfg, tparams = weights
+    over = dict(quantize=quantize, quantize_kv=cfg_kv)
+    jeng = JaxEngine(dataclasses.replace(jcfg, **over), jparams,
+                     max_slots=1, max_seq_len=32, quantize_kv=arg)
+    eng = InferenceEngine(dataclasses.replace(tcfg, **over), tparams,
+                          max_slots=1, max_seq_len=32, quantize_kv=arg)
+    assert eng.quantize_kv == jeng.quantize_kv == want
+    assert eng.cache.quantized == want

@@ -111,8 +111,6 @@ def test_load_model_refuses_what_it_cannot_do():
     assert torch.equal(nothing["embed"], load_model(
         {"model": "debug", "seed": 1}, device="cpu")[1]["embed"])
     with pytest.raises(NotImplementedError):
-        load_model({"model": "debug", "quantize": "int8"}, device="cpu")
-    with pytest.raises(NotImplementedError):
         load_model({"model": "gpt2"}, device="cpu")
     cfg, params = load_model(
         {"model": "debug", "model_overrides": {"param_dtype": "bfloat16"},

@@ -256,3 +256,53 @@ def test_restore_reads_params_only_onto_the_device(tmp_path):
     got["embed"].add_(1)   # a private copy, not the mapped file
     again, _ = restore_params(str(tmp_path), torch.device("cpu"))
     assert torch.equal(again["embed"], params["embed"])
+
+
+# ---------------------------------------------------------------------------
+# Quantization modes from params and from the config
+# ---------------------------------------------------------------------------
+
+def test_quantize_override_serves_quantized_weights(content):
+    """``model_overrides: {"quantize": "int8"}`` (the mode in the config,
+    not in params) serves int8 attention and MLP matrices, as the
+    reference resolves it: params first, then the config."""
+    from runbooks_tpu_torch.ops.quantization import QuantizedArray
+
+    cfg, params = load_model({"model": "debug",
+                              "model_overrides": {"quantize": "int8"}},
+                             device="cpu")
+    assert cfg.quantize == "int8"
+    for group, names in (("attn", ("wq", "wk", "wv", "wo")),
+                         ("mlp", ("wi_gate", "wi_up", "wo"))):
+        for name in names:
+            w = params["layers"][group][name]
+            assert isinstance(w, QuantizedArray) and w.bits == 8, name
+    assert isinstance(params["embed"], torch.Tensor)
+    # Params win over the config, both ways.
+    cfg, params = load_model({"model": "debug", "quantize": "int4",
+                              "model_overrides": {"quantize": "int8"}},
+                             device="cpu")
+    assert cfg.quantize == "int4"
+    assert params["layers"]["attn"]["wq"].bits == 4
+    cfg, params = load_model({"model": "debug", "quantize": "none",
+                              "model_overrides": {"quantize": "int8"}},
+                             device="cpu")
+    assert cfg.quantize == "none"
+    assert isinstance(params["layers"]["attn"]["wq"], torch.Tensor)
+    with pytest.raises(ValueError, match="int3"):
+        load_model({"model": "debug", "model_overrides": {"quantize":
+                                                          "int3"}},
+                   device="cpu")
+
+
+def test_quantize_kv_params_reach_the_config(content):
+    from runbooks_tpu_torch.serve.engine import InferenceEngine
+
+    for raw, want in ((True, True), ("false", False), (False, False)):
+        cfg, params = load_model({"model": "debug", "quantize_kv": raw},
+                                 device="cpu")
+        assert cfg.quantize_kv is want
+        eng = InferenceEngine(cfg, params, max_slots=1, max_seq_len=32)
+        assert eng.cache.quantized is want
+    cfg, _ = load_model({"model": "debug"}, device="cpu")
+    assert cfg.quantize_kv is None

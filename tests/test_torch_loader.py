@@ -25,6 +25,7 @@ from runbooks_tpu.serve.engine import InferenceEngine as JaxEngine
 from runbooks_tpu.serve.engine import Request as JaxRequest
 
 from runbooks_tpu_torch.models import bridge, loader
+from runbooks_tpu_torch.ops.quantization import QuantizedArray
 from runbooks_tpu_torch.serve.api import load_model
 from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
 from runbooks_tpu_torch.utils.tree import tree_leaves
@@ -153,11 +154,49 @@ def test_huggingface_source_without_the_package(monkeypatch):
                              "hf_name": "x/y"}, device="cpu")
 
 
+def _leaf_equal(a, b):
+    if isinstance(a, QuantizedArray):
+        return (isinstance(b, QuantizedArray)
+                and (a.bits, a.block_size) == (b.bits, b.block_size)
+                and torch.equal(a.values, b.values)
+                and torch.equal(a.scales, b.scales))
+    return torch.equal(a, b)
+
+
 @pytest.mark.parametrize("mode", ["int8", "int4"])
-def test_quantize_raises_by_name(mode):
-    with pytest.raises(NotImplementedError, match=mode):
-        loader.load_weights({"model": "debug", "quantize": mode},
-                            device="cpu")
+def test_import_with_quantize_writes_packed_checkpoint(tmp_path, monkeypatch,
+                                                       mode):
+    """``quantize`` on an HF import: model.json as the JAX loader's
+    (logical num_params, packed weight_bytes), a packed checkpoint of plain
+    tensors, restored by load_model to the JAX import's leaves bit for bit,
+    and the JAX engine's greedy ids."""
+    model_dir = _hf_llama_dir(tmp_path / "model", "bf16_sharded")
+    params = {"model": "debug", "model_overrides": HF_OVERRIDES,
+              "source": "dir", "dir": str(model_dir), "quantize": mode}
+    jax_meta, meta, jax_content, content = _both(tmp_path, monkeypatch,
+                                                 params)
+    assert meta == jax_meta and meta["quantize"] == mode
+    plain = loader.load_weights({**params, "quantize": "none"},
+                                device="cpu")[1]
+    assert meta["num_params"] == sum(t.numel() for t in tree_leaves(plain))
+    state = torch.load(content / "artifacts" / "checkpoints" / "0" /
+                       "state.pt", weights_only=True)
+    packed = state["params"]["layers"]["mlp"]["wi_gate"]
+    assert set(packed) == {"__quantized__"}
+    assert packed["__quantized__"]["meta"].tolist()[0] == \
+        (8 if mode == "int8" else 4)
+    jcfg, jparams = jax_load_model({
+        **params, "checkpoint": str(jax_content / "artifacts")})
+    cfg, tparams = load_model({**params,
+                               "checkpoint": str(content / "artifacts")},
+                              device="cpu")
+    assert cfg.quantize == jcfg.quantize == mode
+    want = bridge.from_jax_numpy(cfg, jax.tree.map(np.asarray, jparams))
+    assert all(_leaf_equal(a, b) for a, b in zip(tree_leaves(tparams),
+                                                  tree_leaves(want)))
+    assert isinstance(tparams["layers"]["attn"]["wq"], QuantizedArray)
+    assert _greedy(InferenceEngine, Request, cfg, tparams) \
+        == _greedy(JaxEngine, JaxRequest, jcfg, jparams)
 
 
 def test_bad_params_raise_like_jax():

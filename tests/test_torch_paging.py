@@ -267,11 +267,27 @@ def test_host_pool_round_trip_and_handouts(weights):
     assert torch.equal(lv, -kb)
 
 
-def test_int8_kv_is_refused_by_name(weights):
-    _, _, tcfg, tparams = weights
-    with pytest.raises(NotImplementedError, match="quantize_kv.*quantiz"):
-        PagedInferenceEngine(dataclasses.replace(tcfg, quantize_kv=True),
-                             tparams, max_slots=2)
+def test_int8_kv_pages_match_jax_and_dense(weights):
+    """quantize_kv on the paged engine (the reference's
+    test_paged_int8_kv_matches_dense_int8, held to the JAX paged engine
+    too): int8 pages with scales; greedy ids equal the JAX paged int8
+    engine's and the port's dense int8 engine's, including a second
+    request that shares the first one's pages (dequantized at gather)."""
+    jcfg, jparams, tcfg, tparams = weights
+    prompt = [7, 3, 11, 2, 9, 40, 41] + list(range(50, 70))
+    outs = []
+    for eng in _engines(weights, max_slots=2, page_size=16,
+                        quantize_kv=True):
+        assert eng.cache.quantized
+        first = _drain(eng, _greedy(eng, [prompt], 8))
+        again = _drain(eng, _greedy(eng, [prompt + [99]], 8))
+        outs.append((first, again, eng.pager.occupancy()))
+    assert outs[0] == outs[1]
+    assert outs[0][2]["pages_reused_total"] >= 1
+    dense = InferenceEngine(dataclasses.replace(tcfg, quantize_kv=True),
+                            tparams, max_slots=2)
+    assert dense.cache.quantized
+    assert _drain(dense, _greedy(dense, [prompt], 8)) == outs[0][0]
 
 
 def test_bucket_helpers_match_reference():

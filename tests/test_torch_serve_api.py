@@ -487,8 +487,7 @@ def test_shutdown_drains_in_flight_requests(weights):
     assert chunks[-1]["choices"][0]["finish_reason"] in ("length", "stop")
 
 
-@pytest.mark.parametrize("knob", [
-    {"mesh_data": 2}, {"mesh_tensor": 2}, {"quantize_kv": True}])
+@pytest.mark.parametrize("knob", [{"mesh_data": 2}, {"mesh_tensor": 2}])
 def test_main_refuses_unported_knobs_by_name(tmp_path, monkeypatch, knob):
     (tmp_path / "params.json").write_text(json.dumps({"model": "debug",
                                                       **knob}))
@@ -519,6 +518,41 @@ def test_main_takes_ported_knobs(tmp_path, monkeypatch, knob):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.main()
+
+
+@pytest.mark.parametrize("knob,kv,mode", [
+    ({"quantize_kv": True}, True, "none"),
+    ({"quantizeKv": "on", "quantize": "int8"}, True, "int8"),
+    ({"quantize": "int4", "quantize_kv": False}, False, "int4")])
+def test_main_serves_quantize_and_quantize_kv(tmp_path, monkeypatch, knob,
+                                              kv, mode):
+    """main serves quantize and quantize_kv (no longer refused): the
+    config it hands create_server carries them, and the engine create_server
+    builds on it keeps the cache they ask for."""
+    params = {"model": "debug", **knob}
+    (tmp_path / "params.json").write_text(json.dumps(params))
+    monkeypatch.setenv("RBT_CONTENT_DIR", str(tmp_path))
+    api.refuse_unported(params)
+    load = api.load_model
+    monkeypatch.setattr(api, "load_model",
+                        lambda p: load(p, device="cpu"))
+    got = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_create_server(cfg, model_params, tokenizer, **kw):
+        got.update(cfg=cfg, params=model_params, kw=kw)
+        raise Stop
+
+    monkeypatch.setattr(api, "create_server", fake_create_server)
+    with pytest.raises(Stop):
+        api.main()
+    cfg = got["cfg"]
+    assert (cfg.quantize_kv, cfg.quantize) == (kv, mode)
+    eng = api.InferenceEngine(cfg, got["params"], max_slots=2,
+                              max_seq_len=32)
+    assert eng.cache.quantized is kv
 
 
 def test_main_passes_speculation_and_grammar_knobs(tmp_path, monkeypatch):
