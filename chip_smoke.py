@@ -5,8 +5,9 @@
 
 Phases, each of which fails the run (nonzero exit) when it fails:
 
-1. Environment: the card's name and power limit, torch version, device
-   count; TF32 is switched off for matmuls and convolutions.
+1. Environment: the card's name and power limit, torch and jinja2
+   versions (chat templates render with jinja2, which torch requires),
+   device count; TF32 is switched off for matmuls and convolutions.
 2. Build: every kernel of the serving and training paths from csrc/, in
    parallel.
 3. Forward kernel: K1 against its plain PyTorch version on the card at
@@ -180,6 +181,36 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    restores it packed, every leaf bit-equal to the source quantized in
    memory, the same greedy ids; and ``model_overrides: {"quantize":
    "int8"}`` serves int8 weights over an int8 cache.
+
+15. The text path: (a) two tokenizer directories written from the seed
+   and the checkout's own *.md/*.py text: a llama3-style byte-level BPE
+   (the 256 byte symbols and 127,744 merges, llama3's split pattern and
+   TemplateProcessing, 256 specials named as llama3 names them,
+   llama3-instruct's chat template) and a llama2-style byte-fallback BPE
+   of 32,000 tokens with llama2-chat's template. (b) On >= 4 MB of that
+   text plus seeded CJK, Hangul, Greek, Cyrillic, emoji and digits: load
+   seconds, encode MB/s and tokens/s, decode MB/s and decode(encode(t))
+   == t on every document with both (U+2581 comes back as a space from
+   the sentencepiece one); ``TokenVocab.from_tokenizer`` seconds at
+   128,256 and one JSON-schema DFA's compile seconds. (c) ``python -m
+   runbooks_tpu_torch.train.dataset_loader`` copies a local .jsonl and a
+   file:// URL of another; its manifest's rows and bytes match the files.
+   (d) ``run_training``: llama3-8b at full width cut to 4 layers, LoRA
+   rank 16, seq 2048, batch 8 in 4 microbatches, over the loader's
+   directory through the llama3-style tokenizer, 3 steps at prefetch
+   depth 0 and 3 at depth 2: the first batch is the documents' encodings
+   as pack_documents packs them, losses finite, data-wait seconds per
+   step, tokens/s and K1/K2/K3 launches. (e) ``python -m
+   runbooks_tpu_torch.serve.api`` with ``tokenizer:`` the llama3-style
+   directory over phase 9's import: a greedy /v1/chat/completions on a
+   templated prompt of up to 2000 tokens (its prompt ids are
+   encode(apply_chat_template(...)), its text the decode of
+   ``InferenceEngine.generate``'s ids), the same request streamed (the
+   deltas add up to the text; TTFT), a response_format request (every
+   token legal under the 128,256-wide TokenVocab, the JSON valid), K1's
+   launches from the server's exit line; then llama2-7b at full width cut
+   to 2 layers with seeded weights behind ``create_server`` under the
+   llama2-style tokenizer: streamed equals unstreamed.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and {"ok": true, "device": {...}};
@@ -3931,6 +3962,748 @@ def quant_phase(torch, dev, seed, workdir):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the text path
+# ---------------------------------------------------------------------------
+
+# llama3-instruct's and llama2-chat's chat templates, as their
+# tokenizer_config.json files hold them.
+LLAMA3_CHAT = (
+    "{% set loop_messages = messages %}{% for message in loop_messages %}"
+    "{% set content = '<|start_header_id|>' + message['role'] + "
+    "'<|end_header_id|>\n\n'+ message['content'] | trim + '<|eot_id|>' %}"
+    "{% if loop.index0 == 0 %}{% set content = bos_token + content %}"
+    "{% endif %}{{ content }}{% endfor %}{% if add_generation_prompt %}"
+    "{{ '<|start_header_id|>assistant<|end_header_id|>\n\n' }}{% endif %}")
+LLAMA2_CHAT = (
+    "{% if messages[0]['role'] == 'system' %}{% set loop_messages = "
+    "messages[1:] %}{% set system_message = messages[0]['content'] %}"
+    "{% else %}{% set loop_messages = messages %}{% set system_message = "
+    "false %}{% endif %}{% for message in loop_messages %}{% if "
+    "(message['role'] == 'user') != (loop.index0 % 2 == 0) %}{{ "
+    "raise_exception('Conversation roles must alternate user/assistant/"
+    "user/assistant/...') }}{% endif %}{% if loop.index0 == 0 and "
+    "system_message != false %}{% set content = '<<SYS>>\\n' + "
+    "system_message + '\\n<</SYS>>\\n\\n' + message['content'] %}{% else "
+    "%}{% set content = message['content'] %}{% endif %}{% if "
+    "message['role'] == 'user' %}{{ bos_token + '[INST] ' + "
+    "content.strip() + ' [/INST]' }}{% elif message['role'] == "
+    "'assistant' %}{{ ' '  + content.strip() + ' ' + eos_token }}"
+    "{% endif %}{% endfor %}")
+L3_REGULAR = 128000       # byte-level tokens: 256 bytes + 127,744 merges
+L3_SPECIALS = 256         # added specials at 128000..128255
+L2_VOCAB = 32000          # <unk>, <s>, </s>, 256 <0xXX>, pieces
+SEEDED_TEXT_CHARS = 400_000   # CJK, emoji, digits, other scripts
+TEXT_MIN_BYTES = 4_000_000
+TEXT_DOC_CHARS = 8192
+TEXT_LAYERS = 4           # (d) llama3-8b at full width, cut to 4 layers
+TEXT_LLAMA2_LAYERS = 2    # (e) llama2-7b at full width, cut to 2 layers
+CHAT_PROMPT_TOKENS = 2000  # (e) the templated prompt, at most
+
+
+def llama3_special_names():
+    """The 256 names llama3 gives its specials, in id order."""
+    names = ["<|begin_of_text|>", "<|end_of_text|>"]
+    names += [f"<|reserved_special_token_{i}|>" for i in range(4)]
+    names += ["<|start_header_id|>", "<|end_header_id|>",
+              "<|reserved_special_token_4|>", "<|eot_id|>"]
+    names += [f"<|reserved_special_token_{i}|>"
+              for i in range(5, 5 + L3_SPECIALS - len(names))]
+    return names
+
+
+def repo_documents(root):
+    """The checkout's own *.md and *.py files, in path order."""
+    docs = []
+    for d, dirs, files in os.walk(root):
+        dirs[:] = sorted(x for x in dirs if not x.startswith(".")
+                         and x not in ("build", "__pycache__"))
+        for name in sorted(files):
+            if name.endswith((".md", ".py")):
+                with open(os.path.join(d, name), encoding="utf-8",
+                          errors="replace") as f:
+                    docs.append(f.read())
+    return docs
+
+
+def seeded_documents(seed, n_chars):
+    """Seeded words in CJK, Hangul, Greek, Cyrillic, emoji (astral) and
+    digit runs, with spaces, punctuation and newlines, cut into
+    TEXT_DOC_CHARS-character documents."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 15)
+    pools = [(0x4E00, 0x9FFF), (0xAC00, 0xD7A3), (0x3B1, 0x3C9),
+             (0x430, 0x44F), (0x1F300, 0x1F64F), (0x30, 0x39)]
+    seps = [" ", " ", " ", ", ", ". ", "\n", "  ", "\t"]
+    out, n = [], 0
+    while n < n_chars:
+        lo, hi = pools[int(rng.integers(len(pools)))]
+        k = int(rng.integers(1, 9))
+        word = "".join(chr(int(c)) for c in rng.integers(lo, hi + 1, k))
+        word += seps[int(rng.integers(len(seps)))]
+        out.append(word)
+        n += len(word)
+    text = "".join(out)
+    return [text[i:i + TEXT_DOC_CHARS]
+            for i in range(0, len(text), TEXT_DOC_CHARS)]
+
+
+def _chain(vocab, merges, word, limit):
+    """Merges that build ``word`` left to right from its characters, each
+    a merge of two earlier tokens (its prefix and one character)."""
+    for j in range(1, len(word)):
+        if len(merges) >= limit:
+            return
+        if word[j] not in vocab:
+            return
+        new = word[:j + 1]
+        if new not in vocab:
+            vocab[new] = len(vocab)
+            merges.append([word[:j], word[j]])
+
+
+def write_llama3_tokenizer(directory, docs, seed, regular=L3_REGULAR):
+    """A llama3-style tokenizer directory: byte-level BPE over the 256
+    byte symbols and ``regular`` - 256 merges, each of two earlier tokens
+    within one pre-token of llama3's split (a counting pass over ``docs``'
+    byte pairs, then the pre-tokens of ``docs`` from the most frequent
+    down built left to right, then seeded pre-tokens), llama3's
+    TemplateProcessing and ByteLevel decoder, 256 specials named as
+    llama3 names them and llama3-instruct's chat template."""
+    import collections
+
+    import numpy as np
+
+    from runbooks_tpu_torch.models import tokenizer_io as tio
+
+    rx = tio.split_regex(tio.LLAMA3_PATTERN)
+    table = {b: c for b, c in enumerate(tio.bytes_to_unicode())}
+    counts = collections.Counter()
+    for doc in docs:
+        counts.update(rx.findall(doc))
+    words = [w.encode("utf-8").decode("latin-1").translate(table)
+             for w, _ in counts.most_common()]
+    vocab = {c: i for i, c in enumerate(tio.bytes_to_unicode())}
+    merges = []
+    n_merges = regular - len(vocab)
+    pairs = collections.Counter()
+    for w, (_, n) in zip(words[:20000], counts.most_common(20000)):
+        for k in range(len(w) - 1):
+            pairs[w[k:k + 2]] += n
+    for pair, _ in pairs.most_common(2000):
+        if pair not in vocab:
+            vocab[pair] = len(vocab)
+            merges.append([pair[0], pair[1]])
+    for w in words:
+        if len(merges) >= n_merges:
+            break
+        _chain(vocab, merges, w, n_merges)
+    rng = np.random.default_rng(seed + 30)
+    letters = [chr(c) for c in range(0x61, 0x7B)] + \
+        [chr(c) for c in range(0x3B1, 0x3CA)] + \
+        [chr(c) for c in range(0x4E00, 0x4E00 + 400)]
+    while len(merges) < n_merges:
+        k = int(rng.integers(2, 10))
+        w = (" " if rng.random() < 0.6 else "") + "".join(
+            letters[int(i)] for i in rng.integers(len(letters), size=k))
+        _chain(vocab, merges, w.encode("utf-8").decode("latin-1")
+               .translate(table), n_merges)
+    names = llama3_special_names()
+    added = [{"id": regular + i, "content": s, "single_word": False,
+              "lstrip": False, "rstrip": False, "normalized": False,
+              "special": True} for i, s in enumerate(names)]
+    bos = names[0]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": tio.LLAMA3_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True,
+             "trim_offsets": False, "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                      {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": bos, "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {bos: {"id": bos, "ids": [regular],
+                                      "tokens": [bos]}}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": merges}}
+    config = {"tokenizer_class": "PreTrainedTokenizerFast",
+              "bos_token": bos, "eos_token": "<|eot_id|>",
+              "clean_up_tokenization_spaces": True,
+              "model_input_names": ["input_ids", "attention_mask"],
+              "model_max_length": 1000000000000000019884624838656,
+              "chat_template": LLAMA3_CHAT}
+    _write_tokenizer(directory, spec, config)
+
+
+def write_llama2_tokenizer(directory, docs, seed, size=L2_VOCAB):
+    """A llama2-style tokenizer directory: byte-fallback BPE of ``size``
+    tokens (<unk>, <s>, </s>, <0x00>..<0xFF>, the most frequent
+    characters of ``docs``, then pieces built left to right from their
+    most frequent sentencepiece words and seeded ones), llama2's
+    Prepend/Replace normalizers and Replace, ByteFallback, Fuse, Strip
+    decoder, under LlamaTokenizerFast's config with llama2-chat's
+    template."""
+    import collections
+
+    import numpy as np
+
+    sp = "▁"
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    vocab.update({f"<0x{b:02X}>": 3 + b for b in range(256)})
+    chars = collections.Counter()
+    pieces = collections.Counter()
+    for doc in docs:
+        norm = sp + doc.replace(" ", sp)
+        chars.update(norm)
+        pieces.update(sp + w for w in norm.split(sp) if w)
+    for c, _ in chars.most_common(600):
+        vocab.setdefault(c, len(vocab))
+    merges = []
+    n_merges = size - len(vocab)
+    for w, _ in pieces.most_common():
+        if len(merges) >= n_merges:
+            break
+        _chain(vocab, merges, w, n_merges)
+    rng = np.random.default_rng(seed + 31)
+    letters = [c for c, _ in chars.most_common(60) if c.isalpha()]
+    while len(merges) < n_merges:
+        k = int(rng.integers(2, 9))
+        _chain(vocab, merges, sp + "".join(
+            letters[int(i)] for i in rng.integers(len(letters), size=k)),
+            n_merges)
+    added = [{"id": i, "content": s, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": True}
+             for i, s in enumerate(("<unk>", "<s>", "</s>"))]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": sp},
+            {"type": "Replace", "pattern": {"String": " "},
+             "content": sp}]},
+        "pre_tokenizer": None,
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "<s>", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"SpecialToken": {"id": "<s>", "type_id": 1}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"<s>": {"id": "<s>", "ids": [1],
+                                       "tokens": ["<s>"]}}},
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": sp}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True,
+                  "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges}}
+    config = {"tokenizer_class": "LlamaTokenizerFast",
+              "bos_token": "<s>", "eos_token": "</s>", "unk_token": "<unk>",
+              "pad_token": None, "add_bos_token": True,
+              "add_eos_token": False, "legacy": False,
+              "clean_up_tokenization_spaces": False,
+              "model_max_length": 1000000000000000019884624838656,
+              "chat_template": LLAMA2_CHAT}
+    _write_tokenizer(directory, spec, config)
+
+
+def _write_tokenizer(directory, spec, config):
+    os.makedirs(directory, exist_ok=True)
+    with open(f"{directory}/tokenizer.json", "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(f"{directory}/tokenizer_config.json", "w",
+              encoding="utf-8") as f:
+        json.dump(config, f, ensure_ascii=False, indent=2)
+
+
+def text_corpus(seed):
+    """Phase 15's corpus: the checkout's *.md/*.py files and seeded
+    documents of other scripts, at least TEXT_MIN_BYTES of UTF-8."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    docs = repo_documents(root) + seeded_documents(seed, SEEDED_TEXT_CHARS)
+    n_bytes = sum(len(d.encode("utf-8")) for d in docs)
+    if n_bytes < TEXT_MIN_BYTES:
+        docs += seeded_documents(seed + 1, TEXT_MIN_BYTES - n_bytes)
+    return docs
+
+
+def tokenizer_host_numbers(name, path, docs, want_sizes):
+    """Phase 15 (b) for one directory: load seconds, encode and decode
+    rates over ``docs`` and the exact round trip. Returns (tokenizer,
+    record)."""
+    from runbooks_tpu_torch.train.data import load_tokenizer
+
+    t0 = time.perf_counter()
+    tok = load_tokenizer(path)
+    load_s = time.perf_counter() - t0
+    if (tok.vocab_size, len(tok)) != want_sizes:
+        raise SystemExit(f"{name} tokenizer: vocab_size {tok.vocab_size}, "
+                         f"len {len(tok)}; expected {want_sizes}")
+    n_bytes = sum(len(d.encode("utf-8")) for d in docs)
+    t0 = time.perf_counter()
+    # Special tokens' strings in the text stay text: what comes back must
+    # be the text itself.
+    enc = [tok.encode(d, add_special_tokens=False, split_special_tokens=True)
+           for d in docs]
+    encode_s = time.perf_counter() - t0
+    n_tokens = sum(map(len, enc))
+    t0 = time.perf_counter()
+    dec = [tok.decode(e, clean_up_tokenization_spaces=False) for e in enc]
+    decode_s = time.perf_counter() - t0
+    # A sentencepiece vocabulary spells U+2581 as its space: the one
+    # character such a tokenizer cannot give back.
+    want = docs if name == "llama3" else [d.replace("▁", " ") for d in docs]
+    bad = [k for k, (a, b) in enumerate(zip(dec, want)) if a != b]
+    rec = {"load_s": load_s, "documents": len(docs), "bytes": n_bytes,
+           "tokens": n_tokens, "encode_s": encode_s,
+           "encode_mb_per_s": n_bytes / encode_s / 1e6,
+           "encode_tokens_per_s": n_tokens / encode_s,
+           "decode_s": decode_s, "decode_mb_per_s": n_bytes / decode_s / 1e6,
+           "round_trip_exact_documents": len(docs) - len(bad),
+           "documents_with_u2581": sum("▁" in d for d in docs)}
+    print(f"tokenizer {name}: " + json.dumps(rec), flush=True)
+    if bad:
+        k = bad[0]
+        i = next((j for j, (a, b) in enumerate(zip(dec[k], want[k]))
+                  if a != b), min(len(dec[k]), len(want[k])))
+        raise SystemExit(f"{name}: decode(encode(t)) != t on {len(bad)} "
+                         f"documents; first at char {i}: "
+                         f"{want[k][max(0, i - 20):i + 20]!r} -> "
+                         f"{dec[k][max(0, i - 20):i + 20]!r}")
+    return tok, rec
+
+
+def dataset_load(workdir, docs):
+    """Phase 15 (c): ``python -m runbooks_tpu_torch.train.dataset_loader``
+    over a local .jsonl and a file:// URL of another; the manifest's rows
+    and bytes against the files. Returns (the filled directory,
+    record)."""
+    src = f"{workdir}/text_sources"
+    os.makedirs(src, exist_ok=True)
+    half = len(docs) // 2
+    rows = {}
+    for name, part in (("a_docs.jsonl", docs[:half]),
+                       ("b_docs.jsonl", docs[half:])):
+        with open(f"{src}/{name}", "w", encoding="utf-8") as f:
+            for d in part:
+                f.write(json.dumps({"text": d}) + "\n")
+        rows[name] = len(part)
+    content = f"{workdir}/dataset_content"
+    os.makedirs(content)
+    with open(f"{content}/params.json", "w") as f:
+        json.dump({"paths": [f"{src}/a_docs.jsonl"],
+                   "urls": f"file://{src}/b_docs.jsonl"}, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RBT_CONTENT_DIR=content,
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "runbooks_tpu_torch.train.dataset_loader"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=300)
+    load_s = time.perf_counter() - t0
+    art = f"{content}/artifacts"
+    if out.returncode != 0:
+        raise SystemExit(f"dataset loader exited {out.returncode}: "
+                         f"{out.stderr[-2000:]}")
+    with open(f"{art}/dataset.json") as f:
+        manifest = json.load(f)
+    last = json.loads(out.stdout.strip().splitlines()[-1])
+    files = {e["file"]: e for e in manifest["files"]}
+    ok = (last == {"done": True, **manifest}
+          and sorted(files) == sorted(rows)
+          and all(files[n]["rows"] == rows[n]
+                  and files[n]["bytes"] == os.path.getsize(f"{art}/{n}")
+                  == os.path.getsize(f"{src}/{n}") for n in rows)
+          and manifest["total_bytes"] == sum(
+              os.path.getsize(f"{art}/{n}") for n in rows)
+          and manifest["total_rows"] == len(docs))
+    rec = {"seconds": load_s, "files": len(files),
+           "total_rows": manifest["total_rows"],
+           "total_bytes": manifest["total_bytes"], "manifest_ok": ok}
+    print("dataset loader: " + json.dumps(rec), flush=True)
+    if not ok:
+        raise SystemExit(f"dataset manifest {manifest} does not match "
+                         f"the files {rows}")
+    return art, rec
+
+
+def text_train(torch, seed, data_dir, tok_dir, workdir):
+    """Phase 15 (d): the LoRA fine-tune of llama3-8b cut to TEXT_LAYERS
+    layers over the loader's directory through the llama3-style
+    tokenizer, TRAIN_STEPS steps at prefetch depth 0 and 2. Returns
+    ({depth: record}, launches {kernel: n} over both runs)."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from runbooks_tpu_torch.train import data, trainer
+    from runbooks_tpu_torch.train.lora import LoraConfig
+    from runbooks_tpu_torch.train.optimizer import OptimizerConfig
+
+    overrides = {"num_layers": TEXT_LAYERS}
+    base = trainer.TrainJobConfig(
+        model="llama3-8b", model_overrides=overrides,
+        lora=LoraConfig(rank=16, alpha=32.0),
+        optimizer=OptimizerConfig(learning_rate=2e-5), batch_size=8,
+        seq_len=TRAIN_SEQ, accumulate_steps=4, steps=TRAIN_STEPS,
+        data_path=data_dir, tokenizer=tok_dir, log_every=1, seed=seed)
+    # The first batch the job consumes is the documents' encodings,
+    # packed and batched as pack_documents and batch_rows do.
+    cfg = get_config("llama3-8b", **overrides)
+    first = next(trainer._batches(base, cfg))
+    tok = data.load_tokenizer(tok_dir)
+    rows = data.pack_documents(
+        (tok.encode(t) for t in data.read_documents(data_dir)), TRAIN_SEQ)
+    want = next(data.batch_rows(rows, 8))
+    if not all((first[k] == want[k]).all() for k in want):
+        raise SystemExit("the job's first batch is not the documents' "
+                         "encodings as pack_documents packs them")
+    bos_rows = int((first["tokens"][:, 0] == tok.bos_token_id).sum())
+    out = {}
+    flash_attention.launches = 0
+    flash_attention_bwd.dq_launches = 0
+    flash_attention_bwd.dkv_launches = 0
+    for depth in (0, 2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        job = dataclasses.replace(base, prefetch_depth=depth,
+                                  artifacts_dir=f"{workdir}/text_train_"
+                                                f"{depth}")
+        t0 = time.perf_counter()
+        summary = trainer.run_training(job)
+        wall = time.perf_counter() - t0
+        hist = summary["history"]
+        losses = [e["loss"] for e in hist]
+        out[depth] = {"wall_s": wall, "losses": losses,
+                      "data_wait_s_per_step": [e["data_wait_s"]
+                                               for e in hist],
+                      "step_s": [e["step_s"] for e in hist],
+                      "first_step_s": summary["first_step_s"],
+                      "tokens_per_sec": summary["tokens_per_sec"]}
+        if len(losses) != TRAIN_STEPS or not all(math.isfinite(x)
+                                                 for x in losses):
+            raise SystemExit(f"text fine-tune at prefetch depth {depth}: "
+                             f"losses {losses}")
+    launches = {"flash_fwd": flash_attention.launches,
+                "flash_bwd_dq": flash_attention_bwd.dq_launches,
+                "flash_bwd_dkv": flash_attention_bwd.dkv_launches}
+    per_step = {"flash_fwd": 8 * TEXT_LAYERS, "flash_bwd_dq": 4 * TEXT_LAYERS,
+                "flash_bwd_dkv": 4 * TEXT_LAYERS}
+    for name, n in per_step.items():
+        if launches[name] != 2 * TRAIN_STEPS * n:
+            raise SystemExit(f"text fine-tune: {name} launched "
+                             f"{launches[name]} times; expected "
+                             f"{2 * TRAIN_STEPS * n}")
+    print("text fine-tune: " + json.dumps({
+        "layers": TEXT_LAYERS, "rows_starting_with_bos": bos_rows,
+        "by_prefetch_depth": out, "launches": launches}), flush=True)
+    return out, launches
+
+
+def stream_check(base, body, want_text, name):
+    """The body streamed: its deltas concatenated must equal want_text.
+    Returns (seconds to the first data chunk, chunks)."""
+    status, _, text, t_first = http_call(base, "/v1/chat/completions",
+                                         {**body, "stream": True})
+    if status != 200:
+        raise SystemExit(f"{name} stream: {status} {text[:500]}")
+    events = [ln[len("data: "):] for ln in text.split("\n")
+              if ln.startswith("data: ")]
+    if events[-1] != "[DONE]":
+        raise SystemExit(f"{name} stream did not end with [DONE]")
+    chunks = [json.loads(e) for e in events[:-1]]
+    got = "".join(c["choices"][0]["delta"].get("content", "")
+                  for c in chunks)
+    print(f"{name}: streamed {len(chunks)} chunks, "
+          f"{'equal to' if got == want_text else 'DIFFERENT FROM'} the "
+          f"unstreamed text ({len(want_text)} characters)", flush=True)
+    if got != want_text:
+        raise SystemExit(f"{name}: streamed {got[:200]!r} != unstreamed "
+                         f"{want_text[:200]!r}")
+    return t_first, len(chunks)
+
+
+def chat_messages(tok, text, budget):
+    """A system message of ``text`` cut so that the templated prompt is at
+    most ``budget`` tokens, and one user turn."""
+    content = text
+    while True:
+        msgs = [{"role": "system", "content": content},
+                {"role": "user", "content": "Summarize the above in one "
+                                            "line. It's 2024."}]
+        ids = tok.encode(tok.apply_chat_template(
+            msgs, tokenize=False, add_generation_prompt=True))
+        if len(ids) <= budget:
+            return msgs, ids
+        content = content[:int(len(content) * budget / len(ids) * 0.98)]
+
+
+def chat_expected(torch, cfg, params, tok, msgs, response_format=None,
+                  max_tokens=MAX_TOKENS):
+    """(prompt ids, output ids without a final EOS, text) of one greedy
+    request through InferenceEngine.generate, as the server would run
+    it."""
+    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
+
+    ids = tok.encode(tok.apply_chat_template(msgs, tokenize=False,
+                                             add_generation_prompt=True))
+    req = Request(prompt_tokens=ids, max_tokens=max_tokens,
+                  eos_id=tok.eos_token_id, response_format=response_format)
+    with torch.no_grad():
+        InferenceEngine(cfg, params, max_slots=8, max_seq_len=2048,
+                        grammar="on", tokenizer=tok).generate([req])
+    out = list(req.output_tokens)
+    if out and out[-1] == tok.eos_token_id:
+        out = out[:-1]
+    return ids, out, tok.decode(out), req
+
+
+def chat_server_check(torch, seed, workdir, l3_dir, l3_tok, docs):
+    """Phase 15 (e): ``python -m runbooks_tpu_torch.serve.api`` with
+    ``tokenizer:`` the llama3-style directory over phase 9's import
+    (full width, IMPORT_LAYERS layers). Returns the record."""
+    from runbooks_tpu_torch.serve.api import load_model
+    from runbooks_tpu_torch.serve.grammar import GrammarCache, TokenVocab
+
+    model = {"model": "llama3-8b",
+             "model_overrides": {"num_layers": IMPORT_LAYERS},
+             "checkpoint": f"{workdir}/import_content/artifacts"}
+    cfg, params = load_model(model)
+    msgs, prompt_ids = chat_messages(l3_tok, "\n".join(docs[:40]),
+                                     CHAT_PROMPT_TOKENS)
+    prompt = l3_tok.apply_chat_template(msgs, tokenize=False,
+                                        add_generation_prompt=True)
+    t0 = time.perf_counter()
+    l3_tok.encode(prompt)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    ids, out_ids, want_text, _ = chat_expected(torch, cfg, params, l3_tok,
+                                               msgs)
+    rf = GRAMMAR_FORMATS[0][0]
+    short = [{"role": "user", "content": "Is the kernel fast? Answer in "
+                                         "JSON."}]
+    _, g_ids, g_text, g_req = chat_expected(
+        torch, cfg, params, l3_tok, short, response_format=rf,
+        max_tokens=GRAMMAR_MAX)
+    vocab = TokenVocab.from_tokenizer(l3_tok)
+    cursor = GrammarCache(vocab, cfg.vocab_size).cursor(rf)
+    legal = all(cursor.advance(t) for t in g_ids) and cursor.accepting
+    parsed_ok = False
+    try:
+        parsed_ok = GRAMMAR_FORMATS[0][2](json.loads(g_text))
+    except ValueError:
+        pass
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    content = f"{workdir}/chat_content"
+    os.makedirs(content)
+    port = free_port()
+    with open(f"{content}/params.json", "w") as f:
+        json.dump({**model, "tokenizer": l3_dir, "port": port,
+                   "max_slots": 8, "max_seq_len": 2048, "grammar": "on",
+                   "drain_timeout_s": ENTRY_DRAIN_S, "seed": seed}, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RBT_CONTENT_DIR=content,
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    log_path = f"{workdir}/chat_server.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "runbooks_tpu_torch.serve.api"],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        ready_s = None
+        while time.perf_counter() - t0 < 180 and proc.poll() is None:
+            try:
+                if http_call(base, "/")[0] == 200:
+                    ready_s = time.perf_counter() - t0
+                    break
+            except OSError:
+                pass
+            time.sleep(0.5)
+        if ready_s is None:
+            raise SystemExit("the chat server was not ready within 180 s")
+        body = {"messages": msgs, "max_tokens": MAX_TOKENS,
+                "temperature": 0}
+        status, _, text, plain_s = http_call(base, "/v1/chat/completions",
+                                             body)
+        if status != 200:
+            raise SystemExit(f"chat completion: {status} {text[:500]}")
+        answer = json.loads(text)
+        got_text = answer["choices"][0]["message"]["content"]
+        usage = answer["usage"]
+        ttft_s, n_chunks = stream_check(base, body, got_text,
+                                        "llama3 chat")
+        status, _, text, _ = http_call(base, "/v1/chat/completions", {
+            "messages": short, "max_tokens": GRAMMAR_MAX, "temperature": 0,
+            "response_format": rf})
+        if status != 200:
+            raise SystemExit(f"constrained chat: {status} {text[:500]}")
+        g_answer = json.loads(text)["choices"][0]
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=ENTRY_DRAIN_S + 30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        with open(log_path) as f:
+            log_text = f.read()
+    stopped = [json.loads(ln) for ln in log_text.splitlines()
+               if ln.startswith('{"stopped"')]
+    launches = stopped[-1]["flash_fwd_launches"] if stopped else 0
+    rec = {"ready_s": ready_s, "prompt_tokens": len(ids),
+           "template_encode_ms": encode_ms, "ttft_s_streamed": ttft_s,
+           "unstreamed_s": plain_s, "stream_chunks": n_chunks,
+           "prompt_ids_equal": ids == prompt_ids
+           and usage["prompt_tokens"] == len(ids),
+           "text_equals_generate": got_text == want_text,
+           "constrained": {"tokens": len(g_ids), "legal": legal,
+                           "schema_ok": bool(parsed_ok),
+                           "finish_reason": g_answer["finish_reason"],
+                           "http_equals_generate":
+                               g_answer["message"]["content"] == g_text,
+                           "vocab_ids": vocab.vocab_size,
+                           "mask_width": cfg.vocab_size},
+           "flash_fwd_launches": launches, "exit_code": rc}
+    print("chat server llama3: " + json.dumps(rec), flush=True)
+    if not (rec["prompt_ids_equal"] and rec["text_equals_generate"]
+            and legal and parsed_ok and rec["constrained"][
+                "http_equals_generate"] and launches >= 3 and rc == 0
+            and g_req.finish_reason == "grammar_complete"):
+        print(log_text[-3000:], flush=True)
+        raise SystemExit("the llama3 chat server check failed")
+    return rec
+
+
+def llama2_stream_check(torch, seed, l2_tok, docs):
+    """Phase 15 (e), llama2: llama2-7b at full width cut to TEXT_LLAMA2_
+    LAYERS layers with seeded bf16 weights behind create_server with the
+    llama2-style tokenizer: the streamed chat answer equals the
+    unstreamed one. Returns (record, K1 launches)."""
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.api import create_server, load_model
+
+    cfg, params = load_model({"model": "llama2-7b", "model_overrides": {
+        "num_layers": TEXT_LLAMA2_LAYERS, "param_dtype": "bfloat16"},
+        "seed": seed + 15})
+    msgs, ids = chat_messages(l2_tok, "\n".join(docs[:40]), 600)
+    srv = create_server(cfg, params, l2_tok, host="127.0.0.1", port=0,
+                        max_slots=8, max_seq_len=2048)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    flash_attention.launches = 0
+    try:
+        body = {"messages": msgs, "max_tokens": 64, "temperature": 0}
+        status, _, text, _ = http_call(base, "/v1/chat/completions", body)
+        if status != 200:
+            raise SystemExit(f"llama2 chat: {status} {text[:500]}")
+        answer = json.loads(text)
+        got = answer["choices"][0]["message"]["content"]
+        ttft_s, n_chunks = stream_check(base, body, got, "llama2 chat")
+    finally:
+        launches = flash_attention.launches
+        srv.shutdown()
+        thread.join(timeout=60)
+    rec = {"layers": TEXT_LLAMA2_LAYERS, "prompt_tokens": len(ids),
+           "usage": answer["usage"], "stream_chunks": n_chunks,
+           "ttft_s_streamed": ttft_s,
+           "text_words": len(got.split()), "flash_fwd_launches": launches}
+    print("chat server llama2: " + json.dumps(rec), flush=True)
+    if launches < 2 or answer["usage"]["prompt_tokens"] != len(ids):
+        raise SystemExit("the llama2 chat check failed")
+    del params
+    return rec, launches
+
+
+def text_phase(torch, dev, seed, workdir):
+    """Phase 15: the text path. Returns K1/K2/K3 launches by path."""
+    from runbooks_tpu_torch.serve.grammar import GrammarCache, TokenVocab
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    docs = text_corpus(seed)
+    corpus_s = time.perf_counter() - t0
+    l3_dir, l2_dir = f"{workdir}/tok_llama3", f"{workdir}/tok_llama2"
+    t0 = time.perf_counter()
+    write_llama3_tokenizer(l3_dir, docs, seed)
+    l3_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_llama2_tokenizer(l2_dir, docs, seed)
+    l2_write_s = time.perf_counter() - t0
+    print(f"tokenizer directories: corpus {len(docs)} documents in "
+          f"{corpus_s:.2f} s; llama3-style written in {l3_write_s:.2f} s, "
+          f"llama2-style in {l2_write_s:.2f} s", flush=True)
+    if l3_write_s > 60:
+        raise SystemExit("writing the llama3-style directory took over 60 s")
+    l3_tok, l3_rec = tokenizer_host_numbers(
+        "llama3", l3_dir, docs, (L3_REGULAR, L3_REGULAR + L3_SPECIALS))
+    l2_tok, l2_rec = tokenizer_host_numbers("llama2", l2_dir, docs,
+                                            (L2_VOCAB, L2_VOCAB))
+    t0 = time.perf_counter()
+    vocab = TokenVocab.from_tokenizer(l3_tok)
+    vocab_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dfa = GrammarCache(vocab, L3_REGULAR + L3_SPECIALS).get(
+        GRAMMAR_FORMATS[0][0])
+    compile_s = time.perf_counter() - t0
+    print(f"token vocab at {L3_REGULAR + L3_SPECIALS}: from_tokenizer "
+          f"{vocab_s:.3f} s ({sum(b is not None for b in vocab.token_bytes)} "
+          f"ids with bytes); JSON-schema DFA compile {compile_s:.3f} s, "
+          f"{dfa.num_states} states", flush=True)
+
+    data_dir, loader_rec = dataset_load(workdir, docs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train, train_launches = text_train(torch, seed, data_dir, l3_dir,
+                                       workdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    chat = chat_server_check(torch, seed, workdir, l3_dir, l3_tok, docs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    llama2, llama2_launches = llama2_stream_check(torch, seed, l2_tok, docs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("phase 15 " + json.dumps({
+        "card": card_line(), "corpus_s": corpus_s,
+        "llama3_write_s": l3_write_s, "llama2_write_s": l2_write_s,
+        "llama3": l3_rec, "llama2": l2_rec,
+        "token_vocab_s": vocab_s, "grammar_compile_s": compile_s,
+        "dataset_loader": loader_rec, "fine_tune": train,
+        "chat_llama3": chat, "chat_llama2": llama2,
+        "seconds": time.perf_counter() - t_phase}), flush=True)
+    return {"flash_fwd": {"text_train": train_launches["flash_fwd"],
+                          "text_chat_llama3": chat["flash_fwd_launches"],
+                          "text_chat_llama2": llama2_launches},
+            "flash_bwd_dq": train_launches["flash_bwd_dq"],
+            "flash_bwd_dkv": train_launches["flash_bwd_dkv"]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3947,9 +4720,12 @@ def main():
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import jinja2
+
     card = card_line()
     print(f"card: {card} | torch {torch.__version__} cuda "
-          f"{torch.version.cuda} | devices {torch.cuda.device_count()} | "
+          f"{torch.version.cuda} | jinja2 {jinja2.__version__} | "
+          f"devices {torch.cuda.device_count()} | "
           f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}", flush=True)
 
@@ -4004,6 +4780,7 @@ def main():
         lora_launches = lora_phase(torch, args.seed, workdir)
         quant_launches, qmm_records = quant_phase(torch, dev, args.seed,
                                                   workdir)
+        text_launches = text_phase(torch, dev, args.seed, workdir)
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -4017,7 +4794,8 @@ def main():
                      + sum(spec_launches.values())
                      + sum(paged_launches.values())
                      + sum(lora_launches.values())
-                     + sum(quant_launches.values())),
+                     + sum(quant_launches.values())
+                     + sum(text_launches["flash_fwd"].values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
@@ -4026,7 +4804,8 @@ def main():
                              "prefix": prefix_launches,
                              "prefix_off": no_prefix_launches,
                              **spec_launches, **paged_launches,
-                             **lora_launches, **quant_launches},
+                             **lora_launches, **quant_launches,
+                             **text_launches["flash_fwd"]},
         "max_abs_err": worst,
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -4060,8 +4839,9 @@ def main():
             "route": "cuda",
             "source": "runbooks_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"runbooks_tpu/ops/flash_attention.py:{line}",
-            "launches": train_launches[name],
-            "launches_by_path": {"train": train_launches[name]},
+            "launches": train_launches[name] + text_launches[name],
+            "launches_by_path": {"train": train_launches[name],
+                                 "text_train": text_launches[name]},
             "max_abs_err": bwd_worst[name],
             "ms": train_case["ms"][name],
             "plain_ms": train_case["plain_ms"],

@@ -46,6 +46,7 @@ import torch
 
 from runbooks_tpu_torch.models.config import ModelConfig, get_config
 from runbooks_tpu_torch.models.transformer import check_supported, init_params
+from runbooks_tpu_torch.ops.flash_attention import flash_attention
 from runbooks_tpu_torch.ops.quantization import (
     quantize_params,
     resolve_quantize_mode,
@@ -623,10 +624,12 @@ class _Api:
         headers) and returns None.
 
         The engine's on_token hook runs on the worker thread and only puts
-        the choice's index on a queue this thread drains. Deltas come from
-        an incremental decoder: only tokens since the last committed delta
-        are decoded, and a trailing U+FFFD (a multibyte character still
-        incomplete) is held back until its continuation lands."""
+        the choice's index on a queue this thread drains. Each delta is the
+        decoded text of all the choice's ids so far past what was already
+        sent, less a tail that later ids may still change (``_settled``):
+        the streamed deltas add up to the unstreamed text. (The reference
+        decodes each chunk of ids alone, which drops the leading space a
+        sentencepiece decoder strips from every chunk.)"""
         events: queue.Queue = queue.Queue()
         for i, r in enumerate(reqs):
             r.on_token = lambda _t, i=i: events.put(i)
@@ -639,7 +642,7 @@ class _Api:
                else f"cmpl-{uuid.uuid4().hex[:24]}")
         created = int(time.time())
         role_sent = [False] * len(reqs)
-        start = [0] * len(reqs)   # first output token not yet committed
+        sent = [""] * len(reqs)   # the text streamed so far, per choice
 
         def chunk(i, text=None, finish=None):
             if chat:
@@ -661,14 +664,13 @@ class _Api:
 
         def next_delta(i, flush=False):
             ids = self._text_ids(list(reqs[i].output_tokens))
-            pending = ids[start[i]:]
-            if not pending:
+            text = (self.tokenizer.decode(ids) if flush
+                    else _settled(self.tokenizer, ids))
+            if len(text) <= len(sent[i]) or not text.startswith(sent[i]):
                 return None
-            text = self.tokenizer.decode(pending)
-            if not flush and text.endswith("�"):
-                return None
-            start[i] = len(ids)
-            return text or None
+            delta = text[len(sent[i]):]
+            sent[i] = text
+            return delta
 
         remaining = len(reqs)
         try:
@@ -699,6 +701,24 @@ class _Api:
             # the engine finishes the requests on its own.
             pass
         return None
+
+
+def _settled(tokenizer, ids: List[int]) -> str:
+    """The decoded text of ``ids`` that no later id can change: without
+    the trailing ids the tokenizer says are still open (a byte-fallback
+    run), without trailing U+FFFD (a multibyte character still
+    incomplete) and, for a tokenizer that cleans up tokenization spaces
+    (" ." -> "."), without the tail from the first space among its last 8
+    characters, where a clean-up rule may still match."""
+    tail = getattr(tokenizer, "unsettled_tail", None)
+    if tail is not None:
+        ids = ids[:len(ids) - tail(ids)]
+    text = tokenizer.decode(ids).rstrip("\ufffd")
+    if getattr(tokenizer, "clean_up_tokenization_spaces", False):
+        cut = text.find(" ", max(0, len(text) - 8))
+        if cut >= 0:
+            text = text[:cut]
+    return text
 
 
 def _chat_prompt(tokenizer, messages: list) -> str:
@@ -1106,6 +1126,11 @@ def main() -> int:
     print(f"serve: {cfg.name} ready on port {srv.port}", flush=True)
     srv.serve_forever()
     stopper[0].join()
+    # The flash forward kernel's launches over the process's life, for a
+    # caller that reads the log (its wrapper counts only CUDA launches).
+    print(json.dumps({"stopped": True,
+                      "flash_fwd_launches": flash_attention.launches}),
+          flush=True)
     return 0
 
 

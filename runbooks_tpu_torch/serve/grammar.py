@@ -51,8 +51,12 @@ class GrammarError(ValueError):
 
 def _token_bytes_table(tokenizer) -> Tuple[List[Optional[bytes]], int]:
     """Per-token-id byte strings (None for specials/unrepresentable) and
-    the eos id. The byte tokenizer gets the exact-bytes fast path — its
-    ``decode`` replaces non-UTF8 bytes, which would corrupt the table."""
+    the eos id. The byte tokenizer and a tokenizer with ``token_bytes``
+    (an HF directory read by ``models.tokenizer_io``) give each id's exact
+    bytes. Others fall back to ``decode([i])``, which is wrong for a
+    byte-level token that is a cut UTF-8 sequence (it decodes to U+FFFD)
+    and for a sentencepiece piece whose leading space the decoder strips;
+    the reference builds every table that way."""
     from runbooks_tpu_torch.train.data import ByteTokenizer
 
     specials = set()
@@ -72,6 +76,10 @@ def _token_bytes_table(tokenizer) -> Tuple[List[Optional[bytes]], int]:
     if isinstance(tokenizer, ByteTokenizer):
         for i in range(256):
             table[i] = bytes([i])
+    elif hasattr(tokenizer, "token_bytes"):
+        for i in range(n):
+            if i not in specials:
+                table[i] = tokenizer.token_bytes(i) or None
     else:
         for i in range(n):
             if i in specials:

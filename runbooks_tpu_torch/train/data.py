@@ -4,14 +4,19 @@
 Numpy in, numpy out: the same files and seed give the same arrays as the
 reference. Documents are packed several to a row with ``segment_ids`` (0 =
 padding) and positions that restart per document, so the attention masks
-keep documents apart. The trainer moves each batch to the device.
+keep documents apart. ``Prefetcher`` runs tokenize/pack (and, through
+``pinned_placer``, the copy into pinned host memory) ahead on a thread;
+the trainer copies each batch to the device on its own stream.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Iterable, Iterator, List, Optional, Sequence
+import queue
+import threading
+from typing import (Any, Callable, Dict, Iterable, Iterator, List, Optional,
+                    Sequence)
 
 import numpy as np
 
@@ -40,15 +45,34 @@ class ByteTokenizer:
         return data.decode("utf-8", errors="replace")
 
 
-def load_tokenizer(name_or_path: Optional[str] = None):
-    """No path: the byte tokenizer. A path raises: reading HF tokenizers
-    is not ported yet, and silently training on another token space than
-    the one asked for would corrupt the run."""
+def load_tokenizer(name_or_path: Optional[str] = None,
+                   allow_byte_fallback: bool = False):
+    """No path: the byte tokenizer. A path is an HF tokenizer directory,
+    read by ``models.tokenizer_io``; one that fails to load raises,
+    because training or serving on another token space than the one
+    asked for corrupts the run. ``allow_byte_fallback=True`` serves the
+    byte tokenizer instead (smoke setups only)."""
     if not name_or_path:
         return ByteTokenizer()
-    raise NotImplementedError(
-        f"tokenizer {name_or_path!r}: loading tokenizer files is not ported "
-        "yet; omit `tokenizer` to train with the byte tokenizer")
+    from runbooks_tpu_torch.models import tokenizer_io
+
+    try:
+        return tokenizer_io.load(name_or_path)
+    except Exception as exc:
+        if allow_byte_fallback:
+            print(f"data: tokenizer {name_or_path!r} failed to load "
+                  f"({exc!r}); falling back to the byte tokenizer",
+                  flush=True)
+            return ByteTokenizer()
+        raise RuntimeError(
+            f"tokenizer {name_or_path!r} could not be loaded (is the path "
+            "mounted and complete?). Pass allow_byte_fallback=True to "
+            f"serve the byte tokenizer instead: {exc}") from exc
+
+
+# The Dataset loader's manifest in the directory it fills
+# (train/dataset_loader.py).
+MANIFEST = "dataset.json"
 
 
 def read_documents(path: str, text_key: str = "text",
@@ -56,9 +80,13 @@ def read_documents(path: str, text_key: str = "text",
     """Documents from a file or a directory: .jsonl/.json ({text_key: ...}
     per line, or each record rendered through ``prompt_template`` with
     str.format; records missing a field are skipped), .txt (one document
-    per file), or a directory of either, in name order."""
+    per file), or a directory of either, in name order. A directory's
+    ``dataset.json`` is the loader's manifest, not data: it is skipped
+    (the reference parses it as jsonl and fails on its first line)."""
     if os.path.isdir(path):
         for name in sorted(os.listdir(path)):
+            if name == MANIFEST:
+                continue
             yield from read_documents(os.path.join(path, name), text_key,
                                       prompt_template)
         return
@@ -172,6 +200,106 @@ def skip_batches(it: Iterator[Batch], n: int) -> Iterator[Batch]:
         except StopIteration:
             break
     return it
+
+
+class Prefetcher:
+    """Bounded background-thread prefetcher: the thread pulls batches from
+    ``it`` (everything upstream: read, tokenize, pack), applies ``place``
+    and parks the results in a queue of ``depth`` slots, so the training
+    loop does not wait on host work while the device computes the
+    previous step.
+
+    As the reference's: batches come out in iterator order; exhausting
+    ``it`` ends iteration; an exception in the iterator or in ``place`` is
+    raised in the consumer at the position it occurred, after every batch
+    produced before it; ``close()`` stops the thread and joins it (also on
+    ``__exit__``, and safe to call twice)."""
+
+    _DONE = object()
+
+    def __init__(self, it: Iterator[Batch], depth: int = 2,
+                 place: Optional[Callable[[Batch], Any]] = None):
+        if depth < 1:
+            raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+        self._queue: "queue.Queue[Any]" = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._produce, args=(iter(it), place),
+            name="rbt-prefetch", daemon=True)
+        self._thread.start()
+
+    def _produce(self, it, place):
+        try:
+            while not self._stop.is_set():
+                try:
+                    item = next(it)
+                except StopIteration:
+                    break
+                if place is not None:
+                    item = place(item)
+                if not self._put(item):
+                    return
+            self._put(self._DONE)
+        except BaseException as exc:  # raised again on the consumer side
+            self._put(exc)
+
+    def _put(self, item) -> bool:
+        """A blocking put that gives up once close() is asked for."""
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        while True:
+            if self._stop.is_set():
+                raise StopIteration
+            try:
+                item = self._queue.get(timeout=0.1)
+                break
+            except queue.Empty:
+                if not self._thread.is_alive():
+                    raise StopIteration
+        if item is self._DONE:
+            raise StopIteration
+        if isinstance(item, BaseException):
+            raise item
+        return item
+
+    def close(self) -> None:
+        self._stop.set()
+        # Drain, so that a producer blocked on a full queue sees the stop.
+        try:
+            while True:
+                self._queue.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=5.0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def pinned_placer(pin: bool) -> Callable[[Batch], Dict[str, Any]]:
+    """Batch -> {name: torch tensor} for ``Prefetcher(place=...)``: the
+    numpy arrays as CPU tensors, in pinned (page-locked) memory when
+    ``pin``, so that the consumer's copy to the GPU is asynchronous."""
+    import torch
+
+    def place(batch: Batch) -> Dict[str, Any]:
+        out = {k: torch.from_numpy(v) for k, v in batch.items()}
+        return {k: v.pin_memory() for k, v in out.items()} if pin else out
+    return place
 
 
 def synthetic_batches(vocab_size: int, seq_len: int, batch_size: int,

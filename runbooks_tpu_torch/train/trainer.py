@@ -13,11 +13,15 @@ next step boundary with an emergency checkpoint (``exit_code_for`` then
 gives EXIT_PREEMPTED); ``max_bad_steps`` consecutive non-finite steps (each
 skipped by the step's guard) abort the run.
 
+``prefetch_depth`` > 0 (default 2) reads, tokenizes and packs ahead on a
+background thread (``data.Prefetcher``) into pinned host memory; the loop
+copies each batch to the device asynchronously on its own stream.
+
 Not ported yet (ROADMAP.md): the observability planes (spans, metrics
 registry, goodput, compile sentinel, profiler capture, cost analysis), the
-RBT_FAULT_INJECT hook, the GCE maintenance poller, the background
-prefetcher and the compile cache; mesh and collective-matmul keys of
-params.json are ignored, as unknown keys are.
+RBT_FAULT_INJECT hook, the GCE maintenance poller and the compile cache;
+mesh and collective-matmul keys of params.json are ignored, as unknown
+keys are.
 """
 
 from __future__ import annotations
@@ -65,9 +69,11 @@ class TrainJobConfig:
     steps: int = 100
     # accumulate_steps=k runs k microbatches of batch_size/k per optimizer
     # step; loss_chunk=c computes the loss in c-token chunks without the
-    # [b, s, vocab] logits; 0 = off.
+    # [b, s, vocab] logits; 0 = off. prefetch_depth=d > 0 tokenizes and
+    # packs up to d batches ahead on a background thread.
     accumulate_steps: int = 1
     loss_chunk: int = 0
+    prefetch_depth: int = 2
     data_path: Optional[str] = None       # default: contract data dir
     tokenizer: Optional[str] = None
     text_key: str = "text"
@@ -97,8 +103,8 @@ class TrainJobConfig:
         simple = {f.name for f in dataclasses.fields(cls)
                   if f.name not in ("optimizer", "lora", "model_overrides")}
         kwargs.update({k: v for k, v in params.items() if k in simple})
-        for key in ("accumulate_steps", "loss_chunk", "batch_size",
-                    "seq_len", "steps", "max_bad_steps"):
+        for key in ("accumulate_steps", "loss_chunk", "prefetch_depth",
+                    "batch_size", "seq_len", "steps", "max_bad_steps"):
             if key in kwargs:
                 kwargs[key] = int(kwargs[key])
         opt_keys = {f.name for f in dataclasses.fields(OptimizerConfig)}
@@ -119,8 +125,11 @@ def _batches(job: TrainJobConfig, model_cfg: ModelConfig,
     path = job.data_path or contract.data_dir()
     if path and os.path.exists(path):
         tok = data_mod.load_tokenizer(job.tokenizer)
-        if tok.vocab_size > model_cfg.vocab_size:
-            raise ValueError(f"tokenizer vocab {tok.vocab_size} exceeds "
+        # vocab_size as the reference reads it: an HF tokenizer's excludes
+        # its added tokens.
+        vocab = getattr(tok, "vocab_size", model_cfg.vocab_size)
+        if vocab > model_cfg.vocab_size:
+            raise ValueError(f"tokenizer vocab {vocab} exceeds "
                              f"model vocab {model_cfg.vocab_size}")
         it = data_mod.dataset(path, job.seq_len, job.batch_size,
                               tokenizer=tok, epochs=None,
@@ -198,6 +207,7 @@ def run_training(job: TrainJobConfig, base_params=None,
     history = []
     stop = {"reason": None}
     restore_sigs = []
+    prefetcher = None
     win = {"data": 0.0, "step": 0.0, "steps": 0}
 
     def summary_dict(in_progress: bool = False) -> Dict[str, Any]:
@@ -254,6 +264,10 @@ def run_training(job: TrainJobConfig, base_params=None,
                 restore_sigs.append((sig, signal.signal(sig, on_signal)))
 
         batches = _batches(job, model_cfg, skip=consumed)
+        if job.prefetch_depth > 0:
+            batches = prefetcher = data_mod.Prefetcher(
+                batches, depth=job.prefetch_depth,
+                place=data_mod.pinned_placer(on_cuda))
         t_start = time.perf_counter()
         tokens_done = 0
         for i in range(start_step, job.steps):
@@ -261,7 +275,7 @@ def run_training(job: TrainJobConfig, base_params=None,
                 exit_reason = stop["reason"]
                 break
             t_data = time.perf_counter()
-            batch = {k: torch.from_numpy(v).to(dev)
+            batch = {k: torch.as_tensor(v).to(dev, non_blocking=True)
                      for k, v in next(batches).items()}
             consumed += 1
             data_wait_s = time.perf_counter() - t_data
@@ -329,6 +343,8 @@ def run_training(job: TrainJobConfig, base_params=None,
                               "emergency_checkpoint_step": state.step}),
                   flush=True)
     finally:
+        if prefetcher is not None:
+            prefetcher.close()
         for sig, old in restore_sigs:
             signal.signal(sig, old)
 

@@ -690,3 +690,26 @@ def test_int8_engine_matches_cpu_port_on_card():
                 eng.generate(reqs)
             outs[dev, cls.__name__] = [r.output_tokens for r in reqs]
     assert len(set(map(str, outs.values()))) == 1, outs
+
+
+@pytest.mark.cuda
+def test_prefetched_pinned_batches_reach_the_card():
+    """The trainer's input path on the card: the Prefetcher's thread puts
+    each batch in pinned host memory, and the copy to the device made
+    without blocking gives the same tensors, in order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.train import data
+
+    want = data.synthetic_batches(1000, 2048, 8, seed=4)
+    with data.Prefetcher(data.synthetic_batches(1000, 2048, 8, seed=4),
+                         depth=2, place=data.pinned_placer(True)) as it:
+        for _ in range(5):
+            batch = next(it)
+            assert all(t.is_pinned() for t in batch.values())
+            dev = {k: v.to("cuda", non_blocking=True)
+                   for k, v in batch.items()}
+            ref = next(want)
+            torch.cuda.synchronize()
+            for k in ref:
+                assert torch.equal(dev[k].cpu(), torch.from_numpy(ref[k]))

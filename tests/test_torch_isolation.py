@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: no module of runbooks_tpu_torch and
-none of its root scripts imports jax or runbooks_tpu, the package imports
-with both blocked, and its entry points (serving's load_model,
-create_server and main, training's run_training) refuse to fall back to
-the CPU when no GPU exists and no device was named."""
+none of its root scripts imports jax or runbooks_tpu, nor a package the
+card lacks (transformers, tokenizers, sentencepiece, regex,
+huggingface_hub: the port reads tokenizer files itself), the package
+imports with all of them blocked, and its entry points (serving's
+load_model, create_server and main, training's run_training) refuse to
+fall back to the CPU when no GPU exists and no device was named."""
 
 import ast
 import os
@@ -15,7 +17,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "runbooks_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "runbooks_tpu")
+FORBIDDEN = ("jax", "jaxlib", "runbooks_tpu", "transformers", "tokenizers",
+             "sentencepiece", "regex", "huggingface_hub")
+# Packages the card lacks that a port module may still try for an
+# optional feature, inside ``try: ... except ImportError``: the model
+# loader's ``source: huggingface`` download.
+OPTIONAL = ("huggingface_hub",)
 
 
 def _port_files():
@@ -24,9 +31,21 @@ def _port_files():
                                          ROOT / "profile_torch_train.py"]
 
 
-def _imported(path: Path):
+def _imported(path: Path, skip_guarded: bool = False):
+    """Every module ``path`` imports; with ``skip_guarded`` not those
+    imported inside a try whose handler catches ImportError."""
     tree = ast.parse(path.read_text(), filename=str(path))
+    guarded = set()
+    if skip_guarded:
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Try) and any(
+                    "ImportError" in ast.dump(h.type or ast.Name("")) or
+                    h.type is None for h in node.handlers):
+                for stmt in node.body:
+                    guarded.update(id(n) for n in ast.walk(stmt))
     for node in ast.walk(tree):
+        if id(node) in guarded:
+            continue
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
@@ -40,8 +59,58 @@ def _forbidden(name: str) -> bool:
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
-    bad = [n for n in _imported(path) if _forbidden(n)]
+    bad = [n for n in _imported(path) if _forbidden(n)
+           and not any(n.startswith(o) for o in OPTIONAL)]
+    bad += [n for n in _imported(path, skip_guarded=True)
+            if any(n.startswith(o) for o in OPTIONAL)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_guarded_imports_are_seen():
+    """The check above finds an unguarded import of an optional package
+    and passes over a guarded one."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        plain = Path(d) / "plain.py"
+        plain.write_text("import huggingface_hub\nimport regex\n")
+        guarded = Path(d) / "guarded.py"
+        guarded.write_text("try:\n    from huggingface_hub import x\n"
+                           "except ImportError:\n    x = None\n")
+        assert list(_imported(plain, skip_guarded=True)) == [
+            "huggingface_hub", "regex"]
+        assert list(_imported(guarded, skip_guarded=True)) == []
+        assert list(_imported(guarded)) == ["huggingface_hub"]
+
+
+def test_tokenizer_files_read_with_the_card_packages_blocked(tmp_path):
+    """In a process where transformers, tokenizers, sentencepiece, regex
+    and huggingface_hub cannot be imported, chip_smoke's tokenizer writers
+    make both llama-style directories and the port loads, encodes,
+    decodes and renders their chat templates."""
+    code = ("import sys\n"
+            f"for m in {FORBIDDEN!r}:\n"
+            "    sys.modules[m] = None\n"
+            "import chip_smoke as cs\n"
+            "from runbooks_tpu_torch.train.data import load_tokenizer\n"
+            "docs = ['Hello world, it is 2024.\\n\u4e2d\u6587'] * 20\n"
+            f"cs.write_llama3_tokenizer({str(tmp_path / 'l3')!r}, docs, 0, "
+            "regular=600)\n"
+            f"cs.write_llama2_tokenizer({str(tmp_path / 'l2')!r}, docs, 0, "
+            "size=700)\n"
+            "for d in ('l3', 'l2'):\n"
+            f"    tok = load_tokenizer({str(tmp_path)!r} + '/' + d)\n"
+            "    ids = tok.encode(docs[0])\n"
+            "    assert tok.decode(ids, skip_special_tokens=True) == docs[0]\n"
+            "    msgs = [{'role': 'user', 'content': 'hi'}]\n"
+            "    text = tok.apply_chat_template(msgs, tokenize=False)\n"
+            "    assert 'hi' in text\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_package_imports_with_jax_blocked():
@@ -49,7 +118,7 @@ def test_package_imports_with_jax_blocked():
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in PORT.rglob("*.py") if p.name != "__init__.py")
     code = ("import sys\n"
-            "for m in ('jax', 'jaxlib', 'runbooks_tpu'):\n"
+            f"for m in {FORBIDDEN!r}:\n"
             "    sys.modules[m] = None\n"
             f"import importlib\n"
             f"for m in {modules!r}:\n"

@@ -92,8 +92,11 @@ def test_tokenizer_byte_default_and_path_refused():
     tok = data.load_tokenizer(None)
     assert tok.encode("hé") == jax_data.ByteTokenizer().encode("hé")
     assert tok.decode(tok.encode("hé")) == "hé"
-    with pytest.raises(NotImplementedError):
+    # A path that does not load raises, as the reference's does.
+    with pytest.raises(RuntimeError, match="could not be loaded"):
         data.load_tokenizer("/some/hf/dir")
+    with pytest.raises(RuntimeError):
+        jax_data.load_tokenizer("/some/hf/dir")
 
 
 def test_job_config_from_params_matches_reference():
@@ -103,7 +106,7 @@ def test_job_config_from_params_matches_reference():
               "lora": {"rank": 4, "alpha": 8.0}, "loss_chunk": 16,
               "model_overrides": {"dtype": "float32"}, "mesh_fsdp": 1,
               "log_every": 2, "checkpoint_every": 3, "seed": 9,
-              "data_path": "/x", "unknown_key": 1}
+              "data_path": "/x", "prefetch_depth": "3", "unknown_key": 1}
     mine = trainer.TrainJobConfig.from_params(params)
     ref = JaxJobConfig.from_params(params)
     for f in dataclasses.fields(mine):
@@ -157,7 +160,10 @@ def test_sigterm_stop_and_resume_is_bitwise_equal(tmp_path, monkeypatch):
             yield b
 
     monkeypatch.setattr(trainer, "_batches", batches)
-    cut = _job(tmp_path, "cut")
+    # The signal is sent from the batch iterator: without the prefetcher
+    # it runs in the loop, as step 2 takes its batch (a prefetcher's
+    # thread would draw batch 2 while step 1 still runs).
+    cut = _job(tmp_path, "cut", prefetch_depth=0)
     s_cut = trainer.run_training(cut, device="cpu")
     assert s_cut["exit_reason"] == "sigterm"
     assert trainer.exit_code_for(s_cut) == EXIT_PREEMPTED
