@@ -211,6 +211,26 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    launches from the server's exit line; then llama2-7b at full width cut
    to 2 layers with seeded weights behind ``create_server`` under the
    llama2-style tokenizer: streamed equals unstreamed.
+16. The non-Llama dense families: (a) K1 against its plain version at
+   falcon-7b's serving burst (71 query heads on 1 kv head, d 64), its
+   training microbatch (packed and causal), falcon-40b's 128 on 8 and
+   OPT's 12 on 12, and K2/K3 at falcon-7b's microbatch (K3 walks 71 heads
+   a block), with times, bounds, rates, the plain versions' times, SDPA
+   with enable_gqa as the yardstick and tiles as fwd_tile_plan's; (b)
+   falcon-7b bf16 at full width and depth: prefill logits through K1
+   against the plain attention, phase 4's mix through the dense and the
+   paged engine (greedy ids equal up to near-ties, K1 launches equal);
+   (c) examples/falcon-7b-instruct/finetuned-model.yaml's LoRA job on the
+   f32 base at full width and depth, 2 steps and a resume, then one
+   traced step (idle share); (d) two HF falcon directories (7b-style
+   fused MQA with one norm, 40b-style with 8 kv heads and split norms;
+   BF16, two shards, 2 layers at full width) through ``python -m
+   runbooks_tpu_torch.models.loader``, every leaf bit-equal to the source
+   taken apart by hand, the 7b import served; (e) ``python -m
+   runbooks_tpu_torch.serve.api`` serving opt-125m and gpt2 at full size
+   from bf16 checkpoints on the model mount, greedy answers equal to this
+   process's decode (gpt2's longest within 5 positions of its 1024-row
+   table), exit 0 on SIGTERM.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and {"ok": true, "device": {...}};
@@ -439,11 +459,12 @@ def fwd_case_layouts(torch, dev, batch):
     return cases
 
 
-def kernel_cases(torch, dev, gen, batch):
-    """fwd_case_layouts with seeded bf16 q, k, v, one case at a time:
-    (name, q, k, v, q_pos, kv_pos, q_seg, kv_seg, block_skip, used)."""
+def kernel_cases(torch, dev, gen, layouts):
+    """K1's case layouts (fwd_case_layouts) with seeded bf16 q, k, v, one
+    case at a time: (name, q, k, v, q_pos, kv_pos, q_seg, kv_seg,
+    block_skip, used)."""
     for (name, (b, sq, sk, h, kvh, d), qp, kp, qs, ks, skip,
-         used) in fwd_case_layouts(torch, dev, batch):
+         used) in layouts:
         q, k, v = (torch.randn(shape, generator=gen, device=dev,
                                dtype=torch.bfloat16)
                    for shape in ((b, sq, h, d), (b, sk, kvh, d),
@@ -506,30 +527,35 @@ def attention_bound(torch, q, k, q_pos, kv_pos, q_seg, kv_seg, used=None):
     return max(t_ops, t_bytes) * 1e3, bound_by, needed, done
 
 
-def library_attention(torch, q, k, v, q_pos, kv_pos, q_seg, kv_seg):
+def library_attention(torch, q, k, v, q_pos, kv_pos, q_seg, kv_seg,
+                      gqa=False):
     """One scaled_dot_product_attention call on the same masked problem
-    (K/V repeated to the query heads and the mask built beforehand)."""
+    (the mask built beforehand; K/V repeated to the query heads, or with
+    gqa read through ``enable_gqa``)."""
     import torch.nn.functional as F
 
     from runbooks_tpu_torch.ops.attention import make_attention_mask
 
-    n_rep = q.shape[2] // k.shape[2]
+    n_rep = 1 if gqa else q.shape[2] // k.shape[2]
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(n_rep, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(n_rep, dim=2).transpose(1, 2).contiguous()
     mask = make_attention_mask(q_pos, kv_pos, q_seg, kv_seg)
     mask &= (kv_pos < 2 ** 30)[:, None, None, :]
     return lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                  attn_mask=mask)
+                                                  attn_mask=mask,
+                                                  enable_gqa=gqa)
 
 
-def kernel_phase(torch, dev, seed, batch):
+def kernel_phase(torch, dev, seed, batch, layouts=None, gqa=False):
     """Phase 3: K1 against its plain version at every case of
-    fwd_case_layouts, with its time, the plain version's, SDPA's on the
-    same masked problem (and SDPA's causal forward at the training shape),
-    the bound and the achieved rate on the operations the masks need. The
-    kv tiles the card computed (its own count, fwd_tile_counts) must be
-    those fwd_tile_plan predicts, for every head."""
+    fwd_case_layouts (or ``layouts``), with its time, the plain version's,
+    SDPA's on the same masked problem (``gqa``: K/V read through
+    enable_gqa, not repeated; and SDPA's causal forward at the training
+    shapes, names a_ and b_), the bound and the achieved rate on the
+    operations the masks need. The kv tiles the card computed (its own
+    count, fwd_tile_counts) must be those fwd_tile_plan predicts, for
+    every head."""
     from runbooks_tpu_torch.ops.flash_attention import (
         NEG_INF,
         flash_attention_fwd,
@@ -541,8 +567,10 @@ def kernel_phase(torch, dev, seed, batch):
     gen.manual_seed(seed)
     records = {}
     worst = 0.0
+    if layouts is None:
+        layouts = fwd_case_layouts(torch, dev, batch)
     for (name, q, k, v, qp, kp, qs, ks, skip, used) in kernel_cases(
-            torch, dev, gen, batch):
+            torch, dev, gen, layouts):
         fwd_tile_counts()
         out, lse = flash_attention_fwd(q, k, v, qp, kp, qs, ks,
                                        block_skip=skip)
@@ -569,7 +597,7 @@ def kernel_phase(torch, dev, seed, batch):
         plain_ms = cuda_ms(lambda: flash_attention_reference(
             q, k, v, qp, kp, qs, ks, block_skip=skip), 2 if large else 3)
         library_ms = cuda_ms(library_attention(torch, q, k, v, qp, kp, qs,
-                                               ks), 10)
+                                               ks, gqa), 10)
         library_causal_ms = None
         if name.startswith(("a_", "b_")):
             library_causal_ms = cuda_ms(library_fwd(torch, q, k, v), 10)
@@ -612,6 +640,7 @@ def kernel_phase(torch, dev, seed, batch):
                              library_causal_ms=library_causal_ms,
                              bound_ms=bound_ms, bound_by=bound_by,
                              bound_ms_with_padding=padded_ms,
+                             tflops=tflops,
                              shape=f"q{tuple(q.shape)} k{tuple(k.shape)}")
         del q, k, v
     return records, worst
@@ -891,11 +920,12 @@ def bwd_case_layouts(torch, dev, batch):
     ]
 
 
-def bwd_cases(torch, dev, gen, batch):
-    """bwd_case_layouts with seeded bf16 q, k, v, do, one case at a time:
-    (name, q, k, v, do, q_pos, kv_pos, seg, block_skip, grad_dtype)."""
+def bwd_cases(torch, dev, gen, layouts):
+    """The backward's case layouts (bwd_case_layouts) with seeded bf16 q,
+    k, v, do, one case at a time: (name, q, k, v, do, q_pos, kv_pos, seg,
+    block_skip, grad_dtype)."""
     for (name, (b, sq, sk, h, kvh, d), qp, kp, seg, skip,
-         gd) in bwd_case_layouts(torch, dev, batch):
+         gd) in layouts:
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev,
                                    dtype=torch.bfloat16)
                        for shape in ((b, sq, h, d), (b, sk, kvh, d),
@@ -927,8 +957,9 @@ def library_bwd(torch, q, k, v, do):
                                        retain_graph=True)
 
 
-def bwd_kernel_phase(torch, dev, seed, batch):
-    """Phase 5: K2 and K3 against the plain backward at cases (a)-(f),
+def bwd_kernel_phase(torch, dev, seed, batch, layouts=None):
+    """Phase 5: K2 and K3 against the plain backward at cases (a)-(f) (or
+    ``layouts``; SDPA's backward at the case named b_),
     with each kernel's time, the plain version's, the bound, the rate on
     the operations the masks need, and SDPA's backward at (b) as the
     library yardstick. The (q tile, kv tile) pairs each kernel counts as
@@ -946,8 +977,10 @@ def bwd_kernel_phase(torch, dev, seed, batch):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 2)
     records, worst = {}, {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    if layouts is None:
+        layouts = bwd_case_layouts(torch, dev, batch)
     for (name, q, k, v, do, qp, kp, seg, skip, gd) in bwd_cases(
-            torch, dev, gen, batch):
+            torch, dev, gen, layouts):
         out, lse = flash_attention_fwd(q, k, v, qp, kp, seg, seg,
                                        block_skip=skip)
         bwd_tile_counts()
@@ -1026,7 +1059,7 @@ def bwd_kernel_phase(torch, dev, seed, batch):
         records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                              bounds=bounds, card_tiles=card,
                              shape=f"q{tuple(q.shape)} k{tuple(k.shape)}")
-    b = records["b_causal_2x2048"]
+    b = next(r for n, r in records.items() if n.startswith("b_"))
     both = sum(b["ms"].values())
     print(f"backward at (b) {b['shape']}: K2 {b['ms']['flash_bwd_dq']:.4f} "
           f"+ K3 {b['ms']['flash_bwd_dkv']:.4f} = {both:.4f} ms against "
@@ -1447,6 +1480,45 @@ def free_port():
         return s.getsockname()[1]
 
 
+def start_entry_point(content, port, log_path, ready_timeout):
+    """``python -m runbooks_tpu_torch.serve.api`` on the contract root
+    ``content`` (whose params.json names ``port``), its output in
+    log_path: (process, base URL, seconds to readiness). A server not
+    ready within ready_timeout is killed and fails the run."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, RBT_CONTENT_DIR=content,
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "runbooks_tpu_torch.serve.api"],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    while time.perf_counter() - t0 < ready_timeout and proc.poll() is None:
+        try:
+            if http_call(base, "/")[0] == 200:
+                return proc, base, time.perf_counter() - t0
+        except OSError:
+            pass
+        time.sleep(0.5)
+    if proc.poll() is None:
+        proc.kill()
+    proc.wait()
+    with open(log_path) as f:
+        print(f.read()[-3000:], flush=True)
+    raise SystemExit(f"the server on {content} was not ready within "
+                     f"{ready_timeout} s")
+
+
+def stopped_launches(log_text):
+    """K1's launches over a server's life, from the line it prints as it
+    exits (0 when it printed none)."""
+    stopped = [json.loads(ln) for ln in log_text.splitlines()
+               if ln.startswith('{"stopped"')]
+    return stopped[-1]["flash_fwd_launches"] if stopped else 0
+
+
 def entry_point_check(torch, dev, seed, workdir):
     """Phase 8 (c): the container's entry point against the model
     mount, at full width, depth ENTRY_LAYERS, bf16."""
@@ -1489,29 +1561,9 @@ def entry_point_check(torch, dev, seed, workdir):
                    "seed": seed, "port": port, "max_slots": 8,
                    "max_seq_len": 2048, "drain_timeout_s": ENTRY_DRAIN_S},
                   f)
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, RBT_CONTENT_DIR=content,
-               PYTHONPATH=os.pathsep.join(
-                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     log_path = f"{workdir}/entry_point.log"
-    t0 = time.perf_counter()
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "runbooks_tpu_torch.serve.api"],
-            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
-    base = f"http://127.0.0.1:{port}"
+    proc, base, ready_s = start_entry_point(content, port, log_path, 120)
     try:
-        ready_s = None
-        while time.perf_counter() - t0 < 120 and proc.poll() is None:
-            try:
-                if http_call(base, "/")[0] == 200:
-                    ready_s = time.perf_counter() - t0
-                    break
-            except OSError:
-                pass
-            time.sleep(0.5)
-        if ready_s is None:
-            raise SystemExit("the entry point was not ready within 120 s")
         status, _, text, _ = http_call(base, "/v1/completions", {
             "prompt": prompt, "max_tokens": MAX_TOKENS, "temperature": 0})
         if status != 200:
@@ -1603,15 +1655,97 @@ def hf_llama_names(cfg):
     return shapes
 
 
-def write_hf_llama(torch, dev, cfg, directory, seed, shards):
-    """An HF llama checkpoint directory of ``cfg`` in BF16, drawn on
-    ``dev`` from the seed: ``shards`` safetensors files and their index.
-    Returns ({name: CPU tensor}, bytes of tensor data)."""
+def hf_falcon_names(cfg):
+    """HF FalconForCausalLM's tensor names and [out, in] shapes: the fused
+    query_key_value; one input_layernorm (shared_layer_norm, 7b) or
+    ln_attn / ln_mlp (40b); a tied head (not stored)."""
+    h, m, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    qkv = (cfg.num_kv_heads * (cfg.num_heads // cfg.num_kv_heads + 2)
+           * cfg.head_dim)
+    norms = (("input_layernorm",) if cfg.shared_layer_norm
+             else ("ln_attn", "ln_mlp"))
+    shapes = {"transformer.word_embeddings.weight": (cfg.vocab_size, h)}
+    for i in range(L):
+        pre = f"transformer.h.{i}."
+        shapes.update({
+            pre + "self_attention.query_key_value.weight": (qkv, h),
+            pre + "self_attention.dense.weight": (h, cfg.q_dim),
+            pre + "mlp.dense_h_to_4h.weight": (m, h),
+            pre + "mlp.dense_4h_to_h.weight": (h, m)})
+        for n in norms:
+            shapes.update({pre + n + ".weight": (h,), pre + n + ".bias": (h,)})
+    shapes.update({"transformer.ln_f.weight": (h,),
+                   "transformer.ln_f.bias": (h,)})
+    return shapes
+
+
+def hf_opt_names(cfg):
+    """HF OPTForCausalLM's tensor names and [out, in] shapes (pre-LN,
+    positions with HF's 2 extra rows, a tied head not stored)."""
+    h, m, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    pre = "model.decoder."
+    shapes = {pre + "embed_tokens.weight": (cfg.vocab_size, h),
+              pre + "embed_positions.weight": (cfg.max_seq_len + 2, h)}
+    for i in range(L):
+        lp = f"{pre}layers.{i}."
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            shapes[lp + f"self_attn.{n}.weight"] = (h, h)
+            shapes[lp + f"self_attn.{n}.bias"] = (h,)
+        shapes.update({lp + "fc1.weight": (m, h), lp + "fc1.bias": (m,),
+                       lp + "fc2.weight": (h, m), lp + "fc2.bias": (h,)})
+        for n in ("self_attn_layer_norm", "final_layer_norm"):
+            shapes.update({lp + n + ".weight": (h,), lp + n + ".bias": (h,)})
+    shapes.update({pre + "final_layer_norm.weight": (h,),
+                   pre + "final_layer_norm.bias": (h,)})
+    return shapes
+
+
+def hf_gpt2_names(cfg):
+    """HF GPT2LMHeadModel's tensor names and Conv1D [in, out] shapes (the
+    fused c_attn; a tied head not stored)."""
+    h, m, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    shapes = {"transformer.wte.weight": (cfg.vocab_size, h),
+              "transformer.wpe.weight": (cfg.max_seq_len, h)}
+    for i in range(L):
+        pre = f"transformer.h.{i}."
+        shapes.update({
+            pre + "ln_1.weight": (h,), pre + "ln_1.bias": (h,),
+            pre + "attn.c_attn.weight": (h, 3 * h),
+            pre + "attn.c_attn.bias": (3 * h,),
+            pre + "attn.c_proj.weight": (h, h),
+            pre + "attn.c_proj.bias": (h,),
+            pre + "ln_2.weight": (h,), pre + "ln_2.bias": (h,),
+            pre + "mlp.c_fc.weight": (h, m), pre + "mlp.c_fc.bias": (m,),
+            pre + "mlp.c_proj.weight": (m, h),
+            pre + "mlp.c_proj.bias": (h,)})
+    shapes.update({"transformer.ln_f.weight": (h,),
+                   "transformer.ln_f.bias": (h,)})
+    return shapes
+
+
+def hf_names(cfg):
+    """The HF tensor names and shapes of cfg's family."""
+    from runbooks_tpu_torch.models.convert import family_of
+
+    return {"llama": hf_llama_names, "falcon": hf_falcon_names,
+            "opt": hf_opt_names, "gpt2": hf_gpt2_names}[family_of(cfg)](cfg)
+
+
+def _is_norm_weight(name):
+    return name.endswith(".weight") and any(
+        k in name for k in ("norm", "ln_", "layer_norm"))
+
+
+def write_hf_checkpoint(torch, dev, shapes, directory, seed, shards):
+    """An HF checkpoint directory in BF16 of the tensors ``shapes`` names,
+    drawn on ``dev`` from the seed (norm weights around 1, the rest
+    scaled by their last dimension): ``shards`` safetensors files and
+    their index. Returns ({name: CPU tensor}, bytes of tensor data)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 9)
     tensors = {}
-    for name, shape in hf_llama_names(cfg).items():
-        if name.endswith("norm.weight"):
+    for name, shape in shapes.items():
+        if _is_norm_weight(name):
             t = 1 + 0.1 * torch.randn(shape, generator=gen, device=dev)
         else:
             t = torch.randn(shape, generator=gen, device=dev) \
@@ -1632,6 +1766,106 @@ def write_hf_llama(torch, dev, cfg, directory, seed, shards):
         json.dump({"metadata": {"total_size": total},
                    "weight_map": weight_map}, f)
     return tensors, total
+
+
+def write_hf_llama(torch, dev, cfg, directory, seed, shards):
+    """An HF llama checkpoint directory of ``cfg`` (write_hf_checkpoint)."""
+    return write_hf_checkpoint(torch, dev, hf_llama_names(cfg), directory,
+                               seed, shards)
+
+
+def family_expected(torch, tensors, cfg):
+    """(dotted leaf, layer or None, what that leaf must hold) for every
+    leaf of a falcon, opt or gpt2 import, worked out here from the HF
+    tensors by hand: Falcon's fused rows taken apart per kv head (rep
+    query heads, then its key, then its value), OPT's positions without
+    their first 2 rows, GPT-2's c_attn columns split in three, every
+    [out, in] linear transposed."""
+    from runbooks_tpu_torch.models.convert import family_of
+
+    fam = family_of(cfg)
+    L, h, d = cfg.num_layers, cfg.hidden_size, cfg.head_dim
+    out = []
+
+    def add(leaf, name, transpose=False, layered=True, pick=None):
+        for i in (range(L) if layered else (None,)):
+            t = tensors[name.format(i=i)]
+            t = pick(t) if pick is not None else t
+            out.append((leaf, i, t.T if transpose else t))
+
+    if fam == "falcon":
+        pre = "transformer.h.{i}."
+        nkv, rep = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+        for i in range(L):
+            w = tensors[pre.format(i=i)
+                        + "self_attention.query_key_value.weight"]
+            rows = {"q": [], "k": [], "v": []}
+            for g in range(nkv):
+                base = g * (rep + 2) * d
+                rows["q"].append(w[base:base + rep * d])
+                rows["k"].append(w[base + rep * d:base + (rep + 1) * d])
+                rows["v"].append(w[base + (rep + 1) * d:
+                                   base + (rep + 2) * d])
+            for part in "qkv":
+                out.append((f"layers.attn.w{part}", i,
+                            torch.cat(rows[part]).T))
+        add("layers.attn.wo", pre + "self_attention.dense.weight", True)
+        add("layers.mlp.wi", pre + "mlp.dense_h_to_4h.weight", True)
+        add("layers.mlp.wo", pre + "mlp.dense_4h_to_h.weight", True)
+        norms = ({"ln1": "input_layernorm"} if cfg.shared_layer_norm
+                 else {"ln1": "ln_attn", "ln2": "ln_mlp"})
+        for leaf, n in norms.items():
+            add(f"layers.{leaf}.scale", pre + n + ".weight")
+            add(f"layers.{leaf}.bias", pre + n + ".bias")
+        add("embed", "transformer.word_embeddings.weight", layered=False)
+        add("final_norm.scale", "transformer.ln_f.weight", layered=False)
+        add("final_norm.bias", "transformer.ln_f.bias", layered=False)
+    elif fam == "opt":
+        pre = "model.decoder.layers.{i}."
+        for leaf, n in (("q", "q_proj"), ("k", "k_proj"), ("v", "v_proj"),
+                        ("o", "out_proj")):
+            add(f"layers.attn.w{leaf}", pre + f"self_attn.{n}.weight", True)
+            add(f"layers.attn.b{leaf}", pre + f"self_attn.{n}.bias")
+        add("layers.mlp.wi", pre + "fc1.weight", True)
+        add("layers.mlp.bi", pre + "fc1.bias")
+        add("layers.mlp.wo", pre + "fc2.weight", True)
+        add("layers.mlp.bo", pre + "fc2.bias")
+        for leaf, n in (("ln1", "self_attn_layer_norm"),
+                        ("ln2", "final_layer_norm")):
+            add(f"layers.{leaf}.scale", pre + n + ".weight")
+            add(f"layers.{leaf}.bias", pre + n + ".bias")
+        add("embed", "model.decoder.embed_tokens.weight", layered=False)
+        add("pos_embed", "model.decoder.embed_positions.weight",
+            layered=False, pick=lambda t: t[2:])
+        add("final_norm.scale", "model.decoder.final_layer_norm.weight",
+            layered=False)
+        add("final_norm.bias", "model.decoder.final_layer_norm.bias",
+            layered=False)
+    elif fam == "gpt2":
+        pre = "transformer.h.{i}."
+        for j, part in enumerate("qkv"):
+            cols = (lambda t, j=j: t[..., j * h:(j + 1) * h])
+            add(f"layers.attn.w{part}", pre + "attn.c_attn.weight",
+                pick=cols)
+            add(f"layers.attn.b{part}", pre + "attn.c_attn.bias", pick=cols)
+        for leaf, n in (("attn.wo", "attn.c_proj.weight"),
+                        ("attn.bo", "attn.c_proj.bias"),
+                        ("mlp.wi", "mlp.c_fc.weight"),
+                        ("mlp.bi", "mlp.c_fc.bias"),
+                        ("mlp.wo", "mlp.c_proj.weight"),
+                        ("mlp.bo", "mlp.c_proj.bias"),
+                        ("ln1.scale", "ln_1.weight"),
+                        ("ln1.bias", "ln_1.bias"),
+                        ("ln2.scale", "ln_2.weight"),
+                        ("ln2.bias", "ln_2.bias")):
+            add(f"layers.{leaf}", pre + n)
+        add("embed", "transformer.wte.weight", layered=False)
+        add("pos_embed", "transformer.wpe.weight", layered=False)
+        add("final_norm.scale", "transformer.ln_f.weight", layered=False)
+        add("final_norm.bias", "transformer.ln_f.bias", layered=False)
+    else:
+        raise ValueError(f"no hand expectation for the {fam} family")
+    return out
 
 
 def import_expected(torch, tensors, cfg):
@@ -4524,29 +4758,9 @@ def chat_server_check(torch, seed, workdir, l3_dir, l3_tok, docs):
         json.dump({**model, "tokenizer": l3_dir, "port": port,
                    "max_slots": 8, "max_seq_len": 2048, "grammar": "on",
                    "drain_timeout_s": ENTRY_DRAIN_S, "seed": seed}, f)
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, RBT_CONTENT_DIR=content,
-               PYTHONPATH=os.pathsep.join(
-                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     log_path = f"{workdir}/chat_server.log"
-    t0 = time.perf_counter()
-    with open(log_path, "w") as log:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "runbooks_tpu_torch.serve.api"],
-            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
-    base = f"http://127.0.0.1:{port}"
+    proc, base, ready_s = start_entry_point(content, port, log_path, 180)
     try:
-        ready_s = None
-        while time.perf_counter() - t0 < 180 and proc.poll() is None:
-            try:
-                if http_call(base, "/")[0] == 200:
-                    ready_s = time.perf_counter() - t0
-                    break
-            except OSError:
-                pass
-            time.sleep(0.5)
-        if ready_s is None:
-            raise SystemExit("the chat server was not ready within 180 s")
         body = {"messages": msgs, "max_tokens": MAX_TOKENS,
                 "temperature": 0}
         status, _, text, plain_s = http_call(base, "/v1/chat/completions",
@@ -4572,9 +4786,7 @@ def chat_server_check(torch, seed, workdir, l3_dir, l3_tok, docs):
             proc.wait()
         with open(log_path) as f:
             log_text = f.read()
-    stopped = [json.loads(ln) for ln in log_text.splitlines()
-               if ln.startswith('{"stopped"')]
-    launches = stopped[-1]["flash_fwd_launches"] if stopped else 0
+    launches = stopped_launches(log_text)
     rec = {"ready_s": ready_s, "prompt_tokens": len(ids),
            "template_encode_ms": encode_ms, "ttft_s_streamed": ttft_s,
            "unstreamed_s": plain_s, "stream_chunks": n_chunks,
@@ -4704,6 +4916,509 @@ def text_phase(torch, dev, seed, workdir):
             "flash_bwd_dkv": train_launches["flash_bwd_dkv"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the non-Llama dense families (Falcon, OPT, GPT-2)
+# ---------------------------------------------------------------------------
+
+# (c) examples/falcon-7b-instruct/finetuned-model.yaml on the f32 base at
+# full width and depth: 2 steps and a resume to a third.
+FALCON_TRAIN_STEPS = 2
+# (d) the two HF directories are cut to this depth (full width).
+FAMILY_IMPORT_LAYERS = 2
+# (e) gpt2's long request: a prompt of GPT2_LONG_PROMPT tokens and
+# GPT2_LONG_NEW new ones end 5 positions short of its 1024-row position
+# table (its prefill bucket of 1024 parks 24 padding rows past it).
+GPT2_LONG_PROMPT = 1000
+GPT2_LONG_NEW = 20
+FAMILY_HTTP_NEW = 32
+
+
+def family_fwd_layouts(torch, dev, batch):
+    """K1's phase-16 cases (fwd_case_layouts' tuple): falcon-7b's serving
+    burst (71 query heads on 1 kv head, d 64: an 8-row 128 bucket, rows
+    0-1 real, padding at position 2048 over a 2049-slot cache), its
+    training microbatch (a: 2 packed rows of the job's data; b: causal
+    without segments), falcon-40b's grouping (128 on 8) and OPT's MHA
+    (12 on 12), both 2 x 2048 causal."""
+
+    def ar(n, rows):
+        return torch.arange(n, device=dev, dtype=torch.int32)[None].expand(
+            rows, n).contiguous()
+
+    sk = 2049
+    pos = torch.full((8, 128), 2048, device=dev, dtype=torch.int32)
+    pos[0, :90] = ar(90, 1)[0]
+    pos[1, :120] = ar(120, 1)[0]
+    s = TRAIN_SEQ
+    tpos = torch.from_numpy(batch["positions"][:2]).to(dev)
+    tseg = torch.from_numpy(batch["segment_ids"][:2]).to(dev)
+    return [
+        ("falcon7b_rows8_sq128", (8, 128, sk, 71, 1, 64), pos, ar(sk, 8),
+         None, None, False, pos < 2048),
+        ("a_falcon7b_packed_2x2048", (2, s, s, 71, 1, 64), tpos, tpos, tseg,
+         tseg, True, None),
+        ("b_falcon7b_causal_2x2048", (2, s, s, 71, 1, 64), ar(s, 2),
+         ar(s, 2), None, None, True, None),
+        ("falcon40b_causal_2x2048", (2, s, s, 128, 8, 64), ar(s, 2),
+         ar(s, 2), None, None, True, None),
+        ("opt_causal_2x2048", (2, s, s, 12, 12, 64), ar(s, 2), ar(s, 2),
+         None, None, True, None),
+    ]
+
+
+def family_bwd_layouts(torch, dev, batch):
+    """K2/K3's phase-16 cases (bwd_case_layouts' tuple): falcon-7b's
+    training microbatch, packed (a) and causal (b), 71 on 1 at d 64: K3's
+    grid is (kv heads, rows, kv tiles) = (1, 2, 32) and each block walks
+    71 query heads."""
+    s = TRAIN_SEQ
+    pos = torch.from_numpy(batch["positions"][:2]).to(dev)
+    seg = torch.from_numpy(batch["segment_ids"][:2]).to(dev)
+    ar = torch.arange(s, device=dev, dtype=torch.int32)[None].expand(
+        2, s).contiguous()
+    return [
+        ("a_falcon7b_packed_2x2048", (2, s, s, 71, 1, 64), pos, pos, seg,
+         True, None),
+        ("b_falcon7b_causal_2x2048", (2, s, s, 71, 1, 64), ar, ar, None,
+         True, None),
+    ]
+
+
+def falcon_serve(torch, seed):
+    """Phase 16 (b): falcon-7b bf16 at full width and depth, the prefill
+    logits through K1 against the plain attention, then phase 4's mix
+    through the dense and the paged engine. Returns (record, K1 launches
+    by engine)."""
+    from runbooks_tpu_torch.serve.api import load_model
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+    from runbooks_tpu_torch.utils.tree import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg, params = load_model({"model": "falcon-7b",
+                              "model_overrides": {"param_dtype": "bfloat16"},
+                              "seed": seed})
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    weight_gb = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(params)) / 1e9
+    print(f"load_model falcon-7b bf16: {n_params / 1e9:.3f} B params "
+          f"({weight_gb:.2f} GB), layers {cfg.num_layers}, hidden "
+          f"{cfg.hidden_size}, heads {cfg.num_heads}/{cfg.num_kv_heads}, in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    prompts = smoke_prompts(seed)
+    plain_cfg = dataclasses.replace(cfg, attention_impl="xla")
+    with torch.no_grad():
+        flash = prefill_logits(torch, cfg, params, prompts[3], 512, 2048)
+        plain = prefill_logits(torch, plain_cfg, params, prompts[3], 512,
+                               2048)
+    gap_check("falcon-7b prefill logits, 300-token prompt, flash vs plain",
+              flash, plain)
+    record, ids, launches = {"weight_gb": weight_gb}, {}, {}
+    for name, cls in (("dense", None), ("paged", PagedInferenceEngine)):
+        engine, samples, warm_s = warm_engine(torch, cfg, params, seed,
+                                              cls=cls)
+        engine.ttft_seconds.clear()
+        reqs = smoke_requests(prompts, {})
+        torch.cuda.reset_peak_memory_stats()
+        st, run_ids = timed_generate(torch, engine, samples, reqs)
+        prompt_tokens = sum(len(p) for p in prompts)
+        st.update(warmup_s=warm_s,
+                  ttft_s_median=median(list(engine.ttft_seconds)),
+                  ttft_s_max=max(engine.ttft_seconds),
+                  prefill_tokens_per_s=prompt_tokens / st["prefill_s"],
+                  max_memory_allocated_gb=(
+                      torch.cuda.max_memory_allocated() / 1e9),
+                  cache_bytes=engine.cache.nbytes)
+        if not all(len(x) == MAX_TOKENS for x in run_ids):
+            raise SystemExit(f"falcon-7b {name}: not every request got "
+                             f"{MAX_TOKENS} tokens: {st}")
+        record[name] = st
+        ids[name] = run_ids
+        launches[f"falcon_serve_{name}"] = st["flash_fwd_launches"]
+        free_engine(torch, engine)
+        del engine
+    print("falcon-7b serve " + json.dumps(record), flush=True)
+    if launches["falcon_serve_dense"] != launches["falcon_serve_paged"] \
+            or launches["falcon_serve_dense"] < cfg.num_layers:
+        raise SystemExit(f"falcon-7b: K1 launches dense vs paged {launches}")
+    for i in range(0, len(prompts), 2):      # the greedy requests
+        near_tie_check(torch, cfg, params, f"falcon-7b request r{i}: "
+                       "greedy ids dense vs paged", prompts[i],
+                       ids["dense"][i], ids["paged"][i])
+    del params, flash, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def traced_falcon_step(torch, dev, seed, data_path, lora_cfg, opt_cfg):
+    """One optimizer step of the fine-tune's step function (after a warm
+    one) under torch.profiler: its wall time, the device's busy and idle
+    share of it, and the device time of K1, K2, K3 and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.transformer import init_params
+    from runbooks_tpu_torch.train import data
+    from runbooks_tpu_torch.train.lora import (
+        create_lora_train_state,
+        make_lora_train_step,
+    )
+    from runbooks_tpu_torch.train.optimizer import make_optimizer
+
+    cfg = get_config("falcon-7b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    base = init_params(cfg, gen, dev)
+    optimizer = make_optimizer(opt_cfg)
+    state = create_lora_train_state(lora_cfg, base, optimizer, gen)
+    step_fn = make_lora_train_step(cfg, lora_cfg, optimizer,
+                                   accumulate_steps=4)
+    batches = data.dataset(data_path, TRAIN_SEQ, 8, epochs=None)
+
+    def step(state):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in next(
+            batches).items()}
+        state, _ = step_fn(state, base, b)
+        torch.cuda.synchronize()
+        return state
+
+    state = step(state)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = step(state)
+        traced_s = time.perf_counter() - t0
+    groups = {"flash_fwd_kernel": 0.0, "flash_bwd_dq_kernel": 0.0,
+              "flash_bwd_dkv_kernel": 0.0}
+    busy = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        busy += e.self_device_time_total
+        for g in groups:
+            if g in e.key:
+                groups[g] += e.self_device_time_total
+    del base, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"traced_step_s": traced_s, "device_busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / 1e6 / traced_s,
+            "k1_ms": groups["flash_fwd_kernel"] / 1e3,
+            "k2_ms": groups["flash_bwd_dq_kernel"] / 1e3,
+            "k3_ms": groups["flash_bwd_dkv_kernel"] / 1e3}
+
+
+def falcon_train(torch, dev, seed, data_path, workdir):
+    """Phase 16 (c): examples/falcon-7b-instruct/finetuned-model.yaml's
+    job (LoRA rank 16, alpha 32, batch 8 in 4 microbatches, seq 2048, lr
+    2e-5) on an f32 falcon-7b base at full width and depth through
+    run_training: FALCON_TRAIN_STEPS steps, a resume to one more, then
+    one traced step. Returns (record, launches of the first run)."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from runbooks_tpu_torch.train.checkpoint import CheckpointManager
+    from runbooks_tpu_torch.train.lora import LoraConfig
+    from runbooks_tpu_torch.train.optimizer import OptimizerConfig
+    from runbooks_tpu_torch.train.trainer import TrainJobConfig, run_training
+
+    art = f"{workdir}/falcon_artifacts"
+    lora_cfg = LoraConfig(rank=16, alpha=32.0)
+    opt_cfg = OptimizerConfig(learning_rate=2e-5)
+    job = TrainJobConfig(
+        model="falcon-7b", lora=lora_cfg, optimizer=opt_cfg, batch_size=8,
+        seq_len=TRAIN_SEQ, accumulate_steps=4, steps=FALCON_TRAIN_STEPS,
+        data_path=data_path, artifacts_dir=art, log_every=1, seed=seed)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_attention_bwd.dq_launches = 0
+    flash_attention_bwd.dkv_launches = 0
+    t0 = time.perf_counter()
+    summary = run_training(job)
+    wall = time.perf_counter() - t0
+    launches = {"flash_fwd": flash_attention.launches,
+                "flash_bwd_dq": flash_attention_bwd.dq_launches,
+                "flash_bwd_dkv": flash_attention_bwd.dkv_launches}
+    peak = torch.cuda.max_memory_allocated()
+    hist = summary["history"]
+    losses = [e["loss"] for e in hist]
+    # Each layer of each of the 4 microbatches: K1 twice (the forward
+    # and the remat's recompute), K2 and K3 once.
+    n = get_config("falcon-7b").num_layers * 4
+    per_step = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    for name, n in per_step.items():
+        if launches[name] != n * FALCON_TRAIN_STEPS:
+            raise SystemExit(f"falcon-7b fine-tune: {name} launched "
+                             f"{launches[name]} times in "
+                             f"{FALCON_TRAIN_STEPS} steps")
+    if len(losses) != FALCON_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses):
+        raise SystemExit(f"falcon-7b fine-tune losses: {losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumed = run_training(dataclasses.replace(
+        job, steps=FALCON_TRAIN_STEPS + 1))
+    cursor = CheckpointManager(art).read_cursor(FALCON_TRAIN_STEPS)
+    r_losses = [e["loss"] for e in resumed["history"]]
+    if (resumed["restored_step"] != FALCON_TRAIN_STEPS
+            or cursor.get("batches_consumed") != FALCON_TRAIN_STEPS
+            or [e["step"] for e in resumed["history"]]
+            != [FALCON_TRAIN_STEPS + 1]
+            or not all(math.isfinite(x) for x in r_losses)):
+        raise SystemExit("falcon-7b fine-tune: the resume did not continue "
+                         "at the saved step and cursor")
+    gc.collect()
+    torch.cuda.empty_cache()
+    traced = traced_falcon_step(torch, dev, seed, data_path, lora_cfg,
+                                opt_cfg)
+    last = hist[-1]
+    record = {"steps": FALCON_TRAIN_STEPS, "wall_s_with_init": wall,
+              "losses": losses, "resumed_losses": r_losses,
+              "first_step_s": summary["first_step_s"],
+              "step_s": last.get("step_s"),
+              "tokens_per_s": last["tokens_per_sec"],
+              "mfu": last.get("mfu"),
+              "flops_per_token_x3":
+                  3.0 * get_config("falcon-7b").flops_per_token(TRAIN_SEQ),
+              "peak_memory_gb": peak / 1e9, "launches": launches,
+              "traced": traced}
+    print("falcon-7b fine-tune " + json.dumps(record), flush=True)
+    return record, launches
+
+
+def falcon_import(torch, dev, seed, workdir):
+    """Phase 16 (d): two HF falcon directories (BF16, two shards, full
+    width, FAMILY_IMPORT_LAYERS layers), falcon-7b style (fused MQA
+    query_key_value, one input_layernorm) and falcon-40b style (8 kv
+    heads, ln_attn / ln_mlp), through ``python -m
+    runbooks_tpu_torch.models.loader``; every leaf against the HF tensors
+    taken apart here by hand (family_expected); then load_model restores
+    the 7b import and its greedy ids equal those of the tree converted in
+    memory. Returns (record, K1 launches)."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.convert import convert
+    from runbooks_tpu_torch.models.safetensors_io import load_state_dict
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.api import load_model
+    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
+    from runbooks_tpu_torch.train.checkpoint import restore_params
+    from runbooks_tpu_torch.utils.tree import tree_map
+
+    overrides = {"num_layers": FAMILY_IMPORT_LAYERS,
+                 "param_dtype": "bfloat16"}
+    record = {}
+    for name in ("falcon-7b", "falcon-40b"):
+        cfg = get_config(name, **overrides)
+        src = f"{workdir}/hf_{name}"
+        t0 = time.perf_counter()
+        tensors, src_bytes = write_hf_checkpoint(
+            torch, dev, hf_names(cfg), src, seed, IMPORT_SHARDS)
+        write_s = time.perf_counter() - t0
+        content = f"{workdir}/import_{name}"
+        rc, import_s, peak_rss_gb, log_text = run_loader(
+            content, {"model": name, "model_overrides": overrides,
+                      "source": "dir", "dir": src})
+        if rc != 0:
+            print(log_text[-3000:], flush=True)
+            raise SystemExit(f"the {name} import exited {rc}")
+        restored, _ = restore_params(f"{content}/artifacts",
+                                     torch.device("cpu"))
+        n_leaves = n_equal = 0
+        for leaf, layer, want in family_expected(torch, tensors, cfg):
+            got = restored
+            for k in leaf.split("."):
+                got = got[k]
+            if layer is not None:
+                got = got[layer]
+            n_leaves += 1
+            n_equal += int(got.dtype == torch.bfloat16
+                           and torch.equal(got, want))
+        record[name] = {"source_bytes": src_bytes, "write_s": write_s,
+                        "import_s": import_s,
+                        "import_gb_per_s": src_bytes / import_s / 1e9,
+                        "loader_peak_rss_gb": peak_rss_gb,
+                        "leaves": n_leaves, "leaves_equal": n_equal}
+        print(f"import {name} x{FAMILY_IMPORT_LAYERS} layers: "
+              f"{json.dumps(record[name])}", flush=True)
+        if n_equal != n_leaves:
+            raise SystemExit(f"the {name} import differs from its source "
+                             f"({n_equal} of {n_leaves} leaves equal)")
+        del restored, tensors
+        gc.collect()
+
+    cfg, restored = load_model({
+        "model": "falcon-7b", "model_overrides": overrides,
+        "checkpoint": f"{workdir}/import_falcon-7b/artifacts"})
+    prompts = smoke_prompts(seed)[:4]
+
+    def greedy(params):
+        reqs = [Request(prompt_tokens=p, max_tokens=MAX_TOKENS)
+                for p in prompts]
+        with torch.no_grad():
+            InferenceEngine(cfg, params, max_slots=8, max_seq_len=2048,
+                            seed=seed).generate(reqs)
+        return [r.output_tokens for r in reqs]
+
+    flash_attention.launches = 0
+    got = greedy(restored)
+    launches = flash_attention.launches
+    del restored
+    in_memory = tree_map(lambda t: t.to(dev), convert(
+        cfg, load_state_dict(f"{workdir}/hf_falcon-7b"), cfg.param_dtype))
+    want = greedy(in_memory)
+    del in_memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = got == want
+    print(f"import falcon-7b: greedy ids of {len(prompts)} prompts from the "
+          f"restored checkpoint {'equal' if same else 'DIFFER FROM'} those "
+          f"of the tree converted in memory ({got[0][:6]}...); K1 launches "
+          f"{launches}", flush=True)
+    if not same or launches < 1:
+        raise SystemExit("serving the falcon-7b import failed")
+    record["falcon-7b"]["greedy_equal"] = same
+    return record, launches
+
+
+def family_server(torch, dev, seed, workdir, name, prompt_lens, new):
+    """Phase 16 (e), one family: seeded bf16 params of ``name`` at full
+    width and depth saved on the contract's model mount, ``python -m
+    runbooks_tpu_torch.serve.api`` with the example's params (the model's
+    name; the byte tokenizer, since it names none), one greedy completion
+    per prompt length against this process's decode of the saved params,
+    then SIGTERM. Returns (record, K1 launches over the server's life)."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.transformer import init_params
+    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
+    from runbooks_tpu_torch.train.checkpoint import CheckpointManager
+    from runbooks_tpu_torch.train.data import ByteTokenizer
+
+    cfg = get_config(name, param_dtype="bfloat16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 16)
+    params = init_params(cfg, gen, dev)
+    # Only byte ids decode to text: the tied head's other rows (and so
+    # their input embeddings) are zeroed so the greedy tokens show in the
+    # answer's text.
+    params["embed"][256:] = 0
+    content = f"{workdir}/{name}_content"
+    CheckpointManager(f"{content}/model").save(
+        1, {"step": 1, "params": params})
+    tok = ByteTokenizer()
+    cases = []
+    for n in prompt_lens:
+        text = tok.decode(seeded_prompts(seed + n, (n,))[0][1:])
+        ref = Request(prompt_tokens=tok.encode(text, add_eos=False),
+                      max_tokens=new[n], eos_id=tok.eos_id)
+        with torch.no_grad():
+            InferenceEngine(cfg, params, max_slots=8, seed=seed).generate(
+                [ref])
+        out = ref.output_tokens
+        if out and out[-1] == tok.eos_id:
+            out = out[:-1]
+        cases.append((text, ref, tok.decode(out)))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    port = free_port()
+    with open(f"{content}/params.json", "w") as f:
+        json.dump({"model": name, "port": port,
+                   "drain_timeout_s": ENTRY_DRAIN_S}, f)
+    log_path = f"{workdir}/{name}_server.log"
+    proc, base, ready_s = start_entry_point(content, port, log_path, 180)
+    answers = []
+    try:
+        for text, ref, want_text in cases:
+            t1 = time.perf_counter()
+            status, _, body, _ = http_call(base, "/v1/completions", {
+                "prompt": text, "max_tokens": ref.max_tokens,
+                "temperature": 0})
+            if status != 200:
+                raise SystemExit(f"{name} completion: {status} {body}")
+            reply = json.loads(body)
+            choice = reply["choices"][0]
+            answers.append({
+                "prompt_tokens": len(ref.prompt_tokens),
+                "completion_tokens": reply["usage"]["completion_tokens"],
+                "last_position": (len(ref.prompt_tokens)
+                                  + len(ref.output_tokens) - 1),
+                "finish_reason": choice["finish_reason"],
+                "request_s": time.perf_counter() - t1,
+                "equal": (choice["text"] == want_text
+                          and reply["usage"]["completion_tokens"]
+                          == len(ref.output_tokens)
+                          and choice["finish_reason"] == ref.finish_reason)})
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=ENTRY_DRAIN_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        with open(log_path) as f:
+            log_text = f.read()
+    launches = stopped_launches(log_text)
+    restored = "restored params of step 1" in log_text
+    record = {"ready_s": ready_s, "restored_from_mount": restored,
+              "answers": answers, "exit_code": rc,
+              "flash_fwd_launches": launches,
+              "position_table": cfg.max_seq_len}
+    print(f"{name} over HTTP " + json.dumps(record), flush=True)
+    if not (restored and rc == 0 and launches >= cfg.num_layers
+            and all(a["equal"] for a in answers)):
+        print(log_text[-3000:], flush=True)
+        raise SystemExit(f"the {name} server check failed")
+    return record, launches
+
+
+def families_phase(torch, dev, seed, batch, data_path, workdir):
+    """Phase 16: the non-Llama dense families. Returns (K1 launches by
+    path, K2/K3 launches, the kernel records at the families' shapes)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fwd, fwd_worst = kernel_phase(
+        torch, dev, seed + 16, batch,
+        layouts=family_fwd_layouts(torch, dev, batch), gqa=True)
+    bwd, bwd_worst = bwd_kernel_phase(
+        torch, dev, seed + 16, batch,
+        layouts=family_bwd_layouts(torch, dev, batch))
+    kernels_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve, serve_launches = falcon_serve(torch, seed)
+    train, train_launches = falcon_train(torch, dev, seed, data_path,
+                                         workdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    imported, import_launches = falcon_import(torch, dev, seed, workdir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt, opt_launches = family_server(torch, dev, seed, workdir, "opt-125m",
+                                      (300,), {300: FAMILY_HTTP_NEW})
+    gpt2, gpt2_launches = family_server(
+        torch, dev, seed, workdir, "gpt2", (300, GPT2_LONG_PROMPT),
+        {300: FAMILY_HTTP_NEW, GPT2_LONG_PROMPT: GPT2_LONG_NEW})
+    fwd_launches = {**serve_launches,
+                    "falcon_train": train_launches["flash_fwd"],
+                    "falcon_import": import_launches,
+                    "opt_http": opt_launches, "gpt2_http": gpt2_launches}
+    print("phase 16 " + json.dumps({
+        "card": card_line(), "kernels_s": kernels_s,
+        "flash_fwd_launches": fwd_launches,
+        "serve": serve, "fine_tune": train, "import": imported,
+        "opt_http": opt, "gpt2_http": gpt2,
+        "seconds": time.perf_counter() - t_phase}), flush=True)
+    return (fwd_launches,
+            {"flash_bwd_dq": train_launches["flash_bwd_dq"],
+             "flash_bwd_dkv": train_launches["flash_bwd_dkv"]},
+            {"fwd": fwd, "bwd": bwd, "fwd_worst": fwd_worst,
+             "bwd_worst": bwd_worst})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4781,6 +5496,8 @@ def main():
         quant_launches, qmm_records = quant_phase(torch, dev, args.seed,
                                                   workdir)
         text_launches = text_phase(torch, dev, args.seed, workdir)
+        family_launches, family_bwd_launches, family_records = \
+            families_phase(torch, dev, args.seed, batch, data_path, workdir)
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -4795,7 +5512,8 @@ def main():
                      + sum(paged_launches.values())
                      + sum(lora_launches.values())
                      + sum(quant_launches.values())
-                     + sum(text_launches["flash_fwd"].values())),
+                     + sum(text_launches["flash_fwd"].values())
+                     + sum(family_launches.values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
@@ -4805,8 +5523,9 @@ def main():
                              "prefix_off": no_prefix_launches,
                              **spec_launches, **paged_launches,
                              **lora_launches, **quant_launches,
-                             **text_launches["flash_fwd"]},
-        "max_abs_err": worst,
+                             **text_launches["flash_fwd"],
+                             **family_launches},
+        "max_abs_err": max(worst, family_records["fwd_worst"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
@@ -4829,6 +5548,11 @@ def main():
         "library_ms_causal_no_segments":
             records["b_causal_2x2048"]["library_causal_ms"],
         "shape": fwd_train["shape"]}
+    kernels[0]["family_shapes"] = {
+        name: {k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "library_causal_ms",
+                                 "tflops", "shape")}
+        for name, r in family_records["fwd"].items()}
     train_case = bwd_records["a_packed_2x2048"]
     causal_case = bwd_records["b_causal_2x2048"]
     library = causal_case["library_ms"]
@@ -4839,10 +5563,13 @@ def main():
             "route": "cuda",
             "source": "runbooks_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"runbooks_tpu/ops/flash_attention.py:{line}",
-            "launches": train_launches[name] + text_launches[name],
+            "launches": (train_launches[name] + text_launches[name]
+                         + family_bwd_launches[name]),
             "launches_by_path": {"train": train_launches[name],
-                                 "text_train": text_launches[name]},
-            "max_abs_err": bwd_worst[name],
+                                 "text_train": text_launches[name],
+                                 "falcon_train": family_bwd_launches[name]},
+            "max_abs_err": max(bwd_worst[name],
+                               family_records["bwd_worst"][name]),
             "ms": train_case["ms"][name],
             "plain_ms": train_case["plain_ms"],
             "plain_ms_covers": "flash_attention_bwd_reference: dq, dk, dv",
@@ -4860,6 +5587,14 @@ def main():
                 "library_ms": library,
                 "card_tiles_computed_open": causal_case["card_tiles"][name],
                 "shape": causal_case["shape"]},
+            "family_shapes": {
+                case: {"ms": r["ms"][name], "plain_ms": r["plain_ms"],
+                       "bound_ms": r["bounds"][name][0],
+                       "bound_by": r["bounds"][name][1],
+                       "library_ms": r["library_ms"],
+                       "card_tiles_computed_open": r["card_tiles"][name],
+                       "shape": r["shape"]}
+                for case, r in family_records["bwd"].items()},
         })
     print(f"train summary: tokens/s {summary['tokens_per_sec']:.1f} | "
           f"history {json.dumps(summary['history'])} | peak memory "

@@ -23,7 +23,11 @@ import numpy as np
 import torch
 
 from runbooks_tpu_torch.models.config import ModelConfig
-from runbooks_tpu_torch.models.transformer import Params, check_supported
+from runbooks_tpu_torch.models.transformer import (
+    Params,
+    check_supported,
+    init_params,
+)
 from runbooks_tpu_torch.ops.quantization import QuantizedArray
 from runbooks_tpu_torch.utils.tree import tree_map
 
@@ -43,19 +47,10 @@ def _shapes(tree, prefix=""):
 
 
 def expected_shapes(cfg: ModelConfig) -> dict:
-    """Dotted leaf name -> shape, for the layout init_params builds."""
-    h, v, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
-    m = cfg.intermediate_size
-    return {
-        "embed": (v, h), "final_norm.scale": (h,), "head": (h, v),
-        "layers.attn.wq": (L, h, cfg.q_dim),
-        "layers.attn.wk": (L, h, cfg.kv_dim),
-        "layers.attn.wv": (L, h, cfg.kv_dim),
-        "layers.attn.wo": (L, cfg.q_dim, h),
-        "layers.ln1.scale": (L, h), "layers.ln2.scale": (L, h),
-        "layers.mlp.wi_gate": (L, h, m), "layers.mlp.wi_up": (L, h, m),
-        "layers.mlp.wo": (L, m, h),
-    }
+    """Dotted leaf name -> shape, for the layout init_params builds
+    (every optional leaf the config implies; a quantized leaf counts its
+    logical shape)."""
+    return _shapes(init_params(cfg, None, torch.device("meta")))
 
 
 def from_jax_numpy(cfg: ModelConfig, tree: Mapping[str, Any],

@@ -27,8 +27,9 @@ families write:
 
 Anything else raises ``TokenizerFormatError`` naming what it met: another
 model, normalizer, pre-tokenizer, post-processor or decoder type, another
-split pattern, and a directory with only ``tokenizer.model`` (the
-sentencepiece protobuf).
+split pattern, a directory with only ``tokenizer.model`` (the
+sentencepiece protobuf), and one with only ``vocab.json`` and
+``merges.txt`` (GPT-2's and OPT's files without ``tokenizer.json``).
 
 The split patterns use Unicode classes (``\\p{L}``, ``\\p{N}``) that
 Python's ``re`` lacks: they are rebuilt as explicit code point classes
@@ -653,6 +654,13 @@ class HFTokenizer:
                     f"{path}: only tokenizer.model (a sentencepiece "
                     "protobuf) is there; reading it is not supported, only "
                     "tokenizer.json")
+            if all(os.path.isfile(os.path.join(path, n))
+                   for n in ("vocab.json", "merges.txt")):
+                raise TokenizerFormatError(
+                    f"{path}: only vocab.json and merges.txt (a GPT-2/OPT "
+                    "byte-level BPE without tokenizer.json, as "
+                    "facebook/opt-125m ships) are there; reading them is "
+                    "not supported yet, only tokenizer.json")
             raise TokenizerFormatError(f"{path}: no tokenizer.json")
         with open(tj, encoding="utf-8") as f:
             spec = json.load(f)

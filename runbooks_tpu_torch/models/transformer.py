@@ -1,9 +1,14 @@
 """Decoder-only transformer over a params dict (the port of
-``runbooks_tpu.models.transformer``, dense Llama-family path).
+``runbooks_tpu.models.transformer``: the dense Llama, Falcon, OPT and
+GPT-2 families).
 
 - Params keep the reference's layout: {"embed", "final_norm", "head",
   "layers": {...stacked [L, ...] tensors...}}; the forward loops over the
-  leading layer axis where the reference scans it.
+  leading layer axis where the reference scans it. The optional leaves
+  follow the config as the reference's: norm biases under layernorm,
+  attention and MLP biases, a plain (ungated) MLP ``mlp.wi``, learned
+  positions ``pos_embed``, no ``head`` under a tied head (the logits use
+  ``embed.T``), no ``ln2`` under a parallel block with one shared norm.
 - f32 norms, softmax and logits; matmuls in the activation dtype.
 - One forward serves the no-cache path and the KV-cache path. The cache
   path writes in place (the reference's donated buffers): the KVCache's
@@ -46,7 +51,7 @@ from runbooks_tpu_torch.ops.lora import (
     map_lane_indices,
     pool_lanes,
 )
-from runbooks_tpu_torch.ops.norms import rms_norm
+from runbooks_tpu_torch.ops.norms import layer_norm, rms_norm
 from runbooks_tpu_torch.ops.quantization import (
     QuantizedArray,
     dequantize_kv,
@@ -64,32 +69,35 @@ FLASH_CACHED_PREFILL_MIN_Q = 16
 
 def check_supported(cfg: ModelConfig) -> None:
     """Reject a config that needs a feature the port's forward does not
-    implement yet (the dense Llama-family path is ported; the rest waits
-    for later slices, see ROADMAP.md)."""
-    wanted = {
-        "norm_type": "rmsnorm", "gated_mlp": True, "activation": "silu",
-        "mlp_bias": False, "moe_num_experts": 0, "attn_bias": False,
-        "qk_norm": False, "logit_softcap": None, "position_type": "rope",
-        "parallel_block": False, "tie_embeddings": False,
-        "embed_scale": False,
-    }
-    bad = {k: getattr(cfg, k) for k, v in wanted.items()
-           if getattr(cfg, k) != v}
-    if bad:
+    implement yet, naming it (the dense Llama, Falcon, OPT and GPT-2
+    features are ported; MoE, qk-norm, softcap, ALiBi and the embedding
+    scale wait for later slices, see ROADMAP.md)."""
+    missing = []
+    if cfg.moe_num_experts:
+        missing.append(f"moe_num_experts={cfg.moe_num_experts} (MoE)")
+    if cfg.qk_norm:
+        missing.append("qk_norm")
+    if cfg.logit_softcap is not None:
+        missing.append(f"logit_softcap={cfg.logit_softcap}")
+    if cfg.position_type == "alibi":
+        missing.append("position_type='alibi'")
+    if cfg.embed_scale:
+        missing.append("embed_scale")
+    if missing:
         raise NotImplementedError(
-            f"config {cfg.name!r} needs {bad}, which the PyTorch port does "
-            f"not implement yet")
+            f"config {cfg.name!r} needs {', '.join(missing)}, which the "
+            f"PyTorch port does not implement yet")
 
 
 # ---------------------------------------------------------------------------
 # Initialization
 # ---------------------------------------------------------------------------
 
-def init_params(cfg: ModelConfig, generator: torch.Generator,
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                 device: torch.device) -> Params:
     """Random-init parameters (stacked layers) on ``device`` from a seeded
-    generator on that device. Same shapes, scales and layout as the
-    reference's init_params; the numbers differ (another RNG), so tests
+    generator on that device. Same leaves, shapes, scales and layout as
+    the reference's init_params; the numbers differ (another RNG), so tests
     carry the reference's weights over with models/bridge.py."""
     check_supported(cfg)
     h, v, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
@@ -103,26 +111,44 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def ones(shape):
         return torch.ones(shape, dtype=pd, device=device)
 
-    return {
-        "embed": normal((v, h), h ** -0.5),
-        "final_norm": {"scale": ones((h,))},
-        "head": normal((h, v), h ** -0.5),
-        "layers": {
-            "attn": {
-                "wq": normal((L, h, cfg.q_dim), h ** -0.5),
-                "wk": normal((L, h, cfg.kv_dim), h ** -0.5),
-                "wv": normal((L, h, cfg.kv_dim), h ** -0.5),
-                "wo": normal((L, cfg.q_dim, h), cfg.q_dim ** -0.5),
-            },
-            "ln1": {"scale": ones((L, h))},
-            "mlp": {
-                "wi_gate": normal((L, h, m), h ** -0.5),
-                "wi_up": normal((L, h, m), h ** -0.5),
-                "wo": normal((L, m, h), m ** -0.5),
-            },
-            "ln2": {"scale": ones((L, h))},
-        },
+    def zeros(shape):
+        return torch.zeros(shape, dtype=pd, device=device)
+
+    def norm(prefix=()):
+        if cfg.norm_type == "rmsnorm":
+            return {"scale": ones((*prefix, h))}
+        return {"scale": ones((*prefix, h)), "bias": zeros((*prefix, h))}
+
+    params: Params = {"embed": normal((v, h), h ** -0.5),
+                      "final_norm": norm()}
+    if cfg.position_type == "learned":
+        params["pos_embed"] = normal((cfg.max_seq_len, h), 0.02)
+    if not cfg.tie_embeddings:
+        params["head"] = normal((h, v), h ** -0.5)
+    attn = {
+        "wq": normal((L, h, cfg.q_dim), h ** -0.5),
+        "wk": normal((L, h, cfg.kv_dim), h ** -0.5),
+        "wv": normal((L, h, cfg.kv_dim), h ** -0.5),
+        "wo": normal((L, cfg.q_dim, h), cfg.q_dim ** -0.5),
     }
+    if cfg.attn_bias:
+        attn.update(bq=zeros((L, cfg.q_dim)), bk=zeros((L, cfg.kv_dim)),
+                    bv=zeros((L, cfg.kv_dim)), bo=zeros((L, h)))
+    if cfg.gated_mlp:
+        mlp = {"wi_gate": normal((L, h, m), h ** -0.5),
+               "wi_up": normal((L, h, m), h ** -0.5)}
+    else:
+        mlp = {"wi": normal((L, h, m), h ** -0.5)}
+    mlp["wo"] = normal((L, m, h), m ** -0.5)
+    if cfg.mlp_bias:
+        for k in [k for k in mlp if k.startswith("wi")]:
+            mlp["b" + k[1:]] = zeros((L, m))
+        mlp["bo"] = zeros((L, h))
+    layers = {"attn": attn, "ln1": norm((L,)), "mlp": mlp}
+    if not (cfg.parallel_block and cfg.shared_layer_norm):
+        layers["ln2"] = norm((L,))
+    params["layers"] = layers
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +244,34 @@ def use_flash_cached_prefill(cfg: ModelConfig, q_len: int,
 # Blocks
 # ---------------------------------------------------------------------------
 
+def _norm(cfg: ModelConfig, p: Params, x: torch.Tensor,
+          layer_idx: Optional[int] = None) -> torch.Tensor:
+    """The config's norm with p's scale (and bias), of layer ``layer_idx``
+    of a stacked group when given."""
+    pick = (lambda t: t) if layer_idx is None else (lambda t: t[layer_idx])
+    if cfg.norm_type == "rmsnorm":
+        return rms_norm(x, pick(p["scale"]), cfg.norm_eps)
+    return layer_norm(x, pick(p["scale"]), pick(p["bias"]), cfg.norm_eps)
+
+
+def _activation(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """silu, gelu or relu. gelu is the tanh form for every family, as the
+    reference's (``jax.nn.gelu(approximate=True)``)."""
+    if cfg.activation == "silu":
+        return F.silu(x)
+    if cfg.activation == "gelu":
+        return F.gelu(x, approximate="tanh")
+    return F.relu(x)
+
+
+def _add_bias(p, name: str, layer_idx: int, y: torch.Tensor, ad):
+    """y plus layer ``layer_idx``'s bias ``name`` when the params hold
+    it (after any LoRA or adapter delta, as the reference)."""
+    if name not in p:
+        return y
+    return y + p[name][layer_idx].to(ad)
+
+
 def _matmul(x: torch.Tensor, w, ad: torch.dtype):
     if isinstance(w, QuantizedArray):
         return quantized_matmul(x, w, ad).to(ad)
@@ -294,14 +348,16 @@ def _attention_block(cfg, p, layer_idx, x, positions, mask, layer_cache,
     w = lambda name: _weight(p, "attn", name, layer_idx, lora)  # noqa: E731
 
     def proj(name):
-        return _adapter_delta(adapter, name, layer_idx, x,
-                              _matmul(x, w(name), ad), ad)
+        y = _adapter_delta(adapter, name, layer_idx, x,
+                           _matmul(x, w(name), ad), ad)
+        return _add_bias(p, "b" + name[1:], layer_idx, y, ad)
 
     q = proj("wq").reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = proj("wk").reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = proj("wv").reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.position_type == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if layer_cache is not None:
         # [b, cache_len, kvh, d]; the scales [b, cache_len, kvh] or None.
@@ -360,20 +416,33 @@ def _attention_block(cfg, p, layer_idx, x, positions, mask, layer_cache,
     else:
         out = dot_product_attention(q, k, v, mask=mask)
     out = out.reshape(b, s, cfg.q_dim)
-    return _adapter_delta(adapter, "wo", layer_idx, out,
-                          _matmul(out, w("wo"), ad), ad)
+    out = _adapter_delta(adapter, "wo", layer_idx, out,
+                         _matmul(out, w("wo"), ad), ad)
+    return _add_bias(p, "bo", layer_idx, out, ad)
 
 
 def _mlp_block(cfg, p, layer_idx, x, lora=None, adapter=None):
+    """The gated MLP (act(x Wg + bg) * (x Wu + bu)) or the plain one
+    (act(x Wi + bi)), then Wo + bo; each bias after its delta."""
     ad = cfg.activation_dtype
     w = lambda name: _weight(p, "mlp", name, layer_idx, lora)  # noqa: E731
 
     def proj(y, name):
-        return _adapter_delta(adapter, name, layer_idx, y,
-                              _matmul(y, w(name), ad), ad)
+        out = _adapter_delta(adapter, name, layer_idx, y,
+                             _matmul(y, w(name), ad), ad)
+        return _add_bias(p, "b" + name[1:], layer_idx, out, ad)
 
-    hidden = F.silu(proj(x, "wi_gate")) * proj(x, "wi_up")
+    if cfg.gated_mlp:
+        hidden = _activation(cfg, proj(x, "wi_gate")) * proj(x, "wi_up")
+    else:
+        hidden = _activation(cfg, proj(x, "wi"))
     return proj(hidden, "wo")
+
+
+def head_weight(cfg: ModelConfig, params: Params) -> torch.Tensor:
+    """The [hidden, vocab] output projection: ``embed.T`` under a tied
+    head (a view, so a gradient reaches the embedding), else ``head``."""
+    return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
 def lm_head(cfg: ModelConfig, params: Params,
@@ -383,7 +452,8 @@ def lm_head(cfg: ModelConfig, params: Params,
     f32 result; here the operands (exactly representable) are widened to
     f32 so the logits are not rounded back to bf16."""
     ad = cfg.activation_dtype
-    return torch.matmul(x.to(ad).float(), params["head"].to(ad).float())
+    return torch.matmul(x.to(ad).float(),
+                        head_weight(cfg, params).to(ad).float())
 
 
 # ---------------------------------------------------------------------------
@@ -447,6 +517,12 @@ def forward(
                                               b, s)
 
     x = params["embed"].to(ad)[tokens]
+    if cfg.position_type == "learned":
+        # A JAX gather clamps an index past the table: padding parked at
+        # the trash slot (max_seq_len) reads the last row, as the
+        # reference's does. Positions are never negative.
+        table = params["pos_embed"]
+        x = x + table.to(ad)[positions.clamp(0, table.shape[0] - 1).long()]
 
     if cache is not None:
         max_kv = (cache_view if cache_view is not None
@@ -474,11 +550,19 @@ def forward(
             torch.as_tensor(lane_idx, device=device), pool_lanes(pool)))
 
     def block(x, li, layer_cache):
-        h1 = rms_norm(x, layers["ln1"]["scale"][li], cfg.norm_eps)
-        x = x + _attention_block(cfg, layers["attn"], li, h1, positions,
-                                 mask, layer_cache, segment_ids, lora,
-                                 rows.get("attn"))
-        h2 = rms_norm(x, layers["ln2"]["scale"][li], cfg.norm_eps)
+        h1 = _norm(cfg, layers["ln1"], x, li)
+        attn_out = _attention_block(cfg, layers["attn"], li, h1, positions,
+                                    mask, layer_cache, segment_ids, lora,
+                                    rows.get("attn"))
+        if cfg.parallel_block:
+            # Falcon: attention and MLP read the same input, through one
+            # shared norm (7b) or their own (40b's ln_attn / ln_mlp).
+            h2 = (h1 if cfg.shared_layer_norm
+                  else _norm(cfg, layers["ln2"], x, li))
+            return x + attn_out + _mlp_block(cfg, layers["mlp"], li, h2,
+                                             lora, rows.get("mlp"))
+        x = x + attn_out
+        h2 = _norm(cfg, layers["ln2"], x, li)
         return x + _mlp_block(cfg, layers["mlp"], li, h2, lora,
                               rows.get("mlp"))
 
@@ -500,7 +584,7 @@ def forward(
                             index=cache.index if scatter_mode
                             else cache.index + s,
                             k_scale=cache.k_scale, v_scale=cache.v_scale)
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    x = _norm(cfg, params["final_norm"], x)
     if return_activations:
         return x, new_cache
     return lm_head(cfg, params, x), new_cache

@@ -29,8 +29,9 @@ from runbooks_tpu_torch.utils.tree import tree_leaves
 
 Params = Any
 
-# Matrices eligible for LoRA, by their path inside params["layers"]. The
-# port's forward has no ungated "mlp.wi".
+# Matrices eligible for LoRA, by their path inside params["layers"]
+# ("mlp.wi" is the plain MLP's input matrix; "wi_gate"/"wi_up" the gated
+# one's). Targets a model lacks are skipped.
 DEFAULT_TARGETS = ("attn.wq", "attn.wk", "attn.wv", "attn.wo")
 ALL_TARGETS = DEFAULT_TARGETS + ("mlp.wi_gate", "mlp.wi_up", "mlp.wi",
                                  "mlp.wo")

@@ -18,7 +18,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from runbooks_tpu_torch.models.config import ModelConfig
-from runbooks_tpu_torch.models.transformer import forward, lm_head
+from runbooks_tpu_torch.models.transformer import (
+    forward,
+    head_weight,
+    lm_head,
+)
 from runbooks_tpu_torch.train.optimizer import AdamW, global_norm
 from runbooks_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -83,7 +87,9 @@ def chunked_cross_entropy(acts: torch.Tensor, head: torch.Tensor,
 def make_ce_terms(cfg: ModelConfig, remat: bool, loss_chunk: int):
     """(params, batch, lora=None) -> (mean CE loss, total weight).
     loss_chunk > 0 takes the chunked loss over the post-norm activations;
-    0 the full logits and ``cross_entropy_loss``."""
+    0 the full logits and ``cross_entropy_loss``. A tied head is
+    ``embed.T`` (its gradient reaches the embedding), as the
+    reference's."""
 
     def ce_terms(params, batch: Batch, lora=None):
         out, _ = forward(cfg, params, batch["tokens"],
@@ -92,7 +98,7 @@ def make_ce_terms(cfg: ModelConfig, remat: bool, loss_chunk: int):
                          return_activations=True, lora=lora)
         if loss_chunk:
             return chunked_cross_entropy(
-                out, params["head"], batch["targets"],
+                out, head_weight(cfg, params), batch["targets"],
                 batch.get("loss_mask"), chunk_size=loss_chunk,
                 compute_dtype=cfg.activation_dtype)
         return cross_entropy_loss(lm_head(cfg, params, out),

@@ -296,8 +296,8 @@ def test_family_of_matches_jax(name):
 
 
 @pytest.mark.parametrize("name,family", [
-    ("falcon-7b", "falcon"), ("opt-125m", "opt"), ("gpt2", "gpt2"),
-    ("mixtral-8x7b", "mixtral"), ("gemma-2b", "gemma")])
+    ("mixtral-8x7b", "mixtral"), ("gemma-2b", "gemma"),
+    ("gemma-7b", "gemma")])
 def test_other_families_raise_by_name(name, family):
     with pytest.raises(NotImplementedError, match=f"the {family} converter"):
         convert(get_config(name), {})

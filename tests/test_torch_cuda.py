@@ -45,7 +45,9 @@ def _fwd_case(dev, g, case):
     """(q, k, v, q_pos, kv_pos, seg, block_skip) of a K1 case: the serving
     prefill's shapes (GQA 32/8, d=128, ragged kv of 2049), and the tile
     skips: segments that close tiles, cached prefill at an offset, a ragged
-    sk with the causal skip, and d=64."""
+    sk with the causal skip, d=64, and the non-Llama families' groupings at
+    d=64: falcon-7b's 71 query heads on one kv head over a 2049-slot
+    cache, falcon-40b's 128 on 8 with the skip."""
     rows, sq, sk, start, h, hk, d = {
         "prompt_kv2049": (1, 256, 2049, 0, 32, 8, 128),
         "cached_prefill_at100": (2, 128, 2049, 100, 32, 8, 128),
@@ -54,6 +56,8 @@ def _fwd_case(dev, g, case):
         "position_skip_at1000": (1, 200, 1500, 1000, 32, 8, 128),
         "ragged_skip": (2, 333, 333, 0, 32, 8, 128),
         "d64_skip": (2, 300, 300, 0, 16, 8, 64),
+        "falcon7b_mqa71_kv2049": (2, 128, 2049, 300, 71, 1, 64),
+        "falcon40b_rep16_skip": (1, 300, 300, 0, 128, 8, 64),
     }[case]
     q = torch.randn((rows, sq, h, d), generator=g, device=dev,
                     dtype=torch.bfloat16)
@@ -75,7 +79,8 @@ def _fwd_case(dev, g, case):
             pos[:, at:at + n] = torch.arange(n, device=dev, dtype=torch.int32)
             at += n
         q_pos = kv_pos = pos
-    skip = case in ("segment_closed_tiles", "ragged_skip", "d64_skip")
+    skip = case in ("segment_closed_tiles", "ragged_skip", "d64_skip",
+                    "falcon40b_rep16_skip")
     return q, k, v, q_pos.contiguous(), kv_pos.contiguous(), seg, skip
 
 
@@ -83,7 +88,8 @@ def _fwd_case(dev, g, case):
 @pytest.mark.parametrize("case", ["prompt_kv2049", "cached_prefill_at100",
                                   "mha_kv300", "segment_closed_tiles",
                                   "position_skip_at1000", "ragged_skip",
-                                  "d64_skip"])
+                                  "d64_skip", "falcon7b_mqa71_kv2049",
+                                  "falcon40b_rep16_skip"])
 def test_kernel_matches_plain_version_on_card(case):
     """The CUDA kernel against its plain version. out within
     1e-2 + 1e-2 * |plain| (bf16 output, one ulp is 2**-7 relative, and bf16
@@ -187,14 +193,17 @@ def _assert_bwd_close(got, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["skip_gqa4", "segments", "ragged",
                                   "d64_rep2", "sk_gt_sq", "f32_grads",
-                                  "segment_closed_tiles"])
+                                  "segment_closed_tiles", "falcon7b_mqa71",
+                                  "falcon40b_rep16"])
 def test_backward_kernels_match_plain_version_on_card(case):
     """K2 (dq) and K3 (dk, dv) against the plain backward: GQA 32/8 at
     d=128 with the causal skip, packed segments with padding rows, a
     ragged length, d=64 with n_rep 2, more keys than queries with offset
     queries (keys no query sees get exactly 0), f32 gradients, and
     documents of 70, 300 and 150 tokens with a padding tail, whose
-    boundaries fall inside tiles and close whole ones. The (q tile, kv
+    boundaries fall inside tiles and close whole ones; falcon-7b's 71
+    query heads on one kv head (K3 walks all 71 in each block) and
+    falcon-40b's 128 on 8, both at d=64. The (q tile, kv
     tile) pairs each kernel counts as computed and open on the card are
     those fwd_tile_plan gives at the backward's tiles, for every head."""
     if not torch.cuda.is_available():
@@ -207,7 +216,9 @@ def test_backward_kernels_match_plain_version_on_card(case):
              "d64_rep2": (2, 192, 192, 16, 8, 64),
              "sk_gt_sq": (1, 100, 260, 32, 8, 128),
              "f32_grads": (1, 128, 128, 32, 8, 128),
-             "segment_closed_tiles": (2, 640, 640, 32, 8, 128)}[case]
+             "segment_closed_tiles": (2, 640, 640, 32, 8, 128),
+             "falcon7b_mqa71": (2, 256, 256, 71, 1, 64),
+             "falcon40b_rep16": (1, 192, 192, 128, 8, 64)}[case]
     start = 100 if case == "sk_gt_sq" else 0
     # Documents packed from row 0; the rest of each row is padding.
     docs = {"segments": (106, 150),
@@ -713,3 +724,42 @@ def test_prefetched_pinned_batches_reach_the_card():
             torch.cuda.synchronize()
             for k in ref:
                 assert torch.equal(dev[k].cpu(), torch.from_numpy(ref[k]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["falcon-7b", "falcon-40b", "opt-125m",
+                                  "gpt2"])
+def test_family_engines_match_cpu_port_on_card(name):
+    """The non-Llama families cut to 2 layers of 256 (4 query heads of 64;
+    falcon-7b's one kv head, falcon-40b's two with split norms) in f32
+    with the plain attention: the dense and paged engines on the card give
+    the CPU port's greedy ids, learned positions clamped past their
+    64-row table at the trash slot."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.serve.api import load_model
+    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+    from runbooks_tpu_torch.utils.tree import tree_map
+
+    kvh = {"falcon-7b": 1, "falcon-40b": 2}.get(name, 4)
+    cfg, params = load_model({
+        "model": name, "seed": 5,
+        "model_overrides": {"num_layers": 2, "hidden_size": 256,
+                            "intermediate_size": 512, "num_heads": 4,
+                            "num_kv_heads": kvh, "head_dim": 64,
+                            "vocab_size": 512, "max_seq_len": 64,
+                            "dtype": "float32", "attention_impl": "xla"}},
+        device="cpu")
+    prompts = [list(range(1, 50)), [5, 6, 7] * 5, [9, 4]]
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev), params)
+        for cls in (InferenceEngine, PagedInferenceEngine):
+            eng = cls(cfg, p, max_slots=4, max_seq_len=64)
+            reqs = [Request(prompt_tokens=x, max_tokens=24)
+                    for x in prompts]
+            with torch.no_grad():
+                eng.generate(reqs)
+            outs[dev, cls.__name__] = [r.output_tokens for r in reqs]
+    assert len(set(map(str, outs.values()))) == 1, outs

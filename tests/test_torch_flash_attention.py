@@ -10,7 +10,15 @@ shapes run past one 64-wide tile and end in a ragged one. The CUDA kernel
 is held to the plain version in tests/test_torch_cuda.py.
 
 Tolerances. float32: out and lse within 1e-5 absolute (both sides do f32
-arithmetic in another summation order). bfloat16 inputs: both sides upcast
+arithmetic in another summation order; at the shapes here the two agree
+within ~7e-7, so 1e-5 holds only while both sides really multiply in
+f32). The test therefore pins what that depends on instead of inheriting
+it from whatever ran before it in the same worker process: the reference
+runs under an explicit "highest" matmul precision (its dots resolve their
+precision from process-global JAX config when traced), on its own copies
+of the inputs, and is materialized before the port's side runs; the
+port's side runs with torch's f32 matmul precision "highest" and two
+intra-op threads, both set around each test and restored after it. bfloat16 inputs: both sides upcast
 to f32 inside; out is rounded to bf16 at the end, so out agrees within
 bf16 rounding of values of magnitude <= ~3 (2**-8 * 4 = 1.6e-2) and lse,
 which stays f32, within 1e-5.
@@ -20,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from runbooks_tpu.ops.flash_attention import _flash_fwd as jax_flash_fwd
 
@@ -33,6 +42,19 @@ from runbooks_tpu_torch.ops.flash_attention import (
 torch.set_num_threads(2)
 
 F32_ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def exact_f32_matmuls():
+    """torch's f32 products in full f32 on two intra-op threads for the
+    test, whatever state an earlier test file left in this process."""
+    precision = torch.get_float32_matmul_precision()
+    threads = torch.get_num_threads()
+    torch.set_float32_matmul_precision("highest")
+    torch.set_num_threads(2)
+    yield
+    torch.set_float32_matmul_precision(precision)
+    torch.set_num_threads(threads)
 BF16_OUT_ATOL = 1.6e-2
 
 
@@ -49,12 +71,12 @@ def _both(q, k, v, q_pos, kv_pos, q_seg=None, kv_seg=None, causal=True,
     scale = q.shape[-1] ** -0.5
     jd = jnp.float32 if dtype == "float32" else jnp.bfloat16
     td = torch.float32 if dtype == "float32" else torch.bfloat16
-    j_out, j_lse = jax_flash_fwd(
-        jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd),
-        jnp.asarray(q_pos), jnp.asarray(kv_pos),
-        None if q_seg is None else jnp.asarray(q_seg),
-        None if kv_seg is None else jnp.asarray(kv_seg),
-        scale, causal, block, block, block_skip)
+    j = lambda a: None if a is None else jnp.array(a, copy=True)  # noqa
+    with jax.default_matmul_precision("highest"):
+        j_out, j_lse = jax.block_until_ready(jax_flash_fwd(
+            j(q).astype(jd), j(k).astype(jd), j(v).astype(jd), j(q_pos),
+            j(kv_pos), j(q_seg), j(kv_seg), scale, causal, block, block,
+            block_skip))
     t = lambda a: None if a is None else torch.from_numpy(np.asarray(a))
     t_out, t_lse = flash_attention_fwd(
         t(q).to(td), t(k).to(td), t(v).to(td), t(q_pos), t(kv_pos),

@@ -271,6 +271,44 @@ def test_chip_smoke_bwd_cases(smoke_bwd_layouts, name):
                                   backward=True) == SMOKE_BWD_TILES[name]
 
 
+# Phase 16's cases (the non-Llama families' shapes): per head, the same
+# positions and segments as phases 3 and 5 give the same counts; the
+# card multiplies them by 71, 128 or 12 heads.
+FAMILY_TILES = {
+    "falcon7b_rows8_sq128": (264, 192, 264),
+    "a_falcon7b_packed_2x2048": (427, 342, 1024),
+    "b_falcon7b_causal_2x2048": (544, 480, 1024),
+    "falcon40b_causal_2x2048": (544, 480, 1024),
+    "opt_causal_2x2048": (544, 480, 1024),
+}
+FAMILY_BWD_TILES = {
+    "a_falcon7b_packed_2x2048": (822, 727, 2048),
+    "b_falcon7b_causal_2x2048": (1056, 992, 2048),
+}
+
+
+@pytest.mark.parametrize("name", list(FAMILY_TILES))
+def test_chip_smoke_family_cases(train_batch, name):
+    layouts = {case[0]: case for case in chip_smoke.family_fwd_layouts(
+        torch, torch.device("cpu"), train_batch)}
+    assert set(layouts) == set(FAMILY_TILES)
+    (_, (b, sq, sk, h, kvh, d), qp, kp, qs, ks, skip, _) = layouts[name]
+    assert h % kvh == 0 and d == 64
+    assert chip_smoke.tile_counts(torch, qp, kp, qs, ks, skip) \
+        == FAMILY_TILES[name]
+
+
+@pytest.mark.parametrize("name", list(FAMILY_BWD_TILES))
+def test_chip_smoke_family_bwd_cases(train_batch, name):
+    layouts = {case[0]: case for case in chip_smoke.family_bwd_layouts(
+        torch, torch.device("cpu"), train_batch)}
+    assert set(layouts) == set(FAMILY_BWD_TILES)
+    (_, (b, sq, sk, h, kvh, d), qp, kp, seg, skip, _) = layouts[name]
+    assert (h, kvh, d) == (71, 1, 64)
+    assert chip_smoke.tile_counts(torch, qp, kp, seg, seg, skip,
+                                  backward=True) == FAMILY_BWD_TILES[name]
+
+
 def test_segments_close_backward_pairs_on_the_training_path():
     # At the training microbatch (a) the job's document boundaries leave
     # K2 and K3 822 of the 1056 pairs the causal skip alone leaves (b): 78%.

@@ -179,8 +179,8 @@ def test_load_model_refuses_what_it_cannot_do():
                           "seed": 1}, device="cpu")[1]
     assert torch.equal(nothing["embed"], load_model(
         {"model": "debug", "seed": 1}, device="cpu")[1]["embed"])
-    with pytest.raises(NotImplementedError):
-        load_model({"model": "gpt2"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="embed_scale"):
+        load_model({"model": "gemma-2b"}, device="cpu")
     cfg, params = load_model(
         {"model": "debug", "model_overrides": {"param_dtype": "bfloat16"},
          "seed": 1}, device="cpu")

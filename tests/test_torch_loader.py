@@ -209,8 +209,7 @@ def test_bad_params_raise_like_jax():
         assert str(texc.value) == str(jexc.value)
 
 
-@pytest.mark.parametrize("name", ["falcon-7b", "opt-125m", "gpt2",
-                                  "mixtral-8x7b", "gemma-2b"])
+@pytest.mark.parametrize("name", ["mixtral-8x7b", "gemma-2b", "gemma-7b"])
 def test_other_families_raise_by_name(tmp_path, name):
     model_dir = _hf_llama_dir(tmp_path / "model", "f32")
     family = name.split("-")[0]
