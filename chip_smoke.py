@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--trace-remat]
 
 Phases, each of which fails the run (nonzero exit) when it fails:
 
@@ -76,7 +76,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    prefix) are within LOGIT_TOL of a full prefill's, and the greedy ids with
    and without the prefix agree up to near-ties; TTFT, prefill seconds,
    K1's launches and peak memory with and without the prefix.
-11. Speculation and grammar: llama3-8b bf16 at full width and depth,
+11. Speculation and grammar: llama3-8b bf16 at full width cut to
+   SERVE_LAYERS (8) layers,
    ``InferenceEngine(max_slots=8, max_seq_len=2048)``, each engine warmed
    up. (a) 8 greedy prompts of 200-1500 tokens that repeat seeded spans,
    128 new tokens each, with speculation off and with ``"ngram"``
@@ -100,7 +101,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    tokens/s both ways. (e) ``create_server(speculative="ngram",
    grammar="on")``: a chat completion with a response_format answers 200
    and grammar_complete, an unsupported construct 400 naming it.
-12. Paged serving: llama3-8b bf16 at full width and depth,
+12. Paged serving: llama3-8b bf16 at full width cut to SERVE_LAYERS,
    ``max_slots=8``, ``max_seq_len=2048``, pages of 16, every engine warmed
    up. (a) Phase 4's 8 requests through the dense engine and the
    ``PagedInferenceEngine`` (1024 pages), both resident, run dense,
@@ -126,7 +127,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    ``create_server(kv_paging=True, kv_host_pages=256,
    preemption="swap")`` answers an ``X-Priority: interactive``
    completion.
-13. Multi-tenant LoRA: llama3-8b bf16 at full width and depth, four
+13. Multi-tenant LoRA: llama3-8b bf16 at full width cut to
+   SERVE_LAYERS, four
    tenants' adapters written with ``save_adapter`` (attention targets;
    three at rank 16 and alpha 32, one at rank 8 and alpha 16, B seeded
    non-zero). (a) A pooled ``InferenceEngine(adapter_pool=4,
@@ -153,10 +155,11 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    engine: ids equal (a)'s up to near-ties, the accept rate. (e)
    ``create_server(adapter_pool=4, adapter_dir=...)``: ``"adapter":
    "tenant0"`` answers 200 with (a)'s ids, an unknown adapter 400.
-14. Quantized serving: llama3-8b at full width and depth from the seed,
-   bf16 activations. (a) ``quantized_matmul`` at int8 and int4 on x [8,
-   4096] and [2048, 4096] through ``wi_gate`` (4096 -> 14336) and x [8,
-   14336] and [2048, 14336] through the MLP ``wo``, within QMM_TOL of
+14. Quantized serving: llama3-8b at full width cut to QUANT_LAYERS (8)
+   layers from the seed, bf16 activations. (a) ``quantized_matmul`` at
+   int8 and int4 on x [8, 4096] and [2048, 4096] through ``wi_gate``
+   (4096 -> 14336) and x [8, 14336] and [2048, 14336] through the MLP
+   ``wo``, within QMM_TOL of
    ``x.float() @ dequantize(w)``; its time against its bound (bytes over
    HBM at 8 rows, operations over the bf16 peak at 2048) and against
    ``torch.matmul`` on the bf16 dequantized weight (a yardstick). (b)
@@ -231,6 +234,30 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    from bf16 checkpoints on the model mount, greedy answers equal to this
    process's decode (gpt2's longest within 5 positions of its 1024-row
    table), exit 0 on SIGTERM.
+17. The rest of the fine-tune entry point: (a) phase 16 (c)'s falcon-7b
+   LoRA job at full width and depth for 2 steps under each remat policy
+   (nothing_saveable, dots_with_no_batch_dims_saveable, dots_saveable,
+   save_attn_out) over one seeded base: step seconds, tokens/s, MFU, peak
+   memory, K1 256 launches a step (128 under save_attn_out, whose
+   backward takes K1's saved out and lse), K2 and K3 128, finite losses,
+   step 1's loss equal under every policy (with --trace-remat, one
+   traced step per policy: device busy, idle share, K1-K3 device ms);
+   (b) on falcon-7b cut to 2
+   layers: RBT_FAULT_INJECT's kill (the rerun's adapter bit-equal to an
+   uninterrupted run's), sigterm (exit code 42), nonfinite (the adapter
+   bit-unchanged, the run goes on) and nonfinite from a step on (abort),
+   and the maintenance poller against a local metadata fake (42); (c)
+   ``python -m runbooks_tpu_torch.train.trainer`` twice over one
+   artifacts directory: the cold process runs nvcc for every kernel into
+   <artifacts>/kernel_cache (seconds recorded), the warm one none, each
+   one's time to its first step; (d) an OPT-style vocab.json + merges.txt
+   (50,265 ids) with the ids of a tokenizer.json of the same BPE on
+   phase 15's corpus and opt-125m served through both alike, and a
+   sentencepiece tokenizer.model of phase 15's 32,000 llama2-style
+   pieces with the ids of the tokenizer.json built from the same pieces.
+
+Each phase's end prints the seconds since the start; a run still going
+after WATCHDOG_S dumps every thread's stack to standard error.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and {"ok": true, "device": {...}};
@@ -241,6 +268,7 @@ package beside it, the script exits nonzero and prints no result.
 
 import argparse
 import dataclasses
+import faulthandler
 import gc
 import json
 import math
@@ -355,6 +383,23 @@ PCIE_GEN5_X16 = 64e9       # bytes/s in each direction
 QMM_MATS = (("wi_gate", 4096, 14336), ("mlp_wo", 14336, 4096))
 QMM_ROWS = (8, 2048)
 QMM_TOL = 1e-5
+# Phases 11-13 (SERVE_LAYERS) and 14 (QUANT_LAYERS) run llama3-8b at full
+# width cut in depth, so that the whole script, phase 17 included, ends in
+# about half its 1200 s limit: phase 4 serves the full depth.
+SERVE_LAYERS = 8
+QUANT_LAYERS = 8
+# Past this many seconds the run dumps its threads' stacks to stderr (and
+# goes on), so that a run cut at the limit shows where it was.
+WATCHDOG_S = 1100
+
+
+T_START = time.perf_counter()
+
+
+def mark(name):
+    """A phase's end: the seconds since the script started."""
+    print(f"{name} ended at {time.perf_counter() - T_START:.1f} s",
+          flush=True)
 
 
 def card_line():
@@ -1484,9 +1529,14 @@ def start_entry_point(content, port, log_path, ready_timeout):
     """``python -m runbooks_tpu_torch.serve.api`` on the contract root
     ``content`` (whose params.json names ``port``), its output in
     log_path: (process, base URL, seconds to readiness). A server not
-    ready within ready_timeout is killed and fails the run."""
+    ready within ready_timeout is killed and fails the run. The servers
+    share one kernel cache beside their contract roots (RBT_KERNEL_CACHE),
+    as deployments on one artifacts mount do: the first builds K1 into
+    it, the later ones load it without nvcc."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, RBT_CONTENT_DIR=content,
+               RBT_KERNEL_CACHE=os.path.join(os.path.dirname(content),
+                                             "server_kernel_cache"),
                PYTHONPATH=os.pathsep.join(
                    [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     t0 = time.perf_counter()
@@ -2532,8 +2582,8 @@ def grammar_gate(engine, reqs, name):
 
 
 def spec_grammar_phase(torch, dev, seed):
-    """Phase 11: speculation and grammar at full width and depth. Returns
-    K1's launches by run."""
+    """Phase 11: speculation and grammar at full width, SERVE_LAYERS
+    layers. Returns K1's launches by run."""
     from runbooks_tpu_torch.ops.flash_attention import flash_attention
     from runbooks_tpu_torch.serve.api import create_server, load_model
     from runbooks_tpu_torch.serve.engine import Request
@@ -2541,7 +2591,9 @@ def spec_grammar_phase(torch, dev, seed):
 
     t_phase = time.perf_counter()
     cfg, params = load_model({"model": "llama3-8b",
-                              "model_overrides": {"param_dtype": "bfloat16"},
+                              "model_overrides": {
+                                  "param_dtype": "bfloat16",
+                                  "num_layers": SERVE_LAYERS},
                               "seed": seed})
     prompts = spec_prompts(seed)
     launches = {}
@@ -3118,14 +3170,16 @@ def paged_http(torch, cfg, params, launches):
 
 
 def paged_phase(torch, seed):
-    """Phase 12: paged serving of llama3-8b bf16 at full width and depth
-    (max_slots 8, max_seq_len 2048, pages of 16, every engine warmed up).
+    """Phase 12: paged serving of llama3-8b bf16 at full width,
+    SERVE_LAYERS layers (max_slots 8, max_seq_len 2048, pages of 16, every engine warmed up).
     Returns K1's launches by run."""
     from runbooks_tpu_torch.serve.api import load_model
 
     t_phase = time.perf_counter()
     cfg, params = load_model({"model": "llama3-8b",
-                              "model_overrides": {"param_dtype": "bfloat16"},
+                              "model_overrides": {
+                                  "param_dtype": "bfloat16",
+                                  "num_layers": SERVE_LAYERS},
                               "seed": seed})
     launches = {}
     engine, samples = paged_vs_dense(torch, cfg, params, seed, launches)
@@ -3693,13 +3747,15 @@ def lora_http(torch, cfg, params, root, prompts, dense_ids, pooled,
 
 
 def lora_phase(torch, seed, workdir):
-    """Phase 13: multi-tenant LoRA on llama3-8b bf16 at full width and
-    depth. Returns K1's launches by run."""
+    """Phase 13: multi-tenant LoRA on llama3-8b bf16 at full width,
+    SERVE_LAYERS layers. Returns K1's launches by run."""
     from runbooks_tpu_torch.serve.api import load_model
 
     t_phase = time.perf_counter()
     cfg, params = load_model({"model": "llama3-8b",
-                              "model_overrides": {"param_dtype": "bfloat16"},
+                              "model_overrides": {
+                                  "param_dtype": "bfloat16",
+                                  "num_layers": SERVE_LAYERS},
                               "seed": seed})
     root = os.path.join(workdir, "adapters")
     paths = write_tenants(torch, cfg, root, seed)
@@ -4137,7 +4193,8 @@ def quant_entry_phase(torch, dev, seed, workdir, launches):
     # P3: the mode in the config's overrides, not in params.
     cfg, p3 = load_model({"model": "llama3-8b", "seed": seed,
                           "model_overrides": {"quantize": "int8",
-                                              "param_dtype": "bfloat16"}})
+                                              "param_dtype": "bfloat16",
+                                              "num_layers": QUANT_LAYERS}})
     engine = InferenceEngine(cfg, p3, max_slots=8, max_seq_len=2048,
                              seed=seed)
     wq = p3["layers"]["attn"]["wq"]
@@ -4160,15 +4217,17 @@ def quant_entry_phase(torch, dev, seed, workdir, launches):
 
 
 def quant_phase(torch, dev, seed, workdir):
-    """Phase 14: quantized serving on llama3-8b bf16 at full width and
-    depth. Returns (K1's launches by run, quantized_matmul records)."""
+    """Phase 14: quantized serving on llama3-8b bf16 at full width, cut
+    to QUANT_LAYERS layers. Returns (K1's launches by run, quantized_matmul records)."""
     from runbooks_tpu_torch.serve.api import load_model
 
     t_phase = time.perf_counter()
     launches = {}
     records = qmm_phase(torch, dev, seed)
     cfg, params = load_model({"model": "llama3-8b",
-                              "model_overrides": {"param_dtype": "bfloat16"},
+                              "model_overrides": {
+                                  "param_dtype": "bfloat16",
+                                  "num_layers": QUANT_LAYERS},
                               "seed": seed})
     trees = quantize_load_phase(torch, params)
     w8, w8_ids = quant_dense_phase(torch, cfg, params, trees, seed,
@@ -5055,11 +5114,27 @@ def traced_falcon_step(torch, dev, seed, data_path, lora_cfg, opt_cfg):
     """One optimizer step of the fine-tune's step function (after a warm
     one) under torch.profiler: its wall time, the device's busy and idle
     share of it, and the device time of K1, K2, K3 and the rest."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.transformer import init_params
+
+    cfg = get_config("falcon-7b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    base = init_params(cfg, gen, dev)
+    traced = traced_lora_step(torch, dev, cfg, base, gen, data_path,
+                              lora_cfg, opt_cfg)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return traced
+
+
+def traced_lora_step(torch, dev, cfg, base, gen, data_path, lora_cfg,
+                     opt_cfg):
+    """traced_falcon_step's measurement over a given base and config."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from runbooks_tpu_torch.models.config import get_config
-    from runbooks_tpu_torch.models.transformer import init_params
     from runbooks_tpu_torch.train import data
     from runbooks_tpu_torch.train.lora import (
         create_lora_train_state,
@@ -5067,10 +5142,6 @@ def traced_falcon_step(torch, dev, seed, data_path, lora_cfg, opt_cfg):
     )
     from runbooks_tpu_torch.train.optimizer import make_optimizer
 
-    cfg = get_config("falcon-7b")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    base = init_params(cfg, gen, dev)
     optimizer = make_optimizer(opt_cfg)
     state = create_lora_train_state(lora_cfg, base, optimizer, gen)
     step_fn = make_lora_train_step(cfg, lora_cfg, optimizer,
@@ -5100,7 +5171,7 @@ def traced_falcon_step(torch, dev, seed, data_path, lora_cfg, opt_cfg):
         for g in groups:
             if g in e.key:
                 groups[g] += e.self_device_time_total
-    del base, state
+    del state
     gc.collect()
     torch.cuda.empty_cache()
     return {"traced_step_s": traced_s, "device_busy_ms": busy / 1e3,
@@ -5419,9 +5490,669 @@ def families_phase(torch, dev, seed, batch, data_path, workdir):
              "bwd_worst": bwd_worst})
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the rest of the fine-tune entry point
+# ---------------------------------------------------------------------------
+
+# (a) the remat policies, each over phase 16 (c)'s job for REMAT_STEPS
+# steps on one seeded falcon-7b base. Step 1's loss is computed before
+# any update, from the same weights and batch under every policy: the
+# policies change what the backward keeps, never the forward, so the
+# losses must agree to REMAT_LOSS_RTOL (they are expected bit-equal).
+REMAT_STEPS = 2
+REMAT_POLICIES = ("nothing_saveable", "dots_with_no_batch_dims_saveable",
+                  "dots_saveable", "save_attn_out")
+REMAT_LOSS_RTOL = 1e-6
+# (b) the restart path on falcon-7b at full width cut to RESTART_LAYERS
+# layers: batches of RESTART_BATCH rows of TRAIN_SEQ tokens.
+RESTART_LAYERS = 2
+RESTART_BATCH = 2
+RESTART_STEPS = 4
+# (d) the OPT-style tokenizer's ids: <s>, <pad>, </s>, <unk>, the 256
+# byte symbols and 50,005 merges (facebook/opt-125m's 50,265).
+OPT_VOCAB = 50265
+OPT_SERVE_PROMPTS = 4
+OPT_SERVE_NEW = 24
+
+
+def remat_policies_phase(torch, dev, seed, data_path, workdir, trace):
+    """Phase 17 (a): phase 16 (c)'s falcon-7b LoRA job (rank 16, alpha
+    32, batch 8 in 4 microbatches of 2, seq 2048) under each remat policy
+    for REMAT_STEPS steps, all over one seeded f32 base. Per policy: the
+    steady step's seconds, tokens/s, MFU, peak memory and K1/K2/K3
+    launches per optimizer step; with ``trace``, then one traced step
+    (traced_lora_step: device busy and idle share, K1/K2/K3 device ms; its
+    launches are not the run's). Returns (records, launches by policy)."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.transformer import init_params
+    from runbooks_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from runbooks_tpu_torch.train.lora import LoraConfig
+    from runbooks_tpu_torch.train.optimizer import OptimizerConfig
+    from runbooks_tpu_torch.train.trainer import TrainJobConfig, run_training
+
+    cfg = get_config("falcon-7b")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 17)
+    base = init_params(cfg, gen, dev)
+    micro = cfg.num_layers * 4
+    want = {p: {"flash_fwd": micro if p == "save_attn_out" else 2 * micro,
+                "flash_bwd_dq": micro, "flash_bwd_dkv": micro}
+            for p in REMAT_POLICIES}
+    records, launches = {}, {}
+    for policy in REMAT_POLICIES:
+        job = TrainJobConfig(
+            model="falcon-7b", model_overrides={"remat_policy": policy},
+            lora=LoraConfig(rank=16, alpha=32.0),
+            optimizer=OptimizerConfig(learning_rate=2e-5), batch_size=8,
+            seq_len=TRAIN_SEQ, accumulate_steps=4, steps=REMAT_STEPS,
+            data_path=data_path, artifacts_dir=f"{workdir}/remat_{policy}",
+            log_every=1, checkpoint_every=1000, seed=seed)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches = 0
+        flash_attention_bwd.dq_launches = 0
+        flash_attention_bwd.dkv_launches = 0
+        summary = run_training(job, base_params=base)
+        launches[policy] = {"flash_fwd": flash_attention.launches,
+                            "flash_bwd_dq": flash_attention_bwd.dq_launches,
+                            "flash_bwd_dkv":
+                                flash_attention_bwd.dkv_launches}
+        last = summary["history"][-1]
+        records[policy] = {
+            "losses": [e["loss"] for e in summary["history"]],
+            "first_step_s": summary["first_step_s"],
+            "step_s": last["step_s"], "tokens_per_s": last["tokens_per_sec"],
+            "mfu": last.get("mfu"),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": {k: v / REMAT_STEPS
+                                  for k, v in launches[policy].items()}}
+        gc.collect()
+        torch.cuda.empty_cache()
+        if trace:
+            records[policy]["traced"] = traced_lora_step(
+                torch, dev, dataclasses.replace(cfg, remat_policy=policy),
+                base, gen, data_path, job.lora, job.optimizer)
+        print(f"remat {policy} " + json.dumps(records[policy]), flush=True)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = {p: r["losses"][0] for p, r in records.items()}
+    ref = first["nothing_saveable"]
+    gates = {
+        "launches": all(records[p]["launches_per_step"] == want[p]
+                        for p in REMAT_POLICIES),
+        "losses_finite": all(math.isfinite(x) for r in records.values()
+                             for x in r["losses"])
+                         and all(len(r["losses"]) == REMAT_STEPS
+                                 for r in records.values()),
+        "step1_loss_equal": all(abs(x - ref) <= REMAT_LOSS_RTOL * abs(ref)
+                                for x in first.values())}
+    print(f"remat (a): step-1 losses {first} (bit-equal: "
+          f"{len(set(first.values())) == 1}); launches per step want "
+          f"{want}; gates {gates}", flush=True)
+    if not all(gates.values()):
+        raise SystemExit(f"remat policies: gates failed: {gates}")
+    return records, launches
+
+
+class _FakeMetadata(object):
+    """A local stand-in for the GCE metadata server that reports a pending
+    maintenance event (127.0.0.1 only)."""
+
+    def __init__(self):
+        import http.server
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                body = (b"TERMINATE_ON_HOST_MAINTENANCE"
+                        if "maintenance-event" in self.path else b"")
+                self.send_response(200)
+                self.send_header("Metadata-Flavor", "Google")
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self.server = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+        self.host = f"127.0.0.1:{self.server.server_address[1]}"
+        threading.Thread(target=self.server.serve_forever,
+                         daemon=True).start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+def restart_phase(torch, dev, seed, data_path, workdir):
+    """Phase 17 (b): RBT_FAULT_INJECT and the maintenance poller on
+    falcon-7b at full width cut to RESTART_LAYERS layers (LoRA rank 16):
+    a kill and a rerun land on the uninterrupted run's adapter bit for
+    bit; SIGTERM stops with the emergency checkpoint and exit code 42; a
+    poisoned step leaves the adapter bit-unchanged and the run goes on;
+    poisoned steps from one on abort after max_bad_steps; a maintenance
+    event from a local metadata fake stops with exit code 42."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.transformer import init_params
+    from runbooks_tpu_torch.train import trainer
+    from runbooks_tpu_torch.train.checkpoint import CheckpointManager
+    from runbooks_tpu_torch.train.lora import LoraConfig
+    from runbooks_tpu_torch.train.optimizer import OptimizerConfig
+    from runbooks_tpu_torch.utils.tree import tree_leaves
+
+    over = {"num_layers": RESTART_LAYERS}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 171)
+    base = init_params(get_config("falcon-7b", **over), gen, dev)
+
+    def job(name, steps, **kw):
+        return trainer.TrainJobConfig(
+            model="falcon-7b", model_overrides=over,
+            lora=LoraConfig(rank=16, alpha=32.0),
+            optimizer=OptimizerConfig(learning_rate=1e-4, warmup_steps=0),
+            batch_size=RESTART_BATCH, seq_len=TRAIN_SEQ, steps=steps,
+            data_path=data_path, artifacts_dir=f"{workdir}/restart_{name}",
+            log_every=1, seed=seed, **kw)
+
+    def run(j, fault=None):
+        if fault:
+            os.environ["RBT_FAULT_INJECT"] = fault
+        try:
+            return trainer.run_training(j, base_params=base)
+        finally:
+            os.environ.pop("RBT_FAULT_INJECT", None)
+
+    def adapter(name, step):
+        state, _, _ = CheckpointManager(
+            f"{workdir}/restart_{name}").restore_with_cursor(
+                step, device=torch.device("cpu"))
+        return list(tree_leaves(state["params"]))
+
+    def same(a, b):
+        return len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
+
+    t0 = time.perf_counter()
+    gates, rec = {}, {}
+    whole = run(job("whole", RESTART_STEPS, checkpoint_every=2))
+    # kill:3 dies at the top of step index 3, one step past the step-2
+    # checkpoint: the rerun replays that step and must land where the
+    # uninterrupted run did.
+    try:
+        run(job("killed", RESTART_STEPS, checkpoint_every=2), "kill:3")
+        gates["kill_raised"] = False
+    except trainer.SimulatedFault:
+        gates["kill_raised"] = True
+    resumed = run(job("killed", RESTART_STEPS, checkpoint_every=2))
+    gates["kill_resume_bit_equal"] = (
+        resumed["restored_step"] == 2
+        and [e["step"] for e in resumed["history"]] == [3, 4]
+        and same(adapter("killed", RESTART_STEPS),
+                 adapter("whole", RESTART_STEPS)))
+    rec["kill"] = {"whole_losses": [e["loss"] for e in whole["history"]],
+                   "resumed_losses": [e["loss"]
+                                      for e in resumed["history"]]}
+    stopped = run(job("sigterm", RESTART_STEPS, checkpoint_every=100),
+                  "sigterm:2")
+    gates["sigterm_42"] = (
+        stopped["exit_reason"] == "sigterm"
+        and trainer.exit_code_for(stopped) == 42
+        and CheckpointManager(f"{workdir}/restart_sigterm")
+        .latest_intact_step() == 2)
+    poisoned = run(job("nonfinite", 3, checkpoint_every=1), "nonfinite:1")
+    gates["nonfinite_leaves_adapter"] = (
+        poisoned["nonfinite_steps"] == 1 and poisoned["exit_reason"] is None
+        and math.isfinite(poisoned["final_loss"])
+        and same(adapter("nonfinite", 2), adapter("nonfinite", 1))
+        and not same(adapter("nonfinite", 3), adapter("nonfinite", 2)))
+    try:
+        run(job("abort", 6, max_bad_steps=3), "nonfinite:1+")
+        gates["nonfinite_abort"] = False
+    except RuntimeError as exc:
+        gates["nonfinite_abort"] = "3 consecutive non-finite" in str(exc)
+    fake = _FakeMetadata()
+    old_host = os.environ.get("GCE_METADATA_HOST")
+    os.environ["GCE_METADATA_HOST"] = fake.host
+    try:
+        t1 = time.perf_counter()
+        maint = run(job("maintenance", 500, checkpoint_every=1000,
+                        maintenance_poll_s=0.2))
+        rec["maintenance"] = {"steps_run": maint["batches_consumed"],
+                              "seconds": time.perf_counter() - t1}
+    finally:
+        fake.close()
+        if old_host is None:
+            os.environ.pop("GCE_METADATA_HOST", None)
+        else:
+            os.environ["GCE_METADATA_HOST"] = old_host
+    gates["maintenance_42"] = (
+        maint["exit_reason"] == "maintenance"
+        and trainer.exit_code_for(maint) == 42
+        and CheckpointManager(f"{workdir}/restart_maintenance")
+        .latest_intact_step() == maint["batches_consumed"] < 500)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    print("restart (b) " + json.dumps({**rec, "gates": gates}), flush=True)
+    if not all(gates.values()):
+        raise SystemExit(f"restart path: gates failed: {gates}")
+    return rec
+
+
+def run_trainer_entry(content, env, timeout):
+    """``python -m runbooks_tpu_torch.train.trainer`` over ``content``:
+    (its {"done": ...} line, wall seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "runbooks_tpu_torch.train.trainer"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    done = [json.loads(line) for line in out.stdout.splitlines()
+            if line.startswith('{"done"')]
+    if out.returncode != 0 or not done:
+        print(out.stdout[-3000:], out.stderr[-3000:], flush=True)
+        raise SystemExit(f"the trainer entry point exited {out.returncode}")
+    return done[-1], wall
+
+
+def kernel_cache_phase(seed, data_path, workdir):
+    """Phase 17 (c): the trainer's entry point builds the kernels into
+    <artifacts>/kernel_cache: a cold process over a fresh artifacts
+    directory runs nvcc for every source, a second one over the same
+    directory runs none and leaves the libraries' mtimes as they were.
+    Each process is falcon-7b cut to RESTART_LAYERS layers, one step."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    content = f"{workdir}/kernel_cache_content"
+    os.makedirs(content)
+    params = {"model": "falcon-7b",
+              "model_overrides": {"num_layers": RESTART_LAYERS},
+              "lora": {"rank": 16, "alpha": 32.0},
+              "batch_size": RESTART_BATCH, "seq_len": TRAIN_SEQ,
+              "log_every": 1, "data_path": data_path, "seed": seed,
+              # No GCE probe: this machine has no metadata server.
+              "maintenance_poll_s": 0}
+    env = dict(os.environ, RBT_CONTENT_DIR=content,
+               GCE_METADATA_HOST="127.0.0.1:9",
+               PYTHONPATH=root + os.pathsep + os.environ.get(
+                   "PYTHONPATH", ""))
+    env.pop("RBT_KERNEL_CACHE", None)
+    env.pop("RBT_FAULT_INJECT", None)
+    cache = f"{content}/artifacts/kernel_cache"
+    runs = {}
+    mtimes = {}
+    for name, steps in (("cold", 1), ("warm", 2)):
+        with open(f"{content}/params.json", "w") as f:
+            json.dump(dict(params, steps=steps), f)
+        done, wall = run_trainer_entry(content, env, 600)
+        runs[name] = {"wall_s": wall, "first_step_s": done["first_step_s"],
+                      "restored_step": done["restored_step"],
+                      **done["kernel_cache"]}
+        mtimes[name] = {n: os.stat(f"{cache}/{n}").st_mtime_ns
+                        for n in sorted(os.listdir(cache))
+                        if n.endswith(".so")}
+    gates = {
+        "cache_dir": all(r["dir"] == cache for r in runs.values()),
+        "cold_built_every_source": runs["cold"]["nvcc_runs"] == len(KERNELS)
+        and len(mtimes["cold"]) == len(KERNELS),
+        "warm_no_nvcc": runs["warm"]["nvcc_runs"] == 0
+        and mtimes["warm"] == mtimes["cold"],
+        "warm_resumed": runs["warm"]["restored_step"] == 1}
+    rec = {"runs": runs, "libraries": sorted(mtimes["cold"]),
+           "gates": gates}
+    print("kernel cache (c) " + json.dumps(rec), flush=True)
+    if not all(gates.values()):
+        raise SystemExit(f"kernel cache: gates failed: {gates}")
+    return rec
+
+
+def _opt_bpe(docs, seed):
+    """An OPT-style byte-level BPE: (vocab, merges) with <s>, <pad>,
+    </s>, <unk> at 0-3, the 256 byte symbols, then OPT_VOCAB - 260 merges
+    of two earlier tokens within one pre-token of GPT-2's split (the
+    docs' most frequent byte pairs, their pre-tokens built left to right,
+    then seeded pre-tokens)."""
+    import collections
+
+    import numpy as np
+
+    from runbooks_tpu_torch.models import tokenizer_io as tio
+
+    rx = tio.split_regex(tio.GPT2_PATTERN)
+    table = {b: c for b, c in enumerate(tio.bytes_to_unicode())}
+    counts = collections.Counter()
+    for doc in docs:
+        counts.update(rx.findall(doc))
+    ranked = counts.most_common()
+    words = [w.encode("utf-8").decode("latin-1").translate(table)
+             for w, _ in ranked]
+    vocab = {"<s>": 0, "<pad>": 1, "</s>": 2, "<unk>": 3}
+    for c in tio.bytes_to_unicode():
+        vocab[c] = len(vocab)
+    merges = []
+    n_merges = OPT_VOCAB - len(vocab)
+    pairs = collections.Counter()
+    for w, (_, n) in zip(words[:20000], ranked[:20000]):
+        for k in range(len(w) - 1):
+            pairs[w[k:k + 2]] += n
+    for pair, _ in pairs.most_common(2000):
+        if pair not in vocab:
+            vocab[pair] = len(vocab)
+            merges.append([pair[0], pair[1]])
+    for w in words:
+        if len(merges) >= n_merges:
+            break
+        _chain(vocab, merges, w, n_merges)
+    rng = np.random.default_rng(seed + 32)
+    letters = [chr(c) for c in range(0x61, 0x7B)]
+    while len(merges) < n_merges:
+        k = int(rng.integers(2, 10))
+        w = (" " if rng.random() < 0.6 else "") + "".join(
+            letters[int(i)] for i in rng.integers(len(letters), size=k))
+        _chain(vocab, merges, w.encode("utf-8").decode("latin-1")
+               .translate(table), n_merges)
+    return vocab, merges
+
+
+def write_opt_tokenizers(files_dir, json_dir, docs, seed):
+    """One OPT-style BPE in two directories: facebook/opt-125m's files
+    (vocab.json, merges.txt with its version line, OPT's
+    tokenizer_config.json and special_tokens_map.json: </s> as bos, eos
+    and unk, <pad>, add_bos_token) and the tokenizer.json that
+    transformers' GPT2Converter makes of them (ByteLevel pre-tokenizer
+    and decoder, </s> prepended, <pad> and </s> added as specials)."""
+    vocab, merges = _opt_bpe(docs, seed)
+    special = {"content": "</s>", "lstrip": False, "normalized": True,
+               "rstrip": False, "single_word": False}
+    config = {"tokenizer_class": "GPT2Tokenizer", "errors": "replace",
+              "bos_token": "</s>", "eos_token": "</s>", "unk_token": "</s>",
+              "pad_token": "<pad>", "add_prefix_space": False,
+              "add_bos_token": True}
+    os.makedirs(files_dir, exist_ok=True)
+    with open(f"{files_dir}/vocab.json", "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    with open(f"{files_dir}/merges.txt", "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "".join(f"{a} {b}\n"
+                                             for a, b in merges))
+    with open(f"{files_dir}/tokenizer_config.json", "w") as f:
+        json.dump(config, f)
+    with open(f"{files_dir}/special_tokens_map.json", "w") as f:
+        json.dump({"bos_token": special, "eos_token": special,
+                   "unk_token": special,
+                   "pad_token": dict(special, content="<pad>")}, f)
+    added = [{"id": i, "content": c, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": True, "special": True}
+             for c, i in (("<pad>", 1), ("</s>", 2))]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False,
+                          "trim_offsets": True, "use_regex": True},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "</s>", "type_id": 0}},
+                       {"Sequence": {"id": "A", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "</s>", "type_id": 0}},
+                     {"Sequence": {"id": "A", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}}],
+            "special_tokens": {"</s>": {"id": "</s>", "ids": [2],
+                                        "tokens": ["</s>"]}}},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                  "fuse_unk": False, "byte_fallback": False,
+                  "ignore_merges": False, "vocab": vocab, "merges": merges}}
+    _write_tokenizer(json_dir, spec, config)
+
+
+def _pb_varint(n):
+    n &= (1 << 64) - 1
+    out = bytearray()
+    while True:
+        byte = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(byte | 0x80)
+        else:
+            out.append(byte)
+            return bytes(out)
+
+
+def _pb_field(number, wire, payload):
+    key = _pb_varint(number << 3 | wire)
+    if wire == 2:
+        return key + _pb_varint(len(payload)) + payload
+    return key + payload
+
+
+def sentencepiece_model_bytes(pieces, byte_fallback=True):
+    """A sentencepiece ModelProto in the protobuf wire format: ``pieces``
+    as (piece, score, type), a BPE trainer spec (unk/bos/eos ids 0-2, no
+    pad), the identity normalizer with the dummy prefix."""
+    out = bytearray()
+    for piece, score, kind in pieces:
+        msg = (_pb_field(1, 2, piece.encode("utf-8"))
+               + _pb_field(2, 5, struct.pack("<f", score))
+               + _pb_field(3, 0, _pb_varint(kind)))
+        out += _pb_field(1, 2, msg)
+    trainer = (_pb_field(3, 0, _pb_varint(2))
+               + _pb_field(4, 0, _pb_varint(len(pieces)))
+               + _pb_field(35, 0, _pb_varint(int(byte_fallback)))
+               + _pb_field(40, 0, _pb_varint(0))
+               + _pb_field(41, 0, _pb_varint(1))
+               + _pb_field(42, 0, _pb_varint(2))
+               + _pb_field(43, 0, _pb_varint(-1)))
+    out += _pb_field(2, 2, trainer)
+    norm = (_pb_field(1, 2, b"identity") + _pb_field(3, 0, _pb_varint(1))
+            + _pb_field(4, 0, _pb_varint(0)) + _pb_field(5, 0, _pb_varint(1)))
+    out += _pb_field(3, 2, norm)
+    return bytes(out)
+
+
+def score_merges(vocab, scores):
+    """llama2's converter's merges from piece scores: each piece's splits
+    into two pieces of the vocab (by their ids), ranked by the piece's
+    score, then the longer left part, then the longer right part,
+    highest first."""
+    found = []
+    for piece, score in scores:
+        splits = sorted(((piece[:i], piece[i:]) for i in range(1, len(piece))
+                         if piece[:i] in vocab and piece[i:] in vocab),
+                        key=lambda ab: (vocab[ab[0]], vocab[ab[1]]))
+        found += [(a, b, score) for a, b in splits]
+    found.sort(key=lambda m: (m[2], len(m[0]), len(m[1])), reverse=True)
+    return [[a, b] for a, b, _ in found]
+
+
+def write_sentencepiece_tokenizers(model_dir, json_dir, l2_vocab):
+    """Phase 15's llama2-style pieces (``l2_vocab``, 32,000) twice: a
+    directory with only a sentencepiece tokenizer.model (types UNKNOWN,
+    CONTROL, BYTE and NORMAL, merged pieces scored -id) and llama2's
+    tokenizer.json built from the same pieces and scores as transformers'
+    LlamaConverter builds it."""
+    pieces = []
+    for piece, i in sorted(l2_vocab.items(), key=lambda kv: kv[1]):
+        kind = (2 if i == 0 else 3 if i < 3
+                else 6 if re.fullmatch(r"<0x[0-9A-F]{2}>", piece) else 1)
+        pieces.append((piece, 0.0 if kind != 1 else -float(i), kind))
+    os.makedirs(model_dir, exist_ok=True)
+    with open(f"{model_dir}/tokenizer.model", "wb") as f:
+        f.write(sentencepiece_model_bytes(pieces))
+    vocab = {p: i for i, (p, _, _) in enumerate(pieces)}
+    merges = score_merges(vocab, [(p, 0.0 if i < 3 else s)
+                                  for i, (p, s, _) in enumerate(pieces)])
+    sp = "▁"
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": s, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True}
+                         for i, s in enumerate(("<unk>", "<s>", "</s>"))],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Prepend", "prepend": sp},
+            {"type": "Replace", "pattern": {"String": " "}, "content": sp}]},
+        "pre_tokenizer": None, "post_processor": None,
+        "decoder": {"type": "Sequence", "decoders": [
+            {"type": "Replace", "pattern": {"String": sp}, "content": " "},
+            {"type": "ByteFallback"}, {"type": "Fuse"},
+            {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
+        "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": True,
+                  "byte_fallback": True, "ignore_merges": False,
+                  "vocab": vocab, "merges": merges}}
+    _write_tokenizer(json_dir, spec, {
+        "tokenizer_class": "LlamaTokenizerFast", "bos_token": "<s>",
+        "eos_token": "</s>", "unk_token": "<unk>", "add_bos_token": True,
+        "add_eos_token": False, "clean_up_tokenization_spaces": False})
+
+
+def serve_with_tokenizer(torch, cfg, params, tok, prompts):
+    """``create_server`` over ``params`` with tokenizer ``tok``: each
+    prompt's greedy completion text and token count, and K1's launches."""
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.api import create_server
+
+    srv = create_server(cfg, params, tok, host="127.0.0.1", port=0,
+                        max_slots=8, max_seq_len=2048)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    flash_attention.launches = 0
+    answers = []
+    try:
+        for prompt in prompts:
+            status, _, body, _ = http_call(base, "/v1/completions", {
+                "prompt": prompt, "max_tokens": OPT_SERVE_NEW,
+                "temperature": 0})
+            if status != 200:
+                raise SystemExit(f"opt-125m completion: {status} "
+                                 f"{body[:300]}")
+            reply = json.loads(body)
+            answers.append((reply["choices"][0]["text"],
+                            reply["usage"]["prompt_tokens"],
+                            reply["usage"]["completion_tokens"]))
+    finally:
+        launches = flash_attention.launches
+        srv.shutdown()
+        thread.join(timeout=60)
+    return answers, launches
+
+
+def tokenizer_files_phase(torch, seed, workdir):
+    """Phase 17 (d): tokenizer directories without tokenizer.json, written
+    from the seed at the published sizes over phase 15's corpus: an
+    OPT-style vocab.json + merges.txt (50,265 ids) gives the ids of the
+    tokenizer.json of the same BPE, and opt-125m served through each
+    answers alike; a sentencepiece tokenizer.model of phase 15's 32,000
+    llama2-style pieces gives the ids of the tokenizer.json built from
+    the same pieces. Returns (record, K1 launches)."""
+    from runbooks_tpu_torch.serve.api import load_model
+    from runbooks_tpu_torch.train.data import load_tokenizer
+
+    t_phase = time.perf_counter()
+    docs = text_corpus(seed)
+    n_bytes = sum(len(d.encode("utf-8")) for d in docs)
+    rec = {"corpus_bytes": n_bytes}
+    t0 = time.perf_counter()
+    write_opt_tokenizers(f"{workdir}/opt_files", f"{workdir}/opt_json",
+                         docs, seed)
+    rec["opt_write_s"] = time.perf_counter() - t0
+    toks, ids = {}, {}
+    for name in ("opt_files", "opt_json"):
+        t0 = time.perf_counter()
+        toks[name] = load_tokenizer(f"{workdir}/{name}")
+        rec[f"{name}_load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ids[name] = [toks[name].encode(d) for d in docs]
+        rec[f"{name}_encode_mb_per_s"] = n_bytes / 1e6 / (
+            time.perf_counter() - t0)
+    opt_gates = {
+        "sizes": all(len(t) == OPT_VOCAB for t in toks.values()),
+        "ids_equal": ids["opt_files"] == ids["opt_json"],
+        "bos_first": all(x[0] == 2 for x in ids["opt_files"])}
+    rec["opt_tokens"] = sum(len(x) for x in ids["opt_files"])
+    cfg, params = load_model({"model": "opt-125m", "model_overrides": {
+        "param_dtype": "bfloat16"}, "seed": seed + 17})
+    prompts = [d[:600] for d in docs[:OPT_SERVE_PROMPTS]]
+    served, launches = {}, 0
+    for name in ("opt_files", "opt_json"):
+        served[name], n = serve_with_tokenizer(torch, cfg, params,
+                                               toks[name], prompts)
+        launches += n
+    opt_gates["served_equal"] = served["opt_files"] == served["opt_json"]
+    rec["opt_served"] = [{"prompt_tokens": p, "completion_tokens": c,
+                          "text_chars": len(t)}
+                         for t, p, c in served["opt_files"]]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    write_llama2_tokenizer(f"{workdir}/l2_pieces", docs, seed)
+    with open(f"{workdir}/l2_pieces/tokenizer.json", encoding="utf-8") as f:
+        l2_vocab = json.load(f)["model"]["vocab"]
+    write_sentencepiece_tokenizers(f"{workdir}/spm_model",
+                                   f"{workdir}/spm_json", l2_vocab)
+    rec["spm_write_s"] = time.perf_counter() - t0
+    for name in ("spm_model", "spm_json"):
+        t0 = time.perf_counter()
+        toks[name] = load_tokenizer(f"{workdir}/{name}")
+        rec[f"{name}_load_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ids[name] = [toks[name].encode(d) for d in docs]
+        rec[f"{name}_encode_mb_per_s"] = n_bytes / 1e6 / (
+            time.perf_counter() - t0)
+    spm_gates = {
+        "sizes": all(toks[n].vocab_size == L2_VOCAB
+                     for n in ("spm_model", "spm_json")),
+        "ids_equal": ids["spm_model"] == ids["spm_json"],
+        "decode_equal": all(
+            toks["spm_model"].decode(x) == toks["spm_json"].decode(x)
+            for x in ids["spm_model"][:64])}
+    rec["spm_tokens"] = sum(len(x) for x in ids["spm_model"])
+    rec["seconds"] = time.perf_counter() - t_phase
+    rec["gates"] = {"opt": opt_gates, "sentencepiece": spm_gates}
+    print("tokenizer files (d) " + json.dumps(rec), flush=True)
+    if not (all(opt_gates.values()) and all(spm_gates.values())):
+        raise SystemExit(f"tokenizer files: gates failed: {rec['gates']}")
+    return rec, launches
+
+
+def entry_point_phase(torch, dev, seed, data_path, workdir, trace_remat):
+    """Phase 17: the rest of the fine-tune entry point. Returns (K1/K2/K3
+    launches by path)."""
+    t_phase = time.perf_counter()
+    remat, remat_launches = remat_policies_phase(torch, dev, seed,
+                                                 data_path, workdir,
+                                                 trace_remat)
+    restart = restart_phase(torch, dev, seed, data_path, workdir)
+    cache = kernel_cache_phase(seed, data_path, workdir)
+    tokenizers, opt_launches = tokenizer_files_phase(torch, seed, workdir)
+    print("phase 17 " + json.dumps({
+        "card": card_line(), "remat": remat, "restart": restart,
+        "kernel_cache": cache, "tokenizer_files": tokenizers,
+        "seconds": time.perf_counter() - t_phase}), flush=True)
+    launches = {
+        name: {f"remat_{p}": v[name] for p, v in remat_launches.items()}
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    launches["flash_fwd"]["opt_tokenizer_files_http"] = opt_launches
+    return launches
+
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace-remat", action="store_true",
+                    help="phase 17 (a): one traced step per remat policy "
+                         "(about 30 s each)")
     args = ap.parse_args()
 
     import torch
@@ -5431,6 +6162,7 @@ def main():
         return 2
     from runbooks_tpu_torch.utils import cuda_build
 
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=False)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5465,21 +6197,26 @@ def main():
         write_train_docs(data_path, args.seed)
         batch = first_train_batch(data_path)
         records, worst = kernel_phase(torch, dev, args.seed, batch)
+        mark("phase 3")
         gc.collect()
         torch.cuda.empty_cache()
         serve_launches = e2e_phase(torch, args.seed)
+        mark("phase 4")
         gc.collect()
         torch.cuda.empty_cache()
         bwd_records, bwd_worst = bwd_kernel_phase(torch, dev, args.seed,
                                                   batch)
         grad_check_phase(torch, dev, args.seed, batch)
+        mark("phases 5 and 6")
         gc.collect()
         torch.cuda.empty_cache()
         train_launches, summary, peak = train_phase(torch, dev, args.seed,
                                                     data_path, workdir)
+        mark("phase 7")
         gc.collect()
         torch.cuda.empty_cache()
         http_launches = http_phase(torch, dev, args.seed, workdir)
+        mark("phase 8")
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -5490,14 +6227,26 @@ def main():
             torch, args.seed)
         print(f"phases 9 and 10 took {time.perf_counter() - t0:.1f} s",
               flush=True)
+        mark("phase 10")
         spec_launches = spec_grammar_phase(torch, dev, args.seed)
+        mark("phase 11")
         paged_launches = paged_phase(torch, args.seed)
+        mark("phase 12")
         lora_launches = lora_phase(torch, args.seed, workdir)
+        mark("phase 13")
         quant_launches, qmm_records = quant_phase(torch, dev, args.seed,
                                                   workdir)
+        mark("phase 14")
         text_launches = text_phase(torch, dev, args.seed, workdir)
+        mark("phase 15")
         family_launches, family_bwd_launches, family_records = \
             families_phase(torch, dev, args.seed, batch, data_path, workdir)
+        mark("phase 16")
+        gc.collect()
+        torch.cuda.empty_cache()
+        entry_launches = entry_point_phase(torch, dev, args.seed, data_path,
+                                           workdir, args.trace_remat)
+        mark("phase 17")
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -5513,7 +6262,8 @@ def main():
                      + sum(lora_launches.values())
                      + sum(quant_launches.values())
                      + sum(text_launches["flash_fwd"].values())
-                     + sum(family_launches.values())),
+                     + sum(family_launches.values())
+                     + sum(entry_launches["flash_fwd"].values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
@@ -5524,7 +6274,8 @@ def main():
                              **spec_launches, **paged_launches,
                              **lora_launches, **quant_launches,
                              **text_launches["flash_fwd"],
-                             **family_launches},
+                             **family_launches,
+                             **entry_launches["flash_fwd"]},
         "max_abs_err": max(worst, family_records["fwd_worst"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -5564,10 +6315,12 @@ def main():
             "source": "runbooks_tpu_torch/csrc/flash_bwd.cu",
             "replaces": f"runbooks_tpu/ops/flash_attention.py:{line}",
             "launches": (train_launches[name] + text_launches[name]
-                         + family_bwd_launches[name]),
+                         + family_bwd_launches[name]
+                         + sum(entry_launches[name].values())),
             "launches_by_path": {"train": train_launches[name],
                                  "text_train": text_launches[name],
-                                 "falcon_train": family_bwd_launches[name]},
+                                 "falcon_train": family_bwd_launches[name],
+                                 **entry_launches[name]},
             "max_abs_err": max(bwd_worst[name],
                                family_records["bwd_worst"][name]),
             "ms": train_case["ms"][name],
@@ -5602,6 +6355,7 @@ def main():
     # quantized_matmul is plain PyTorch (no Pallas kernel in the
     # reference): its records stand on their own line.
     print(json.dumps({"quantized_ops": qmm_records}), flush=True)
+    faulthandler.cancel_dump_traceback_later()
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -25,11 +25,19 @@ families write:
   ``chat_template.jinja`` file), rendered by jinja2 as transformers
   renders it.
 
+A directory without ``tokenizer.json`` is read as transformers reads it
+when it builds the fast tokenizer from the slow one's files:
+
+* ``vocab.json`` and ``merges.txt`` (GPT-2's and OPT's files): the
+  byte-level BPE of ``GPT2Converter``, with the special tokens of
+  ``tokenizer_config.json`` and ``special_tokens_map.json`` as added
+  tokens and a BOS template when ``add_bos_token`` is set;
+* only ``tokenizer.model`` (sentencepiece): the byte-fallback BPE of
+  ``LlamaConverter``, read by models/sentencepiece_io.py.
+
 Anything else raises ``TokenizerFormatError`` naming what it met: another
 model, normalizer, pre-tokenizer, post-processor or decoder type, another
-split pattern, a directory with only ``tokenizer.model`` (the
-sentencepiece protobuf), and one with only ``vocab.json`` and
-``merges.txt`` (GPT-2's and OPT's files without ``tokenizer.json``).
+split pattern.
 
 The split patterns use Unicode classes (``\\p{L}``, ``\\p{N}``) that
 Python's ``re`` lacks: they are rebuilt as explicit code point classes
@@ -570,6 +578,8 @@ def compile_chat_template(source: str):
 # The tokenizer
 # ---------------------------------------------------------------------------
 
+# The special tokens' attributes, in transformers' order
+# (SPECIAL_TOKENS_ATTRIBUTES).
 _SPECIAL_KEYS = ("bos_token", "eos_token", "unk_token", "sep_token",
                  "pad_token", "cls_token", "mask_token")
 _PLAIN_CLASSES = ("PreTrainedTokenizerFast", "GPT2TokenizerFast",
@@ -647,28 +657,7 @@ class HFTokenizer:
     bytes one id adds to a decoded stream."""
 
     def __init__(self, path: str):
-        tj = os.path.join(path, "tokenizer.json")
-        if not os.path.isfile(tj):
-            if os.path.isfile(os.path.join(path, "tokenizer.model")):
-                raise TokenizerFormatError(
-                    f"{path}: only tokenizer.model (a sentencepiece "
-                    "protobuf) is there; reading it is not supported, only "
-                    "tokenizer.json")
-            if all(os.path.isfile(os.path.join(path, n))
-                   for n in ("vocab.json", "merges.txt")):
-                raise TokenizerFormatError(
-                    f"{path}: only vocab.json and merges.txt (a GPT-2/OPT "
-                    "byte-level BPE without tokenizer.json, as "
-                    "facebook/opt-125m ships) are there; reading them is "
-                    "not supported yet, only tokenizer.json")
-            raise TokenizerFormatError(f"{path}: no tokenizer.json")
-        with open(tj, encoding="utf-8") as f:
-            spec = json.load(f)
-        cfg: Dict[str, Any] = {}
-        cj = os.path.join(path, "tokenizer_config.json")
-        if os.path.isfile(cj):
-            with open(cj, encoding="utf-8") as f:
-                cfg = json.load(f)
+        spec, cfg = _read_directory(path)
         self.path = path
         if spec.get("truncation") or spec.get("padding"):
             raise TokenizerFormatError(
@@ -951,6 +940,104 @@ class HFTokenizer:
         if tokenize:
             return self.encode(text, add_special_tokens=False)
         return text
+
+
+def _read_json(path: str) -> Optional[Any]:
+    if not os.path.isfile(path):
+        return None
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)
+
+
+def _read_directory(path: str) -> Tuple[dict, dict]:
+    """(tokenizer.json spec, tokenizer_config) of a tokenizer directory:
+    its tokenizer.json, else the spec transformers builds from
+    vocab.json + merges.txt or from tokenizer.model."""
+    cfg = _read_json(os.path.join(path, "tokenizer_config.json")) or {}
+    spec = _read_json(os.path.join(path, "tokenizer.json"))
+    if spec is not None:
+        return spec, cfg
+    # transformers lets special_tokens_map.json override the config's.
+    cfg = {**cfg, **(_read_json(os.path.join(
+        path, "special_tokens_map.json")) or {})}
+    if all(os.path.isfile(os.path.join(path, n))
+           for n in ("vocab.json", "merges.txt")):
+        return _gpt2_spec(path, cfg)
+    model = os.path.join(path, "tokenizer.model")
+    if os.path.isfile(model):
+        from runbooks_tpu_torch.models import sentencepiece_io as spm
+
+        try:
+            spec, defaults = spm.tokenizer_spec(spm.read_model(model))
+        except spm.SentencePieceFormatError as exc:
+            raise TokenizerFormatError(
+                f"{model} (sentencepiece): {exc}") from None
+        cfg = {**defaults, **cfg}
+        # The slow-to-fast conversion registers every special token of
+        # the config as a special added token, at its piece's id.
+        have = {t["content"] for t in spec["added_tokens"]}
+        for key in _SPECIAL_KEYS:
+            content = _token_content(cfg.get(key))
+            if content in spec["model"]["vocab"] and content not in have:
+                have.add(content)
+                spec["added_tokens"].append({
+                    "id": spec["model"]["vocab"][content],
+                    "content": content, "single_word": False,
+                    "lstrip": False, "rstrip": False, "normalized": False,
+                    "special": True})
+        spec["added_tokens"].sort(key=lambda t: t["id"])
+        return spec, cfg
+    raise TokenizerFormatError(
+        f"{path}: no tokenizer.json, vocab.json + merges.txt or "
+        "tokenizer.model")
+
+
+def _gpt2_spec(path: str, cfg: dict) -> Tuple[dict, dict]:
+    """The byte-level BPE transformers' GPT2Converter builds from
+    vocab.json and merges.txt (read as GPT2Tokenizer reads them: the
+    first line and the last are dropped), with the special tokens as
+    added tokens and the config's add_bos_token and add_prefix_space."""
+    with open(os.path.join(path, "vocab.json"), encoding="utf-8") as f:
+        vocab = json.load(f)
+    with open(os.path.join(path, "merges.txt"), encoding="utf-8") as f:
+        lines = f.read().split("\n")[1:-1]
+    merges = [list(m) for m in dict.fromkeys(
+        tuple(line.split()) for line in lines)]
+    cfg = {"tokenizer_class": "GPT2TokenizerFast",
+           **{k: "<|endoftext|>" for k in ("bos_token", "eos_token",
+                                           "unk_token")}, **cfg}
+    if cfg.get("add_prefix_space"):
+        raise TokenizerFormatError(
+            f"{path}: add_prefix_space is not supported")
+    # Each special token is an added token: at its vocab id when the
+    # vocab has it, else appended after the vocab.
+    ids: Dict[str, int] = {}
+    extra = [_token_content(t) for t in cfg.get(
+        "additional_special_tokens") or []]
+    for content in [_token_content(cfg.get(k)) for k in _SPECIAL_KEYS] \
+            + extra:
+        if content is not None and content not in ids:
+            ids[content] = vocab.get(content, len(vocab) + sum(
+                1 for c in ids if c not in vocab))
+    added = [{"id": i, "content": c, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": True, "special": True}
+             for c, i in sorted(ids.items(), key=lambda kv: kv[1])]
+    if cfg.get("add_bos_token"):
+        bos = _token_content(cfg["bos_token"])
+        post = {"type": "TemplateProcessing",
+                "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                           {"Sequence": {"id": "A", "type_id": 0}}],
+                "special_tokens": {bos: {"id": bos, "ids": [ids[bos]],
+                                         "tokens": [bos]}}}
+    else:
+        post = {"type": "ByteLevel", "trim_offsets": False}
+    spec = {"added_tokens": added, "normalizer": None,
+            "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False,
+                              "trim_offsets": True, "use_regex": True},
+            "post_processor": post, "decoder": {"type": "ByteLevel"},
+            "model": {"type": "BPE", "vocab": vocab, "merges": merges,
+                      "fuse_unk": False, "byte_fallback": False}}
+    return spec, cfg
 
 
 def load(path: str) -> HFTokenizer:

@@ -33,6 +33,7 @@ GPT-2 families).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -278,21 +279,75 @@ def _matmul(x: torch.Tensor, w, ad: torch.dtype):
     return torch.matmul(x, w.to(ad))
 
 
-# Remat policies of the reference (models/transformer.py:_remat_policy)
-# that the port does not implement yet.
-REMAT_POLICIES_TO_PORT = ("dots_saveable",
-                          "dots_with_no_batch_dims_saveable",
-                          "save_attn_out")
+# Remat policies (the reference's _remat_policy) as torch's selective
+# activation checkpointing, which decides per operator: the projections
+# (and the LoRA factors' products) dispatch to aten.mm, the plain
+# attention's products to aten.bmm, and K1 (or its plain version) is the
+# one operator rbt::flash_fwd.
+_NO_BATCH_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCH_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+REMAT_POLICIES = {
+    # Only the block's input is kept.
+    "nothing_saveable": (),
+    # The outputs of products without batch dimensions.
+    "dots_with_no_batch_dims_saveable": _NO_BATCH_DOTS,
+    # Every product's output.
+    "dots_saveable": _NO_BATCH_DOTS + _BATCH_DOTS,
+    # The post-wo attention output ("attn_out") and K1's (out, lse): the
+    # backward feeds K2 and K3 from them without running K1 again. On the
+    # plain attention this is nothing_saveable plus the saved wo output,
+    # as the reference says.
+    "save_attn_out": ("attn_out", torch.ops.rbt.flash_fwd.default),
+}
+
+
+@torch.library.custom_op("rbt::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """A copy of ``x`` that a remat policy can save by ``name``, as the
+    reference's ``jax.ad_checkpoint.checkpoint_name`` tags a value (an
+    operator may not return its input, hence the copy)."""
+    return x.clone()
+
+
+@checkpoint_name.register_fake
+def _checkpoint_name_fake(x, name):
+    return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(
+    lambda ctx, grad: (grad, None),
+    setup_context=lambda ctx, inputs, output: None)
 
 
 def _check_remat_policy(name: str) -> None:
-    if name in REMAT_POLICIES_TO_PORT:
-        raise NotImplementedError(
-            f"remat_policy {name!r} is not ported yet; the port has "
-            "'nothing_saveable' and 'none'")
-    if name not in ("nothing_saveable", "none"):
+    if name != "none" and name not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {name!r}; expected none|"
-                         f"nothing_saveable|{'|'.join(REMAT_POLICIES_TO_PORT)}")
+                         f"{'|'.join(REMAT_POLICIES)}")
+
+
+def _remat_context_fn(name: str):
+    """The checkpoint's context_fn for policy ``name``: every operator the
+    policy names (or every rbt::checkpoint_name call with a name it lists)
+    is saved in the forward and handed back in the recompute; the rest is
+    recomputed. None for nothing_saveable, which saves nothing."""
+    saved = REMAT_POLICIES[name]
+    if not saved:
+        return None
+    from torch.utils.checkpoint import (
+        CheckpointPolicy,
+        create_selective_checkpoint_contexts,
+    )
+
+    names = {x for x in saved if isinstance(x, str)}
+    ops = {x for x in saved if not isinstance(x, str)}
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in ops or (op is torch.ops.rbt.checkpoint_name.default
+                         and args[1] in names):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, policy)
 
 
 class LoraDeltas:
@@ -479,8 +534,9 @@ def forward(
     segment_ids (no-cache path only, as in the reference) keep packed
     documents apart: the flash kernels take them, the plain path builds
     them into its mask. remat=True recomputes each block in the backward
-    (``cfg.remat_policy`` "nothing_saveable": only the block's input is
-    kept); "none" turns it off. lora merges LoRA deltas into each layer's
+    and keeps what ``cfg.remat_policy`` saves (REMAT_POLICIES:
+    "nothing_saveable" keeps only the block's input); "none" turns it
+    off. lora merges LoRA deltas into each layer's
     weights inside its block.
 
     adapters (serving): (pool, lane_idx), an adapter pool
@@ -503,9 +559,13 @@ def forward(
         raise NotImplementedError(
             "packed sequences (segment_ids) are not supported together with "
             "a KV cache: the cache mask is positional-only")
+    context_fn = None
     if remat:
         _check_remat_policy(cfg.remat_policy)
         remat = cfg.remat_policy != "none"
+    if remat:
+        context_fn = _remat_context_fn(cfg.remat_policy)
+    name_attn_out = remat and cfg.remat_policy == "save_attn_out"
     b, s = tokens.shape
     ad = cfg.activation_dtype
     device = tokens.device
@@ -554,6 +614,8 @@ def forward(
         attn_out = _attention_block(cfg, layers["attn"], li, h1, positions,
                                     mask, layer_cache, segment_ids, lora,
                                     rows.get("attn"))
+        if name_attn_out:
+            attn_out = checkpoint_name(attn_out, "attn_out")
         if cfg.parallel_block:
             # Falcon: attention and MLP read the same input, through one
             # shared norm (7b) or their own (40b's ln_attn / ln_mlp).
@@ -573,7 +635,10 @@ def forward(
                       if cache.quantized else (None, None))
             layer_cache = (cache.k[li], cache.v[li], *scales,
                            None if scatter_mode else cache.index, cache_view)
-        if remat:
+        if context_fn is not None:
+            x = checkpoint(block, x, li, layer_cache, use_reentrant=False,
+                           context_fn=context_fn)
+        elif remat:
             x = checkpoint(block, x, li, layer_cache, use_reentrant=False)
         else:
             x = block(x, li, layer_cache)

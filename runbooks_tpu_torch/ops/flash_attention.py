@@ -517,19 +517,45 @@ flash_attention_bwd.dq_launches = 0
 flash_attention_bwd.dkv_launches = 0
 
 
+@torch.library.custom_op("rbt::flash_fwd", mutates_args=())
+def flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                 q_segment_ids: Optional[torch.Tensor],
+                 kv_segment_ids: Optional[torch.Tensor], causal: bool,
+                 scale: float, block_skip: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention_fwd`` as one operator, ``torch.ops.rbt.flash_fwd``,
+    so that a dispatch mode sees K1 (or its plain version) as a single op
+    with outputs (out, lse): selective activation checkpointing saves them
+    by name (models/transformer.py, remat_policy "save_attn_out") where
+    the reference tags its kernel's residuals with ``checkpoint_name``."""
+    return flash_attention_fwd(q, k, v, q_positions, kv_positions,
+                               q_segment_ids, kv_segment_ids, causal, scale,
+                               block_skip)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, q_positions, kv_positions, q_segment_ids,
+                    kv_segment_ids, causal, scale, block_skip):
+    b, sq, h, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, sq), dtype=torch.float32))
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Forward K1, backward K2 and K3 (the plain versions on the CPU).
-    Saves (q, k, v, out, lse) as the reference's _vjp_fwd does; under
-    activation checkpointing the forward runs again in the recompute and
-    saves the recomputed (out, lse). Positions and segment ids get no
-    gradient."""
+    """Forward K1 (through ``flash_fwd_op``), backward K2 and K3 (the plain
+    versions on the CPU). Saves (q, k, v, out, lse) as the reference's
+    _vjp_fwd does; under activation checkpointing the forward runs again
+    in the recompute and saves the recomputed (out, lse), unless the
+    checkpoint's policy saved the op's outputs, which the recompute then
+    reuses without a launch. Positions and segment ids get no gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_positions, kv_positions, q_segment_ids,
                 kv_segment_ids, causal, scale, block_skip):
-        out, lse = flash_attention_fwd(q, k, v, q_positions, kv_positions,
-                                       q_segment_ids, kv_segment_ids, causal,
-                                       scale, block_skip)
+        out, lse = torch.ops.rbt.flash_fwd(
+            q, k, v, q_positions, kv_positions, q_segment_ids,
+            kv_segment_ids, causal, scale, block_skip)
         ctx.save_for_backward(q, k, v, q_positions, kv_positions,
                               q_segment_ids, kv_segment_ids, out, lse)
         ctx.args = (causal, scale, block_skip)
@@ -557,8 +583,8 @@ def flash_attention(q, k, v, q_positions, kv_positions, q_segment_ids=None,
     offset positions passes block_skip=False."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return _FlashAttention.apply(q, k, v, q_positions, kv_positions,
-                                 q_segment_ids, kv_segment_ids, causal, scale,
-                                 block_skip)
+                                 q_segment_ids, kv_segment_ids, causal,
+                                 float(scale), block_skip)
 
 
 flash_attention.launches = 0

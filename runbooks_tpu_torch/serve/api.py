@@ -64,7 +64,7 @@ from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
 from runbooks_tpu_torch.serve.lora_pool import load_merge_adapter
 from runbooks_tpu_torch.train.checkpoint import restore_params
 from runbooks_tpu_torch.train.data import load_tokenizer
-from runbooks_tpu_torch.utils import contract
+from runbooks_tpu_torch.utils import contract, cuda_build
 from runbooks_tpu_torch.utils.hw import resolve_device
 from runbooks_tpu_torch.utils.tree import tree_map
 
@@ -1059,6 +1059,10 @@ def refuse_unported(params: dict) -> None:
 def main() -> int:
     params = contract.load_params()
     refuse_unported(params)
+    # Kernels build into and load from <artifacts>/kernel_cache: a
+    # restarted server loads K1 instead of running nvcc again.
+    cuda_build.use_kernel_cache(
+        cuda_build.kernel_cache_dir(contract.artifacts_dir()))
     cfg, model_params = load_model(params)
     tokenizer = load_tokenizer(params.get("tokenizer"))
     queue_shares = {}

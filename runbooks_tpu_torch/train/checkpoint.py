@@ -7,7 +7,10 @@ the data cursor, the newest ``max_to_keep`` steps kept, and restore of the
 newest *intact* step (a step directory without its marker is a save that
 was cut off, and is skipped). The state is one ``torch.save`` file per
 step, written to a temp file and moved into place, so a reader never sees
-a torn file. It cannot read the reference's orbax checkpoints.
+a torn file. It does not read the reference's orbax checkpoints:
+``tools/orbax_to_torch.py``, run where orbax is installed, turns an orbax
+step into this layout (``ORBAX_CONVERTER``), and a restore that meets an
+orbax step raises naming it.
 """
 
 from __future__ import annotations
@@ -23,6 +26,17 @@ from runbooks_tpu_torch.ops.quantization import unpack_from_checkpoint
 from runbooks_tpu_torch.utils.tree import tree_map
 
 STATE_FILE = "state.pt"
+# The converter of the reference's orbax steps (outside this package).
+ORBAX_CONVERTER = "tools/orbax_to_torch.py"
+
+
+def _orbax_step(step_dir: str) -> bool:
+    """Does ``step_dir`` hold an orbax save (its metadata file or item
+    directory) and no state of this port?"""
+    return (not os.path.exists(os.path.join(step_dir, STATE_FILE))
+            and (os.path.exists(os.path.join(step_dir,
+                                             "_CHECKPOINT_METADATA"))
+                 or os.path.isdir(os.path.join(step_dir, "default"))))
 
 
 class CheckpointManager:
@@ -106,6 +120,11 @@ class CheckpointManager:
                   flush=True)
         last_exc: Optional[Exception] = None
         for s in candidates:
+            if _orbax_step(self._step_dir(s)):
+                raise RuntimeError(
+                    f"{self._step_dir(s)} is an orbax step of the reference "
+                    f"(runbooks_tpu); convert it with {ORBAX_CONVERTER} "
+                    "where orbax is installed")
             path = os.path.join(self._step_dir(s), STATE_FILE)
             try:
                 state = torch.load(path, map_location=device,
@@ -131,9 +150,9 @@ def restore_params(directory: str, device: torch.device
     QuantizedArray leaves.
 
     A ``checkpoints/`` that holds anything else this port cannot read (the
-    reference's orbax steps, saves that were cut off, a state without
-    params) raises: serving random weights behind a healthy server in its
-    place would be silent garbage."""
+    reference's orbax steps, which ORBAX_CONVERTER converts; saves that
+    were cut off; a state without params) raises: serving random weights
+    behind a healthy server in its place would be silent garbage."""
     ckpt_dir = os.path.join(directory, "checkpoints")
     if not os.path.isdir(ckpt_dir) or not os.listdir(ckpt_dir):
         return None
@@ -142,8 +161,8 @@ def restore_params(directory: str, device: torch.device
         raise RuntimeError(
             f"{ckpt_dir} holds {sorted(os.listdir(ckpt_dir))[:8]} but no "
             f"intact step in this port's layout (<step>/{STATE_FILE} with "
-            f"{CheckpointManager.MARKER}); reading other layouts, such as "
-            "the reference's orbax checkpoints, is not ported")
+            f"{CheckpointManager.MARKER}); the reference's orbax steps "
+            f"convert with {ORBAX_CONVERTER} where orbax is installed")
     state, _, step = mgr.restore_with_cursor(device=torch.device("cpu"),
                                              mmap=True)
     params = state.get("params") if isinstance(state, dict) else None

@@ -8,20 +8,24 @@ Full fine-tuning and LoRA (frozen base, only the adapters trained).
 
 Fault tolerance as in the reference: periodic and last-step checkpoints
 carry the data cursor, a restarted job resumes from the newest intact one
-and sees the batch it would have seen; SIGTERM/SIGINT stop the loop at the
-next step boundary with an emergency checkpoint (``exit_code_for`` then
-gives EXIT_PREEMPTED); ``max_bad_steps`` consecutive non-finite steps (each
-skipped by the step's guard) abort the run.
+and sees the batch it would have seen; SIGTERM/SIGINT, and a pending GCE
+maintenance event when ``maintenance_poll_s`` > 0 (``main`` turns it on
+when it finds the GCE metadata server), stop the loop at the next step
+boundary with an emergency checkpoint (``exit_code_for`` then gives
+EXIT_PREEMPTED); ``max_bad_steps`` consecutive non-finite steps (each
+skipped by the step's guard) abort the run. RBT_FAULT_INJECT
+(``kill:K``, ``sigterm:K``, ``nonfinite:K[+]``) injects each fault at a
+chosen step, deterministically.
 
 ``prefetch_depth`` > 0 (default 2) reads, tokenizes and packs ahead on a
 background thread (``data.Prefetcher``) into pinned host memory; the loop
 copies each batch to the device asynchronously on its own stream.
 
-Not ported yet (ROADMAP.md): the observability planes (spans, metrics
-registry, goodput, compile sentinel, profiler capture, cost analysis), the
-RBT_FAULT_INJECT hook, the GCE maintenance poller and the compile cache;
-mesh and collective-matmul keys of params.json are ignored, as unknown
-keys are.
+``main`` builds the kernels into ``<artifacts>/kernel_cache``
+(utils/cuda_build.py), so a restarted Job loads them without ``nvcc``.
+The ``mesh_*`` keys of params.json are ignored (one device is FSDP's
+arithmetic on one shard); the profiler's keys and a collective matmul
+other than "off" are refused by name.
 """
 
 from __future__ import annotations
@@ -51,10 +55,61 @@ from runbooks_tpu_torch.train.step import (
     create_train_state,
     make_train_step,
 )
-from runbooks_tpu_torch.utils import contract
+from runbooks_tpu_torch.utils import contract, cuda_build
 from runbooks_tpu_torch.utils.contract import EXIT_PREEMPTED
 from runbooks_tpu_torch.utils.hw import chip_peak_flops, resolve_device
 from runbooks_tpu_torch.utils.tree import tree_map
+
+COLLECTIVE_MATMUL_PARAM_KEYS = ("collective_matmul", "collectiveMatmul",
+                                "collectivematmul")
+
+
+class SimulatedFault(RuntimeError):
+    """Raised by RBT_FAULT_INJECT's ``kill`` mode: a deterministic stand-in
+    for an abrupt process death (no emergency checkpoint, no cleanup beyond
+    ``finally``), to prove step-exact resume."""
+
+
+def _parse_fault_inject() -> Optional[dict]:
+    """RBT_FAULT_INJECT=<mode>:<step>[+], the reference's deterministic
+    fault hook:
+
+      kill:K       raise SimulatedFault at the top of step K
+      sigterm:K    send this process SIGTERM at the top of step K (the real
+                   handler: emergency checkpoint, preempted exit)
+      nonfinite:K  poison step K's batch with NaN (the non-finite guard);
+                   ``K+`` poisons every step from K on (the abort after
+                   max_bad_steps)
+    """
+    spec = os.environ.get("RBT_FAULT_INJECT", "")
+    if not spec:
+        return None
+    mode, _, step = spec.partition(":")
+    if mode not in ("kill", "sigterm", "nonfinite") or not step:
+        raise ValueError(
+            f"RBT_FAULT_INJECT={spec!r}: expected kill:K|sigterm:K|"
+            "nonfinite:K[+]")
+    return {"mode": mode, "step": int(step.rstrip("+")),
+            "repeat": step.endswith("+")}
+
+
+def _refuse_unported(params: Dict[str, Any]) -> None:
+    """Keys of params.json that the reference honours and this port cannot
+    (the profiler capture, the collective matmul), refused by name rather
+    than dropped."""
+    start = int(params.get("profile_start", 0) or 0)
+    stop = int(params.get("profile_stop", 0) or 0)
+    if stop > start:
+        raise NotImplementedError(
+            f"profile_start={start} / profile_stop={stop}: the profiler "
+            "capture is not ported (ROADMAP.md, the observability planes)")
+    for key in COLLECTIVE_MATMUL_PARAM_KEYS:
+        value = params.get(key)
+        if value is not None and str(value).lower() != "off":
+            raise NotImplementedError(
+                f"{key}={value!r}: the collective matmul needs a mesh, "
+                "which the port does not have (ROADMAP.md, multi-device); "
+                "use off")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,16 +139,22 @@ class TrainJobConfig:
     artifacts_dir: Optional[str] = None   # default: contract artifacts dir
     log_every: int = 10
     resume: bool = True
+    # Abort after this many consecutive non-finite steps. maintenance_poll_s
+    # > 0 polls the GCE metadata server for a pending maintenance event
+    # and treats one like SIGTERM.
     max_bad_steps: int = 3
+    maintenance_poll_s: float = 0.0
 
     @classmethod
     def from_params(cls, params: Dict[str, Any]) -> "TrainJobConfig":
         """From a flat params.json dict, as the reference reads it: the
         camelCase spellings of accumulate_steps and max_bad_steps, quoted
-        integers, optimizer keys at the top level, ``lora`` as a dict (or
-        true for the defaults); unknown keys are ignored."""
+        numbers, optimizer keys at the top level, ``lora`` as a dict (or
+        true for the defaults); unknown keys are ignored, and keys the
+        port cannot honour are refused by name."""
         kwargs: Dict[str, Any] = {}
         params = dict(params)
+        _refuse_unported(params)
         for alias in ("accumulateSteps", "accumulatesteps"):
             if alias in params:
                 params.setdefault("accumulate_steps", params.pop(alias))
@@ -107,6 +168,8 @@ class TrainJobConfig:
                     "batch_size", "seq_len", "steps", "max_bad_steps"):
             if key in kwargs:
                 kwargs[key] = int(kwargs[key])
+        if "maintenance_poll_s" in kwargs:
+            kwargs["maintenance_poll_s"] = float(kwargs["maintenance_poll_s"])
         opt_keys = {f.name for f in dataclasses.fields(OptimizerConfig)}
         opt_args = {k: v for k, v in params.items() if k in opt_keys}
         if opt_args:
@@ -170,6 +233,13 @@ def run_training(job: TrainJobConfig, base_params=None,
     if job.batch_size % job.accumulate_steps:
         raise ValueError(f"accumulate_steps={job.accumulate_steps} must "
                          f"divide batch_size={job.batch_size}")
+    if os.environ.get("RBT_PROFILE_AT_STEP"):
+        raise NotImplementedError(
+            f"RBT_PROFILE_AT_STEP={os.environ['RBT_PROFILE_AT_STEP']!r}: "
+            "the profiler capture is not ported (ROADMAP.md, the "
+            "observability planes)")
+    # May raise on a malformed value: before any state needing cleanup.
+    fault = _parse_fault_inject()
     optimizer = make_optimizer(job.optimizer)
     artifacts = job.artifacts_dir or contract.artifacts_dir()
     os.makedirs(artifacts, exist_ok=True)
@@ -207,8 +277,14 @@ def run_training(job: TrainJobConfig, base_params=None,
     history = []
     stop = {"reason": None}
     restore_sigs = []
+    poller_stop = None
     prefetcher = None
     win = {"data": 0.0, "step": 0.0, "steps": 0}
+
+    def fault_due(i: int, mode: str) -> bool:
+        return (fault is not None and fault["mode"] == mode
+                and (i == fault["step"]
+                     or (fault["repeat"] and i >= fault["step"])))
 
     def summary_dict(in_progress: bool = False) -> Dict[str, Any]:
         s = {
@@ -262,6 +338,11 @@ def run_training(job: TrainJobConfig, base_params=None,
                           flush=True)
             for sig in (signal.SIGTERM, signal.SIGINT):
                 restore_sigs.append((sig, signal.signal(sig, on_signal)))
+        if job.maintenance_poll_s > 0:
+            poller_stop = threading.Event()
+            threading.Thread(target=_poll_maintenance,
+                             args=(job.maintenance_poll_s, poller_stop, stop),
+                             name="rbt-maintenance", daemon=True).start()
 
         batches = _batches(job, model_cfg, skip=consumed)
         if job.prefetch_depth > 0:
@@ -271,6 +352,11 @@ def run_training(job: TrainJobConfig, base_params=None,
         t_start = time.perf_counter()
         tokens_done = 0
         for i in range(start_step, job.steps):
+            if fault_due(i, "kill"):
+                raise SimulatedFault(
+                    f"RBT_FAULT_INJECT: simulated death at step {i}")
+            if fault_due(i, "sigterm"):
+                os.kill(os.getpid(), signal.SIGTERM)
             if stop["reason"]:
                 exit_reason = stop["reason"]
                 break
@@ -279,6 +365,8 @@ def run_training(job: TrainJobConfig, base_params=None,
                      for k, v in next(batches).items()}
             consumed += 1
             data_wait_s = time.perf_counter() - t_data
+            if fault_due(i, "nonfinite"):
+                batch["loss_mask"] = batch["loss_mask"] * float("nan")
             t_step = time.perf_counter()
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])
@@ -345,6 +433,8 @@ def run_training(job: TrainJobConfig, base_params=None,
     finally:
         if prefetcher is not None:
             prefetcher.close()
+        if poller_stop is not None:
+            poller_stop.set()
         for sig, old in restore_sigs:
             signal.signal(sig, old)
 
@@ -357,19 +447,54 @@ def run_training(job: TrainJobConfig, base_params=None,
     return summary
 
 
+def _poll_maintenance(every_s: float, done: threading.Event,
+                      stop: Dict[str, Any]) -> None:
+    """Every ``every_s`` seconds until ``done``: a pending GCE maintenance
+    event sets the stop reason "maintenance" (once; a failed poll is a
+    flake, not a stop)."""
+    from runbooks_tpu_torch.cloud import metadata
+
+    while not done.wait(every_s):
+        try:
+            event = metadata.maintenance_event()
+        except Exception:  # noqa: BLE001 - a flaky poll is not a stop
+            continue
+        if event and stop["reason"] is None:
+            stop["reason"] = "maintenance"
+            print(f"trainer: GCE maintenance event {event!r}; emergency "
+                  "checkpoint at the next step boundary", flush=True)
+            return
+
+
 def exit_code_for(summary: Dict[str, Any]) -> int:
-    """EXIT_PREEMPTED (42) for a run stopped by SIGTERM/SIGINT after its
-    emergency checkpoint, 0 otherwise."""
-    if summary.get("exit_reason") in ("sigterm", "sigint"):
+    """EXIT_PREEMPTED (42) for a run stopped by SIGTERM, SIGINT or a GCE
+    maintenance event after its emergency checkpoint, 0 otherwise."""
+    if summary.get("exit_reason") in ("sigterm", "sigint", "maintenance"):
         return EXIT_PREEMPTED
     return 0
 
 
 def main() -> int:
-    job = TrainJobConfig.from_params(contract.load_params())
+    params = contract.load_params()
+    job = TrainJobConfig.from_params(params)
+    if job.maintenance_poll_s == 0 and "maintenance_poll_s" not in params:
+        # On GCE, watch for maintenance events by default (one quick
+        # probe: an off-GCE box must not stall on a dead address).
+        from runbooks_tpu_torch.cloud import metadata
+
+        if metadata.on_gce(timeout=0.5, attempts=1):
+            job = dataclasses.replace(job, maintenance_poll_s=5.0)
+    kernels = cuda_build.use_kernel_cache(cuda_build.kernel_cache_dir(
+        job.artifacts_dir or contract.artifacts_dir()))
+    if torch.cuda.is_available():
+        # Every kernel of the training path at once (one nvcc each, in
+        # parallel), or none over a warm cache.
+        cuda_build.build(cuda_build.SOURCES)
     summary = run_training(job)
-    print(json.dumps({"done": True, **{k: v for k, v in summary.items()
-                                       if k != "history"}}), flush=True)
+    print(json.dumps({"done": True,
+                      **{k: v for k, v in summary.items() if k != "history"},
+                      "kernel_cache": {"dir": str(kernels),
+                                       **cuda_build.stats}}), flush=True)
     return exit_code_for(summary)
 
 

@@ -291,6 +291,47 @@ def test_autograd_function_runs_the_kernels():
     _assert_bwd_close(got, ref)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["dots_with_no_batch_dims_saveable",
+                                    "dots_saveable", "save_attn_out"])
+def test_remat_policy_on_the_kernels(policy):
+    """A 2-layer falcon-7b-shaped model (71 query heads on 1 kv head, d
+    64) at width 4544 through K1-K3 under each remat policy: the logits
+    and gradients equal nothing_saveable's bit for bit (a policy changes
+    what the backward keeps, not the arithmetic), and save_attn_out
+    launches K1 once per layer instead of twice."""
+    import dataclasses
+
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.transformer import forward, init_params
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    base = get_config("falcon-7b", num_layers=2, vocab_size=1024)
+    params = init_params(base, torch.Generator(device=dev).manual_seed(3),
+                         dev)
+    tokens = torch.randint(0, 1024, (2, 256), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(4))
+    runs = {}
+    for name in ("nothing_saveable", policy):
+        w = params["layers"]["attn"]["wq"].detach().clone().requires_grad_()
+        p = dict(params, layers=dict(params["layers"], attn=dict(
+            params["layers"]["attn"], wq=w)))
+        before = flash_attention.launches
+        logits, _ = forward(dataclasses.replace(base, remat_policy=name), p,
+                            tokens, remat=True)
+        (grad,) = torch.autograd.grad(logits.float().square().mean(), w)
+        torch.cuda.synchronize()
+        runs[name] = (logits.detach(), grad,
+                      flash_attention.launches - before)
+    (l0, g0, n0), (l1, g1, n1) = runs["nothing_saveable"], runs[policy]
+    assert torch.equal(l0, l1) and torch.equal(g0, g1)
+    assert n0 == 2 * base.num_layers
+    assert n1 == (base.num_layers if policy == "save_attn_out" else n0)
+
+
 def _post(base, body):
     req = urllib.request.Request(
         base + "/v1/completions", data=json.dumps(body).encode(),

@@ -248,17 +248,21 @@ def test_import_of_a_bf16_directory_matches_jax(tmp_path, monkeypatch,
 
 def test_opt_vocab_and_merges_directory_is_refused_by_name(tmp_path):
     """OPT's hub directory holds vocab.json and merges.txt with no
-    tokenizer.json; reading them waits for a later slice, and the loader
-    says so by name (with no path asked for, serving keeps the byte
-    tokenizer, as examples/facebook-opt-125m/base-server.yaml does)."""
+    tokenizer.json: the loader reads it (tests/test_torch_tokenizer_files.py
+    holds it to transformers), and refuses one whose merges name a token
+    the vocab lacks, by name (with no path asked for, serving keeps the
+    byte tokenizer, as examples/facebook-opt-125m/base-server.yaml does)."""
     from runbooks_tpu_torch.models import tokenizer_io
     from runbooks_tpu_torch.train.data import ByteTokenizer, load_tokenizer
 
     (tmp_path / "vocab.json").write_text(json.dumps({"a": 0, "b": 1}))
     (tmp_path / "merges.txt").write_text("#version: 0.2\na b\n")
     with pytest.raises(tokenizer_io.TokenizerFormatError,
-                       match="vocab.json and merges.txt"):
+                       match="not in the vocab"):
         tokenizer_io.load(str(tmp_path))
     with pytest.raises(RuntimeError):
         load_tokenizer(str(tmp_path))
+    (tmp_path / "vocab.json").write_text(json.dumps({"a": 0, "b": 1,
+                                                     "ab": 2}))
+    assert load_tokenizer(str(tmp_path)).encode("abba") == [2, 1, 0]
     assert isinstance(load_tokenizer(None), ByteTokenizer)

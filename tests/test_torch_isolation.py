@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no module of runbooks_tpu_torch and
 none of its root scripts imports jax or runbooks_tpu, nor a package the
 card lacks (transformers, tokenizers, sentencepiece, regex,
-huggingface_hub: the port reads tokenizer files itself), the package
+huggingface_hub, orbax, google.protobuf: the port reads tokenizer files
+and sentencepiece's protobuf itself), nor the orbax converter under
+tools/ (which runs where orbax is installed), the package
 imports with all of them blocked, and its entry points (serving's
 load_model, create_server and main, training's run_training) refuse to
 fall back to the CPU when no GPU exists and no device was named."""
@@ -18,7 +20,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "runbooks_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "runbooks_tpu", "transformers", "tokenizers",
-             "sentencepiece", "regex", "huggingface_hub")
+             "sentencepiece", "regex", "huggingface_hub", "orbax",
+             "google.protobuf", "tools")
 # Packages the card lacks that a port module may still try for an
 # optional feature, inside ``try: ... except ImportError``: the model
 # loader's ``source: huggingface`` download.

@@ -277,7 +277,9 @@ def test_nonfinite_guard_leaves_state_bitwise_and_advances():
 def test_forward_segments_remat_and_policies():
     """Packed rows through the no-cache forward with and without remat
     give the same logits and gradients; the reference's other remat
-    policies are refused by name, and segment ids with a cache raise."""
+    policies give the same logits (tests/test_torch_remat.py holds their
+    gradients), an unknown one is refused by name, and segment ids with a
+    cache raise."""
     from runbooks_tpu_torch.models.transformer import (
         KVCache,
         forward,
@@ -301,9 +303,13 @@ def test_forward_segments_remat_and_policies():
     np.testing.assert_allclose(outs[1][1].numpy(), outs[0][1].numpy(),
                                atol=TOL)
     for policy in ("dots_saveable", "save_attn_out"):
-        with pytest.raises(NotImplementedError, match=policy):
-            forward(dataclasses.replace(tcfg, remat_policy=policy), params,
-                    b["tokens"], remat=True)
+        same, _ = forward(dataclasses.replace(tcfg, remat_policy=policy),
+                          params, b["tokens"], positions=b["positions"],
+                          segment_ids=b["segment_ids"], remat=True)
+        assert torch.equal(same, outs[0][0])
+    with pytest.raises(ValueError, match="dots_everything"):
+        forward(dataclasses.replace(tcfg, remat_policy="dots_everything"),
+                params, b["tokens"], remat=True)
     same, _ = forward(dataclasses.replace(tcfg, remat_policy="none"),
                       params, b["tokens"], positions=b["positions"],
                       segment_ids=b["segment_ids"], remat=True)

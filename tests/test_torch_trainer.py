@@ -219,6 +219,9 @@ def test_full_mode_trains_and_main_reads_the_contract(tmp_path,
         "loss_chunk": 8}))
     monkeypatch.setenv("RBT_CONTENT_DIR", str(content))
     monkeypatch.setenv("PARAM_CHECKPOINT_EVERY", "3")
+    # main() probes the GCE metadata server when params.json does not
+    # set maintenance_poll_s: keep the probe on this machine.
+    monkeypatch.setenv("GCE_METADATA_HOST", "127.0.0.1:9")
     monkeypatch.setattr(trainer, "resolve_device",
                         lambda device=None: torch.device("cpu"))
     assert trainer.main() == 0
