@@ -58,6 +58,20 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    bf16 checkpoint of llama3-8b cut to 2 layers from the contract's model
    mount, answers one greedy completion exactly as this process decodes
    the saved params, and exits 0 on SIGTERM within its drain timeout.
+   It runs with RBT_TRACE=1, and its telemetry is held to gates: a
+   ``POST /debug/profile?seconds=2`` taken while a 1500-token request
+   prefills and decodes writes a Chrome trace whose device kernels
+   include K1's symbol, and a second POST meanwhile gets 409; that
+   request's ``/debug/flight`` timeline reads queue_wait, prefill, decode;
+   trace.jsonl parses line by line; ``/metrics`` passes the reference's
+   exposition lint, and its request, token and TTFT counts equal what was
+   sent and answered, with no kernel build after warmup; ``/debug/memory``
+   charges the weights group exactly the saved parameters' bytes and the
+   KV group exactly the cache's, and the allocator gauge agrees with
+   ``torch.cuda.memory_allocated()`` within 1%; ``/debug/programs`` lists
+   every prefill shape warmup dispatched and each decode view's program
+   with FLOPs within 2% of the analytic count; ``POST /debug/incident``
+   writes one bundle and a second within the debounce none.
 9. Import: an HF llama3-8b directory at full width cut to 2 layers, BF16,
    in two safetensors shards with their index (written here from the
    seed), goes through ``python -m runbooks_tpu_torch.models.loader``;
@@ -77,7 +91,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    and without the prefix agree up to near-ties; TTFT, prefill seconds,
    K1's launches and peak memory with and without the prefix.
 11. Speculation and grammar: llama3-8b bf16 at full width cut to
-   SERVE_LAYERS (8) layers,
+   SERVE_LAYERS (4) layers,
    ``InferenceEngine(max_slots=8, max_seq_len=2048)``, each engine warmed
    up. (a) 8 greedy prompts of 200-1500 tokens that repeat seeded spans,
    128 new tokens each, with speculation off and with ``"ngram"``
@@ -155,7 +169,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    engine: ids equal (a)'s up to near-ties, the accept rate. (e)
    ``create_server(adapter_pool=4, adapter_dir=...)``: ``"adapter":
    "tenant0"`` answers 200 with (a)'s ids, an unknown adapter 400.
-14. Quantized serving: llama3-8b at full width cut to QUANT_LAYERS (8)
+14. Quantized serving: llama3-8b at full width cut to QUANT_LAYERS (4)
    layers from the seed, bf16 activations. (a) ``quantized_matmul`` at
    int8 and int4 on x [8, 4096] and [2048, 4096] through ``wi_gate``
    (4096 -> 14336) and x [8, 14336] and [2048, 14336] through the MLP
@@ -255,6 +269,18 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    phase 15's corpus and opt-125m served through both alike, and a
    sentencepiece tokenizer.model of phase 15's 32,000 llama2-style
    pieces with the ids of the tokenizer.json built from the same pieces.
+   (a') (a)'s nothing_saveable job for 3 steps under
+   RBT_PROFILE_AT_STEP=2:1: the capture names K1, K2 and K3 with one
+   step's launches (256 / 128 / 128), metrics.json carries goodput in
+   (0, 1], train_step_seconds counts the steps after the first, step 1's
+   loss is bit-equal to (a)'s, and the step program's counted FLOPs and
+   analytic MFU are recorded.
+18. What the telemetry costs (measured, not gated): llama3-8b bf16 at
+   full width cut to SERVE_LAYERS; the seconds the first-dispatch
+   counting adds to a warmup; decode tokens/s of a ``create_server`` in
+   this process under RBT_FLIGHT=0, the default and RBT_TRACE=1,
+   interleaved twice; the scrape's milliseconds; and the gate that the
+   allocator gauge equals ``torch.cuda.memory_allocated()`` within 1%.
 
 Each phase's end prints the seconds since the start; a run still going
 after WATCHDOG_S dumps every thread's stack to standard error.
@@ -383,11 +409,12 @@ PCIE_GEN5_X16 = 64e9       # bytes/s in each direction
 QMM_MATS = (("wi_gate", 4096, 14336), ("mlp_wo", 14336, 4096))
 QMM_ROWS = (8, 2048)
 QMM_TOL = 1e-5
-# Phases 11-13 (SERVE_LAYERS) and 14 (QUANT_LAYERS) run llama3-8b at full
-# width cut in depth, so that the whole script, phase 17 included, ends in
-# about half its 1200 s limit: phase 4 serves the full depth.
-SERVE_LAYERS = 8
-QUANT_LAYERS = 8
+# Phases 11-13 and 18 (SERVE_LAYERS) and 14 (QUANT_LAYERS) run llama3-8b
+# at full width cut in depth (8 layers until the telemetry's checks came
+# in), so that the whole script, phases 17 and 18 included, stays well
+# inside its 1200 s limit: phase 4 serves the full depth.
+SERVE_LAYERS = 4
+QUANT_LAYERS = 4
 # Past this many seconds the run dumps its threads' stacks to stderr (and
 # goes on), so that a run cut at the limit shows where it was.
 WATCHDOG_S = 1100
@@ -1525,7 +1552,7 @@ def free_port():
         return s.getsockname()[1]
 
 
-def start_entry_point(content, port, log_path, ready_timeout):
+def start_entry_point(content, port, log_path, ready_timeout, env_extra=None):
     """``python -m runbooks_tpu_torch.serve.api`` on the contract root
     ``content`` (whose params.json names ``port``), its output in
     log_path: (process, base URL, seconds to readiness). A server not
@@ -1538,7 +1565,8 @@ def start_entry_point(content, port, log_path, ready_timeout):
                RBT_KERNEL_CACHE=os.path.join(os.path.dirname(content),
                                              "server_kernel_cache"),
                PYTHONPATH=os.pathsep.join(
-                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+               **(env_extra or {}))
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
@@ -1569,11 +1597,264 @@ def stopped_launches(log_text):
     return stopped[-1]["flash_fwd_launches"] if stopped else 0
 
 
+# ---------------------------------------------------------------------------
+# Observability (slice 17): the gates on a server's telemetry
+# ---------------------------------------------------------------------------
+
+# K1, K2 and K3 as CUPTI names them in a torch.profiler capture.
+KERNEL_SYMBOLS = {"flash_fwd": "flash_fwd_kernel",
+                  "flash_bwd_dq": "flash_bwd_dq_kernel",
+                  "flash_bwd_dkv": "flash_bwd_dkv_kernel"}
+OBS_PROFILE_S = 2.0
+OBS_LONG_PROMPT = 1500
+OBS_LONG_NEW = 64
+DECODE_FLOPS_RTOL = 0.02
+MEMORY_RTOL = 0.01
+
+_LINT_NAME = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+_LINT_COMMENT = re.compile(
+    rf"^# (HELP ({_LINT_NAME}) .+|TYPE ({_LINT_NAME}) "
+    r"(counter|gauge|histogram))$")
+_LINT_LABEL = re.compile(rf'({_LINT_NAME})="((?:[^"\\\n]|\\\\|\\"|\\n)*)"')
+_LINT_SAMPLE = re.compile(rf"^({_LINT_NAME})(\{{(.*)\}})? (\S+)$")
+
+
+def lint_exposition(text):
+    """The reference's exposition lint (its tests/test_obs.py): every line
+    parses, each # TYPE precedes its family's samples, counters end in
+    _total, histogram buckets carry le, and +Inf equals _count. Returns
+    the list of problems (empty when the exposition is clean)."""
+    problems, types, seen = [], {}, set()
+    if not text.endswith("\n"):
+        problems.append("no final newline")
+    inf, counts = {}, {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        if line.startswith("#"):
+            m = _LINT_COMMENT.match(line)
+            if not m:
+                problems.append(f"malformed comment {line!r}")
+            elif m.group(3):
+                if m.group(3) in types or m.group(3) in seen:
+                    problems.append(f"# TYPE out of place: {line!r}")
+                types[m.group(3)] = m.group(4)
+            continue
+        m = _LINT_SAMPLE.match(line)
+        if not m:
+            problems.append(f"malformed sample {line!r}")
+            continue
+        name, blob, value = m.group(1), m.group(3) or "", m.group(4)
+        float(value)
+        if _LINT_LABEL.sub("", blob).replace(",", ""):
+            problems.append(f"unparseable labels {line!r}")
+        family = name
+        if family not in types:
+            for suffix in ("_bucket", "_sum", "_count"):
+                if name.endswith(suffix) and \
+                        types.get(name[:-len(suffix)]) == "histogram":
+                    family = name[:-len(suffix)]
+        if family not in types:
+            problems.append(f"{name} has no preceding # TYPE")
+            continue
+        seen.add(family)
+        if types[family] == "counter" and not name.endswith("_total"):
+            problems.append(f"counter {name} lacks _total")
+        key = (family, re.sub(r',?le="[^"]*"', "", blob))
+        if name.endswith("_bucket"):
+            if 'le="' not in blob:
+                problems.append(f"bucket without le {line!r}")
+            if 'le="+Inf"' in blob:
+                inf[key] = float(value)
+        elif name.endswith("_count") and family != name:
+            counts[key] = float(value)
+    for key, n in counts.items():
+        if inf.get(key) != n:
+            problems.append(f"{key}: +Inf {inf.get(key)} != _count {n}")
+    return problems
+
+
+def trace_kernel_counts(path):
+    """{kernel name: launches} of K1, K2 and K3 in a torch.profiler
+    Chrome trace (its device events, category "kernel")."""
+    from runbooks_tpu_torch.obs.profile import device_kernels
+
+    names = device_kernels(path)
+    return {k: sum(1 for n in names if sym in n)
+            for k, sym in KERNEL_SYMBOLS.items()}
+
+
+def decode_flops(cfg, rows, view, chunk):
+    """The analytic FLOPs of one decode chunk: per step, each row's token
+    through every projection, the attention over the cache view (q k^T
+    and p v over all heads) and the head."""
+    h, q = cfg.hidden_size, cfg.num_heads * cfg.head_dim
+    kv = cfg.num_kv_heads * cfg.head_dim
+    mlp = (3 if cfg.gated_mlp else 2) * h * cfg.intermediate_size
+    linear = h * q + 2 * h * kv + q * h + mlp
+    per_step = (2 * rows * (cfg.num_layers * linear + h * cfg.vocab_size)
+                + cfg.num_layers * 4 * rows * cfg.num_heads * view
+                * cfg.head_dim)
+    return chunk * per_step
+
+
+def scrape(base):
+    """(parsed families, text, milliseconds) of one GET /metrics."""
+    from runbooks_tpu_torch.obs.metrics import parse_exposition
+
+    t0 = time.perf_counter()
+    status, headers, text, _ = http_call(base, "/metrics")
+    ms = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        raise SystemExit(f"/metrics answered {status}")
+    return parse_exposition(text), text, ms
+
+
+def entry_obs_checks(torch, cfg, base, content, seed, first_tokens,
+                     weight_bytes):
+    """Phase 8 (c)'s telemetry gates on the entry-point server (run with
+    RBT_TRACE=1; one completion already answered): a profiler capture
+    taken while a long request prefills and decodes names K1, a second
+    capture request meanwhile gets 409; the traced request's flight
+    timeline; trace.jsonl line by line; /metrics against the requests
+    sent; /debug/memory's groups against the saved weights and the cache;
+    /debug/programs' census against warmup and the analytic decode
+    FLOPs; one incident bundle and a debounced second."""
+    from runbooks_tpu_torch.obs.profile import TRACE_FILE
+
+    tokens = [first_tokens]
+    gates = {}
+    out = {}
+    long_prompt = "".join(chr(97 + (i * 7 + seed) % 26)
+                          for i in range(OBS_LONG_PROMPT))
+    result = {}
+
+    def capture():
+        result["profile"] = http_call(
+            base, f"/debug/profile?seconds={OBS_PROFILE_S}", {})
+
+    def long_request():
+        result["long"] = http_call(base, "/v1/completions", {
+            "prompt": long_prompt, "max_tokens": OBS_LONG_NEW,
+            "temperature": 0}, {"X-Request-Id": "obs-long-1"})
+
+    t_cap = threading.Thread(target=capture)
+    t_cap.start()
+    time.sleep(0.3)
+    t_long = threading.Thread(target=long_request)
+    t_long.start()
+    time.sleep(0.2)
+    busy = http_call(base, f"/debug/profile?seconds={OBS_PROFILE_S}", {})
+    t_long.join()
+    t_cap.join()
+    status, _, text, _ = result["long"]
+    if status != 200:
+        raise SystemExit(f"the profiled request answered {status}: {text}")
+    tokens.append(json.loads(text)["usage"]["completion_tokens"])
+    p_status, _, p_text, _ = result["profile"]
+    gates["profile_200"] = p_status == 200
+    gates["second_profile_409"] = busy[0] == 409
+    if p_status == 200:
+        path = os.path.join(json.loads(p_text)["path"], TRACE_FILE)
+        counts = trace_kernel_counts(path)
+        out["profile_kernels"] = counts
+        gates["profile_names_k1"] = counts["flash_fwd"] > 0
+    status, _, text, _ = http_call(base,
+                                   "/debug/flight?request_id=obs-long-1")
+    names = [e["name"] for e in json.loads(text)["events"]]
+    out["flight_names"] = sorted(set(names))
+    gates["flight_timeline"] = (status == 200 and names[:2] ==
+                                ["queue_wait", "prefill"]
+                                and "decode" in names)
+    lines = bad = 0
+    with open(f"{content}/artifacts/trace.jsonl") as f:
+        head = f.readline().strip()
+        for line in f:
+            line = line.strip().rstrip(",")
+            if not line:
+                continue
+            lines += 1
+            try:
+                json.loads(line)
+            except ValueError:
+                bad += 1
+    out["trace_jsonl_lines"] = lines
+    gates["trace_jsonl_parses"] = head == "[" and lines > 0 and bad == 0
+    fams, text, ms = scrape(base)
+    scrape_ms = [ms] + [scrape(base)[2] for _ in range(9)]
+    out["scrape_ms"] = scrape_ms
+    problems = lint_exposition(text)
+    out["lint_problems"] = problems[:5]
+    gates["exposition_lint"] = not problems
+    n_req = len(tokens)
+    gates["requests_total"] = \
+        fams["serve_requests_total"].total() == n_req
+    gates["tokens_total"] = \
+        fams["serve_tokens_generated_total"].total() == sum(tokens)
+    gates["ttft_count"] = \
+        fams["serve_ttft_seconds"].merged_histogram().count == n_req
+    gates["no_unexpected_builds"] = \
+        fams["xla_unexpected_compiles_total"].total() == 0
+    in_use = fams["device_memory_bytes_in_use"].total()
+    status, _, text, _ = http_call(base, "/debug/memory")
+    mem = json.loads(text)
+    groups = mem["tensors"]["by_category"]
+    allocated = mem["tensors"]["total_bytes"]
+    itemsize = torch.tensor([], dtype=cfg.activation_dtype).element_size()
+    kv_bytes = (2 * cfg.num_layers * 8 * 2049 * cfg.num_kv_heads
+                * cfg.head_dim * itemsize)
+    out["memory"] = {"bytes_in_use_gauge": in_use,
+                     "memory_allocated_at_debug_memory": allocated,
+                     "groups": groups, "want_weights": weight_bytes,
+                     "want_kv": kv_bytes}
+    gates["memory_in_use_1pct"] = \
+        abs(in_use - allocated) <= MEMORY_RTOL * allocated
+    gates["memory_weights_exact"] = groups["weights"] == weight_bytes
+    gates["memory_kv_exact"] = groups["kv_cache"] == kv_bytes
+    status, _, text, _ = http_call(base, "/debug/programs")
+    progs = json.loads(text)
+    census = {p["name"]: p for p in progs["programs"]}
+    warm = progs["warmup_census"]
+    want_prefill = {f"b{b}r{r}" for b in warm["prefill_buckets"]
+                    for r in warm["rows"]}
+    from runbooks_tpu_torch.utils.hw import backend_tuning
+
+    chunk = backend_tuning(torch.device("cuda"))["decode_chunk"]
+    decode = {}
+    for view in warm["decode_views"]:
+        cost = census.get(f"decode_v{view}", {}).get("costs", {}).get(
+            f"v{view}")
+        want = decode_flops(cfg, 8, view, chunk)
+        decode[view] = None if cost is None else {
+            "flops": cost["flops"], "analytic": want,
+            "rel": cost["flops"] / want - 1, "bound": cost["bound"],
+            "hbm_bytes": cost["hbm_bytes"],
+            "analytic_mfu": cost.get("analytic_mfu")}
+    out["decode_programs"] = decode
+    out["warmup_seconds"] = warm["warmup_seconds"]
+    gates["programs_prefill"] = \
+        set(census.get("prefill", {}).get("costs", {})) == want_prefill
+    gates["programs_decode_flops_2pct"] = all(
+        d is not None and abs(d["rel"]) <= DECODE_FLOPS_RTOL
+        for d in decode.values())
+    first = json.loads(http_call(base, "/debug/incident",
+                                 {"reason": "chip_smoke"})[2])
+    again = json.loads(http_call(base, "/debug/incident",
+                                 {"reason": "chip_smoke"})[2])
+    listed = json.loads(http_call(base, "/debug/incidents")[2])
+    gates["incident_one_bundle"] = (
+        first["path"] is not None and os.path.exists(first["path"])
+        and again["debounced"] and len(listed["incidents"]) == 1)
+    out["gates"] = gates
+    return out
+
+
 def entry_point_check(torch, dev, seed, workdir):
     """Phase 8 (c): the container's entry point against the model
     mount, at full width, depth ENTRY_LAYERS, bf16."""
     from runbooks_tpu_torch.models.config import get_config
     from runbooks_tpu_torch.models.transformer import init_params
+    from runbooks_tpu_torch.obs.device import tensor_leaves
     from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
     from runbooks_tpu_torch.train.checkpoint import CheckpointManager
     from runbooks_tpu_torch.train.data import ByteTokenizer
@@ -1586,6 +1867,8 @@ def entry_point_check(torch, dev, seed, workdir):
     # Only byte ids decode to text: the head's other columns are zeroed so
     # the greedy tokens show in the answer's text.
     params["head"][:, 256:] = 0
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in tensor_leaves(params))
     content = f"{workdir}/entry_content"
     t0 = time.perf_counter()
     CheckpointManager(f"{content}/model").save(
@@ -1612,7 +1895,8 @@ def entry_point_check(torch, dev, seed, workdir):
                    "max_seq_len": 2048, "drain_timeout_s": ENTRY_DRAIN_S},
                   f)
     log_path = f"{workdir}/entry_point.log"
-    proc, base, ready_s = start_entry_point(content, port, log_path, 120)
+    proc, base, ready_s = start_entry_point(content, port, log_path, 120,
+                                            {"RBT_TRACE": "1"})
     try:
         status, _, text, _ = http_call(base, "/v1/completions", {
             "prompt": prompt, "max_tokens": MAX_TOKENS, "temperature": 0})
@@ -1623,6 +1907,8 @@ def entry_point_check(torch, dev, seed, workdir):
         same = (choice["text"] == want_text
                 and usage == len(ref.output_tokens)
                 and choice["finish_reason"] == ref.finish_reason)
+        obs = entry_obs_checks(torch, cfg, base, content, seed, usage,
+                               weight_bytes)
         t_term = time.perf_counter()
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=ENTRY_DRAIN_S)
@@ -1634,6 +1920,7 @@ def entry_point_check(torch, dev, seed, workdir):
         with open(log_path) as f:
             log_tail = f.read()[-3000:]
     restored = "restored params of step 1" in log_tail
+    print("entry point obs " + json.dumps(obs), flush=True)
     print(f"entry point: checkpoint of llama3-8b x{ENTRY_LAYERS} layers bf16 "
           f"saved in {save_s:.1f} s; ready in {ready_s:.1f} s (start, "
           f"restore, build, warmup); restored from the mount: {restored}; "
@@ -1643,6 +1930,10 @@ def entry_point_check(torch, dev, seed, workdir):
     if not (same and rc == 0 and restored):
         print(log_tail, flush=True)
         raise SystemExit("the entry point check failed")
+    if not all(obs["gates"].values()):
+        print(log_tail, flush=True)
+        raise SystemExit(f"the entry point's telemetry gates failed: "
+                         f"{obs['gates']}")
 
 
 def http_phase(torch, dev, seed, workdir):
@@ -5577,6 +5868,9 @@ def remat_policies_phase(torch, dev, seed, data_path, workdir, trace):
                 torch, dev, dataclasses.replace(cfg, remat_policy=policy),
                 base, gen, data_path, job.lora, job.optimizer)
         print(f"remat {policy} " + json.dumps(records[policy]), flush=True)
+    profiled, launches["nothing_saveable_profiled"] = profiled_fine_tune(
+        torch, seed, data_path, workdir, base,
+        records["nothing_saveable"])
     del base
     gc.collect()
     torch.cuda.empty_cache()
@@ -5596,7 +5890,90 @@ def remat_policies_phase(torch, dev, seed, data_path, workdir, trace):
           f"{want}; gates {gates}", flush=True)
     if not all(gates.values()):
         raise SystemExit(f"remat policies: gates failed: {gates}")
+    records["nothing_saveable_profiled"] = profiled
     return records, launches
+
+
+PROFILE_STEPS = 3
+PROFILE_AT = (2, 1)
+
+
+def profiled_fine_tune(torch, seed, data_path, workdir, base, plain):
+    """Phase 17 (a'): (a)'s nothing_saveable job for PROFILE_STEPS steps
+    under RBT_PROFILE_AT_STEP=2:1. The capture of step 2 names K1, K2 and
+    K3 with one step's launches (256 / 128 / 128); metrics.json carries
+    goodput in (0, 1]; train_step_seconds counts every step after the
+    first (the reference leaves the first, its compile, out too); step
+    1's loss is bit-equal to (a)'s run without a capture. Also the step
+    program's counted FLOPs, bytes and operators, and the analytic MFU.
+    Returns (record, launches)."""
+    from runbooks_tpu_torch.obs.metrics import REGISTRY
+    from runbooks_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from runbooks_tpu_torch.train.lora import LoraConfig
+    from runbooks_tpu_torch.train.optimizer import OptimizerConfig
+    from runbooks_tpu_torch.train.trainer import TrainJobConfig, run_training
+
+    art = f"{workdir}/remat_profiled"
+    job = TrainJobConfig(
+        model="falcon-7b",
+        model_overrides={"remat_policy": "nothing_saveable"},
+        lora=LoraConfig(rank=16, alpha=32.0),
+        optimizer=OptimizerConfig(learning_rate=2e-5), batch_size=8,
+        seq_len=TRAIN_SEQ, accumulate_steps=4, steps=PROFILE_STEPS,
+        data_path=data_path, artifacts_dir=art, log_every=1,
+        checkpoint_every=1000, seed=seed)
+    before = REGISTRY.histogram_stats("train_step_seconds") or (0, 0.0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_attention.launches = 0
+    flash_attention_bwd.dq_launches = 0
+    flash_attention_bwd.dkv_launches = 0
+    os.environ["RBT_PROFILE_AT_STEP"] = "%d:%d" % PROFILE_AT
+    try:
+        summary = run_training(job, base_params=base)
+    finally:
+        del os.environ["RBT_PROFILE_AT_STEP"]
+    launches = {"flash_fwd": flash_attention.launches,
+                "flash_bwd_dq": flash_attention_bwd.dq_launches,
+                "flash_bwd_dkv": flash_attention_bwd.dkv_launches}
+    capture = trace_kernel_counts(
+        f"{art}/profiles/step{PROFILE_AT[0]}/trace.json")
+    with open(f"{art}/metrics.json") as f:
+        written = json.load(f)
+    after = REGISTRY.histogram_stats("train_step_seconds")
+    want = plain["launches_per_step"]
+    cost = summary["device_obs"]["cost"]
+    last = summary["history"][-1]
+    record = {
+        "losses": [e["loss"] for e in summary["history"]],
+        "capture_launches": capture,
+        "launches": launches,
+        "goodput": written["goodput"],
+        "goodput_detail": written["goodput_detail"],
+        "step_seconds_count": after[0] - before[0],
+        "first_step_s": summary["first_step_s"],
+        "step_s": last["step_s"],
+        "program_flops": cost["flops"],
+        "program_hbm_bytes": cost["hbm_bytes"],
+        "program_ops": cost["ops"],
+        "formula_flops": summary["device_obs"]["formula_flops_per_step"],
+        "analytic_mfu": last.get("analytic_mfu"), "mfu": last.get("mfu")}
+    gates = {
+        "capture_launches": all(capture[k] == want[k] for k in want),
+        "goodput": 0 < written["goodput"] <= 1,
+        "step_seconds_count": record["step_seconds_count"]
+        == PROFILE_STEPS - 1,
+        "step1_loss_bit_equal": record["losses"][0] == plain["losses"][0],
+        "no_unexpected_builds":
+            summary["device_obs"]["unexpected_compiles"] == 0}
+    record["gates"] = gates
+    print("remat profiled " + json.dumps(record), flush=True)
+    if not all(gates.values()):
+        raise SystemExit(f"the profiled fine-tune's gates failed: {gates}")
+    return record, launches
 
 
 class _FakeMetadata(object):
@@ -6146,6 +6523,151 @@ def entry_point_phase(torch, dev, seed, data_path, workdir, trace_remat):
     return launches
 
 
+OBS_AB_MODES = (("flight_off", {"RBT_FLIGHT": "0"}), ("default", {}),
+                ("trace", {"RBT_TRACE": "1"}))
+OBS_AB_ROUNDS = 2
+OBS_AB_NEW = 64
+OBS_AB_LENS = (20, 40, 60, 80, 100, 120, 140, 160)
+
+
+def obs_overhead_phase(torch, dev, seed, workdir):
+    """Phase 18: what the telemetry costs, measured and not gated (host
+    noise moves it 20-35% between runs), on llama3-8b bf16 at full width
+    cut to SERVE_LAYERS layers, max_slots 8, max_seq_len 2048. (a) The
+    seconds the first-dispatch counting adds to a warmup: warmups with
+    RBT_DEVICE_OBS=0 against fresh engines' counted ones, interleaved.
+    (b) A ``create_server`` in this process takes 8 greedy prompts of
+    OBS_AB_NEW new tokens per run under RBT_FLIGHT=0, the default (the
+    flight ring) and RBT_TRACE=1, the three interleaved OBS_AB_ROUNDS
+    times (the switches are read per span, so one server serves them
+    all): decode tokens/s over the engine's decode dispatch seconds, and
+    over the wall. (c) The scrape's milliseconds, and the gate that
+    device_memory_bytes_in_use is torch.cuda.memory_allocated() read at
+    the scrape, within 1%. Returns K1's launches."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.transformer import init_params
+    from runbooks_tpu_torch.obs import trace as obs_trace
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.api import create_server
+    from runbooks_tpu_torch.serve.engine import InferenceEngine
+    from runbooks_tpu_torch.train.data import ByteTokenizer
+
+    t_phase = time.perf_counter()
+    flash_attention.launches = 0
+    cfg = get_config("llama3-8b", num_layers=SERVE_LAYERS,
+                     param_dtype="bfloat16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 18)
+    with torch.no_grad():
+        params = init_params(cfg, gen, dev)
+    obs_trace.configure(f"{workdir}/obs_ab/trace.jsonl")
+
+    def warm(engine, counted):
+        os.environ["RBT_DEVICE_OBS"] = "1" if counted else "0"
+        try:
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                engine.warmup()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        finally:
+            del os.environ["RBT_DEVICE_OBS"]
+            engine.release_steady()
+
+    plain = InferenceEngine(cfg, params, max_slots=8, max_seq_len=2048)
+    warmups = {"first": warm(plain, False), "plain": [], "counted": []}
+    for _ in range(2):
+        warmups["plain"].append(warm(plain, False))
+        fresh = InferenceEngine(cfg, params, max_slots=8, max_seq_len=2048)
+        warmups["counted"].append(warm(fresh, True))
+        del fresh
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    srv = create_server(cfg, params, ByteTokenizer(), host="127.0.0.1",
+                        port=0, device=dev, max_slots=8, max_seq_len=2048,
+                        warmup=True)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    engine = srv.worker.engine
+    tok = ByteTokenizer()
+    texts = [tok.decode(p[1:]) for p in seeded_prompts(seed + 18,
+                                                        OBS_AB_LENS)]
+    runs = []
+    try:
+        for rnd in range(OBS_AB_ROUNDS):
+            for mode, env in OBS_AB_MODES:
+                os.environ.update(env)
+                try:
+                    tokens = []
+                    dec0 = engine.dispatch_seconds["decode"]
+
+                    def one(i):
+                        status, _, text, _ = http_call(
+                            base, "/v1/completions",
+                            {"prompt": texts[i], "max_tokens": OBS_AB_NEW,
+                             "temperature": 0})
+                        if status != 200:
+                            raise SystemExit(f"phase 18 {mode}: {status}")
+                        tokens.append(
+                            json.loads(text)["usage"]["completion_tokens"])
+
+                    threads = [threading.Thread(target=one, args=(i,))
+                               for i in range(len(texts))]
+                    t0 = time.perf_counter()
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join()
+                    wall = time.perf_counter() - t0
+                    dec = engine.dispatch_seconds["decode"] - dec0
+                finally:
+                    for k in env:
+                        del os.environ[k]
+                decoded = sum(tokens) - len(tokens)
+                runs.append({"mode": mode, "round": rnd,
+                             "tokens": sum(tokens),
+                             "decode_tokens_per_s": decoded / dec,
+                             "wall_tokens_per_s": sum(tokens) / wall,
+                             "decode_dispatch_s": dec, "wall_s": wall})
+                print(f"phase 18 {json.dumps(runs[-1])}", flush=True)
+        fams, text, ms = scrape(base)
+        allocated = torch.cuda.memory_allocated()
+        scrape_ms = [ms] + [scrape(base)[2] for _ in range(19)]
+        in_use = fams["device_memory_bytes_in_use"].total()
+        problems = lint_exposition(text)
+    finally:
+        srv.shutdown()
+        thread.join(timeout=60)
+    del engine, srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    obs_trace.close()
+    obs_trace.configure(None)
+    by_mode = {m: [r["decode_tokens_per_s"] for r in runs if r["mode"] == m]
+               for m, _ in OBS_AB_MODES}
+    record = {
+        "card": card_line(), "layers": SERVE_LAYERS,
+        "warmup_s": warmups,
+        "counting_adds_s": median(warmups["counted"])
+        - median(warmups["plain"]),
+        "runs": runs, "decode_tokens_per_s_by_mode": by_mode,
+        "scrape_ms": scrape_ms, "scrape_ms_median": median(scrape_ms),
+        "bytes_in_use_gauge": in_use, "memory_allocated": allocated,
+        "launches": flash_attention.launches,
+        "seconds": time.perf_counter() - t_phase}
+    gates = {"memory_in_use_1pct":
+             abs(in_use - allocated) <= MEMORY_RTOL * allocated,
+             "exposition_lint": not problems}
+    record["gates"] = gates
+    print("phase 18 " + json.dumps(record), flush=True)
+    if not all(gates.values()):
+        raise SystemExit(f"phase 18 gates failed: {gates} {problems[:5]}")
+    return record["launches"]
+
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6247,6 +6769,10 @@ def main():
         entry_launches = entry_point_phase(torch, dev, args.seed, data_path,
                                            workdir, args.trace_remat)
         mark("phase 17")
+        gc.collect()
+        torch.cuda.empty_cache()
+        obs_launches = obs_overhead_phase(torch, dev, args.seed, workdir)
+        mark("phase 18")
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -6263,7 +6789,8 @@ def main():
                      + sum(quant_launches.values())
                      + sum(text_launches["flash_fwd"].values())
                      + sum(family_launches.values())
-                     + sum(entry_launches["flash_fwd"].values())),
+                     + sum(entry_launches["flash_fwd"].values())
+                     + obs_launches),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
@@ -6275,7 +6802,8 @@ def main():
                              **lora_launches, **quant_launches,
                              **text_launches["flash_fwd"],
                              **family_launches,
-                             **entry_launches["flash_fwd"]},
+                             **entry_launches["flash_fwd"],
+                             "obs_overhead": obs_launches},
         "max_abs_err": max(worst, family_records["fwd_worst"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],

@@ -365,12 +365,15 @@ def flash_attention_bwd_reference(
     q, k, v, q_positions, kv_positions, q_segment_ids, kv_segment_ids, out,
     lse, do, *, causal: bool = True, scale: Optional[float] = None,
     block_skip: bool = True, grad_dtype: Optional[torch.dtype] = None,
+    which: str = "all",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the backward kernels, in f32: the forward
     reference's TILE-wide loops (with the skip, q tile i meets kv tiles
     0..i), masks and NEG_INF guard on lse. Returns (dq [b, sq, h, d],
     dk, dv [b, sk, kvh, d]) in grad_dtype, else in q's, k's and v's dtype;
-    dk/dv are summed over each kv head's query heads in f32."""
+    dk/dv are summed over each kv head's query heads in f32. ``which``
+    "dq" (K2's output) or "dkv" (K3's) computes only those gradients and
+    returns None for the others."""
     _check_inputs(q, k, v, q_positions, kv_positions, q_segment_ids,
                   kv_segment_ids)
     b, sq, h, d = q.shape
@@ -379,6 +382,9 @@ def flash_attention_bwd_reference(
     scale = scale if scale is not None else d ** -0.5
     skip = bool(block_skip and causal and sq == sk)
     use_seg = q_segment_ids is not None
+    if which not in ("all", "dq", "dkv"):
+        raise ValueError(f"which must be all, dq or dkv, not {which!r}")
+    want_dq, want_dkv = which != "dkv", which != "dq"
 
     qg = q.float().reshape(b, sq, kvh, n_rep, d)
     dog = do.float().reshape(b, sq, kvh, n_rep, d)
@@ -409,14 +415,18 @@ def flash_attention_bwd_reference(
             dp = torch.einsum("bqgrd,bkgd->bgrqk", dog[:, q0:q1],
                               vf[:, k0:k1])
             ds = p * (dp - delta[..., q0:q1, None]) * scale
-            dq[:, q0:q1] += torch.einsum("bgrqk,bkgd->bqgrd", ds,
-                                         kf[:, k0:k1])
-            dk[:, k0:k1] += torch.einsum("bgrqk,bqgrd->bkgd", ds,
-                                         qg[:, q0:q1])
-            dv[:, k0:k1] += torch.einsum("bgrqk,bqgrd->bkgd", p,
-                                         dog[:, q0:q1])
-    return (dq.reshape(b, sq, h, d).to(grad_dtype or q.dtype),
-            dk.to(grad_dtype or k.dtype), dv.to(grad_dtype or v.dtype))
+            if want_dq:
+                dq[:, q0:q1] += torch.einsum("bgrqk,bkgd->bqgrd", ds,
+                                             kf[:, k0:k1])
+            if want_dkv:
+                dk[:, k0:k1] += torch.einsum("bgrqk,bqgrd->bkgd", ds,
+                                             qg[:, q0:q1])
+                dv[:, k0:k1] += torch.einsum("bgrqk,bqgrd->bkgd", p,
+                                             dog[:, q0:q1])
+    dq = dq.reshape(b, sq, h, d).to(grad_dtype or q.dtype)
+    dk, dv = dk.to(grad_dtype or k.dtype), dv.to(grad_dtype or v.dtype)
+    return (dq if want_dq else None, dk if want_dkv else None,
+            dv if want_dkv else None)
 
 
 def flash_bwd_kernels(q, k, v, q_positions, kv_positions, q_segment_ids,
@@ -542,9 +552,97 @@ def _flash_fwd_fake(q, k, v, q_positions, kv_positions, q_segment_ids,
             q.new_empty((b, h, sq), dtype=torch.float32))
 
 
+def _bwd_op(q, k, v, q_positions, kv_positions, q_segment_ids,
+            kv_segment_ids, out, lse, do, causal, scale, block_skip, which):
+    """One backward kernel: K2 ("dq") or K3 ("dkv") for a CUDA q, the
+    plain version's share for a CPU q."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(
+            q, k, v, q_positions, kv_positions, q_segment_ids,
+            kv_segment_ids, out, lse, do, causal=causal, scale=scale,
+            block_skip=block_skip, which=which)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    launch_dq, launch_dkv = flash_bwd_kernels(
+        q, k, v, q_positions, kv_positions, q_segment_ids, kv_segment_ids,
+        out, lse, do, causal=causal, scale=scale, block_skip=block_skip)
+    return (launch_dq(), None, None) if which == "dq" \
+        else (None, *launch_dkv())
+
+
+@torch.library.custom_op("rbt::flash_bwd_dq", mutates_args=())
+def flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                    q_segment_ids: Optional[torch.Tensor],
+                    kv_segment_ids: Optional[torch.Tensor],
+                    out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                    causal: bool, scale: float, block_skip: bool
+                    ) -> torch.Tensor:
+    """K2 as one operator, ``torch.ops.rbt.flash_bwd_dq``: dq [b, sq, h,
+    d] in q's dtype, so that a dispatch mode (obs/device.CostMode) sees
+    it."""
+    return _bwd_op(q, k, v, q_positions, kv_positions, q_segment_ids,
+                   kv_segment_ids, out, lse, do, causal, scale, block_skip,
+                   "dq")[0]
+
+
+@flash_bwd_dq_op.register_fake
+def _flash_bwd_dq_fake(q, *args):
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("rbt::flash_bwd_dkv", mutates_args=())
+def flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                     q_segment_ids: Optional[torch.Tensor],
+                     kv_segment_ids: Optional[torch.Tensor],
+                     out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                     causal: bool, scale: float, block_skip: bool
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 as one operator, ``torch.ops.rbt.flash_bwd_dkv``: (dk, dv) [b,
+    sk, kvh, d] in k's and v's dtype."""
+    return _bwd_op(q, k, v, q_positions, kv_positions, q_segment_ids,
+                   kv_segment_ids, out, lse, do, causal, scale, block_skip,
+                   "dkv")[1:]
+
+
+@flash_bwd_dkv_op.register_fake
+def _flash_bwd_dkv_fake(q, k, v, *args):
+    return torch.empty_like(k), torch.empty_like(v)
+
+
+def _attention_flops(q_shape, k_shape, products: int) -> int:
+    """``products`` [sq x sk x d] products per head, 2 FLOPs per
+    multiply-add, over the whole rectangle: the count of
+    torch.utils.flop_counter's SDPA formulas, which count no mask, so that
+    a program counts the same FLOPs on the flash and the plain attention
+    (whose two einsums per direction it counts as bmm)."""
+    b, sq, h, d = q_shape
+    return products * 2 * b * h * sq * k_shape[1] * d
+
+
+def _register_flop_formulas() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    # Forward: q k^T and p v. Backward: SDPA's four products, split by
+    # kernel: K2 forms dp = do v^T and dq = ds k, K3 dv = p^T do and
+    # dk = ds^T q (their recomputed q k^T is not counted, as SDPA's
+    # backward formula does not count it).
+    @register_flop_formula(torch.ops.rbt.flash_fwd)
+    def _fwd(q, k, *args, out_shape=None, **kwargs):
+        return _attention_flops(q, k, 2)
+
+    @register_flop_formula([torch.ops.rbt.flash_bwd_dq,
+                            torch.ops.rbt.flash_bwd_dkv])
+    def _bwd(q, k, *args, out_shape=None, **kwargs):
+        return _attention_flops(q, k, 2)
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Forward K1 (through ``flash_fwd_op``), backward K2 and K3 (the plain
-    versions on the CPU). Saves (q, k, v, out, lse) as the reference's
+    """Forward K1 (through ``flash_fwd_op``), backward K2 and K3 (through
+    ``flash_bwd_dq_op`` and ``flash_bwd_dkv_op``; the plain versions on the
+    CPU). Saves (q, k, v, out, lse) as the reference's
     _vjp_fwd does; under activation checkpointing the forward runs again
     in the recompute and saves the recomputed (out, lse), unless the
     checkpoint's policy saved the op's outputs, which the recompute then
@@ -565,9 +663,10 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, qp, kp, qs, ks, out, lse = ctx.saved_tensors
         causal, scale, block_skip = ctx.args
-        dq, dk, dv = flash_attention_bwd(
-            q, k, v, qp, kp, qs, ks, out, lse, do, causal=causal,
-            scale=scale, block_skip=block_skip)
+        args = (q, k, v, qp, kp, qs, ks, out, lse, do, causal,
+                scale, block_skip)
+        dq = torch.ops.rbt.flash_bwd_dq(*args)
+        dk, dv = torch.ops.rbt.flash_bwd_dkv(*args)
         return dq, dk, dv, None, None, None, None, None, None, None
 
 
@@ -588,3 +687,4 @@ def flash_attention(q, k, v, q_positions, kv_positions, q_segment_ids=None,
 
 
 flash_attention.launches = 0
+_register_flop_formulas()

@@ -21,8 +21,15 @@ pool among them), or build one with ``create_server``. With
 without one, ``adapter:`` in params folds one adapter at load.
 ``quantize: int8|int4`` serves weight-only quantized weights and
 ``quantize_kv`` an int8 KV cache (on by default with quantized weights).
-Features the port has not ported yet (the mesh, ``/metrics`` and
-``/debug/*``) are refused by name rather than ignored.
+
+Telemetry (runbooks_tpu_torch/obs), as the reference serves it:
+``GET /metrics`` (the Prometheus exposition, the engine's totals mirrored
+at scrape time), ``POST /debug/profile?seconds=N`` (a torch.profiler
+capture under ``{artifacts}/profiles/``; 409 while one runs), ``GET
+/debug/memory``, ``GET /debug/programs``, ``GET
+/debug/flight[?request_id=]``, ``POST /debug/incident`` and ``GET
+/debug/incidents[?name=]``; a failed engine step captures an incident
+bundle. The mesh is refused by name rather than ignored.
 """
 
 from __future__ import annotations
@@ -30,7 +37,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import queue
-import re
 import signal
 import threading
 import time
@@ -40,12 +46,18 @@ from concurrent.futures import Future
 from concurrent.futures import wait as wait_futures
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple, Union
-from urllib.parse import urlsplit
+from urllib.parse import parse_qs, urlsplit
 
 import torch
 
 from runbooks_tpu_torch.models.config import ModelConfig, get_config
 from runbooks_tpu_torch.models.transformer import check_supported, init_params
+from runbooks_tpu_torch.obs import device as obs_device
+from runbooks_tpu_torch.obs import flight as obs_flight
+from runbooks_tpu_torch.obs import incident as obs_incident
+from runbooks_tpu_torch.obs import metrics as obs_metrics
+from runbooks_tpu_torch.obs import profile as obs_profile
+from runbooks_tpu_torch.obs.trace import request_scope
 from runbooks_tpu_torch.ops.flash_attention import flash_attention
 from runbooks_tpu_torch.ops.quantization import (
     quantize_params,
@@ -65,7 +77,7 @@ from runbooks_tpu_torch.serve.lora_pool import load_merge_adapter
 from runbooks_tpu_torch.train.checkpoint import restore_params
 from runbooks_tpu_torch.train.data import load_tokenizer
 from runbooks_tpu_torch.utils import contract, cuda_build
-from runbooks_tpu_torch.utils.hw import resolve_device
+from runbooks_tpu_torch.utils.hw import device_peaks, resolve_device
 from runbooks_tpu_torch.utils.tree import tree_map
 
 # Top-level body fields /v1/completions understands (the chat endpoint
@@ -116,38 +128,6 @@ def _param_on(value) -> bool:
     """A params switch: bools as they are; the strings "0", "off",
     "false", "none" and "" are off."""
     return str(value).lower() not in ("0", "off", "false", "none", "")
-
-
-# ---------------------------------------------------------------------------
-# Request scope (W3C trace context and X-Request-Id)
-# ---------------------------------------------------------------------------
-
-_TRACEPARENT_RE = re.compile(
-    r"^([0-9a-f]{2})-([0-9a-f]{32})-([0-9a-f]{16})-([0-9a-f]{2})$")
-# Client-supplied ids flow into response headers and logs: strip anything
-# that could split a header or forge a log line.
-_RID_UNSAFE_RE = re.compile(r"[^A-Za-z0-9._:/-]")
-
-
-def request_scope(headers) -> Tuple[str, Optional[str]]:
-    """(request_id, traceparent_out) for one HTTP request: X-Request-Id
-    verbatim (sanitized); else a W3C ``traceparent``'s trace-id; else a
-    generated id. A valid traceparent gets a child (same trace-id, fresh
-    parent-id) to echo back."""
-    rid = headers.get("X-Request-Id") if headers else None
-    tp_out = None
-    tp = (headers.get("traceparent", "") if headers else "").strip().lower()
-    m = _TRACEPARENT_RE.match(tp)
-    if m:
-        tp_out = (f"{m.group(1)}-{m.group(2)}-"
-                  f"{uuid.uuid4().hex[:16]}-{m.group(4)}")
-        if not rid:
-            rid = m.group(2)
-    if rid:
-        rid = _RID_UNSAFE_RE.sub("", str(rid))[:128]
-    if not rid:
-        rid = f"req-{uuid.uuid4().hex[:16]}"
-    return rid, tp_out
 
 
 # ---------------------------------------------------------------------------
@@ -407,11 +387,34 @@ class EngineWorker:
               "and resetting the engine:\n" + traceback.format_exc(),
               flush=True)
         with self._lock:
-            doomed = self._inflight + self._pending + self._prefix_jobs
+            doomed = self._inflight + self._pending
+            jobs = self._prefix_jobs
             self._inflight, self._pending, self._prefix_jobs = [], [], []
-        for _, fut in doomed:
+        now = time.monotonic()
+        for req, fut in doomed:
             if not fut.done():
                 fut.set_exception(exc)
+            # Error tail sampling: a doomed request's flight timeline is
+            # the trace a postmortem needs.
+            obs_flight.tail_sample(
+                req.request_id,
+                now - req._submitted if req._submitted else 0.0,
+                req.finish_reason or "error", error=True)
+        for _, fut in jobs:
+            if not fut.done():
+                fut.set_exception(exc)
+        # The incident bundle (debounced; capture never raises) before
+        # reset() reallocates the cache, so its memory census shows the
+        # failed state.
+        try:
+            groups = self.engine.memory_groups()
+        except Exception:  # noqa: BLE001 - torn engine state
+            groups = None
+        obs_incident.capture(
+            "engine_crash", component="serve", memory_groups=groups,
+            extra={"error": repr(exc),
+                   "doomed_requests": [r.request_id for r, _ in doomed],
+                   "doomed_prefix_jobs": len(jobs)})
         self.engine.reset()
 
     def drain(self, timeout_s: float = 30.0) -> bool:
@@ -434,6 +437,7 @@ class EngineWorker:
         self._stop = True
         self._wake.set()
         self._thread.join(timeout=30)
+        self.engine.release_steady()
         with self._lock:
             doomed = self._inflight + self._pending + self._prefix_jobs
             self._inflight, self._pending, self._prefix_jobs = [], [], []
@@ -453,7 +457,8 @@ def _error(status: int, message: str, **extra) -> Reply:
 class _Api:
     """The routes' logic, apart from the socket handling: parse a body
     into engine requests, submit them through the worker, and shape the
-    reference's JSON and SSE answers."""
+    reference's JSON and SSE answers; count what the front end answered,
+    and answer the telemetry routes."""
 
     def __init__(self, worker: EngineWorker, tokenizer, model_name: str,
                  request_timeout_s: Optional[float],
@@ -465,14 +470,25 @@ class _Api:
         self.request_timeout_s = request_timeout_s
         self.auto_prefix_chat = auto_prefix_chat
         self.started = time.time()
+        # The front end's totals, mirrored into /metrics at scrape time.
+        self._count_lock = threading.Lock()
+        self.counts = {"requests_total": 0,           # guarded-by: _count_lock
+                       "requests_failed_total": 0,
+                       "requests_rejected_total": 0,
+                       "tokens_total": 0}
+
+    def count(self, key: str, n: int = 1) -> None:
+        with self._count_lock:
+            self.counts[key] += n
 
     def readiness(self) -> Reply:
         return 200, {"status": "ok", "model": self.model_name,
                      "uptime_s": round(time.time() - self.started, 1)}, {}
 
-    def reject(self, exc: EngineOverloaded) -> Reply:
+    def reject(self, exc: EngineOverloaded, n: int = 1) -> Reply:
         """Backpressure: draining = 503 (terminal for this process),
         overloaded = 429 with a load-derived Retry-After."""
+        self.count("requests_rejected_total", n)
         if isinstance(exc, EngineDraining):
             return 503, {"error": {"message": str(exc),
                                    "type": "draining"}}, {"Retry-After": "5"}
@@ -564,11 +580,13 @@ class _Api:
 
     def submit(self, reqs: List[Request]
                ) -> Tuple[Optional[List[Future]], Optional[Reply]]:
+        self.count("requests_total", len(reqs))
         try:
             return self.worker.submit_many(reqs), None
         except EngineOverloaded as exc:    # draining (503) / full (429)
-            return None, self.reject(exc)
+            return None, self.reject(exc, len(reqs))
         except ValueError as exc:          # e.g. prompt past the window
+            self.count("requests_failed_total", len(reqs))
             return None, _error(400, str(exc))
 
     def complete(self, reqs: List[Request]) -> Reply:
@@ -578,14 +596,16 @@ class _Api:
             return err
         _, not_done = wait_futures(futs, timeout=_GENERATION_TIMEOUT_S)
         if not_done:
+            self.count("requests_failed_total", len(reqs))
             return _error(504, "generation timed out")
         for fut in futs:
             exc = fut.exception()
             if isinstance(exc, EngineOverloaded):
-                return self.reject(exc)
-            if isinstance(exc, ValueError):
-                return _error(400, str(exc))
+                return self.reject(exc, len(reqs))
             if exc is not None:
+                self.count("requests_failed_total", len(reqs))
+                if isinstance(exc, ValueError):
+                    return _error(400, str(exc))
                 return _error(500, f"engine failure: {exc}")
         choices = []
         prompt_tokens = completion_tokens = 0
@@ -597,6 +617,7 @@ class _Api:
                             "logprobs": None})
             prompt_tokens += len(reqs[i].prompt_tokens)
             completion_tokens += len(done.output_tokens)
+        self.count("tokens_total", completion_tokens)
         return 200, {
             "id": f"cmpl-{uuid.uuid4().hex[:24]}",
             "object": "text_completion",
@@ -683,6 +704,7 @@ class _Api:
                     exc = fut.exception()
                     if exc is not None:
                         # The status is already 200: signal in-band.
+                        self.count("requests_failed_total")
                         write(b"data: " + json.dumps({"error": {
                             "message": str(exc), "index": i}}).encode()
                             + b"\n\n")
@@ -690,6 +712,7 @@ class _Api:
                     delta = next_delta(i, flush=True)
                     if delta is not None:
                         write(chunk(i, text=delta))
+                    self.count("tokens_total", len(reqs[i].output_tokens))
                     write(chunk(i, finish=reqs[i].finish_reason or "stop"))
                     continue
                 delta = next_delta(ev)
@@ -699,8 +722,304 @@ class _Api:
         except (queue.Empty, OSError):
             # Generation stalled or the client went away: stop writing;
             # the engine finishes the requests on its own.
-            pass
+            self.count("requests_failed_total", remaining)
         return None
+
+    # -- telemetry (the reference's handlers, on the stdlib server) --
+
+    def metrics(self) -> str:
+        """The Prometheus exposition: the front end's and the engine's
+        totals set as absolute values at scrape time, beside the latency
+        histograms the engine records as it serves."""
+        reg = obs_metrics.REGISTRY
+        eng = self.worker.engine
+        with self._count_lock:
+            counts = dict(self.counts)
+        reg.set_counter("serve_requests_total", counts["requests_total"],
+                        help_text="Requests accepted by the HTTP API.")
+        reg.set_counter("serve_requests_failed_total",
+                        counts["requests_failed_total"],
+                        help_text="Requests that errored or timed out.")
+        reg.set_counter("serve_tokens_generated_total",
+                        counts["tokens_total"],
+                        help_text="Completion tokens returned to clients.")
+        reg.set_counter("serve_decode_steps_total", eng.steps,
+                        help_text="Engine decode chunks executed.")
+        reg.set_gauge("serve_active_slots", int(eng.active.sum()),
+                      help_text="Slots currently decoding.")
+        reg.set_gauge("serve_queue_depth", len(eng.queue),
+                      help_text="Requests waiting for a slot.")
+        reg.set_gauge("serve_queue_limit", eng.max_queue,
+                      help_text="Admission queue bound (429 past this).")
+        reg.set_counter("serve_requests_rejected_total",
+                        counts["requests_rejected_total"],
+                        help_text="Requests shed with 429/503.")
+        reg.set_counter("serve_preemptions_total", eng.preemptions,
+                        help_text="Active slots preempted for a higher-"
+                                  "priority queue head (pages swapped to "
+                                  "the radix tree / host tier).")
+        reg.set_counter("serve_preempted_resumed_total",
+                        eng.preempted_resumed,
+                        help_text="Preempted requests re-admitted and "
+                                  "resumed from their cached history.")
+        reg.set_counter("serve_deadline_expired_total", eng.deadline_expired,
+                        help_text="Requests finished by wall-clock "
+                                  "deadline.")
+        reg.set_gauge("serve_draining", int(self.worker._draining),
+                      help_text="1 while the server drains for shutdown.")
+        reg.set_counter("serve_prefix_tokens_reused_total",
+                        eng.prefix_tokens_reused,
+                        help_text="Prompt tokens served from the shared-"
+                                  "prefix KV cache instead of prefill.")
+        occ = eng.kv_occupancy()
+        reg.set_gauge("serve_slots_total", occ["slots_total"],
+                      help_text="Engine slot-pool size (max concurrent "
+                                "decodes).")
+        reg.set_gauge("serve_kv_cache_tokens", occ["kv_tokens"],
+                      help_text="Tokens currently held in active KV "
+                                "slots.")
+        reg.set_gauge("serve_kv_cache_capacity_tokens",
+                      occ["kv_capacity_tokens"],
+                      help_text="Dense KV reservation: max_slots x "
+                                "max_seq_len.")
+        reg.set_gauge("serve_kv_occupancy_ratio",
+                      round(occ["occupancy_ratio"], 6),
+                      help_text="Cached tokens / dense KV reservation "
+                                "(the paged-KV headroom signal).")
+        reg.set_gauge("serve_kv_pool_bytes", occ["kv_pool_bytes"],
+                      help_text="KV pool HBM bytes, aggregate across "
+                                "the serving mesh (logical size).")
+        reg.set_gauge("serve_kv_pool_bytes_per_device",
+                      occ["kv_pool_bytes_per_device"],
+                      help_text="KV pool HBM bytes each device holds "
+                                "(its shard under the serving mesh; "
+                                "equals the aggregate unsharded).")
+        reg.set_counter("serve_prefix_lookups_total", eng.prefix_lookups,
+                        help_text="Admissions that checked the shared-"
+                                  "prefix cache.")
+        reg.set_counter("serve_prefix_hits_total", eng.prefix_hits,
+                        help_text="Admissions whose prompt matched a "
+                                  "registered prefix.")
+        if eng.speculative != "off":
+            reg.set_counter("serve_spec_drafted_total", eng.spec_drafted,
+                            help_text="Draft tokens proposed by the "
+                                      "prompt-lookup drafter.")
+            reg.set_counter("serve_spec_accepted_total",
+                            eng.spec_accepted,
+                            help_text="Draft tokens verified-accepted "
+                                      "by the batched verify forward.")
+        if eng.grammar != "off":
+            gs = eng.grammar_stats()
+            reg.set_counter("serve_grammar_requests_total",
+                            gs["requests_total"],
+                            help_text="Requests admitted with a "
+                                      "response_format grammar "
+                                      "constraint.")
+            reg.set_counter("serve_grammar_cache_hits_total", gs["hits"],
+                            help_text="Grammar compiles served from the "
+                                      "token-DFA LRU cache.")
+            reg.set_counter("serve_grammar_cache_misses_total",
+                            gs["misses"],
+                            help_text="Grammar compiles that built a "
+                                      "fresh token DFA (host-side).")
+            reg.set_counter("serve_grammar_draft_truncations_total",
+                            gs["draft_truncations_total"],
+                            help_text="Speculative drafts cut at the "
+                                      "first grammar-illegal token "
+                                      "before verify dispatch.")
+        adapters = eng.adapter_stats()
+        if adapters is not None:
+            reg.set_counter("serve_adapter_loads_total", adapters["loads"],
+                            help_text="Adapters paged into the HBM pool "
+                                      "from artifact storage.")
+            reg.set_counter("serve_adapter_evictions_total",
+                            adapters["evictions"],
+                            help_text="Resident adapters displaced from "
+                                      "their pool lane (LRU, unpinned "
+                                      "lanes only).")
+            reg.set_counter("serve_adapter_hits_total", adapters["hits"],
+                            help_text="Adapter acquisitions served from "
+                                      "residency (no artifact read).")
+            reg.set_gauge("serve_adapters_resident",
+                          len(adapters["resident"]),
+                          help_text="Adapters currently resident in the "
+                                    "HBM pool.")
+            for name, count in adapters["requests"].items():
+                reg.set_counter(
+                    "serve_adapter_requests_total", count, adapter=name,
+                    help_text="Requests accepted per adapter name "
+                              "(base-model requests are not counted).")
+        if occ.get("paged"):
+            reg.set_gauge("serve_kv_pages_free", occ["pages_free"],
+                          help_text="Allocatable KV pages currently on "
+                                    "the free list.")
+            reg.set_gauge("serve_kv_pages_used", occ["pages_used"],
+                          help_text="KV pages held by live slots or the "
+                                    "radix prefix tree.")
+            reg.set_gauge("serve_kv_pages_shared", occ["pages_shared"],
+                          help_text="KV pages owned by the radix prefix "
+                                    "tree (shareable across requests).")
+            reg.set_counter("serve_prefix_pages_reused_total",
+                            occ["pages_reused_total"],
+                            help_text="Physical KV pages mapped from the "
+                                      "radix tree into admissions instead "
+                                      "of being re-prefilled (counted per "
+                                      "page, not per admission).")
+            if occ.get("host_pages_total"):
+                reg.set_gauge("serve_kv_host_pages_used",
+                              occ["host_pages_used"],
+                              help_text="Host-tier page slots holding "
+                                        "swapped-out KV pages.")
+                reg.set_gauge("serve_kv_host_pages_free",
+                              occ["host_pages_free"],
+                              help_text="Host-tier page slots on the "
+                                        "free list.")
+                reg.set_counter("serve_kv_swap_out_pages_total",
+                                occ["swap_out_pages_total"],
+                                help_text="KV pages copied HBM -> host "
+                                          "at radix eviction instead of "
+                                          "being dropped.")
+                reg.set_counter("serve_kv_swap_in_pages_total",
+                                occ["swap_in_pages_total"],
+                                help_text="KV pages copied host -> HBM "
+                                          "at admission (radix match on "
+                                          "the host tier).")
+                reg.set_counter("serve_kv_swap_dropped_pages_total",
+                                occ["swap_dropped_pages_total"],
+                                help_text="Evicted pages dropped because "
+                                          "the host tier was full or the "
+                                          "copy failed (recompute on "
+                                          "return).")
+        obs_device.set_memory_gauges(reg)
+        obs_device.PROGRAMS.set_gauges(reg, component="serve")
+        reg.set_gauge("flight_ring_events",
+                      obs_flight.RING.stats()["events"],
+                      help_text="Events currently held in the in-memory "
+                                "flight-recorder ring.")
+        inc_age = obs_incident.MANAGER.last_age()
+        if inc_age is not None:
+            reg.set_gauge("serve_incident_age_seconds", round(inc_age, 1),
+                          help_text="Seconds since this process captured "
+                                    "its last incident bundle.")
+        return reg.render()
+
+    def profile(self, query: dict, body: Optional[dict]) -> Reply:
+        """A timed profiler capture of N seconds (query ``seconds``, else
+        the body's, default 3) into {artifacts}/profiles/<stamp>-serve;
+        409 while another capture runs. This handler thread sleeps
+        through it; the engine keeps serving."""
+        seconds = query.get("seconds")
+        if seconds is None and body:
+            seconds = body.get("seconds")
+        try:
+            seconds = float(seconds if seconds is not None else 3.0)
+        except (TypeError, ValueError):
+            return _error(400, "seconds must be a number")
+        if not 0 < seconds <= 300:
+            return _error(400, "seconds must be in (0, 300]")
+        log_dir = obs_profile.capture_dir(tag="serve")
+        try:
+            obs_profile.PROFILER.capture(log_dir, seconds)
+        except obs_profile.ProfilerBusy as exc:
+            return _error(409, str(exc))
+        except Exception as exc:  # noqa: BLE001 - answered, not raised
+            return _error(500, f"profile capture failed: {exc}")
+        return 200, {"path": log_dir, "seconds": seconds,
+                     "trace": f"{log_dir}/{obs_profile.TRACE_FILE}"}, {}
+
+    def memory(self) -> Reply:
+        """The allocator's stats and the bytes of the engine's named
+        groups (weights, KV cache, prefix cache, adapter pool)."""
+        eng = self.worker.engine
+        try:
+            snap = obs_device.memory_snapshot(eng.memory_groups())
+        except Exception as exc:  # noqa: BLE001 - diagnostics, not serving
+            return _error(500, f"memory snapshot failed: {exc}")
+        snap["kv_occupancy"] = eng.kv_occupancy()
+        return 200, snap, {}
+
+    def programs(self) -> Reply:
+        """The program census with each shape's roofline attribution, and
+        the analytic MFU of programs whose dispatch-time histogram has
+        samples; the warmup census, speculation, adapter and grammar
+        state; the build sentinel's."""
+        eng = self.worker.engine
+        peak_flops, hbm_bps = device_peaks()
+        reg = obs_metrics.REGISTRY
+        census = obs_device.PROGRAMS.census("serve")
+        for entry in census:
+            for sig, cost in entry["costs"].items():
+                stats = None
+                name = entry["name"]
+                if name.startswith(("decode_v", "verify_v")):
+                    kind, _, view = name.partition("_v")
+                    stats = reg.histogram_stats(
+                        f"serve_{kind}_dispatch_seconds", view=view)
+                elif name in ("prefill", "paged_prefill") \
+                        and sig.startswith("b"):
+                    bucket, _, rows = sig[1:].partition("r")
+                    stats = reg.histogram_stats(
+                        "serve_prefill_dispatch_seconds", bucket=bucket,
+                        rows=rows)
+                if stats and stats[0]:
+                    mean_s = stats[1] / stats[0]
+                    cost["measured_mean_seconds"] = round(mean_s, 6)
+                    cost["analytic_mfu"] = round(
+                        cost["flops"] / (mean_s * peak_flops), 9)
+                    cost["achieved_gbps"] = round(
+                        cost["hbm_bytes"] / mean_s / 1e9, 3)
+        sentinel = obs_device.SENTINEL
+        return 200, {
+            "programs": census,
+            "warmup_census": eng.warmup_census,
+            "speculative": eng.spec_stats(),
+            "adapters": eng.adapter_stats(),
+            "grammar": eng.grammar_stats(),
+            "tokenizer_fingerprint": eng.tokenizer_fingerprint,
+            "compiles": {"total": sentinel.total,
+                         "unexpected": sentinel.unexpected,
+                         "compile_seconds": round(
+                             sentinel.compile_seconds, 3),
+                         "steady": sentinel.steady_components(),
+                         "last_unexpected": sentinel.recent_unexpected()},
+            "peaks": {"flops_per_sec": peak_flops,
+                      "hbm_bytes_per_sec": hbm_bps,
+                      "ridge_flops_per_byte": round(
+                          peak_flops / hbm_bps, 3)},
+        }, {}
+
+    def flight(self, query: dict) -> Reply:
+        """The flight-recorder ring, one request's timeline when
+        ``request_id`` is given, with the process identity."""
+        rid = query.get("request_id")
+        return 200, {**obs_flight.identity(),
+                     "stats": obs_flight.RING.stats(),
+                     "events": obs_flight.RING.snapshot(
+                         request_id=rid or None)}, {}
+
+    def incident(self, body: Optional[dict]) -> Reply:
+        """Capture an incident bundle on demand (debounced: a repeat
+        inside the window answers {"debounced": true})."""
+        reason = str((body or {}).get("reason") or "manual")
+        try:
+            groups = self.worker.engine.memory_groups()
+        except Exception:  # noqa: BLE001 - diagnostics, not serving
+            groups = None
+        path = obs_incident.capture(reason, component="serve",
+                                    memory_groups=groups,
+                                    extra={"source": "http"})
+        return 200, {"path": path, "debounced": path is None}, {}
+
+    def incidents(self, query: dict) -> Reply:
+        """The captured bundles, newest first; ``name`` fetches one."""
+        name = query.get("name")
+        if name:
+            bundle = obs_incident.read_incident(name)
+            if bundle is None:
+                return _error(404, f"no incident bundle {name!r}")
+            return 200, bundle, {}
+        return 200, {"incidents": obs_incident.list_incidents(),
+                     "last_path": obs_incident.MANAGER.last_path()}, {}
 
 
 def _settled(tokenizer, ids: List[int]) -> str:
@@ -735,8 +1054,10 @@ def _chat_prompt(tokenizer, messages: list) -> str:
     return "\n".join(parts) + "\nassistant:"
 
 
-_GET_ROUTES = ("/", "/healthz")
-_POST_ROUTES = ("/v1/completions", "/v1/chat/completions", "/v1/prefix")
+_GET_ROUTES = ("/", "/healthz", "/metrics", "/debug/memory",
+               "/debug/programs", "/debug/flight", "/debug/incidents")
+_POST_ROUTES = ("/v1/completions", "/v1/chat/completions", "/v1/prefix",
+                "/debug/profile", "/debug/incident")
 
 
 def _make_handler(api: _Api):
@@ -779,12 +1100,31 @@ def _make_handler(api: _Api):
                        else _error(404, "not found"))
             return None
 
+        def _query(self) -> dict:
+            return {k: v[-1] for k, v in
+                    parse_qs(urlsplit(self.path).query).items()}
+
         def do_GET(self):
             path = self._route(_GET_ROUTES)
             if path == "/":
                 self._send(api.readiness())
             elif path == "/healthz":
                 self._send((200, {"ok": True}, {}))
+            elif path == "/metrics":
+                data = api.metrics().encode("utf-8")
+                self.send_response(200)
+                self.send_header("Content-Type", obs_metrics.CONTENT_TYPE)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+            elif path == "/debug/memory":
+                self._send(api.memory())
+            elif path == "/debug/programs":
+                self._send(api.programs())
+            elif path == "/debug/flight":
+                self._send(api.flight(self._query()))
+            elif path == "/debug/incidents":
+                self._send(api.incidents(self._query()))
 
         def do_POST(self):
             path = self._route(_POST_ROUTES)
@@ -795,6 +1135,12 @@ def _make_handler(api: _Api):
                 return
             if path == "/v1/prefix":
                 self._send(api.register_prefix(body))
+                return
+            if path == "/debug/profile":
+                self._send(api.profile(self._query(), body))
+                return
+            if path == "/debug/incident":
+                self._send(api.incident(body))
                 return
             chat = path == "/v1/chat/completions"
             if chat:
@@ -816,6 +1162,8 @@ def _make_handler(api: _Api):
                 self._send(_error(413, f"body must be 0 to "
                                        f"{_MAX_BODY_BYTES} bytes"))
                 return None
+            if n == 0 and urlsplit(self.path).path.startswith("/debug/"):
+                return {}   # the debug routes take an empty body
             try:
                 body = json.loads(self.rfile.read(n))
             except (ValueError, UnicodeDecodeError):
@@ -1025,6 +1373,9 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
                                       **engine_kw)
     else:
         engine = InferenceEngine(cfg, model_params, **engine_kw)
+    # This process's events label as the serving tier in merged timelines
+    # and /debug/flight envelopes.
+    obs_flight.set_component("serve")
     worker = EngineWorker(engine, warmup=warmup)
     worker.ready.wait()
     if worker.warmup_error is not None:

@@ -49,8 +49,15 @@
   scratch rows (K1 unchanged); each row is quantized once at the splice,
   and decode dequantizes the read view.
 
-Later slices add the mesh and the observability planes; their knobs are
-absent here.
+- Observability (runbooks_tpu_torch/obs): the latency histograms (queue
+  wait, TTFT, inter-token, end to end, dispatch seconds, speculation and
+  grammar), the queue_wait / prefill / decode / verify spans with the
+  reference's names and arguments, tail sampling at each request's end,
+  the program census (each prefill, decode and verify entry point, its
+  FLOPs and bytes measured at warmup's first dispatch) and the build
+  sentinel's steady mark after warmup.
+
+A later slice adds the mesh; its knobs are absent here.
 """
 
 from __future__ import annotations
@@ -73,9 +80,18 @@ from runbooks_tpu_torch.models.transformer import (
     forward,
     lm_head,
 )
+from runbooks_tpu_torch.obs import device as obs_device
+from runbooks_tpu_torch.obs import flight as obs_flight
+from runbooks_tpu_torch.obs import metrics as obs_metrics
+from runbooks_tpu_torch.obs.trace import complete as trace_complete
+from runbooks_tpu_torch.obs.trace import record_enabled, span
 from runbooks_tpu_torch.ops.quantization import dequantize_kv, quantize_kv
 from runbooks_tpu_torch.ops.sampling import sample, speculative_verify
-from runbooks_tpu_torch.serve.grammar import GrammarCache, TokenVocab
+from runbooks_tpu_torch.serve.grammar import (
+    GrammarCache,
+    GrammarError,
+    TokenVocab,
+)
 from runbooks_tpu_torch.serve.lora_pool import AdapterLoadError, AdapterPool
 from runbooks_tpu_torch.serve.speculative import (
     NgramDraftIndex,
@@ -92,6 +108,37 @@ PRIORITY_RANK = {"interactive": 0, "standard": 1, "batch": 2}
 # spec_stats' accept-rate buckets (verify steps by their accepted share of
 # drafted tokens).
 _ACCEPT_RATE_BUCKETS = ("0-25%", "25-50%", "50-75%", "75-100%")
+
+# Accept-length histogram buckets (tokens accepted per slot per verify
+# step), fixed so the exposition compares across draft windows.
+_ACCEPT_LEN_BUCKETS = (0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0, 16.0)
+
+# Inter-token gaps run from microseconds (host replay inside a decode
+# chunk) to chunk wall time; the default buckets start at 1 ms.
+_INTER_TOKEN_BUCKETS = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
+    0.1, 0.25, 0.5, 1.0, 2.5)
+
+
+_DISPATCH_HELP = {
+    "decode": "Decode-chunk dispatch+sync wall time, labeled by cache view "
+              "bucket.",
+    "verify": "Speculative verify dispatch+sync wall time, labeled by "
+              "cache view bucket.",
+}
+
+
+def _observe_request_done(req: "Request", now: float) -> None:
+    """A request's end (any finish reason, deadline expiry included): its
+    end-to-end latency by finish reason, and the tail-sampling decision
+    (obs/flight.py) that promotes a slow, expired or failed request's
+    ring timeline to trace.jsonl."""
+    obs_metrics.REGISTRY.observe(
+        "serve_request_duration_seconds", now - req._submitted,
+        reason=req.finish_reason or "stop",
+        help_text="End-to-end request latency (submit to finish).")
+    obs_flight.tail_sample(req.request_id, now - req._submitted,
+                           req.finish_reason or "stop")
 
 
 class EngineOverloaded(RuntimeError):
@@ -147,6 +194,7 @@ class Request:
     on_token: Optional[Callable[[int], None]] = None
     _submitted: float = 0.0   # monotonic submit time (deadline anchor)
     _admitted: float = 0.0    # monotonic admission time
+    _last_token_t: float = 0.0  # monotonic time of the latest token
     _slot: int = -1           # the slot it was admitted to
     _adapter_lane: int = -1   # pool lane pinned at admission (-1: base)
     # The compiled DFA's cursor (serve/grammar.GrammarCursor) when
@@ -493,6 +541,8 @@ class InferenceEngine:
             raise ValueError(
                 f"grammar must be 'off' or 'on', got {grammar!r}")
         self.grammar = grammar
+        self.tokenizer = tokenizer
+        self._token_vocab: Optional[TokenVocab] = None
         self._grammar_cache: Optional[GrammarCache] = None
         self.grammar_requests = 0           # requests with a compiled DFA
         self.grammar_completed = 0          # grammar_complete finishes
@@ -505,8 +555,9 @@ class InferenceEngine:
                 raise ValueError(
                     "grammar: on needs the tokenizer (the DFA compiler "
                     "maps grammar bytes onto token ids); pass tokenizer=")
+            self._token_vocab = TokenVocab.from_tokenizer(tokenizer)
             self._grammar_cache = GrammarCache(
-                TokenVocab.from_tokenizer(tokenizer), cfg.vocab_size,
+                self._token_vocab, cfg.vocab_size,
                 capacity=(int(grammar_cache_size)
                           if grammar_cache_size is not None else 64))
         self.max_slots = max_slots
@@ -582,6 +633,13 @@ class InferenceEngine:
         self._prefix_build = make_prefix_build_fn(cfg, self.max_seq_len + 1)
         self._decode_fns: dict = {}
         self._verify_fns: dict = {}
+        # Device-level observability (obs/device.py): a kernel build after
+        # warmup is a serve-time stall the sentinel flags; the program
+        # census carries each entry point's first-dispatch costs.
+        obs_device.SENTINEL.install()
+        self.warmup_census: Optional[dict] = None
+        self._marked_steady = False   # one steady claim per engine
+        self._register_programs()
         self.prefix_cache_size = (prefix_cache_size
                                   if prefix_cache_size is not None
                                   else max(4, 2 * max_slots))
@@ -601,17 +659,32 @@ class InferenceEngine:
                               self.device, trash_slot=True,
                               quantize_kv=self.quantize_kv)
 
+    def _register_programs(self) -> None:
+        """The entry points of the census: prefill (its prefix splice is
+        the same function, counted apart as the reference's two programs)
+        and the prefix build; decode and verify register per view as they
+        are made."""
+        obs_device.PROGRAMS.register("serve", "prefill", self._prefill)
+        obs_device.PROGRAMS.register("serve", "prefill_prefix",
+                                     self._prefill)
+        obs_device.PROGRAMS.register("serve", "prefix_build",
+                                     self._prefix_build)
+
     def _decode_for(self, view: int):
         if view not in self._decode_fns:
             self._decode_fns[view] = make_decode_fn(
                 self.cfg, self.decode_chunk, self.max_seq_len,
                 self._pad_slot, view)
+            obs_device.PROGRAMS.register("serve", f"decode_v{view}",
+                                         self._decode_fns[view])
         return self._decode_fns[view]
 
     def _verify_for(self, view: int):
         if view not in self._verify_fns:
             self._verify_fns[view] = make_verify_fn(
                 self.cfg, self.draft_tokens, self._pad_slot, view)
+            obs_device.PROGRAMS.register("serve", f"verify_v{view}",
+                                         self._verify_fns[view])
         return self._verify_fns[view]
 
     @contextlib.contextmanager
@@ -671,6 +744,17 @@ class InferenceEngine:
             # eviction cannot strand the slot.
             req._grammar = self._grammar_cache.cursor(req.response_format)
             self.grammar_requests += 1
+            reg = obs_metrics.REGISTRY
+            reg.inc("serve_grammar_requests_total",
+                    help_text="Requests admitted with a compiled "
+                              "response_format constraint.")
+            st = self._grammar_cache.stats()
+            reg.set_counter("serve_grammar_cache_hits_total", st["hits"],
+                            help_text="Grammar DFA compile-cache hits.")
+            reg.set_counter("serve_grammar_cache_misses_total",
+                            st["misses"],
+                            help_text="Grammar DFA compile-cache misses "
+                                      "(each is one host-side compile).")
 
     def submit(self, req: Request) -> None:
         self.validate(req)
@@ -769,6 +853,7 @@ class InferenceEngine:
             req.finish_reason = "error"
             print(f"serve: adapter {req.adapter!r} failed to load at "
                   f"admission: {exc}", flush=True)
+            _observe_request_done(req, time.monotonic())
             return True
         if lane is None:
             return False
@@ -786,7 +871,13 @@ class InferenceEngine:
     # all-True rows for unconstrained slots, where masking is the identity.
 
     def _mask_kwargs(self, mask: np.ndarray, t0: float) -> dict:
-        self.grammar_mask_seconds.append(time.perf_counter() - t0)
+        dt = time.perf_counter() - t0
+        self.grammar_mask_seconds.append(dt)
+        obs_metrics.REGISTRY.observe(
+            "serve_grammar_mask_build_seconds", dt,
+            buckets=_INTER_TOKEN_BUCKETS,
+            help_text="Host-side gmask operand build time per dispatch "
+                      "(grammar-constrained decoding).")
         return {"gmask": self._tensor(mask)}
 
     def _grammar_prefill_kwargs(self, group: List[tuple], rows: int) -> dict:
@@ -844,6 +935,20 @@ class InferenceEngine:
         return {"gmask": torch.ones(shape, dtype=torch.bool,
                                     device=self.device)}
 
+    @property
+    def tokenizer_fingerprint(self) -> Optional[str]:
+        """The vocabulary's content hash (serve/grammar.TokenVocab), built
+        at first use: /debug/programs shows it so that replicas can be
+        checked to serve one vocabulary. None without a tokenizer."""
+        if self._token_vocab is None:
+            if self.tokenizer is None:
+                return None
+            try:
+                self._token_vocab = TokenVocab.from_tokenizer(self.tokenizer)
+            except GrammarError:
+                return None
+        return self._token_vocab.fingerprint
+
     def grammar_stats(self) -> dict:
         """Grammar-mode snapshot: the compile cache's hits, misses, size
         and compile seconds, and the engine's counters."""
@@ -872,51 +977,131 @@ class InferenceEngine:
         library's first call at a shape (cuBLAS's kernel choice and
         module load). A pooled engine runs every one of them through the
         adapter delta (on trash lanes) and warms the lane write
-        (AdapterPool.warm)."""
-        if self.device.type == "cuda":
-            cuda_build.build(["flash_fwd"])
-        if self.adapters is not None:
-            self.adapters.warm()
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(0)
-        t = self._tensor
-        vocab = self.cfg.vocab_size
-        for bucket in self.prefill_buckets:
-            for rows in sorted({1, self.max_slots}):
-                positions = np.full((rows, bucket), self._pad_slot,
-                                    np.int32)
-                positions[:, :2] = [0, 1]
-                first, self.cache, _ = self._prefill(
-                    self.params, self.cache,
-                    t(np.zeros((rows, bucket), np.int32)), t(positions),
-                    [0] * rows, t(np.ones(rows, np.int64)), gen,
-                    t(np.zeros(rows, np.float32)),
-                    t(np.zeros(rows, np.int32)),
-                    t(np.ones(rows, np.float32)),
-                    **self._grammar_warm_kwargs((rows, vocab)),
-                    **self._adapter_kwargs(np.full(rows, -1, np.int32)))
-        n = self.max_slots
-        idle = np.zeros(n, np.int32)
-        akw = self._adapter_kwargs(np.full(n, -1, np.int32))
-        for view in self.view_buckets:
-            first, _, self.cache = self._decode_for(view)(
-                self.params, self.cache, t(idle),
-                t(np.full(n, self._pad_slot, np.int32)), gen,
-                t(np.zeros(n, np.float32)), t(idle),
-                t(np.ones(n, np.float32)), t(np.full(n, -1, np.int32)),
-                t(idle), t(np.zeros(n, bool)),
-                **self._grammar_warm_kwargs((n, vocab)), **akw)
-            if self._spec_index is not None:
-                first, _, _, self.cache = self._verify_for(view)(
-                    self.params, self.cache,
-                    t(np.zeros((n, self.draft_tokens + 1), np.int32)),
-                    t(idle), t(idle), gen, t(np.zeros(n, np.float32)),
-                    t(idle), t(np.ones(n, np.float32)),
-                    t(np.zeros(n, bool)),
-                    **self._grammar_warm_kwargs(
-                        (n, self.draft_tokens + 1, vocab)), **akw)
-        first.cpu()
+        (AdapterPool.warm).
+
+        Each of these dispatches is its entry point's first at its shape:
+        it runs under obs/device's counting mode (FLOPs and bytes into the
+        program census; RBT_DEVICE_OBS=0 skips it). The builds here are the
+        expected ones; afterwards the engine is steady, and a kernel build
+        is a stall the sentinel flags."""
+        t_warm, before = self._warmup_begin()
+        cost = obs_device.program_cost
+        with obs_device.SENTINEL.expected():
+            if self.device.type == "cuda":
+                cuda_build.build(["flash_fwd"])
+            if self.adapters is not None:
+                self.adapters.warm()
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(0)
+            t = self._tensor
+            vocab = self.cfg.vocab_size
+            rows_set = sorted({1, self.max_slots})
+            for bucket in self.prefill_buckets:
+                for rows in rows_set:
+                    positions = np.full((rows, bucket), self._pad_slot,
+                                        np.int32)
+                    positions[:, :2] = [0, 1]
+                    first, self.cache, _ = cost(
+                        "serve", "prefill", f"b{bucket}r{rows}",
+                        self._prefill, self.params, self.cache,
+                        t(np.zeros((rows, bucket), np.int32)),
+                        t(positions), [0] * rows,
+                        t(np.ones(rows, np.int64)), gen,
+                        t(np.zeros(rows, np.float32)),
+                        t(np.zeros(rows, np.int32)),
+                        t(np.ones(rows, np.float32)),
+                        **self._grammar_warm_kwargs((rows, vocab)),
+                        **self._adapter_kwargs(np.full(rows, -1, np.int32)))
+            n = self.max_slots
+            idle = np.zeros(n, np.int32)
+            akw = self._adapter_kwargs(np.full(n, -1, np.int32))
+            for view in self.view_buckets:
+                first, _, self.cache = cost(
+                    "serve", f"decode_v{view}", f"v{view}",
+                    self._decode_for(view), self.params, self.cache,
+                    t(idle), t(np.full(n, self._pad_slot, np.int32)), gen,
+                    t(np.zeros(n, np.float32)), t(idle),
+                    t(np.ones(n, np.float32)), t(np.full(n, -1, np.int32)),
+                    t(idle), t(np.zeros(n, bool)),
+                    **self._grammar_warm_kwargs((n, vocab)), **akw)
+                if self._spec_index is not None:
+                    first, _, _, self.cache = cost(
+                        "serve", f"verify_v{view}", f"v{view}",
+                        self._verify_for(view), self.params, self.cache,
+                        t(np.zeros((n, self.draft_tokens + 1), np.int32)),
+                        t(idle), t(idle), gen, t(np.zeros(n, np.float32)),
+                        t(idle), t(np.ones(n, np.float32)),
+                        t(np.zeros(n, bool)),
+                        **self._grammar_warm_kwargs(
+                            (n, self.draft_tokens + 1, vocab)), **akw)
+            first.cpu()
+        self._warmup_end(t_warm, before, rows_set, list(self.view_buckets))
         self.reset()
+
+    def _warmup_begin(self) -> tuple:
+        s = obs_device.SENTINEL
+        return time.perf_counter(), (s.total, s.compile_seconds)
+
+    def _warmup_end(self, t_warm: float, before: tuple, rows: list,
+                    views: list, **extra) -> None:
+        """The warmup census (what /debug/programs shows beside the
+        programs: the shapes walked, the builds they took, the seconds)
+        and this engine's one steady claim, released by release_steady."""
+        sentinel = obs_device.SENTINEL
+        census = obs_device.PROGRAMS.census("serve")
+        n_verify = len(views) if self._spec_index is not None else 0
+        self.warmup_census = {
+            "prefill_programs": len(self.prefill_buckets) * len(rows),
+            "prefill_buckets": list(self.prefill_buckets),
+            "rows": rows,
+            "decode_views": views,
+            "verify_programs": n_verify,
+            "speculative": self.speculative,
+            "draft_tokens": self.draft_tokens,
+            "adapter_pool": (self.adapters.pool_size
+                             if self.adapters is not None else 0),
+            "lora_rank": (self.adapters.rank
+                          if self.adapters is not None else None),
+            "grammar": self.grammar,
+            "grammar_cache_size": (self._grammar_cache.capacity
+                                   if self._grammar_cache is not None
+                                   else None),
+            **extra,
+            "compiles": sentinel.total - before[0],
+            "compile_seconds": round(
+                sentinel.compile_seconds - before[1], 3),
+            "warmup_seconds": round(time.perf_counter() - t_warm, 3),
+            "programs": [{"name": c["name"], "programs": c["programs"]}
+                         for c in census],
+        }
+        print(f"serve: warmup census: {self.warmup_census['prefill_programs']}"
+              f" prefill shapes (buckets {self.prefill_buckets} x rows "
+              f"{rows}), {len(views)} decode views {views}, {n_verify} "
+              f"verify shapes; {self.warmup_census['compiles']} kernel "
+              f"builds in {self.warmup_census['compile_seconds']}s; "
+              f"{self.warmup_census['warmup_seconds']}s", flush=True)
+        if not self._marked_steady:
+            self._marked_steady = True
+            sentinel.mark_steady("serve")
+
+    def release_steady(self) -> None:
+        """Release this engine's steady claim (the worker calls it at
+        stop). Idempotent; pairs with warmup()'s one mark."""
+        if self._marked_steady:
+            self._marked_steady = False
+            obs_device.SENTINEL.clear_steady("serve")
+
+    def memory_groups(self) -> dict:
+        """Named tensor groups for obs/device.memory_snapshot: the
+        weights, the slot-pool KV cache, the shared-prefix cache (copied
+        first: an HTTP thread reads it while the worker registers and
+        evicts) and, on a pooled engine, the adapter pool."""
+        groups = {"weights": self.params,
+                  "kv_cache": self.cache,
+                  "prefix_cache": list(self._prefix_cache.copy().values())}
+        if self.adapters is not None:
+            groups["adapter_pool"] = self.adapters.tree
+        return groups
 
     def has_work(self) -> bool:
         return bool(self.queue) or bool(self.active.any())
@@ -1106,7 +1291,7 @@ class InferenceEngine:
                 self.queue.pop(0)
                 continue
             req = self.queue.pop(0)
-            req._admitted = time.monotonic()
+            self._observe_admission(req, slot)
             budget -= need
             admitted.append((slot, req, pkey))
         # One [rows, bucket] prefill dispatch per (bucket, prefix).
@@ -1118,6 +1303,36 @@ class InferenceEngine:
         for (bucket, pkey), group in by_group.items():
             with self._dispatch("prefill"):
                 self._prefill_group(bucket, group, pkey)
+
+    def _observe_admission(self, req: Request, slot: int) -> None:
+        """Admission: the queue wait's histogram and its backdated span,
+        so a request's timeline reads queue_wait -> prefill -> decode."""
+        req._admitted = time.monotonic()
+        wait = req._admitted - req._submitted
+        obs_metrics.REGISTRY.observe(
+            "serve_queue_wait_seconds", wait,
+            help_text="Admission-queue wait (submit to slot assignment).")
+        if record_enabled():
+            trace_complete("queue_wait", wait, request_id=req.request_id,
+                           slot=slot)
+
+    @contextlib.contextmanager
+    def _prefill_span(self, bucket: int, rows: int, prefix: int,
+                      group: List[tuple]):
+        """The prefill dispatch's span and its dispatch-seconds histogram,
+        labeled by (bucket, rows): the two row counts are different
+        programs. Request ids materialize only when something records."""
+        attrs = ({"request_ids": [r.request_id for _, r in group]}
+                 if record_enabled() else {})
+        t0 = time.perf_counter()
+        with span("prefill", bucket=bucket, rows=rows, prefix=prefix,
+                  **attrs):
+            yield
+        obs_metrics.REGISTRY.observe(
+            "serve_prefill_dispatch_seconds", time.perf_counter() - t0,
+            bucket=str(bucket), rows=str(rows),
+            help_text="Prefill dispatch+sync wall time per admission "
+                      "group, labeled by prompt bucket and row count.")
 
     def _prefill_group(self, bucket: int, group: List[tuple],
                        pkey: Optional[tuple] = None) -> None:
@@ -1161,18 +1376,19 @@ class InferenceEngine:
             pk, pv = self._prefix_cache[pkey]
             self._prefix_cache_hit(pkey)
             prefix = (pk, pv, n)
-        first, self.cache, _ = self._prefill(
-            self.params, self.cache, self._tensor(tokens),
-            self._tensor(positions), slots, self._tensor(last_pos),
-            self.generator, self._tensor(temps), self._tensor(top_ks),
-            self._tensor(top_ps), prefix=prefix,
-            **self._grammar_prefill_kwargs(group, rows),
-            **self._adapter_kwargs(aslots))
+        with self._prefill_span(bucket, rows, plen, group):
+            first, self.cache, _ = self._prefill(
+                self.params, self.cache, self._tensor(tokens),
+                self._tensor(positions), slots, self._tensor(last_pos),
+                self.generator, self._tensor(temps), self._tensor(top_ks),
+                self._tensor(top_ps), prefix=prefix,
+                **self._grammar_prefill_kwargs(group, rows),
+                **self._adapter_kwargs(aslots))
+            # The first tokens must reach the host to stream: the
+            # dispatch's one sync.
+            first = first.cpu().numpy()
         self.prefix_tokens_reused += plen * n
         self.prefill_dispatches += 1
-        # The first tokens must reach the host to stream: the dispatch's
-        # one sync.
-        first = first.cpu().numpy()
         for i, (slot, req) in enumerate(group):
             self._activate_slot(slot, req, int(first[i]))
 
@@ -1214,6 +1430,7 @@ class InferenceEngine:
         req.finish_reason = reason
         self.active[slot] = False
         self.slot_req[slot] = None
+        _observe_request_done(req, time.monotonic())
         self._on_slot_finished(slot, req)
 
     def _on_slot_finished(self, slot: int, req: Request) -> None:
@@ -1234,8 +1451,24 @@ class InferenceEngine:
         req.output_tokens.append(tok)
         if self._spec_index is not None:
             self._spec_index.extend(slot, tok)
+        # Host-observed latency: TTFT on the first token, inter-token gaps
+        # after. A decode chunk's tokens replay in one host loop, so gaps
+        # inside a chunk are microseconds and its first token carries the
+        # chunk's wall time, the burst cadence a streaming client sees.
+        now = time.monotonic()
+        reg = obs_metrics.REGISTRY
         if len(req.output_tokens) == 1:
-            self.ttft_seconds.append(time.monotonic() - req._submitted)
+            self.ttft_seconds.append(now - req._submitted)
+            reg.observe("serve_ttft_seconds", now - req._submitted,
+                        help_text="Time to first generated token "
+                                  "(submit to first sampled token).")
+        else:
+            reg.observe("serve_inter_token_seconds",
+                        now - req._last_token_t,
+                        buckets=_INTER_TOKEN_BUCKETS,
+                        help_text="Host-observed gap between consecutive "
+                                  "generated tokens of one request.")
+        req._last_token_t = now
         if req.on_token is not None:
             req.on_token(tok)
         hit_eos = req.eos_id is not None and tok == req.eos_id
@@ -1285,6 +1518,7 @@ class InferenceEngine:
                 # while it waited for a slot or pages, or kept across a
                 # preemption): release it, or the lane is never evictable.
                 self._release_adapter(r)
+                _observe_request_done(r, now)
                 n += 1
             else:
                 keep.append(r)
@@ -1396,6 +1630,11 @@ class InferenceEngine:
                 legal = legal_draft_prefix(req._grammar, d)
                 if len(legal) < len(d):
                     self.grammar_draft_truncations += 1
+                    obs_metrics.REGISTRY.inc(
+                        "serve_grammar_draft_truncations_total",
+                        help_text="Speculative drafts truncated at a "
+                                  "grammar-illegal token before verify "
+                                  "dispatch.")
                 d = legal
             drafts[slot] = d
             any_draft = any_draft or bool(d)
@@ -1440,6 +1679,12 @@ class InferenceEngine:
             self.spec_drafted += nd
             self.spec_accepted += a
             step_accepted += a
+            if nd:
+                obs_metrics.REGISTRY.observe(
+                    "serve_spec_accept_len", float(a),
+                    buckets=_ACCEPT_LEN_BUCKETS,
+                    help_text="Draft tokens accepted per slot per verify "
+                              "step.")
             for tok in emitted:
                 if not self.active[slot]:
                     break   # EOS, budget or room finished it mid-replay
@@ -1462,12 +1707,35 @@ class InferenceEngine:
         view = self._view_for(int(self.lengths[self.active].max())
                               + self.draft_tokens + 1)
         t = self._tensor
-        accept, resid, full, self.cache = self._verify_for(view)(
-            self.params, self.cache, t(tokens), t(positions), t(draft_len),
-            self.generator, t(temps), t(top_ks), t(top_ps), t(self.active),
-            **gkw, **self._adapter_kwargs())
-        # One host sync per verify step.
-        return accept.cpu().numpy(), resid.cpu().numpy(), full.cpu().numpy()
+        with self._step_span("verify", view, drafted=int(draft_len.sum())):
+            accept, resid, full, self.cache = self._verify_for(view)(
+                self.params, self.cache, t(tokens), t(positions),
+                t(draft_len), self.generator, t(temps), t(top_ks),
+                t(top_ps), t(self.active), **gkw, **self._adapter_kwargs())
+            # One host sync per verify step.
+            return (accept.cpu().numpy(), resid.cpu().numpy(),
+                    full.cpu().numpy())
+
+    def _decode_span_attrs(self) -> dict:
+        """Decode and verify span attributes, built only when something
+        records (the decode loop must not pay for a list per chunk)."""
+        if not record_enabled():
+            return {}
+        return {"active": int(self.active.sum()),
+                "request_ids": [self.slot_req[i].request_id
+                                for i in range(self.max_slots)
+                                if self.active[i]]}
+
+    @contextlib.contextmanager
+    def _step_span(self, kind: str, view: int, **args):
+        """A decode chunk's or verify step's span and its dispatch-seconds
+        histogram, labeled by the cache view (tokens)."""
+        t0 = time.perf_counter()
+        with span(kind, view=view, **args, **self._decode_span_attrs()):
+            yield
+        obs_metrics.REGISTRY.observe(
+            f"serve_{kind}_dispatch_seconds", time.perf_counter() - t0,
+            view=str(view), help_text=_DISPATCH_HELP[kind])
 
     def spec_stats(self) -> dict:
         """Speculation snapshot: draft volume, accept rate, verify steps
@@ -1500,16 +1768,17 @@ class InferenceEngine:
         temps, top_ks, top_ps, eos_ids, remaining = self._sampling_operands()
         view = self._view_for(int(self.lengths[self.active].max())
                               + self.decode_chunk)
-        toks, valid, self.cache = self._decode_for(view)(
-            self.params, self.cache, self._tensor(self.last_token),
-            self._tensor(positions), self.generator, self._tensor(temps),
-            self._tensor(top_ks), self._tensor(top_ps),
-            self._tensor(eos_ids), self._tensor(remaining),
-            self._tensor(self.active), **self._grammar_decode_kwargs(),
-            **self._adapter_kwargs())
-        # One host sync per chunk.
-        toks = toks.cpu().numpy()            # [chunk, slots]
-        valid = valid.cpu().numpy()          # [chunk, slots] bool
+        with self._step_span("decode", view):
+            toks, valid, self.cache = self._decode_for(view)(
+                self.params, self.cache, self._tensor(self.last_token),
+                self._tensor(positions), self.generator,
+                self._tensor(temps), self._tensor(top_ks),
+                self._tensor(top_ps), self._tensor(eos_ids),
+                self._tensor(remaining), self._tensor(self.active),
+                **self._grammar_decode_kwargs(), **self._adapter_kwargs())
+            # One host sync per chunk.
+            toks = toks.cpu().numpy()            # [chunk, slots]
+            valid = valid.cpu().numpy()          # [chunk, slots] bool
         return self._replay_chunk(toks, valid)
 
     def generate(self, requests: List[Request],

@@ -60,6 +60,8 @@ import torch
 
 from runbooks_tpu_torch.models.config import ModelConfig
 from runbooks_tpu_torch.models.transformer import KVCache, forward, lm_head
+from runbooks_tpu_torch.obs import device as obs_device
+from runbooks_tpu_torch.obs import metrics as obs_metrics
 from runbooks_tpu_torch.ops.quantization import dequantize_kv, quantize_kv
 from runbooks_tpu_torch.ops.sampling import sample, speculative_verify
 from runbooks_tpu_torch.serve.engine import (
@@ -1059,6 +1061,17 @@ class PagedInferenceEngine(InferenceEngine):
                                                        self.page_size)
         self._swap_out_fn = make_kv_swap_out_fn()
         self._swap_in_fn = make_kv_swap_in_fn()
+        obs_device.PROGRAMS.register("serve", "paged_prefill",
+                                     self._paged_prefill)
+        if self._kv_host_pages_arg > 0:
+            obs_device.PROGRAMS.register("serve", "kv_swap_out",
+                                         self._swap_out_fn)
+            obs_device.PROGRAMS.register("serve", "kv_swap_in",
+                                         self._swap_in_fn)
+
+    def _register_programs(self) -> None:
+        """The paged entry points register in __init__, once they exist;
+        decode and verify per view-page bucket as they are made."""
 
     # -- storage -------------------------------------------------------
 
@@ -1116,8 +1129,15 @@ class PagedInferenceEngine(InferenceEngine):
         # store() returns once the copy has completed: only then may the
         # caller free the device page for reuse.
         self.host_pool.store(h, *self._swap_out_fn(self.cache, page))
-        self.swap_seconds["out"].append(time.perf_counter() - t0)
+        self._observe_swap("out", time.perf_counter() - t0)
         return h
+
+    def _observe_swap(self, direction: str, seconds: float) -> None:
+        self.swap_seconds[direction].append(seconds)
+        obs_metrics.REGISTRY.observe(
+            "serve_kv_swap_seconds", seconds, direction=direction,
+            help_text="Host-tier page copy wall time (dispatch + host "
+                      "sync), labeled by direction.")
 
     def _kv_swap_in(self, host_slot: int, page: int) -> bool:
         """PagedKVManager promotion callback: copy one host-resident page
@@ -1128,7 +1148,7 @@ class PagedInferenceEngine(InferenceEngine):
         t0 = time.perf_counter()
         self.cache = self._swap_in_fn(self.cache, page,
                                       *self.host_pool.load(host_slot))
-        self.swap_seconds["in"].append(time.perf_counter() - t0)
+        self._observe_swap("in", time.perf_counter() - t0)
         return True
 
     # -- programs ------------------------------------------------------
@@ -1138,12 +1158,16 @@ class PagedInferenceEngine(InferenceEngine):
             self._decode_fns[view_pages] = make_paged_decode_fn(
                 self.cfg, self.decode_chunk, self.max_seq_len,
                 self.page_size, view_pages)
+            obs_device.PROGRAMS.register("serve", f"decode_p{view_pages}",
+                                         self._decode_fns[view_pages])
         return self._decode_fns[view_pages]
 
     def _verify_for(self, view_pages: int):
         if view_pages not in self._verify_fns:
             self._verify_fns[view_pages] = make_paged_verify_fn(
                 self.cfg, self.draft_tokens, self.page_size, view_pages)
+            obs_device.PROGRAMS.register("serve", f"verify_p{view_pages}",
+                                         self._verify_fns[view_pages])
         return self._verify_fns[view_pages]
 
     def _view_pages_for(self, max_pos: int) -> int:
@@ -1166,23 +1190,27 @@ class PagedInferenceEngine(InferenceEngine):
         compiles nothing per shape: a prefix gather is an elementwise
         kernel at any width, and the prefill's matmuls and K1 launches
         have the shapes of the suffix bucket, which this covers."""
-        if self.device.type == "cuda":
-            cuda_build.build(["flash_fwd"])
-        if self.adapters is not None:
-            self.adapters.warm()
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(0)
-        t = self._tensor
-        vocab = self.cfg.vocab_size
+        t_warm, before = self._warmup_begin()
+        cost = obs_device.program_cost
         trash = self.pager.trash_page
-        with torch.no_grad():
+        with torch.no_grad(), obs_device.SENTINEL.expected():
+            if self.device.type == "cuda":
+                cuda_build.build(["flash_fwd"])
+            if self.adapters is not None:
+                self.adapters.warm()
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(0)
+            t = self._tensor
+            vocab = self.cfg.vocab_size
+            rows_set = sorted({1, self.max_slots})
             for bucket in self.prefill_buckets:
-                for rows in sorted({1, self.max_slots}):
+                for rows in rows_set:
                     positions = np.full((rows, bucket), self._pad_slot,
                                         np.int32)
                     positions[:, :2] = [0, 1]
-                    first, self.cache, _ = self._paged_prefill(
-                        self.params, self.cache,
+                    first, self.cache, _ = cost(
+                        "serve", "paged_prefill", f"b{bucket}r{rows}",
+                        self._paged_prefill, self.params, self.cache,
                         t(np.zeros((rows, bucket), np.int32)), t(positions),
                         t(np.full((rows, self.pages_per_slot), trash,
                                   np.int32)),
@@ -1197,15 +1225,18 @@ class PagedInferenceEngine(InferenceEngine):
             tables = t(np.full((n, self.pages_per_slot), trash, np.int32))
             akw = self._adapter_kwargs(np.full(n, -1, np.int32))
             for vp in self.view_page_buckets:
-                first, _, self.cache = self._decode_for(vp)(
+                first, _, self.cache = cost(
+                    "serve", f"decode_p{vp}", f"p{vp}", self._decode_for(vp),
                     self.params, self.cache, tables, t(idle), t(idle), gen,
                     t(np.zeros(n, np.float32)), t(idle),
                     t(np.ones(n, np.float32)), t(np.full(n, -1, np.int32)),
                     t(idle), t(np.zeros(n, bool)),
                     **self._grammar_warm_kwargs((n, vocab)), **akw)
                 if self._spec_index is not None:
-                    first, _, _, self.cache = self._verify_for(vp)(
-                        self.params, self.cache, tables,
+                    first, _, _, self.cache = cost(
+                        "serve", f"verify_p{vp}", f"p{vp}",
+                        self._verify_for(vp), self.params, self.cache,
+                        tables,
                         t(np.zeros((n, self.draft_tokens + 1), np.int32)),
                         t(idle), t(idle), gen, t(np.zeros(n, np.float32)),
                         t(idle), t(np.ones(n, np.float32)),
@@ -1214,12 +1245,18 @@ class PagedInferenceEngine(InferenceEngine):
                             (n, self.draft_tokens + 1, vocab)), **akw)
             if self.host_pool is not None:
                 h = self.host_pool.alloc()
-                self.host_pool.store(h, *self._swap_out_fn(self.cache,
-                                                           trash))
-                self.cache = self._swap_in_fn(self.cache, trash,
-                                              *self.host_pool.load(h))
+                self.host_pool.store(h, *cost(
+                    "serve", "kv_swap_out", "page", self._swap_out_fn,
+                    self.cache, trash))
+                self.cache = cost("serve", "kv_swap_in", "page",
+                                  self._swap_in_fn, self.cache, trash,
+                                  *self.host_pool.load(h))
                 self.host_pool.free(h)
             first.cpu()
+        self._warmup_end(t_warm, before, rows_set,
+                         list(self.view_page_buckets),
+                         page_size=self.page_size, num_pages=self.num_pages,
+                         kv_host_pages=self._kv_host_pages_arg)
         self.reset()
 
     # -- prefix surface (radix-backed) ---------------------------------
@@ -1328,7 +1365,7 @@ class PagedInferenceEngine(InferenceEngine):
                 # lane stays pinned on the request for the next try.
                 break
             req = self.queue.pop(0)
-            req._admitted = time.monotonic()
+            self._observe_admission(req, slot)
             budget -= need
             admitted.append((slot, req, len(shared)))
         by_group: dict = {}
@@ -1432,15 +1469,17 @@ class PagedInferenceEngine(InferenceEngine):
         t = self._tensor
         prefix = ({"prefix_pages": t(prefix_pages),
                    "prefix_len": t(prefix_len)} if ppb else {})
-        first, self.cache, _ = self._paged_prefill(
-            self.params, self.cache, t(tokens), t(positions), t(dest_pages),
-            t(last_pos), self.generator, t(temps), t(top_ks), t(top_ps),
-            **prefix, **self._grammar_prefill_kwargs(group, rows),
-            **self._adapter_kwargs(aslots))
+        with self._prefill_span(bucket, rows, ppb * ps, group):
+            first, self.cache, _ = self._paged_prefill(
+                self.params, self.cache, t(tokens), t(positions),
+                t(dest_pages), t(last_pos), self.generator, t(temps),
+                t(top_ks), t(top_ps), **prefix,
+                **self._grammar_prefill_kwargs(group, rows),
+                **self._adapter_kwargs(aslots))
+            # The first tokens must reach the host to stream: the
+            # dispatch's one sync.
+            first = first.cpu().numpy()
         self.prefill_dispatches += 1
-        # The first tokens must reach the host to stream: the dispatch's
-        # one sync.
-        first = first.cpu().numpy()
         for i, (slot, req) in enumerate(group):
             self._activate_slot(slot, req, int(first[i]))
 
@@ -1466,13 +1505,16 @@ class PagedInferenceEngine(InferenceEngine):
         vp = self._view_pages_for(int(self.lengths[self.active].max())
                                   + self.draft_tokens + 1)
         t = self._tensor
-        accept, resid, full, self.cache = self._verify_for(vp)(
-            self.params, self.cache, t(self.pager.page_table), t(tokens),
-            t(positions), t(draft_len), self.generator, t(temps),
-            t(top_ks), t(top_ps), t(self.active), **gkw,
-            **self._adapter_kwargs())
-        # One host sync per verify step.
-        return accept.cpu().numpy(), resid.cpu().numpy(), full.cpu().numpy()
+        with self._step_span("verify", vp * self.page_size,
+                             drafted=int(draft_len.sum())):
+            accept, resid, full, self.cache = self._verify_for(vp)(
+                self.params, self.cache, t(self.pager.page_table),
+                t(tokens), t(positions), t(draft_len), self.generator,
+                t(temps), t(top_ks), t(top_ps), t(self.active), **gkw,
+                **self._adapter_kwargs())
+            # One host sync per verify step.
+            return (accept.cpu().numpy(), resid.cpu().numpy(),
+                    full.cpu().numpy())
 
     def _decode_chunk_step(self) -> int:
         # Inactive rows decode at position 0 and park at the view's trash
@@ -1482,13 +1524,16 @@ class PagedInferenceEngine(InferenceEngine):
         vp = self._view_pages_for(int(self.lengths[self.active].max())
                                   + self.decode_chunk)
         t = self._tensor
-        toks, valid, self.cache = self._decode_for(vp)(
-            self.params, self.cache, t(self.pager.page_table),
-            t(self.last_token), t(positions), self.generator, t(temps),
-            t(top_ks), t(top_ps), t(eos_ids), t(remaining), t(self.active),
-            **self._grammar_decode_kwargs(), **self._adapter_kwargs())
-        # One host sync per chunk.
-        return self._replay_chunk(toks.cpu().numpy(), valid.cpu().numpy())
+        with self._step_span("decode", vp * self.page_size):
+            toks, valid, self.cache = self._decode_for(vp)(
+                self.params, self.cache, t(self.pager.page_table),
+                t(self.last_token), t(positions), self.generator, t(temps),
+                t(top_ks), t(top_ps), t(eos_ids), t(remaining),
+                t(self.active), **self._grammar_decode_kwargs(),
+                **self._adapter_kwargs())
+            # One host sync per chunk.
+            toks, valid = toks.cpu().numpy(), valid.cpu().numpy()
+        return self._replay_chunk(toks, valid)
 
     # -- observability -------------------------------------------------
 

@@ -23,6 +23,7 @@ from runbooks_tpu_torch.models.transformer import (
     head_weight,
     lm_head,
 )
+from runbooks_tpu_torch.obs import device as obs_device
 from runbooks_tpu_torch.train.optimizer import AdamW, global_norm
 from runbooks_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -163,6 +164,22 @@ def apply_step(optimizer: AdamW, state: TrainState, loss: torch.Tensor,
                "weight_tokens": total_weight, "nonfinite": int(not ok)}
     return TrainState(step=state.step + 1, params=params,
                       opt_state=opt_state), metrics
+
+
+def first_step(step_fn, state: TrainState, batch: Batch, shape_sig: str,
+               component: str = "train", name: str = "train_step"):
+    """``step_fn(state, batch)`` for a run's first step: its kernel builds
+    are the expected ones (obs/device.SENTINEL), and it is the step
+    program's first dispatch at this shape, so it runs under the counting
+    mode that records the program's FLOPs (the backward's attention
+    included: K2 and K3 are operators with flop formulas) and bytes
+    (obs/device.program_cost). Returns (state, metrics, cost or None)."""
+    with obs_device.SENTINEL.expected():
+        state, metrics = obs_device.program_cost(
+            component, name, shape_sig, step_fn, state, batch)
+    census = obs_device.PROGRAMS.census(component)
+    costs = next((e["costs"] for e in census if e["name"] == name), {})
+    return state, metrics, costs.get(shape_sig)
 
 
 def create_train_state(params: Any, optimizer: AdamW) -> TrainState:

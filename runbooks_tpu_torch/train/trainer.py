@@ -24,8 +24,21 @@ copies each batch to the device asynchronously on its own stream.
 ``main`` builds the kernels into ``<artifacts>/kernel_cache``
 (utils/cuda_build.py), so a restarted Job loads them without ``nvcc``.
 The ``mesh_*`` keys of params.json are ignored (one device is FSDP's
-arithmetic on one shard); the profiler's keys and a collective matmul
-other than "off" are refused by name.
+arithmetic on one shard); a collective matmul other than "off" is refused
+by name.
+
+Observability (runbooks_tpu_torch/obs), as the reference's: spans
+(restore, data_wait, step, checkpoint, emergency_save; the ``preempted``
+instant) into the flight ring and, under RBT_TRACE=1,
+``{artifacts}/trace.jsonl``; goodput (productive step time over wall
+clock, restore and the first step's one-off costs excluded) in
+``metrics.json`` and each log line; the ``train_*`` families in the
+registry, which ``main`` serves on RBT_METRICS_PORT; the first step's
+program cost (FLOPs and bytes, the analytic MFU beside the wall-clock
+one) and the build sentinel's steady mark after it; an incident bundle on
+the ``max_bad_steps`` abort; torch.profiler captures of the
+``profile_start``/``profile_stop`` window (``{artifacts}/profile``) and of
+RBT_PROFILE_AT_STEP=n[:k] (``{artifacts}/profiles/step<n>``).
 """
 
 from __future__ import annotations
@@ -42,6 +55,13 @@ import torch
 
 from runbooks_tpu_torch.models.config import ModelConfig, get_config
 from runbooks_tpu_torch.models.transformer import init_params
+from runbooks_tpu_torch.obs import device as obs_device
+from runbooks_tpu_torch.obs import flight as obs_flight
+from runbooks_tpu_torch.obs import trace as obs_trace
+from runbooks_tpu_torch.obs.goodput import GoodputTracker
+from runbooks_tpu_torch.obs.metrics import REGISTRY
+from runbooks_tpu_torch.obs.profile import PROFILER, parse_profile_at_step
+from runbooks_tpu_torch.obs.trace import span
 from runbooks_tpu_torch.train import data as data_mod
 from runbooks_tpu_torch.train.checkpoint import CheckpointManager
 from runbooks_tpu_torch.train.lora import (
@@ -53,6 +73,7 @@ from runbooks_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer
 from runbooks_tpu_torch.train.step import (
     TrainState,
     create_train_state,
+    first_step,
     make_train_step,
 )
 from runbooks_tpu_torch.utils import contract, cuda_build
@@ -95,14 +116,7 @@ def _parse_fault_inject() -> Optional[dict]:
 
 def _refuse_unported(params: Dict[str, Any]) -> None:
     """Keys of params.json that the reference honours and this port cannot
-    (the profiler capture, the collective matmul), refused by name rather
-    than dropped."""
-    start = int(params.get("profile_start", 0) or 0)
-    stop = int(params.get("profile_stop", 0) or 0)
-    if stop > start:
-        raise NotImplementedError(
-            f"profile_start={start} / profile_stop={stop}: the profiler "
-            "capture is not ported (ROADMAP.md, the observability planes)")
+    (the collective matmul), refused by name rather than dropped."""
     for key in COLLECTIVE_MATMUL_PARAM_KEYS:
         value = params.get(key)
         if value is not None and str(value).lower() != "off":
@@ -144,6 +158,10 @@ class TrainJobConfig:
     # and treats one like SIGTERM.
     max_bad_steps: int = 3
     maintenance_poll_s: float = 0.0
+    # A torch.profiler capture of steps [profile_start, profile_stop) into
+    # {artifacts}/profile (off while profile_stop <= profile_start).
+    profile_start: int = 0
+    profile_stop: int = 0
 
     @classmethod
     def from_params(cls, params: Dict[str, Any]) -> "TrainJobConfig":
@@ -165,7 +183,8 @@ class TrainJobConfig:
                   if f.name not in ("optimizer", "lora", "model_overrides")}
         kwargs.update({k: v for k, v in params.items() if k in simple})
         for key in ("accumulate_steps", "loss_chunk", "prefetch_depth",
-                    "batch_size", "seq_len", "steps", "max_bad_steps"):
+                    "batch_size", "seq_len", "steps", "max_bad_steps",
+                    "profile_start", "profile_stop"):
             if key in kwargs:
                 kwargs[key] = int(kwargs[key])
         if "maintenance_poll_s" in kwargs:
@@ -233,16 +252,17 @@ def run_training(job: TrainJobConfig, base_params=None,
     if job.batch_size % job.accumulate_steps:
         raise ValueError(f"accumulate_steps={job.accumulate_steps} must "
                          f"divide batch_size={job.batch_size}")
-    if os.environ.get("RBT_PROFILE_AT_STEP"):
-        raise NotImplementedError(
-            f"RBT_PROFILE_AT_STEP={os.environ['RBT_PROFILE_AT_STEP']!r}: "
-            "the profiler capture is not ported (ROADMAP.md, the "
-            "observability planes)")
     # May raise on a malformed value: before any state needing cleanup.
     fault = _parse_fault_inject()
+    profile_at = parse_profile_at_step()
     optimizer = make_optimizer(job.optimizer)
     artifacts = job.artifacts_dir or contract.artifacts_dir()
     os.makedirs(artifacts, exist_ok=True)
+    # This run's events label as the training tier, and its trace file is
+    # the run's (RBT_TRACE=1 writes live spans there; tail sampling and
+    # incidents need the same destination with it off).
+    obs_flight.set_component("train")
+    obs_trace.configure(os.path.join(artifacts, "trace.jsonl"))
     ckpt = CheckpointManager(artifacts)
 
     gen = torch.Generator(device=dev)
@@ -264,6 +284,10 @@ def run_training(job: TrainJobConfig, base_params=None,
         step_fn = make_train_step(model_cfg, optimizer,
                                   accumulate_steps=job.accumulate_steps,
                                   loss_chunk=job.loss_chunk)
+    # After the first step, a kernel build in the loop is a stall the
+    # sentinel flags (xla_unexpected_compiles_total).
+    obs_device.SENTINEL.install()
+    obs_device.PROGRAMS.register("train", "train_step", step_fn)
 
     on_cuda = dev.type == "cuda"
     tokens_per_step = job.batch_size * job.seq_len
@@ -271,7 +295,7 @@ def run_training(job: TrainJobConfig, base_params=None,
     peak_flops = chip_peak_flops(dev)
     start_step = consumed = 0
     last_saved = -1
-    restored_step = restore_time_s = first_step_s = None
+    restored_step = restore_time_s = first_step_s = compile_time_s = None
     exit_reason = None
     bad_streak = nonfinite_steps = 0
     history = []
@@ -279,7 +303,16 @@ def run_training(job: TrainJobConfig, base_params=None,
     restore_sigs = []
     poller_stop = None
     prefetcher = None
-    win = {"data": 0.0, "step": 0.0, "steps": 0}
+    win = {"data": 0.0, "step": 0.0, "ckpt": 0.0, "steps": 0}
+    profiling = profiling_at = False
+    device_cost = None          # the step program's first-dispatch cost
+    compiles_before = obs_device.SENTINEL.total
+    unexpected_before = obs_device.SENTINEL.unexpected
+    hbm_peak_bytes = 0
+    # Goodput: productive step time over wall clock, the restore and the
+    # first step's one-off costs excluded. The clock starts before the
+    # restore, so the restore lands inside the wall it is excluded from.
+    goodput = GoodputTracker()
 
     def fault_due(i: int, mode: str) -> bool:
         return (fault is not None and fault["mode"] == mode
@@ -293,6 +326,9 @@ def run_training(job: TrainJobConfig, base_params=None,
             "tokens_per_sec": (history[-1]["tokens_per_sec"]
                                if history else None),
             "first_step_s": first_step_s,
+            # The reference's name for the first step's window (its XLA
+            # compile); here the one-off costs of the first step.
+            "compile_time_s": compile_time_s,
             "restored_step": restored_step,
             "restore_time_s": restore_time_s,
             "accumulate_steps": job.accumulate_steps,
@@ -304,6 +340,19 @@ def run_training(job: TrainJobConfig, base_params=None,
             "batches_consumed": consumed,
             "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                                   if on_cuda else None),
+            "goodput": goodput.ratio() if goodput.steps else None,
+            "goodput_detail": goodput.snapshot(),
+            "device_obs": {
+                # The analytic cross-check of the wall-clock MFU: the step
+                # program's FLOPs and bytes at its first dispatch, with
+                # the roofline classification.
+                "cost": device_cost,
+                "formula_flops_per_step": flops_per_token * tokens_per_step,
+                "compiles": obs_device.SENTINEL.total - compiles_before,
+                "unexpected_compiles":
+                    obs_device.SENTINEL.unexpected - unexpected_before,
+                "hbm_peak_bytes": hbm_peak_bytes or None,
+            },
             "history": history,
         }
         if in_progress:
@@ -318,11 +367,13 @@ def run_training(job: TrainJobConfig, base_params=None,
     try:
         if job.resume and ckpt.latest_intact_step() is not None:
             t_restore = time.perf_counter()
-            saved, cursor, _ = ckpt.restore_with_cursor(device=dev)
+            with span("restore"):
+                saved, cursor, _ = ckpt.restore_with_cursor(device=dev)
             state = TrainState(step=int(saved["step"]),
                                params=saved["params"],
                                opt_state=saved["opt_state"])
             restore_time_s = time.perf_counter() - t_restore
+            goodput.exclude(restore_time_s, "restore")
             start_step = last_saved = restored_step = state.step
             consumed = int(cursor.get("batches_consumed", start_step))
             print(json.dumps({"restored_step": start_step,
@@ -360,18 +411,34 @@ def run_training(job: TrainJobConfig, base_params=None,
             if stop["reason"]:
                 exit_reason = stop["reason"]
                 break
+            if job.profile_stop > job.profile_start \
+                    and i == job.profile_start and not profiling_at:
+                PROFILER.start(os.path.join(artifacts, "profile"))
+                profiling = True
+            if profile_at is not None and i == profile_at[0] \
+                    and not (profiling or profiling_at):
+                PROFILER.start(os.path.join(artifacts, "profiles",
+                                            f"step{profile_at[0]}"))
+                profiling_at = True
             t_data = time.perf_counter()
-            batch = {k: torch.as_tensor(v).to(dev, non_blocking=True)
-                     for k, v in next(batches).items()}
+            with span("data_wait", step=i):
+                batch = {k: torch.as_tensor(v).to(dev, non_blocking=True)
+                         for k, v in next(batches).items()}
             consumed += 1
             data_wait_s = time.perf_counter() - t_data
             if fault_due(i, "nonfinite"):
                 batch["loss_mask"] = batch["loss_mask"] * float("nan")
             t_step = time.perf_counter()
-            state, metrics = step_fn(state, batch)
-            loss = float(metrics["loss"])
-            if on_cuda:
-                torch.cuda.synchronize(dev)
+            with span("step", step=i):
+                if i == start_step:
+                    state, metrics, device_cost = first_step(
+                        step_fn, state, batch,
+                        f"b{job.batch_size}s{job.seq_len}")
+                else:
+                    state, metrics = step_fn(state, batch)
+                loss = float(metrics["loss"])
+                if on_cuda:
+                    torch.cuda.synchronize(dev)
             step_s = time.perf_counter() - t_step
             if metrics["nonfinite"]:
                 bad_streak += 1
@@ -380,6 +447,16 @@ def run_training(job: TrainJobConfig, base_params=None,
                                   "consecutive_bad": bad_streak}),
                       flush=True)
                 if bad_streak >= max(1, job.max_bad_steps):
+                    # The abort is an incident: the flight ring, metrics
+                    # and memory/program census go beside the artifacts
+                    # before raising (debounced; capture never raises).
+                    from runbooks_tpu_torch.obs import incident
+
+                    incident.capture(
+                        "train_max_bad_steps", artifacts=artifacts,
+                        component="train",
+                        extra={"step": i + 1, "bad_streak": bad_streak,
+                               "nonfinite_steps": nonfinite_steps})
                     raise RuntimeError(
                         f"aborting: {bad_streak} consecutive non-finite "
                         f"loss/grad steps (last at step {i + 1}); every bad "
@@ -390,14 +467,45 @@ def run_training(job: TrainJobConfig, base_params=None,
                 bad_streak = 0
             if i == start_step:
                 # The first step carries the one-off costs (allocator
-                # growth, the kernels' first load): reported apart, and
-                # the throughput window starts after it.
+                # growth, the kernels' first load, the program's cost
+                # count): reported apart, excluded from goodput, and the
+                # throughput window starts after it.
                 first_step_s = step_s
+                compile_time_s = time.perf_counter() - t_start
+                goodput.exclude(compile_time_s, "compile")
+                obs_device.SENTINEL.mark_steady("train")
                 t_start = time.perf_counter()
             else:
                 tokens_done += tokens_per_step
+            if profiling and i + 1 == job.profile_stop:
+                PROFILER.stop()
+                profiling = False
+            if profiling_at and i + 1 == profile_at[0] + profile_at[1]:
+                PROFILER.stop()
+                profiling_at = False
+            ckpt_s = 0.0
+            if (i + 1) % job.checkpoint_every == 0 or i + 1 == job.steps:
+                t_ckpt = time.perf_counter()
+                with span("checkpoint", step=i + 1):
+                    save(i + 1)
+                ckpt_s = time.perf_counter() - t_ckpt
+                last_saved = i + 1
+            if i != start_step:
+                goodput.step(step_s, data_wait_s, ckpt_s)
+                REGISTRY.observe(
+                    "train_step_seconds", step_s,
+                    help_text="Per-step compute wall time (dispatch "
+                              "+ device sync share).")
+                REGISTRY.observe(
+                    "train_data_wait_seconds", data_wait_s,
+                    help_text="Per-step input-pipeline wait.")
+                if ckpt_s:
+                    REGISTRY.observe(
+                        "train_checkpoint_seconds", ckpt_s,
+                        help_text="Blocking checkpoint save time.")
                 win["data"] += data_wait_s
                 win["step"] += step_s
+                win["ckpt"] += ckpt_s
                 win["steps"] += 1
             if (i + 1) % job.log_every == 0 or i + 1 == job.steps:
                 dt = time.perf_counter() - t_start
@@ -413,30 +521,63 @@ def run_training(job: TrainJobConfig, base_params=None,
                 if win["steps"]:
                     entry["step_s"] = win["step"] / win["steps"]
                     entry["data_wait_s"] = win["data"] / win["steps"]
+                    if win["ckpt"]:
+                        entry["ckpt_s"] = win["ckpt"] / win["steps"]
+                    entry["goodput"] = round(goodput.ratio(), 4)
+                    REGISTRY.set_gauge(
+                        "train_goodput_ratio", entry["goodput"],
+                        help_text="Productive step time / wall clock "
+                                  "(restart overhead excluded).")
                 else:
                     entry["step_s"] = step_s
                     entry["data_wait_s"] = data_wait_s
-                win = {"data": 0.0, "step": 0.0, "steps": 0}
+                REGISTRY.set_gauge("train_step", i + 1,
+                                   help_text="Last completed training step.")
+                REGISTRY.set_gauge("train_loss", round(loss, 6),
+                                   help_text="Loss at the last logged step.")
+                hbm_now = max((m.get("bytes_in_use", 0) for m in
+                               obs_device.set_memory_gauges()), default=0)
+                if hbm_now:
+                    entry["hbm_used_bytes"] = hbm_now
+                    hbm_peak_bytes = max(hbm_peak_bytes, hbm_now)
+                if device_cost and win["steps"] and peak_flops:
+                    entry["analytic_mfu"] = (device_cost["flops"] / (
+                        win["step"] / win["steps"]) / peak_flops)
+                    REGISTRY.set_gauge(
+                        "train_analytic_mfu", round(entry["analytic_mfu"], 4),
+                        help_text="Counted FLOPs of the step program / "
+                                  "measured step time / peak: the "
+                                  "analytic cross-check of the wall-clock "
+                                  "MFU.")
+                obs_device.PROGRAMS.set_gauges(component="train")
+                win = {"data": 0.0, "step": 0.0, "ckpt": 0.0, "steps": 0}
                 history.append(entry)
                 print(json.dumps(entry), flush=True)
                 _write_json(os.path.join(artifacts, "metrics.json"),
                             summary_dict(in_progress=True))
-            if (i + 1) % job.checkpoint_every == 0 or i + 1 == job.steps:
-                save(i + 1)
-                last_saved = i + 1
         if exit_reason is not None:
             if state.step != last_saved:
-                save(state.step, force=True)
+                with span("emergency_save", step=state.step,
+                          reason=exit_reason):
+                    save(state.step, force=True)
+            obs_trace.instant("preempted", reason=exit_reason,
+                              step=state.step)
             print(json.dumps({"preempted": exit_reason,
                               "emergency_checkpoint_step": state.step}),
                   flush=True)
     finally:
+        if profiling or profiling_at:   # the window ran past the run's end
+            PROFILER.stop()
         if prefetcher is not None:
             prefetcher.close()
         if poller_stop is not None:
             poller_stop.set()
         for sig, old in restore_sigs:
             signal.signal(sig, old)
+        # This run's steady claim dies with it: a later run in the process
+        # builds legitimately.
+        obs_device.SENTINEL.clear_steady("train")
+        obs_trace.close()
 
     summary = summary_dict()
     _write_json(os.path.join(artifacts, "metrics.json"), summary)
@@ -477,6 +618,15 @@ def exit_code_for(summary: Dict[str, Any]) -> int:
 def main() -> int:
     params = contract.load_params()
     job = TrainJobConfig.from_params(params)
+    # The registry for the controller's fleet scraper (train_step,
+    # train_loss, goodput, the step histograms) on GET /metrics, when the
+    # Job's template sets RBT_METRICS_PORT; library callers of
+    # run_training never bind a port.
+    metrics_port = int(os.environ.get("RBT_METRICS_PORT", "0") or 0)
+    if metrics_port:
+        from runbooks_tpu_torch.obs.metrics import serve_metrics
+
+        serve_metrics(metrics_port)
     if job.maintenance_poll_s == 0 and "maintenance_poll_s" not in params:
         # On GCE, watch for maintenance events by default (one quick
         # probe: an off-GCE box must not stall on a dead address).
@@ -488,8 +638,9 @@ def main() -> int:
         job.artifacts_dir or contract.artifacts_dir()))
     if torch.cuda.is_available():
         # Every kernel of the training path at once (one nvcc each, in
-        # parallel), or none over a warm cache.
-        cuda_build.build(cuda_build.SOURCES)
+        # parallel), or none over a warm cache: the expected builds.
+        with obs_device.SENTINEL.expected():
+            cuda_build.build(cuda_build.SOURCES)
     summary = run_training(job)
     print(json.dumps({"done": True,
                       **{k: v for k, v in summary.items() if k != "history"},

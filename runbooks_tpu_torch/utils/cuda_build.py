@@ -17,6 +17,8 @@ kept beside it as ``.log``. Both are written under a per-process temp
 name and moved into place, so processes sharing a directory never load a
 half-written library. Sources build in parallel: one ``nvcc`` per source,
 all started together. A failed build raises with the compiler's output.
+Each nvcc run is reported, with its seconds, to the build sentinel
+(obs/device.SENTINEL): after warmup a build is a stall it flags.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from runbooks_tpu_torch.obs.device import SENTINEL
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -106,6 +110,7 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     failures = []
     for n, (proc, tmp) in procs.items():
         out, _ = proc.communicate()
+        SENTINEL.record_build(time.perf_counter() - t0, n)
         if proc.returncode != 0:
             failures.append(f"nvcc failed for csrc/{n}.cu "
                             f"(exit {proc.returncode}):\n{out}")

@@ -197,6 +197,15 @@ def test_parse_fault_inject_matches_reference(monkeypatch):
     ({"collectiveMatmul": "auto"}, "collectiveMatmul"),
 ])
 def test_from_params_refuses_what_it_cannot_honour(params, name):
+    """The collective matmul is refused by name. The profiler window, which
+    the port refused until it had a profiler capture, is taken as the
+    reference takes it."""
+    if name == "profile_stop":
+        got = trainer.TrainJobConfig.from_params(params)
+        ref = jax_trainer.TrainJobConfig.from_params(params)
+        assert (got.profile_start, got.profile_stop) == \
+            (ref.profile_start, ref.profile_stop) == (2, 4)
+        return
     with pytest.raises(NotImplementedError, match=name):
         trainer.TrainJobConfig.from_params(params)
 
@@ -211,10 +220,16 @@ def test_from_params_takes_what_it_can():
 
 
 def test_profile_at_step_is_refused(tmp_path, monkeypatch):
+    """RBT_PROFILE_AT_STEP, refused until the port had a profiler capture,
+    now captures steps 3 and 4 into {artifacts}/profiles/step3; a
+    malformed value still raises before the run makes anything."""
     monkeypatch.setenv("RBT_PROFILE_AT_STEP", "3:2")
-    with pytest.raises(NotImplementedError, match="RBT_PROFILE_AT_STEP"):
-        run(job(tmp_path / "art"))
-    assert not (tmp_path / "art").exists()
+    run(job(tmp_path / "art", steps=6))
+    assert (tmp_path / "art" / "profiles" / "step3" / "trace.json").exists()
+    monkeypatch.setenv("RBT_PROFILE_AT_STEP", "3:0")
+    with pytest.raises(ValueError, match="RBT_PROFILE_AT_STEP"):
+        run(job(tmp_path / "bad"))
+    assert not (tmp_path / "bad").exists()
 
 
 def test_main_polls_on_gce_and_points_kernels_at_the_artifacts(

@@ -32,6 +32,7 @@ from runbooks_tpu.serve.engine import Request as JaxRequest
 
 from runbooks_tpu_torch.models import bridge
 from runbooks_tpu_torch.models.config import get_config
+from runbooks_tpu_torch.obs.metrics import parse_exposition
 from runbooks_tpu_torch.serve import api
 from runbooks_tpu_torch.serve.engine import (
     EngineOverloaded,
@@ -280,7 +281,11 @@ def test_bad_bodies_and_routes(servers):
     (js, _, jt), (ts, _, tt) = _both(servers, "/v1/prefix", {"prompt": "x"})
     assert js == ts == 200
     assert json.loads(tt) == json.loads(jt) == {"cached_prefix_len": 0}
-    assert _call(servers[1].base, "/metrics")[0] == 404
+    (js, jh, jt), (ts, th, tt) = _both(servers, "/metrics")
+    assert js == ts == 200
+    assert th["Content-Type"] == jh["Content-Type"] == \
+        "text/plain; version=0.0.4; charset=utf-8"
+    assert "serve_requests_total" in parse_exposition(tt)
 
 
 def test_traceparent_becomes_request_id(servers):

@@ -7,6 +7,8 @@ faults of the reference that only a real tokenizer shows are checked as
 the reference has them and as the port repairs them: the grammar's token
 table built from ``decode([i])``, and the stream's per-chunk decode."""
 
+import asyncio
+import contextlib
 import dataclasses
 import json
 import os
@@ -365,6 +367,37 @@ def _stream_text(base, body):
     return _streamed(_sse(text), chat=False)
 
 
+async def _loop_turns(n: int = 3) -> None:
+    for _ in range(n):
+        await asyncio.sleep(0)
+
+
+@contextlib.contextmanager
+def _one_token_per_chunk(jax_srv):
+    """The reference's stream decodes, as one chunk, every token that
+    arrived since its handler last ran, so how many tokens a chunk holds
+    is a race between the engine's thread and the server's event loop. On
+    a loaded host the handler falls behind, whole streams arrive as one
+    chunk, and the per-chunk fault disappears. This holds the JAX engine,
+    after each streamed token, until the event loop has run the handler
+    that decodes it: one token per chunk, whatever the host's load."""
+    engine = jax_srv.app["worker"].engine
+    record = engine._record_token
+
+    def record_then_wait(slot, tok):
+        req = engine.slot_req[slot]
+        streamed = req is not None and req.on_token is not None
+        record(slot, tok)
+        if streamed:
+            jax_srv._run(_loop_turns())
+
+    engine._record_token = record_then_wait
+    try:
+        yield
+    finally:
+        del engine._record_token
+
+
 def test_reference_stream_drops_spaces_and_the_port_does_not(servers,
                                                              toks):
     """Reference fault (2): under a byte-fallback (sentencepiece) BPE the
@@ -383,7 +416,8 @@ def test_reference_stream_drops_spaces_and_the_port_does_not(servers,
                                   body)[2])["choices"][0]
         assert plain["text"] == jplain["text"]
         port_stream = _stream_text(torch_srv.base, body)[0]
-        ref_stream = _stream_text(jax_srv.base, body)[0]
+        with _one_token_per_chunk(jax_srv):
+            ref_stream = _stream_text(jax_srv.base, body)[0]
         assert port_stream[:2] == (plain["text"], [plain["finish_reason"]])
         assert ref_stream[1] == port_stream[1]
         if ref_stream[0] != plain["text"]:
