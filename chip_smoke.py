@@ -281,6 +281,21 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    this process under RBT_FLIGHT=0, the default and RBT_TRACE=1,
    interleaved twice; the scrape's milliseconds; and the gate that the
    allocator gauge equals ``torch.cuda.memory_allocated()`` within 1%.
+19. The gateway (``runbooks_tpu_torch/serve/gateway.py``) and the fleet
+   history (``obs/history.py``) on llama3-8b bf16 at full width cut to
+   SERVE_LAYERS: (a) three paged engines behind the in-process Router,
+   bench_serve.py's routing traffic (8 tenants with 2-page prefixes, 4
+   waves) under "prefix" and under "random": pages reused (equal to the
+   CPU's count at the debug config, prefix above random), K1's launches,
+   TTFT, tokens/s, greedy ids as each prompt served alone; (b) two
+   ``create_server`` replicas behind ``python -m
+   runbooks_tpu_torch.serve.gateway``: answers equal to direct calls, a
+   session on its ring owner, SSE relayed, /v1/prefix on both, one
+   request id in both flight rings, the gateway's exposition lint, no
+   kernel build under routed traffic, the proxy's latency, draining and
+   unreachable failover; (c) five scrapes into a FleetHistory: the
+   windowed TTFT p90 equals the hand-computed bucket-delta quantile, and
+   ``/metrics/history`` answers.
 
 Each phase's end prints the seconds since the start; a run still going
 after WATCHDOG_S dumps every thread's stack to standard error.
@@ -1552,14 +1567,16 @@ def free_port():
         return s.getsockname()[1]
 
 
-def start_entry_point(content, port, log_path, ready_timeout, env_extra=None):
-    """``python -m runbooks_tpu_torch.serve.api`` on the contract root
-    ``content`` (whose params.json names ``port``), its output in
-    log_path: (process, base URL, seconds to readiness). A server not
-    ready within ready_timeout is killed and fails the run. The servers
-    share one kernel cache beside their contract roots (RBT_KERNEL_CACHE),
-    as deployments on one artifacts mount do: the first builds K1 into
-    it, the later ones load it without nvcc."""
+def start_entry_point(content, port, log_path, ready_timeout, env_extra=None,
+                      module="runbooks_tpu_torch.serve.api"):
+    """``python -m <module>`` (the server by default) on the contract
+    root ``content`` (whose params.json, or RBT_GATEWAY_PORT for the
+    gateway, names ``port``), its output in log_path: (process, base URL,
+    seconds to readiness). A server not ready within ready_timeout is
+    killed and fails the run. The servers share one kernel cache beside
+    their contract roots (RBT_KERNEL_CACHE), as deployments on one
+    artifacts mount do: the first builds K1 into it, the later ones load
+    it without nvcc."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, RBT_CONTENT_DIR=content,
                RBT_KERNEL_CACHE=os.path.join(os.path.dirname(content),
@@ -1570,7 +1587,7 @@ def start_entry_point(content, port, log_path, ready_timeout, env_extra=None):
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "runbooks_tpu_torch.serve.api"],
+            [sys.executable, "-m", module],
             cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
     base = f"http://127.0.0.1:{port}"
     while time.perf_counter() - t0 < ready_timeout and proc.poll() is None:
@@ -6669,6 +6686,469 @@ def obs_overhead_phase(torch, dev, seed, workdir):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the prefix-aware gateway in front of port replicas, and the
+# fleet history over their scrapes
+# ---------------------------------------------------------------------------
+
+ROUTE_REPLICAS = 3
+ROUTE_TENANTS = 8          # shared prefixes, one request each per wave
+ROUTE_WAVES = 4
+ROUTE_PRIVATE = 8          # private random tokens after the 2-page prefix
+ROUTE_NEW = 8
+ROUTE_SLOTS = 4
+ROUTE_SEQ = 64
+ROUTE_PAGES = 64
+# Pages reused per policy by route_policies at the debug config on the
+# CPU (tests/test_torch_gateway_router.py pins them). Routing is host-side
+# and deterministic, and a request's reuse depends only on where its
+# tenant's earlier waves went, so the card must count the same. Under
+# "prefix" every tenant's waves 2-4 land on its first replica: 8 x 3 x 2.
+ROUTE_REUSED = {"prefix": 48, "random": 20}
+GATEWAY_SESSION = "phase19-session"
+GATEWAY_NEW = 16
+GATEWAY_SCRAPES = 5
+GATEWAY_READY_S = 60
+
+
+def route_traffic(vocab, seed):
+    """bench_serve.py's routing traffic, rebuilt: ROUTE_TENANTS tenants,
+    each with a shared prefix of 2 pages, and ROUTE_WAVES waves of one
+    request per tenant (its prefix + ROUTE_PRIVATE private random ids).
+    Returns the waves' prompts."""
+    import random
+
+    rng = random.Random(seed + 19)
+    prefixes = [[rng.randrange(1, vocab) for _ in range(2 * PAGE_SIZE)]
+                for _ in range(ROUTE_TENANTS)]
+    return [[p + [rng.randrange(1, vocab) for _ in range(ROUTE_PRIVATE)]
+             for p in prefixes] for _ in range(ROUTE_WAVES)]
+
+
+def route_policies(torch, cfg, params, seed):
+    """Phase 19 (a): ROUTE_REPLICAS warmed PagedInferenceEngines (pages
+    of PAGE_SIZE, ROUTE_PAGES pages, ROUTE_SLOTS slots) behind the port's
+    in-process Router with token_blocks keys, once under "prefix" and
+    once under "random", each on reset engines (fresh pool, radix tree and
+    counters); each wave is submitted, then every replica steps until all
+    are idle, as bench_serve.py's router bench does. Per policy: pages
+    reused (kv_occupancy, summed over the replicas), K1's launches, TTFT
+    median and p90 (the replicas step in turn in this one thread), tokens
+    per second of wall and the greedy ids. Then every prompt is served
+    alone on a reset engine, and each policy's ids must equal those (or
+    differ first at a near-tie). Returns the record."""
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.engine import Request
+    from runbooks_tpu_torch.serve.gateway import Router, token_blocks
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+
+    waves = route_traffic(cfg.vocab_size, seed)
+    t0 = time.perf_counter()
+    engines = {}
+    for i in range(ROUTE_REPLICAS):
+        engine = PagedInferenceEngine(
+            cfg, params, max_slots=ROUTE_SLOTS, max_seq_len=ROUTE_SEQ,
+            page_size=PAGE_SIZE, num_pages=ROUTE_PAGES, max_queue=64,
+            seed=seed)
+        with torch.no_grad():
+            engine.warmup()
+        engines[f"r{i}"] = engine
+    record = {"warmup_s": time.perf_counter() - t0, "policies": {}}
+    outputs = {}
+    for policy in ("prefix", "random"):
+        for engine in engines.values():
+            engine.reset()
+            engine.ttft_seconds.clear()
+        router = Router({n: f"mem://{n}" for n in engines}, policy=policy)
+        routed = {n: 0 for n in engines}
+        ids = []
+        flash_attention.launches = 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for wave in waves:
+                pending = []
+                for toks in wave:
+                    blocks = token_blocks(toks, PAGE_SIZE)
+                    name = router.pick(blocks)[0][0]
+                    req = Request(prompt_tokens=list(toks),
+                                  max_tokens=ROUTE_NEW, temperature=0.0)
+                    engines[name].submit(req)
+                    router.inflight_add(name, 1)
+                    router.record_route(name, blocks)
+                    pending.append((name, req))
+                    routed[name] += 1
+                for _ in range(100000):
+                    busy = [e for e in engines.values() if e.has_work()]
+                    if not busy:
+                        break
+                    for e in busy:
+                        e.step()
+                else:
+                    raise SystemExit(f"phase 19 (a) {policy}: a wave did "
+                                     "not drain")
+                for name, _ in pending:
+                    router.inflight_add(name, -1)
+                ids.extend(list(r.output_tokens) for _, r in pending)
+        wall = time.perf_counter() - t0
+        ttft = sorted(t for e in engines.values() for t in e.ttft_seconds)
+        reused = {n: e.kv_occupancy()["pages_reused_total"]
+                  for n, e in engines.items()}
+        outputs[policy] = ids
+        record["policies"][policy] = {
+            "pages_reused_total": sum(reused.values()),
+            "pages_reused_by_replica": reused, "routed": routed,
+            "flash_fwd_launches": flash_attention.launches,
+            "ttft_median_s": median(ttft),
+            "ttft_p90_s": ttft[int(0.9 * (len(ttft) - 1))],
+            "tokens_per_s": sum(len(x) for x in ids) / wall,
+            "wall_s": wall}
+        print(f"phase 19 (a) {policy} "
+              + json.dumps(record["policies"][policy]), flush=True)
+    alone = engines["r0"]
+    prompts = [toks for wave in waves for toks in wave]
+    with torch.no_grad():
+        for i, toks in enumerate(prompts):
+            alone.reset()
+            req = Request(prompt_tokens=list(toks), max_tokens=ROUTE_NEW,
+                          temperature=0.0)
+            alone.generate([req])
+            for policy, ids in outputs.items():
+                if ids[i] != req.output_tokens:
+                    near_tie_check(torch, cfg, params,
+                                   f"phase 19 (a) {policy} prompt {i}",
+                                   toks, ids[i], list(req.output_tokens))
+    record["outputs"] = outputs
+    free_engine(torch, *engines.values())
+    return record
+
+
+def flight_events(base, rid):
+    status, _, text, _ = http_call(base, f"/debug/flight?request_id={rid}")
+    if status != 200:
+        raise SystemExit(f"{base}/debug/flight answered {status}")
+    return json.loads(text)
+
+
+def sse_text(text):
+    """The completion text of an SSE body (its deltas concatenated)."""
+    events = [ln[len("data: "):] for ln in text.split("\n")
+              if ln.startswith("data: ")]
+    if not events or events[-1] != "[DONE]":
+        raise SystemExit("phase 19 (b): the stream did not end with [DONE]")
+    return "".join(json.loads(e)["choices"][0]["text"] for e in events[:-1])
+
+
+def hand_quantile(first, last, q):
+    """The q-quantile of serve_ttft_seconds observed between two scrapes
+    of each replica ({name: parsed families}): bucket deltas summed by
+    hand, then the exposition's own quantile estimate."""
+    from runbooks_tpu_torch.obs.metrics import ParsedHistogram
+
+    out = None
+    for name in last:
+        h1 = first[name]["serve_ttft_seconds"].merged_histogram()
+        h2 = last[name]["serve_ttft_seconds"].merged_histogram()
+        delta = ParsedHistogram()
+        delta.bounds = list(h2.bounds)
+        delta.cumulative = [b - a for a, b in zip(h1.cumulative,
+                                                   h2.cumulative)]
+        delta.count = h2.count - h1.count
+        delta.sum = h2.sum - h1.sum
+        out = delta if out is None else out.merged(delta)
+    return out.quantile(q), out.count
+
+
+def gateway_phase(torch, seed, workdir):
+    """Phase 19: the gateway in front of port replicas on llama3-8b bf16
+    at full width cut to SERVE_LAYERS layers (the depth of phases 11-13
+    and 18; one copy of the weights serves every replica). (a)
+    route_policies: prefix-aware against random routing, in process. (b)
+    Two ``create_server(kv_paging=True)`` replicas behind ``python -m
+    runbooks_tpu_torch.serve.gateway``: a completions and chat mix
+    (greedy ids and texts equal to the same bodies sent straight to the
+    replica that answered, or differing first at a near-tie), a session
+    held on its ring owner, one SSE stream (its deltas add up to the
+    unstreamed text), one /v1/prefix broadcast (both replicas hold the
+    prefix), the gateway-minted X-Request-Id in the gateway's and the
+    replica's /debug/flight, the gateway's /metrics through the
+    exposition lint, no kernel build on either replica under routed
+    traffic, the proxy's latency over a direct call. (c) GATEWAY_SCRAPES
+    scrapes of both replicas into a FleetHistory served by
+    ``serve_metrics(0, history=...)``: the windowed TTFT p90 equals the
+    quantile of the bucket deltas between the first and last scrape, and
+    /metrics/history answers (the replicas share this process's registry,
+    so their histograms are one; deployed replicas are processes of their
+    own). (b') The session's owner drains (503: the
+    next request fails over, gateway_retries_total{reason="draining"} 1),
+    then stops (unreachable: the request is still served,
+    {reason="unreachable"} 1). Returns K1's launches by part."""
+    from runbooks_tpu_torch.obs.history import FleetHistory
+    from runbooks_tpu_torch.obs.metrics import (
+        parse_exposition,
+        serve_metrics,
+    )
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.api import _encode, create_server, load_model
+    from runbooks_tpu_torch.serve.gateway import _HashRing
+    from runbooks_tpu_torch.train.data import load_tokenizer
+
+    t_phase = time.perf_counter()
+    cfg, params = load_model({"model": "llama3-8b",
+                              "model_overrides": {
+                                  "param_dtype": "bfloat16",
+                                  "num_layers": SERVE_LAYERS},
+                              "seed": seed})
+    launches = {}
+    routing = route_policies(torch, cfg, params, seed)
+    for policy, r in routing["policies"].items():
+        launches[f"route_{policy}"] = r["flash_fwd_launches"]
+    reused = {p: r["pages_reused_total"]
+              for p, r in routing["policies"].items()}
+
+    # (b) two replicas in this process behind the gateway process
+    servers, threads, bases, submitted = {}, [], {}, {}
+    for name in ("r0", "r1"):
+        srv = create_server(cfg, params, host="127.0.0.1", port=0,
+                            max_slots=8, max_seq_len=2048, warmup=True,
+                            kv_paging=True)
+        servers[name] = srv
+        bases[name] = f"http://127.0.0.1:{srv.port}"
+        t = threading.Thread(target=srv.serve_forever, daemon=True)
+        t.start()
+        threads.append(t)
+        submit_many = srv.worker.submit_many
+
+        def recording(reqs, _submit=submit_many):
+            for r in reqs:
+                submitted[r.request_id] = r
+            return _submit(reqs)
+
+        srv.worker.submit_many = recording
+    # The owner's /metrics handler marks each scrape, so (b') can stop it
+    # right after one, well inside the poller's 2 s interval.
+    owner = _HashRing(sorted(servers)).owner(GATEWAY_SESSION)
+    scraped = threading.Event()
+    handler = servers[owner].httpd.RequestHandlerClass
+    do_get = handler.do_GET
+
+    def marking_get(self):
+        if self.path.startswith("/metrics"):
+            scraped.set()
+        do_get(self)
+
+    handler.do_GET = marking_get
+    gw_content = f"{workdir}/gateway_content"
+    os.makedirs(gw_content, exist_ok=True)
+    gw_port = free_port()
+    proc, gw, ready_s = start_entry_point(
+        gw_content, gw_port, f"{workdir}/gateway.log", GATEWAY_READY_S,
+        {"RBT_GATEWAY_TARGETS": ",".join(f"{n}={u}"
+                                         for n, u in bases.items()),
+         "RBT_GATEWAY_PORT": str(gw_port)},
+        module="runbooks_tpu_torch.serve.gateway")
+    history = FleetHistory()
+    hist_httpd = None
+    try:
+        def unexpected_builds():
+            return {n: parse_exposition(http_call(b, "/metrics")[2])[
+                "xla_unexpected_compiles_total"].total()
+                for n, b in bases.items()}
+
+        builds0 = unexpected_builds()
+        texts = [" ".join(["the gateway routes tenant", str(i)] * (8 + i))
+                 for i in range(4)]
+        mix = [("/v1/completions", {"prompt": texts[0]}, {}),
+               ("/v1/chat/completions",
+                {"messages": [{"role": "user", "content": texts[1]}]}, {}),
+               ("/v1/completions", {"prompt": texts[2]},
+                {"X-Session-Id": GATEWAY_SESSION}),
+               ("/v1/completions", {"prompt": texts[3]},
+                {"X-Session-Id": GATEWAY_SESSION})]
+        flash_attention.launches = 0
+        answers = []
+        for i, (path, body, headers) in enumerate(mix):
+            body = {**body, "max_tokens": GATEWAY_NEW, "temperature": 0}
+            status, h, text, _ = http_call(gw, path, body, headers)
+            if status != 200:
+                raise SystemExit(f"phase 19 (b) {path}: {status} {text}")
+            rid = h["X-Request-Id"]
+            replica = h["X-Gateway-Replica"]
+            direct = http_call(bases[replica], path, body,
+                               {"X-Request-Id": f"direct-{i}"})
+            answers.append((path, body, rid, replica, json.loads(text),
+                            json.loads(direct[2]), f"direct-{i}"))
+        for path, body, rid, replica, via, direct, drid in answers:
+            a, b = submitted[rid], submitted[drid]
+            if a.output_tokens != b.output_tokens:
+                near_tie_check(torch, cfg, params,
+                               f"phase 19 (b) {path} {rid}",
+                               a.prompt_tokens, list(a.output_tokens),
+                               list(b.output_tokens))
+            elif via["choices"] != direct["choices"]:
+                raise SystemExit(f"phase 19 (b): {via} != {direct}")
+        session_replicas = [ans[3] for ans in answers[2:]]
+        stream_body = {"prompt": texts[0], "max_tokens": GATEWAY_NEW,
+                       "temperature": 0, "stream": True}
+        status, h, text, t_first = http_call(gw, "/v1/completions",
+                                             stream_body)
+        streamed = sse_text(text) if status == 200 else None
+        prefix_text = " ".join(["a shared deployment prompt"] * 8)
+        status_p, _, text_p, _ = http_call(gw, "/v1/prefix",
+                                           {"prompt": prefix_text})
+        prefix_reply = json.loads(text_p)
+        prefix_ids = _encode(load_tokenizer(None), prefix_text)
+        held = {n: s.worker.engine.has_prefix(prefix_ids)
+                for n, s in servers.items()}
+        rid0 = answers[0][2]
+        gw_events = flight_events(gw, rid0)
+        rep_events = flight_events(bases[answers[0][3]], rid0)
+        gw_metrics = http_call(gw, "/metrics")[2]
+        lint = lint_exposition(gw_metrics)
+        # The proxy's cost: the same 1-token body straight to the replica
+        # that owns its session and through the gateway, interleaved.
+        small = {"prompt": "ping", "max_tokens": 1, "temperature": 0}
+        ping_owner = bases[_HashRing(sorted(servers)).owner("ping")]
+        direct_s, via_s = [], []
+        for _ in range(5):
+            for target, out in ((ping_owner, direct_s), (gw, via_s)):
+                t0 = time.perf_counter()
+                http_call(target, "/v1/completions", small,
+                          {"X-Session-Id": "ping"})
+                out.append(time.perf_counter() - t0)
+
+        # (c) history over five scrapes of both replicas, traffic between
+        scrapes = []
+        for k in range(GATEWAY_SCRAPES):
+            if k:
+                for i in range(2):
+                    http_call(gw, "/v1/completions",
+                              {"prompt": texts[i] + f" round {k}",
+                               "max_tokens": 4, "temperature": 0})
+            t_k = time.time()
+            fams = {n: parse_exposition(http_call(b, "/metrics")[2])
+                    for n, b in bases.items()}
+            for n, f in fams.items():
+                history.ingest(f, {"replica": n}, t_k, ("serve_", "xla_"))
+            scrapes.append((t_k, fams))
+        (t_a, first), (t_b, last) = scrapes[0], scrapes[-1]
+        windowed = history.window_quantile("serve_ttft_seconds", 0.9,
+                                           t_b - t_a, now=t_b)
+        by_hand, window_count = hand_quantile(first, last, 0.9)
+        hist_httpd = serve_metrics(0, history=history)
+        hist_status, _, hist_text, _ = http_call(
+            f"http://127.0.0.1:{hist_httpd.server_address[1]}",
+            "/metrics/history?series=serve_requests_total")
+        builds1 = unexpected_builds()
+        launches["gateway_http"] = flash_attention.launches
+
+        # (b') the owner drains, then stops
+        servers[owner].worker.drain(timeout_s=10)
+        status_d, h_d, _, _ = http_call(
+            gw, "/v1/completions", {**small, "prompt": "drain"},
+            {"X-Session-Id": GATEWAY_SESSION})
+        drained_to = h_d.get("X-Gateway-Replica")
+        scraped.clear()
+        if not scraped.wait(10):
+            raise SystemExit("phase 19 (b'): the gateway stopped scraping")
+        t_stop = time.perf_counter()
+        servers[owner].httpd.shutdown()
+        servers[owner].httpd.server_close()
+        status_u, h_u, _, _ = http_call(
+            gw, "/v1/completions", {**small, "prompt": "gone"},
+            {"X-Session-Id": GATEWAY_SESSION})
+        stop_to_answer_s = time.perf_counter() - t_stop
+        retries = parse_exposition(http_call(gw, "/metrics")[2])[
+            "gateway_retries_total"]
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            gw_exit = proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            gw_exit = proc.wait()
+        if hist_httpd is not None:
+            hist_httpd.shutdown()
+            hist_httpd.server_close()
+        handler.do_GET = do_get
+        for srv in servers.values():
+            srv.shutdown()
+        for t in threads:
+            t.join(timeout=60)
+    survivor = next(n for n in servers if n != owner)
+    record = {
+        "card": card_line(), "layers": SERVE_LAYERS,
+        "routing": routing["policies"],
+        "routing_warmup_s": routing["warmup_s"],
+        "gateway_ready_s": ready_s,
+        "session_owner": owner, "session_replicas": session_replicas,
+        "stream_first_chunk_s": t_first,
+        "prefix_broadcast": prefix_reply, "prefix_held": held,
+        "flight_events": {"gateway": len(gw_events["events"]),
+                          "replica": len(rep_events["events"])},
+        "unexpected_builds": {"before": builds0, "after": builds1},
+        "direct_ms_median": median(direct_s) * 1e3,
+        "via_gateway_ms_median": median(via_s) * 1e3,
+        "proxy_overhead_ms": (median(via_s) - median(direct_s)) * 1e3,
+        "history": {"window_p90_s": windowed, "by_hand_p90_s": by_hand,
+                    "window_count": window_count,
+                    "series": history.stats()["series"],
+                    "http_status": hist_status},
+        "failover": {"draining_status": status_d, "draining_to": drained_to,
+                     "unreachable_status": status_u,
+                     "unreachable_to": h_u.get("X-Gateway-Replica"),
+                     "stop_to_answer_s": stop_to_answer_s,
+                     "retries": {dict(k).get("reason"): v
+                                 for k, v in retries.samples.items()}},
+        "gateway_exit": gw_exit,
+        "flash_fwd_launches": launches,
+        "seconds": time.perf_counter() - t_phase}
+    gates = {
+        "prefix_reuse_as_on_cpu":
+            reused["prefix"] == ROUTE_REUSED["prefix"],
+        "random_reuse_as_on_cpu":
+            reused["random"] == ROUTE_REUSED["random"],
+        "prefix_beats_random": reused["prefix"] > reused["random"],
+        "session_on_owner": session_replicas == [owner, owner],
+        "stream_equals_text": streamed == answers[0][4]["choices"][0][
+            "text"],
+        "prefix_on_both": (status_p == 200
+                           and prefix_reply.get("replicas") == 2
+                           and prefix_reply.get("cached_prefix_len", 0) > 0
+                           and all(held.values())),
+        "request_id_in_both_rings": (bool(gw_events["events"])
+                                     and bool(rep_events["events"])
+                                     and gw_events["component"] == "gateway"),
+        "gateway_metrics_lint": not lint,
+        "no_build_under_routed_traffic": builds0 == builds1,
+        "history_window_equals_hand": (
+            windowed is not None and window_count > 0
+            and abs(windowed - by_hand) <= 1e-9 * max(1.0, by_hand)),
+        "history_http": hist_status == 200
+        and json.loads(hist_text)["series"][0]["name"]
+        == "serve_requests_total",
+        "draining_fails_over": (status_d == 200 and drained_to == survivor
+                                and record["failover"]["retries"].get(
+                                    "draining") == 1),
+        "unreachable_fails_over": (
+            status_u == 200 and h_u.get("X-Gateway-Replica") == survivor
+            and record["failover"]["retries"].get("unreachable") == 1),
+        "gateway_exit_0": gw_exit == 0,
+        "k1_on_every_path": min(launches.values()) >= cfg.num_layers,
+    }
+    record["gates"] = gates
+    print("phase 19 " + json.dumps(record), flush=True)
+    if not all(gates.values()):
+        with open(f"{workdir}/gateway.log") as f:
+            print(f.read()[-3000:], flush=True)
+        raise SystemExit(f"phase 19 gates failed: "
+                         f"{[k for k, v in gates.items() if not v]} "
+                         f"{lint[:5]}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6773,6 +7253,10 @@ def main():
         torch.cuda.empty_cache()
         obs_launches = obs_overhead_phase(torch, dev, args.seed, workdir)
         mark("phase 18")
+        gc.collect()
+        torch.cuda.empty_cache()
+        gateway_launches = gateway_phase(torch, args.seed, workdir)
+        mark("phase 19")
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -6790,7 +7274,7 @@ def main():
                      + sum(text_launches["flash_fwd"].values())
                      + sum(family_launches.values())
                      + sum(entry_launches["flash_fwd"].values())
-                     + obs_launches),
+                     + obs_launches + sum(gateway_launches.values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
@@ -6803,7 +7287,8 @@ def main():
                              **text_launches["flash_fwd"],
                              **family_launches,
                              **entry_launches["flash_fwd"],
-                             "obs_overhead": obs_launches},
+                             "obs_overhead": obs_launches,
+                             **gateway_launches},
         "max_abs_err": max(worst, family_records["fwd_worst"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],

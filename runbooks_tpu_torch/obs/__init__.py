@@ -1,5 +1,5 @@
 """Observability planes of the port (the counterpart of
-``runbooks_tpu.obs``; the fleet history stays with the gateway's slice).
+``runbooks_tpu.obs``).
 
 - ``obs.metrics``  — process-wide Prometheus registry with the reference's
   exposition byte for byte.
@@ -12,6 +12,9 @@
 - ``obs.device``   — the kernel-build sentinel, the program census with
   first-dispatch FLOPs and bytes, device memory accounting.
 - ``obs.profile``  — on-demand ``torch.profiler`` captures.
+- ``obs.history``  — bounded fleet time-series rings, windowed quantiles
+  and increases, JSON snapshots; ``serve_metrics(..., history=)`` serves
+  them at ``GET /metrics/history``.
 """
 
 from runbooks_tpu_torch.obs.metrics import (  # noqa: F401

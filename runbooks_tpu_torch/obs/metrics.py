@@ -40,11 +40,11 @@ DEFAULT_BUCKETS: Tuple[float, ...] = (
 LabelKey = Tuple[Tuple[str, str], ...]
 MetricKey = Tuple[str, LabelKey]
 
-# The metric catalog: every family the port's workloads (the server and
-# the trainer) register at runtime, by name -> type. The names are the
-# reference's, so the controller's fleet scraper and history read a port
-# replica's exposition unchanged; the controller's and the gateway's own
-# families live with those components.
+# The metric catalog: every family the port's workloads (the server, the
+# trainer and the gateway) register at runtime, and the history's own
+# gauges, by name -> type. The names are the reference's, so the
+# controller's fleet scraper and history read a port process's
+# exposition unchanged; the controller's own families live with it.
 CATALOG: Dict[str, str] = {
     # serve: the HTTP front end's and the engine's totals, mirrored at
     # scrape time, and the histograms the engine observes as it serves
@@ -127,6 +127,20 @@ CATALOG: Dict[str, str] = {
     "serve_grammar_cache_misses_total": "counter",
     "serve_grammar_draft_truncations_total": "counter",
     "serve_grammar_mask_build_seconds": "histogram",
+    # the serving gateway (serve/gateway.py)
+    "gateway_requests_total": "counter",
+    "gateway_route_decisions_total": "counter",
+    "gateway_retries_total": "counter",
+    "gateway_affinity_requests_total": "counter",
+    "gateway_affinity_hits_total": "counter",
+    "gateway_shed_passthrough_total": "counter",
+    "gateway_proxy_latency_seconds": "histogram",
+    "gateway_replicas_healthy": "gauge",
+    "gateway_shadow_blocks": "gauge",
+    "gateway_trace_spans_total": "counter",
+    # the fleet history's size (obs/history.py stats)
+    "fleet_history_series": "gauge",
+    "fleet_history_points": "gauge",
     # flight recorder, tail sampling and incident bundles
     "flight_ring_events": "gauge",
     "serve_tail_samples_total": "counter",
@@ -385,22 +399,44 @@ class Registry:
 REGISTRY = Registry()
 
 
-def serve_metrics(port: int,
-                  registry: Optional[Registry] = None) -> HTTPServer:
+def serve_metrics(port: int, registry: Optional[Registry] = None,
+                  history=None) -> HTTPServer:
     """Serve GET /metrics on a background thread (the trainer's
     RBT_METRICS_PORT). port=0 binds an ephemeral port (tests); read it
-    back from ``httpd.server_address``."""
+    back from ``httpd.server_address``.
+
+    With ``history`` (an obs/history.py FleetHistory, e.g. the
+    process-wide HISTORY) the endpoint also answers
+    ``GET /metrics/history[?series=&since=&step=&q=&agg=&<label>=...]``:
+    bounded JSON time series resampled from the history's rings, 400
+    with ``{"error": ...}`` on a malformed query."""
+    import json as _json
+    from urllib.parse import parse_qs, urlparse
+
     reg = registry if registry is not None else REGISTRY
 
     class Handler(BaseHTTPRequestHandler):
+        def _send(self, code: int, body: bytes, content_type: str) -> None:
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
         def do_GET(self):  # noqa: N802
-            if self.path.split("?", 1)[0] == "/metrics":
-                body = reg.render().encode("utf-8")
-                self.send_response(200)
-                self.send_header("Content-Type", CONTENT_TYPE)
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
+            parsed = urlparse(self.path)
+            if parsed.path == "/metrics":
+                self._send(200, reg.render().encode("utf-8"), CONTENT_TYPE)
+            elif parsed.path == "/metrics/history" and history is not None:
+                try:
+                    payload = history.http_query(parse_qs(parsed.query))
+                except ValueError as e:
+                    self._send(400, _json.dumps(
+                        {"error": str(e)}).encode("utf-8"),
+                        "application/json")
+                    return
+                self._send(200, _json.dumps(payload).encode("utf-8"),
+                           "application/json")
             else:
                 self.send_response(404)
                 self.end_headers()

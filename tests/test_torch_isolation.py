@@ -1,14 +1,18 @@
 """The PyTorch port stands alone: no module of runbooks_tpu_torch and
 none of its root scripts imports jax or runbooks_tpu, nor a package the
 card lacks (transformers, tokenizers, sentencepiece, regex,
-huggingface_hub, orbax, google.protobuf: the port reads tokenizer files
-and sentencepiece's protobuf itself), nor the orbax converter under
-tools/ (which runs where orbax is installed), the package
-imports with all of them blocked, and its entry points (serving's
-load_model, create_server and main, training's run_training) refuse to
-fall back to the CPU when no GPU exists and no device was named."""
+huggingface_hub, orbax, google.protobuf, aiohttp, yaml: the port reads
+tokenizer files and sentencepiece's protobuf itself, and serves HTTP on
+the standard library), nor the orbax converter under tools/ (which runs
+where orbax is installed), the package imports with all of them blocked,
+the gateway and the fleet history import no torch either (the gateway
+process needs no GPU) and the gateway's entry point serves with all of
+them blocked, and its entry points (serving's load_model, create_server
+and main, training's run_training) refuse to fall back to the CPU when
+no GPU exists and no device was named."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -21,7 +25,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "runbooks_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "runbooks_tpu", "transformers", "tokenizers",
              "sentencepiece", "regex", "huggingface_hub", "orbax",
-             "google.protobuf", "tools")
+             "google.protobuf", "tools", "aiohttp", "yaml")
 # Packages the card lacks that a port module may still try for an
 # optional feature, inside ``try: ... except ImportError``: the model
 # loader's ``source: huggingface`` download.
@@ -132,6 +136,91 @@ def test_package_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+TORCH_FREE = ("runbooks_tpu_torch.serve.gateway",
+              "runbooks_tpu_torch.obs.history")
+
+
+def test_gateway_and_history_import_no_torch():
+    code = ("import sys\n"
+            f"for m in {FORBIDDEN + ('torch',)!r}:\n"
+            "    sys.modules[m] = None\n"
+            "import importlib\n"
+            f"for m in {TORCH_FREE!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules\n"
+            "             if m.startswith('runbooks_tpu_torch')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = ast.literal_eval(out.stdout.strip())
+    assert set(TORCH_FREE) <= set(loaded)
+
+
+def test_gateway_entry_point_serves_with_the_card_packages_blocked(
+        tmp_path):
+    """``python -m runbooks_tpu_torch.serve.gateway`` with jax,
+    runbooks_tpu, aiohttp, yaml and torch blocked: it becomes ready in
+    front of a replica whose /metrics it scrapes, answers /metrics, and
+    exits 0 on SIGTERM."""
+    import signal
+    import socket
+    import threading
+    import time
+    import urllib.request
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Replica(BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, *args):
+            pass
+
+    replica = ThreadingHTTPServer(("127.0.0.1", 0), Replica)
+    threading.Thread(target=replica.serve_forever, daemon=True).start()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = ("import runpy, sys\n"
+            f"for m in {FORBIDDEN + ('torch',)!r}:\n"
+            "    sys.modules[m] = None\n"
+            "runpy.run_module('runbooks_tpu_torch.serve.gateway',\n"
+            "                 run_name='__main__', alter_sys=True)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               RBT_CONTENT_DIR=str(tmp_path), RBT_GATEWAY_PORT=str(port),
+               RBT_GATEWAY_TARGETS="r0=http://127.0.0.1:"
+               f"{replica.server_address[1]}")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        base = f"http://127.0.0.1:{port}"
+        deadline = time.monotonic() + 60
+        ready = None
+        while time.monotonic() < deadline and proc.poll() is None:
+            try:
+                with urllib.request.urlopen(base + "/", timeout=5) as r:
+                    ready = json.loads(r.read())
+                break
+            except OSError:
+                time.sleep(0.1)
+        assert ready is not None, proc.communicate(timeout=10)[0]
+        assert ready["gateway"] is True and ready["policy"] == "prefix"
+        assert ready["replicas_healthy"] == 1
+        with urllib.request.urlopen(base + "/metrics", timeout=5) as r:
+            assert b"gateway_replicas_healthy" in r.read()
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=30) == 0
+    finally:
+        replica.shutdown()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
