@@ -296,6 +296,30 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    unreachable failover; (c) five scrapes into a FleetHistory: the
    windowed TTFT p90 equals the hand-computed bucket-delta quantile, and
    ``/metrics/history`` answers.
+20. Tensor-parallel serving (``parallel/``, ``mesh=`` in the engines):
+   (a) llama3-8b bf16 at full width cut to TP_LAYERS as two ranks in two
+   processes that share this one card over gloo (gloo stages each CUDA
+   collective through host memory): each rank loads only its shard
+   (``load_model(shard=)``) and holds 16/4 heads, MLP 7168 and
+   vocabulary 64128, its parameter bytes equal to the plan's analytic
+   ones. The dense engine serves an 8-request mix (20-512
+   tokens, TP_NEW new), then the paged engine the same mix behind a
+   registered shared prefix; rank 0 drives, rank 1 replays. Greedy ids
+   equal a single-process engine's on the same weights (or differ first
+   at a near-tie), one prompt's prefill logits within TP_LOGIT_GAP, each
+   planted fault (TP_FAULTS on rank 1) outside it, and each rank's K1
+   launches equal the single-process run's, at local shapes. Each rank's
+   peak memory, the collectives of one forward and tokens/s, labelled
+   gloo over host memory on one card (not a TP speed).
+   (b) NCCL at world 1 (the card's one GPU; NCCL takes one rank per GPU,
+   so a multi-rank NCCL group needs two): TensorParallel's all-reduce,
+   vocabulary gather and broadcast, and the engine's program-call
+   exchange (``broadcast_object_list`` with ``device=``) on CUDA tensors,
+   each returning its input; the mesh_tensor 1 engine equals the
+   unsharded one. With two GPUs, ``python -m runbooks_tpu_torch.serve.api``
+   under mesh_tensor 2 answers over HTTP and exits 0 on SIGTERM; with
+   one, that it was not run, and the same command exits non-zero naming
+   the device count.
 
 Each phase's end prints the seconds since the start; a run still going
 after WATCHDOG_S dumps every thread's stack to standard error.
@@ -793,16 +817,18 @@ def gap_check(name, got_logits, plain_logits):
 
 
 def prefill_logits(torch, cfg, params, prompt, bucket, max_seq_len,
-                   adapters=None):
+                   adapters=None, tp=None):
     """Last-position logits of one prompt prefilled as the engine does:
     a [1, bucket] row, padding at the trash slot, scratch cache of
     max_seq_len + 1 positions; ``adapters`` (pool, [lane]) as the pooled
-    engine passes them."""
+    engine passes them; ``tp``: one tensor-parallel rank's shard in
+    ``params`` (the logits come back whole)."""
     from runbooks_tpu_torch.models.transformer import (
         KVCache,
         forward,
         lm_head,
     )
+    from runbooks_tpu_torch.serve.engine import local_kv_heads
 
     dev = params["embed"].device
     m = len(prompt)
@@ -811,10 +837,11 @@ def prefill_logits(torch, cfg, params, prompt, bucket, max_seq_len,
     pos = torch.full((1, bucket), max_seq_len, dtype=torch.int32,
                      device=dev)
     pos[0, :m] = torch.arange(m, dtype=torch.int32, device=dev)
-    cache = KVCache.create(cfg, 1, max_seq_len, dev, trash_slot=True)
+    cache = KVCache.create(cfg, 1, max_seq_len, dev, trash_slot=True,
+                           kv_heads=local_kv_heads(cfg, tp))
     x, _ = forward(cfg, params, tokens, positions=pos, cache=cache,
-                   return_activations=True, adapters=adapters)
-    return lm_head(cfg, params, x[:, m - 1])[0]
+                   return_activations=True, adapters=adapters, tp=tp)
+    return lm_head(cfg, params, x[:, m - 1], tp)[0]
 
 
 def e2e_phase(torch, seed):
@@ -7149,6 +7176,499 @@ def gateway_phase(torch, seed, workdir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving: phase 20
+# ---------------------------------------------------------------------------
+
+TP_LAYERS = 8
+TP_LENS = (20, 48, 90, 128, 200, 300, 400, 512)
+TP_NEW = 16
+TP_PREFIX = 256            # the paged run's registered shared prefix
+TP_SEQ = 1024
+# Last-position prefill logits of the two ranks against one process's,
+# bf16 weights and activations: the all-reduce rounds each rank's partial
+# sum to bf16 where one device rounds the whole product once. On an H100
+# that gap read 0.04699 in every run, and the smallest planted fault
+# (TP_FAULTS) 0.0834: the limit lies between them.
+TP_LOGIT_GAP = 0.065
+TP_RANK_TIMEOUT_S = 300
+# Faults planted in rank 1's last layer for one prefill each, to show the
+# gap gate catches them ({fault: (sublayer, leaves)}): its first two
+# local kv heads swapped (wk, wv); its first q head swapped with the first
+# of the next kv group (wq: a wrong q -> kv map); the first two
+# head-wide column blocks of the MLP gate swapped, out of line with
+# wi_up. (Two q heads of one kv group swapped move these random-weight
+# logits by no more than the bf16 rounding: PERF.md.)
+TP_FAULTS = {"kv_heads_swapped": ("attn", ("wk", "wv")),
+             "q_heads_across_kv_groups": ("attn", ("wq",)),
+             "mlp_gate_misaligned": ("mlp", ("wi_gate",))}
+
+
+def tp_planted_logits(torch, cfg, engine, prompt, seq, rank):
+    """{fault: last-position prefill logits} with each TP_FAULTS fault
+    planted in rank 1's shard (every rank runs the forward; rank 1's
+    weights are put back after each)."""
+    d = cfg.head_dim
+    layers = engine.params["layers"]
+    n_rep = (layers["attn"]["wq"].shape[-1]
+             // layers["attn"]["wk"].shape[-1])
+    out = {}
+    for fault, (group, names) in TP_FAULTS.items():
+        j = n_rep if fault == "q_heads_across_kv_groups" else 1
+        saved = {n: layers[group][n][-1].clone() for n in names}
+        if rank == 1:
+            for n in names:
+                w = layers[group][n][-1]
+                if w.shape[1] < (j + 1) * d:
+                    raise SystemExit(f"phase 20: rank 1's {n} is too narrow "
+                                     f"for the planted {fault}")
+                first = w[:, :d].clone()
+                w[:, :d] = w[:, j * d:(j + 1) * d]
+                w[:, j * d:(j + 1) * d] = first
+        out[fault] = prefill_logits(torch, cfg, engine.params, prompt,
+                                    bucket_of(len(prompt)), seq,
+                                    tp=engine.tp).float().cpu()
+        for n in names:
+            layers[group][n][-1].copy_(saved[n])
+    return out
+
+
+def tp_model_params(seed, layers=TP_LAYERS):
+    return {"model": "llama3-8b",
+            "model_overrides": {"param_dtype": "bfloat16",
+                                "num_layers": layers},
+            "seed": seed}
+
+
+def tp_mixes(seed):
+    """{"dense": prompts, "paged": prompts}: the 8-request mix, and the
+    same lengths behind one shared TP_PREFIX-token prefix (which the
+    paged run registers first)."""
+    dense = seeded_prompts(seed + 20, TP_LENS)
+    prefix = seeded_prompts(seed + 21, (TP_PREFIX,))[0]
+    paged = [prefix + p[1:max(2, n - TP_PREFIX)]
+             for p, n in zip(dense, TP_LENS)]
+    return {"dense": dense, "paged": paged, "prefix": prefix}
+
+
+def tp_engine(torch, cfg, params, kind, seed, seq, mesh=None):
+    from runbooks_tpu_torch.serve.engine import InferenceEngine
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+
+    kw = dict(max_slots=8, max_seq_len=seq, seed=seed, mesh=mesh)
+    if kind == "paged":
+        return PagedInferenceEngine(cfg, params, page_size=PAGE_SIZE, **kw)
+    return InferenceEngine(cfg, params, **kw)
+
+
+def tp_drive(torch, engine, kind, mixes, new=None):
+    """Rank 0's (or one process's) run of one kind: the paged run
+    registers the shared prefix first. (ids, K1 launches, wall seconds,
+    generated tokens)."""
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.engine import Request
+
+    new = new or TP_NEW
+    reqs = [Request(prompt_tokens=list(p), max_tokens=new,
+                    temperature=0.0) for p in mixes[kind]]
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        if kind == "paged":
+            engine.register_prefix(mixes["prefix"])
+        engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if not (r.finished and len(r.output_tokens) == new):
+            raise SystemExit(f"phase 20 {kind}: a request ended with "
+                             f"{len(r.output_tokens)} tokens "
+                             f"({r.finish_reason})")
+    return ([list(r.output_tokens) for r in reqs], flash_attention.launches,
+            wall, sum(len(r.output_tokens) for r in reqs))
+
+
+def tp_rank(rank, world, store_path, out_path, seed, device_type, setup):
+    """Phase 20 (a)'s rank body (a spawned process): join the gloo group,
+    build the full llama3-8b params from the seed on this rank's device,
+    keep its shard (the engines' ``mesh=``), then per kind (dense, paged)
+    drive (rank 0) or replay (the others); its K1 launches, parameter
+    bytes against the plan's, one forward's collectives, the prefill
+    logits of the longest prompt, peak memory. ``setup``: the parent's
+    {"params", "mixes", "seq", "new"}. The result is pickled to out_path (an
+    exception's traceback instead, on failure)."""
+    import pickle
+    import traceback
+
+    import torch
+
+    result = {"ok": False}
+    try:
+        import torch.distributed as dist
+
+        from runbooks_tpu_torch.models.transformer import init_params
+        from runbooks_tpu_torch.ops.flash_attention import flash_attention
+        from runbooks_tpu_torch.parallel import distributed
+        from runbooks_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+        from runbooks_tpu_torch.serve.api import load_model
+        from runbooks_tpu_torch.utils.tree import tree_leaves
+
+        dev = torch.device("cuda", 0) if device_type == "cuda" \
+            else torch.device("cpu")
+        distributed.initialize(TP_RANK_TIMEOUT_S, backend="gloo", rank=rank,
+                               world_size=world, device=dev,
+                               store=dist.FileStore(store_path, world))
+        mesh = make_mesh(MeshConfig(fsdp=1, tensor=world),
+                         device_type=device_type)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        # Only this rank's shard is drawn (one full leaf at a time).
+        cfg, params = load_model(setup["params"], device=dev,
+                                 shard=(world, rank))
+        if dev.type == "cuda":
+            result["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        shapes = init_params(cfg, None, torch.device("meta"))
+        mixes, seq = setup["mixes"], setup["seq"]
+        for kind in ("dense", "paged"):
+            engine = tp_engine(torch, cfg, params, kind, seed, seq, mesh)
+            tp = engine.tp
+            if kind == "dense":
+                result["local_bytes"] = sum(
+                    t.numel() * t.element_size()
+                    for t in tree_leaves(engine.params))
+                result["plan_bytes"] = tp.plan.local_param_bytes(shapes,
+                                                                 rank)
+                result["plan"] = tp.plan.describe()
+                result["local_heads"] = (
+                    engine.params["layers"]["attn"]["wq"].shape[-1]
+                    // cfg.head_dim,
+                    engine.params["layers"]["attn"]["wk"].shape[-1]
+                    // cfg.head_dim)
+                result["local_mlp"] = \
+                    engine.params["layers"]["mlp"]["wo"].shape[1]
+                result["local_vocab"] = engine.params["embed"].shape[0]
+                counts0 = dict(tp.counts)
+                with torch.no_grad():
+                    prompt = mixes["dense"][-1]
+                    result["logits"] = prefill_logits(
+                        torch, cfg, engine.params, prompt,
+                        bucket_of(len(prompt)), seq, tp=tp).float().cpu()
+                result["collectives_per_forward"] = {
+                    k: tp.counts[k] - counts0[k] for k in tp.counts}
+                with torch.no_grad():
+                    result["planted"] = tp_planted_logits(
+                        torch, cfg, engine, prompt, seq, rank)
+            if rank == 0:
+                try:
+                    ids, launches, wall, tokens = tp_drive(
+                        torch, engine, kind, mixes, setup["new"])
+                finally:
+                    engine.stop_followers()
+                result[kind] = {"ids": ids, "launches": launches,
+                                "wall_s": wall, "tokens": tokens}
+            else:
+                flash_attention.launches = 0
+                engine.serve_follower()
+                result[kind] = {"launches": flash_attention.launches}
+            result[kind]["collectives"] = dict(tp.counts)
+            engine.cache = None
+            del engine
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        if dev.type == "cuda":
+            result["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        result["ok"] = True
+        distributed.shutdown()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        result["error"] = traceback.format_exc()
+    with open(out_path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def bucket_of(n):
+    from runbooks_tpu_torch.serve.engine import _buckets, bucket_for
+
+    return bucket_for(_buckets(2048), n)
+
+
+def tp_two_ranks(torch, seed, workdir, setup, device_type="cuda"):
+    """Phase 20 (a): tp_rank on two spawned processes, each joined with a
+    time limit of its own; both killed past it."""
+    import multiprocessing as mp
+    import pickle
+
+    ctx = mp.get_context("spawn")
+    store = f"{workdir}/tp_store"
+    outs = [f"{workdir}/tp_rank{r}.pkl" for r in range(2)]
+    procs = [ctx.Process(target=tp_rank,
+                         args=(r, 2, store, outs[r], seed, device_type,
+                               setup),
+                         daemon=True) for r in range(2)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + TP_RANK_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.perf_counter()))
+    late = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    if late:
+        raise SystemExit(f"phase 20 (a): ranks {late} still running after "
+                         f"{TP_RANK_TIMEOUT_S} s")
+    results = []
+    for r, path in enumerate(outs):
+        if not os.path.exists(path):
+            raise SystemExit(f"phase 20 (a): rank {r} exited "
+                             f"{procs[r].exitcode} with no result")
+        with open(path, "rb") as f:
+            res = pickle.load(f)
+        if not res["ok"]:
+            raise SystemExit(f"phase 20 (a): rank {r} failed:\n"
+                             f"{res['error']}")
+        results.append(res)
+    return results
+
+
+def tp_nccl_collectives(torch, cfg, group, dev):
+    """The NCCL calls of the tensor-parallel path at world 1, on CUDA
+    tensors of one forward's shapes: TensorParallel's all-reduce,
+    vocabulary gather and broadcast, and the engine's program-call
+    exchange (broadcast_object_list with device=). {name: returned its
+    input exactly}."""
+    import numpy as np
+
+    from runbooks_tpu_torch.parallel.sharding import (
+        TensorParallel,
+        serve_plan,
+    )
+    from runbooks_tpu_torch.serve.engine import InferenceEngine
+
+    tp = TensorParallel(serve_plan(cfg, 1), 0, group)
+    g = torch.Generator(device=dev).manual_seed(7)
+    hidden = torch.randn((8, 1, cfg.hidden_size), generator=g, device=dev,
+                         dtype=torch.bfloat16)
+    logits = torch.randn((8, 1, cfg.vocab_size), generator=g, device=dev)
+    ids = torch.randint(0, cfg.vocab_size, (8,), generator=g, device=dev)
+    msg = ("decode", (np.arange(24, dtype=np.int32).reshape(8, 3), 5),
+           {"gmask": None})
+    # The engine's exchange on a stand-in holding what it reads.
+    holder = type("Holder", (), {})()
+    holder.device, holder.tp = dev, tp
+    got = InferenceEngine._exchange(holder, msg)
+    return {
+        "all_reduce": torch.equal(tp.all_reduce(hidden.clone()), hidden),
+        "gather_vocab": torch.equal(tp.gather_vocab(logits), logits),
+        "broadcast": torch.equal(tp.broadcast(ids.clone()), ids),
+        "exchange": (got[0] == msg[0] and got[2] == msg[2]
+                     and np.array_equal(got[1][0], msg[1][0])
+                     and got[1][1] == msg[1][1]),
+        "counts": dict(tp.counts)}
+
+
+def tp_nccl_rank(store_path, out_path, seed):
+    """Phase 20 (b)'s one-process NCCL group: the collectives of the
+    tensor-parallel path (tp_nccl_collectives), then the engine under
+    ``mesh_tensor`` 1 against the unsharded one on the same weights
+    (llama3-8b at full width cut to ENTRY_LAYERS), ids exact."""
+    import pickle
+    import traceback
+
+    import torch
+
+    result = {"ok": False}
+    try:
+        import torch.distributed as dist
+
+        from runbooks_tpu_torch.parallel import distributed
+        from runbooks_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+        from runbooks_tpu_torch.serve.api import load_model
+
+        dev = torch.device("cuda", 0)
+        distributed.initialize(TP_RANK_TIMEOUT_S, backend="nccl", rank=0,
+                               world_size=1, device=dev,
+                               store=dist.FileStore(store_path, 1))
+        mesh = make_mesh(MeshConfig(fsdp=1, tensor=1))
+        cfg, params = load_model(tp_model_params(seed, ENTRY_LAYERS),
+                                 device=dev)
+        result["collectives"] = tp_nccl_collectives(
+            torch, cfg, mesh.get_group("tensor"), dev)
+        mixes = tp_mixes(seed)
+        meshed = tp_engine(torch, cfg, params, "dense", seed, TP_SEQ, mesh)
+        ids_mesh, launches_mesh, _, _ = tp_drive(torch, meshed, "dense",
+                                                 mixes)
+        del meshed
+        plain = tp_engine(torch, cfg, params, "dense", seed, TP_SEQ)
+        ids_plain, launches_plain, _, _ = tp_drive(torch, plain, "dense",
+                                                   mixes)
+        result.update(ok=True, backend=dist.get_backend(),
+                      world=dist.get_world_size(),
+                      equal=ids_mesh == ids_plain,
+                      launches=(launches_mesh, launches_plain))
+        distributed.shutdown()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        result["error"] = traceback.format_exc()
+    with open(out_path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def tp_nccl_phase(torch, seed, workdir):
+    """Phase 20 (b): the NCCL group at world 1 (a spawned process), then
+    ``main`` under mesh_tensor 2: over HTTP where two GPUs exist, else its
+    refusal naming the device count."""
+    import multiprocessing as mp
+    import pickle
+
+    out = f"{workdir}/tp_nccl.pkl"
+    p = mp.get_context("spawn").Process(
+        target=tp_nccl_rank, args=(f"{workdir}/tp_nccl_store", out, seed),
+        daemon=True)
+    p.start()
+    p.join(TP_RANK_TIMEOUT_S)
+    if p.is_alive():
+        p.kill()
+        raise SystemExit("phase 20 (b): the NCCL process did not finish")
+    with open(out, "rb") as f:
+        res = pickle.load(f)
+    if not res["ok"]:
+        raise SystemExit(f"phase 20 (b): NCCL world 1 failed:\n"
+                         f"{res['error']}")
+    record = {"nccl_world1": {k: res[k] for k in (
+        "backend", "world", "collectives", "equal", "launches")}}
+    content = f"{workdir}/tp_content"
+    os.makedirs(content, exist_ok=True)
+    port = free_port()
+    with open(f"{content}/params.json", "w") as f:
+        json.dump(dict(tp_model_params(seed, ENTRY_LAYERS), mesh_tensor=2,
+                       port=port, max_slots=4, max_seq_len=256), f)
+    n = torch.cuda.device_count()
+    log = f"{workdir}/tp_main.log"
+    if n >= 2:
+        proc, base, ready_s = start_entry_point(content, port, log,
+                                                HTTP_TIMEOUT)
+        status, body = http_call(base, "/v1/completions", {
+            "prompt": "tensor parallel", "max_tokens": 8,
+            "temperature": 0.0})
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(ENTRY_DRAIN_S + 60)
+        record["main_mesh_tensor_2"] = {
+            "ran": True, "ready_s": ready_s, "status": status,
+            "completion_tokens": body["usage"]["completion_tokens"],
+            "exit": code}
+        ok = status == 200 and code == 0
+    else:
+        root = os.path.dirname(os.path.abspath(__file__))
+        done = subprocess.run(
+            [sys.executable, "-m", "runbooks_tpu_torch.serve.api"],
+            cwd=root, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, RBT_CONTENT_DIR=content))
+        named = f"torch.cuda.device_count() is {n}" in done.stderr
+        print(f"phase 20 (b): main with mesh_tensor 2 over HTTP not run: "
+              f"this machine has {n} GPU", flush=True)
+        record["main_mesh_tensor_2"] = {
+            "ran": False, "devices": n, "exit": done.returncode,
+            "names_device_count": named}
+        ok = done.returncode != 0 and named
+    coll = res["collectives"]
+    record["gates"] = {"nccl_world1_collectives": res["backend"] == "nccl"
+                       and all(coll[k] for k in ("all_reduce", "gather_vocab",
+                                                 "broadcast", "exchange")),
+                       "nccl_world1_engine_equal": res["equal"],
+                       "main_mesh_tensor_2": ok}
+    return record
+
+
+def tp_phase(torch, seed, workdir):
+    """Phase 20 (see the module docstring). Returns K1's launches by path
+    (each rank's dense and paged runs)."""
+    from runbooks_tpu_torch.serve.api import load_model
+
+    t_phase = time.perf_counter()
+    mixes = tp_mixes(seed)
+    setup = {"params": tp_model_params(seed), "mixes": mixes,
+             "seq": TP_SEQ, "new": TP_NEW}
+    ranks = tp_two_ranks(torch, seed, workdir, setup)
+    t_ranks = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The single-process engine on the same weights, this process.
+    cfg, params = load_model(setup["params"])
+    single = {}
+    prompt = mixes["dense"][-1]
+    with torch.no_grad():
+        plain_logits = prefill_logits(torch, cfg, params, prompt,
+                                      bucket_of(len(prompt)),
+                                      TP_SEQ).float().cpu()
+    for kind in ("dense", "paged"):
+        engine = tp_engine(torch, cfg, params, kind, seed, TP_SEQ)
+        ids, launches, wall, tokens = tp_drive(torch, engine, kind, mixes)
+        single[kind] = {"ids": ids, "launches": launches, "wall_s": wall,
+                        "tokens": tokens}
+        free_engine(torch, engine)
+    gates = {}
+    for kind in ("dense", "paged"):
+        got, want = ranks[0][kind]["ids"], single[kind]["ids"]
+        for i, (a, b) in enumerate(zip(got, want)):
+            near_tie_check(torch, cfg, params, f"phase 20 {kind} request {i}",
+                           mixes[kind][i], a, b)
+        gates[f"{kind}_ids_equal_or_near_tie"] = True
+        gates[f"{kind}_k1_launches_per_rank"] = all(
+            r[kind]["launches"] == single[kind]["launches"] > 0
+            for r in ranks)
+    gaps = [float((r["logits"] - plain_logits).abs().max()) for r in ranks]
+    gates["logits_within_gap"] = max(gaps) <= TP_LOGIT_GAP
+    planted = {f: min(float((r["planted"][f] - plain_logits).abs().max())
+                      for r in ranks) for f in TP_FAULTS}
+    gates["planted_faults_outside_gap"] = min(planted.values()) > TP_LOGIT_GAP
+    gates["param_bytes_equal_plan"] = all(
+        r["local_bytes"] == r["plan_bytes"] for r in ranks)
+    gates["local_widths"] = all(
+        r["local_heads"] == (cfg.num_heads // 2, cfg.num_kv_heads // 2)
+        and r["local_mlp"] == cfg.intermediate_size // 2
+        and r["local_vocab"] == cfg.vocab_size // 2 for r in ranks)
+    free_engine(torch)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    nccl = tp_nccl_phase(torch, seed, workdir)
+    gates.update(nccl.pop("gates"))
+    label = "gloo over host memory on one card, not a TP speed"
+    record = {
+        "card": card_line(), "layers": cfg.num_layers,
+        "plan": ranks[0]["plan"],
+        "local": {"q_heads": ranks[0]["local_heads"][0],
+                  "kv_heads": ranks[0]["local_heads"][1],
+                  "mlp": ranks[0]["local_mlp"],
+                  "vocab": ranks[0]["local_vocab"]},
+        "param_bytes_per_rank": [r["local_bytes"] for r in ranks],
+        "peak_gb_per_rank": [r.get("peak_gb") for r in ranks],
+        "load_peak_gb_per_rank": [r.get("load_peak_gb") for r in ranks],
+        "collectives_per_forward": ranks[0]["collectives_per_forward"],
+        "logit_gap_per_rank": gaps, "logit_gap_limit": TP_LOGIT_GAP,
+        "planted_fault_gaps": planted,
+        "k1_launches": {kind: {"single": single[kind]["launches"],
+                               "ranks": [r[kind]["launches"]
+                                         for r in ranks]}
+                        for kind in ("dense", "paged")},
+        "tokens_per_s": {
+            kind: {label: ranks[0][kind]["tokens"]
+                   / ranks[0][kind]["wall_s"],
+                   "one_process_same_card": single[kind]["tokens"]
+                   / single[kind]["wall_s"]}
+            for kind in ("dense", "paged")},
+        "ranks_s": t_ranks, **nccl,
+        "seconds": time.perf_counter() - t_phase, "gates": gates}
+    print("phase 20 " + json.dumps(record), flush=True)
+    failed = [k for k, v in gates.items() if not v]
+    if failed:
+        raise SystemExit(f"phase 20: gates failed: {failed}")
+    return {f"tp_{kind}_rank{r}": ranks[r][kind]["launches"]
+            for kind in ("dense", "paged") for r in range(2)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7257,6 +7777,10 @@ def main():
         torch.cuda.empty_cache()
         gateway_launches = gateway_phase(torch, args.seed, workdir)
         mark("phase 19")
+        gc.collect()
+        torch.cuda.empty_cache()
+        tp_launches = tp_phase(torch, args.seed, workdir)
+        mark("phase 20")
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -7274,7 +7798,8 @@ def main():
                      + sum(text_launches["flash_fwd"].values())
                      + sum(family_launches.values())
                      + sum(entry_launches["flash_fwd"].values())
-                     + obs_launches + sum(gateway_launches.values())),
+                     + obs_launches + sum(gateway_launches.values())
+                     + sum(tp_launches.values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
@@ -7288,7 +7813,7 @@ def main():
                              **family_launches,
                              **entry_launches["flash_fwd"],
                              "obs_overhead": obs_launches,
-                             **gateway_launches},
+                             **gateway_launches, **tp_launches},
         "max_abs_err": max(worst, family_records["fwd_worst"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -95,19 +95,27 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
-                device: torch.device) -> Params:
+                device: torch.device,
+                cut: Optional[Callable[[torch.Tensor, tuple],
+                                       torch.Tensor]] = None) -> Params:
     """Random-init parameters (stacked layers) on ``device`` from a seeded
     generator on that device. Same leaves, shapes, scales and layout as
     the reference's init_params; the numbers differ (another RNG), so tests
-    carry the reference's weights over with models/bridge.py."""
+    carry the reference's weights over with models/bridge.py.
+
+    ``cut(leaf, logical_axes)`` (a tensor-parallel rank's
+    parallel/sharding.shard_leaf) is applied to each leaf as it is drawn,
+    so one full leaf at a time is held; the draws are the same with it or
+    without it (in the tree's order)."""
     check_supported(cfg)
     h, v, L = cfg.hidden_size, cfg.vocab_size, cfg.num_layers
     m = cfg.intermediate_size
     pd = cfg.parameter_dtype
 
     def normal(shape, scale):
-        x = torch.randn(shape, generator=generator, device=device, dtype=pd)
-        return x.mul_(scale)
+        # Drawn in tree order by ``draw`` below.
+        return lambda: torch.randn(shape, generator=generator, device=device,
+                                   dtype=pd).mul_(scale)
 
     def ones(shape):
         return torch.ones(shape, dtype=pd, device=device)
@@ -149,7 +157,60 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
     if not (cfg.parallel_block and cfg.shared_layer_norm):
         layers["ln2"] = norm((L,))
     params["layers"] = layers
-    return params
+
+    def draw(p, axes):
+        if isinstance(p, dict):
+            return {k: draw(p[k], axes[k]) for k in p}
+        leaf = p() if callable(p) else p
+        return leaf if cut is None else cut(leaf, axes)
+
+    return draw(params, param_logical_axes(cfg))
+
+
+def param_logical_axes(cfg: ModelConfig) -> Params:
+    """A tree matching init_params with logical axis names per dimension
+    (the reference's; parallel/sharding.py maps them to mesh axes), for
+    the configs the port runs (check_supported names the others)."""
+    check_supported(cfg)
+    norm1 = lambda pre: {k: pre + ("norm",) for k in  # noqa: E731
+                         (("scale", "bias") if cfg.norm_type == "layernorm"
+                          else ("scale",))}
+    axes: Params = {
+        "embed": ("vocab", "embed"),
+        "final_norm": norm1(()),
+    }
+    if cfg.position_type == "learned":
+        axes["pos_embed"] = ("pos", "embed")
+    if not cfg.tie_embeddings:
+        axes["head"] = ("embed", "vocab")
+    # The stacked-layer leading dim carries "layers" (the stage axis).
+    attn = {
+        "wq": ("layers", "embed", "heads"),
+        "wk": ("layers", "embed", "kv_heads"),
+        "wv": ("layers", "embed", "kv_heads"),
+        "wo": ("layers", "heads", "embed"),
+    }
+    if cfg.attn_bias:
+        attn.update({"bq": ("layers", "heads"),
+                     "bk": ("layers", "kv_heads"),
+                     "bv": ("layers", "kv_heads"),
+                     "bo": ("layers", "norm")})
+    mlp = {"wo": ("layers", "mlp", "embed")}
+    if cfg.gated_mlp:
+        mlp.update({"wi_gate": ("layers", "embed", "mlp"),
+                    "wi_up": ("layers", "embed", "mlp")})
+    else:
+        mlp["wi"] = ("layers", "embed", "mlp")
+    if cfg.mlp_bias:
+        for k in list(mlp):
+            if k.startswith("wi"):
+                mlp["b" + k[1:]] = ("layers", "mlp")
+        mlp["bo"] = ("layers", "norm")
+    layers = {"attn": attn, "mlp": mlp, "ln1": norm1(("layers",))}
+    if not (cfg.parallel_block and cfg.shared_layer_norm):
+        layers["ln2"] = norm1(("layers",))
+    axes["layers"] = layers
+    return axes
 
 
 # ---------------------------------------------------------------------------
@@ -184,9 +245,14 @@ class KVCache:
     @classmethod
     def create(cls, cfg: ModelConfig, batch: int, max_len: int,
                device: torch.device, trash_slot: bool = False,
-               quantize_kv: bool = False) -> "KVCache":
+               quantize_kv: bool = False,
+               kv_heads: Optional[int] = None) -> "KVCache":
+        """``kv_heads``: the kv heads this cache holds (default all of
+        them; a tensor-parallel rank holds its own, TensorPlan
+        .kv_head_ids)."""
         cache_len = max_len + 1 if trash_slot else max_len
-        shape = (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
+        shape = (cfg.num_layers, batch, cache_len,
+                 cfg.num_kv_heads if kv_heads is None else kv_heads,
                  cfg.head_dim)
         if quantize_kv:
             return cls(
@@ -397,7 +463,14 @@ def _adapter_delta(adapter, name: str, layer_idx: int, x_in: torch.Tensor,
 
 
 def _attention_block(cfg, p, layer_idx, x, positions, mask, layer_cache,
-                     segment_ids=None, lora=None, adapter=None):
+                     segment_ids=None, lora=None, adapter=None, tp=None,
+                     partial=False):
+    """The attention sublayer on the heads ``p`` holds (all of them, or a
+    tensor-parallel rank's: the head counts come from the weights' widths).
+    Under ``tp`` with sharded heads the rank's ``wo`` product is summed
+    over the ranks before ``bo`` is added, once; ``partial`` returns it
+    unsummed and without ``bo`` (the parallel block sums two sublayers'
+    in one all-reduce)."""
     b, s, _ = x.shape
     ad = cfg.activation_dtype
     w = lambda name: _weight(p, "attn", name, layer_idx, lora)  # noqa: E731
@@ -407,9 +480,9 @@ def _attention_block(cfg, p, layer_idx, x, positions, mask, layer_cache,
                            _matmul(x, w(name), ad), ad)
         return _add_bias(p, "b" + name[1:], layer_idx, y, ad)
 
-    q = proj("wq").reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = proj("wk").reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = proj("wv").reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = proj("wq").reshape(b, s, -1, cfg.head_dim)
+    k = proj("wk").reshape(b, s, -1, cfg.head_dim)
+    v = proj("wv").reshape(b, s, -1, cfg.head_dim)
     if cfg.position_type == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -454,6 +527,7 @@ def _attention_block(cfg, p, layer_idx, x, positions, mask, layer_cache,
             # (A view of None slices the whole cache.)
             k = dequantize_kv(k, ck_s[:, :view], ad)
             v = dequantize_kv(v, cv_s[:, :view], ad)
+        k, v = _local_kv(tp, k, v)
         if mask is None:
             # Flash cached prefill: cache slot i holds position i, so the
             # kernel's causal-by-position masking is the plain mask. Block
@@ -466,19 +540,40 @@ def _attention_block(cfg, p, layer_idx, x, positions, mask, layer_cache,
         else:
             out = dot_product_attention(q, k, v, mask=mask)
     elif mask is None:
+        k, v = _local_kv(tp, k, v)
         out = flash_attention(q, k, v, positions, positions, segment_ids,
                               segment_ids)
     else:
+        k, v = _local_kv(tp, k, v)
         out = dot_product_attention(q, k, v, mask=mask)
-    out = out.reshape(b, s, cfg.q_dim)
+    out = out.reshape(b, s, -1)
     out = _adapter_delta(adapter, "wo", layer_idx, out,
                          _matmul(out, w("wo"), ad), ad)
+    if tp is not None and tp.plan.heads:
+        if partial:
+            return out
+        out = tp.all_reduce(out)
     return _add_bias(p, "bo", layer_idx, out, ad)
 
 
-def _mlp_block(cfg, p, layer_idx, x, lora=None, adapter=None):
+def _local_kv(tp, k: torch.Tensor, v: torch.Tensor):
+    """A tensor-parallel rank whose q heads read its kv heads in a
+    non-uniform map (q heads shard, kv heads replicate, and the count
+    splits a kv head's group): the kv heads repeated, one per local q
+    head, so the attention's (and K1's) uniform ``h // n_rep`` map holds
+    with n_rep 1. Unchanged otherwise."""
+    idx = None if tp is None else tp.kv_index(k.device)
+    if idx is None:
+        return k, v
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _mlp_block(cfg, p, layer_idx, x, lora=None, adapter=None, tp=None,
+               partial=False):
     """The gated MLP (act(x Wg + bg) * (x Wu + bu)) or the plain one
-    (act(x Wi + bi)), then Wo + bo; each bias after its delta."""
+    (act(x Wi + bi)), then Wo + bo; each bias after its delta. Under
+    ``tp`` with a sharded MLP the rank's Wo product is summed over the
+    ranks before bo, as in _attention_block (``partial`` likewise)."""
     ad = cfg.activation_dtype
     w = lambda name: _weight(p, "mlp", name, layer_idx, lora)  # noqa: E731
 
@@ -491,6 +586,12 @@ def _mlp_block(cfg, p, layer_idx, x, lora=None, adapter=None):
         hidden = _activation(cfg, proj(x, "wi_gate")) * proj(x, "wi_up")
     else:
         hidden = _activation(cfg, proj(x, "wi"))
+    if tp is not None and tp.plan.mlp:
+        out = _adapter_delta(adapter, "wo", layer_idx, hidden,
+                             _matmul(hidden, w("wo"), ad), ad)
+        if partial:
+            return out
+        return _add_bias(p, "bo", layer_idx, tp.all_reduce(out), ad)
     return proj(hidden, "wo")
 
 
@@ -500,15 +601,19 @@ def head_weight(cfg: ModelConfig, params: Params) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["head"]
 
 
-def lm_head(cfg: ModelConfig, params: Params,
-            x: torch.Tensor) -> torch.Tensor:
+def lm_head(cfg: ModelConfig, params: Params, x: torch.Tensor,
+            tp=None) -> torch.Tensor:
     """f32 logits from post-final-norm activations. The reference feeds
     activation-dtype operands to an f32-accumulating product and keeps the
     f32 result; here the operands (exactly representable) are widened to
-    f32 so the logits are not rounded back to bf16."""
+    f32 so the logits are not rounded back to bf16. Under ``tp`` with a
+    sharded vocabulary each rank's local logits are all-gathered."""
     ad = cfg.activation_dtype
-    return torch.matmul(x.to(ad).float(),
-                        head_weight(cfg, params).to(ad).float())
+    logits = torch.matmul(x.to(ad).float(),
+                          head_weight(cfg, params).to(ad).float())
+    if tp is not None and tp.plan.vocab:
+        logits = tp.gather_vocab(logits)
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -528,6 +633,7 @@ def forward(
     return_activations: bool = False,
     lora: Optional[LoraDeltas] = None,
     adapters: Optional[Tuple[Params, torch.Tensor]] = None,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (logits [b, s, vocab] f32, updated cache or None).
 
@@ -553,8 +659,18 @@ def forward(
     With a cache: explicit positions select position-scatter writes;
     omitted positions append at cache.index. cache_view: attention reads
     only cache slots [0, cache_view); exact whenever every query position
-    is < cache_view."""
+    is < cache_view.
+
+    tp (serving): a parallel/sharding.TensorParallel. ``params`` and the
+    cache then hold one rank's shard (TensorPlan), the forward runs on
+    local widths and its collectives make every rank's output the whole
+    model's: hidden states all-reduced after each sharded sublayer,
+    logits gathered over the vocabulary."""
     check_supported(cfg)
+    if tp is not None and (lora is not None or remat):
+        raise NotImplementedError(
+            "a tensor-parallel forward serves: LoRA merges and remat are "
+            "training paths, which run on one device")
     if cache is not None and segment_ids is not None:
         raise NotImplementedError(
             "packed sequences (segment_ids) are not supported together with "
@@ -576,7 +692,10 @@ def forward(
                                           device=device))[None, :].expand(
                                               b, s)
 
-    x = params["embed"].to(ad)[tokens]
+    if tp is not None and tp.plan.vocab:
+        x = tp.embed(params["embed"], tokens, ad)
+    else:
+        x = params["embed"].to(ad)[tokens]
     if cfg.position_type == "learned":
         # A JAX gather clamps an index past the table: padding parked at
         # the trash slot (max_seq_len) reads the last row, as the
@@ -609,11 +728,16 @@ def forward(
         rows = gather_lanes(pool, map_lane_indices(
             torch.as_tensor(lane_idx, device=device), pool_lanes(pool)))
 
+    # A tensor-parallel parallel block whose two sublayers both shard sums
+    # their partial products in one all-reduce.
+    fused = (tp is not None and cfg.parallel_block and tp.plan.heads
+             and tp.plan.mlp)
+
     def block(x, li, layer_cache):
         h1 = _norm(cfg, layers["ln1"], x, li)
         attn_out = _attention_block(cfg, layers["attn"], li, h1, positions,
                                     mask, layer_cache, segment_ids, lora,
-                                    rows.get("attn"))
+                                    rows.get("attn"), tp, fused)
         if name_attn_out:
             attn_out = checkpoint_name(attn_out, "attn_out")
         if cfg.parallel_block:
@@ -621,12 +745,17 @@ def forward(
             # shared norm (7b) or their own (40b's ln_attn / ln_mlp).
             h2 = (h1 if cfg.shared_layer_norm
                   else _norm(cfg, layers["ln2"], x, li))
-            return x + attn_out + _mlp_block(cfg, layers["mlp"], li, h2,
-                                             lora, rows.get("mlp"))
+            mlp_out = _mlp_block(cfg, layers["mlp"], li, h2, lora,
+                                 rows.get("mlp"), tp, fused)
+            if fused:
+                out = tp.all_reduce(attn_out + mlp_out)
+                out = _add_bias(layers["attn"], "bo", li, out, ad)
+                return x + _add_bias(layers["mlp"], "bo", li, out, ad)
+            return x + attn_out + mlp_out
         x = x + attn_out
         h2 = _norm(cfg, layers["ln2"], x, li)
         return x + _mlp_block(cfg, layers["mlp"], li, h2, lora,
-                              rows.get("mlp"))
+                              rows.get("mlp"), tp)
 
     for li in range(cfg.num_layers):
         layer_cache = None
@@ -652,4 +781,4 @@ def forward(
     x = _norm(cfg, params["final_norm"], x)
     if return_activations:
         return x, new_cache
-    return lm_head(cfg, params, x), new_cache
+    return lm_head(cfg, params, x, tp), new_cache

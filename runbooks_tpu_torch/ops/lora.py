@@ -184,3 +184,28 @@ def write_lane(pool: Params, adapter: Params, lane: int) -> None:
                 f"lane shape {tuple(dst.shape)}")
     for dst, src, _ in pairs:
         dst.copy_(src)
+
+
+def adapter_pool_logical_axes(pool: Params) -> Params:
+    """Logical axes for the pool under a serving mesh (the reference's):
+    the lane and rank axes replicated, the in/out axes following the base
+    matrix's. The port's engines refuse a pool under a mesh (ROADMAP.md
+    §1); the axes are kept for the slice that lifts that."""
+    base_axes = {
+        ("attn", "wq"): ("embed", "heads"),
+        ("attn", "wk"): ("embed", "kv_heads"),
+        ("attn", "wv"): ("embed", "kv_heads"),
+        ("attn", "wo"): ("heads", "embed"),
+        ("mlp", "wi_gate"): ("embed", "mlp"),
+        ("mlp", "wi_up"): ("embed", "mlp"),
+        ("mlp", "wi"): ("embed", "mlp"),
+        ("mlp", "wo"): ("mlp", "embed"),
+    }
+    axes: Dict[str, Dict[str, dict]] = {}
+    for group, sub in pool.items():
+        axes[group] = {}
+        for name in sub:
+            in_ax, out_ax = base_axes.get((group, name), (None, None))
+            axes[group][name] = {"a": (None, None, in_ax, None),
+                                 "b": (None, None, None, out_ax)}
+    return axes

@@ -320,6 +320,25 @@ def quantize_stack(layer: Callable[[int], torch.Tensor], num_layers: int,
     return QuantizedArray(values=vals, scales=scs, bits=bits, block_size=bs)
 
 
+def quantized_logical_axes(params: Dict[str, Any],
+                           axes: Dict[str, Any]) -> Dict[str, Any]:
+    """Rewrite a ``param_logical_axes`` tree so positions holding a
+    QuantizedArray get a QuantizedArray of axis tuples (the reference's):
+    values keep the weight's axes, the scales' block axis replicates. The
+    port's engines refuse quantized weights under a mesh (ROADMAP.md §1);
+    the axes are kept for the slice that lifts that."""
+    def fix(p, a):
+        if isinstance(p, dict):
+            return {k: fix(p[k], a[k]) for k in p}
+        if isinstance(p, QuantizedArray):
+            scale_axes = tuple(a[:-2]) + (None, a[-1])
+            return QuantizedArray(values=a, scales=scale_axes,
+                                  bits=p.bits, block_size=p.block_size)
+        return a
+
+    return fix(params, axes)
+
+
 # ---------------------------------------------------------------------------
 # Checkpoint round trip: plain dicts of tensors, so torch.load
 # (weights_only=True) restores a packed tree with no custom class

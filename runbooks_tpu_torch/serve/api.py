@@ -29,14 +29,28 @@ capture under ``{artifacts}/profiles/``; 409 while one runs), ``GET
 /debug/memory``, ``GET /debug/programs``, ``GET
 /debug/flight[?request_id=]``, ``POST /debug/incident`` and ``GET
 /debug/incidents[?name=]``; a failed engine step captures an incident
-bundle. The mesh is refused by name rather than ignored.
+bundle.
+
+Tensor parallelism: ``mesh_tensor: N`` serves one replica over N
+processes, one per GPU (rank r on ``cuda:r``, NCCL). ``main`` is rank 0:
+it starts ranks 1..N-1 itself (``torch.multiprocessing``, spawn), and
+alone runs HTTP, the worker, the scheduler and the page tables; each
+follower replays rank 0's program calls on its shard (serve/engine.py).
+SIGTERM drains, stops every follower and exits 0; a follower that dies
+ends rank 0 with a non-zero code. Other mesh axes, a multi-host mesh, and
+quantization, the adapter pool, the host tier, preemption and
+collective_matmul under ``mesh_tensor`` > 1 are refused by name.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import math
+import os
 import queue
+import shutil
 import signal
 import threading
 import time
@@ -59,6 +73,17 @@ from runbooks_tpu_torch.obs import metrics as obs_metrics
 from runbooks_tpu_torch.obs import profile as obs_profile
 from runbooks_tpu_torch.obs.trace import request_scope
 from runbooks_tpu_torch.ops.flash_attention import flash_attention
+from runbooks_tpu_torch.parallel import distributed
+from runbooks_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    check_serving_mesh,
+    make_mesh,
+)
+from runbooks_tpu_torch.parallel.sharding import (
+    serve_plan,
+    shard_leaf,
+    shard_params,
+)
 from runbooks_tpu_torch.ops.quantization import (
     quantize_params,
     resolve_quantize_mode,
@@ -135,7 +160,8 @@ def _param_on(value) -> bool:
 # ---------------------------------------------------------------------------
 
 def load_model(params: dict,
-               device: Optional[Union[str, torch.device]] = None
+               device: Optional[Union[str, torch.device]] = None,
+               shard: Optional[Tuple[int, int]] = None
                ) -> Tuple[ModelConfig, Any]:
     """(cfg, model params) from a params.json-style dict: a named config
     plus ``model_overrides``; the params of the newest intact checkpoint
@@ -153,7 +179,14 @@ def load_model(params: dict,
     fold, one stacked weight at a time on the device. A packed checkpoint
     at another mode than the one asked for serves its stored mode and
     says so. ``quantize_kv`` in params sets the config's field, which the
-    engines read (default: on with quantized weights)."""
+    engines read (default: on with quantized weights).
+
+    ``shard`` = (tensor, rank): only rank ``rank``'s shard of the
+    tensor-parallel plan over ``tensor`` ranks (parallel/sharding.
+    serve_plan) is materialised: a checkpoint is cut while it is mapped, a
+    random init cuts each leaf as it is drawn (the same draws as the full
+    tree's), an adapter's pairs are cut to the shard's columns before the
+    fold. The full tree is never held."""
     dev = resolve_device(device)
     adapter = params.get("adapter")
     pool = int(_param_any(params, "adapter_pool", "adapterPool",
@@ -174,17 +207,27 @@ def load_model(params: dict,
         overrides["quantize_kv"] = _param_on(quantize_kv)
     cfg = dataclasses.replace(cfg, **overrides)
     check_supported(cfg)
+    cut = None
+    if shard is not None:
+        plan, rank = serve_plan(cfg, shard[0]), shard[1]
+        cut = functools.partial(shard_leaf, plan=plan, rank=rank)
     ckpt_dir = params.get("checkpoint") or contract.model_dir()
-    restored = restore_params(ckpt_dir, dev)
+
+    def fit_and_cut(tree):
+        # On the mapped tree: nothing is read for the check, and a shard
+        # reads only its columns.
+        _check_params_fit(cfg, tree, ckpt_dir)
+        return tree if shard is None else shard_params(tree, plan, rank)
+
+    restored = restore_params(ckpt_dir, dev, fit_and_cut)
     if restored is not None:
         model_params, step = restored
-        _check_params_fit(cfg, model_params, f"{ckpt_dir} step {step}")
         print(f"serve: restored params of step {step} from {ckpt_dir}",
               flush=True)
     else:
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(params.get("seed", 0)))
-        model_params = init_params(cfg, gen, dev)
+        model_params = init_params(cfg, gen, dev, cut)
     if adapter:
         # The fold goes in before quantization, so the quantizer sees the
         # merged weights; packed weights have no headroom to fold into.
@@ -193,7 +236,8 @@ def load_model(params: dict,
                 "cannot fold adapter into a pre-quantized checkpoint "
                 "(packed int8/int4 weights have no headroom); serve it "
                 "with adapter_pool >= 1 instead")
-        model_params = load_merge_adapter(str(adapter), cfg, model_params)
+        model_params = load_merge_adapter(str(adapter), cfg, model_params,
+                                          cut)
     stored = tree_quantize_mode(model_params)
     if stored == "none" and quantize != "none":
         model_params = quantize_params(model_params, quantize)
@@ -356,6 +400,8 @@ class EngineWorker:
         if self.engine.has_work():
             self.engine.step()
         else:
+            # A tensor-parallel leader tells idle followers it is alive.
+            self.engine.heartbeat()
             self._wake.wait(timeout=0.05)
             self._wake.clear()
         # A paged registration steps the engine too, so requests may
@@ -1271,6 +1317,9 @@ class Server:
         if self._serving.is_set():
             self.httpd.shutdown()
         self.worker.stop()
+        # The worker thread is gone: release a tensor-parallel engine's
+        # followers (no-op on one device).
+        self.worker.engine.stop_followers()
         self.httpd.server_close()   # joins the handler threads
         return drained
 
@@ -1302,7 +1351,8 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
                   preemption: str = "off",
                   adapter_pool: Optional[int] = None,
                   lora_rank: Optional[int] = None,
-                  adapter_dir: Optional[str] = None) -> Server:
+                  adapter_dir: Optional[str] = None,
+                  mesh=None) -> Server:
     """An HTTP server bound to (host, port; 0 picks a free port) over an
     InferenceEngine on ``device`` (CUDA unless the caller names another;
     params move there): the dense one, or with ``kv_paging`` the paged
@@ -1350,29 +1400,29 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
     many adapters, padded to the rank bucket lora_rank: a body's
     "adapter" (a name under adapter_dir, or a path) selects the tenant,
     an adapter the pool cannot resolve answers 400, and tenants batch
-    with each other and with base-only requests (serve/lora_pool.py)."""
-    dev = resolve_device(device)
-    model_params = tree_map(lambda t: t.to(dev), model_params)
+    with each other and with base-only requests (serve/lora_pool.py).
+
+    mesh (a DeviceMesh, parallel/mesh.make_mesh): this process is rank 0
+    of a tensor-parallel replica. ``model_params`` is then the full tree
+    or this rank's shard (load_model's ``shard``; on any device: the
+    engine keeps this rank's shard on the rank's device), and every other
+    rank runs the same engine through
+    ``make_engine`` and its ``serve_follower`` loop (``main`` starts
+    them)."""
     tokenizer = tokenizer or load_tokenizer(None)
-    engine_kw = dict(max_slots=max_slots, max_seq_len=max_seq_len,
-                     prefill_budget=prefill_budget,
-                     decode_chunk=decode_chunk, max_queue=max_queue,
-                     queue_shares=queue_shares,
-                     prefix_cache_size=prefix_cache_size,
-                     speculative=speculative, draft_tokens=draft_tokens,
-                     ngram_max=ngram_max, ngram_min=ngram_min,
-                     grammar=grammar, grammar_cache_size=grammar_cache_size,
-                     tokenizer=tokenizer, preemption=preemption,
-                     adapter_pool=adapter_pool, lora_rank=lora_rank,
-                     adapter_dir=adapter_dir)
-    if kv_paging:
-        engine = PagedInferenceEngine(cfg, model_params,
-                                      page_size=page_size,
-                                      num_pages=num_pages,
-                                      kv_host_pages=kv_host_pages,
-                                      **engine_kw)
-    else:
-        engine = InferenceEngine(cfg, model_params, **engine_kw)
+    engine = make_engine(
+        cfg, model_params, tokenizer, device=device, mesh=mesh,
+        max_slots=max_slots, max_seq_len=max_seq_len,
+        prefill_budget=prefill_budget, decode_chunk=decode_chunk,
+        max_queue=max_queue, queue_shares=queue_shares,
+        prefix_cache_size=prefix_cache_size, speculative=speculative,
+        draft_tokens=draft_tokens, ngram_max=ngram_max,
+        ngram_min=ngram_min, grammar=grammar,
+        grammar_cache_size=grammar_cache_size, kv_paging=kv_paging,
+        page_size=page_size, num_pages=num_pages,
+        kv_host_pages=kv_host_pages, preemption=preemption,
+        adapter_pool=adapter_pool, lora_rank=lora_rank,
+        adapter_dir=adapter_dir)
     # This process's events label as the serving tier in merged timelines
     # and /debug/flight envelopes.
     obs_flight.set_component("serve")
@@ -1387,35 +1437,103 @@ def create_server(cfg: ModelConfig, model_params, tokenizer=None, *,
         httpd = _HTTPServer((host, port), _make_handler(api))
     except OSError:
         worker.stop()
+        engine.stop_followers()
         raise
     return Server(httpd, worker, drain_timeout_s)
+
+
+def make_engine(cfg: ModelConfig, model_params, tokenizer, *,
+                device: Optional[Union[str, torch.device]] = None,
+                mesh=None, kv_paging: bool = False, page_size: int = 16,
+                num_pages: Optional[int] = None, kv_host_pages: int = 0,
+                **engine_kw) -> InferenceEngine:
+    """The engine ``create_server`` serves: the dense one, or with
+    ``kv_paging`` the paged one, on ``device`` (CUDA unless named; params
+    move there) or, with ``mesh``, on this rank's device with this rank's
+    shard of ``model_params`` (the full tree or the shard). A tensor-parallel follower builds
+    its engine here with rank 0's arguments."""
+    if mesh is None:
+        dev = resolve_device(device)
+        model_params = tree_map(lambda t: t.to(dev), model_params)
+    engine_kw = dict(engine_kw, tokenizer=tokenizer)
+    if kv_paging:
+        return PagedInferenceEngine(cfg, model_params, page_size=page_size,
+                                    num_pages=num_pages,
+                                    kv_host_pages=kv_host_pages, mesh=mesh,
+                                    **engine_kw)
+    return InferenceEngine(cfg, model_params, mesh=mesh, **engine_kw)
 
 
 # ---------------------------------------------------------------------------
 # Entry point
 # ---------------------------------------------------------------------------
 
+def serve_mesh(params: dict) -> Optional[MeshConfig]:
+    """The ``mesh_*`` params as a MeshConfig (the reference's reading), or
+    None when none is set. A replica is one pod: the mesh spans exactly
+    the processes its fixed axes name (a -1 axis fills to 1), one per
+    GPU. Any axis but ``tensor`` above 1 is refused by name (mesh.
+    check_serving_mesh), and so is an unknown ``mesh_`` key."""
+    fields = {f.name for f in dataclasses.fields(MeshConfig)}
+    args = {}
+    for k, v in params.items():
+        if not k.startswith("mesh_"):
+            continue
+        if k[len("mesh_"):] not in fields:
+            raise ValueError(f"params {k!r}: unknown mesh axis (expected "
+                             f"mesh_ + one of {sorted(fields)})")
+        args[k[len("mesh_"):]] = int(v)
+    if not args:
+        return None
+    mc = MeshConfig(**args)
+    mc = mc.resolve(math.prod(s for s in dataclasses.astuple(mc) if s != -1))
+    check_serving_mesh(mc)
+    return mc
+
+
 def refuse_unported(params: dict) -> None:
-    """Raise NotImplementedError naming every params knob whose feature
-    this port does not serve yet (serving without it would silently
-    change what the deployment asked for)."""
-    bad = [k for k, v in sorted(params.items())
-           if k.startswith("mesh_") and int(v) > 1]
+    """Raise naming every params knob whose feature this port does not
+    serve yet (serving without it would silently change what the
+    deployment asked for): serving axes other than ``tensor``, and under
+    ``mesh_tensor`` > 1 the features the sharded engines refuse."""
+    mc = serve_mesh(params)
+    if mc is None or mc.tensor == 1:
+        return
+    info = distributed.env_process_info()
+    if info is not None and info["num_processes"] > 1:
+        raise NotImplementedError(
+            f"mesh_tensor={mc.tensor} over {info['num_processes']} hosts: "
+            "a serving replica is one pod (one process per GPU of one "
+            "host); multi-host serving meshes are refused")
+    overrides = params.get("model_overrides", {})
+    bad = []
+    quantize = params.get("quantize", overrides.get("quantize", "none"))
+    if quantize not in (None, "none"):
+        bad.append(f"quantize={quantize!r}")
+    if _param_on(_param_any(params, "quantize_kv", "quantizeKv",
+                            "quantizekv", default=False)):
+        bad.append("quantize_kv")
+    if int(_param_any(params, "adapter_pool", "adapterPool", "adapterpool",
+                      default=0) or 0) > 0:
+        bad.append("adapter_pool")
+    if int(_param_any(params, "kv_host_pages", "kvHostPages",
+                      "kvhostpages", default=0) or 0) > 0:
+        bad.append("kv_host_pages")
+    if (params.get("preemption") or "off") != "off":
+        bad.append("preemption")
+    cm = _param_any(params, "collective_matmul", "collectiveMatmul",
+                    "collectivematmul", default="off")
+    if str(cm).lower() not in ("off", "false", "0"):
+        bad.append("collective_matmul")
     if bad:
         raise NotImplementedError(
-            f"params {bad}: not ported to this server yet (the mesh waits "
-            "for later work)")
+            f"params {bad} under mesh_tensor={mc.tensor}: not ported to "
+            "the tensor-parallel server yet (ROADMAP.md §1); serve them on "
+            "one device")
 
 
-def main() -> int:
-    params = contract.load_params()
-    refuse_unported(params)
-    # Kernels build into and load from <artifacts>/kernel_cache: a
-    # restarted server loads K1 instead of running nvcc again.
-    cuda_build.use_kernel_cache(
-        cuda_build.kernel_cache_dir(contract.artifacts_dir()))
-    cfg, model_params = load_model(params)
-    tokenizer = load_tokenizer(params.get("tokenizer"))
+def _server_options(params: dict) -> dict:
+    """create_server's keyword arguments from a params.json dict."""
     queue_shares = {}
     for cls in PRIORITY_RANK:
         camel = f"queueShare{cls.capitalize()}"
@@ -1427,8 +1545,7 @@ def main() -> int:
         raw = _param_any(params, key, *spellings)
         return kind(raw) if raw is not None else None
 
-    srv = create_server(
-        cfg, model_params, tokenizer,
+    return dict(
         port=int(params.get("port", contract.SERVE_PORT)),
         max_slots=int(params.get("max_slots", 8)),
         max_seq_len=opt("max_seq_len", int),
@@ -1467,11 +1584,93 @@ def main() -> int:
         adapter_pool=opt("adapter_pool", int, "adapterPool", "adapterpool"),
         lora_rank=opt("lora_rank", int, "loraRank", "lorarank"),
         adapter_dir=opt("adapter_dir", str, "adapterDir", "adapterdir"))
+
+
+# create_server's arguments that are the front end's, not the engine's.
+_FRONT_END_OPTIONS = ("port", "warmup", "request_timeout_s",
+                      "drain_timeout_s", "warm_prefix", "auto_prefix_chat")
+
+# The tensor-parallel group's timeout: a collective a dead rank never
+# joins fails within it (gloo fails at once on a closed connection).
+TP_TIMEOUT_S = 300
+
+
+def _join_mesh(rank: int, world: int, store_path: str, backend: str):
+    """Form the replica's process group (a FileStore rendezvous) and its
+    DeviceMesh over the tensor axis. (mesh, this rank's device: cuda:rank
+    under NCCL, the CPU under gloo.)"""
+    import torch.distributed as dist
+
+    distributed.initialize(TP_TIMEOUT_S, backend=backend, rank=rank,
+                           world_size=world,
+                           store=dist.FileStore(store_path, world))
+    dev = (torch.device("cuda", rank) if backend == "nccl"
+           else torch.device("cpu"))
+    return make_mesh(MeshConfig(fsdp=1, tensor=world)), dev
+
+
+def _follower_main(rank: int, world: int, store_path: str,
+                   backend: str) -> None:
+    """A follower rank of the tensor-parallel server: its own shard of the
+    model, the same engine as rank 0's, and rank 0's program calls until
+    rank 0 stops it. Signals are rank 0's to handle."""
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    params = contract.load_params()
+    cuda_build.use_kernel_cache(
+        cuda_build.kernel_cache_dir(contract.artifacts_dir()))
+    mesh, dev = _join_mesh(rank, world, store_path, backend)
+    cfg, model_params = load_model(params, device=dev, shard=(world, rank))
+    opts = _server_options(params)
+    for k in _FRONT_END_OPTIONS:
+        opts.pop(k)
+    engine = make_engine(cfg, model_params,
+                         load_tokenizer(params.get("tokenizer")), mesh=mesh,
+                         **opts)
+    engine.serve_follower()
+    distributed.shutdown()
+
+
+def _watch_followers(procs: list, stopping: threading.Event,
+                     served: threading.Event, rendezvous: str) -> None:
+    """Rank 0's guard: a follower that exits before rank 0 stops it, or
+    with a non-zero code at any time (killed, crashed), ends rank 0 at
+    once with a non-zero code, after killing the others, so no rank
+    outlives the replica. ``stopping`` is set once the shutdown began,
+    ``served`` once it ended (the guard then returns, and rank 0 joins the
+    followers itself)."""
+    from multiprocessing.connection import wait
+
+    live = list(procs)
+    while live and not served.is_set():
+        for sentinel in wait([p.sentinel for p in live], timeout=0.2):
+            p = next(q for q in live if q.sentinel == sentinel)
+            live.remove(p)
+            # The sentinel closes as the process exits, a moment before
+            # it can be reaped: wait for its exit code.
+            p.join(5)
+            if p.exitcode == 0 and stopping.is_set():
+                continue
+            print(f"serve: tensor-parallel {p.name} exited with code "
+                  f"{p.exitcode}; stopping the replica", flush=True)
+            for q in procs:
+                if q.is_alive():
+                    q.kill()
+            shutil.rmtree(rendezvous, ignore_errors=True)
+            os._exit(1)
+
+
+def _serve(srv: Server, cfg: ModelConfig,
+           stopping: Optional[threading.Event] = None) -> None:
+    """Answer until SIGTERM or SIGINT, then drain and stop (setting
+    ``stopping`` first)."""
     stopper: List[threading.Thread] = []
 
     def on_signal(signum, frame):
         if not stopper:
             print(f"serve: caught {signal.Signals(signum).name}", flush=True)
+            if stopping is not None:
+                stopping.set()
             stopper.append(threading.Thread(target=srv.shutdown,
                                             name="serve-shutdown"))
             stopper[0].start()
@@ -1481,12 +1680,99 @@ def main() -> int:
     print(f"serve: {cfg.name} ready on port {srv.port}", flush=True)
     srv.serve_forever()
     stopper[0].join()
+
+
+def main(backend: Optional[str] = None) -> int:
+    """The serving container's entry point. ``mesh_tensor: N`` > 1 serves
+    one tensor-parallel replica over N processes, one per GPU: this
+    process is rank 0 (HTTP, the worker, the scheduler) and starts ranks
+    1..N-1 itself. ``backend``: "nccl" (default, rank r on cuda:r) or,
+    when the caller asks, "gloo" on the CPU."""
+    params = contract.load_params()
+    refuse_unported(params)
+    mc = serve_mesh(params)
+    if mc is not None and mc.tensor > 1:
+        return _main_tensor_parallel(params, mc.tensor, backend or "nccl")
+    # Kernels build into and load from <artifacts>/kernel_cache: a
+    # restarted server loads K1 instead of running nvcc again.
+    cuda_build.use_kernel_cache(
+        cuda_build.kernel_cache_dir(contract.artifacts_dir()))
+    cfg, model_params = load_model(params)
+    tokenizer = load_tokenizer(params.get("tokenizer"))
+    srv = create_server(cfg, model_params, tokenizer,
+                        **_server_options(params))
+    _serve(srv, cfg)
     # The flash forward kernel's launches over the process's life, for a
     # caller that reads the log (its wrapper counts only CUDA launches).
     print(json.dumps({"stopped": True,
                       "flash_fwd_launches": flash_attention.launches}),
           flush=True)
     return 0
+
+
+def _main_tensor_parallel(params: dict, world: int, backend: str) -> int:
+    """Rank 0 of a tensor-parallel replica: start the followers, serve,
+    and on SIGTERM drain, release and join every follower, exit 0."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
+    if backend == "nccl":
+        n = torch.cuda.device_count()
+        if world > n:
+            raise RuntimeError(
+                f"mesh_tensor={world} needs {world} GPUs (one process per "
+                f"GPU) but torch.cuda.device_count() is {n}")
+    cuda_build.use_kernel_cache(
+        cuda_build.kernel_cache_dir(contract.artifacts_dir()))
+    rendezvous = tempfile.mkdtemp(prefix="rbt-tp-")
+    store_path = os.path.join(rendezvous, "store")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_follower_main,
+                         args=(r, world, store_path, backend),
+                         name=f"rank {r}", daemon=True)
+             for r in range(1, world)]
+    for p in procs:
+        p.start()
+    stopping, served = threading.Event(), threading.Event()
+    guard = threading.Thread(target=_watch_followers,
+                             args=(procs, stopping, served, rendezvous),
+                             name="tp-watch", daemon=True)
+    guard.start()
+    try:
+        mesh, dev = _join_mesh(0, world, store_path, backend)
+        cfg, model_params = load_model(params, device=dev, shard=(world, 0))
+        srv = create_server(cfg, model_params,
+                            load_tokenizer(params.get("tokenizer")),
+                            mesh=mesh, **_server_options(params))
+        print(f"serve: tensor-parallel replica of {world} ranks "
+              f"({backend}); plan {srv.worker.engine.tp.plan.describe()}",
+              flush=True)
+        _serve(srv, cfg, stopping)
+        served.set()
+        guard.join()
+        for p in procs:
+            p.join(30)
+        alive = [p.name for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        codes = [p.exitcode for p in procs]
+        print(json.dumps({"stopped": True, "ranks": world,
+                          "follower_exit_codes": codes,
+                          "flash_fwd_launches": flash_attention.launches}),
+              flush=True)
+        return 0 if not alive and all(c == 0 for c in codes) else 1
+    finally:
+        stopping.set()
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+        distributed.shutdown()
+        shutil.rmtree(rendezvous, ignore_errors=True)
 
 
 if __name__ == "__main__":

@@ -57,7 +57,16 @@
   FLOPs and bytes measured at warmup's first dispatch) and the build
   sentinel's steady mark after warmup.
 
-A later slice adds the mesh; its knobs are absent here.
+- Tensor-parallel serving (``mesh=``, a DeviceMesh whose ``tensor`` axis
+  is above 1; parallel/): one process per GPU, each engine holding its
+  rank's shard of the weights and of the KV cache (parallel/sharding
+  .TensorPlan). Rank 0 alone runs the scheduler, the queue, the prefix
+  cache's LRU, the page tables and the HTTP front end: every device
+  program goes through one choke point (``_program``), where rank 0 sends
+  the program's name and host operands to the followers, which run the
+  same program on their shards (``serve_follower``). Sampled ids are
+  rank 0's (broadcast inside the decode loop), so every rank feeds the
+  same tokens forward.
 """
 
 from __future__ import annotations
@@ -85,8 +94,18 @@ from runbooks_tpu_torch.obs import flight as obs_flight
 from runbooks_tpu_torch.obs import metrics as obs_metrics
 from runbooks_tpu_torch.obs.trace import complete as trace_complete
 from runbooks_tpu_torch.obs.trace import record_enabled, span
-from runbooks_tpu_torch.ops.quantization import dequantize_kv, quantize_kv
+from runbooks_tpu_torch.ops.quantization import (
+    QuantizedArray,
+    dequantize_kv,
+    quantize_kv,
+)
 from runbooks_tpu_torch.ops.sampling import sample, speculative_verify
+from runbooks_tpu_torch.parallel.mesh import check_serving_mesh, mesh_config_of
+from runbooks_tpu_torch.parallel.sharding import (
+    TensorParallel,
+    serve_plan,
+    shard_params,
+)
 from runbooks_tpu_torch.serve.grammar import (
     GrammarCache,
     GrammarError,
@@ -99,6 +118,7 @@ from runbooks_tpu_torch.serve.speculative import (
 )
 from runbooks_tpu_torch.utils import cuda_build
 from runbooks_tpu_torch.utils.hw import backend_tuning
+from runbooks_tpu_torch.utils.tree import tree_leaves, tree_map
 
 # QoS classes, best first: admission orders the queue by class (FIFO
 # within a class). The strings are the public API (the HTTP `priority`
@@ -252,9 +272,22 @@ def auto_prefix_plens(buckets: List[int], max_seq_len: int) -> List[int]:
     return [b for b in buckets if b <= max_seq_len - 16]
 
 
+# Seconds a tensor-parallel leader may stay silent before it tells its
+# followers it is alive (each follower waits for the next program call
+# inside a collective, which carries the group's finite timeout).
+HEARTBEAT_S = 5.0
+
+
+def local_kv_heads(cfg: ModelConfig, tp: Optional[TensorParallel]) -> int:
+    """The kv heads one rank's cache holds (all of them without ``tp``)."""
+    if tp is None:
+        return cfg.num_kv_heads
+    return len(tp.plan.kv_head_ids(tp.rank))
+
+
 def _scratch_rows(cfg: ModelConfig, rows: int, cache_len: int,
-                  device) -> KVCache:
-    shape = (cfg.num_layers, rows, cache_len, cfg.num_kv_heads,
+                  device, tp: Optional[TensorParallel] = None) -> KVCache:
+    shape = (cfg.num_layers, rows, cache_len, local_kv_heads(cfg, tp),
              cfg.head_dim)
     return KVCache(k=torch.zeros(shape, dtype=cfg.activation_dtype,
                                  device=device),
@@ -262,7 +295,8 @@ def _scratch_rows(cfg: ModelConfig, rows: int, cache_len: int,
                                  device=device))
 
 
-def make_prefill_fn(cfg: ModelConfig, cache_len: int):
+def make_prefill_fn(cfg: ModelConfig, cache_len: int,
+                    tp: Optional[TensorParallel] = None):
     """Batched prefill + splice + first-token sample for one admission
     group. ``pool`` is the slot cache, updated in place and returned.
     With ``prefix`` = (pk, pv, n): a registered shared prefix's K/V
@@ -276,7 +310,8 @@ def make_prefill_fn(cfg: ModelConfig, cache_len: int):
 
     The scratch rows stay in the activation dtype when the pool is int8,
     so prefill attention runs at full precision; each row is quantized
-    exactly once at the splice."""
+    exactly once at the splice. ``tp``: one tensor-parallel rank's
+    program, on its shards (the logits come back whole)."""
 
     def prefill_fn(params, pool: KVCache, tokens, positions, slots,
                    last_pos, generator, temps, top_ks, top_ps,
@@ -288,7 +323,7 @@ def make_prefill_fn(cfg: ModelConfig, cache_len: int):
         # Padding rows carry slots[0] as their destination; the splice
         # runs in DESCENDING row order so the real row 0 lands last.
         rows = tokens.shape[0]
-        scratch = _scratch_rows(cfg, rows, cache_len, tokens.device)
+        scratch = _scratch_rows(cfg, rows, cache_len, tokens.device, tp)
         if prefix is not None:
             # Exactly plen slots: no padding key a suffix query could
             # attend.
@@ -298,7 +333,7 @@ def make_prefill_fn(cfg: ModelConfig, cache_len: int):
             scratch.v[:, :n, :plen] = pv[:, None]
         x, scratch = forward(cfg, params, tokens, positions=positions,
                              cache=scratch, return_activations=True,
-                             adapters=adapters)
+                             adapters=adapters, tp=tp)
         for r in range(rows - 1, -1, -1):
             k, v = scratch.k[:, r], scratch.v[:, r]
             if pool.quantized:
@@ -309,7 +344,7 @@ def make_prefill_fn(cfg: ModelConfig, cache_len: int):
         # The head runs on each row's last real position only: the
         # [rows, bucket, vocab] f32 logits are never built.
         rows_idx = torch.arange(rows, device=tokens.device)
-        last_logits = lm_head(cfg, params, x[rows_idx, last_pos])
+        last_logits = lm_head(cfg, params, x[rows_idx, last_pos], tp)
         first = sample(last_logits, generator, temps, top_ks, top_ps,
                        gmask=gmask)
         return first, pool, last_logits
@@ -317,23 +352,25 @@ def make_prefill_fn(cfg: ModelConfig, cache_len: int):
     return prefill_fn
 
 
-def make_prefix_build_fn(cfg: ModelConfig, cache_len: int):
+def make_prefix_build_fn(cfg: ModelConfig, cache_len: int,
+                         tp: Optional[TensorParallel] = None):
     """The prefix-K/V build: one bucket-width row (padding at the trash
     slot), K/V [L, cache_len, kv_h, d] returned whole; the caller slices
     to the prefix's length. Its launch shapes are the one-row prefill's
     at each bucket."""
 
     def prefix_build_fn(params, tokens, positions):
-        scratch = _scratch_rows(cfg, 1, cache_len, tokens.device)
+        scratch = _scratch_rows(cfg, 1, cache_len, tokens.device, tp)
         _, scratch = forward(cfg, params, tokens, positions=positions,
-                             cache=scratch, return_activations=True)
+                             cache=scratch, return_activations=True, tp=tp)
         return scratch.k[:, 0], scratch.v[:, 0]
 
     return prefix_build_fn
 
 
 def make_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
-                   pad_slot: int, view: int):
+                   pad_slot: int, view: int,
+                   tp: Optional[TensorParallel] = None):
     """`chunk` decode steps with per-slot liveness tracked on the device by
     exactly the host's finish rules (EOS, max_tokens budget, cache out of
     room), so the host can replay (tokens, valid) and land in the same
@@ -343,7 +380,9 @@ def make_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
     the chunk's start. It stays fixed over the chunk, so it is exact for
     the first step only: the host takes one token per chunk from a
     constrained slot (InferenceEngine._replay_chunk). ``adapters`` (a
-    pooled engine): (adapter pool, each slot's lane [B])."""
+    pooled engine): (adapter pool, each slot's lane [B]). ``tp``: one
+    tensor-parallel rank's program; each step's sampled ids are rank 0's
+    (``sample_ids``)."""
 
     def decode_fn(params, cache, tokens, positions, generator,
                   temperature, top_k, top_p, eos_ids, remaining, active,
@@ -355,9 +394,10 @@ def make_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
             p = torch.where(alive, pos, pad_slot)
             logits, cache = forward(cfg, params, tok[:, None],
                                     positions=p[:, None], cache=cache,
-                                    cache_view=view, adapters=adapters)
-            nxt = sample(logits[:, -1], generator, temperature, top_k,
-                         top_p, gmask=gmask).to(tok.dtype)
+                                    cache_view=view, adapters=adapters,
+                                    tp=tp)
+            nxt = sample_ids(tp, logits[:, -1], generator, temperature,
+                             top_k, top_p, gmask).to(tok.dtype)
             nxt = torch.where(alive, nxt, tok)
             toks.append(nxt)
             valid.append(alive)
@@ -371,8 +411,20 @@ def make_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
     return decode_fn
 
 
+def sample_ids(tp: Optional[TensorParallel], logits, generator, temperature,
+               top_k, top_p, gmask=None) -> torch.Tensor:
+    """``ops/sampling.sample``; under tensor parallelism the ids rank 0
+    drew, broadcast, so every rank feeds the same tokens forward (each
+    rank's logits are the same gathered logits, but its generator is its
+    own)."""
+    ids = sample(logits, generator, temperature, top_k, top_p, gmask=gmask)
+    if tp is not None and tp.size > 1:
+        ids = tp.broadcast(ids)
+    return ids
+
+
 def make_verify_fn(cfg: ModelConfig, draft_tokens: int, pad_slot: int,
-                   view: int):
+                   view: int, tp: Optional[TensorParallel] = None):
     """One batched draft-verify forward for speculative decoding: K
     drafted tokens per slot scored in a single ``[B, K+1]`` forward.
     ``tokens[:, 0]`` is each slot's carry-in token (the last sampled one,
@@ -401,7 +453,7 @@ def make_verify_fn(cfg: ModelConfig, draft_tokens: int, pad_slot: int,
         pos = torch.where(live, positions[:, None] + offs, pad_slot)
         logits, cache = forward(cfg, params, tokens, positions=pos,
                                 cache=cache, cache_view=view,
-                                adapters=adapters)
+                                adapters=adapters, tp=tp)
         accept, resid, full = speculative_verify(
             logits, tokens[:, 1:], generator, temperature, top_k, top_p,
             gmask=gmask)
@@ -436,7 +488,8 @@ class InferenceEngine:
                  adapter_pool: Optional[int] = None,
                  lora_rank: Optional[int] = None,
                  adapter_dir: Optional[str] = None,
-                 quantize_kv: Optional[bool] = None):
+                 quantize_kv: Optional[bool] = None,
+                 mesh=None):
         """params live on the engine's device (CUDA, or the CPU when the
         caller put them there); every tensor the engine makes follows.
 
@@ -496,15 +549,39 @@ class InferenceEngine:
 
         RBT_FAULT_INJECT=swapfail:K (environment) makes the K-th host-tier
         page copy fail once, so the degrade-to-drop and
-        degrade-to-recompute paths can be exercised."""
+        degrade-to-recompute paths can be exercised.
+
+        mesh: a torch.distributed.device_mesh.DeviceMesh (parallel/mesh
+        .make_mesh) to serve one replica over its ``tensor`` axis, one
+        process per device. ``params`` is then the full tree or the
+        rank's shard (serve/api.load_model's ``shard``), on any device:
+        each rank keeps its shard (parallel/sharding.serve_plan,
+        shard_params) on its own device. Every rank builds the engine with
+        the same arguments; rank 0 drives it and the others run
+        ``serve_follower``. Other axes above 1, quantized weights or KV,
+        the adapter pool, the host tier, preemption and collective_matmul
+        are refused by name under a mesh."""
         check_supported(cfg)
         self.cfg = cfg
-        self.params = params
-        self.device = params["embed"].device
         if quantize_kv is None:
             quantize_kv = (cfg.quantize_kv if cfg.quantize_kv is not None
                            else cfg.quantize != "none")
         self.quantize_kv = bool(quantize_kv)
+        # The tensor-parallel state: this rank's view of the group (None
+        # without a mesh of tensor > 1), whether this engine drives
+        # followers, and the choke point's nesting depth.
+        self.mesh = mesh
+        self.tp: Optional[TensorParallel] = None
+        self._leader = False
+        self._program_depth = 0
+        self._last_send = time.monotonic()
+        if mesh is not None:
+            params = self._mesh_params(
+                params, mesh, preemption,
+                int(adapter_pool if adapter_pool is not None
+                    else cfg.adapter_pool))
+        self.params = params
+        self.device = params["embed"].device
         tuning = backend_tuning(self.device)
         if decode_chunk is None:
             decode_chunk = tuning["decode_chunk"]
@@ -629,8 +706,9 @@ class InferenceEngine:
         self.prefill_buckets = _buckets(self.max_seq_len)
         self.view_buckets = view_buckets_for(self.max_seq_len)
         self.steps = 0
-        self._prefill = make_prefill_fn(cfg, self.max_seq_len + 1)
-        self._prefix_build = make_prefix_build_fn(cfg, self.max_seq_len + 1)
+        self._prefill = make_prefill_fn(cfg, self.max_seq_len + 1, self.tp)
+        self._prefix_build = make_prefix_build_fn(cfg, self.max_seq_len + 1,
+                                                  self.tp)
         self._decode_fns: dict = {}
         self._verify_fns: dict = {}
         # Device-level observability (obs/device.py): a kernel build after
@@ -654,10 +732,57 @@ class InferenceEngine:
         self.prefix_lookups = 0
         self.prefix_hits = 0
 
+    def _mesh_params(self, params: Params, mesh, preemption: str,
+                     pool_size: int) -> Params:
+        """Validate a serving mesh, set up this rank's TensorParallel and
+        return its shard of ``params`` on its device."""
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if not isinstance(mesh, DeviceMesh):
+            raise ValueError(
+                f"mesh must be a torch.distributed.device_mesh.DeviceMesh, "
+                f"got {type(mesh).__name__}")
+        mc = mesh_config_of(mesh)
+        check_serving_mesh(mc)
+        if mc.tensor > 1:
+            refused = []
+            if self.quantize_kv or any(
+                    isinstance(leaf, QuantizedArray)
+                    for leaf in tree_leaves(params)):
+                refused.append("quantized weights and the int8 KV cache")
+            if pool_size > 0:
+                refused.append("the adapter pool (adapter_pool)")
+            if preemption != "off":
+                refused.append(f"preemption={preemption!r}")
+            if self.cfg.collective_matmul != "off":
+                refused.append(
+                    f"collective_matmul={self.cfg.collective_matmul!r}")
+            refused += self._mesh_refusals()
+            if refused:
+                raise NotImplementedError(
+                    f"{', '.join(refused)} under a mesh (mesh_tensor="
+                    f"{mc.tensor}): not ported yet (ROADMAP.md §1); serve "
+                    f"without it or on one device")
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if mesh.device_type == "cuda" else torch.device("cpu"))
+        if mc.tensor > 1:
+            rank = mesh.get_local_rank("tensor")
+            self.tp = TensorParallel(serve_plan(self.cfg, mc.tensor), rank,
+                                     mesh.get_group("tensor"))
+            self._leader = rank == 0
+            params = shard_params(params, self.tp.plan, rank)
+        return tree_map(lambda t: t.to(dev), params)
+
+    def _mesh_refusals(self) -> List[str]:
+        """Engine-specific features refused under a mesh (the paged
+        engine's host tier)."""
+        return []
+
     def _new_cache(self) -> KVCache:
         return KVCache.create(self.cfg, self.max_slots, self.max_seq_len,
                               self.device, trash_slot=True,
-                              quantize_kv=self.quantize_kv)
+                              quantize_kv=self.quantize_kv,
+                              kv_heads=local_kv_heads(self.cfg, self.tp))
 
     def _register_programs(self) -> None:
         """The entry points of the census: prefill (its prefix splice is
@@ -674,7 +799,7 @@ class InferenceEngine:
         if view not in self._decode_fns:
             self._decode_fns[view] = make_decode_fn(
                 self.cfg, self.decode_chunk, self.max_seq_len,
-                self._pad_slot, view)
+                self._pad_slot, view, self.tp)
             obs_device.PROGRAMS.register("serve", f"decode_v{view}",
                                          self._decode_fns[view])
         return self._decode_fns[view]
@@ -682,7 +807,7 @@ class InferenceEngine:
     def _verify_for(self, view: int):
         if view not in self._verify_fns:
             self._verify_fns[view] = make_verify_fn(
-                self.cfg, self.draft_tokens, self._pad_slot, view)
+                self.cfg, self.draft_tokens, self._pad_slot, view, self.tp)
             obs_device.PROGRAMS.register("serve", f"verify_v{view}",
                                          self._verify_fns[view])
         return self._verify_fns[view]
@@ -693,6 +818,75 @@ class InferenceEngine:
         with torch.profiler.record_function(f"{kind}_dispatch"):
             yield
         self.dispatch_seconds[kind] += time.perf_counter() - t0
+
+    # -- the choke point of every device program -----------------------
+
+    def _program(self, name: str, *args, **kwargs):
+        """Run device program ``name`` (the method ``_p_<name>``) on host
+        operands. A tensor-parallel leader first sends the call to every
+        follower, which runs the same method on its shards; a call made
+        inside another (warmup's) rides the outer one."""
+        if self._leader and self._program_depth == 0:
+            self._send((name, args, kwargs))
+        self._program_depth += 1
+        try:
+            return getattr(self, "_p_" + name)(*args, **kwargs)
+        finally:
+            self._program_depth -= 1
+
+    def _exchange(self, msg=None):
+        """Rank 0's ``msg`` on every rank of the group (host objects,
+        pickled; the leader sends, a follower receives)."""
+        import torch.distributed as dist
+
+        box = [msg]
+        kw = ({"device": self.device} if self.device.type == "cuda"
+              and dist.get_backend(self.tp.group) == "nccl" else {})
+        dist.broadcast_object_list(box, src=self.tp._leader(),
+                                   group=self.tp.group, **kw)
+        return box[0]
+
+    def _send(self, msg) -> None:
+        self._exchange(msg)
+        self._last_send = time.monotonic()
+
+    def heartbeat(self) -> None:
+        """Called by an idle serving loop: a leader silent for HEARTBEAT_S
+        tells its followers it is alive, so their wait for the next call
+        never reaches the group's timeout while the server idles."""
+        if self._leader and time.monotonic() - self._last_send > HEARTBEAT_S:
+            self._send(("noop", (), {}))
+
+    def stop_followers(self) -> None:
+        """Release the followers' loops (a leader's last message)."""
+        if self._leader:
+            self._send(("stop", (), {}))
+            self._leader = False
+
+    def serve_follower(self) -> None:
+        """A follower rank's life: run each program call rank 0 sends, on
+        this rank's shards, until rank 0 says stop. Rank 0's host state
+        (queue, slots, page tables, the prefix LRU) has no copy here."""
+        if self.tp is None or self.tp.rank == 0:
+            raise RuntimeError("serve_follower runs on a follower rank of "
+                               "a tensor-parallel mesh")
+        with torch.no_grad():
+            while True:
+                name, args, kwargs = self._exchange()
+                if name == "stop":
+                    return
+                if name != "noop":
+                    self._program(name, *args, **kwargs)
+
+    def _dev(self, a):
+        return a if isinstance(a, torch.Tensor) else self._tensor(a)
+
+    def _operand_kwargs(self, gmask=None, aslots=None) -> dict:
+        """A program's optional operands on the device: the grammar mask
+        and, on a pooled engine, the adapter lanes (default each slot's)."""
+        kw = {} if gmask is None else {"gmask": self._dev(gmask)}
+        kw.update(self._adapter_kwargs(aslots))
+        return kw
 
     def _view_for(self, max_pos: int) -> int:
         """Smallest view bucket covering every query position this chunk
@@ -799,8 +993,7 @@ class InferenceEngine:
         request and reallocate the cache, which the step may have left
         half-written. Registered prefixes stay: their K/V are tensors of
         their own, which no step writes."""
-        self.cache = None
-        self.cache = self._new_cache()
+        self._program("reset_cache")
         self.lengths[:] = 0
         self.active[:] = False
         self.last_token[:] = 0
@@ -809,6 +1002,10 @@ class InferenceEngine:
         if self._spec_index is not None:
             self._spec_index.reset()
         self._reset_adapters()
+
+    def _p_reset_cache(self) -> None:
+        self.cache = None
+        self.cache = self._new_cache()
 
     def _reset_adapters(self) -> None:
         """Every in-flight request is gone, so no adapter lane stays
@@ -878,7 +1075,7 @@ class InferenceEngine:
             buckets=_INTER_TOKEN_BUCKETS,
             help_text="Host-side gmask operand build time per dispatch "
                       "(grammar-constrained decoding).")
-        return {"gmask": self._tensor(mask)}
+        return {"gmask": mask}
 
     def _grammar_prefill_kwargs(self, group: List[tuple], rows: int) -> dict:
         """[rows, vocab] allowed first tokens of one admission group."""
@@ -963,6 +1160,10 @@ class InferenceEngine:
         return out
 
     def warmup(self) -> None:
+        """Run ``_p_warmup`` (on every rank of a tensor-parallel mesh)."""
+        self._program("warmup")
+
+    def _p_warmup(self) -> None:
         """Build the kernels, then run one prefill per bucket at both row
         counts (1 and max_slots) and one decode chunk per cache view
         (and, with speculation on, one verify forward per view) before
@@ -1074,6 +1275,8 @@ class InferenceEngine:
             "programs": [{"name": c["name"], "programs": c["programs"]}
                          for c in census],
         }
+        if self.tp is not None and self.tp.rank:
+            return   # a follower: rank 0 reports and claims steady
         print(f"serve: warmup census: {self.warmup_census['prefill_programs']}"
               f" prefill shapes (buckets {self.prefill_buckets} x rows "
               f"{rows}), {len(views)} decode views {views}, {n_verify} "
@@ -1095,7 +1298,9 @@ class InferenceEngine:
         """Named tensor groups for obs/device.memory_snapshot: the
         weights, the slot-pool KV cache, the shared-prefix cache (copied
         first: an HTTP thread reads it while the worker registers and
-        evicts) and, on a pooled engine, the adapter pool."""
+        evicts) and, on a pooled engine, the adapter pool. Under a mesh
+        these are this rank's shards: its device's bytes, as the
+        reference's census counts each device's shard."""
         groups = {"weights": self.params,
                   "kv_cache": self.cache,
                   "prefix_cache": list(self._prefix_cache.copy().values())}
@@ -1117,10 +1322,15 @@ class InferenceEngine:
                 "slots_active": int(self.active.sum()),
                 "kv_tokens": tokens,
                 "kv_capacity_tokens": capacity,
-                "kv_pool_bytes": nbytes,
-                # One device holds the whole pool (no mesh in the port).
+                "kv_pool_bytes": self._logical_kv_bytes(nbytes),
+                # This device's share: its kv heads under a mesh.
                 "kv_pool_bytes_per_device": nbytes,
                 "occupancy_ratio": tokens / capacity if capacity else 0.0}
+
+    def _logical_kv_bytes(self, local: int) -> int:
+        """The whole pool's bytes (every kv head) from this rank's."""
+        return (local * self.cfg.num_kv_heads
+                // local_kv_heads(self.cfg, self.tp))
 
     def _free_slots(self, exclude=()) -> List[int]:
         return [i for i in range(self.max_slots)
@@ -1183,10 +1393,17 @@ class InferenceEngine:
         """LRU refresh: the most recently used key moves to the end."""
         self._prefix_cache[key] = self._prefix_cache.pop(key)
 
-    def _prefix_cache_put(self, key: tuple, kv: tuple) -> None:
+    def _prefix_evictions(self, key: tuple) -> list:
+        """The keys that putting ``key`` evicts: the least recently used
+        past prefix_cache_size. Decided by the host that owns the LRU
+        order (rank 0 of a mesh) and carried in the program call."""
+        order = list(self._prefix_cache) + [key]
+        return order[:max(0, len(order) - self.prefix_cache_size)]
+
+    def _prefix_cache_put(self, key: tuple, kv: tuple, drop: list) -> None:
         self._prefix_cache[key] = kv
-        if len(self._prefix_cache) > self.prefix_cache_size:
-            self._prefix_cache.pop(next(iter(self._prefix_cache)))
+        for k in drop:
+            self._prefix_cache.pop(k, None)
 
     def register_prefix(self, tokens: List[int]) -> int:
         """Compute and cache the K/V of a shared prompt prefix (a chat
@@ -1207,12 +1424,17 @@ class InferenceEngine:
         toks[0, :plen] = key
         pos = np.full((1, bucket), self._pad_slot, np.int32)
         pos[0, :plen] = np.arange(plen)
+        self._program("prefix_build", toks, pos, key,
+                      self._prefix_evictions(key))
+        return plen
+
+    def _p_prefix_build(self, toks, pos, key: tuple, drop: list) -> None:
         pk, pv = self._prefix_build(self.params, self._tensor(toks),
                                     self._tensor(pos))
         # Copies: the cache keeps [L, plen, kv_h, d], not the whole row.
+        plen = len(key)
         self._prefix_cache_put(key, (pk[:, :plen].clone(),
-                                     pv[:, :plen].clone()))
-        return plen
+                                     pv[:, :plen].clone()), drop)
 
     def register_prefix_from_slot(self, slot: int,
                                   tokens: List[int]) -> int:
@@ -1230,10 +1452,16 @@ class InferenceEngine:
         if key in self._prefix_cache:
             self._prefix_cache_hit(key)
             return 0
+        self._program("prefix_from_slot", slot, key,
+                      self._prefix_evictions(key))
+        return plen
+
+    def _p_prefix_from_slot(self, slot: int, key: tuple, drop: list) -> None:
         # Copies, not views of the pool, which a failed step may leave
         # broken and reset() replaces. An int8 pool's rows are
         # dequantized: the prefix cache stays in the activation dtype (the
         # splice prefill quantizes it again on admission).
+        plen = len(key)
         c = self.cache
         pk, pv = c.k[:, slot, :plen], c.v[:, slot, :plen]
         if c.quantized:
@@ -1242,8 +1470,7 @@ class InferenceEngine:
             pv = dequantize_kv(pv, c.v_scale[:, slot, :plen], ad)
         else:
             pk, pv = pk.clone(), pv.clone()
-        self._prefix_cache_put(key, (pk, pv))
-        return plen
+        self._prefix_cache_put(key, (pk, pv), drop)
 
     def has_prefix(self, tokens: List[int]) -> bool:
         """True when register_prefix(tokens) would be a cache hit."""
@@ -1369,28 +1596,35 @@ class InferenceEngine:
             temps[i] = req.temperature
             top_ks[i] = req.top_k
             top_ps[i] = req.top_p
-        prefix = None
         if pkey:
             # An admission hit refreshes the LRU: the prefix serving live
             # traffic is not the one evicted.
-            pk, pv = self._prefix_cache[pkey]
             self._prefix_cache_hit(pkey)
-            prefix = (pk, pv, n)
         with self._prefill_span(bucket, rows, plen, group):
-            first, self.cache, _ = self._prefill(
-                self.params, self.cache, self._tensor(tokens),
-                self._tensor(positions), slots, self._tensor(last_pos),
-                self.generator, self._tensor(temps), self._tensor(top_ks),
-                self._tensor(top_ps), prefix=prefix,
-                **self._grammar_prefill_kwargs(group, rows),
-                **self._adapter_kwargs(aslots))
-            # The first tokens must reach the host to stream: the
-            # dispatch's one sync.
-            first = first.cpu().numpy()
+            first = self._program(
+                "prefill", tokens, positions, slots, last_pos, temps,
+                top_ks, top_ps, pkey, n, aslots=aslots,
+                **self._grammar_prefill_kwargs(group, rows))
         self.prefix_tokens_reused += plen * n
         self.prefill_dispatches += 1
         for i, (slot, req) in enumerate(group):
             self._activate_slot(slot, req, int(first[i]))
+
+    def _p_prefill(self, tokens, positions, slots, last_pos, temps, top_ks,
+                   top_ps, pkey: Optional[tuple] = None, n: int = 0,
+                   gmask=None, aslots=None):
+        t = self._tensor
+        prefix = None
+        if pkey:
+            pk, pv = self._prefix_cache[pkey]
+            prefix = (pk, pv, n)
+        first, self.cache, _ = self._prefill(
+            self.params, self.cache, t(tokens), t(positions), slots,
+            t(last_pos), self.generator, t(temps), t(top_ks), t(top_ps),
+            prefix=prefix, **self._operand_kwargs(gmask, aslots))
+        # The first tokens must reach the host to stream: the dispatch's
+        # one sync.
+        return first.cpu().numpy()
 
     def _activate_slot(self, slot: int, req: Request,
                        first_tok: int) -> None:
@@ -1706,15 +1940,21 @@ class InferenceEngine:
         this step can write (L + K), with the verdicts on the host."""
         view = self._view_for(int(self.lengths[self.active].max())
                               + self.draft_tokens + 1)
-        t = self._tensor
         with self._step_span("verify", view, drafted=int(draft_len.sum())):
-            accept, resid, full, self.cache = self._verify_for(view)(
-                self.params, self.cache, t(tokens), t(positions),
-                t(draft_len), self.generator, t(temps), t(top_ks),
-                t(top_ps), t(self.active), **gkw, **self._adapter_kwargs())
-            # One host sync per verify step.
-            return (accept.cpu().numpy(), resid.cpu().numpy(),
-                    full.cpu().numpy())
+            return self._program("verify", view, tokens, positions,
+                                 draft_len, temps, top_ks, top_ps,
+                                 self.active, **gkw)
+
+    def _p_verify(self, view, tokens, positions, draft_len, temps, top_ks,
+                  top_ps, active, gmask=None):
+        t = self._tensor
+        accept, resid, full, self.cache = self._verify_for(view)(
+            self.params, self.cache, t(tokens), t(positions), t(draft_len),
+            self.generator, t(temps), t(top_ks), t(top_ps), t(active),
+            **self._operand_kwargs(gmask))
+        # One host sync per verify step.
+        return (accept.cpu().numpy(), resid.cpu().numpy(),
+                full.cpu().numpy())
 
     def _decode_span_attrs(self) -> dict:
         """Decode and verify span attributes, built only when something
@@ -1769,17 +2009,21 @@ class InferenceEngine:
         view = self._view_for(int(self.lengths[self.active].max())
                               + self.decode_chunk)
         with self._step_span("decode", view):
-            toks, valid, self.cache = self._decode_for(view)(
-                self.params, self.cache, self._tensor(self.last_token),
-                self._tensor(positions), self.generator,
-                self._tensor(temps), self._tensor(top_ks),
-                self._tensor(top_ps), self._tensor(eos_ids),
-                self._tensor(remaining), self._tensor(self.active),
-                **self._grammar_decode_kwargs(), **self._adapter_kwargs())
-            # One host sync per chunk.
-            toks = toks.cpu().numpy()            # [chunk, slots]
-            valid = valid.cpu().numpy()          # [chunk, slots] bool
+            toks, valid = self._program(
+                "decode", view, self.last_token, positions, temps, top_ks,
+                top_ps, eos_ids, remaining, self.active,
+                **self._grammar_decode_kwargs())
         return self._replay_chunk(toks, valid)
+
+    def _p_decode(self, view, last_token, positions, temps, top_ks, top_ps,
+                  eos_ids, remaining, active, gmask=None):
+        t = self._tensor
+        toks, valid, self.cache = self._decode_for(view)(
+            self.params, self.cache, t(last_token), t(positions),
+            self.generator, t(temps), t(top_ks), t(top_ps), t(eos_ids),
+            t(remaining), t(active), **self._operand_kwargs(gmask))
+        # One host sync per chunk: [chunk, slots] ids and validity.
+        return toks.cpu().numpy(), valid.cpu().numpy()
 
     def generate(self, requests: List[Request],
                  timeout_s: float = 600.0) -> List[Request]:

@@ -1074,6 +1074,9 @@ def create_gateway(targets: Optional[Dict[str, str]] = None, *,
                     # The client went away or the stream outlived the
                     # deadline: the connection closes mid-stream.
                     return resp.status
+                # The stream is close-delimited: the client's end of it
+                # comes after this handler returns.
+                self._observe_hop(name, t_hop)
             else:
                 try:
                     payload = resp.read()
@@ -1090,15 +1093,20 @@ def create_gateway(targets: Optional[Dict[str, str]] = None, *,
                                    f"{exc}", "type": "unreachable"}},
                         rid, tp_out)
                 headers.setdefault("traceparent", tp_out)
+                # Observed before the answer leaves: a client that reads
+                # /metrics right after its answer sees this call counted.
+                self._observe_hop(name, t_hop)
                 self._send(resp.status, payload,
                            ctype.split(";")[0] or "application/json",
                            headers)
+            return resp.status
+
+        def _observe_hop(self, name: str, t_hop: float) -> None:
             reg.observe(
                 "gateway_proxy_latency_seconds",
                 time.perf_counter() - t_hop, backend=name,
                 help_text="Wall time of the proxied replica call, "
                           "per backend.")
-            return resp.status
 
     httpd = _GatewayHTTPServer((host, port), Handler)
     return Gateway(httpd, router, poller, scrape_interval_s)

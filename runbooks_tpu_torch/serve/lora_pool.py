@@ -35,6 +35,7 @@ from typing import Dict, List, Optional
 import torch
 
 from runbooks_tpu_torch.models.config import ModelConfig
+from runbooks_tpu_torch.models.transformer import param_logical_axes
 from runbooks_tpu_torch.ops.lora import (
     init_adapter_pool,
     nest_targets,
@@ -176,12 +177,26 @@ def load_adapter_tree(path: str, cfg: ModelConfig, targets, rank: int):
     return nest_targets(flat)
 
 
-def load_merge_adapter(path: str, cfg: ModelConfig, base_params):
+def load_merge_adapter(path: str, cfg: ModelConfig, base_params, cut=None):
     """Base params with one adapter artifact folded in (train/lora.py
     apply_lora: what the trainer's merge would produce), on the base's
     device. The single-tenant path and the pooled path's parity oracle.
-    Raises AdapterLoadError when the artifact does not fit."""
+    Raises AdapterLoadError when the artifact does not fit. ``cut`` (a
+    tensor-parallel rank's parallel/sharding.shard_leaf) when the base is
+    that rank's shard: each pair is cut to its weight's local columns (a
+    by the weight's input axis, b by its output axis), so the fold is the
+    shard of the full fold."""
     lora = _restore_lora(path)
+    if cut is not None:
+        axes = param_logical_axes(cfg)["layers"]
+        for target, ab in lora.items():
+            group, _, name = target.partition(".")
+            w_axes = axes.get(group, {}).get(name)
+            if w_axes is not None and isinstance(ab, dict) and {
+                    "a", "b"} <= set(ab):
+                layers_ax, in_ax, out_ax = w_axes
+                ab["a"] = cut(ab["a"], (layers_ax, in_ax, None))
+                ab["b"] = cut(ab["b"], (layers_ax, None, out_ax))
     layers = base_params["layers"]
     for target, ab in lora.items():
         group, _, name = target.partition(".")

@@ -71,8 +71,11 @@ from runbooks_tpu_torch.serve.engine import (
     Params,
     Request,
     _scratch_rows,
+    local_kv_heads,
+    sample_ids,
     view_buckets_for,
 )
+from runbooks_tpu_torch.parallel.mesh import mesh_config_of
 from runbooks_tpu_torch.utils import cuda_build
 
 # ---------------------------------------------------------------------------
@@ -97,9 +100,13 @@ class PagePool:
 
     @classmethod
     def create(cls, cfg: ModelConfig, num_pages: int, page_size: int,
-               device, quantize_kv: bool = False) -> "PagePool":
+               device, quantize_kv: bool = False,
+               kv_heads: Optional[int] = None) -> "PagePool":
+        """``kv_heads``: the kv heads the pool holds (default all; a
+        tensor-parallel rank holds its own)."""
         shape = (cfg.num_layers, num_pages + 1, page_size,
-                 cfg.num_kv_heads, cfg.head_dim)
+                 cfg.num_kv_heads if kv_heads is None else kv_heads,
+                 cfg.head_dim)
         if quantize_kv:
             return cls(
                 k=torch.zeros(shape, dtype=torch.int8, device=device),
@@ -689,7 +696,7 @@ def write_back(pool: PagePool, view: KVCache, page_tables: torch.Tensor,
 
 
 def make_paged_prefill_fn(cfg: ModelConfig, cache_len: int,
-                          page_size: int, num_pages: int):
+                          page_size: int, num_pages: int, tp=None):
     """Batched paged prefill + first-token sample, one dispatch per
     admission group. Rows prefill into fresh scratch rows (the dense
     prefill's discipline); a shared prefix is GATHERED from its pages into
@@ -701,7 +708,8 @@ def make_paged_prefill_fn(cfg: ModelConfig, cache_len: int,
     Returns (first tokens, pool, last-position logits [rows, vocab] f32).
     An int8 pool's prefix pages are dequantized into the scratch rows,
     which stay in the activation dtype (K1 runs as ever), and the suffix
-    is quantized as it scatters."""
+    is quantized as it scatters. ``tp``: one tensor-parallel rank's
+    program, on its kv heads."""
     trash_flat = num_pages * page_size      # token 0 of the trash page
     scratch_trash = cache_len - 1           # scratch rows' trash slot
 
@@ -714,7 +722,7 @@ def make_paged_prefill_fn(cfg: ModelConfig, cache_len: int,
         ad = cfg.activation_dtype
         flat_k, flat_v = pool.flat()
         flat_ks, flat_vs = pool.flat_scales()
-        scratch = _scratch_rows(cfg, rows, cache_len, dev)
+        scratch = _scratch_rows(cfg, rows, cache_len, dev, tp)
         r_idx = torch.arange(rows, device=dev)[:, None]
         if prefix_pages is not None and prefix_pages.shape[1] > 0:
             # Pages past a row's real prefix_len are trash-padded; their
@@ -734,7 +742,7 @@ def make_paged_prefill_fn(cfg: ModelConfig, cache_len: int,
             scratch.v[:, r_idx, sp] = gv
         x, scratch = forward(cfg, params, tokens, positions=positions,
                              cache=scratch, return_activations=True,
-                             adapters=adapters)
+                             adapters=adapters, tp=tp)
         # The suffix K/V to the rows' private pages, by the positions the
         # forward wrote them at; pad tokens sit at the scratch trash slot
         # and go to the trash page.
@@ -750,7 +758,8 @@ def make_paged_prefill_fn(cfg: ModelConfig, cache_len: int,
             sv, flat_vs[:, fi] = quantize_kv(sv)
         flat_k[:, fi] = sk
         flat_v[:, fi] = sv
-        last_logits = lm_head(cfg, params, x[r_idx[:, 0], last_pos.long()])
+        last_logits = lm_head(cfg, params, x[r_idx[:, 0], last_pos.long()],
+                              tp)
         first = sample(last_logits, generator, temps, top_ks, top_ps,
                        gmask=gmask)
         return first, pool, last_logits
@@ -759,14 +768,14 @@ def make_paged_prefill_fn(cfg: ModelConfig, cache_len: int,
 
 
 def make_paged_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
-                         page_size: int, view_pages: int):
+                         page_size: int, view_pages: int, tp=None):
     """``chunk`` decode steps over paged KV. The slots' pages are gathered
     ONCE into a contiguous [slots, view_pages*page_size + 1] view; each
     step attends the view and writes the token it wrote there back to its
     page, so the pool is exact when the chunk returns. Liveness (EOS,
     budget, room) is tracked on the device exactly as the dense decode
-    does, and dead rows park at the view's trash slot V. ``adapters``: as
-    the dense decode's."""
+    does, and dead rows park at the view's trash slot V. ``adapters`` and
+    ``tp``: as the dense decode's."""
     V = view_pages * page_size
 
     def paged_decode_fn(params, pool: PagePool, page_tables, tokens,
@@ -781,9 +790,9 @@ def make_paged_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
             p = torch.where(alive, pos, V)
             logits, view = forward(cfg, params, tok[:, None],
                                    positions=p[:, None], cache=view,
-                                   adapters=adapters)
-            nxt = sample(logits[:, -1], generator, temperature, top_k,
-                         top_p, gmask=gmask).to(tok.dtype)
+                                   adapters=adapters, tp=tp)
+            nxt = sample_ids(tp, logits[:, -1], generator, temperature,
+                             top_k, top_p, gmask).to(tok.dtype)
             nxt = torch.where(alive, nxt, tok)
             # Live positions are >= the slot's prompt length, past every
             # shared page, so a write never lands in a shared page.
@@ -801,14 +810,14 @@ def make_paged_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
 
 
 def make_paged_verify_fn(cfg: ModelConfig, draft_tokens: int,
-                         page_size: int, view_pages: int):
+                         page_size: int, view_pages: int, tp=None):
     """Speculative draft-verify over paged KV: one ``[B, K+1]`` forward
     (carry-in token + up to K drafts per slot) against the gathered view,
     with every live position's K/V written back to its page. The host
     rolls back rejected tokens by not advancing the slot's length; live
     positions are past every shared page, so rollback never touches one.
     The verdicts are the dense ``make_verify_fn``'s
-    (ops/sampling.speculative_verify); ``adapters`` as its."""
+    (ops/sampling.speculative_verify); ``adapters`` and ``tp`` as its."""
     K = draft_tokens
     V = view_pages * page_size
 
@@ -821,7 +830,7 @@ def make_paged_verify_fn(cfg: ModelConfig, draft_tokens: int,
         live = active[:, None] & (offs <= draft_len[:, None])
         pos = torch.where(live, positions[:, None] + offs, V)
         logits, view = forward(cfg, params, tokens, positions=pos,
-                               cache=view, adapters=adapters)
+                               cache=view, adapters=adapters, tp=tp)
         write_back(pool, view, page_tables, pos, live)
         accept, resid, full = speculative_verify(
             logits, tokens[:, 1:], generator, temperature, top_k, top_p,
@@ -1038,9 +1047,22 @@ class PagedInferenceEngine(InferenceEngine):
                  page_size: int = 16, num_pages: Optional[int] = None,
                  kv_host_pages: int = 0, mesh=None, **kwargs):
         if mesh is not None:
-            raise NotImplementedError(
-                "a serving mesh is not ported yet (ROADMAP.md §1, "
-                "multi-device): the paged engine runs on one device")
+            # The reference's geometry check: the pool shards its kv heads
+            # over `tensor`; the page tables, the allocator and the radix
+            # tree stay rank 0's host state.
+            from torch.distributed.device_mesh import DeviceMesh
+
+            if not isinstance(mesh, DeviceMesh):
+                raise ValueError(
+                    f"mesh must be a torch.distributed.device_mesh."
+                    f"DeviceMesh, got {type(mesh).__name__}")
+            tensor = mesh_config_of(mesh).tensor
+            if tensor > 1 and cfg.num_kv_heads % tensor:
+                raise ValueError(
+                    f"kv-heads not divisible by mesh_tensor: the paged "
+                    f"pool shards num_kv_heads={cfg.num_kv_heads} over "
+                    f"tensor={tensor}; pick mesh_tensor dividing the "
+                    f"kv-head count")
         self.page_size = int(page_size)
         self._num_pages_arg = num_pages
         if int(kv_host_pages) < 0:
@@ -1053,10 +1075,10 @@ class PagedInferenceEngine(InferenceEngine):
         # its copy's completion; a swap-in in its enqueue).
         self.swap_seconds = {d: collections.deque(maxlen=4096)
                              for d in ("out", "in")}
-        super().__init__(cfg, params, **kwargs)
+        super().__init__(cfg, params, mesh=mesh, **kwargs)
         cache_len = self.max_seq_len + 1
         self._paged_prefill = make_paged_prefill_fn(
-            cfg, cache_len, self.page_size, self.num_pages)
+            cfg, cache_len, self.page_size, self.num_pages, self.tp)
         self.view_page_buckets = view_page_buckets_for(self.max_seq_len,
                                                        self.page_size)
         self._swap_out_fn = make_kv_swap_out_fn()
@@ -1072,6 +1094,10 @@ class PagedInferenceEngine(InferenceEngine):
     def _register_programs(self) -> None:
         """The paged entry points register in __init__, once they exist;
         decode and verify per view-page bucket as they are made."""
+
+    def _mesh_refusals(self) -> List[str]:
+        return (["the host KV tier (kv_host_pages)"]
+                if self._kv_host_pages_arg > 0 else [])
 
     # -- storage -------------------------------------------------------
 
@@ -1109,7 +1135,8 @@ class PagedInferenceEngine(InferenceEngine):
             self.pager.radix.swap_out = self._kv_swap_out
             self.pager.swap_in = self._kv_swap_in
         return PagePool.create(self.cfg, self.num_pages, ps, self.device,
-                               quantize_kv=self.quantize_kv)
+                               quantize_kv=self.quantize_kv,
+                               kv_heads=local_kv_heads(self.cfg, self.tp))
 
     # -- host swap tier ------------------------------------------------
 
@@ -1157,7 +1184,7 @@ class PagedInferenceEngine(InferenceEngine):
         if view_pages not in self._decode_fns:
             self._decode_fns[view_pages] = make_paged_decode_fn(
                 self.cfg, self.decode_chunk, self.max_seq_len,
-                self.page_size, view_pages)
+                self.page_size, view_pages, self.tp)
             obs_device.PROGRAMS.register("serve", f"decode_p{view_pages}",
                                          self._decode_fns[view_pages])
         return self._decode_fns[view_pages]
@@ -1165,7 +1192,8 @@ class PagedInferenceEngine(InferenceEngine):
     def _verify_for(self, view_pages: int):
         if view_pages not in self._verify_fns:
             self._verify_fns[view_pages] = make_paged_verify_fn(
-                self.cfg, self.draft_tokens, self.page_size, view_pages)
+                self.cfg, self.draft_tokens, self.page_size, view_pages,
+                self.tp)
             obs_device.PROGRAMS.register("serve", f"verify_p{view_pages}",
                                          self._verify_fns[view_pages])
         return self._verify_fns[view_pages]
@@ -1178,7 +1206,7 @@ class PagedInferenceEngine(InferenceEngine):
                 return vp
         return self.view_page_buckets[-1]
 
-    def warmup(self) -> None:
+    def _p_warmup(self) -> None:
         """Build the kernels, then run one prefill per bucket at both row
         counts (1 and max_slots), one decode chunk (and, with speculation
         on, one verify forward) per view-page bucket, and, with the host
@@ -1466,22 +1494,29 @@ class PagedInferenceEngine(InferenceEngine):
             if nshared:
                 self.prefix_hits += 1
                 self.prefix_tokens_reused += plen
-        t = self._tensor
-        prefix = ({"prefix_pages": t(prefix_pages),
-                   "prefix_len": t(prefix_len)} if ppb else {})
         with self._prefill_span(bucket, rows, ppb * ps, group):
-            first, self.cache, _ = self._paged_prefill(
-                self.params, self.cache, t(tokens), t(positions),
-                t(dest_pages), t(last_pos), self.generator, t(temps),
-                t(top_ks), t(top_ps), **prefix,
-                **self._grammar_prefill_kwargs(group, rows),
-                **self._adapter_kwargs(aslots))
-            # The first tokens must reach the host to stream: the
-            # dispatch's one sync.
-            first = first.cpu().numpy()
+            first = self._program(
+                "paged_prefill", tokens, positions, dest_pages, last_pos,
+                temps, top_ks, top_ps, prefix_pages, prefix_len,
+                aslots=aslots, **self._grammar_prefill_kwargs(group, rows))
         self.prefill_dispatches += 1
         for i, (slot, req) in enumerate(group):
             self._activate_slot(slot, req, int(first[i]))
+
+    def _p_paged_prefill(self, tokens, positions, dest_pages, last_pos,
+                         temps, top_ks, top_ps, prefix_pages=None,
+                         prefix_len=None, gmask=None, aslots=None):
+        t = self._tensor
+        prefix = ({"prefix_pages": t(prefix_pages),
+                   "prefix_len": t(prefix_len)}
+                  if prefix_pages is not None else {})
+        first, self.cache, _ = self._paged_prefill(
+            self.params, self.cache, t(tokens), t(positions), t(dest_pages),
+            t(last_pos), self.generator, t(temps), t(top_ks), t(top_ps),
+            **prefix, **self._operand_kwargs(gmask, aslots))
+        # The first tokens must reach the host to stream: the dispatch's
+        # one sync.
+        return first.cpu().numpy()
 
     # -- lifecycle -----------------------------------------------------
 
@@ -1504,17 +1539,22 @@ class PagedInferenceEngine(InferenceEngine):
         every position this step can write (L + K)."""
         vp = self._view_pages_for(int(self.lengths[self.active].max())
                                   + self.draft_tokens + 1)
-        t = self._tensor
         with self._step_span("verify", vp * self.page_size,
                              drafted=int(draft_len.sum())):
-            accept, resid, full, self.cache = self._verify_for(vp)(
-                self.params, self.cache, t(self.pager.page_table),
-                t(tokens), t(positions), t(draft_len), self.generator,
-                t(temps), t(top_ks), t(top_ps), t(self.active), **gkw,
-                **self._adapter_kwargs())
-            # One host sync per verify step.
-            return (accept.cpu().numpy(), resid.cpu().numpy(),
-                    full.cpu().numpy())
+            return self._program("paged_verify", vp, self.pager.page_table,
+                                 tokens, positions, draft_len, temps,
+                                 top_ks, top_ps, self.active, **gkw)
+
+    def _p_paged_verify(self, vp, page_table, tokens, positions, draft_len,
+                        temps, top_ks, top_ps, active, gmask=None):
+        t = self._tensor
+        accept, resid, full, self.cache = self._verify_for(vp)(
+            self.params, self.cache, t(page_table), t(tokens), t(positions),
+            t(draft_len), self.generator, t(temps), t(top_ks), t(top_ps),
+            t(active), **self._operand_kwargs(gmask))
+        # One host sync per verify step.
+        return (accept.cpu().numpy(), resid.cpu().numpy(),
+                full.cpu().numpy())
 
     def _decode_chunk_step(self) -> int:
         # Inactive rows decode at position 0 and park at the view's trash
@@ -1523,17 +1563,24 @@ class PagedInferenceEngine(InferenceEngine):
         temps, top_ks, top_ps, eos_ids, remaining = self._sampling_operands()
         vp = self._view_pages_for(int(self.lengths[self.active].max())
                                   + self.decode_chunk)
-        t = self._tensor
         with self._step_span("decode", vp * self.page_size):
-            toks, valid, self.cache = self._decode_for(vp)(
-                self.params, self.cache, t(self.pager.page_table),
-                t(self.last_token), t(positions), self.generator, t(temps),
-                t(top_ks), t(top_ps), t(eos_ids), t(remaining),
-                t(self.active), **self._grammar_decode_kwargs(),
-                **self._adapter_kwargs())
-            # One host sync per chunk.
-            toks, valid = toks.cpu().numpy(), valid.cpu().numpy()
+            toks, valid = self._program(
+                "paged_decode", vp, self.pager.page_table, self.last_token,
+                positions, temps, top_ks, top_ps, eos_ids, remaining,
+                self.active, **self._grammar_decode_kwargs())
         return self._replay_chunk(toks, valid)
+
+    def _p_paged_decode(self, vp, page_table, last_token, positions, temps,
+                        top_ks, top_ps, eos_ids, remaining, active,
+                        gmask=None):
+        t = self._tensor
+        toks, valid, self.cache = self._decode_for(vp)(
+            self.params, self.cache, t(page_table), t(last_token),
+            t(positions), self.generator, t(temps), t(top_ks), t(top_ps),
+            t(eos_ids), t(remaining), t(active),
+            **self._operand_kwargs(gmask))
+        # One host sync per chunk.
+        return toks.cpu().numpy(), valid.cpu().numpy()
 
     # -- observability -------------------------------------------------
 
@@ -1543,7 +1590,9 @@ class PagedInferenceEngine(InferenceEngine):
         ps = self.page_size
         occ = self.pager.occupancy()
         tokens = int(self.lengths[self.active].sum())
-        pool_bytes = self.cache.nbytes
+        local_bytes = self.cache.nbytes
+        local_bpp = local_bytes // (self.num_pages + 1)
+        pool_bytes = self._logical_kv_bytes(local_bytes)
         bpp = pool_bytes // (self.num_pages + 1)
         return {"slots_total": self.max_slots,
                 "slots_active": int(self.active.sum()),
@@ -1555,9 +1604,9 @@ class PagedInferenceEngine(InferenceEngine):
                 "page_size": ps,
                 "bytes_per_page": bpp,
                 "kv_pool_bytes": pool_bytes,
-                # One device holds the whole pool (no mesh in the port).
-                "kv_pool_bytes_per_device": pool_bytes,
-                "bytes_per_page_per_device": bpp,
+                # This device's share: its kv heads under a mesh.
+                "kv_pool_bytes_per_device": local_bytes,
+                "bytes_per_page_per_device": local_bpp,
                 "kv_bytes_shared": occ["pages_shared"] * bpp,
                 "kv_bytes_private":
                     (occ["pages_used"] - occ["pages_shared"]) * bpp,

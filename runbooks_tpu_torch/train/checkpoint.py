@@ -18,7 +18,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -139,7 +139,8 @@ class CheckpointManager:
                            f"restored (tried {candidates})") from last_exc
 
 
-def restore_params(directory: str, device: torch.device
+def restore_params(directory: str, device: torch.device,
+                   cut: Optional[Callable[[Any], Any]] = None
                    ) -> Optional[Tuple[Any, int]]:
     """(params, step) of the newest intact step under
     ``{directory}/checkpoints`` with its params on ``device``, or None when
@@ -147,7 +148,9 @@ def restore_params(directory: str, device: torch.device
     are read: the file is mapped, so a full fine-tune's optimizer state
     never reaches host or device memory. A loader-quantized tree (packed
     leaves under ops/quantization's marker) comes back with its
-    QuantizedArray leaves.
+    QuantizedArray leaves. ``cut`` takes the mapped tree first (a check,
+    or a tensor-parallel rank's parallel/sharding.shard_params: only the
+    shard's columns are then read and copied).
 
     A ``checkpoints/`` that holds anything else this port cannot read (the
     reference's orbax steps, which ORBAX_CONVERTER converts; saves that
@@ -170,4 +173,6 @@ def restore_params(directory: str, device: torch.device
         raise RuntimeError(f"checkpoint step {step} under {ckpt_dir} holds "
                            "no params tree")
     params = unpack_from_checkpoint(params)
+    if cut is not None:
+        params = cut(params)
     return tree_map(lambda t: t.to(device, copy=True), params), step

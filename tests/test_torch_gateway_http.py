@@ -433,7 +433,14 @@ def test_inflight_returns_to_zero_after_a_client_disconnects():
                      b"Content-Type: application/json\r\n"
                      + f"Content-Length: {len(body)}\r\n\r\n".encode()
                      + body)
-        assert b"data:" in sock.recv(65536)
+        # The gateway flushes the status line and headers before the
+        # replica's first event: under load they arrive in a segment of
+        # their own, so read until the first event is in.
+        got = b""
+        while b"data:" not in got:
+            chunk = sock.recv(65536)
+            assert chunk, got
+            got += chunk
         with gw.router._lock:
             assert gw.router._replicas["a"].inflight == 1
         sock.close()

@@ -285,3 +285,16 @@ def test_load_model_refuses_what_it_cannot_do():
                         "seed": 2}, device="cpu")[1]
     assert torch.equal(params["embed"], same["embed"])
     assert not torch.equal(params["embed"], other["embed"])
+
+
+def test_parallel_package_and_tp_rank_helper_stand_alone():
+    """The multi-device layer (parallel/distributed, mesh, sharding) is
+    among the checked files, and the tensor-parallel tests' rank helper,
+    which spawned ranks import, imports neither JAX nor the reference
+    (its children must never load them)."""
+    files = {str(p.relative_to(ROOT)) for p in _port_files()}
+    for name in ("distributed", "mesh", "sharding"):
+        assert f"runbooks_tpu_torch/parallel/{name}.py" in files
+    helper = ROOT / "tests" / "tp_ranks.py"
+    bad = [n for n in _imported(helper) if _forbidden(n)]
+    assert not bad, f"tests/tp_ranks.py imports {bad}"

@@ -471,10 +471,11 @@ def test_geometry_and_knob_validation(weights):
             cls(cfg, params, max_slots=2, kv_host_pages=-1)
         with pytest.raises(ValueError, match="preemption must be"):
             cls(cfg, params, max_slots=2, preemption="maybe")
-    # The port has no serving mesh yet: it raises by name instead of
-    # serving something else. The adapter pool is ported: the paged
+    # A serving mesh is a torch DeviceMesh (the reference's check names
+    # jax.sharding.Mesh); tests/test_torch_tp_engine.py covers the rest
+    # of the mesh's geometry. The adapter pool is ported: the paged
     # engine builds one.
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         PagedInferenceEngine(tcfg, tparams, max_slots=2, mesh=object())
     pooled = PagedInferenceEngine(tcfg, tparams, max_slots=2, adapter_pool=2)
     assert pooled.adapters.pool_size == 2

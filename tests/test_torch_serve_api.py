@@ -492,7 +492,10 @@ def test_shutdown_drains_in_flight_requests(weights):
     assert chunks[-1]["choices"][0]["finish_reason"] in ("length", "stop")
 
 
-@pytest.mark.parametrize("knob", [{"mesh_data": 2}, {"mesh_tensor": 2}])
+# mesh_tensor is ported; what stays refused under it (quantized weights
+# here) is refused by name with it.
+@pytest.mark.parametrize("knob", [{"mesh_data": 2},
+                                  {"mesh_tensor": 2, "quantize": "int8"}])
 def test_main_refuses_unported_knobs_by_name(tmp_path, monkeypatch, knob):
     (tmp_path / "params.json").write_text(json.dumps({"model": "debug",
                                                       **knob}))
