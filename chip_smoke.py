@@ -33,7 +33,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    more keys than queries (unseen keys must get exactly 0) and f32
    gradients; each kernel's time, bound, rate on the operations the masks
    need, the plain version's time and the backward of
-   scaled_dot_product_attention as the yardstick. The (q tile, kv tile)
+   scaled_dot_product_attention as the yardstick (causal at (b), masked
+   with enable_gqa at the packed (a)). The (q tile, kv tile)
    pairs each kernel counts as computed and open on the card must be the
    ones fwd_tile_plan predicts at the backward's tiles.
 6. Full-width gradient check: llama3-8b cut to 4 layers, one LoRA
@@ -234,12 +235,13 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    OPT's 12 on 12, and K2/K3 at falcon-7b's microbatch (K3 walks 71 heads
    a block), with times, bounds, rates, the plain versions' times, SDPA
    with enable_gqa as the yardstick and tiles as fwd_tile_plan's; (b)
-   falcon-7b bf16 at full width and depth: prefill logits through K1
-   against the plain attention, phase 4's mix through the dense and the
-   paged engine (greedy ids equal up to near-ties, K1 launches equal);
-   (c) examples/falcon-7b-instruct/finetuned-model.yaml's LoRA job on the
-   f32 base at full width and depth, 2 steps and a resume, then one
-   traced step (idle share); (d) two HF falcon directories (7b-style
+   falcon-7b bf16 at full width cut to FALCON_SERVE_LAYERS: prefill
+   logits through K1 against the plain attention, phase 4's mix through
+   the dense and the paged engine (greedy ids equal up to near-ties, K1
+   launches equal); (c) examples/falcon-7b-instruct/finetuned-model.yaml's
+   LoRA job on the f32 base at full width cut to FALCON_TRAIN_LAYERS, 2
+   steps and a resume, then one traced step (idle share); (d) two HF
+   falcon directories (7b-style
    fused MQA with one norm, 40b-style with 8 kv heads and split norms;
    BF16, two shards, 2 layers at full width) through ``python -m
    runbooks_tpu_torch.models.loader``, every leaf bit-equal to the source
@@ -249,11 +251,12 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    process's decode (gpt2's longest within 5 positions of its 1024-row
    table), exit 0 on SIGTERM.
 17. The rest of the fine-tune entry point: (a) phase 16 (c)'s falcon-7b
-   LoRA job at full width and depth for 2 steps under each remat policy
-   (nothing_saveable, dots_with_no_batch_dims_saveable, dots_saveable,
-   save_attn_out) over one seeded base: step seconds, tokens/s, MFU, peak
-   memory, K1 256 launches a step (128 under save_attn_out, whose
-   backward takes K1's saved out and lse), K2 and K3 128, finite losses,
+   LoRA job at full width cut to REMAT_LAYERS for 2 steps under each
+   remat policy (nothing_saveable, dots_with_no_batch_dims_saveable,
+   dots_saveable, save_attn_out) over one seeded base: step seconds,
+   tokens/s, MFU, peak memory, K1 8 launches a layer a step (4 under
+   save_attn_out, whose backward takes K1's saved out and lse), K2 and
+   K3 4, finite losses,
    step 1's loss equal under every policy (with --trace-remat, one
    traced step per policy: device busy, idle share, K1-K3 device ms);
    (b) on falcon-7b cut to 2
@@ -271,7 +274,7 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    pieces with the ids of the tokenizer.json built from the same pieces.
    (a') (a)'s nothing_saveable job for 3 steps under
    RBT_PROFILE_AT_STEP=2:1: the capture names K1, K2 and K3 with one
-   step's launches (256 / 128 / 128), metrics.json carries goodput in
+   step's launches (8 / 4 / 4 a layer), metrics.json carries goodput in
    (0, 1], train_step_seconds counts the steps after the first, step 1's
    loss is bit-equal to (a)'s, and the step program's counted FLOPs and
    analytic MFU are recorded.
@@ -320,9 +323,39 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    under mesh_tensor 2 answers over HTTP and exits 0 on SIGTERM; with
    one, that it was not run, and the same command exits non-zero naming
    the device count.
+21. FSDP training (``run_training(mesh=)``, parallel/sharding.Fsdp): (a)
+   phase 16 (c)'s falcon-7b LoRA job (rank 16, alpha 32, global batch 8
+   in 4 microbatches, seq 2048, lr 2e-5 with no warmup, f32 base) at full
+   width cut to FSDP_LAYERS, as two fsdp ranks in two processes that
+   share this card over gloo (started before phase 20, which runs while
+   they do), against one process on the same seed and global batch.
+   Gates: each step's loss and global gradient norm within
+   FSDP_LOSS_RTOL of one process's; the
+   LoRA tree after FSDP_STEPS steps within 2 * lr * steps of one
+   process's (each Adam update moves an element by at most about lr), the
+   gap printed; each rank's K1, K2 and K3 launches per step equal one
+   process's; each rank's parameter bytes equal the plan's; rank 0 sends
+   itself SIGTERM at the top of step FSDP_STEPS + 1 (RBT_FAULT_INJECT in
+   its environment alone) and both ranks stop there with one emergency
+   checkpoint and exit code 42; that two-rank checkpoint resumes in one
+   process to one process's next loss and gradient norm. Each rank's
+   peak and step
+   seconds, labelled gloo over host memory on one card (not an FSDP
+   speed). (b) NCCL at world 1: the FSDP runtime's gather,
+   reduce-scatter, all-reduce and stop broadcast on CUDA tensors return
+   their inputs; ``python -m runbooks_tpu_torch.train.trainer`` under
+   mesh_fsdp 2 trains over NCCL where two GPUs exist, else exits 1
+   naming the device count.
 
 Each phase's end prints the seconds since the start; a run still going
-after WATCHDOG_S dumps every thread's stack to standard error.
+after WATCHDOG_S dumps every thread's stack to standard error. Checks
+that only start processes and wait on them run beside this process's
+own work (``Background``): phase 8 (c)'s and phase 15 (e)'s servers warm
+up while the phase's in-process steps run, phase 16 (e)'s servers while
+(d) imports, phase 17 (c)'s entry points while (b) and (d) run, and
+phase 21 (a)'s ranks while phase 20 runs. The times those report, and
+those of the steps beside them, share the host and the card; the
+kernels' own timings (phases 3, 5, 14 (a) and 16 (a)) run alone.
 
 The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record and {"ok": true, "device": {...}};
@@ -332,6 +365,7 @@ package beside it, the script exits nonzero and prints no result.
 """
 
 import argparse
+import atexit
 import dataclasses
 import faulthandler
 import gc
@@ -1071,6 +1105,25 @@ def library_bwd(torch, q, k, v, do):
                                        retain_graph=True)
 
 
+def library_bwd_masked(torch, q, k, v, q_pos, kv_pos, q_seg, kv_seg, do):
+    """The backward of one scaled_dot_product_attention call on the same
+    masked problem (library_attention's mask; K/V read through
+    enable_gqa): dq, dk and dv together."""
+    import torch.nn.functional as F
+
+    from runbooks_tpu_torch.ops.attention import make_attention_mask
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    mask = make_attention_mask(q_pos, kv_pos, q_seg, kv_seg)
+    mask &= (kv_pos < 2 ** 30)[:, None, None, :]
+    out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+
 def bwd_kernel_phase(torch, dev, seed, batch, layouts=None):
     """Phase 5: K2 and K3 against the plain backward at cases (a)-(f) (or
     ``layouts``; SDPA's backward at the case named b_),
@@ -1133,9 +1186,12 @@ def bwd_kernel_phase(torch, dev, seed, batch, layouts=None):
         plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
             q, k, v, qp, kp, seg, seg, out, lse, do, block_skip=skip,
             grad_dtype=gd), 2)
-        library_ms = None
+        library_ms = library_masked_ms = None
         if name.startswith("b_"):
             library_ms = cuda_ms(library_bwd(torch, q, k, v, do), 10)
+        if name.startswith("a_"):
+            library_masked_ms = cuda_ms(library_bwd_masked(
+                torch, q, k, v, qp, kp, seg, seg, do), 10)
         bounds = bwd_bound(torch, q, k, qp, kp, seg, seg)
         computed, opened, total = tile_counts(torch, qp, kp, seg, seg, skip,
                                               backward=True)
@@ -1159,6 +1215,9 @@ def bwd_kernel_phase(torch, dev, seed, batch, layouts=None):
               + ("" if library_ms is None else
                  f" | library_ms SDPA backward, dq+dk+dv together "
                  f"{library_ms:.4f}")
+              + ("" if library_masked_ms is None else
+                 f" | library_masked_ms SDPA masked backward (enable_gqa), "
+                 f"dq+dk+dv together {library_masked_ms:.4f}")
               + f" -> {'ok' if ok and tiles_agree else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"flash_bwd {name} disagrees with its plain "
@@ -1171,6 +1230,7 @@ def bwd_kernel_phase(torch, dev, seed, batch, layouts=None):
         worst["flash_bwd_dkv"] = max(worst["flash_bwd_dkv"], errs["dk"][0],
                                      errs["dv"][0])
         records[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             library_masked_ms=library_masked_ms,
                              bounds=bounds, card_tiles=card,
                              shape=f"q{tuple(q.shape)} k{tuple(k.shape)}")
     b = next(r for n, r in records.items() if n.startswith("b_"))
@@ -1594,6 +1654,18 @@ def free_port():
         return s.getsockname()[1]
 
 
+# Every process start_entry_point started: killed at exit where a failed
+# check left one running.
+ENTRY_POINTS = []
+
+
+@atexit.register
+def _kill_entry_points():
+    for proc in ENTRY_POINTS:
+        if proc.poll() is None:
+            proc.kill()
+
+
 def start_entry_point(content, port, log_path, ready_timeout, env_extra=None,
                       module="runbooks_tpu_torch.serve.api"):
     """``python -m <module>`` (the server by default) on the contract
@@ -1616,6 +1688,7 @@ def start_entry_point(content, port, log_path, ready_timeout, env_extra=None,
         proc = subprocess.Popen(
             [sys.executable, "-m", module],
             cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    ENTRY_POINTS.append(proc)
     base = f"http://127.0.0.1:{port}"
     while time.perf_counter() - t0 < ready_timeout and proc.poll() is None:
         try:
@@ -1631,6 +1704,33 @@ def start_entry_point(content, port, log_path, ready_timeout, env_extra=None,
         print(f.read()[-3000:], flush=True)
     raise SystemExit(f"the server on {content} was not ready within "
                      f"{ready_timeout} s")
+
+
+class Background(threading.Thread):
+    """``fn(*args)`` on a thread of its own, started at once: for a check
+    that only starts processes and waits on them (a server over HTTP, an
+    entry point), so that it runs beside this process's own work and no
+    launch count of this process moves. ``result()`` waits for it and
+    returns its value, or raises what it raised. Its work shares the card
+    and the host with what runs meanwhile: its times are not alone."""
+
+    def __init__(self, fn, *args):
+        super().__init__(daemon=True)
+        self.fn, self.args = fn, args
+        self.value = self.error = None
+        self.start()
+
+    def run(self):
+        try:
+            self.value = self.fn(*self.args)
+        except BaseException as exc:  # noqa: BLE001 - raised by result()
+            self.error = exc
+
+    def result(self):
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.value
 
 
 def stopped_launches(log_text):
@@ -1893,9 +1993,12 @@ def entry_obs_checks(torch, cfg, base, content, seed, first_tokens,
     return out
 
 
-def entry_point_check(torch, dev, seed, workdir):
-    """Phase 8 (c): the container's entry point against the model
-    mount, at full width, depth ENTRY_LAYERS, bf16."""
+def entry_point_start(torch, dev, seed, workdir):
+    """Phase 8 (c), set up: seeded llama3-8b params at full width, depth
+    ENTRY_LAYERS, bf16, saved on the model mount, this process's greedy
+    decode of one prompt, and the container's entry point started over
+    the mount (in the background: it warms up while (a) and (b) run).
+    Returns what ``entry_point_check`` reads."""
     from runbooks_tpu_torch.models.config import get_config
     from runbooks_tpu_torch.models.transformer import init_params
     from runbooks_tpu_torch.obs.device import tensor_leaves
@@ -1939,8 +2042,23 @@ def entry_point_check(torch, dev, seed, workdir):
                    "max_seq_len": 2048, "drain_timeout_s": ENTRY_DRAIN_S},
                   f)
     log_path = f"{workdir}/entry_point.log"
-    proc, base, ready_s = start_entry_point(content, port, log_path, 120,
-                                            {"RBT_TRACE": "1"})
+    server = Background(start_entry_point, content, port, log_path, 120,
+                        {"RBT_TRACE": "1"})
+    return {"cfg": cfg, "content": content, "seed": seed, "prompt": prompt,
+            "ref": ref, "want_text": want_text, "save_s": save_s,
+            "weight_bytes": weight_bytes, "log_path": log_path,
+            "server": server}
+
+
+def entry_point_check(torch, entry):
+    """Phase 8 (c): the container's entry point of ``entry_point_start``
+    (``entry``) against this process's decode, its telemetry, and its
+    exit on SIGTERM."""
+    cfg, content, seed, prompt, ref, want_text, log_path = (
+        entry[k] for k in ("cfg", "content", "seed", "prompt", "ref",
+                           "want_text", "log_path"))
+    save_s, weight_bytes = entry["save_s"], entry["weight_bytes"]
+    proc, base, ready_s = entry["server"].result()
     try:
         status, _, text, _ = http_call(base, "/v1/completions", {
             "prompt": prompt, "max_tokens": MAX_TOKENS, "temperature": 0})
@@ -1984,12 +2102,13 @@ def http_phase(torch, dev, seed, workdir):
     """Phase 8: serving phase 7's fine-tune over HTTP. Returns K1's
     launches in the HTTP mix."""
     t0 = time.perf_counter()
+    entry = entry_point_start(torch, dev, seed, workdir)
     cfg, merged = fold_check(torch, seed, f"{workdir}/artifacts")
     launches = serve_http(torch, cfg, merged, seed)
     del merged
     gc.collect()
     torch.cuda.empty_cache()
-    entry_point_check(torch, dev, seed, workdir)
+    entry_point_check(torch, entry)
     print(f"phase 8 took {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
@@ -5107,17 +5226,39 @@ def chat_expected(torch, cfg, params, tok, msgs, response_format=None,
     return ids, out, tok.decode(out), req
 
 
-def chat_server_check(torch, seed, workdir, l3_dir, l3_tok, docs):
+def chat_model(workdir):
+    """Phase 15 (e)'s model: phase 9's import (llama3-8b at full width,
+    IMPORT_LAYERS layers)."""
+    return {"model": "llama3-8b",
+            "model_overrides": {"num_layers": IMPORT_LAYERS},
+            "checkpoint": f"{workdir}/import_content/artifacts"}
+
+
+def chat_server_start(seed, workdir, l3_dir):
     """Phase 15 (e): ``python -m runbooks_tpu_torch.serve.api`` with
-    ``tokenizer:`` the llama3-style directory over phase 9's import
-    (full width, IMPORT_LAYERS layers). Returns the record."""
+    ``tokenizer:`` the llama3-style directory over ``chat_model``, started
+    in the background (it warms up while the host-side steps run): a
+    Background of start_entry_point, and the server's log path."""
+    content = f"{workdir}/chat_content"
+    os.makedirs(content)
+    port = free_port()
+    with open(f"{content}/params.json", "w") as f:
+        json.dump({**chat_model(workdir), "tokenizer": l3_dir, "port": port,
+                   "max_slots": 8, "max_seq_len": 2048, "grammar": "on",
+                   "drain_timeout_s": ENTRY_DRAIN_S, "seed": seed}, f)
+    log_path = f"{workdir}/chat_server.log"
+    return Background(start_entry_point, content, port, log_path,
+                      180), log_path
+
+
+def chat_server_check(torch, workdir, l3_tok, docs, server):
+    """Phase 15 (e): the server of ``chat_server_start`` (``server``)
+    against this process's decode of the same model. Returns the
+    record."""
     from runbooks_tpu_torch.serve.api import load_model
     from runbooks_tpu_torch.serve.grammar import GrammarCache, TokenVocab
 
-    model = {"model": "llama3-8b",
-             "model_overrides": {"num_layers": IMPORT_LAYERS},
-             "checkpoint": f"{workdir}/import_content/artifacts"}
-    cfg, params = load_model(model)
+    cfg, params = load_model(chat_model(workdir))
     msgs, prompt_ids = chat_messages(l3_tok, "\n".join(docs[:40]),
                                      CHAT_PROMPT_TOKENS)
     prompt = l3_tok.apply_chat_template(msgs, tokenize=False,
@@ -5145,15 +5286,8 @@ def chat_server_check(torch, seed, workdir, l3_dir, l3_tok, docs):
     gc.collect()
     torch.cuda.empty_cache()
 
-    content = f"{workdir}/chat_content"
-    os.makedirs(content)
-    port = free_port()
-    with open(f"{content}/params.json", "w") as f:
-        json.dump({**model, "tokenizer": l3_dir, "port": port,
-                   "max_slots": 8, "max_seq_len": 2048, "grammar": "on",
-                   "drain_timeout_s": ENTRY_DRAIN_S, "seed": seed}, f)
-    log_path = f"{workdir}/chat_server.log"
-    proc, base, ready_s = start_entry_point(content, port, log_path, 180)
+    started, log_path = server
+    proc, base, ready_s = started.result()
     try:
         body = {"messages": msgs, "max_tokens": MAX_TOKENS,
                 "temperature": 0}
@@ -5258,6 +5392,7 @@ def text_phase(torch, dev, seed, workdir):
     t0 = time.perf_counter()
     write_llama3_tokenizer(l3_dir, docs, seed)
     l3_write_s = time.perf_counter() - t0
+    chat_server = chat_server_start(seed, workdir, l3_dir)
     t0 = time.perf_counter()
     write_llama2_tokenizer(l2_dir, docs, seed)
     l2_write_s = time.perf_counter() - t0
@@ -5289,7 +5424,7 @@ def text_phase(torch, dev, seed, workdir):
                                        workdir)
     gc.collect()
     torch.cuda.empty_cache()
-    chat = chat_server_check(torch, seed, workdir, l3_dir, l3_tok, docs)
+    chat = chat_server_check(torch, workdir, l3_tok, docs, chat_server)
     gc.collect()
     torch.cuda.empty_cache()
     llama2, llama2_launches = llama2_stream_check(torch, seed, l2_tok, docs)
@@ -5315,8 +5450,13 @@ def text_phase(torch, dev, seed, workdir):
 # ---------------------------------------------------------------------------
 
 # (c) examples/falcon-7b-instruct/finetuned-model.yaml on the f32 base at
-# full width and depth: 2 steps and a resume to a third.
+# full width cut to FALCON_TRAIN_LAYERS: 2 steps and a resume to a third.
 FALCON_TRAIN_STEPS = 2
+# Phase 16 (c) fine-tunes falcon-7b at full width cut to
+# FALCON_TRAIN_LAYERS (full depth until phase 21 came in; phase 7
+# fine-tunes llama3-8b at full depth), so that the whole script stays
+# inside its limit on a slow host.
+FALCON_TRAIN_LAYERS = 8
 # (d) the two HF directories are cut to this depth (full width).
 FAMILY_IMPORT_LAYERS = 2
 # (e) gpt2's long request: a prompt of GPT2_LONG_PROMPT tokens and
@@ -5378,18 +5518,26 @@ def family_bwd_layouts(torch, dev, batch):
     ]
 
 
+# Phase 16 (b) serves falcon-7b at full width cut to FALCON_SERVE_LAYERS
+# (full depth until phase 21 came in; phase 4 serves llama3-8b at full
+# depth), so that the whole script stays inside its limit.
+FALCON_SERVE_LAYERS = 8
+
+
 def falcon_serve(torch, seed):
-    """Phase 16 (b): falcon-7b bf16 at full width and depth, the prefill
-    logits through K1 against the plain attention, then phase 4's mix
-    through the dense and the paged engine. Returns (record, K1 launches
-    by engine)."""
+    """Phase 16 (b): falcon-7b bf16 at full width cut to
+    FALCON_SERVE_LAYERS, the prefill logits through K1 against the plain
+    attention, then phase 4's mix through the dense and the paged engine.
+    Returns (record, K1 launches by engine)."""
     from runbooks_tpu_torch.serve.api import load_model
     from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
     from runbooks_tpu_torch.utils.tree import tree_leaves
 
     t0 = time.perf_counter()
     cfg, params = load_model({"model": "falcon-7b",
-                              "model_overrides": {"param_dtype": "bfloat16"},
+                              "model_overrides": {
+                                  "param_dtype": "bfloat16",
+                                  "num_layers": FALCON_SERVE_LAYERS},
                               "seed": seed})
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
@@ -5452,7 +5600,7 @@ def traced_falcon_step(torch, dev, seed, data_path, lora_cfg, opt_cfg):
     from runbooks_tpu_torch.models.config import get_config
     from runbooks_tpu_torch.models.transformer import init_params
 
-    cfg = get_config("falcon-7b")
+    cfg = get_config("falcon-7b", num_layers=FALCON_TRAIN_LAYERS)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     base = init_params(cfg, gen, dev)
@@ -5519,8 +5667,9 @@ def traced_lora_step(torch, dev, cfg, base, gen, data_path, lora_cfg,
 def falcon_train(torch, dev, seed, data_path, workdir):
     """Phase 16 (c): examples/falcon-7b-instruct/finetuned-model.yaml's
     job (LoRA rank 16, alpha 32, batch 8 in 4 microbatches, seq 2048, lr
-    2e-5) on an f32 falcon-7b base at full width and depth through
-    run_training: FALCON_TRAIN_STEPS steps, a resume to one more, then
+    2e-5) on an f32 falcon-7b base at full width cut to
+    FALCON_TRAIN_LAYERS through run_training: FALCON_TRAIN_STEPS steps, a
+    resume to one more, then
     one traced step. Returns (record, launches of the first run)."""
     from runbooks_tpu_torch.models.config import get_config
     from runbooks_tpu_torch.ops.flash_attention import (
@@ -5536,7 +5685,9 @@ def falcon_train(torch, dev, seed, data_path, workdir):
     lora_cfg = LoraConfig(rank=16, alpha=32.0)
     opt_cfg = OptimizerConfig(learning_rate=2e-5)
     job = TrainJobConfig(
-        model="falcon-7b", lora=lora_cfg, optimizer=opt_cfg, batch_size=8,
+        model="falcon-7b",
+        model_overrides={"num_layers": FALCON_TRAIN_LAYERS}, lora=lora_cfg,
+        optimizer=opt_cfg, batch_size=8,
         seq_len=TRAIN_SEQ, accumulate_steps=4, steps=FALCON_TRAIN_STEPS,
         data_path=data_path, artifacts_dir=art, log_every=1, seed=seed)
     torch.cuda.reset_peak_memory_stats()
@@ -5554,7 +5705,7 @@ def falcon_train(torch, dev, seed, data_path, workdir):
     losses = [e["loss"] for e in hist]
     # Each layer of each of the 4 microbatches: K1 twice (the forward
     # and the remat's recompute), K2 and K3 once.
-    n = get_config("falcon-7b").num_layers * 4
+    n = FALCON_TRAIN_LAYERS * 4
     per_step = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
     for name, n in per_step.items():
         if launches[name] != n * FALCON_TRAIN_STEPS:
@@ -5589,7 +5740,8 @@ def falcon_train(torch, dev, seed, data_path, workdir):
               "tokens_per_s": last["tokens_per_sec"],
               "mfu": last.get("mfu"),
               "flops_per_token_x3":
-                  3.0 * get_config("falcon-7b").flops_per_token(TRAIN_SEQ),
+                  3.0 * get_config("falcon-7b", num_layers=FALCON_TRAIN_LAYERS
+                                   ).flops_per_token(TRAIN_SEQ),
               "peak_memory_gb": peak / 1e9, "launches": launches,
               "traced": traced}
     print("falcon-7b fine-tune " + json.dumps(record), flush=True)
@@ -5690,13 +5842,12 @@ def falcon_import(torch, dev, seed, workdir):
     return record, launches
 
 
-def family_server(torch, dev, seed, workdir, name, prompt_lens, new):
-    """Phase 16 (e), one family: seeded bf16 params of ``name`` at full
-    width and depth saved on the contract's model mount, ``python -m
-    runbooks_tpu_torch.serve.api`` with the example's params (the model's
-    name; the byte tokenizer, since it names none), one greedy completion
-    per prompt length against this process's decode of the saved params,
-    then SIGTERM. Returns (record, K1 launches over the server's life)."""
+def family_server_setup(torch, dev, seed, workdir, name, prompt_lens, new):
+    """Phase 16 (e), one family, in this process: seeded bf16 params of
+    ``name`` at full width and depth saved on the contract's model mount,
+    and this process's greedy decode of each prompt length. Returns
+    (name, contract root, config, [(prompt text, request, answer text)])
+    for ``family_server``."""
     from runbooks_tpu_torch.models.config import get_config
     from runbooks_tpu_torch.models.transformer import init_params
     from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
@@ -5730,12 +5881,20 @@ def family_server(torch, dev, seed, workdir, name, prompt_lens, new):
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    return name, content, cfg, cases
 
+
+def family_server(name, content, cfg, cases):
+    """Phase 16 (e), one family (a Background check): ``python -m
+    runbooks_tpu_torch.serve.api`` with the example's params (the model's
+    name; the byte tokenizer, since it names none) on family_server_setup's
+    mount, one greedy completion per case against this process's decode,
+    then SIGTERM. Returns (record, K1 launches over the server's life)."""
     port = free_port()
     with open(f"{content}/params.json", "w") as f:
         json.dump({"model": name, "port": port,
                    "drain_timeout_s": ENTRY_DRAIN_S}, f)
-    log_path = f"{workdir}/{name}_server.log"
+    log_path = f"{content}/server.log"
     proc, base, ready_s = start_entry_point(content, port, log_path, 180)
     answers = []
     try:
@@ -5800,14 +5959,18 @@ def families_phase(torch, dev, seed, batch, data_path, workdir):
                                          workdir)
     gc.collect()
     torch.cuda.empty_cache()
+    # (e)'s two servers start and answer while (d) imports.
+    servers = [Background(family_server, *family_server_setup(
+        torch, dev, seed, workdir, name, lens, new))
+        for name, lens, new in (
+            ("opt-125m", (300,), {300: FAMILY_HTTP_NEW}),
+            ("gpt2", (300, GPT2_LONG_PROMPT),
+             {300: FAMILY_HTTP_NEW, GPT2_LONG_PROMPT: GPT2_LONG_NEW}))]
     imported, import_launches = falcon_import(torch, dev, seed, workdir)
     gc.collect()
     torch.cuda.empty_cache()
-    opt, opt_launches = family_server(torch, dev, seed, workdir, "opt-125m",
-                                      (300,), {300: FAMILY_HTTP_NEW})
-    gpt2, gpt2_launches = family_server(
-        torch, dev, seed, workdir, "gpt2", (300, GPT2_LONG_PROMPT),
-        {300: FAMILY_HTTP_NEW, GPT2_LONG_PROMPT: GPT2_LONG_NEW})
+    (opt, opt_launches), (gpt2, gpt2_launches) = (
+        b.result() for b in servers)
     fwd_launches = {**serve_launches,
                     "falcon_train": train_launches["flash_fwd"],
                     "falcon_import": import_launches,
@@ -5835,6 +5998,12 @@ def families_phase(torch, dev, seed, batch, data_path, workdir):
 # policies change what the backward keeps, never the forward, so the
 # losses must agree to REMAT_LOSS_RTOL (they are expected bit-equal).
 REMAT_STEPS = 2
+# Phase 17 (a) and (a') run falcon-7b at full width cut to REMAT_LAYERS
+# (full depth until phase 21 came in), so that the whole script stays
+# inside its limit; no path of the script trains or serves falcon-7b at
+# its full 32 layers any more (phase 4 and 7 run llama3-8b at full
+# depth).
+REMAT_LAYERS = 8
 REMAT_POLICIES = ("nothing_saveable", "dots_with_no_batch_dims_saveable",
                   "dots_saveable", "save_attn_out")
 REMAT_LOSS_RTOL = 1e-6
@@ -5868,7 +6037,7 @@ def remat_policies_phase(torch, dev, seed, data_path, workdir, trace):
     from runbooks_tpu_torch.train.optimizer import OptimizerConfig
     from runbooks_tpu_torch.train.trainer import TrainJobConfig, run_training
 
-    cfg = get_config("falcon-7b")
+    cfg = get_config("falcon-7b", num_layers=REMAT_LAYERS)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 17)
     base = init_params(cfg, gen, dev)
@@ -5879,7 +6048,8 @@ def remat_policies_phase(torch, dev, seed, data_path, workdir, trace):
     records, launches = {}, {}
     for policy in REMAT_POLICIES:
         job = TrainJobConfig(
-            model="falcon-7b", model_overrides={"remat_policy": policy},
+            model="falcon-7b", model_overrides={"remat_policy": policy,
+                                                "num_layers": REMAT_LAYERS},
             lora=LoraConfig(rank=16, alpha=32.0),
             optimizer=OptimizerConfig(learning_rate=2e-5), batch_size=8,
             seq_len=TRAIN_SEQ, accumulate_steps=4, steps=REMAT_STEPS,
@@ -5945,7 +6115,8 @@ PROFILE_AT = (2, 1)
 def profiled_fine_tune(torch, seed, data_path, workdir, base, plain):
     """Phase 17 (a'): (a)'s nothing_saveable job for PROFILE_STEPS steps
     under RBT_PROFILE_AT_STEP=2:1. The capture of step 2 names K1, K2 and
-    K3 with one step's launches (256 / 128 / 128); metrics.json carries
+    K3 with one step's launches (at REMAT_LAYERS 8: 64 / 32 / 32);
+    metrics.json carries
     goodput in (0, 1]; train_step_seconds counts every step after the
     first (the reference leaves the first, its compile, out too); step
     1's loss is bit-equal to (a)'s run without a capture. Also the step
@@ -5963,7 +6134,8 @@ def profiled_fine_tune(torch, seed, data_path, workdir, base, plain):
     art = f"{workdir}/remat_profiled"
     job = TrainJobConfig(
         model="falcon-7b",
-        model_overrides={"remat_policy": "nothing_saveable"},
+        model_overrides={"remat_policy": "nothing_saveable",
+                         "num_layers": REMAT_LAYERS},
         lora=LoraConfig(rank=16, alpha=32.0),
         optimizer=OptimizerConfig(learning_rate=2e-5), batch_size=8,
         seq_len=TRAIN_SEQ, accumulate_steps=4, steps=PROFILE_STEPS,
@@ -6182,9 +6354,10 @@ def run_trainer_entry(content, env, timeout):
     return done[-1], wall
 
 
-def kernel_cache_phase(seed, data_path, workdir):
-    """Phase 17 (c): the trainer's entry point builds the kernels into
-    <artifacts>/kernel_cache: a cold process over a fresh artifacts
+def kernel_cache_phase(seed, data_path, workdir, environ):
+    """Phase 17 (c) (a Background check, over ``environ``, a copy of this
+    process's environment): the trainer's entry point builds the kernels
+    into <artifacts>/kernel_cache: a cold process over a fresh artifacts
     directory runs nvcc for every source, a second one over the same
     directory runs none and leaves the libraries' mtimes as they were.
     Each process is falcon-7b cut to RESTART_LAYERS layers, one step."""
@@ -6198,10 +6371,9 @@ def kernel_cache_phase(seed, data_path, workdir):
               "log_every": 1, "data_path": data_path, "seed": seed,
               # No GCE probe: this machine has no metadata server.
               "maintenance_poll_s": 0}
-    env = dict(os.environ, RBT_CONTENT_DIR=content,
+    env = dict(environ, RBT_CONTENT_DIR=content,
                GCE_METADATA_HOST="127.0.0.1:9",
-               PYTHONPATH=root + os.pathsep + os.environ.get(
-                   "PYTHONPATH", ""))
+               PYTHONPATH=root + os.pathsep + environ.get("PYTHONPATH", ""))
     env.pop("RBT_KERNEL_CACHE", None)
     env.pop("RBT_FAULT_INJECT", None)
     cache = f"{content}/artifacts/kernel_cache"
@@ -6553,9 +6725,12 @@ def entry_point_phase(torch, dev, seed, data_path, workdir, trace_remat):
     remat, remat_launches = remat_policies_phase(torch, dev, seed,
                                                  data_path, workdir,
                                                  trace_remat)
+    # (c)'s two entry-point processes run while (b) and (d) do.
+    cache = Background(kernel_cache_phase, seed, data_path, workdir,
+                       dict(os.environ))
     restart = restart_phase(torch, dev, seed, data_path, workdir)
-    cache = kernel_cache_phase(seed, data_path, workdir)
     tokenizers, opt_launches = tokenizer_files_phase(torch, seed, workdir)
+    cache = cache.result()
     print("phase 17 " + json.dumps({
         "card": card_line(), "remat": remat, "restart": restart,
         "kernel_cache": cache, "tokenizer_files": tokenizers,
@@ -7393,22 +7568,34 @@ def bucket_of(n):
     return bucket_for(_buckets(2048), n)
 
 
-def tp_two_ranks(torch, seed, workdir, setup, device_type="cuda"):
-    """Phase 20 (a): tp_rank on two spawned processes, each joined with a
-    time limit of its own; both killed past it."""
+def spawn_ranks(target, world, workdir, name, timeout_s, *args):
+    """``target(rank, world, store, out, *args)`` on ``world`` spawned
+    processes, each joined with a time limit of its own and killed past
+    it; their pickled results."""
+    return start_ranks(target, world, workdir, name, timeout_s, *args)()
+
+
+def start_ranks(target, world, workdir, name, timeout_s, *args):
+    """``spawn_ranks``' processes, started: returns the call that joins
+    them (their time limit counts from now) and returns their results."""
     import multiprocessing as mp
-    import pickle
 
     ctx = mp.get_context("spawn")
-    store = f"{workdir}/tp_store"
-    outs = [f"{workdir}/tp_rank{r}.pkl" for r in range(2)]
-    procs = [ctx.Process(target=tp_rank,
-                         args=(r, 2, store, outs[r], seed, device_type,
-                               setup),
-                         daemon=True) for r in range(2)]
+    stem = re.sub(r"\W+", "_", name)
+    store = f"{workdir}/{stem}_store"
+    outs = [f"{workdir}/{stem}_rank{r}.pkl" for r in range(world)]
+    procs = [ctx.Process(target=target,
+                         args=(r, world, store, outs[r], *args), daemon=True)
+             for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.perf_counter() + TP_RANK_TIMEOUT_S
+    deadline = time.perf_counter() + timeout_s
+    return lambda: join_ranks(procs, outs, deadline, name, timeout_s)
+
+
+def join_ranks(procs, outs, deadline, name, timeout_s):
+    import pickle
+
     for p in procs:
         p.join(max(0.0, deadline - time.perf_counter()))
     late = [r for r, p in enumerate(procs) if p.is_alive()]
@@ -7417,20 +7604,25 @@ def tp_two_ranks(torch, seed, workdir, setup, device_type="cuda"):
             p.kill()
             p.join(10)
     if late:
-        raise SystemExit(f"phase 20 (a): ranks {late} still running after "
-                         f"{TP_RANK_TIMEOUT_S} s")
+        raise SystemExit(f"{name}: ranks {late} still running after "
+                         f"{timeout_s} s")
     results = []
     for r, path in enumerate(outs):
         if not os.path.exists(path):
-            raise SystemExit(f"phase 20 (a): rank {r} exited "
-                             f"{procs[r].exitcode} with no result")
+            raise SystemExit(f"{name}: rank {r} exited {procs[r].exitcode} "
+                             "with no result")
         with open(path, "rb") as f:
             res = pickle.load(f)
         if not res["ok"]:
-            raise SystemExit(f"phase 20 (a): rank {r} failed:\n"
-                             f"{res['error']}")
+            raise SystemExit(f"{name}: rank {r} failed:\n{res['error']}")
         results.append(res)
     return results
+
+
+def tp_two_ranks(torch, seed, workdir, setup, device_type="cuda"):
+    """Phase 20 (a): tp_rank on two spawned processes."""
+    return spawn_ranks(tp_rank, 2, workdir, "phase 20 (a)",
+                       TP_RANK_TIMEOUT_S, seed, device_type, setup)
 
 
 def tp_nccl_collectives(torch, cfg, group, dev):
@@ -7669,6 +7861,319 @@ def tp_phase(torch, seed, workdir):
             for kind in ("dense", "paged") for r in range(2)}
 
 
+# ---------------------------------------------------------------------------
+# FSDP / data-parallel training: phase 21
+# ---------------------------------------------------------------------------
+
+# Two ranks sharing one card over gloo stage every gather through host
+# memory: at 8 layers a step took 83 s on an H100's host (PERF.md), so
+# phase 21 runs falcon-7b at full width cut to FSDP_LAYERS.
+FSDP_LAYERS = 2
+# The two ranks take FSDP_STEPS steps and stop there on rank 0's SIGTERM;
+# one process takes FSDP_STEPS + 1.
+FSDP_STEPS = 2
+# From the ranks' start (they run while phase 20 does) to their join.
+FSDP_RANK_TIMEOUT_S = 400
+# Each step's loss and global gradient norm, each rank against one
+# process (f32 base, bf16 activations; the ranks sum their partial
+# gradients and losses in another order): relative.
+FSDP_LOSS_RTOL = 1e-4
+# The example's lr with no warmup (the example's 100 warmup steps give lr
+# 0 at step 1), so that every step after the first reads updated LoRA
+# factors.
+FSDP_LR = 2e-5
+
+
+def fsdp_job(seed, data_path, artifacts, steps, checkpoint_every):
+    """examples/falcon-7b-instruct/finetuned-model.yaml's job (LoRA rank
+    16, alpha 32, global batch 8 in 4 microbatches, seq 2048, lr 2e-5, f32
+    base) on falcon-7b at full width cut to FSDP_LAYERS, with no
+    warmup."""
+    from runbooks_tpu_torch.train.lora import LoraConfig
+    from runbooks_tpu_torch.train.optimizer import OptimizerConfig
+    from runbooks_tpu_torch.train.trainer import TrainJobConfig
+
+    return TrainJobConfig(
+        model="falcon-7b", model_overrides={"num_layers": FSDP_LAYERS},
+        lora=LoraConfig(rank=16, alpha=32.0),
+        optimizer=OptimizerConfig(learning_rate=FSDP_LR, warmup_steps=0),
+        batch_size=8,
+        seq_len=TRAIN_SEQ, accumulate_steps=4, steps=steps,
+        checkpoint_every=checkpoint_every, data_path=data_path,
+        artifacts_dir=artifacts, log_every=1, seed=seed)
+
+
+def reset_flash_counts():
+    from runbooks_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+
+    flash_attention.launches = 0
+    flash_attention_bwd.dq_launches = 0
+    flash_attention_bwd.dkv_launches = 0
+
+
+def flash_counts():
+    from runbooks_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+
+    return {"flash_fwd": flash_attention.launches,
+            "flash_bwd_dq": flash_attention_bwd.dq_launches,
+            "flash_bwd_dkv": flash_attention_bwd.dkv_launches}
+
+
+def fsdp_rank(rank, world, store_path, out_path, setup):
+    """Phase 21 (a)'s rank body (a spawned process): join the gloo group
+    on this card, then ``run_training`` on the fsdp mesh; rank 0 sends
+    itself SIGTERM at the top of step FSDP_STEPS + 1 (RBT_FAULT_INJECT in
+    its environment alone). The summary, K1-K3 launches and the exit code
+    are pickled to out_path (a traceback instead, on failure)."""
+    import pickle
+    import traceback
+
+    import torch
+
+    result = {"ok": False}
+    try:
+        import torch.distributed as dist
+
+        from runbooks_tpu_torch.parallel import distributed
+        from runbooks_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+        from runbooks_tpu_torch.train.trainer import (
+            exit_code_for,
+            run_training,
+        )
+
+        dev = torch.device("cuda", 0)
+        distributed.initialize(FSDP_RANK_TIMEOUT_S, backend="gloo",
+                               rank=rank, world_size=world, device=dev,
+                               store=dist.FileStore(store_path, world))
+        mesh = make_mesh(MeshConfig(fsdp=world), device_type="cuda")
+        if rank == 0:
+            os.environ["RBT_FAULT_INJECT"] = f"sigterm:{FSDP_STEPS}"
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        summary = run_training(fsdp_job(**setup), device=dev, mesh=mesh)
+        result.update(ok=True, summary=summary, launches=flash_counts(),
+                      wall_s=time.perf_counter() - t0,
+                      exit=exit_code_for(summary))
+        distributed.shutdown()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        result["error"] = traceback.format_exc()
+    with open(out_path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def fsdp_nccl_check(torch, workdir):
+    """Phase 21 (b): the FSDP runtime's collectives (parallel/sharding.
+    Fsdp: the gather, the reduce-scatter, the all-reduce and the stop
+    broadcast) over NCCL at world 1 in this process, on CUDA tensors,
+    each returning its input. ({check: passed}, backend)."""
+    import torch.distributed as dist
+
+    from runbooks_tpu_torch.parallel import distributed
+    from runbooks_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from runbooks_tpu_torch.parallel.sharding import Fsdp, FsdpPlan
+
+    dev = torch.device("cuda", 0)
+    distributed.initialize(FSDP_RANK_TIMEOUT_S, backend="nccl", rank=0,
+                           world_size=1, device=dev,
+                           store=dist.FileStore(f"{workdir}/fsdp_nccl", 1))
+    try:
+        mesh = make_mesh(MeshConfig(fsdp=1))
+        plan = FsdpPlan(mesh=dataclasses.asdict(MeshConfig(fsdp=1)),
+                        params={"w": 1})
+        fsdp = Fsdp(plan, 0, mesh, dev)
+        g = torch.Generator(device=dev).manual_seed(5)
+        x = torch.randn((64, 4544), generator=g, device=dev)
+        checks = {
+            "all_gather": torch.equal(fsdp._all_gather(x, 1), x),
+            "reduce_scatter": torch.equal(fsdp._reduce_scatter(x, 1), x),
+            "all_reduce": torch.equal(fsdp.all_reduce(x.clone()), x),
+            "broadcast_stop": fsdp.broadcast_stop("sigterm") == "sigterm"}
+        return checks, dist.get_backend()
+    finally:
+        distributed.shutdown()
+
+
+def fsdp_main_check(torch, workdir):
+    """Phase 21 (b): ``python -m runbooks_tpu_torch.train.trainer`` under
+    mesh_fsdp 2 over NCCL, where two GPUs exist (exit 0, both ranks'
+    codes 0); with one, it must exit 1 naming the device count."""
+    content = f"{workdir}/fsdp_content"
+    os.makedirs(content, exist_ok=True)
+    with open(f"{content}/params.json", "w") as f:
+        json.dump({"model": "falcon-7b",
+                   "model_overrides": {"num_layers": ENTRY_LAYERS},
+                   "lora": {"rank": 16, "alpha": 32.0}, "batch_size": 2,
+                   "seq_len": 512, "steps": 2, "log_every": 1,
+                   "mesh_fsdp": 2, "maintenance_poll_s": 0}, f)
+    n = torch.cuda.device_count()
+    root = os.path.dirname(os.path.abspath(__file__))
+    done = subprocess.run(
+        [sys.executable, "-m", "runbooks_tpu_torch.train.trainer"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, RBT_CONTENT_DIR=content))
+    if n >= 2:
+        last = [json.loads(x) for x in done.stdout.splitlines()
+                if x.startswith('{"done"')]
+        ok = (done.returncode == 0 and bool(last)
+              and last[-1]["rank_exit_codes"] == [0, 0])
+        return {"ran": True, "devices": n, "exit": done.returncode,
+                "rank_exit_codes": last[-1]["rank_exit_codes"] if last
+                else None}, ok
+    named = f"torch.cuda.device_count() is {n}" in done.stderr
+    print(f"phase 21 (b): main with mesh_fsdp 2 over NCCL not run: this "
+          f"machine has {n} GPU", flush=True)
+    return {"ran": False, "devices": n, "exit": done.returncode,
+            "names_device_count": named}, done.returncode == 1 and named
+
+
+def fsdp_start(seed, data_path, workdir):
+    """Phase 21 (a)'s two ranks, started (they run while phase 20 does:
+    their step times are no FSDP speed in any case): the call that joins
+    them, and when they started."""
+    setup = {"seed": seed, "data_path": data_path,
+             "artifacts": f"{workdir}/fsdp_ranks", "steps": FSDP_STEPS + 1,
+             "checkpoint_every": 1000}
+    return start_ranks(fsdp_rank, 2, workdir, "phase 21 (a)",
+                       FSDP_RANK_TIMEOUT_S, setup), time.perf_counter()
+
+
+def fsdp_phase(torch, seed, data_path, workdir, started):
+    """Phase 21 (see the module docstring), over the ranks of
+    ``fsdp_start`` (``started``). Returns each kernel's launches by path
+    (each rank's run, and the one process's)."""
+    from runbooks_tpu_torch.train.checkpoint import CheckpointManager
+    from runbooks_tpu_torch.train.trainer import run_training
+    from runbooks_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    ranks_art = f"{workdir}/fsdp_ranks"
+    join, t_start = started
+    ranks = join()
+    t_ranks = time.perf_counter() - t_start
+    intact = CheckpointManager(ranks_art).intact_steps()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # One process on the same seed and global batch, one step further.
+    one_art = f"{workdir}/fsdp_one"
+    reset_flash_counts()
+    torch.cuda.reset_peak_memory_stats()
+    one = run_training(fsdp_job(seed, data_path, one_art, FSDP_STEPS + 1,
+                                FSDP_STEPS))
+    one_launches = flash_counts()
+    one_peak = torch.cuda.max_memory_allocated()
+    # The two ranks' (emergency) checkpoint, resumed in one process.
+    resumed = run_training(fsdp_job(seed, data_path, ranks_art,
+                                    FSDP_STEPS + 1, 1000))
+
+    def lora_at(art, step):
+        state, _, _ = CheckpointManager(art).restore_with_cursor(
+            step=step, device=torch.device("cpu"))
+        return list(tree_leaves(state["params"]))
+
+    lora_gap = max(float((a - b).abs().max()) for a, b in zip(
+        lora_at(ranks_art, FSDP_STEPS), lora_at(one_art, FSDP_STEPS),
+        strict=True))
+    gc.collect()
+    torch.cuda.empty_cache()
+    nccl, backend = fsdp_nccl_check(torch, workdir)
+    main_record, main_ok = fsdp_main_check(torch, workdir)
+
+    want = [e["loss"] for e in one["history"]]
+    want_norm = [e["grad_norm"] for e in one["history"]]
+
+    def close(a, b):
+        return abs(a - b) <= FSDP_LOSS_RTOL * abs(b)
+
+    gates = {}
+    gates["losses_within_rtol"] = all(
+        len(r["summary"]["history"]) == FSDP_STEPS and all(
+            close(e["loss"], w)
+            for e, w in zip(r["summary"]["history"], want))
+        for r in ranks)
+    # The global gradient norm: each rank's sum of its LoRA factors'
+    # reduce-scattered pieces (the backward's gloo all-reduce on CUDA
+    # tensors) against one process's whole gradients, step by step.
+    gates["grad_norms_within_rtol"] = all(
+        len(r["summary"]["history"]) == FSDP_STEPS and all(
+            close(e["grad_norm"], w)
+            for e, w in zip(r["summary"]["history"], want_norm))
+        for r in ranks)
+    gates["lora_within_2_lr_steps"] = lora_gap <= 2 * FSDP_LR * FSDP_STEPS
+    # Per step, each rank launches what one process launches.
+    gates["k1_k2_k3_launches_per_rank"] = all(
+        r["launches"][k] * (FSDP_STEPS + 1) == one_launches[k] * FSDP_STEPS
+        and one_launches[k] > 0 for r in ranks for k in one_launches)
+    gates["param_bytes_equal_plan"] = all(
+        r["summary"]["mesh"]["param_bytes"]["held"]
+        == r["summary"]["mesh"]["param_bytes"]["plan"] for r in ranks)
+    gates["sigterm_stops_both_at_one_step_exit_42"] = all(
+        r["exit"] == 42 and r["summary"]["exit_reason"] == "sigterm"
+        and r["summary"]["batches_consumed"] == FSDP_STEPS
+        for r in ranks) and intact == [FSDP_STEPS]
+    gates["two_rank_checkpoint_resumes_in_one_process"] = (
+        resumed["restored_step"] == FSDP_STEPS
+        and close(resumed["history"][-1]["loss"], want[FSDP_STEPS])
+        and close(resumed["history"][-1]["grad_norm"],
+                  want_norm[FSDP_STEPS]))
+    gates["nccl_world1_collectives"] = (backend == "nccl"
+                                        and all(nccl.values()))
+    gates["main_mesh_fsdp_2"] = main_ok
+    label = "gloo over host memory on one card: not an FSDP speed"
+    record = {
+        "card": card_line(), "layers": FSDP_LAYERS,
+        "plan": ranks[0]["summary"]["mesh"]["plan"],
+        "param_bytes_per_rank": [r["summary"]["mesh"]["param_bytes"]
+                                 for r in ranks],
+        "collectives_per_rank": [r["summary"]["mesh"]["collectives"]
+                                 for r in ranks],
+        "losses": {"one_process": want,
+                   "ranks": [[e["loss"] for e in r["summary"]["history"]]
+                             for r in ranks],
+                   "resumed_from_ranks": resumed["history"][-1]["loss"]},
+        "grad_norms": {
+            "one_process": want_norm,
+            "ranks": [[e["grad_norm"] for e in r["summary"]["history"]]
+                      for r in ranks],
+            "resumed_from_ranks": resumed["history"][-1]["grad_norm"]},
+        "max_rel_gap": {
+            key: max(abs(e[key] - w) / abs(w) for r in ranks
+                     for e, w in zip(r["summary"]["history"], ref))
+            for key, ref in (("loss", want), ("grad_norm", want_norm))},
+        "lora_max_abs_gap": lora_gap,
+        "lora_gap_limit": 2 * FSDP_LR * FSDP_STEPS,
+        "launches": {"one_process": one_launches,
+                     "steps_one_process": FSDP_STEPS + 1,
+                     "ranks": [r["launches"] for r in ranks],
+                     "steps_ranks": FSDP_STEPS},
+        label: {"peak_gb_per_rank": [r["summary"]["peak_memory_bytes"] / 1e9
+                                     for r in ranks],
+                "step_s_per_rank": [[e["step_s"]
+                                     for e in r["summary"]["history"]]
+                                    for r in ranks]},
+        "one_process_same_card": {
+            "peak_gb": one_peak / 1e9,
+            "step_s": [e["step_s"] for e in one["history"]]},
+        "ranks_s_from_start": t_ranks,
+        "ranks_wall_s": [r["wall_s"] for r in ranks], "nccl_world1": nccl,
+        "main_mesh_fsdp_2": main_record,
+        "seconds": time.perf_counter() - t_phase, "gates": gates}
+    print("phase 21 " + json.dumps(record), flush=True)
+    failed = [k for k, v in gates.items() if not v]
+    if failed:
+        raise SystemExit(f"phase 21: gates failed: {failed}")
+    return {k: {"fsdp_rank0": ranks[0]["launches"][k],
+                "fsdp_rank1": ranks[1]["launches"][k],
+                "fsdp_one_process": one_launches[k]}
+            for k in one_launches}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7779,8 +8284,14 @@ def main():
         mark("phase 19")
         gc.collect()
         torch.cuda.empty_cache()
+        fsdp_ranks = fsdp_start(args.seed, data_path, workdir)
         tp_launches = tp_phase(torch, args.seed, workdir)
         mark("phase 20")
+        gc.collect()
+        torch.cuda.empty_cache()
+        fsdp_launches = fsdp_phase(torch, args.seed, data_path, workdir,
+                                   fsdp_ranks)
+        mark("phase 21")
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -7799,7 +8310,8 @@ def main():
                      + sum(family_launches.values())
                      + sum(entry_launches["flash_fwd"].values())
                      + obs_launches + sum(gateway_launches.values())
-                     + sum(tp_launches.values())),
+                     + sum(tp_launches.values())
+                     + sum(fsdp_launches["flash_fwd"].values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
@@ -7813,7 +8325,8 @@ def main():
                              **family_launches,
                              **entry_launches["flash_fwd"],
                              "obs_overhead": obs_launches,
-                             **gateway_launches, **tp_launches},
+                             **gateway_launches, **tp_launches,
+                             **fsdp_launches["flash_fwd"]},
         "max_abs_err": max(worst, family_records["fwd_worst"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -7854,11 +8367,13 @@ def main():
             "replaces": f"runbooks_tpu/ops/flash_attention.py:{line}",
             "launches": (train_launches[name] + text_launches[name]
                          + family_bwd_launches[name]
-                         + sum(entry_launches[name].values())),
+                         + sum(entry_launches[name].values())
+                         + sum(fsdp_launches[name].values())),
             "launches_by_path": {"train": train_launches[name],
                                  "text_train": text_launches[name],
                                  "falcon_train": family_bwd_launches[name],
-                                 **entry_launches[name]},
+                                 **entry_launches[name],
+                                 **fsdp_launches[name]},
             "max_abs_err": max(bwd_worst[name],
                                family_records["bwd_worst"][name]),
             "ms": train_case["ms"][name],
@@ -7867,6 +8382,7 @@ def main():
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": library,
+            "library_masked_ms": train_case["library_masked_ms"],
             "library_ms_covers": ("backward of scaled_dot_product_attention"
                                   "(is_causal, enable_gqa) at "
                                   "b_causal_2x2048: dq, dk, dv together"),
@@ -7883,6 +8399,7 @@ def main():
                        "bound_ms": r["bounds"][name][0],
                        "bound_by": r["bounds"][name][1],
                        "library_ms": r["library_ms"],
+                       "library_masked_ms": r["library_masked_ms"],
                        "card_tiles_computed_open": r["card_tiles"][name],
                        "shape": r["shape"]}
                 for case, r in family_records["bwd"].items()},

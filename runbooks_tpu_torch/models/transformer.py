@@ -634,6 +634,7 @@ def forward(
     lora: Optional[LoraDeltas] = None,
     adapters: Optional[Tuple[Params, torch.Tensor]] = None,
     tp=None,
+    fsdp=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
     """Returns (logits [b, s, vocab] f32, updated cache or None).
 
@@ -665,12 +666,28 @@ def forward(
     cache then hold one rank's shard (TensorPlan), the forward runs on
     local widths and its collectives make every rank's output the whole
     model's: hidden states all-reduced after each sharded sublayer,
-    logits gathered over the vocabulary."""
+    logits gathered over the vocabulary.
+
+    fsdp (training): a parallel/sharding.Fsdp. ``params["layers"]`` (and
+    the LoRA factors) then hold the rank's pieces, and every other leaf
+    whole (``Fsdp.outer``, which the train step calls, so that the loss's
+    head is the same gathered tensor). Each block gathers its layer's
+    leaves first, inside its checkpoint: remat frees them and the
+    recompute gathers them again; their gradients come back
+    reduce-scattered."""
     check_supported(cfg)
     if tp is not None and (lora is not None or remat):
         raise NotImplementedError(
             "a tensor-parallel forward serves: LoRA merges and remat are "
             "training paths, which run on one device")
+    if fsdp is not None and (tp is not None or cache is not None
+                             or adapters is not None):
+        raise NotImplementedError(
+            "an FSDP forward trains: tensor parallelism, a KV cache and an "
+            "adapter pool are serving paths")
+    if fsdp is not None and params["embed"].shape[-1] != cfg.hidden_size:
+        raise ValueError("an FSDP forward takes the leaves outside the "
+                         "layers whole: call Fsdp.outer(params) first")
     if cache is not None and segment_ids is not None:
         raise NotImplementedError(
             "packed sequences (segment_ids) are not supported together with "
@@ -721,7 +738,6 @@ def forward(
         mask = make_attention_mask(positions, positions, segment_ids,
                                    segment_ids, causal=True)
 
-    layers = params["layers"]
     rows = {}
     if adapters is not None:
         pool, lane_idx = adapters
@@ -734,9 +750,14 @@ def forward(
              and tp.plan.mlp)
 
     def block(x, li, layer_cache):
+        layers, lora_l = params["layers"], lora
+        if fsdp is not None:
+            # This layer's leaves whole, as one-layer stacks.
+            layers, lora_l = fsdp.layer(layers, lora, li)
+            li = 0
         h1 = _norm(cfg, layers["ln1"], x, li)
         attn_out = _attention_block(cfg, layers["attn"], li, h1, positions,
-                                    mask, layer_cache, segment_ids, lora,
+                                    mask, layer_cache, segment_ids, lora_l,
                                     rows.get("attn"), tp, fused)
         if name_attn_out:
             attn_out = checkpoint_name(attn_out, "attn_out")
@@ -745,7 +766,7 @@ def forward(
             # shared norm (7b) or their own (40b's ln_attn / ln_mlp).
             h2 = (h1 if cfg.shared_layer_norm
                   else _norm(cfg, layers["ln2"], x, li))
-            mlp_out = _mlp_block(cfg, layers["mlp"], li, h2, lora,
+            mlp_out = _mlp_block(cfg, layers["mlp"], li, h2, lora_l,
                                  rows.get("mlp"), tp, fused)
             if fused:
                 out = tp.all_reduce(attn_out + mlp_out)
@@ -754,7 +775,7 @@ def forward(
             return x + attn_out + mlp_out
         x = x + attn_out
         h2 = _norm(cfg, layers["ln2"], x, li)
-        return x + _mlp_block(cfg, layers["mlp"], li, h2, lora,
+        return x + _mlp_block(cfg, layers["mlp"], li, h2, lora_l,
                               rows.get("mlp"), tp)
 
     for li in range(cfg.num_layers):

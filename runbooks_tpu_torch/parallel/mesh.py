@@ -14,8 +14,9 @@ Axes, outermost to innermost, as the reference's:
 the processes of the default group (one process per GPU), shaped by the
 resolved config and named by ``MESH_AXES``.
 
-The port serves over the ``tensor`` axis only (``check_serving_mesh``):
-the other axes are refused by name until their slices land (ROADMAP §1).
+The port serves over the ``tensor`` axis only (``check_serving_mesh``)
+and trains over ``data`` and ``fsdp`` only (``check_training_mesh``): the
+other axes are refused by name until their slices land (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -74,6 +75,30 @@ def check_serving_mesh(config: MeshConfig) -> None:
                 f"mesh_{axis}={getattr(config, axis)}: the PyTorch port "
                 f"serves over the tensor axis only (mesh_tensor); "
                 f"{axis} parallelism is not ported yet (ROADMAP.md §1)")
+
+
+def check_training_mesh(config: MeshConfig,
+                        world: Optional[int] = None) -> MeshConfig:
+    """Refuse, by name, every training axis but ``data`` and ``fsdp`` above
+    1; with ``world`` (the ranks there are: on ``train/trainer.main`` the
+    GPUs the process sees) resolve against it first, a -1 axis filling
+    with it and a mesh of another size raising as the reference's. Returns
+    the config (resolved when ``world`` is given)."""
+    if world is not None:
+        config = config.resolve(world)
+    if config.stage > 1:
+        raise NotImplementedError(
+            f"mesh_stage={config.stage}: pipeline parallelism "
+            "(parallel/pipeline.py) is not ported yet (ROADMAP.md §1); "
+            "train over mesh_data and mesh_fsdp")
+    for axis in ("expert", "sequence", "tensor"):
+        if getattr(config, axis) > 1:
+            raise NotImplementedError(
+                f"mesh_{axis}={getattr(config, axis)}: the PyTorch port "
+                f"trains over the data and fsdp axes only (mesh_data, "
+                f"mesh_fsdp); {axis} parallelism in training is not ported "
+                f"yet (ROADMAP.md §1)")
+    return config
 
 
 def make_mesh(config: Optional[MeshConfig] = None,

@@ -23,6 +23,17 @@ the forward (models/transformer.py), which runs on local widths:
 - the embedding, when the vocabulary shards, is looked up with a mask and
   summed over ranks (exact: one rank holds each row);
 - the head's local logits are all-gathered over the vocabulary.
+
+``FsdpPlan`` holds what each rank of a training mesh over ``data`` and
+``fsdp`` (ZeRO-3) keeps: each leaf shards the dimension that the same
+table gives ``fsdp`` (the reference's "embed" rule), or replicates where
+``fsdp`` does not divide it (``train/step.fsdp_plan`` reads it from the
+train state's specs, ``train/step.batch_rows`` the batch's rows from
+its specs). ``Fsdp`` carries the plan, the rank and the mesh's groups
+into the train step (train/step.py) and the forward, which gathers each
+layer's leaves inside its block (an autograd Function whose backward
+reduce-scatters the gradient into the rank's piece) and sums the rest of
+the gradients over the ranks.
 """
 
 from __future__ import annotations
@@ -415,3 +426,326 @@ class TensorParallel:
             self._kv_index[device] = torch.tensor(self.kv_map,
                                                   device=device)
         return self._kv_index[device]
+
+
+# ---------------------------------------------------------------------------
+# FSDP (ZeRO-3) training over data x fsdp
+# ---------------------------------------------------------------------------
+
+def fsdp_dim(spec) -> Optional[int]:
+    """The dimension a spec shards over ``fsdp`` (alone or in a tuple of
+    mesh axes), or None."""
+    for i, axes in enumerate(spec):
+        if axes == "fsdp" or (isinstance(axes, tuple) and "fsdp" in axes):
+            return i
+    return None
+
+
+@dataclasses.dataclass(frozen=True)
+class FsdpPlan:
+    """What each rank of a data x fsdp training mesh holds. ``params`` and
+    ``lora`` are trees like the model's params and the LoRA tree (None in
+    a full fine-tune); each leaf's entry is the dimension it shards over
+    ``fsdp`` (fsdp index f holds the f-th of ``fsdp`` equal pieces) or
+    None (replicated). Ranks are numbered data-major, as the DeviceMesh
+    orders them: rank r sits at data index r // fsdp, fsdp index r %
+    fsdp. Data replicas hold the same pieces."""
+
+    mesh: Dict[str, int]
+    params: Any
+    lora: Any = None
+
+    @property
+    def data(self) -> int:
+        return self.mesh["data"]
+
+    @property
+    def fsdp(self) -> int:
+        return self.mesh["fsdp"]
+
+    @property
+    def world(self) -> int:
+        return self.data * self.fsdp
+
+    @property
+    def trainable(self) -> Any:
+        """The dims of the tree the optimizer updates."""
+        return self.params if self.lora is None else self.lora
+
+    def coords(self, rank: int) -> Tuple[int, int]:
+        """(data index, fsdp index) of ``rank``."""
+        return divmod(int(rank), self.fsdp)
+
+    def local_shape(self, shape: Sequence[int], dim: Optional[int]
+                    ) -> Tuple[int, ...]:
+        out = list(shape)
+        if dim is not None:
+            out[dim] //= self.fsdp
+        return tuple(out)
+
+    def cut(self, leaf, dim: Optional[int], rank: int):
+        """``rank``'s piece of the full ``leaf`` (the leaf itself where it
+        is replicated)."""
+        if dim is None:
+            return leaf
+        n = leaf.shape[dim] // self.fsdp
+        return leaf.narrow(dim, self.coords(rank)[1] * n, n).contiguous()
+
+    def cut_by_axes(self, leaf, axes: LogicalSpec, rank: int):
+        """As ``cut``, the dimension read from the leaf's logical axes
+        (``init_params(cut=)``: each leaf is cut as it is drawn)."""
+        return self.cut(leaf, fsdp_dim(spec_for_array(leaf.shape, axes,
+                                                      self.mesh)), rank)
+
+    def shard(self, tree, dims, rank: int):
+        """``rank``'s pieces of a full tree whose dims are ``dims``."""
+        if isinstance(tree, dict):
+            return {k: self.shard(tree[k], dims[k], rank) for k in tree}
+        return self.cut(tree, dims, rank)
+
+    def local_bytes(self, tree, dims) -> int:
+        """The bytes one rank holds of a full tree (shapes and dtypes
+        only; every rank holds as many)."""
+        from runbooks_tpu_torch.utils.tree import tree_leaves
+
+        total = 0
+        for leaf, dim in zip(tree_leaves(tree), tree_leaves(dims),
+                             strict=True):
+            n = 1
+            for s in self.local_shape(leaf.shape, dim):
+                n *= s
+            total += n * leaf.element_size()
+        return total
+
+    def describe(self) -> dict:
+        from runbooks_tpu_torch.utils.tree import tree_leaves
+
+        def count(dims):
+            dims = list(tree_leaves(dims))
+            return {"sharded": sum(d is not None for d in dims),
+                    "replicated": sum(d is None for d in dims)}
+
+        out = {"data": self.data, "fsdp": self.fsdp,
+               "params": count(self.params)}
+        if self.lora is not None:
+            out["lora"] = count(self.lora)
+        return out
+
+
+class _GatherPiece(torch.autograd.Function):
+    """The whole tensor from every fsdp rank's piece along ``dim``; its
+    backward sums the gradient over the fsdp ranks and keeps this rank's
+    piece (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, piece, dim, fsdp):
+        ctx.dim, ctx.fsdp = dim, fsdp
+        return fsdp._all_gather(piece, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.fsdp._reduce_scatter(grad, ctx.dim), None, None
+
+
+# The stop decisions a trainer's rank 0 broadcasts at each step boundary.
+STOP_REASONS = (None, "sigterm", "sigint", "maintenance")
+
+
+class Fsdp:
+    """One rank's view of a data x fsdp training group: its plan, its rank,
+    the mesh's fsdp and data groups (the default group spans both) and the
+    device of its collectives' small tensors. The train step and the
+    forward call the collectives; ``counts`` tallies them by kind.
+
+    A gradient is reduce-scattered (NCCL, and gloo on CPU tensors) or,
+    where the backend has no reduce-scatter for the tensor (gloo on CUDA
+    tensors), all-reduced with the rank's piece kept: the same sum."""
+
+    def __init__(self, plan: FsdpPlan, rank: int, mesh, device,
+                 compute_dtype: Optional[torch.dtype] = None):
+        self.plan = plan
+        self.rank = int(rank)
+        # The dtype the forward reads frozen matrices in (the config's
+        # activation dtype): such a leaf is cast before it is gathered.
+        self.compute_dtype = compute_dtype
+        self.data_index, self.fsdp_index = plan.coords(rank)
+        self.device = torch.device(device)
+        self.fsdp_group = mesh.get_group("fsdp")
+        self.data_group = mesh.get_group("data")
+        self.counts: Dict[str, int] = {"all_gather": 0, "reduce_scatter": 0,
+                                       "all_reduce": 0, "broadcast": 0}
+
+    # -- collectives ---------------------------------------------------------
+
+    def _all_gather(self, piece: torch.Tensor, dim: int) -> torch.Tensor:
+        import torch.distributed as dist
+
+        piece = piece.contiguous()
+        parts = [torch.empty_like(piece) for _ in range(self.plan.fsdp)]
+        dist.all_gather(parts, piece, group=self.fsdp_group)
+        self.counts["all_gather"] += 1
+        return torch.cat(parts, dim=dim)
+
+    def _scatters(self, t: torch.Tensor) -> bool:
+        """Whether the fsdp group's backend reduce-scatters ``t`` (NCCL,
+        and gloo on CPU tensors; gloo has none for CUDA tensors)."""
+        import torch.distributed as dist
+
+        return (dist.get_backend(self.fsdp_group) == "nccl"
+                or t.device.type == "cpu")
+
+    def _reduce_scatter(self, grad: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's piece of the gradient summed over the fsdp ranks,
+        summed in f32 and returned in the gradient's dtype."""
+        import torch.distributed as dist
+
+        g = grad.float()
+        n = g.shape[dim] // self.plan.fsdp
+        if self._scatters(g):
+            chunks = [c.contiguous() for c in g.chunk(self.plan.fsdp, dim)]
+            out = torch.empty_like(chunks[0])
+            dist.reduce_scatter(out, chunks, group=self.fsdp_group)
+        else:
+            # A copy: the incoming gradient is not ours to overwrite.
+            g = g.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(g, group=self.fsdp_group)
+            out = g.narrow(dim, self.fsdp_index * n, n).contiguous()
+        self.counts["reduce_scatter"] += 1
+        return out.to(grad.dtype)
+
+    def all_reduce(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """``x`` summed over ``group`` (default: every rank), in place."""
+        import torch.distributed as dist
+
+        dist.all_reduce(x, group=group)
+        self.counts["all_reduce"] += 1
+        return x
+
+    def _sum_flat(self, tensors: List[torch.Tensor], group,
+                  size: int) -> None:
+        """Each tensor summed over ``group`` in place, in one all-reduce."""
+        if not tensors or size == 1:
+            return
+        flat = self.all_reduce(torch.cat([t.reshape(-1) for t in tensors]),
+                               group)
+        off = 0
+        for t in tensors:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+
+    def broadcast_stop(self, reason: Optional[str]) -> Optional[str]:
+        """Rank 0's stop decision (STOP_REASONS) on every rank."""
+        import torch.distributed as dist
+
+        code = torch.tensor([STOP_REASONS.index(reason)], device=self.device)
+        dist.broadcast(code, src=0)
+        self.counts["broadcast"] += 1
+        return STOP_REASONS[int(code.item())]
+
+    def barrier(self) -> None:
+        self.all_reduce(torch.zeros(1, device=self.device))
+
+    # -- the forward's gathers -------------------------------------------------
+
+    def gather(self, piece: torch.Tensor, dim: Optional[int],
+               cast: bool = False) -> torch.Tensor:
+        """The whole tensor of a piece sharded along ``dim`` (``piece``
+        itself when it is replicated). Where ``piece`` requires grad its
+        gradient comes back reduce-scattered; a frozen piece (a LoRA
+        job's base) sends no gradient traffic, and with ``cast`` (the
+        forward reads it only in ``compute_dtype``) it is cast first: the
+        same values at half the bytes for an f32 base."""
+        if dim is None or self.plan.fsdp == 1:
+            return piece
+        if piece.requires_grad:
+            return _GatherPiece.apply(piece, dim, self)
+        if cast and self.compute_dtype is not None:
+            piece = piece.to(self.compute_dtype)
+        return self._all_gather(piece, dim)
+
+    def outer(self, params: dict) -> dict:
+        """``params`` with every leaf outside the stacked layers whole
+        (the embedding, the head, learned positions, all read in the
+        compute dtype): gathered once per forward, so a tied head's
+        gradient and the embedding's meet in one reduce-scatter."""
+        dims = self.plan.params
+        return {k: (v if k == "layers" or not torch.is_tensor(v)
+                    else self.gather(v, dims[k], cast=True))
+                for k, v in params.items()}
+
+    def layer(self, layers: dict, lora, li: int):
+        """(layer ``li``'s leaves whole, as [1, ...] stacks; its LoRA
+        factors likewise, or None): the forward's block reads them at
+        layer 0. Called inside the checkpointed block, so remat frees the
+        gathered leaves and the recompute gathers them again."""
+        dims = self.plan.params["layers"]
+        targets = () if lora is None else lora.factors
+
+        def one(w, dim, cast=False):
+            return self.gather(w[li], None if dim is None else dim - 1,
+                               cast)[None]
+
+        # A LoRA target is merged with its delta in f32 (LoraDeltas); the
+        # other matrices are read in the compute dtype.
+        out = {g: {n: one(w, dims[g][n], f"{g}.{n}" not in targets)
+                   for n, w in mats.items()}
+               for g, mats in layers.items()}
+        if lora is None:
+            return out, None
+        ldims = self.plan.lora
+        factors = {t: {k: one(f[k], ldims[t][k]) for k in f}
+                   for t, f in lora.factors.items()}
+        return out, type(lora)(factors, lora.scale)
+
+    # -- the step's sums ---------------------------------------------------------
+
+    def reduce_grads(self, grads: List[torch.Tensor]) -> None:
+        """The trainable leaves' gradients (in tree_leaves order) summed in
+        place: a sharded leaf's piece (already summed over fsdp by its
+        gather's backward) over the data ranks, a replicated leaf's over
+        every rank."""
+        from runbooks_tpu_torch.utils.tree import tree_leaves
+
+        dims = list(tree_leaves(self.plan.trainable))
+        self._sum_flat([g for g, d in zip(grads, dims, strict=True)
+                        if d is None], None, self.plan.world)
+        self._sum_flat([g for g, d in zip(grads, dims) if d is not None],
+                       self.data_group, self.plan.data)
+
+    def global_norm(self, grads) -> torch.Tensor:
+        """The global norm of the trainable tree's gradients: each sharded
+        leaf's squares summed over the fsdp ranks once, each replicated
+        leaf's counted once."""
+        from runbooks_tpu_torch.utils.tree import tree_leaves
+
+        dims = list(tree_leaves(self.plan.trainable))
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        sharded, replicated = zero, zero
+        for g, d in zip(tree_leaves(grads), dims, strict=True):
+            sq = torch.sum(g.float() ** 2)
+            if d is None:
+                replicated = replicated + sq
+            else:
+                sharded = sharded + sq
+        if self.plan.fsdp > 1:
+            sharded = self.all_reduce(sharded, self.fsdp_group)
+        return torch.sqrt(sharded + replicated)
+
+    # -- checkpoints -------------------------------------------------------------
+
+    def gather_full(self, tree, dims):
+        """The whole of a sharded tree on rank 0, on the CPU (None on the
+        other ranks), gathered one leaf at a time over the fsdp ranks of
+        data index 0. Leaves that are not tensors pass through."""
+        def walk(t, d):
+            if isinstance(t, dict):
+                return {k: walk(t[k], d[k] if isinstance(d, dict) else None)
+                        for k in t}
+            if not torch.is_tensor(t):
+                return t
+            if d is not None and self.plan.fsdp > 1 and self.data_index == 0:
+                t = self._all_gather(t, d)
+            return t.cpu() if self.rank == 0 else None
+
+        out = walk(tree, dims)
+        return out if self.rank == 0 else None

@@ -11,7 +11,7 @@ base stays frozen, and no merged copy of all layers outlives its block.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -58,25 +58,59 @@ def _get(tree: Params, dotted: str):
 
 
 def init_lora(params: Params, cfg: LoraConfig,
-              generator: torch.Generator) -> Params:
-    """{target: {"a": [L, in, r], "b": [L, r, out]}} on the base's device:
-    A ~ N(0, 1/in), B = 0, so the delta starts at zero."""
+              generator: Optional[torch.Generator],
+              device: Optional[torch.device] = None,
+              cut: Optional[Callable[[torch.Tensor, tuple],
+                                     torch.Tensor]] = None) -> Params:
+    """{target: {"a": [L, in, r], "b": [L, r, out]}} on ``device`` (default:
+    the base's): A ~ N(0, 1/in), B = 0, so the delta starts at zero.
+    ``params`` gives the base's full shapes (it may live on the meta
+    device). ``cut(leaf, logical_axes)`` (an FSDP rank's
+    parallel/sharding.FsdpPlan.cut_by_axes) is applied to each factor as
+    it is drawn; the draws are the same with it or without it."""
     lora: Dict[str, Dict[str, torch.Tensor]] = {}
     for target in cfg.targets:
         w = _get(params["layers"], target)
         if w is None:
             continue
         L, d_in, d_out = w.shape
+        dev = w.device if device is None else device
         a = torch.randn((L, d_in, cfg.rank), generator=generator,
-                        device=w.device, dtype=torch.float32) * d_in ** -0.5
+                        device=dev, dtype=torch.float32) * d_in ** -0.5
         lora[target] = {
             "a": a.to(w.dtype),
             "b": torch.zeros((L, cfg.rank, d_out), dtype=w.dtype,
-                             device=w.device),
+                             device=dev),
         }
+        if cut is not None:
+            axes = _factor_axes(target)
+            lora[target] = {k: cut(f, axes[k])
+                            for k, f in lora[target].items()}
     if not lora:
         raise ValueError(f"no LoRA targets matched: {cfg.targets}")
     return lora
+
+
+# The (in, out) logical axes of each target's base matrix.
+_BASE_AXES = {
+    "attn.wq": ("embed", "heads"), "attn.wk": ("embed", "kv_heads"),
+    "attn.wv": ("embed", "kv_heads"), "attn.wo": ("heads", "embed"),
+    "mlp.wi_gate": ("embed", "mlp"), "mlp.wi_up": ("embed", "mlp"),
+    "mlp.wi": ("embed", "mlp"), "mlp.wo": ("mlp", "embed"),
+}
+
+
+def _factor_axes(target: str) -> Dict[str, tuple]:
+    in_ax, out_ax = _BASE_AXES.get(target, (None, None))
+    return {"a": (None, in_ax, None), "b": (None, None, out_ax)}
+
+
+def lora_logical_axes(cfg: LoraConfig, params: Params) -> Params:
+    """Logical axes of a LoRA tree (the reference's): the layer and rank
+    axes replicated, A's input and B's output axis those of the base
+    matrix (so under FSDP a target whose base shards "embed" shards it
+    too)."""
+    return {target: _factor_axes(target) for target in params}
 
 
 def deltas(lora: Params, cfg: LoraConfig) -> LoraDeltas:
@@ -107,29 +141,36 @@ def trainable_param_count(lora: Params) -> int:
 
 def create_lora_train_state(lora_cfg: LoraConfig, base_params: Params,
                             optimizer: AdamW,
-                            generator: torch.Generator) -> TrainState:
-    """TrainState whose params are the LoRA tree only."""
-    lora = init_lora(base_params, lora_cfg, generator)
+                            generator: torch.Generator,
+                            device: Optional[torch.device] = None,
+                            cut=None) -> TrainState:
+    """TrainState whose params are the LoRA tree only (``device`` and
+    ``cut`` as ``init_lora``'s: an FSDP rank passes the base's full shapes
+    and keeps its pieces)."""
+    lora = init_lora(base_params, lora_cfg, generator, device=device,
+                     cut=cut)
     return TrainState(step=0, params=lora, opt_state=optimizer.init(lora))
 
 
 def make_lora_train_step(model_cfg: ModelConfig, lora_cfg: LoraConfig,
                          optimizer: AdamW, remat: bool = True,
-                         accumulate_steps: int = 1, loss_chunk: int = 0):
+                         accumulate_steps: int = 1, loss_chunk: int = 0,
+                         fsdp=None):
     """(state, base_params, batch) -> (state, metrics); gradients reach
-    only the LoRA tree. accumulate_steps and loss_chunk as in
-    ``make_train_step``."""
+    only the LoRA tree. accumulate_steps, loss_chunk and fsdp as in
+    ``make_train_step`` (the base, too, holds the rank's pieces; it is
+    gathered without gradient traffic)."""
     k = int(accumulate_steps)
     if k < 1:
         raise ValueError(f"accumulate_steps must be >= 1, got {k}")
-    ce_terms = make_ce_terms(model_cfg, remat, int(loss_chunk))
+    ce_terms = make_ce_terms(model_cfg, remat, int(loss_chunk), fsdp)
 
     def step_fn(state: TrainState, base_params: Params, batch):
         def loss_fn(lora, micro):
             return ce_terms(base_params, micro, deltas(lora, lora_cfg))
 
         (loss, total), grads = value_and_grad(
-            loss_fn, trainable_copy(state.params), batch, k)
-        return apply_step(optimizer, state, loss, total, grads)
+            loss_fn, trainable_copy(state.params), batch, k, fsdp)
+        return apply_step(optimizer, state, loss, total, grads, fsdp)
 
     return step_fn

@@ -106,12 +106,15 @@ class AdamW:
             "nu": tree_map(torch.zeros_like, params),
         }
 
-    def update(self, grads: Tree, state: Dict[str, Any], params: Tree
+    def update(self, grads: Tree, state: Dict[str, Any], params: Tree,
+               grad_norm: Optional[torch.Tensor] = None
                ) -> Tuple[Tree, Dict[str, Any]]:
-        """(new params, new state) for gradients ``grads``."""
+        """(new params, new state) for gradients ``grads``. ``grad_norm``:
+        their global norm where the caller has it (a sharded tree's is
+        not its local leaves' norm: parallel/sharding.Fsdp.global_norm)."""
         cfg = self.cfg
         if cfg.grad_clip_norm is not None:
-            norm = global_norm(grads)
+            norm = global_norm(grads) if grad_norm is None else grad_norm
             clip = norm >= cfg.grad_clip_norm
             grads = tree_map(lambda g: torch.where(
                 clip, g / norm.to(g.dtype) * cfg.grad_clip_norm, g), grads)

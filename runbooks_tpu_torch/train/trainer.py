@@ -23,9 +23,27 @@ copies each batch to the device asynchronously on its own stream.
 
 ``main`` builds the kernels into ``<artifacts>/kernel_cache``
 (utils/cuda_build.py), so a restarted Job loads them without ``nvcc``.
-The ``mesh_*`` keys of params.json are ignored (one device is FSDP's
-arithmetic on one shard); a collective matmul other than "off" is refused
-by name.
+A collective matmul other than "off" is refused by name.
+
+Data parallelism and FSDP (ZeRO-3): the ``mesh_*`` keys of params.json
+form a MeshConfig, as the reference's; ``mesh_data`` and ``mesh_fsdp``
+train over that many ranks, and the other axes above 1 are refused by
+name (parallel/mesh.check_training_mesh), as is a multi-host env. ``main``
+resolves the mesh against the GPUs it sees (a -1 axis fills with them; a
+mesh that needs more raises naming ``torch.cuda.device_count()``) and
+runs one rank per GPU over NCCL: it is rank 0 and spawns the others.
+``run_training(..., mesh=)`` is one rank's run: its pieces of the params
+and of the optimizer state (init draws each full leaf and keeps the
+rank's piece, so the run starts where one process would), its rows of
+the global batch stream (one data cursor), the global loss and norm
+(train/step.py). Rank 0 decides SIGTERM, SIGINT and maintenance stops
+and broadcasts its decision at every step boundary, so every rank stops
+at the same step, takes part in one emergency checkpoint and exits
+EXIT_PREEMPTED; RBT_FAULT_INJECT acts on every rank. Checkpoints keep the
+one-process format: rank 0 gathers one leaf at a time and writes, and
+every rank restores its pieces, so a run resumes in any layout. Rank 0
+alone writes the summary, metrics, spans, checkpoints and profiles;
+tokens/s, MFU and the first step's FLOPs count the global batch.
 
 Observability (runbooks_tpu_torch/obs), as the reference's: spans
 (restore, data_wait, step, checkpoint, emergency_save; the ``preempted``
@@ -44,8 +62,11 @@ RBT_PROFILE_AT_STEP=n[:k] (``{artifacts}/profiles/step<n>``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
+import math
 import os
+import shutil
 import signal
 import threading
 import time
@@ -62,24 +83,36 @@ from runbooks_tpu_torch.obs.goodput import GoodputTracker
 from runbooks_tpu_torch.obs.metrics import REGISTRY
 from runbooks_tpu_torch.obs.profile import PROFILER, parse_profile_at_step
 from runbooks_tpu_torch.obs.trace import span
+from runbooks_tpu_torch.parallel import distributed
+from runbooks_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    check_training_mesh,
+    make_mesh,
+    mesh_config_of,
+)
+from runbooks_tpu_torch.parallel.sharding import Fsdp
 from runbooks_tpu_torch.train import data as data_mod
 from runbooks_tpu_torch.train.checkpoint import CheckpointManager
 from runbooks_tpu_torch.train.lora import (
     LoraConfig,
     create_lora_train_state,
+    init_lora,
     make_lora_train_step,
 )
 from runbooks_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer
 from runbooks_tpu_torch.train.step import (
     TrainState,
+    batch_rows,
     create_train_state,
     first_step,
+    fsdp_plan,
     make_train_step,
+    shard_batch,
 )
 from runbooks_tpu_torch.utils import contract, cuda_build
 from runbooks_tpu_torch.utils.contract import EXIT_PREEMPTED
 from runbooks_tpu_torch.utils.hw import chip_peak_flops, resolve_device
-from runbooks_tpu_torch.utils.tree import tree_map
+from runbooks_tpu_torch.utils.tree import tree_leaves, tree_map
 
 COLLECTIVE_MATMUL_PARAM_KEYS = ("collective_matmul", "collectiveMatmul",
                                 "collectivematmul")
@@ -121,15 +154,16 @@ def _refuse_unported(params: Dict[str, Any]) -> None:
         value = params.get(key)
         if value is not None and str(value).lower() != "off":
             raise NotImplementedError(
-                f"{key}={value!r}: the collective matmul needs a mesh, "
-                "which the port does not have (ROADMAP.md, multi-device); "
-                "use off")
+                f"{key}={value!r}: the collective matmul "
+                "(ops/collective_matmul.py) is not ported yet (ROADMAP.md "
+                "§1, multi-device); use off")
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainJobConfig:
     model: str = "debug"
     model_overrides: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    mesh: MeshConfig = MeshConfig()
     optimizer: OptimizerConfig = OptimizerConfig()
     lora: Optional[LoraConfig] = None
 
@@ -167,9 +201,11 @@ class TrainJobConfig:
     def from_params(cls, params: Dict[str, Any]) -> "TrainJobConfig":
         """From a flat params.json dict, as the reference reads it: the
         camelCase spellings of accumulate_steps and max_bad_steps, quoted
-        numbers, optimizer keys at the top level, ``lora`` as a dict (or
-        true for the defaults); unknown keys are ignored, and keys the
-        port cannot honour are refused by name."""
+        numbers, optimizer keys at the top level, ``mesh_<axis>`` keys as
+        a MeshConfig, ``lora`` as a dict (or true for the defaults);
+        unknown keys are ignored, and keys the port cannot honour (a
+        training axis other than data and fsdp above 1) are refused by
+        name."""
         kwargs: Dict[str, Any] = {}
         params = dict(params)
         _refuse_unported(params)
@@ -180,7 +216,8 @@ class TrainJobConfig:
             if alias in params:
                 params.setdefault("max_bad_steps", params.pop(alias))
         simple = {f.name for f in dataclasses.fields(cls)
-                  if f.name not in ("optimizer", "lora", "model_overrides")}
+                  if f.name not in ("mesh", "optimizer", "lora",
+                                    "model_overrides")}
         kwargs.update({k: v for k, v in params.items() if k in simple})
         for key in ("accumulate_steps", "loss_chunk", "prefetch_depth",
                     "batch_size", "seq_len", "steps", "max_bad_steps",
@@ -189,6 +226,11 @@ class TrainJobConfig:
                 kwargs[key] = int(kwargs[key])
         if "maintenance_poll_s" in kwargs:
             kwargs["maintenance_poll_s"] = float(kwargs["maintenance_poll_s"])
+        mesh_keys = {f.name for f in dataclasses.fields(MeshConfig)}
+        mesh_args = {k[len("mesh_"):]: int(v) for k, v in params.items()
+                     if k.startswith("mesh_") and k[len("mesh_"):] in mesh_keys}
+        if mesh_args:
+            kwargs["mesh"] = check_training_mesh(MeshConfig(**mesh_args))
         opt_keys = {f.name for f in dataclasses.fields(OptimizerConfig)}
         opt_args = {k: v for k, v in params.items() if k in opt_keys}
         if opt_args:
@@ -234,17 +276,40 @@ def _write_json(path: str, obj: Any) -> None:
     os.replace(path + ".tmp", path)
 
 
+def refuse_multi_host() -> None:
+    """A multi-host env (the operator's JAX_* fan-out) is refused: this
+    port's ranks are the processes of one host."""
+    info = distributed.env_process_info()
+    if info is not None and info["num_processes"] > 1:
+        raise NotImplementedError(
+            f"a training mesh over {info['num_processes']} hosts "
+            "(JAX_NUM_PROCESSES): the PyTorch port trains on the GPUs of "
+            "one host, one process per GPU; multi-host training is not "
+            "ported yet (ROADMAP.md §1)")
+
+
 def run_training(job: TrainJobConfig, base_params=None,
-                 device: Optional[Union[str, torch.device]] = None
-                 ) -> Dict[str, Any]:
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None) -> Dict[str, Any]:
     """Run the job; returns the summary (also {artifacts}/metrics.json).
 
     Runs on CUDA unless ``device`` names another; raises when no device is
     named and no GPU exists. ``base_params`` (the port's params layout, on
     any device) are the frozen base in LoRA mode and the starting weights
     in full mode; by default both come from a random init seeded by
-    ``job.seed``."""
+    ``job.seed``.
+
+    ``mesh``: this rank's DeviceMesh (parallel/mesh.make_mesh over the
+    default process group) for a data x fsdp run; every rank calls
+    run_training with the same job. Without it ``job.mesh`` must resolve
+    to one process (a larger one raises: ``main`` starts the ranks)."""
     dev = resolve_device(device)
+    refuse_multi_host()
+    if mesh is None:
+        mesh_cfg = check_training_mesh(job.mesh, 1)
+    else:
+        mesh_cfg = check_training_mesh(mesh_config_of(mesh))
+    world = mesh_cfg.data * mesh_cfg.fsdp
     model_cfg = get_config(job.model, **job.model_overrides)
     if job.accumulate_steps < 1:
         raise ValueError(
@@ -257,42 +322,86 @@ def run_training(job: TrainJobConfig, base_params=None,
     profile_at = parse_profile_at_step()
     optimizer = make_optimizer(job.optimizer)
     artifacts = job.artifacts_dir or contract.artifacts_dir()
+    fsdp = rank = None
+    if world > 1:
+        import torch.distributed as dist
+
+        rank = dist.get_rank()
+        fsdp = Fsdp(fsdp_plan(model_cfg, mesh_cfg, job.lora), rank, mesh, dev,
+                    compute_dtype=model_cfg.activation_dtype)
+    primary = rank in (None, 0)
     os.makedirs(artifacts, exist_ok=True)
     # This run's events label as the training tier, and its trace file is
     # the run's (RBT_TRACE=1 writes live spans there; tail sampling and
-    # incidents need the same destination with it off).
+    # incidents need the same destination with it off); rank 0's alone.
     obs_flight.set_component("train")
-    obs_trace.configure(os.path.join(artifacts, "trace.jsonl"))
+    obs_trace.configure(os.path.join(artifacts, "trace.jsonl") if primary
+                        else os.devnull)
     ckpt = CheckpointManager(artifacts)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(job.seed)
-    if base_params is None:
-        base_params = init_params(model_cfg, gen, dev)
-    else:
-        base_params = tree_map(lambda t: t.to(dev), base_params)
     lora_mode = job.lora is not None
+    cut = shapes = None
+    meta = torch.device("meta")
+    if fsdp is not None:
+        # Each full leaf is drawn (in tree order, as one process draws it)
+        # and cut to this rank's piece.
+        cut = functools.partial(fsdp.plan.cut_by_axes, rank=rank)
+        shapes = init_params(model_cfg, None, meta)
+    if base_params is None:
+        base_params = init_params(model_cfg, gen, dev, cut=cut)
+    else:
+        if fsdp is not None:
+            base_params = fsdp.plan.shard(base_params, fsdp.plan.params,
+                                          rank)
+        base_params = tree_map(lambda t: t.to(dev), base_params)
+    step_kw = dict(accumulate_steps=job.accumulate_steps,
+                   loss_chunk=job.loss_chunk, fsdp=fsdp)
     if lora_mode:
-        state = create_lora_train_state(job.lora, base_params, optimizer, gen)
-        lora_step = make_lora_train_step(
-            model_cfg, job.lora, optimizer,
-            accumulate_steps=job.accumulate_steps, loss_chunk=job.loss_chunk)
+        state = create_lora_train_state(
+            job.lora, base_params if shapes is None else shapes, optimizer,
+            gen, device=dev, cut=cut)
+        lora_step = make_lora_train_step(model_cfg, job.lora, optimizer,
+                                         **step_kw)
         step_fn = lambda s, b: lora_step(s, base_params, b)  # noqa: E731
     else:
         state = create_train_state(base_params, optimizer)
         del base_params
-        step_fn = make_train_step(model_cfg, optimizer,
-                                  accumulate_steps=job.accumulate_steps,
-                                  loss_chunk=job.loss_chunk)
+        step_fn = make_train_step(model_cfg, optimizer, **step_kw)
+    state_dims = None
+    if fsdp is not None:
+        dims = fsdp.plan.trainable
+        state_dims = {"step": None, "params": dims,
+                      "opt_state": {"count": None, "mu": dims, "nu": dims}}
+        # The rank's rows of each global batch; a copy of another rank's
+        # rows (a batch the degree does not divide) weighs 0.
+        owner = batch_rows(fsdp.plan, job.batch_size,
+                           job.accumulate_steps, rank)[1]
+        # The parameter bytes this rank holds, and the plan's count of
+        # them from the full shapes alone.
+        held = [state.params] + ([base_params] if lora_mode else [])
+        planned = fsdp.plan.local_bytes(shapes, fsdp.plan.params)
+        if lora_mode:
+            planned += fsdp.plan.local_bytes(
+                init_lora(shapes, job.lora, None, device=meta),
+                fsdp.plan.lora)
+        param_bytes = {"held": sum(t.numel() * t.element_size()
+                                   for tree in held
+                                   for t in tree_leaves(tree)),
+                       "plan": planned}
     # After the first step, a kernel build in the loop is a stall the
     # sentinel flags (xla_unexpected_compiles_total).
     obs_device.SENTINEL.install()
     obs_device.PROGRAMS.register("train", "train_step", step_fn)
 
     on_cuda = dev.type == "cuda"
+    # The global batch's tokens; MFU against every rank's peak.
     tokens_per_step = job.batch_size * job.seq_len
     flops_per_token = 3.0 * model_cfg.flops_per_token(job.seq_len)
     peak_flops = chip_peak_flops(dev)
+    if peak_flops:
+        peak_flops *= world
     start_step = consumed = 0
     last_saved = -1
     restored_step = restore_time_s = first_step_s = compile_time_s = None
@@ -335,6 +444,12 @@ def run_training(job: TrainJobConfig, base_params=None,
             "model": job.model,
             "lora": lora_mode,
             "device": str(dev),
+            "mesh": {"data": mesh_cfg.data, "fsdp": mesh_cfg.fsdp,
+                     "rank": rank or 0,
+                     **({} if fsdp is None else
+                        {"plan": fsdp.plan.describe(),
+                         "param_bytes": param_bytes,
+                         "collectives": dict(fsdp.counts)})},
             "exit_reason": exit_reason,
             "nonfinite_steps": nonfinite_steps,
             "batches_consumed": consumed,
@@ -360,15 +475,35 @@ def run_training(job: TrainJobConfig, base_params=None,
         return s
 
     def save(step: int, force: bool = False) -> None:
-        ckpt.save(step, {"step": state.step, "params": state.params,
-                         "opt_state": state.opt_state},
-                  cursor={"batches_consumed": consumed}, force=force)
+        whole = {"step": state.step, "params": state.params,
+                 "opt_state": state.opt_state}
+        if fsdp is not None:
+            # The one-process format: rank 0 gathers a leaf at a time.
+            whole = fsdp.gather_full(whole, state_dims)
+        if primary:
+            ckpt.save(step, whole, cursor={"batches_consumed": consumed},
+                      force=force)
+        if fsdp is not None:
+            fsdp.barrier()
+
+    def log(obj) -> None:
+        if primary:
+            print(json.dumps(obj), flush=True)
 
     try:
         if job.resume and ckpt.latest_intact_step() is not None:
             t_restore = time.perf_counter()
             with span("restore"):
-                saved, cursor, _ = ckpt.restore_with_cursor(device=dev)
+                if fsdp is None:
+                    saved, cursor, _ = ckpt.restore_with_cursor(device=dev)
+                else:
+                    # The saved state is one process's: each rank maps it
+                    # and keeps its pieces.
+                    saved, cursor, _ = ckpt.restore_with_cursor(
+                        device=torch.device("cpu"), mmap=True)
+                    saved = tree_map(
+                        lambda t: t.to(dev) if torch.is_tensor(t) else t,
+                        fsdp.plan.shard(saved, state_dims, rank))
             state = TrainState(step=int(saved["step"]),
                                params=saved["params"],
                                opt_state=saved["opt_state"])
@@ -376,12 +511,15 @@ def run_training(job: TrainJobConfig, base_params=None,
             goodput.exclude(restore_time_s, "restore")
             start_step = last_saved = restored_step = state.step
             consumed = int(cursor.get("batches_consumed", start_step))
-            print(json.dumps({"restored_step": start_step,
-                              "batches_consumed": consumed}), flush=True)
+            log({"restored_step": start_step, "batches_consumed": consumed})
 
         if threading.current_thread() is threading.main_thread():
             def on_signal(signum, frame):
-                if stop["reason"] is None:
+                if not primary:
+                    print(f"trainer: rank {rank} caught "
+                          f"{signal.Signals(signum).name}; rank 0 decides "
+                          "the stop", flush=True)
+                elif stop["reason"] is None:
                     stop["reason"] = ("sigint" if signum == signal.SIGINT
                                       else "sigterm")
                     print(f"trainer: caught {signal.Signals(signum).name}; "
@@ -389,13 +527,16 @@ def run_training(job: TrainJobConfig, base_params=None,
                           flush=True)
             for sig in (signal.SIGTERM, signal.SIGINT):
                 restore_sigs.append((sig, signal.signal(sig, on_signal)))
-        if job.maintenance_poll_s > 0:
+        if job.maintenance_poll_s > 0 and primary:
             poller_stop = threading.Event()
             threading.Thread(target=_poll_maintenance,
                              args=(job.maintenance_poll_s, poller_stop, stop),
                              name="rbt-maintenance", daemon=True).start()
 
         batches = _batches(job, model_cfg, skip=consumed)
+        if fsdp is not None:
+            batches = map(functools.partial(
+                shard_batch, fsdp=fsdp, k=job.accumulate_steps), batches)
         if job.prefetch_depth > 0:
             batches = prefetcher = data_mod.Prefetcher(
                 batches, depth=job.prefetch_depth,
@@ -408,14 +549,16 @@ def run_training(job: TrainJobConfig, base_params=None,
                     f"RBT_FAULT_INJECT: simulated death at step {i}")
             if fault_due(i, "sigterm"):
                 os.kill(os.getpid(), signal.SIGTERM)
+            if fsdp is not None:
+                stop["reason"] = fsdp.broadcast_stop(stop["reason"])
             if stop["reason"]:
                 exit_reason = stop["reason"]
                 break
-            if job.profile_stop > job.profile_start \
+            if job.profile_stop > job.profile_start and primary \
                     and i == job.profile_start and not profiling_at:
                 PROFILER.start(os.path.join(artifacts, "profile"))
                 profiling = True
-            if profile_at is not None and i == profile_at[0] \
+            if profile_at is not None and i == profile_at[0] and primary \
                     and not (profiling or profiling_at):
                 PROFILER.start(os.path.join(artifacts, "profiles",
                                             f"step{profile_at[0]}"))
@@ -434,6 +577,12 @@ def run_training(job: TrainJobConfig, base_params=None,
                     state, metrics, device_cost = first_step(
                         step_fn, state, batch,
                         f"b{job.batch_size}s{job.seq_len}")
+                    if fsdp is not None and device_cost:
+                        # The global batch's FLOPs: the rows' owners' sum.
+                        device_cost = dict(device_cost, flops=float(
+                            fsdp.all_reduce(torch.tensor(
+                                [device_cost["flops"] * owner],
+                                dtype=torch.float64, device=dev))[0]))
                 else:
                     state, metrics = step_fn(state, batch)
                 loss = float(metrics["loss"])
@@ -443,20 +592,20 @@ def run_training(job: TrainJobConfig, base_params=None,
             if metrics["nonfinite"]:
                 bad_streak += 1
                 nonfinite_steps += 1
-                print(json.dumps({"step": i + 1, "nonfinite": True,
-                                  "consecutive_bad": bad_streak}),
-                      flush=True)
+                log({"step": i + 1, "nonfinite": True,
+                     "consecutive_bad": bad_streak})
                 if bad_streak >= max(1, job.max_bad_steps):
                     # The abort is an incident: the flight ring, metrics
                     # and memory/program census go beside the artifacts
                     # before raising (debounced; capture never raises).
                     from runbooks_tpu_torch.obs import incident
 
-                    incident.capture(
-                        "train_max_bad_steps", artifacts=artifacts,
-                        component="train",
-                        extra={"step": i + 1, "bad_streak": bad_streak,
-                               "nonfinite_steps": nonfinite_steps})
+                    if primary:
+                        incident.capture(
+                            "train_max_bad_steps", artifacts=artifacts,
+                            component="train",
+                            extra={"step": i + 1, "bad_streak": bad_streak,
+                                   "nonfinite_steps": nonfinite_steps})
                     raise RuntimeError(
                         f"aborting: {bad_streak} consecutive non-finite "
                         f"loss/grad steps (last at step {i + 1}); every bad "
@@ -512,6 +661,7 @@ def run_training(job: TrainJobConfig, base_params=None,
                 tps = (tokens_done / max(dt, 1e-9) if tokens_done
                        else tokens_per_step / max(first_step_s, 1e-9))
                 entry = {"step": i + 1, "loss": loss,
+                         "grad_norm": float(metrics["grad_norm"]),
                          "tokens_per_sec": tps,
                          "tflops_per_sec": tps * flops_per_token / 1e12}
                 if peak_flops:
@@ -552,9 +702,10 @@ def run_training(job: TrainJobConfig, base_params=None,
                 obs_device.PROGRAMS.set_gauges(component="train")
                 win = {"data": 0.0, "step": 0.0, "ckpt": 0.0, "steps": 0}
                 history.append(entry)
-                print(json.dumps(entry), flush=True)
-                _write_json(os.path.join(artifacts, "metrics.json"),
-                            summary_dict(in_progress=True))
+                log(entry)
+                if primary:
+                    _write_json(os.path.join(artifacts, "metrics.json"),
+                                summary_dict(in_progress=True))
         if exit_reason is not None:
             if state.step != last_saved:
                 with span("emergency_save", step=state.step,
@@ -562,9 +713,8 @@ def run_training(job: TrainJobConfig, base_params=None,
                     save(state.step, force=True)
             obs_trace.instant("preempted", reason=exit_reason,
                               step=state.step)
-            print(json.dumps({"preempted": exit_reason,
-                              "emergency_checkpoint_step": state.step}),
-                  flush=True)
+            log({"preempted": exit_reason,
+                 "emergency_checkpoint_step": state.step})
     finally:
         if profiling or profiling_at:   # the window ran past the run's end
             PROFILER.stop()
@@ -580,6 +730,8 @@ def run_training(job: TrainJobConfig, base_params=None,
         obs_trace.close()
 
     summary = summary_dict()
+    if not primary:
+        return summary
     _write_json(os.path.join(artifacts, "metrics.json"), summary)
     if lora_mode:
         note = {"note": "merged weights = base + lora; see checkpoints"}
@@ -615,9 +767,146 @@ def exit_code_for(summary: Dict[str, Any]) -> int:
     return 0
 
 
-def main() -> int:
+# The training group's timeout: a collective that a dead rank never
+# joins fails within it (gloo fails at once on a closed connection).
+TRAIN_TIMEOUT_S = 600
+
+
+def training_world(mesh: MeshConfig, backend: str) -> MeshConfig:
+    """``mesh`` resolved for ``main``: under NCCL against the GPUs this
+    process sees (one rank per GPU; a -1 axis fills with them), under gloo
+    (the CPU, for tests) against its fixed axes (a -1 axis fills to 1).
+    A mesh that needs another count raises naming the device count."""
+    if backend == "gloo":
+        fixed = math.prod(s for s in dataclasses.astuple(mesh) if s != -1)
+        return check_training_mesh(mesh, fixed)
+    n = torch.cuda.device_count()
+    try:
+        return check_training_mesh(mesh, max(n, 1))
+    except ValueError as exc:
+        raise ValueError(
+            f"{exc}: the trainer runs one rank per GPU, and "
+            f"torch.cuda.device_count() is {n}") from None
+
+
+def _train_rank(job: TrainJobConfig, rank: int, world: int, store_path: str,
+                backend: str) -> Dict[str, Any]:
+    """Join the training group as ``rank`` (cuda:rank under NCCL, the CPU
+    under gloo) and run the job on its DeviceMesh."""
+    import torch.distributed as dist
+
+    dev = (torch.device("cuda", rank) if backend == "nccl"
+           else torch.device("cpu"))
+    distributed.initialize(TRAIN_TIMEOUT_S, backend=backend, rank=rank,
+                           world_size=world, device=dev,
+                           store=dist.FileStore(store_path, world))
+    try:
+        mesh = make_mesh(job.mesh, device_type=dev.type)
+        return run_training(job, device=dev, mesh=mesh)
+    finally:
+        distributed.shutdown()
+
+
+def _follower_main(job: TrainJobConfig, rank: int, world: int,
+                   store_path: str, backend: str) -> None:
+    """A rank other than 0 of ``main``'s run (a spawned process): signals
+    are rank 0's to decide. Exits with the run's exit code."""
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    cuda_build.use_kernel_cache(cuda_build.kernel_cache_dir(
+        job.artifacts_dir or contract.artifacts_dir()))
+    summary = _train_rank(job, rank, world, store_path, backend)
+    raise SystemExit(exit_code_for(summary))
+
+
+def _watch_ranks(procs: list, done: threading.Event, rendezvous: str
+                 ) -> None:
+    """Rank 0's guard: a rank that dies (any exit but the run's own 0 or
+    EXIT_PREEMPTED) before rank 0's run ended ends the whole run at once
+    with exit 1, after killing the others (rank 0's next collective would
+    fail within the group's timeout anyway)."""
+    from multiprocessing.connection import wait
+
+    live = list(procs)
+    while live and not done.is_set():
+        for sentinel in wait([p.sentinel for p in live], timeout=0.2):
+            p = next(q for q in live if q.sentinel == sentinel)
+            live.remove(p)
+            p.join(5)
+            if done.is_set() or p.exitcode in (0, EXIT_PREEMPTED):
+                # A rank that ended its run (rank 0 joins it).
+                continue
+            print(f"trainer: {p.name} exited with code {p.exitcode} "
+                  "before the run ended; stopping every rank", flush=True)
+            for q in procs:
+                if q.is_alive():
+                    q.kill()
+            shutil.rmtree(rendezvous, ignore_errors=True)
+            os._exit(1)
+
+
+def _main_ranks(job: TrainJobConfig, world: int, backend: str) -> int:
+    """Rank 0 of a data x fsdp run: spawn ranks 1..world-1, run, join them.
+    Exits with the run's code (EXIT_PREEMPTED after a stop) when every
+    rank agrees, 1 otherwise."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    rendezvous = tempfile.mkdtemp(prefix="rbt-train-")
+    store_path = os.path.join(rendezvous, "store")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_follower_main,
+                         args=(job, r, world, store_path, backend),
+                         name=f"rank {r}", daemon=True)
+             for r in range(1, world)]
+    for p in procs:
+        p.start()
+    print(json.dumps({"ranks": world, "backend": backend,
+                      "mesh": dataclasses.asdict(job.mesh),
+                      "pids": [os.getpid()] + [p.pid for p in procs]}),
+          flush=True)
+    done = threading.Event()
+    guard = threading.Thread(target=_watch_ranks,
+                             args=(procs, done, rendezvous),
+                             name="train-watch", daemon=True)
+    guard.start()
+    try:
+        summary = _train_rank(job, 0, world, store_path, backend)
+        done.set()
+        code = exit_code_for(summary)
+        for p in procs:
+            p.join(TRAIN_TIMEOUT_S)
+        codes = [p.exitcode for p in procs]
+        print(json.dumps({"done": True, "ranks": world,
+                          **{k: v for k, v in summary.items()
+                             if k != "history"},
+                          "rank_exit_codes": [code] + codes}), flush=True)
+        return code if all(c == code for c in codes) else 1
+    finally:
+        done.set()
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(5)
+        shutil.rmtree(rendezvous, ignore_errors=True)
+
+
+def main(backend: Optional[str] = None) -> int:
+    """The training container's entry point. ``mesh_data`` x ``mesh_fsdp``
+    above 1 runs that many ranks, one per GPU over NCCL: this process is
+    rank 0 and spawns the others. ``backend="gloo"`` runs them on the CPU
+    (the tests). A mesh the GPUs cannot form raises; no GPU at all raises
+    too (nothing carries on on the CPU)."""
     params = contract.load_params()
     job = TrainJobConfig.from_params(params)
+    refuse_multi_host()
+    backend = backend or "nccl"
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
+    mesh = training_world(job.mesh, backend)
+    world = mesh.data * mesh.fsdp
+    job = dataclasses.replace(job, mesh=mesh)
     # The registry for the controller's fleet scraper (train_step,
     # train_loss, goodput, the step histograms) on GET /metrics, when the
     # Job's template sets RBT_METRICS_PORT; library callers of
@@ -638,9 +927,12 @@ def main() -> int:
         job.artifacts_dir or contract.artifacts_dir()))
     if torch.cuda.is_available():
         # Every kernel of the training path at once (one nvcc each, in
-        # parallel), or none over a warm cache: the expected builds.
+        # parallel), or none over a warm cache: the expected builds. The
+        # other ranks load them from the cache.
         with obs_device.SENTINEL.expected():
             cuda_build.build(cuda_build.SOURCES)
+    if world > 1:
+        return _main_ranks(job, world, backend)
     summary = run_training(job)
     print(json.dumps({"done": True,
                       **{k: v for k, v in summary.items() if k != "history"},

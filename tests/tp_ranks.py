@@ -1,15 +1,19 @@
-"""Rank bodies for the tensor-parallel tests of the PyTorch port.
+"""Rank bodies for the multi-rank tests of the PyTorch port (tensor-parallel
+serving, FSDP and data-parallel training).
 
 Imports torch and the port only, never JAX: spawned ranks import this
 module (not the test modules, which import the reference). ``run_ranks``
 starts ``world`` processes over gloo with a FileStore under the test's
 tmp_path (so concurrent test workers never share a port), joins each
 with a time limit of its own and kills every rank past it. Each rank
-forms a DeviceMesh over the tensor axis and runs one body of this module;
+forms a DeviceMesh (over the tensor axis unless the test names another)
+and runs one body of this module;
 the bodies' results come back pickled, one per rank.
 
 ``python tests/tp_ranks.py serve`` runs the port's serving entry point
-(``serve/api.main``) over gloo on the CPU, as a server subprocess.
+(``serve/api.main``) over gloo on the CPU, as a server subprocess, and
+``python tests/tp_ranks.py train`` its training entry point
+(``train/trainer.main``).
 """
 
 from __future__ import annotations
@@ -30,48 +34,74 @@ RANK_TIMEOUT_S = 90.0
 
 
 def run_ranks(body, world: int, tmp_path, *args,
-              timeout_s: float = RANK_TIMEOUT_S) -> list:
+              timeout_s: float = RANK_TIMEOUT_S,
+              mesh: dict = None) -> list:
     """``body(rank, mesh, *args)`` on ``world`` spawned ranks; returns the
-    list of their results. A rank that raises, exits non-zero or outlives
+    list of their results. ``mesh``: the MeshConfig's sizes (default
+    ``tensor=world``). A rank that raises, exits non-zero or outlives
     ``timeout_s`` fails the call (the others are killed)."""
+    return start_ranks(body, world, tmp_path, *args, timeout_s=timeout_s,
+                       mesh=mesh).results()
+
+
+class Ranks:
+    """Ranks started by ``start_ranks``: ``results()`` joins them."""
+
+    def __init__(self, procs, out: Path, timeout_s: float):
+        self.procs, self.out = procs, out
+        self.deadline = time.monotonic() + timeout_s
+        self.timeout_s = timeout_s
+
+    def results(self) -> list:
+        procs = self.procs
+        try:
+            for p in procs:
+                p.join(max(0.0, self.deadline - time.monotonic()))
+            late = [r for r, p in enumerate(procs) if p.is_alive()]
+            if late:
+                raise TimeoutError(f"ranks {late} still running after "
+                                   f"{self.timeout_s}s")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(5)
+        results = []
+        for rank, p in enumerate(procs):
+            f = self.out / f"rank{rank}.pkl"
+            if not f.exists():
+                raise RuntimeError(f"rank {rank} exited {p.exitcode} with "
+                                   f"no result")
+            ok, value = pickle.loads(f.read_bytes())
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed:\n{value}")
+            results.append(value)
+        return results
+
+
+def start_ranks(body, world: int, tmp_path, *args,
+                timeout_s: float = RANK_TIMEOUT_S, mesh: dict = None
+                ) -> Ranks:
+    """``run_ranks`` without the wait: the ranks run while the caller
+    computes (the reference side of a test); ``.results()`` joins them."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
     out = Path(tmp_path) / f"ranks_{body.__name__}_{time.monotonic_ns()}"
     out.mkdir(parents=True)
+    mesh = mesh or {"fsdp": 1, "tensor": world}
     procs = [ctx.Process(target=_rank_main,
-                         args=(body.__name__, rank, world, str(out), args),
+                         args=(body.__name__, rank, world, str(out), args,
+                               mesh),
                          daemon=True)
              for rank in range(world)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + timeout_s
-    try:
-        for p in procs:
-            p.join(max(0.0, deadline - time.monotonic()))
-        late = [r for r, p in enumerate(procs) if p.is_alive()]
-        if late:
-            raise TimeoutError(f"ranks {late} still running after "
-                               f"{timeout_s}s")
-    finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(5)
-    results = []
-    for rank, p in enumerate(procs):
-        f = out / f"rank{rank}.pkl"
-        if not f.exists():
-            raise RuntimeError(f"rank {rank} exited {p.exitcode} with no "
-                               f"result")
-        ok, value = pickle.loads(f.read_bytes())
-        if not ok:
-            raise RuntimeError(f"rank {rank} failed:\n{value}")
-        results.append(value)
-    return results
+    return Ranks(procs, out, timeout_s)
 
 
-def _rank_main(name: str, rank: int, world: int, out: str, args) -> None:
+def _rank_main(name: str, rank: int, world: int, out: str, args,
+               mesh: dict) -> None:
     torch.set_num_threads(1)
     import torch.distributed as dist
 
@@ -82,7 +112,7 @@ def _rank_main(name: str, rank: int, world: int, out: str, args) -> None:
         distributed.initialize(
             60, backend="gloo", rank=rank, world_size=world,
             store=dist.FileStore(os.path.join(out, "store"), world))
-        mesh = make_mesh(MeshConfig(fsdp=1, tensor=world))
+        mesh = make_mesh(MeshConfig(**mesh))
         result = (True, globals()[name](rank, mesh, *args))
     except BaseException:  # noqa: BLE001 - reported to the parent
         result = (False, traceback.format_exc())
@@ -222,6 +252,140 @@ def refusals(rank, mesh, spec: dict) -> dict:
     return out
 
 
+def _fsdp_setup(rank, mesh, case: dict):
+    """(cfg, the Fsdp runtime, the rank's base pieces, the LoRA config or
+    None, the trainable tree's pieces) of an FSDP case: the full trees
+    come from the case's files, each rank keeps its pieces."""
+    from runbooks_tpu_torch.parallel.sharding import Fsdp
+    from runbooks_tpu_torch.train.lora import LoraConfig
+    from runbooks_tpu_torch.train.step import fsdp_plan
+
+    cfg, params = _model(case)
+    lora_cfg = (LoraConfig(**case["lora"]["config"]) if case.get("lora")
+                else None)
+    plan = fsdp_plan(cfg, mesh, lora_cfg)
+    fsdp = Fsdp(plan, rank, mesh, torch.device("cpu"),
+                compute_dtype=cfg.activation_dtype)
+    base = plan.shard(params, plan.params, rank)
+    trainable = base
+    if lora_cfg is not None:
+        full = torch.load(case["lora"]["init"], weights_only=True)
+        trainable = plan.shard(full, plan.lora, rank)
+    return cfg, fsdp, base, lora_cfg, trainable
+
+
+def fsdp_cases(rank, mesh, cases: list) -> list:
+    """``fsdp_steps`` of each case, in turn (one spawn for a file's
+    cases)."""
+    return [fsdp_steps(rank, mesh, case) for case in cases]
+
+
+def fsdp_steps(rank, mesh, case: dict) -> dict:
+    """The case's steps (full fine-tune, or LoRA over a frozen base) on
+    this rank's pieces and rows: per step the loss, gradient norm and
+    non-finite flag; the whole trainable tree after them (rank 0); each
+    leaf's local shape, the rank's parameter bytes and the plan's; the
+    collectives by kind, and the plan."""
+    from runbooks_tpu_torch.train.lora import make_lora_train_step
+    from runbooks_tpu_torch.train.optimizer import (
+        OptimizerConfig,
+        make_optimizer,
+    )
+    from runbooks_tpu_torch.train.step import (
+        batch_rows,
+        create_train_state,
+        make_train_step,
+        shard_batch,
+    )
+    from runbooks_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    cfg, fsdp, base, lora_cfg, trainable = _fsdp_setup(rank, mesh, case)
+    if case.get("by_all_reduce"):
+        # The branch gloo takes on CUDA tensors, here on the CPU's.
+        fsdp._scatters = lambda t: False
+    opt = make_optimizer(OptimizerConfig(**case["opt"]))
+    state = create_train_state(trainable, opt)
+    k = case.get("k", 1)
+    kw = dict(accumulate_steps=k, loss_chunk=case.get("loss_chunk", 0),
+              fsdp=fsdp)
+    if lora_cfg is None:
+        step = make_train_step(cfg, opt, **kw)
+    else:
+        lstep = make_lora_train_step(cfg, lora_cfg, opt, **kw)
+        step = lambda s, b: lstep(s, base, b)  # noqa: E731
+    history = []
+    for batch in case["batches"]:
+        local = {key: torch.from_numpy(v)
+                 for key, v in shard_batch(batch, fsdp, k).items()}
+        state, m = step(state, local)
+        history.append({"loss": float(m["loss"]),
+                        "grad_norm": float(m["grad_norm"]),
+                        "weight_tokens": float(m["weight_tokens"]),
+                        "nonfinite": int(m["nonfinite"])})
+    plan = fsdp.plan
+    full = fsdp.gather_full(state.params, plan.trainable)
+    nbytes = lambda t: sum(x.numel() * x.element_size()  # noqa: E731
+                           for x in tree_leaves(t))
+    shapes_of = lambda t: tree_map(lambda x: tuple(x.shape), t)  # noqa: E731
+    from runbooks_tpu_torch.models.transformer import init_params
+
+    meta = init_params(cfg, None, torch.device("meta"))
+    return {"history": history,
+            "trainable": None if full is None else tree_map(
+                lambda t: t.numpy(), full),
+            "base_shapes": shapes_of(base),
+            "trainable_shapes": shapes_of(state.params),
+            "local_bytes": nbytes(base),
+            "plan_bytes": plan.local_bytes(meta, plan.params),
+            "rows": batch_rows(plan, case["batches"][0]["tokens"].shape[0],
+                               k, rank),
+            "counts": dict(fsdp.counts), "plan": plan.describe(),
+            "scatters": fsdp._scatters(torch.zeros(1))}
+
+
+def train_jobs(rank, mesh, jobs: list) -> list:
+    """``run_training`` of each job on this rank's mesh, in turn (one
+    spawn for several runs): a job is {"job": TrainJobConfig keyword
+    arguments, "env": {name: value} set for this run on every rank,
+    "rank0_env": the same on rank 0 only}. Returns each run's summary
+    and exit code."""
+    from runbooks_tpu_torch.train.optimizer import OptimizerConfig
+    from runbooks_tpu_torch.train import trainer
+    from runbooks_tpu_torch.train.lora import LoraConfig
+
+    out = []
+    for spec in jobs:
+        kw = dict(spec["job"])
+        kw["optimizer"] = OptimizerConfig(**kw.get("optimizer", {}))
+        if kw.get("lora") is not None:
+            kw["lora"] = LoraConfig(**kw["lora"])
+        env = dict(spec.get("env", {}), **(spec.get("rank0_env", {})
+                                           if rank == 0 else {}))
+        old = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            summary = trainer.run_training(trainer.TrainJobConfig(**kw),
+                                           device="cpu", mesh=mesh)
+        finally:
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        out.append({"summary": summary,
+                    "exit": trainer.exit_code_for(summary)})
+    return out
+
+
+def train_main() -> int:
+    """The port's training entry point over gloo on the CPU (the trainer
+    subprocess of the FSDP tests)."""
+    torch.set_num_threads(1)
+    from runbooks_tpu_torch.train import trainer
+
+    return trainer.main(backend="gloo")
+
+
 def serve_main() -> int:
     """The port's serving entry point over gloo on the CPU (the server
     subprocess of the HTTP tests)."""
@@ -234,4 +398,6 @@ def serve_main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["serve"]:
         raise SystemExit(serve_main())
-    raise SystemExit(f"usage: {sys.argv[0]} serve")
+    if sys.argv[1:] == ["train"]:
+        raise SystemExit(train_main())
+    raise SystemExit(f"usage: {sys.argv[0]} serve|train")
