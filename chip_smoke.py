@@ -346,6 +346,25 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    their inputs; ``python -m runbooks_tpu_torch.train.trainer`` under
    mesh_fsdp 2 trains over NCCL where two GPUs exist, else exits 1
    naming the device count.
+22. Gemma serving (head_dim 256, the scaled embedding, the norms' +1):
+   (a) K1 at d=256 against its plain version at gemma-7b's serving burst
+   (16/16: an 8-row 128 bucket over a 2049-slot cache), gemma-2b's (8/1),
+   gemma-7b's suffix prefill after a 1024-token prefix and 2 x 2048
+   causal at 16/16, with phase 3's tolerances, tile counts, times, bound,
+   rate and SDPA (enable_gqa) as the yardstick; (b) gemma-7b bf16 at full
+   width and depth from the seed (phase 16 (b)'s check): prefill logits
+   through K1 against the plain attention, phase 4's mix through the
+   dense and the paged engine, greedy ids equal up to near-ties, K1's
+   launches equal; (c) ``python -m runbooks_tpu_torch.serve.api`` serving
+   gemma-2b at full size from a bf16 checkpoint on the model mount: greedy
+   completions equal to this process's decode, one of them streamed, exit
+   0 on SIGTERM; and a gemma-2b fine-tune on the card refused by name
+   before its first step (K2 and K3 take head_dim 64 and 128); (d) an HF
+   gemma-7b directory (llama's names, no lm_head; BF16, two shards, 2
+   layers at full width) through ``python -m
+   runbooks_tpu_torch.models.loader``, every leaf bit-equal to the source
+   taken apart by hand (the norms' +1 included), the import served
+   through K1.
 
 Each phase's end prints the seconds since the start; a run still going
 after WATCHDOG_S dumps every thread's stack to standard error. Checks
@@ -353,12 +372,14 @@ that only start processes and wait on them run beside this process's
 own work (``Background``): phase 8 (c)'s and phase 15 (e)'s servers warm
 up while the phase's in-process steps run, phase 16 (e)'s servers while
 (d) imports, phase 17 (c)'s entry points while (b) and (d) run, and
-phase 21 (a)'s ranks while phase 20 runs. The times those report, and
+phase 21 (a)'s ranks while phase 20 runs, and phase 22 (c)'s server
+while (b) and (d) run. The times those report, and
 those of the steps beside them, share the host and the card; the
 kernels' own timings (phases 3, 5, 14 (a) and 16 (a)) run alone.
 
 The last three lines of standard output are the card's name and power
-limit, the kernels' JSON record and {"ok": true, "device": {...}};
+limit, the kernels' JSON record (K1 at head_dim 256 a row of its own,
+``flash_fwd_d256``) and {"ok": true, "device": {...}};
 quantized_matmul's records ({"quantized_ops": [...]}) stand on the line
 before them. Without a CUDA device, or without the runbooks_tpu_torch
 package beside it, the script exits nonzero and prints no result.
@@ -2227,12 +2248,21 @@ def hf_gpt2_names(cfg):
     return shapes
 
 
+def hf_gemma_names(cfg):
+    """HF GemmaForCausalLM's tensor names and [out, in] shapes: llama's,
+    with the head tied to the embedding (no lm_head stored)."""
+    shapes = hf_llama_names(cfg)
+    del shapes["lm_head.weight"]
+    return shapes
+
+
 def hf_names(cfg):
     """The HF tensor names and shapes of cfg's family."""
     from runbooks_tpu_torch.models.convert import family_of
 
-    return {"llama": hf_llama_names, "falcon": hf_falcon_names,
-            "opt": hf_opt_names, "gpt2": hf_gpt2_names}[family_of(cfg)](cfg)
+    return {"llama": hf_llama_names, "gemma": hf_gemma_names,
+            "falcon": hf_falcon_names, "opt": hf_opt_names,
+            "gpt2": hf_gpt2_names}[family_of(cfg)](cfg)
 
 
 def _is_norm_weight(name):
@@ -2280,11 +2310,12 @@ def write_hf_llama(torch, dev, cfg, directory, seed, shards):
 
 def family_expected(torch, tensors, cfg):
     """(dotted leaf, layer or None, what that leaf must hold) for every
-    leaf of a falcon, opt or gpt2 import, worked out here from the HF
-    tensors by hand: Falcon's fused rows taken apart per kv head (rep
+    leaf of a falcon, opt, gpt2 or gemma import, worked out here from the
+    HF tensors by hand: Falcon's fused rows taken apart per kv head (rep
     query heads, then its key, then its value), OPT's positions without
-    their first 2 rows, GPT-2's c_attn columns split in three, every
-    [out, in] linear transposed."""
+    their first 2 rows, GPT-2's c_attn columns split in three, Gemma's
+    norm weights plus 1 (in f32: the leaf holds that sum cast to its
+    dtype), every [out, in] linear transposed."""
     from runbooks_tpu_torch.models.convert import family_of
 
     fam = family_of(cfg)
@@ -2367,6 +2398,27 @@ def family_expected(torch, tensors, cfg):
         add("pos_embed", "transformer.wpe.weight", layered=False)
         add("final_norm.scale", "transformer.ln_f.weight", layered=False)
         add("final_norm.bias", "transformer.ln_f.bias", layered=False)
+    elif fam == "gemma":
+        pre = "model.layers.{i}."
+        for leaf, n in (("attn.wq", "self_attn.q_proj"),
+                        ("attn.wk", "self_attn.k_proj"),
+                        ("attn.wv", "self_attn.v_proj"),
+                        ("attn.wo", "self_attn.o_proj"),
+                        ("mlp.wi_gate", "mlp.gate_proj"),
+                        ("mlp.wi_up", "mlp.up_proj"),
+                        ("mlp.wo", "mlp.down_proj")):
+            add(f"layers.{leaf}", pre + n + ".weight", True)
+
+        def plus_one(t):
+            return t.float() + 1
+
+        add("layers.ln1.scale", pre + "input_layernorm.weight",
+            pick=plus_one)
+        add("layers.ln2.scale", pre + "post_attention_layernorm.weight",
+            pick=plus_one)
+        add("embed", "model.embed_tokens.weight", layered=False)
+        add("final_norm.scale", "model.norm.weight", layered=False,
+            pick=plus_one)
     else:
         raise ValueError(f"no hand expectation for the {fam} family")
     return out
@@ -5168,11 +5220,13 @@ def text_train(torch, seed, data_dir, tok_dir, workdir):
     return out, launches
 
 
-def stream_check(base, body, want_text, name):
-    """The body streamed: its deltas concatenated must equal want_text.
+def stream_check(base, body, want_text, name, chat=True):
+    """The body streamed to /v1/chat/completions (``chat``) or
+    /v1/completions: its deltas concatenated must equal want_text.
     Returns (seconds to the first data chunk, chunks)."""
-    status, _, text, t_first = http_call(base, "/v1/chat/completions",
-                                         {**body, "stream": True})
+    status, _, text, t_first = http_call(
+        base, "/v1/chat/completions" if chat else "/v1/completions",
+        {**body, "stream": True})
     if status != 200:
         raise SystemExit(f"{name} stream: {status} {text[:500]}")
     events = [ln[len("data: "):] for ln in text.split("\n")
@@ -5180,8 +5234,8 @@ def stream_check(base, body, want_text, name):
     if events[-1] != "[DONE]":
         raise SystemExit(f"{name} stream did not end with [DONE]")
     chunks = [json.loads(e) for e in events[:-1]]
-    got = "".join(c["choices"][0]["delta"].get("content", "")
-                  for c in chunks)
+    got = "".join(c["choices"][0]["delta"].get("content", "") if chat
+                  else c["choices"][0]["text"] for c in chunks)
     print(f"{name}: streamed {len(chunks)} chunks, "
           f"{'equal to' if got == want_text else 'DIFFERENT FROM'} the "
           f"unstreamed text ({len(want_text)} characters)", flush=True)
@@ -5524,38 +5578,44 @@ def family_bwd_layouts(torch, dev, batch):
 FALCON_SERVE_LAYERS = 8
 
 
-def falcon_serve(torch, seed):
-    """Phase 16 (b): falcon-7b bf16 at full width cut to
-    FALCON_SERVE_LAYERS, the prefill logits through K1 against the plain
-    attention, then phase 4's mix through the dense and the paged engine.
-    Returns (record, K1 launches by engine)."""
+def family_serve(torch, seed, model, layers=None):
+    """One family's serving check (phase 16 (b): falcon-7b cut to
+    FALCON_SERVE_LAYERS; phase 22 (b): gemma-7b at full depth): ``model``
+    bf16 at full width (``layers``: cut to that depth), the prefill logits
+    through K1 against the plain attention, then phase 4's mix through the
+    dense and the paged engine, each warmed up: every request its
+    MAX_TOKENS, K1's launches equal, the greedy ids equal up to
+    near-ties. Returns (record, K1 launches by engine)."""
     from runbooks_tpu_torch.serve.api import load_model
     from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
     from runbooks_tpu_torch.utils.tree import tree_leaves
 
+    label = model.split("-")[0]
+    overrides = {"param_dtype": "bfloat16"}
+    if layers is not None:
+        overrides["num_layers"] = layers
     t0 = time.perf_counter()
-    cfg, params = load_model({"model": "falcon-7b",
-                              "model_overrides": {
-                                  "param_dtype": "bfloat16",
-                                  "num_layers": FALCON_SERVE_LAYERS},
+    cfg, params = load_model({"model": model, "model_overrides": overrides,
                               "seed": seed})
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
     weight_gb = sum(t.numel() * t.element_size()
                     for t in tree_leaves(params)) / 1e9
-    print(f"load_model falcon-7b bf16: {n_params / 1e9:.3f} B params "
+    print(f"load_model {model} bf16: {n_params / 1e9:.3f} B params "
           f"({weight_gb:.2f} GB), layers {cfg.num_layers}, hidden "
-          f"{cfg.hidden_size}, heads {cfg.num_heads}/{cfg.num_kv_heads}, in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+          f"{cfg.hidden_size}, heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+          f"{cfg.head_dim}, in {time.perf_counter() - t0:.2f} s",
+          flush=True)
     prompts = smoke_prompts(seed)
     plain_cfg = dataclasses.replace(cfg, attention_impl="xla")
     with torch.no_grad():
         flash = prefill_logits(torch, cfg, params, prompts[3], 512, 2048)
         plain = prefill_logits(torch, plain_cfg, params, prompts[3], 512,
                                2048)
-    gap_check("falcon-7b prefill logits, 300-token prompt, flash vs plain",
+    gap_check(f"{model} prefill logits, 300-token prompt, flash vs plain",
               flash, plain)
-    record, ids, launches = {"weight_gb": weight_gb}, {}, {}
+    record, ids, launches = {"weight_gb": weight_gb,
+                             "layers": cfg.num_layers}, {}, {}
     for name, cls in (("dense", None), ("paged", PagedInferenceEngine)):
         engine, samples, warm_s = warm_engine(torch, cfg, params, seed,
                                               cls=cls)
@@ -5572,19 +5632,20 @@ def falcon_serve(torch, seed):
                       torch.cuda.max_memory_allocated() / 1e9),
                   cache_bytes=engine.cache.nbytes)
         if not all(len(x) == MAX_TOKENS for x in run_ids):
-            raise SystemExit(f"falcon-7b {name}: not every request got "
+            raise SystemExit(f"{model} {name}: not every request got "
                              f"{MAX_TOKENS} tokens: {st}")
         record[name] = st
         ids[name] = run_ids
-        launches[f"falcon_serve_{name}"] = st["flash_fwd_launches"]
+        launches[f"{label}_serve_{name}"] = st["flash_fwd_launches"]
         free_engine(torch, engine)
         del engine
-    print("falcon-7b serve " + json.dumps(record), flush=True)
-    if launches["falcon_serve_dense"] != launches["falcon_serve_paged"] \
-            or launches["falcon_serve_dense"] < cfg.num_layers:
-        raise SystemExit(f"falcon-7b: K1 launches dense vs paged {launches}")
+    print(f"{model} serve " + json.dumps(record), flush=True)
+    dense, paged = (launches[f"{label}_serve_{k}"] for k in ("dense",
+                                                              "paged"))
+    if dense != paged or dense < cfg.num_layers:
+        raise SystemExit(f"{model}: K1 launches dense vs paged {launches}")
     for i in range(0, len(prompts), 2):      # the greedy requests
-        near_tie_check(torch, cfg, params, f"falcon-7b request r{i}: "
+        near_tie_check(torch, cfg, params, f"{model} request r{i}: "
                        "greedy ids dense vs paged", prompts[i],
                        ids["dense"][i], ids["paged"][i])
     del params, flash, plain
@@ -5748,15 +5809,16 @@ def falcon_train(torch, dev, seed, data_path, workdir):
     return record, launches
 
 
-def falcon_import(torch, dev, seed, workdir):
-    """Phase 16 (d): two HF falcon directories (BF16, two shards, full
-    width, FAMILY_IMPORT_LAYERS layers), falcon-7b style (fused MQA
-    query_key_value, one input_layernorm) and falcon-40b style (8 kv
-    heads, ln_attn / ln_mlp), through ``python -m
+def family_import(torch, dev, seed, workdir, names, served):
+    """HF directories of the models ``names`` (BF16, two shards, full
+    width, FAMILY_IMPORT_LAYERS layers) through ``python -m
     runbooks_tpu_torch.models.loader``; every leaf against the HF tensors
     taken apart here by hand (family_expected); then load_model restores
-    the 7b import and its greedy ids equal those of the tree converted in
-    memory. Returns (record, K1 launches)."""
+    the import of ``served`` and its greedy ids equal those of the tree
+    converted in memory. Phase 16 (d): falcon-7b style (fused MQA
+    query_key_value, one input_layernorm) and falcon-40b style (8 kv
+    heads, ln_attn / ln_mlp); phase 22 (d): gemma-7b (llama's names, no
+    lm_head, the norms' +1). Returns (record, K1 launches)."""
     from runbooks_tpu_torch.models.config import get_config
     from runbooks_tpu_torch.models.convert import convert
     from runbooks_tpu_torch.models.safetensors_io import load_state_dict
@@ -5769,7 +5831,7 @@ def falcon_import(torch, dev, seed, workdir):
     overrides = {"num_layers": FAMILY_IMPORT_LAYERS,
                  "param_dtype": "bfloat16"}
     record = {}
-    for name in ("falcon-7b", "falcon-40b"):
+    for name in names:
         cfg = get_config(name, **overrides)
         src = f"{workdir}/hf_{name}"
         t0 = time.perf_counter()
@@ -5794,7 +5856,7 @@ def falcon_import(torch, dev, seed, workdir):
                 got = got[layer]
             n_leaves += 1
             n_equal += int(got.dtype == torch.bfloat16
-                           and torch.equal(got, want))
+                           and torch.equal(got, want.to(torch.bfloat16)))
         record[name] = {"source_bytes": src_bytes, "write_s": write_s,
                         "import_s": import_s,
                         "import_gb_per_s": src_bytes / import_s / 1e9,
@@ -5809,8 +5871,8 @@ def falcon_import(torch, dev, seed, workdir):
         gc.collect()
 
     cfg, restored = load_model({
-        "model": "falcon-7b", "model_overrides": overrides,
-        "checkpoint": f"{workdir}/import_falcon-7b/artifacts"})
+        "model": served, "model_overrides": overrides,
+        "checkpoint": f"{workdir}/import_{served}/artifacts"})
     prompts = smoke_prompts(seed)[:4]
 
     def greedy(params):
@@ -5826,19 +5888,19 @@ def falcon_import(torch, dev, seed, workdir):
     launches = flash_attention.launches
     del restored
     in_memory = tree_map(lambda t: t.to(dev), convert(
-        cfg, load_state_dict(f"{workdir}/hf_falcon-7b"), cfg.param_dtype))
+        cfg, load_state_dict(f"{workdir}/hf_{served}"), cfg.param_dtype))
     want = greedy(in_memory)
     del in_memory
     gc.collect()
     torch.cuda.empty_cache()
     same = got == want
-    print(f"import falcon-7b: greedy ids of {len(prompts)} prompts from the "
+    print(f"import {served}: greedy ids of {len(prompts)} prompts from the "
           f"restored checkpoint {'equal' if same else 'DIFFER FROM'} those "
           f"of the tree converted in memory ({got[0][:6]}...); K1 launches "
           f"{launches}", flush=True)
     if not same or launches < 1:
-        raise SystemExit("serving the falcon-7b import failed")
-    record["falcon-7b"]["greedy_equal"] = same
+        raise SystemExit(f"serving the {served} import failed")
+    record[served]["greedy_equal"] = same
     return record, launches
 
 
@@ -5884,12 +5946,14 @@ def family_server_setup(torch, dev, seed, workdir, name, prompt_lens, new):
     return name, content, cfg, cases
 
 
-def family_server(name, content, cfg, cases):
-    """Phase 16 (e), one family (a Background check): ``python -m
-    runbooks_tpu_torch.serve.api`` with the example's params (the model's
-    name; the byte tokenizer, since it names none) on family_server_setup's
-    mount, one greedy completion per case against this process's decode,
-    then SIGTERM. Returns (record, K1 launches over the server's life)."""
+def family_server(name, content, cfg, cases, stream=False):
+    """Phase 16 (e) and 22 (c), one family (a Background check): ``python
+    -m runbooks_tpu_torch.serve.api`` with the example's params (the
+    model's name; the byte tokenizer, since it names none) on
+    family_server_setup's mount, one greedy completion per case against
+    this process's decode (with ``stream``, the first case streamed too:
+    its deltas add up to that text), then SIGTERM. Returns (record, K1
+    launches over the server's life)."""
     port = free_port()
     with open(f"{content}/params.json", "w") as f:
         json.dump({"model": name, "port": port,
@@ -5918,6 +5982,14 @@ def family_server(name, content, cfg, cases):
                           and reply["usage"]["completion_tokens"]
                           == len(ref.output_tokens)
                           and choice["finish_reason"] == ref.finish_reason)})
+        streamed = None
+        if stream:
+            text, ref, want_text = cases[0]
+            t_first, chunks = stream_check(
+                base, {"prompt": text, "max_tokens": ref.max_tokens,
+                       "temperature": 0}, want_text, f"{name} stream",
+                chat=False)
+            streamed = {"first_chunk_s": t_first, "chunks": chunks}
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=ENTRY_DRAIN_S)
     finally:
@@ -5929,7 +6001,7 @@ def family_server(name, content, cfg, cases):
     launches = stopped_launches(log_text)
     restored = "restored params of step 1" in log_text
     record = {"ready_s": ready_s, "restored_from_mount": restored,
-              "answers": answers, "exit_code": rc,
+              "answers": answers, "stream": streamed, "exit_code": rc,
               "flash_fwd_launches": launches,
               "position_table": cfg.max_seq_len}
     print(f"{name} over HTTP " + json.dumps(record), flush=True)
@@ -5954,7 +6026,8 @@ def families_phase(torch, dev, seed, batch, data_path, workdir):
     kernels_s = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
-    serve, serve_launches = falcon_serve(torch, seed)
+    serve, serve_launches = family_serve(torch, seed, "falcon-7b",
+                                         FALCON_SERVE_LAYERS)
     train, train_launches = falcon_train(torch, dev, seed, data_path,
                                          workdir)
     gc.collect()
@@ -5966,7 +6039,8 @@ def families_phase(torch, dev, seed, batch, data_path, workdir):
             ("opt-125m", (300,), {300: FAMILY_HTTP_NEW}),
             ("gpt2", (300, GPT2_LONG_PROMPT),
              {300: FAMILY_HTTP_NEW, GPT2_LONG_PROMPT: GPT2_LONG_NEW}))]
-    imported, import_launches = falcon_import(torch, dev, seed, workdir)
+    imported, import_launches = family_import(
+        torch, dev, seed, workdir, ("falcon-7b", "falcon-40b"), "falcon-7b")
     gc.collect()
     torch.cuda.empty_cache()
     (opt, opt_launches), (gpt2, gpt2_launches) = (
@@ -8174,6 +8248,117 @@ def fsdp_phase(torch, seed, data_path, workdir, started):
             for k in one_launches}
 
 
+# ---------------------------------------------------------------------------
+# Gemma serving: phase 22
+# ---------------------------------------------------------------------------
+
+# (c) gemma-2b over HTTP: greedy completions of prompts of these lengths,
+# GEMMA_HTTP_NEW new tokens each (the first one also streamed).
+GEMMA_HTTP_LENS = (300, 1000)
+GEMMA_HTTP_NEW = 24
+
+
+def gemma_fwd_layouts(torch, dev):
+    """K1's phase-22 cases at head_dim 256 (fwd_case_layouts' tuple):
+    gemma-7b's serving burst (16 query heads on 16 kv heads) and gemma-2b's
+    (8 on 1): an 8-row 128 bucket, rows 0-1 real (90 and 120 tokens), the
+    rest padding at position 2048 over a 2049-slot cache; gemma-7b's
+    suffix prefill, 8 rows of 128 tokens after a PREFIX_LEN-token prefix;
+    and 2 x 2048 causal at 16/16 with the block skip."""
+
+    def ar(n, rows, start=0):
+        return (start + torch.arange(n, device=dev, dtype=torch.int32)
+                )[None].expand(rows, n).contiguous()
+
+    sk, s = 2049, 2048
+    pos = torch.full((8, 128), 2048, device=dev, dtype=torch.int32)
+    pos[0, :90] = ar(90, 1)[0]
+    pos[1, :120] = ar(120, 1)[0]
+    return [
+        ("gemma7b_rows8_sq128", (8, 128, sk, 16, 16, 256), pos, ar(sk, 8),
+         None, None, False, pos < 2048),
+        ("gemma2b_rows8_sq128", (8, 128, sk, 8, 1, 256), pos, ar(sk, 8),
+         None, None, False, pos < 2048),
+        ("gemma7b_rows8_sq128_at1024", (8, 128, sk, 16, 16, 256),
+         ar(128, 8, PREFIX_LEN), ar(sk, 8), None, None, False, None),
+        ("b_gemma7b_causal_2x2048", (2, s, s, 16, 16, 256), ar(s, 2),
+         ar(s, 2), None, None, True, None),
+    ]
+
+
+def gemma_fine_tune_refused(torch, data_path, workdir):
+    """Phase 22 (c): ``run_training`` of a gemma-2b LoRA job on the card
+    raises by name (head_dim 256 is not a backward kernel's; ROADMAP §1
+    item 2 (b)) before its first step: no artifacts written, no K1-K3
+    launch. Returns the record."""
+    from runbooks_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from runbooks_tpu_torch.train.lora import LoraConfig
+    from runbooks_tpu_torch.train.trainer import TrainJobConfig, run_training
+
+    artifacts = f"{workdir}/gemma_fine_tune"
+    job = TrainJobConfig(model="gemma-2b", lora=LoraConfig(rank=16),
+                         seq_len=TRAIN_SEQ, batch_size=8, steps=1,
+                         data_path=data_path, artifacts_dir=artifacts)
+
+    def counts():
+        return (flash_attention.launches, flash_attention_bwd.dq_launches,
+                flash_attention_bwd.dkv_launches)
+
+    before = counts()
+    t0 = time.perf_counter()
+    message = None
+    try:
+        run_training(job)
+    except NotImplementedError as exc:
+        message = str(exc)
+    record = {"refused": message, "seconds": time.perf_counter() - t0,
+              "artifacts_written": os.path.exists(artifacts),
+              "launches_during": [a - b for a, b in zip(counts(), before)]}
+    print("gemma-2b fine-tune on the card: " + json.dumps(record),
+          flush=True)
+    if not (message and "§1 item 2 (b)" in message and "head_dim 256" in
+            message and not record["artifacts_written"]
+            and not any(record["launches_during"])):
+        raise SystemExit("the gemma-2b fine-tune was not refused by name "
+                         "before its first step")
+    return record
+
+
+def gemma_phase(torch, dev, seed, data_path, workdir):
+    """Phase 22: gemma serving. Returns (K1 launches by path, K1's
+    records at gemma's shapes, its largest error there)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fwd, worst = kernel_phase(torch, dev, seed + 22, None,
+                              layouts=gemma_fwd_layouts(torch, dev),
+                              gqa=True)
+    kernels_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c)'s server starts and answers while (b) and (d) run here.
+    server = Background(family_server, *family_server_setup(
+        torch, dev, seed, workdir, "gemma-2b", GEMMA_HTTP_LENS,
+        {n: GEMMA_HTTP_NEW for n in GEMMA_HTTP_LENS}), True)
+    serve, serve_launches = family_serve(torch, seed, "gemma-7b")
+    refused = gemma_fine_tune_refused(torch, data_path, workdir)
+    imported, import_launches = family_import(
+        torch, dev, seed, workdir, ("gemma-7b",), "gemma-7b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    http, http_launches = server.result()
+    launches = {**serve_launches, "gemma_import": import_launches,
+                "gemma_http": http_launches}
+    print("phase 22 " + json.dumps({
+        "card": card_line(), "kernels_s": kernels_s,
+        "flash_fwd_launches": launches, "serve": serve,
+        "fine_tune": refused, "import": imported, "http": http,
+        "seconds": time.perf_counter() - t_phase}), flush=True)
+    return launches, fwd, worst
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8292,6 +8477,11 @@ def main():
         fsdp_launches = fsdp_phase(torch, args.seed, data_path, workdir,
                                    fsdp_ranks)
         mark("phase 21")
+        gc.collect()
+        torch.cuda.empty_cache()
+        gemma_launches, gemma_records, gemma_worst = gemma_phase(
+            torch, dev, args.seed, data_path, workdir)
+        mark("phase 22")
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -8355,6 +8545,24 @@ def main():
                                  "library_ms", "library_causal_ms",
                                  "tflops", "shape")}
         for name, r in family_records["fwd"].items()}
+    # K1 at head_dim 256 (gemma), its own row: phase 22's launches.
+    burst = gemma_records["gemma7b_rows8_sq128"]
+    kernels.append({
+        "name": "flash_fwd_d256",
+        "route": "cuda",
+        "source": "runbooks_tpu_torch/csrc/flash_fwd.cu",
+        "replaces": "runbooks_tpu/ops/flash_attention.py:92",
+        "launches": sum(gemma_launches.values()),
+        "launches_by_path": gemma_launches,
+        "max_abs_err": gemma_worst,
+        **{k: burst[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "bound_ms_with_padding",
+                                 "tflops", "shape")},
+        "shapes": {name: {k: r[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_causal_ms", "tflops", "shape")}
+            for name, r in gemma_records.items()},
+    })
     train_case = bwd_records["a_packed_2x2048"]
     causal_case = bwd_records["b_causal_2x2048"]
     library = causal_case["library_ms"]

@@ -49,20 +49,34 @@
 // - Causal launches issue the heaviest q tiles first: the q tile is the
 //   slowest grid axis and is walked from the last.
 //
-// Registers and shared memory: two 256-thread blocks per SM
-// (__launch_bounds__(256, 2), at most 128 registers a thread). A thread
-// holds 64 f32 accumulators of O and 32 of S at d=128, so Q is read from
-// shared memory at every kv tile (one ldmatrix.x4 per depth step) and the
-// rows' positions and segment ids stay in shared memory. The -Xptxas -v
-// report of the H100 build (chip_smoke.py prints it): 128 registers and
+// Registers and shared memory: two 256-thread blocks per SM at d=64 and
+// d=128 (__launch_bounds__(256, 2), at most 128 registers a thread). A
+// thread holds 64 f32 accumulators of O and 32 of S at d=128, so Q is read
+// from shared memory at every kv tile (one ldmatrix.x4 per depth step) and
+// the rows' positions and segment ids stay in shared memory. The -Xptxas
+// -v report of the H100 build (chip_smoke.py prints it): 128 registers and
 // 64 bytes of spill stores at d=128, 127 registers and no spills at d=64.
 // Holding Q in registers instead needs far more than 128 registers, so one
 // block per SM, and was slower at the training shape when tried. Shared
-// memory is Q plus two K/V stages, (128 + 4 * 64)
-// rows of D + 8 bf16 (104448 bytes at d=128, 55296 at d=64), 1 KB of key
-// positions and segment ids, 1 KB of the rows' ones, and 5 bytes per kv
-// tile of the row for the tile classes: two blocks fit in the SM's 228 KB
-// up to about 118000 keys.
+// memory is Q plus two K/V stages, (128 + 4 * 64) rows of D + 8 bf16
+// (104448 bytes at d=128, 55296 at d=64), 1 KB of key positions and
+// segment ids, 1 KB of the rows' ones, and 5 bytes per kv tile of the row
+// for the tile classes: two blocks fit in the SM's 228 KB up to about
+// 118000 keys.
+//
+// At d=256 (gemma) a thread holds 16 rows x 256 / 32 lanes = 128 f32 of O
+// alone, the whole 128-register cap of two blocks per SM. That head_dim
+// runs one block per SM (MIN_BLOCKS, __launch_bounds__(256, 1): up to 255
+// registers) with the same 128 x 64 tiles: O and the 32 f32 of S fit the
+// 255, and Q, two K/V stages and the ints take (128 + 4 * 64) * 264 * 2 +
+// 2048 = 204800 bytes plus 5 per kv tile, under the 232448 bytes a block
+// may have up to 5529 kv tiles (353856 keys). A 32-key tile would halve
+// S but double the Q fragments read from shared memory per key (Q is read
+// again at every tile), and splitting D between warp pairs would add a
+// cross-warp exchange of the row max and sum at every tile; keeping the
+// 64-key tile also keeps one tile plan (fwd_tile_plan at FWD_BQ x FWD_BK)
+// for every head_dim. Eight warps a SM hide less latency than sixteen:
+// the wgmma/TMA redesign is where d=256 gains most.
 //
 // What bounds it. Prefill attention at the serving shapes does
 // 4 * sq * sk * h * d operations (on the pairs the masks leave open)
@@ -87,6 +101,11 @@ constexpr int BK = 64;           // keys per kv tile (ops: FWD_BK)
 constexpr int SKIP_ROWS = 64;    // row grain of the causal block skip (ops: TILE)
 constexpr int NWARPS = BQ / 16;  // 16 query rows per warp
 constexpr int NTHREADS = NWARPS * 32;
+
+// Blocks per SM the register budget is set for: two at d <= 128, one at
+// d=256 (its O accumulators alone take 128 registers a thread).
+template <int D>
+constexpr int MIN_BLOCKS = D > 128 ? 1 : 2;
 
 // Kv tiles the launches left to compute ([0]: not closed) and the open ones
 // of those ([1]), summed over blocks; flash_fwd_tile_counts reads and clears
@@ -125,7 +144,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS, 2)
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS<D>)
 flash_fwd_kernel(const Params p) {
   constexpr int LD = D + 8;          // padded row length in shared memory
   constexpr int CHUNKS = D / 8;      // 16-byte chunks per row
@@ -547,6 +566,7 @@ extern "C" int flash_fwd_bf16(
   switch (d) {
     case 64: return static_cast<int>(launch<64>(p, s));
     case 128: return static_cast<int>(launch<128>(p, s));
+    case 256: return static_cast<int>(launch<256>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

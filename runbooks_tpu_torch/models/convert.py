@@ -1,6 +1,6 @@
 """HF checkpoint conversion: state dict -> the port's param tree (the port
-of ``runbooks_tpu.models.convert``: the llama, falcon, opt and gpt2
-families).
+of ``runbooks_tpu.models.convert``: the llama, gemma, falcon, opt and
+gpt2 families).
 
 HF keeps each linear layer as ``[out, in]`` per layer (GPT-2's Conv1D as
 ``[in, out]``); the port keeps the reference's stacked ``[L, in, out]``
@@ -9,7 +9,8 @@ the port's split-half RoPE, so the weights transpose directly. Falcon's
 fused ``query_key_value`` is unfused as ``[nkv, rep + 2, d, h]`` (the 7b
 multi-query layout and the 40b grouped one alike); OPT's learned
 positions drop HF's first 2 rows; GPT-2's fused ``c_attn`` splits three
-ways by columns. Each stacked tensor is allocated once in ``dtype`` and
+ways by columns; Gemma is llama's layout with RMSNorm's (1 + w) folded into
+the norm scales. Each stacked tensor is allocated once in ``dtype`` and
 filled layer by layer, so an import never holds a list of per-layer
 copies beside the stack (at 8B in f32 a list plus its stack is twice the
 model). A cast here rounds as numpy's ``astype`` does (to nearest, ties to
@@ -39,12 +40,10 @@ StateDict = Mapping[str, torch.Tensor]
 Layer = Callable[[int], torch.Tensor]
 
 # The reference's converter families, in its lookup order (mixtral and
-# gemma before llama: their names and keys extend llama's). mixtral and
-# gemma wait for their forward features (MoE; head_dim 256 and the
-# embedding scale).
+# gemma before llama: their names and keys extend llama's). mixtral waits
+# for its forward feature (MoE).
 FAMILIES = ("mixtral", "gemma", "gpt2", "llama", "falcon", "opt")
-NOT_PORTED = {"mixtral": "MoE (models/moe.py)",
-              "gemma": "head_dim 256 in the kernels and embed_scale"}
+NOT_PORTED = {"mixtral": "MoE (models/moe.py)"}
 
 
 class _Stacker:
@@ -110,6 +109,21 @@ def convert_llama(cfg: ModelConfig, sd: StateDict, dtype: torch.dtype,
         params["head"] = st.cast((head if head is not None
                                   else sd["model.embed_tokens.weight"]).T)
     return params
+
+
+def convert_gemma(cfg: ModelConfig, sd: StateDict, dtype: torch.dtype,
+                  quantize: str = "none") -> Dict:
+    """Gemma: llama's names (no ``lm_head``: the head is tied), and an
+    RMSNorm that computes x * (1 + w), so the +1 is folded into the ln1,
+    ln2 and final_norm scales. The sum is taken in f32 and then cast to
+    ``dtype``: the reference adds 1.0 to the state dict's arrays, which
+    numpy widens to f32 for f32 and bf16 sources (HF's GemmaRMSNorm also
+    forms 1 + w in f32)."""
+    folded = {k: v.float() + 1 for k, v in sd.items()
+              if k == "model.norm.weight"
+              or k.endswith(("input_layernorm.weight",
+                             "post_attention_layernorm.weight"))}
+    return convert_llama(cfg, {**sd, **folded}, dtype, quantize)
 
 
 def convert_falcon(cfg: ModelConfig, sd: StateDict, dtype: torch.dtype,
@@ -238,6 +252,7 @@ def convert_gpt2(cfg: ModelConfig, sd: StateDict, dtype: torch.dtype,
 
 
 CONVERTERS = {
+    "gemma": convert_gemma,
     "gpt2": convert_gpt2,
     "llama": convert_llama,
     "falcon": convert_falcon,

@@ -1,6 +1,6 @@
 """Decoder-only transformer over a params dict (the port of
-``runbooks_tpu.models.transformer``: the dense Llama, Falcon, OPT and
-GPT-2 families).
+``runbooks_tpu.models.transformer``: the dense Llama, Falcon, OPT, GPT-2
+and Gemma families).
 
 - Params keep the reference's layout: {"embed", "final_norm", "head",
   "layers": {...stacked [L, ...] tensors...}}; the forward loops over the
@@ -9,6 +9,8 @@ GPT-2 families).
   attention and MLP biases, a plain (ungated) MLP ``mlp.wi``, learned
   positions ``pos_embed``, no ``head`` under a tied head (the logits use
   ``embed.T``), no ``ln2`` under a parallel block with one shared norm.
+  Gemma's embedding is scaled by sqrt(hidden_size) (``embed_scale``); its
+  RMSNorm's (1 + w) is folded into the scales by the converter.
 - f32 norms, softmax and logits; matmuls in the activation dtype.
 - One forward serves the no-cache path and the KV-cache path. The cache
   path writes in place (the reference's donated buffers): the KVCache's
@@ -70,9 +72,9 @@ FLASH_CACHED_PREFILL_MIN_Q = 16
 
 def check_supported(cfg: ModelConfig) -> None:
     """Reject a config that needs a feature the port's forward does not
-    implement yet, naming it (the dense Llama, Falcon, OPT and GPT-2
-    features are ported; MoE, qk-norm, softcap, ALiBi and the embedding
-    scale wait for later slices, see ROADMAP.md)."""
+    implement yet, naming it (the dense Llama, Falcon, OPT, GPT-2 and
+    Gemma features are ported; MoE, qk-norm, softcap and ALiBi wait for
+    later slices, see ROADMAP.md)."""
     missing = []
     if cfg.moe_num_experts:
         missing.append(f"moe_num_experts={cfg.moe_num_experts} (MoE)")
@@ -82,8 +84,6 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append(f"logit_softcap={cfg.logit_softcap}")
     if cfg.position_type == "alibi":
         missing.append("position_type='alibi'")
-    if cfg.embed_scale:
-        missing.append("embed_scale")
     if missing:
         raise NotImplementedError(
             f"config {cfg.name!r} needs {', '.join(missing)}, which the "
@@ -713,6 +713,10 @@ def forward(
         x = tp.embed(params["embed"], tokens, ad)
     else:
         x = params["embed"].to(ad)[tokens]
+    if cfg.embed_scale:
+        # The reference multiplies by a Python float, which JAX rounds to
+        # the activation dtype first; so does this.
+        x = x * torch.tensor(cfg.hidden_size ** 0.5, dtype=ad)
     if cfg.position_type == "learned":
         # A JAX gather clamps an index past the table: padding parked at
         # the trash slot (max_seq_len) reads the last row, as the

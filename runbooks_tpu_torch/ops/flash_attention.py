@@ -21,9 +21,10 @@ Replaces the Pallas TPU kernels of ``runbooks_tpu/ops/flash_attention.py``:
   kv head's n_rep query heads.
 
 A CPU tensor goes to the plain versions; a CUDA tensor goes to the kernels
-or raises. The kernels take bfloat16 q/k/v (and do) with head_dim 64 or
-128, and the forward kernel a scale > 0 (it takes the row max on the raw
-scores). ``flash_attention.launches`` counts forward launches,
+or raises. The kernels take bfloat16 q/k/v (and do); the forward kernel
+takes head_dim 64, 128 or 256 (FWD_HEAD_DIMS) and a scale > 0 (it takes
+the row max on the raw scores), the backward kernels head_dim 64 or 128
+(BWD_HEAD_DIMS). ``flash_attention.launches`` counts forward launches,
 ``flash_attention_bwd.dq_launches`` and ``.dkv_launches`` the backward's;
 ``fwd_tile_counts`` and ``bwd_tile_counts`` read the kernels' own counts of
 the tiles they computed, which ``fwd_tile_plan`` predicts at each kernel's
@@ -45,12 +46,16 @@ PAD_POS = 2 ** 30
 # here.
 TILE = 64
 # The forward kernel's q rows per block and keys per kv tile
-# (csrc/flash_fwd.cu BQ, BK), and the backward kernels' q and kv tiles
-# (csrc/flash_bwd.cu BQ, BK); fwd_tile_plan classifies the tiles of both.
+# (csrc/flash_fwd.cu BQ, BK; the same at every head_dim it takes), and the
+# backward kernels' q and kv tiles (csrc/flash_bwd.cu BQ, BK);
+# fwd_tile_plan classifies the tiles of both.
 FWD_BQ, FWD_BK = 128, 64
 BWD_BQ, BWD_BK = 64, 64
 TILE_CLOSED, TILE_PARTIAL, TILE_OPEN = 0, 1, 2
-KERNEL_HEAD_DIMS = (64, 128)
+# The head dims each kernel is built for (csrc/flash_fwd.cu and
+# csrc/flash_bwd.cu instantiate these and no others).
+FWD_HEAD_DIMS = (64, 128, 256)
+BWD_HEAD_DIMS = (64, 128)
 
 _ll = ctypes.c_longlong
 _vp = ctypes.c_void_p
@@ -274,9 +279,9 @@ def _flash_fwd_cuda(q, k, v, q_positions, kv_positions, q_segment_ids,
         if not _rows_ok(t):
             raise ValueError(f"{name} needs a unit last stride, a 16-byte "
                              "aligned base and 8-element row strides")
-    if d not in KERNEL_HEAD_DIMS:
+    if d not in FWD_HEAD_DIMS:
         raise ValueError(f"the flash kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {d}")
+                         f"{FWD_HEAD_DIMS}, got {d}")
     if not scale > 0:
         raise ValueError(f"the flash kernel takes a scale > 0, got {scale}")
     use_seg = q_segment_ids is not None
@@ -453,9 +458,9 @@ def flash_bwd_kernels(q, k, v, q_positions, kv_positions, q_segment_ids,
         if not _rows_ok(t):
             raise ValueError(f"{name} needs a unit last stride, a 16-byte "
                              "aligned base and 8-element row strides")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the flash kernels take head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {d}")
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"the flash backward kernels take head_dim in "
+                         f"{BWD_HEAD_DIMS}, got {d}")
     gd = grad_dtype or q.dtype
     if gd not in GRAD_DTYPES:
         raise TypeError(f"the flash backward kernels write {GRAD_DTYPES}, "

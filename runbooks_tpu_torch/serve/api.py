@@ -76,6 +76,7 @@ from runbooks_tpu_torch.ops.flash_attention import flash_attention
 from runbooks_tpu_torch.parallel import distributed
 from runbooks_tpu_torch.parallel.mesh import (
     MeshConfig,
+    check_mesh_model,
     check_serving_mesh,
     make_mesh,
 )
@@ -209,6 +210,7 @@ def load_model(params: dict,
     check_supported(cfg)
     cut = None
     if shard is not None:
+        check_mesh_model(cfg, MeshConfig(fsdp=1, tensor=shard[0]))
         plan, rank = serve_plan(cfg, shard[0]), shard[1]
         cut = functools.partial(shard_leaf, plan=plan, rank=rank)
     ckpt_dir = params.get("checkpoint") or contract.model_dir()
@@ -1499,6 +1501,8 @@ def refuse_unported(params: dict) -> None:
     mc = serve_mesh(params)
     if mc is None or mc.tensor == 1:
         return
+    check_mesh_model(get_config(params.get("model", "debug"),
+                                **params.get("model_overrides", {})), mc)
     info = distributed.env_process_info()
     if info is not None and info["num_processes"] > 1:
         raise NotImplementedError(

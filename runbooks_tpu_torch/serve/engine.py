@@ -100,7 +100,11 @@ from runbooks_tpu_torch.ops.quantization import (
     quantize_kv,
 )
 from runbooks_tpu_torch.ops.sampling import sample, speculative_verify
-from runbooks_tpu_torch.parallel.mesh import check_serving_mesh, mesh_config_of
+from runbooks_tpu_torch.parallel.mesh import (
+    check_mesh_model,
+    check_serving_mesh,
+    mesh_config_of,
+)
 from runbooks_tpu_torch.parallel.sharding import (
     TensorParallel,
     serve_plan,
@@ -744,6 +748,7 @@ class InferenceEngine:
                 f"got {type(mesh).__name__}")
         mc = mesh_config_of(mesh)
         check_serving_mesh(mc)
+        check_mesh_model(self.cfg, mc)
         if mc.tensor > 1:
             refused = []
             if self.quantize_kv or any(

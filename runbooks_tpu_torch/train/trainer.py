@@ -28,7 +28,8 @@ A collective matmul other than "off" is refused by name.
 Data parallelism and FSDP (ZeRO-3): the ``mesh_*`` keys of params.json
 form a MeshConfig, as the reference's; ``mesh_data`` and ``mesh_fsdp``
 train over that many ranks, and the other axes above 1 are refused by
-name (parallel/mesh.check_training_mesh), as is a multi-host env. ``main``
+name (parallel/mesh.check_training_mesh), as is a multi-host env, and so
+is gemma under any mesh (parallel/mesh.check_mesh_model). ``main``
 resolves the mesh against the GPUs it sees (a -1 axis fills with them; a
 mesh that needs more raises naming ``torch.cuda.device_count()``) and
 runs one rank per GPU over NCCL: it is rank 0 and spawns the others.
@@ -75,7 +76,10 @@ from typing import Any, Dict, Iterator, Optional, Union
 import torch
 
 from runbooks_tpu_torch.models.config import ModelConfig, get_config
-from runbooks_tpu_torch.models.transformer import init_params
+from runbooks_tpu_torch.models.transformer import (
+    init_params,
+    resolve_attention_impl,
+)
 from runbooks_tpu_torch.obs import device as obs_device
 from runbooks_tpu_torch.obs import flight as obs_flight
 from runbooks_tpu_torch.obs import trace as obs_trace
@@ -84,8 +88,10 @@ from runbooks_tpu_torch.obs.metrics import REGISTRY
 from runbooks_tpu_torch.obs.profile import PROFILER, parse_profile_at_step
 from runbooks_tpu_torch.obs.trace import span
 from runbooks_tpu_torch.parallel import distributed
+from runbooks_tpu_torch.ops.flash_attention import BWD_HEAD_DIMS
 from runbooks_tpu_torch.parallel.mesh import (
     MeshConfig,
+    check_mesh_model,
     check_training_mesh,
     make_mesh,
     mesh_config_of,
@@ -288,6 +294,22 @@ def refuse_multi_host() -> None:
             "ported yet (ROADMAP.md §1)")
 
 
+def refuse_unported_attention(model_cfg: ModelConfig,
+                              dev: torch.device) -> None:
+    """On CUDA the step's flash attention is K1 forward and K2/K3
+    backward: a head_dim the backward kernels are not built for
+    (ops/flash_attention.BWD_HEAD_DIMS; gemma's 256) is refused by name
+    before any work. Gemma's fine-tune on the card is ROADMAP §1 item 2
+    (b). The CPU takes the plain versions at any head_dim."""
+    if (dev.type == "cuda" and model_cfg.head_dim not in BWD_HEAD_DIMS
+            and resolve_attention_impl(model_cfg, dev) == "flash"):
+        raise NotImplementedError(
+            f"config {model_cfg.name!r} has head_dim {model_cfg.head_dim}: "
+            f"the backward flash kernels take {BWD_HEAD_DIMS}, so the "
+            f"PyTorch port does not fine-tune it on the card yet "
+            f"(ROADMAP.md §1 item 2 (b))")
+
+
 def run_training(job: TrainJobConfig, base_params=None,
                  device: Optional[Union[str, torch.device]] = None,
                  mesh=None) -> Dict[str, Any]:
@@ -311,6 +333,8 @@ def run_training(job: TrainJobConfig, base_params=None,
         mesh_cfg = check_training_mesh(mesh_config_of(mesh))
     world = mesh_cfg.data * mesh_cfg.fsdp
     model_cfg = get_config(job.model, **job.model_overrides)
+    check_mesh_model(model_cfg, mesh_cfg)
+    refuse_unported_attention(model_cfg, dev)
     if job.accumulate_steps < 1:
         raise ValueError(
             f"accumulate_steps must be >= 1, got {job.accumulate_steps}")
@@ -905,6 +929,7 @@ def main(backend: Optional[str] = None) -> int:
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
     mesh = training_world(job.mesh, backend)
+    check_mesh_model(get_config(job.model, **job.model_overrides), mesh)
     world = mesh.data * mesh.fsdp
     job = dataclasses.replace(job, mesh=mesh)
     # The registry for the controller's fleet scraper (train_step,

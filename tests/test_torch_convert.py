@@ -7,8 +7,9 @@ The port's safetensors reader, written from the format's specification,
 must give what the ``safetensors`` package reads (F32, F16, BF16, sharded
 directories, chip_smoke.py's writer); its ``.bin`` fallback what the
 reference's ``load_torch_state_dict`` reads; its ``convert`` what the JAX
-``convert`` gives, bit for bit; and a tiny ``transformers`` llama's logits
-what the port's forward computes from the converted weights.
+``convert`` gives, bit for bit; and a tiny ``transformers`` llama's and
+gemma's logits what the port's forward computes from the converted
+weights.
 """
 
 import json
@@ -295,9 +296,44 @@ def test_family_of_matches_jax(name):
     assert family_of(CONFIGS[name]) == jax_family_of(JAX_CONFIGS[name])
 
 
-@pytest.mark.parametrize("name,family", [
-    ("mixtral-8x7b", "mixtral"), ("gemma-2b", "gemma"),
-    ("gemma-7b", "gemma")])
+@pytest.mark.parametrize("kv_heads,head_dim", [(1, 16), (4, 256)])
+def test_tiny_hf_gemma_logits_match_port_forward(kv_heads, head_dim):
+    """transformers' GemmaForCausalLM (RMSNorm's 1 + w, the embedding
+    scaled by sqrt(hidden), tanh-gelu GeGLU, a tied head) at gemma-2b's
+    one kv head and at gemma-7b's MHA with its head_dim of 256, norm
+    weights drawn away from their zero init so that the converter's +1
+    counts: the port's forward on the converted weights gives its
+    logits."""
+    transformers = pytest.importorskip("transformers")
+    hf_cfg = transformers.GemmaConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=96,
+        num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=kv_heads, head_dim=head_dim,
+        max_position_embeddings=64, rms_norm_eps=1e-6, rope_theta=10000.0,
+        hidden_activation="gelu_pytorch_tanh")
+    torch.manual_seed(0)
+    hf = transformers.GemmaForCausalLM(hf_cfg).eval()
+    with torch.no_grad():
+        for name, t in hf.named_parameters():
+            if name.endswith("norm.weight"):
+                t.normal_(0.0, 0.5)
+    cfg = get_config("gemma-2b", vocab_size=128, hidden_size=64,
+                     intermediate_size=96, num_layers=2, num_heads=4,
+                     num_kv_heads=kv_heads, head_dim=head_dim,
+                     max_seq_len=64, dtype="float32")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 128, (2, 12)))
+    with torch.no_grad():
+        want = hf(tokens).logits
+        sd = {k: v for k, v in hf.state_dict().items()
+              if k != "lm_head.weight"}
+        params = convert(cfg, sd)
+        got, _ = forward(cfg, params, tokens)
+    assert "head" not in params
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name,family", [("mixtral-8x7b", "mixtral")])
 def test_other_families_raise_by_name(name, family):
     with pytest.raises(NotImplementedError, match=f"the {family} converter"):
         convert(get_config(name), {})

@@ -47,7 +47,10 @@ def _fwd_case(dev, g, case):
     skips: segments that close tiles, cached prefill at an offset, a ragged
     sk with the causal skip, d=64, and the non-Llama families' groupings at
     d=64: falcon-7b's 71 query heads on one kv head over a 2049-slot
-    cache, falcon-40b's 128 on 8 with the skip."""
+    cache, falcon-40b's 128 on 8 with the skip; and gemma's head_dim 256
+    (one block per SM): gemma-7b's 16/16 over a 2049-slot cache at an
+    offset, gemma-2b's 8 on 1 with the skip and a ragged sq, segments
+    that close tiles."""
     rows, sq, sk, start, h, hk, d = {
         "prompt_kv2049": (1, 256, 2049, 0, 32, 8, 128),
         "cached_prefill_at100": (2, 128, 2049, 100, 32, 8, 128),
@@ -58,6 +61,9 @@ def _fwd_case(dev, g, case):
         "d64_skip": (2, 300, 300, 0, 16, 8, 64),
         "falcon7b_mqa71_kv2049": (2, 128, 2049, 300, 71, 1, 64),
         "falcon40b_rep16_skip": (1, 300, 300, 0, 128, 8, 64),
+        "gemma7b_d256_kv2049": (2, 128, 2049, 300, 16, 16, 256),
+        "gemma2b_d256_ragged_skip": (2, 333, 333, 0, 8, 1, 256),
+        "d256_segment_closed_tiles": (2, 640, 640, 0, 8, 4, 256),
     }[case]
     q = torch.randn((rows, sq, h, d), generator=g, device=dev,
                     dtype=torch.bfloat16)
@@ -68,7 +74,7 @@ def _fwd_case(dev, g, case):
                                   dtype=torch.int32)).expand(rows, sq)
     kv_pos = torch.arange(sk, device=dev, dtype=torch.int32).expand(rows, sk)
     seg = None
-    if case == "segment_closed_tiles":
+    if case.endswith("segment_closed_tiles"):
         # Documents of 70, 300 and 150 tokens, positions restarting, and a
         # padding tail: boundaries inside tiles, whole tiles closed.
         seg = torch.zeros((rows, sq), device=dev, dtype=torch.int32)
@@ -80,7 +86,8 @@ def _fwd_case(dev, g, case):
             at += n
         q_pos = kv_pos = pos
     skip = case in ("segment_closed_tiles", "ragged_skip", "d64_skip",
-                    "falcon40b_rep16_skip")
+                    "falcon40b_rep16_skip", "gemma2b_d256_ragged_skip",
+                    "d256_segment_closed_tiles")
     return q, k, v, q_pos.contiguous(), kv_pos.contiguous(), seg, skip
 
 
@@ -89,7 +96,10 @@ def _fwd_case(dev, g, case):
                                   "mha_kv300", "segment_closed_tiles",
                                   "position_skip_at1000", "ragged_skip",
                                   "d64_skip", "falcon7b_mqa71_kv2049",
-                                  "falcon40b_rep16_skip"])
+                                  "falcon40b_rep16_skip",
+                                  "gemma7b_d256_kv2049",
+                                  "gemma2b_d256_ragged_skip",
+                                  "d256_segment_closed_tiles"])
 def test_kernel_matches_plain_version_on_card(case):
     """The CUDA kernel against its plain version. out within
     1e-2 + 1e-2 * |plain| (bf16 output, one ulp is 2**-7 relative, and bf16
@@ -152,6 +162,29 @@ def test_kernel_launch_is_counted_and_checked():
     with pytest.raises(ValueError):
         flash_attention(q[..., :96], k[..., :96], k[..., :96], pos, pos)
     assert flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_backward_kernels_refuse_head_dim_256():
+    """K1 takes head_dim 256 (gemma); K2 and K3 do not yet, and say so
+    by name on a CUDA tensor instead of falling back to the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((1, 64, 4, 256), generator=g, device=dev,
+                    dtype=torch.bfloat16, requires_grad=True)
+    k = torch.randn((1, 64, 2, 256), generator=g, device=dev,
+                    dtype=torch.bfloat16, requires_grad=True)
+    pos = torch.arange(64, device=dev, dtype=torch.int32)[None]
+    before = (flash_attention_bwd.dq_launches,
+              flash_attention_bwd.dkv_launches)
+    out = flash_attention(q, k, k, pos, pos)
+    with pytest.raises(ValueError, match=r"backward kernels take head_dim"):
+        out.float().sum().backward()
+    assert (flash_attention_bwd.dq_launches,
+            flash_attention_bwd.dkv_launches) == before
 
 
 def _bwd_case(dev, g, b, sq, sk, h, kvh, d, start=0, docs=None):
@@ -769,13 +802,14 @@ def test_prefetched_pinned_batches_reach_the_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["falcon-7b", "falcon-40b", "opt-125m",
-                                  "gpt2"])
+                                  "gpt2", "gemma-2b"])
 def test_family_engines_match_cpu_port_on_card(name):
     """The non-Llama families cut to 2 layers of 256 (4 query heads of 64;
-    falcon-7b's one kv head, falcon-40b's two with split norms) in f32
-    with the plain attention: the dense and paged engines on the card give
-    the CPU port's greedy ids, learned positions clamped past their
-    64-row table at the trash slot."""
+    falcon-7b's one kv head, falcon-40b's two with split norms, gemma-2b's
+    one with the scaled embedding) in f32 with the plain attention: the
+    dense and paged engines on the card give the CPU port's greedy ids,
+    learned positions clamped past their 64-row table at the trash
+    slot."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from runbooks_tpu_torch.serve.api import load_model
@@ -783,7 +817,7 @@ def test_family_engines_match_cpu_port_on_card(name):
     from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
     from runbooks_tpu_torch.utils.tree import tree_map
 
-    kvh = {"falcon-7b": 1, "falcon-40b": 2}.get(name, 4)
+    kvh = {"falcon-7b": 1, "falcon-40b": 2, "gemma-2b": 1}.get(name, 4)
     cfg, params = load_model({
         "model": name, "seed": 5,
         "model_overrides": {"num_layers": 2, "hidden_size": 256,

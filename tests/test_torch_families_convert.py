@@ -1,11 +1,12 @@
-"""The falcon, opt and gpt2 converters and their import, against the JAX
-package's.
+"""The falcon, opt, gpt2 and gemma converters and their import, against
+the JAX package's.
 
 State dicts are seeded numpy arrays in HF's names and shapes
 (``chip_smoke.hf_names``: Falcon's fused query_key_value at the 7b
 multi-query layout and the 40b grouped one with ln_attn / ln_mlp, OPT's
 positions with HF's 2 extra rows, GPT-2's Conv1D [in, out] with the fused
-c_attn) at debug width. The port's ``convert`` must give the JAX
+c_attn, Gemma's llama names without lm_head and norm weights that the
+converter adds 1 to) at debug width. The port's ``convert`` must give the JAX
 ``convert``'s leaves bit for bit, in f32 and bf16, from f32 and bf16
 sources, quantized too; and chip_smoke.py's hand-worked expectation of
 each leaf (the one phase 16 checks on the card). The loader's import of
@@ -54,6 +55,8 @@ FAMILIES = {
     "falcon-40b": dict(num_kv_heads=2),
     "opt-125m": dict(num_kv_heads=4),
     "gpt2": dict(num_kv_heads=4),
+    "gemma-2b": dict(num_kv_heads=1),
+    "gemma-7b": dict(num_kv_heads=4),
 }
 PROMPTS = [[5, 9, 17], list(range(1, 21)), [3] * 30]
 
@@ -132,8 +135,9 @@ def test_convert_equals_the_hand_worked_leaves(name):
     assert seen == set(_flat(got))
 
 
-@pytest.mark.parametrize("mode", ["int8", "int4"])
-@pytest.mark.parametrize("name", ["falcon-40b", "gpt2"])
+@pytest.mark.parametrize("name,mode", [
+    ("falcon-40b", "int8"), ("gpt2", "int8"), ("falcon-40b", "int4"),
+    ("gpt2", "int4"), ("gemma-7b", "int8")])
 def test_convert_quantizes_like_jax_convert(name, mode):
     """Packed layer by layer as it converts: codes, scales and every other
     leaf (biases, norms, positions, the tied embedding) equal the
@@ -157,8 +161,9 @@ def test_convert_quantizes_like_jax_convert(name, mode):
             packed += 1
         else:
             assert _same(g, bridge.tree_from_numpy({"x": w})["x"]), k
-    # wq, wk, wv, wo, wi, wo: the plain MLP's one input matrix.
-    assert packed == 6
+    # wq, wk, wv, wo, wi, wo: the plain MLP's one input matrix (gemma's
+    # gated MLP has two).
+    assert packed == (7 if name.startswith("gemma") else 6)
 
 
 @pytest.mark.parametrize("name", sorted(FAMILIES))

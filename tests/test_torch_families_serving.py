@@ -1,5 +1,5 @@
-"""Serving the non-Llama dense families: the port's engines against the
-JAX package's.
+"""Serving the non-Llama dense families (Falcon, OPT, GPT-2, Gemma): the
+port's engines against the JAX package's.
 
 Each family at debug width (tests/test_torch_families_forward.py's
 configs and noisy weights) behind the engines with ``max_seq_len`` the
@@ -45,7 +45,9 @@ def make_world(name):
                 tparams=bridge.from_jax_numpy(tcfg, np_params))
 
 
-@pytest.fixture(scope="module", params=sorted(FAMILIES))
+# Gemma-2b-like (one kv head, the scaled embedding, the norms' scales)
+# beside the other families.
+@pytest.fixture(scope="module", params=sorted(FAMILIES) + ["gemma-2b"])
 def world(request):
     return make_world(request.param)
 

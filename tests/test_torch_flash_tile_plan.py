@@ -30,8 +30,10 @@ import chip_smoke
 from runbooks_tpu_torch.ops.flash_attention import (
     BWD_BK,
     BWD_BQ,
+    BWD_HEAD_DIMS,
     FWD_BK,
     FWD_BQ,
+    FWD_HEAD_DIMS,
     PAD_POS,
     TILE,
     TILE_CLOSED,
@@ -298,6 +300,32 @@ def test_chip_smoke_family_cases(train_batch, name):
         == FAMILY_TILES[name]
 
 
+# Phase 22's cases at gemma's head_dim 256: K1 keeps its 128 x 64 tiles
+# there (one block per SM instead of two), so the plan and the counts are
+# phase 3's at the same positions; the card multiplies them by 16 or 8
+# heads.
+GEMMA_TILES = {
+    "gemma7b_rows8_sq128": (264, 192, 264),
+    "gemma2b_rows8_sq128": (264, 192, 264),
+    "gemma7b_rows8_sq128_at1024": (144, 128, 264),
+    "b_gemma7b_causal_2x2048": (544, 480, 1024),
+}
+
+
+@pytest.mark.parametrize("name", list(GEMMA_TILES))
+def test_chip_smoke_gemma_cases(name):
+    layouts = {case[0]: case for case in chip_smoke.gemma_fwd_layouts(
+        torch, torch.device("cpu"))}
+    assert set(layouts) == set(GEMMA_TILES)
+    (_, (b, sq, sk, h, kvh, d), qp, kp, qs, ks, skip, _) = layouts[name]
+    assert h % kvh == 0 and d == 256 and d in FWD_HEAD_DIMS
+    np_ = lambda a: None if a is None else a.numpy()  # noqa: E731
+    _check(np_(qp), np_(kp), np_(qs), np_(ks), block_skip=skip,
+           tight=qs is None)
+    assert chip_smoke.tile_counts(torch, qp, kp, qs, ks, skip) \
+        == GEMMA_TILES[name]
+
+
 @pytest.mark.parametrize("name", list(FAMILY_BWD_TILES))
 def test_chip_smoke_family_bwd_cases(train_batch, name):
     layouts = {case[0]: case for case in chip_smoke.family_bwd_layouts(
@@ -355,3 +383,8 @@ def test_plan_constants_are_the_kernels(source, tiles):
     assert (const("CLOSED"), const("PARTIAL"), const("OPEN")) == (
         TILE_CLOSED, TILE_PARTIAL, TILE_OPEN)
     assert const("PAD_POS") == PAD_POS
+    # The head dims each source instantiates are the wrapper's.
+    dims = {"flash_fwd": FWD_HEAD_DIMS, "flash_bwd": BWD_HEAD_DIMS}[source]
+    assert tuple(sorted({int(d) for d in re.findall(
+        r"case (\d+): return static_cast<int>\(launch\w*<\1>", src)})) \
+        == dims

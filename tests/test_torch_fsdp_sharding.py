@@ -22,6 +22,7 @@ so their matrices replicate there, as the reference's specs degrade):
 """
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -46,7 +47,11 @@ from runbooks_tpu_torch.models.transformer import (
     init_params,
     param_logical_axes,
 )
-from runbooks_tpu_torch.parallel.mesh import MeshConfig, check_training_mesh
+from runbooks_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    check_mesh_model,
+    check_training_mesh,
+)
 from runbooks_tpu_torch.parallel.sharding import FsdpPlan
 from runbooks_tpu_torch.train import lora, trainer
 from runbooks_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer
@@ -269,6 +274,24 @@ def test_mesh_beyond_the_gpus_and_multi_host_are_refused(tmp_path,
         trainer.run_training(trainer.TrainJobConfig(), device="cpu")
     with pytest.raises(NotImplementedError, match="over 2 hosts"):
         trainer.main(backend="gloo")
+
+
+@pytest.mark.parametrize("axes", [{"mesh_fsdp": 2}, {"mesh_data": 2}])
+def test_gemma_training_mesh_is_refused_by_name(tmp_path, monkeypatch,
+                                                axes):
+    """Gemma trains on one device only: ``main`` refuses mesh_fsdp or
+    mesh_data above 1 by name once the mesh resolves, before any rank
+    starts, and so does run_training on a rank."""
+    (tmp_path / "params.json").write_text(json.dumps({"model": "gemma-2b",
+                                                      **axes}))
+    monkeypatch.setenv("RBT_CONTENT_DIR", str(tmp_path))
+    with pytest.raises(NotImplementedError,
+                       match=r"mesh_(fsdp|data)=2: .*gemma under a mesh"):
+        trainer.main(backend="gloo")
+    mc = MeshConfig(**{k[len("mesh_"):]: v for k, v in axes.items()})
+    with pytest.raises(NotImplementedError, match="gemma under a mesh"):
+        check_mesh_model(get_config("gemma-7b"), mc.resolve(2))
+    check_mesh_model(get_config("falcon-7b"), mc.resolve(2))
 
 
 def test_forward_refuses_fsdp_on_serving_paths_and_sharded_outer_leaves():

@@ -209,7 +209,48 @@ def test_bad_params_raise_like_jax():
         assert str(texc.value) == str(jexc.value)
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b", "gemma-2b", "gemma-7b"])
+@pytest.mark.parametrize("kind", ["f32", "bf16_sharded"])
+def test_gemma_hf_dir_loads_like_jax(tmp_path, kind):
+    """A tiny transformers GemmaForCausalLM directory (llama's names, no
+    lm_head, norm weights drawn away from their zero init): load_weights
+    gives the JAX loader's params leaf for leaf (the norms' +1 folded in,
+    the head tied), in f32 and from BF16 shards into a bf16 model."""
+    transformers = pytest.importorskip("transformers")
+    hf_cfg = transformers.GemmaConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=96,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=1,
+        head_dim=16, max_position_embeddings=64,
+        hidden_activation="gelu_pytorch_tanh")
+    torch.manual_seed(0)
+    hf = transformers.GemmaForCausalLM(hf_cfg)
+    with torch.no_grad():
+        for name, t in hf.named_parameters():
+            if name.endswith("norm.weight"):
+                t.normal_(0.0, 0.5)
+    path = tmp_path / "model"
+    dtype = "float32"
+    if kind == "bf16_sharded":
+        hf = hf.to(torch.bfloat16)
+        dtype = "bfloat16"
+        hf.save_pretrained(path, safe_serialization=True,
+                           max_shard_size="40KB")
+        assert len(list(path.glob("*.safetensors"))) > 1
+    else:
+        hf.save_pretrained(path, safe_serialization=True)
+    params = {"model": "gemma-2b", "source": "dir", "dir": str(path),
+              "model_overrides": {**HF_OVERRIDES, "num_kv_heads": 1,
+                                  "tie_embeddings": True,
+                                  "param_dtype": dtype}}
+    jcfg, jweights = jax_loader.load_weights(params)
+    cfg, weights = loader.load_weights(params, device="cpu")
+    assert cfg.embed_scale and "head" not in weights
+    want = bridge.from_jax_numpy(cfg, jax.tree.map(np.asarray, jweights))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(weights),
+                                                  tree_leaves(want)))
+    assert weights["final_norm"]["scale"].dtype == getattr(torch, dtype)
+
+
+@pytest.mark.parametrize("name", ["mixtral-8x7b"])
 def test_other_families_raise_by_name(tmp_path, name):
     model_dir = _hf_llama_dir(tmp_path / "model", "f32")
     family = name.split("-")[0]

@@ -243,9 +243,10 @@ def test_config_registry_matches_reference():
 
 
 def test_unsupported_config_is_refused():
-    # gemma's embedding scale is not ported yet (gpt2's features are).
-    with pytest.raises(NotImplementedError, match="embed_scale"):
-        forward(get_config("gemma-2b"), {},
+    # mixtral's MoE layer is not ported yet (gemma's and gpt2's features
+    # are).
+    with pytest.raises(NotImplementedError, match="moe_num_experts"):
+        forward(get_config("mixtral-8x7b"), {},
                 torch.zeros((1, 1), dtype=torch.long))
 
 

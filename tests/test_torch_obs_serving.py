@@ -49,6 +49,13 @@ BODIES = [
 ]
 TRACED = "trace-me-1"
 
+# The name prefixes of the families a server registers: its own serve_*,
+# the compile sentinel's xla_*, the flight ring's and the process's. The
+# process-wide reference registry also holds what other reference code
+# left running in the same process records (test_fleet.py's scraper
+# sweeps: controller_*, fleet_history_*), so both sides are compared on
+# these prefixes alone.
+SERVER_PREFIXES = ("serve_", "xla_", "flight_", "process_")
 # Families one server exports and the other does not, each with its
 # reason. Everything else must match in name, type and label keys.
 ONLY_REFERENCE = {
@@ -104,8 +111,12 @@ def servers():
 
 
 def _families(text):
+    """{name: (type, label keys)} of the server families in an
+    exposition (names under SERVER_PREFIXES)."""
     out = {}
     for name, fam in ref_metrics.parse_exposition(text).items():
+        if not name.startswith(SERVER_PREFIXES):
+            continue
         keys = set()
         for labels in list(fam.samples) + list(fam.histograms):
             keys |= {k for k, _ in labels}
@@ -140,10 +151,24 @@ def test_metric_families_equal_the_references(servers):
     jt, tt = _scrape(servers)
     lint_exposition(tt)
     ref, port = _families(jt), _families(tt)
+    assert {"serve_requests_total", "serve_ttft_seconds",
+            "flight_ring_events", "process_uptime_seconds"} <= set(port)
     assert set(ref) - set(port) == ONLY_REFERENCE
     assert set(port) - set(ref) == ONLY_PORT
     for name in set(ref) & set(port):
         assert port[name] == ref[name], name
+
+
+def test_metric_families_ignore_other_reference_code(servers):
+    """What other reference code left running in this process records
+    into the reference's process-wide registry after the fixture's reset
+    (test_fleet.py's scraper sweeps) is not the server's: the families
+    still equal the references (the order-dependent failure this
+    comparison once had)."""
+    ref_metrics.REGISTRY.set_gauge("fleet_history_series", 3)
+    ref_metrics.REGISTRY.set_gauge("fleet_history_points", 30)
+    ref_metrics.REGISTRY.observe("controller_fleet_scrape_seconds", 0.01)
+    test_metric_families_equal_the_references(servers)
 
 
 COUNTERS = ("serve_requests_total", "serve_requests_failed_total",
@@ -239,3 +264,4 @@ def test_debug_routes_answer_as_the_references(servers, tmp_path,
     assert json.loads(prof[2])["path"].startswith(str(tmp_path))
     assert _call(torch_srv.base, "/debug/profile?seconds=x", {})[0] == 400
     assert _call(torch_srv.base, "/debug/memory", {})[0] == 405
+

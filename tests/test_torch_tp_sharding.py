@@ -199,6 +199,26 @@ def test_serving_mesh_refuses_other_axes_by_name(axis):
     mesh.check_serving_mesh(mesh.MeshConfig(fsdp=1, tensor=4).resolve(4))
 
 
+@pytest.mark.parametrize("name", ["gemma-2b", "gemma-7b"])
+def test_gemma_under_a_serving_mesh_is_refused_by_name(name):
+    """Gemma serves on one device only: mesh_tensor above 1 is refused by
+    name where params.json is read (serve/api.refuse_unported, before
+    any rank starts) and by the mesh check itself; one device and the
+    other families pass."""
+    from runbooks_tpu_torch.serve import api
+
+    with pytest.raises(NotImplementedError,
+                       match=r"mesh_tensor=2: .*gemma under a mesh"):
+        api.refuse_unported({"model": name, "mesh_tensor": 2})
+    with pytest.raises(NotImplementedError, match="gemma under a mesh"):
+        mesh.check_mesh_model(get_config(name),
+                              mesh.MeshConfig(fsdp=1, tensor=4))
+    mesh.check_mesh_model(get_config(name), mesh.MeshConfig(fsdp=1))
+    mesh.check_mesh_model(get_config("llama3-8b"),
+                          mesh.MeshConfig(fsdp=1, tensor=4))
+    api.refuse_unported({"model": name, "mesh_tensor": 1})
+
+
 @pytest.mark.parametrize("env", [
     {},
     {"JAX_COORDINATOR_ADDRESS": "job-0.svc:8476", "JAX_NUM_PROCESSES": "4",

@@ -233,3 +233,31 @@ def test_full_mode_trains_and_main_reads_the_contract(tmp_path,
     assert not metrics["lora"]
     assert CheckpointManager(str(content / "artifacts")).intact_steps() \
         == [3, 6]
+
+
+def test_fine_tune_the_backward_kernels_cannot_take_is_refused_on_cuda(
+        tmp_path, monkeypatch):
+    """On CUDA the step's flash attention is K1 then K2/K3, which take
+    head_dim 64 and 128: a gemma fine-tune (head_dim 256) is refused by
+    name before any work, rather than failing in its first backward. The
+    CPU (the plain versions), the plain attention and the other families
+    pass."""
+    from runbooks_tpu_torch.models.config import get_config
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    gemma = get_config("gemma-2b")
+    with pytest.raises(NotImplementedError,
+                       match=r"head_dim 256.*ROADMAP.md §1 item 2 \(b\)"):
+        trainer.refuse_unported_attention(gemma, cuda)
+    trainer.refuse_unported_attention(gemma, cpu)
+    trainer.refuse_unported_attention(
+        dataclasses.replace(gemma, attention_impl="xla"), cuda)
+    trainer.refuse_unported_attention(get_config("llama3-8b"), cuda)
+    # run_training on the card: nothing drawn, built or written.
+    monkeypatch.setattr(trainer, "resolve_device", lambda device=None: cuda)
+    job = trainer.TrainJobConfig(model="gemma-2b", lora=LoraConfig(),
+                                 artifacts_dir=str(tmp_path / "a"))
+    with pytest.raises(NotImplementedError, match="head_dim 256"):
+        trainer.run_training(job)
+    assert not (tmp_path / "a").exists()
+
