@@ -34,10 +34,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    gradients; each kernel's time, bound, rate on the operations the masks
    need, the plain version's time and the backward of
    scaled_dot_product_attention as the yardstick (causal at (b), masked
-   with enable_gqa at the packed (a)). The (q tile, kv tile)
+   with enable_gqa at every case). The (q tile, kv tile)
    pairs each kernel counts as computed and open on the card must be the
    ones fwd_tile_plan predicts at the backward's tiles.
-6. Full-width gradient check: llama3-8b cut to 4 layers, one LoRA
+6. Full-width gradient check: llama3-8b cut to GRAD_LAYERS, one LoRA
    loss-and-grad over a packed 2048-token row with the flash kernels and
    with the plain attention.
 7. Training: ``run_training`` runs the repo's LoRA example on llama3-8b
@@ -346,25 +346,33 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    their inputs; ``python -m runbooks_tpu_torch.train.trainer`` under
    mesh_fsdp 2 trains over NCCL where two GPUs exist, else exits 1
    naming the device count.
-22. Gemma serving (head_dim 256, the scaled embedding, the norms' +1):
-   (a) K1 at d=256 against its plain version at gemma-7b's serving burst
-   (16/16: an 8-row 128 bucket over a 2049-slot cache), gemma-2b's (8/1),
-   gemma-7b's suffix prefill after a 1024-token prefix and 2 x 2048
+22. Gemma (head_dim 256, the scaled embedding, the norms' +1, the tied
+   head): (a) K1 at d=256 against its plain version at gemma-7b's serving
+   burst (16/16: an 8-row 128 bucket over a 2049-slot cache), gemma-2b's
+   (8/1), gemma-7b's suffix prefill after a 1024-token prefix and 2 x 2048
    causal at 16/16, with phase 3's tolerances, tile counts, times, bound,
-   rate and SDPA (enable_gqa) as the yardstick; (b) gemma-7b bf16 at full
-   width and depth from the seed (phase 16 (b)'s check): prefill logits
-   through K1 against the plain attention, phase 4's mix through the
-   dense and the paged engine, greedy ids equal up to near-ties, K1's
-   launches equal; (c) ``python -m runbooks_tpu_torch.serve.api`` serving
-   gemma-2b at full size from a bf16 checkpoint on the model mount: greedy
-   completions equal to this process's decode, one of them streamed, exit
-   0 on SIGTERM; and a gemma-2b fine-tune on the card refused by name
-   before its first step (K2 and K3 take head_dim 64 and 128); (d) an HF
-   gemma-7b directory (llama's names, no lm_head; BF16, two shards, 2
-   layers at full width) through ``python -m
-   runbooks_tpu_torch.models.loader``, every leaf bit-equal to the source
-   taken apart by hand (the norms' +1 included), the import served
-   through K1.
+   rate and SDPA (enable_gqa) as the yardstick; K2 and K3 at d=256
+   against their plain version at the training microbatch (2 x 2048,
+   packed from the job's data and causal) at gemma-7b's 16/16 and
+   gemma-2b's 8/1, with phase 5's tolerances, tile counts, times, bound,
+   rate, and SDPA's masked backward (enable_gqa) as the yardstick; (b)
+   gemma-7b bf16 at full width and depth from the seed (phase 16 (b)'s
+   check): prefill logits through K1 against the plain attention, phase
+   4's mix through the dense and the paged engine, greedy ids equal up to
+   near-ties, K1's launches equal; (c) ``python -m
+   runbooks_tpu_torch.serve.api`` serving gemma-2b at full size from a
+   bf16 checkpoint on the model mount: greedy completions equal to this
+   process's decode, one of them streamed, exit 0 on SIGTERM; then, alone
+   on the card, phase 6's gradient check on gemma-2b (full width, 4
+   layers) and phase 16 (c)'s LoRA job on gemma-2b at full size (18
+   layers, f32 base): 2 steps with K1 launched 2 x 18 x 4 times a step
+   and K2 and K3 18 x 4 each, finite losses, a resume to a third step at
+   the saved step and cursor, tokens/s, MFU, peak, and one traced step
+   with K2's and K3's share of device time; (d) an HF gemma-7b directory
+   (llama's names, no lm_head; BF16, two shards, 2 layers at full width)
+   through ``python -m runbooks_tpu_torch.models.loader``, every leaf
+   bit-equal to the source taken apart by hand (the norms' +1 included),
+   the import served through K1.
 
 Each phase's end prints the seconds since the start; a run still going
 after WATCHDOG_S dumps every thread's stack to standard error. Checks
@@ -373,13 +381,15 @@ own work (``Background``): phase 8 (c)'s and phase 15 (e)'s servers warm
 up while the phase's in-process steps run, phase 16 (e)'s servers while
 (d) imports, phase 17 (c)'s entry points while (b) and (d) run, and
 phase 21 (a)'s ranks while phase 20 runs, and phase 22 (c)'s server
-while (b) and (d) run. The times those report, and
-those of the steps beside them, share the host and the card; the
-kernels' own timings (phases 3, 5, 14 (a) and 16 (a)) run alone.
+while (b) and (d) run (its fine-tune after the server has exited). The
+times those report, and those of the steps beside them, share the host
+and the card; the kernels' own timings (phases 3, 5, 14 (a), 16 (a) and
+22 (a)) run alone.
 
 The last three lines of standard output are the card's name and power
-limit, the kernels' JSON record (K1 at head_dim 256 a row of its own,
-``flash_fwd_d256``) and {"ok": true, "device": {...}};
+limit, the kernels' JSON record (K1, K2 and K3 at head_dim 256 rows of
+their own, ``flash_fwd_d256``, ``flash_bwd_dq_d256`` and
+``flash_bwd_dkv_d256``) and {"ok": true, "device": {...}};
 quantized_matmul's records ({"quantized_ops": [...]}) stand on the line
 before them. Without a CUDA device, or without the runbooks_tpu_torch
 package beside it, the script exits nonzero and prints no result.
@@ -437,6 +447,8 @@ BWD_RTOL = 1e-2
 GRAD_LOSS_RTOL = 1e-3
 GRAD_REL_L2_TOL = 0.03
 GRAD_COS_MIN = 0.99
+# Phases 6 and 22 (c) check gradients at full width, cut to this depth.
+GRAD_LAYERS = 4
 # The training job: the repo's LoRA example (examples/llama2-7b/
 # finetuned-model.yaml: rank 16, alpha 32, batch 8, seq 2048, lr 2e-5)
 # applied to llama3-8b, global batch 8 in 4 microbatches of 2.
@@ -1147,10 +1159,11 @@ def library_bwd_masked(torch, q, k, v, q_pos, kv_pos, q_seg, kv_seg, do):
 
 def bwd_kernel_phase(torch, dev, seed, batch, layouts=None):
     """Phase 5: K2 and K3 against the plain backward at cases (a)-(f) (or
-    ``layouts``; SDPA's backward at the case named b_),
-    with each kernel's time, the plain version's, the bound, the rate on
-    the operations the masks need, and SDPA's backward at (b) as the
-    library yardstick. The (q tile, kv tile) pairs each kernel counts as
+    ``layouts``; SDPA's causal backward at the case named b_, its masked
+    backward at every case), with each kernel's time, the plain
+    version's, the bound, the rate on the operations the masks need, and
+    SDPA's backward as the library yardstick. The (q tile, kv tile)
+    pairs each kernel counts as
     computed and open on the card (bwd_tile_counts) must be those
     fwd_tile_plan predicts at the backward's tiles, for every head."""
     from runbooks_tpu_torch.ops.flash_attention import (
@@ -1207,12 +1220,11 @@ def bwd_kernel_phase(torch, dev, seed, batch, layouts=None):
         plain_ms = cuda_ms(lambda: flash_attention_bwd_reference(
             q, k, v, qp, kp, seg, seg, out, lse, do, block_skip=skip,
             grad_dtype=gd), 2)
-        library_ms = library_masked_ms = None
+        library_ms = None
         if name.startswith("b_"):
             library_ms = cuda_ms(library_bwd(torch, q, k, v, do), 10)
-        if name.startswith("a_"):
-            library_masked_ms = cuda_ms(library_bwd_masked(
-                torch, q, k, v, qp, kp, seg, seg, do), 10)
+        library_masked_ms = cuda_ms(library_bwd_masked(
+            torch, q, k, v, qp, kp, seg, seg, do), 10)
         bounds = bwd_bound(torch, q, k, qp, kp, seg, seg)
         computed, opened, total = tile_counts(torch, qp, kp, seg, seg, skip,
                                               backward=True)
@@ -1236,9 +1248,8 @@ def bwd_kernel_phase(torch, dev, seed, batch, layouts=None):
               + ("" if library_ms is None else
                  f" | library_ms SDPA backward, dq+dk+dv together "
                  f"{library_ms:.4f}")
-              + ("" if library_masked_ms is None else
-                 f" | library_masked_ms SDPA masked backward (enable_gqa), "
-                 f"dq+dk+dv together {library_masked_ms:.4f}")
+              + f" | library_masked_ms SDPA masked backward (enable_gqa), "
+              f"dq+dk+dv together {library_masked_ms:.4f}"
               + f" -> {'ok' if ok and tiles_agree else 'FAIL'}", flush=True)
         if not ok:
             raise SystemExit(f"flash_bwd {name} disagrees with its plain "
@@ -1278,16 +1289,17 @@ def lora_grads(torch, cfg, base, lora, lora_cfg, batch):
     return loss.item(), torch.autograd.grad(loss, flat)
 
 
-def grad_check_phase(torch, dev, seed, batch):
-    """Phase 6: llama3-8b at full width, depth cut to 4 layers, one packed
-    row of 2048 tokens through one LoRA loss-and-grad with the flash
-    kernels (K1-K3) and with the plain attention under autograd."""
+def grad_check_phase(torch, dev, seed, batch, model="llama3-8b"):
+    """Phase 6 (and phase 22 (c) for gemma-2b): ``model`` at full width,
+    depth cut to GRAD_LAYERS, one packed row of 2048 tokens through one
+    LoRA loss-and-grad with the flash kernels (K1-K3) and with the plain
+    attention under autograd. Returns the record."""
     from runbooks_tpu_torch.models.config import get_config
     from runbooks_tpu_torch.models.transformer import init_params
     from runbooks_tpu_torch.train.lora import LoraConfig, init_lora
 
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config("llama3-8b", num_layers=4)
+    cfg = get_config(model, num_layers=GRAD_LAYERS)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 3)
     base = init_params(cfg, gen, dev)
@@ -1314,16 +1326,21 @@ def grad_check_phase(torch, dev, seed, batch):
         cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
         worst_l2, worst_cos = max(worst_l2, rel), min(worst_cos, cos)
     ok &= worst_l2 <= GRAD_REL_L2_TOL and worst_cos >= GRAD_COS_MIN
-    print(f"full-width LoRA gradient check (llama3-8b, 4 layers, 1 x 2048 "
-          f"packed tokens, {time.perf_counter() - t0:.1f} s): loss flash "
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"full-width LoRA gradient check ({model}, {GRAD_LAYERS} layers, "
+          f"1 x 2048 packed tokens, {seconds:.1f} s): loss flash "
           f"{loss_f:.6f} plain {loss_x:.6f} rel {loss_rel:.2e} (tol "
           f"{GRAD_LOSS_RTOL}) | {len(g_f)} LoRA leaves: worst rel L2 "
           f"{worst_l2:.4f} (tol {GRAD_REL_L2_TOL}) worst cosine "
           f"{worst_cos:.6f} (min {GRAD_COS_MIN}) | peak memory "
-          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB -> "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+          f"{peak / 1e9:.2f} GB -> {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise SystemExit("full-width gradient check failed")
+        raise SystemExit(f"full-width gradient check of {model} failed")
+    return {"layers": GRAD_LAYERS, "loss_flash": loss_f, "loss_plain": loss_x,
+            "loss_rel": loss_rel, "worst_rel_l2": worst_l2,
+            "worst_cosine": worst_cos, "seconds": seconds,
+            "peak_gb": peak / 1e9}
 
 
 def train_phase(torch, dev, seed, data_path, workdir):
@@ -5504,13 +5521,15 @@ def text_phase(torch, dev, seed, workdir):
 # ---------------------------------------------------------------------------
 
 # (c) examples/falcon-7b-instruct/finetuned-model.yaml on the f32 base at
-# full width cut to FALCON_TRAIN_LAYERS: 2 steps and a resume to a third.
-FALCON_TRAIN_STEPS = 2
+# full width cut to FALCON_TRAIN_LAYERS (phase 22 (c): gemma-2b at full
+# depth): 2 steps and a resume to a third.
+FAMILY_TRAIN_STEPS = 2
 # Phase 16 (c) fine-tunes falcon-7b at full width cut to
-# FALCON_TRAIN_LAYERS (full depth until phase 21 came in; phase 7
-# fine-tunes llama3-8b at full depth), so that the whole script stays
-# inside its limit on a slow host.
-FALCON_TRAIN_LAYERS = 8
+# FALCON_TRAIN_LAYERS, so that the whole script stays inside its limit on
+# a slow host (phases 7 and 22 (c) fine-tune llama3-8b and gemma-2b at
+# full depth). K1-K3's launches are counted per layer, so the check does
+# not depend on the depth.
+FALCON_TRAIN_LAYERS = 4
 # (d) the two HF directories are cut to this depth (full width).
 FAMILY_IMPORT_LAYERS = 2
 # (e) gpt2's long request: a prompt of GPT2_LONG_PROMPT tokens and
@@ -5654,14 +5673,17 @@ def family_serve(torch, seed, model, layers=None):
     return record, launches
 
 
-def traced_falcon_step(torch, dev, seed, data_path, lora_cfg, opt_cfg):
+def traced_family_step(torch, dev, seed, data_path, model, layers, lora_cfg,
+                       opt_cfg):
     """One optimizer step of the fine-tune's step function (after a warm
-    one) under torch.profiler: its wall time, the device's busy and idle
-    share of it, and the device time of K1, K2, K3 and the rest."""
+    one) under torch.profiler, on a seeded ``model`` base (``layers``: cut
+    to that depth): its wall time, the device's busy and idle share of it,
+    and the device time of K1, K2, K3 and the rest."""
     from runbooks_tpu_torch.models.config import get_config
     from runbooks_tpu_torch.models.transformer import init_params
 
-    cfg = get_config("falcon-7b", num_layers=FALCON_TRAIN_LAYERS)
+    cfg = get_config(model, **({} if layers is None
+                               else {"num_layers": layers}))
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     base = init_params(cfg, gen, dev)
@@ -5675,7 +5697,7 @@ def traced_falcon_step(torch, dev, seed, data_path, lora_cfg, opt_cfg):
 
 def traced_lora_step(torch, dev, cfg, base, gen, data_path, lora_cfg,
                      opt_cfg):
-    """traced_falcon_step's measurement over a given base and config."""
+    """traced_family_step's measurement over a given base and config."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -5722,16 +5744,20 @@ def traced_lora_step(torch, dev, cfg, base, gen, data_path, lora_cfg,
             "idle_share": 1 - busy / 1e6 / traced_s,
             "k1_ms": groups["flash_fwd_kernel"] / 1e3,
             "k2_ms": groups["flash_bwd_dq_kernel"] / 1e3,
-            "k3_ms": groups["flash_bwd_dkv_kernel"] / 1e3}
+            "k3_ms": groups["flash_bwd_dkv_kernel"] / 1e3,
+            "k2_share": groups["flash_bwd_dq_kernel"] / busy if busy else None,
+            "k3_share": (groups["flash_bwd_dkv_kernel"] / busy if busy
+                         else None)}
 
 
-def falcon_train(torch, dev, seed, data_path, workdir):
-    """Phase 16 (c): examples/falcon-7b-instruct/finetuned-model.yaml's
-    job (LoRA rank 16, alpha 32, batch 8 in 4 microbatches, seq 2048, lr
-    2e-5) on an f32 falcon-7b base at full width cut to
-    FALCON_TRAIN_LAYERS through run_training: FALCON_TRAIN_STEPS steps, a
-    resume to one more, then
-    one traced step. Returns (record, launches of the first run)."""
+def family_train(torch, dev, seed, data_path, workdir, model, layers=None):
+    """A family's LoRA fine-tune through run_training (phase 16 (c):
+    falcon-7b cut to FALCON_TRAIN_LAYERS; phase 22 (c): gemma-2b at full
+    depth): examples/falcon-7b-instruct/finetuned-model.yaml's job (LoRA
+    rank 16, alpha 32, batch 8 in 4 microbatches, seq 2048, lr 2e-5) on
+    an f32 ``model`` base at full width (``layers``: cut to that depth),
+    FAMILY_TRAIN_STEPS steps, a resume to one more, then one traced step.
+    Returns (record, launches of the first run)."""
     from runbooks_tpu_torch.models.config import get_config
     from runbooks_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -5742,14 +5768,16 @@ def falcon_train(torch, dev, seed, data_path, workdir):
     from runbooks_tpu_torch.train.optimizer import OptimizerConfig
     from runbooks_tpu_torch.train.trainer import TrainJobConfig, run_training
 
-    art = f"{workdir}/falcon_artifacts"
+    steps = FAMILY_TRAIN_STEPS
+    overrides = {} if layers is None else {"num_layers": layers}
+    cfg = get_config(model, **overrides)
+    art = f"{workdir}/{model}_artifacts"
     lora_cfg = LoraConfig(rank=16, alpha=32.0)
     opt_cfg = OptimizerConfig(learning_rate=2e-5)
     job = TrainJobConfig(
-        model="falcon-7b",
-        model_overrides={"num_layers": FALCON_TRAIN_LAYERS}, lora=lora_cfg,
+        model=model, model_overrides=overrides, lora=lora_cfg,
         optimizer=opt_cfg, batch_size=8,
-        seq_len=TRAIN_SEQ, accumulate_steps=4, steps=FALCON_TRAIN_STEPS,
+        seq_len=TRAIN_SEQ, accumulate_steps=4, steps=steps,
         data_path=data_path, artifacts_dir=art, log_every=1, seed=seed)
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
@@ -5766,46 +5794,45 @@ def falcon_train(torch, dev, seed, data_path, workdir):
     losses = [e["loss"] for e in hist]
     # Each layer of each of the 4 microbatches: K1 twice (the forward
     # and the remat's recompute), K2 and K3 once.
-    n = FALCON_TRAIN_LAYERS * 4
+    n = cfg.num_layers * 4
     per_step = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
     for name, n in per_step.items():
-        if launches[name] != n * FALCON_TRAIN_STEPS:
-            raise SystemExit(f"falcon-7b fine-tune: {name} launched "
-                             f"{launches[name]} times in "
-                             f"{FALCON_TRAIN_STEPS} steps")
-    if len(losses) != FALCON_TRAIN_STEPS or not all(
-            math.isfinite(x) for x in losses):
-        raise SystemExit(f"falcon-7b fine-tune losses: {losses}")
+        if launches[name] != n * steps:
+            raise SystemExit(f"{model} fine-tune: {name} launched "
+                             f"{launches[name]} times in {steps} steps, "
+                             f"not {n * steps}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"{model} fine-tune losses: {losses}")
     gc.collect()
     torch.cuda.empty_cache()
-    resumed = run_training(dataclasses.replace(
-        job, steps=FALCON_TRAIN_STEPS + 1))
-    cursor = CheckpointManager(art).read_cursor(FALCON_TRAIN_STEPS)
+    resumed = run_training(dataclasses.replace(job, steps=steps + 1))
+    cursor = CheckpointManager(art).read_cursor(steps)
     r_losses = [e["loss"] for e in resumed["history"]]
-    if (resumed["restored_step"] != FALCON_TRAIN_STEPS
-            or cursor.get("batches_consumed") != FALCON_TRAIN_STEPS
-            or [e["step"] for e in resumed["history"]]
-            != [FALCON_TRAIN_STEPS + 1]
+    if (resumed["restored_step"] != steps
+            or cursor.get("batches_consumed") != steps
+            or resumed["batches_consumed"] != steps + 1
+            or [e["step"] for e in resumed["history"]] != [steps + 1]
             or not all(math.isfinite(x) for x in r_losses)):
-        raise SystemExit("falcon-7b fine-tune: the resume did not continue "
+        raise SystemExit(f"{model} fine-tune: the resume did not continue "
                          "at the saved step and cursor")
     gc.collect()
     torch.cuda.empty_cache()
-    traced = traced_falcon_step(torch, dev, seed, data_path, lora_cfg,
-                                opt_cfg)
+    traced = traced_family_step(torch, dev, seed, data_path, model, layers,
+                                lora_cfg, opt_cfg)
     last = hist[-1]
-    record = {"steps": FALCON_TRAIN_STEPS, "wall_s_with_init": wall,
-              "losses": losses, "resumed_losses": r_losses,
+    record = {"layers": cfg.num_layers, "steps": steps,
+              "wall_s_with_init": wall, "losses": losses,
+              "resumed_losses": r_losses,
+              "restored_step": resumed["restored_step"],
+              "cursor": cursor.get("batches_consumed"),
               "first_step_s": summary["first_step_s"],
               "step_s": last.get("step_s"),
               "tokens_per_s": last["tokens_per_sec"],
               "mfu": last.get("mfu"),
-              "flops_per_token_x3":
-                  3.0 * get_config("falcon-7b", num_layers=FALCON_TRAIN_LAYERS
-                                   ).flops_per_token(TRAIN_SEQ),
+              "flops_per_token_x3": 3.0 * cfg.flops_per_token(TRAIN_SEQ),
               "peak_memory_gb": peak / 1e9, "launches": launches,
-              "traced": traced}
-    print("falcon-7b fine-tune " + json.dumps(record), flush=True)
+              "launches_per_step_expected": per_step, "traced": traced}
+    print(f"{model} fine-tune " + json.dumps(record), flush=True)
     return record, launches
 
 
@@ -6028,8 +6055,9 @@ def families_phase(torch, dev, seed, batch, data_path, workdir):
     torch.cuda.empty_cache()
     serve, serve_launches = family_serve(torch, seed, "falcon-7b",
                                          FALCON_SERVE_LAYERS)
-    train, train_launches = falcon_train(torch, dev, seed, data_path,
-                                         workdir)
+    train, train_launches = family_train(torch, dev, seed, data_path,
+                                         workdir, "falcon-7b",
+                                         FALCON_TRAIN_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     # (e)'s two servers start and answer while (d) imports.
@@ -6072,12 +6100,12 @@ def families_phase(torch, dev, seed, batch, data_path, workdir):
 # policies change what the backward keeps, never the forward, so the
 # losses must agree to REMAT_LOSS_RTOL (they are expected bit-equal).
 REMAT_STEPS = 2
-# Phase 17 (a) and (a') run falcon-7b at full width cut to REMAT_LAYERS
-# (full depth until phase 21 came in), so that the whole script stays
-# inside its limit; no path of the script trains or serves falcon-7b at
-# its full 32 layers any more (phase 4 and 7 run llama3-8b at full
-# depth).
-REMAT_LAYERS = 8
+# Phase 17 (a) and (a') run falcon-7b at full width cut to REMAT_LAYERS,
+# so that the whole script stays inside its limit; no path of the script
+# trains or serves falcon-7b at its full 32 layers (phases 4 and 7 run
+# llama3-8b, phase 22 gemma-7b and gemma-2b, at full depth). The
+# policies' checks are per layer.
+REMAT_LAYERS = 4
 REMAT_POLICIES = ("nothing_saveable", "dots_with_no_batch_dims_saveable",
                   "dots_saveable", "save_attn_out")
 REMAT_LOSS_RTOL = 1e-6
@@ -6189,7 +6217,7 @@ PROFILE_AT = (2, 1)
 def profiled_fine_tune(torch, seed, data_path, workdir, base, plain):
     """Phase 17 (a'): (a)'s nothing_saveable job for PROFILE_STEPS steps
     under RBT_PROFILE_AT_STEP=2:1. The capture of step 2 names K1, K2 and
-    K3 with one step's launches (at REMAT_LAYERS 8: 64 / 32 / 32);
+    K3 with one step's launches (at REMAT_LAYERS 4: 32 / 16 / 16);
     metrics.json carries
     goodput in (0, 1]; train_step_seconds counts every step after the
     first (the reference leaves the first, its compile, out too); step
@@ -8286,55 +8314,61 @@ def gemma_fwd_layouts(torch, dev):
     ]
 
 
-def gemma_fine_tune_refused(torch, data_path, workdir):
-    """Phase 22 (c): ``run_training`` of a gemma-2b LoRA job on the card
-    raises by name (head_dim 256 is not a backward kernel's; ROADMAP §1
-    item 2 (b)) before its first step: no artifacts written, no K1-K3
-    launch. Returns the record."""
-    from runbooks_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        flash_attention_bwd,
-    )
-    from runbooks_tpu_torch.train.lora import LoraConfig
-    from runbooks_tpu_torch.train.trainer import TrainJobConfig, run_training
+def gemma_bwd_layouts(torch, dev, batch):
+    """K2/K3's phase-22 cases at head_dim 256 (bwd_case_layouts' tuple):
+    the training microbatch, 2 x 2048 with the block skip, packed (a:
+    positions and segment ids of 2 rows of the job's data) and causal (b),
+    at gemma-7b's 16/16 and gemma-2b's 8/1. K3 splits the head_dim across
+    two blocks per kv tile: gemma-2b's grid is (1, 2, 32 x 2) = 128
+    blocks, each walking 8 query heads."""
+    s = TRAIN_SEQ
+    pos = torch.from_numpy(batch["positions"][:2]).to(dev)
+    seg = torch.from_numpy(batch["segment_ids"][:2]).to(dev)
+    ar = torch.arange(s, device=dev, dtype=torch.int32)[None].expand(
+        2, s).contiguous()
+    return [
+        ("a_gemma7b_packed_2x2048", (2, s, s, 16, 16, 256), pos, pos, seg,
+         True, None),
+        ("b_gemma7b_causal_2x2048", (2, s, s, 16, 16, 256), ar, ar, None,
+         True, None),
+        ("a_gemma2b_packed_2x2048", (2, s, s, 8, 1, 256), pos, pos, seg,
+         True, None),
+        ("b_gemma2b_causal_2x2048", (2, s, s, 8, 1, 256), ar, ar, None,
+         True, None),
+    ]
 
-    artifacts = f"{workdir}/gemma_fine_tune"
-    job = TrainJobConfig(model="gemma-2b", lora=LoraConfig(rank=16),
-                         seq_len=TRAIN_SEQ, batch_size=8, steps=1,
-                         data_path=data_path, artifacts_dir=artifacts)
 
-    def counts():
-        return (flash_attention.launches, flash_attention_bwd.dq_launches,
-                flash_attention_bwd.dkv_launches)
-
-    before = counts()
+def gemma_fine_tune(torch, dev, seed, batch, data_path, workdir):
+    """Phase 22 (c)'s fine-tune: the LoRA gradient check of gemma-2b at
+    full width cut to GRAD_LAYERS (flash K1-K3 against the plain attention
+    under autograd, phase 6's gates), then family_train's job on gemma-2b
+    at full size (18 layers, f32 base, tied head). Returns (record,
+    launches of the job's first run)."""
     t0 = time.perf_counter()
-    message = None
-    try:
-        run_training(job)
-    except NotImplementedError as exc:
-        message = str(exc)
-    record = {"refused": message, "seconds": time.perf_counter() - t0,
-              "artifacts_written": os.path.exists(artifacts),
-              "launches_during": [a - b for a, b in zip(counts(), before)]}
-    print("gemma-2b fine-tune on the card: " + json.dumps(record),
-          flush=True)
-    if not (message and "§1 item 2 (b)" in message and "head_dim 256" in
-            message and not record["artifacts_written"]
-            and not any(record["launches_during"])):
-        raise SystemExit("the gemma-2b fine-tune was not refused by name "
-                         "before its first step")
-    return record
+    grads = grad_check_phase(torch, dev, seed + 22, batch, model="gemma-2b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    train, launches = family_train(torch, dev, seed, data_path, workdir,
+                                   "gemma-2b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"grad_check": grads, "train": train,
+            "seconds": time.perf_counter() - t0}, launches
 
 
-def gemma_phase(torch, dev, seed, data_path, workdir):
-    """Phase 22: gemma serving. Returns (K1 launches by path, K1's
-    records at gemma's shapes, its largest error there)."""
+def gemma_phase(torch, dev, seed, batch, data_path, workdir):
+    """Phase 22: gemma serving and fine-tuning. Returns (K1 launches by
+    path, K1's records at gemma's shapes, its largest error there, K2/K3's
+    records and largest errors at gemma's shapes, the fine-tune's K1-K3
+    launches)."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     fwd, worst = kernel_phase(torch, dev, seed + 22, None,
                               layouts=gemma_fwd_layouts(torch, dev),
                               gqa=True)
+    bwd, bwd_worst = bwd_kernel_phase(
+        torch, dev, seed + 22, batch,
+        layouts=gemma_bwd_layouts(torch, dev, batch))
     kernels_s = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
@@ -8343,20 +8377,67 @@ def gemma_phase(torch, dev, seed, data_path, workdir):
         torch, dev, seed, workdir, "gemma-2b", GEMMA_HTTP_LENS,
         {n: GEMMA_HTTP_NEW for n in GEMMA_HTTP_LENS}), True)
     serve, serve_launches = family_serve(torch, seed, "gemma-7b")
-    refused = gemma_fine_tune_refused(torch, data_path, workdir)
     imported, import_launches = family_import(
         torch, dev, seed, workdir, ("gemma-7b",), "gemma-7b")
     gc.collect()
     torch.cuda.empty_cache()
     http, http_launches = server.result()
+    # The fine-tune runs alone on the card: its step times are its own.
+    fine_tune, train_launches = gemma_fine_tune(torch, dev, seed, batch,
+                                                data_path, workdir)
     launches = {**serve_launches, "gemma_import": import_launches,
-                "gemma_http": http_launches}
+                "gemma_http": http_launches,
+                "gemma_train": train_launches["flash_fwd"]}
     print("phase 22 " + json.dumps({
         "card": card_line(), "kernels_s": kernels_s,
-        "flash_fwd_launches": launches, "serve": serve,
-        "fine_tune": refused, "import": imported, "http": http,
+        "flash_fwd_launches": launches,
+        "flash_bwd_launches": {k: train_launches[k] for k in (
+            "flash_bwd_dq", "flash_bwd_dkv")},
+        "serve": serve, "fine_tune": fine_tune, "import": imported,
+        "http": http,
         "seconds": time.perf_counter() - t_phase}), flush=True)
-    return launches, fwd, worst
+    return launches, fwd, worst, bwd, bwd_worst, train_launches
+
+
+def gemma_bwd_rows(records, worst, train_launches):
+    """The kernels line's rows of K2 and K3 at head_dim 256 (gemma):
+    the gemma-2b fine-tune's launches (phase 22 (c)), the times of its
+    packed microbatch (phase 22 (a)), every d=256 case beside them."""
+    main = records["a_gemma2b_packed_2x2048"]
+    rows = []
+    for name, line in (("flash_bwd_dq", 280), ("flash_bwd_dkv", 337)):
+        bound_ms, bound_by, _ = main["bounds"][name]
+        rows.append({
+            "name": f"{name}_d256",
+            "route": "cuda",
+            "source": "runbooks_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"runbooks_tpu/ops/flash_attention.py:{line}",
+            "launches": train_launches[name],
+            "launches_by_path": {"gemma_train": train_launches[name]},
+            "max_abs_err": worst[name],
+            "ms": main["ms"][name],
+            "plain_ms": main["plain_ms"],
+            "plain_ms_covers": "flash_attention_bwd_reference: dq, dk, dv",
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": main["library_masked_ms"],
+            "library_ms_covers": ("masked backward of "
+                                  "scaled_dot_product_attention "
+                                  "(enable_gqa): dq, dk, dv together"),
+            "shape": main["shape"],
+            "card_tiles_computed_open": main["card_tiles"][name],
+            "shapes": {
+                case: {"ms": r["ms"][name], "plain_ms": r["plain_ms"],
+                       "bound_ms": r["bounds"][name][0],
+                       "bound_by": r["bounds"][name][1],
+                       "tflops": r["bounds"][name][2] / r["ms"][name],
+                       "library_ms": r["library_masked_ms"],
+                       "library_causal_ms": r["library_ms"],
+                       "card_tiles_computed_open": r["card_tiles"][name],
+                       "shape": r["shape"]}
+                for case, r in records.items()},
+        })
+    return rows
 
 
 def main():
@@ -8479,8 +8560,9 @@ def main():
         mark("phase 21")
         gc.collect()
         torch.cuda.empty_cache()
-        gemma_launches, gemma_records, gemma_worst = gemma_phase(
-            torch, dev, args.seed, data_path, workdir)
+        (gemma_launches, gemma_records, gemma_worst, gemma_bwd,
+         gemma_bwd_worst, gemma_train_launches) = gemma_phase(
+            torch, dev, args.seed, batch, data_path, workdir)
         mark("phase 22")
 
     main_case = records["rows8_sq128"]
@@ -8612,6 +8694,8 @@ def main():
                        "shape": r["shape"]}
                 for case, r in family_records["bwd"].items()},
         })
+    kernels += gemma_bwd_rows(gemma_bwd, gemma_bwd_worst,
+                              gemma_train_launches)
     print(f"train summary: tokens/s {summary['tokens_per_sec']:.1f} | "
           f"history {json.dumps(summary['history'])} | peak memory "
           f"{peak / 1e9:.2f} GB", flush=True)

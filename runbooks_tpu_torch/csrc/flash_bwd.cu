@@ -20,11 +20,13 @@
 // - K2 (dq): one block per (q head, batch row, 64-row q tile), each warp 16
 //   query rows. The q tile is the slowest grid axis and is walked from the
 //   last, so the heaviest blocks start first. Q and dO arrive by cp.async
-//   and are then held as mma A fragments in registers. The block walks the
-//   64-key kv tiles; per 16-key chunk, S = Q K^T and dP = dO V^T run as
-//   mma.sync m16n8k16 (bf16 operands, f32 accumulate), p and ds are formed
-//   in registers (no row max is needed: lse is known), and ds, rounded to
-//   bf16, is the A fragment of dQ += dS K.
+//   and are then held as mma A fragments in registers (at d=256 they stay
+//   in shared memory and are reloaded per 16-key chunk, as K3 reloads K and
+//   V). The block walks the 64-key kv tiles; per 16-key chunk, S = Q K^T
+//   and dP = dO V^T run as mma.sync m16n8k16 (bf16 operands, f32
+//   accumulate), p and ds are formed in registers (no row max is needed:
+//   lse is known), and ds, rounded to bf16, is the A fragment of
+//   dQ += dS K.
 // - K3 (dk, dv): one block per (kv head, batch row, 64-key kv tile), each
 //   warp 16 keys. The kv tile is the slowest grid axis and is walked from
 //   the first (the heaviest under the causal mask). K and V stay in shared
@@ -34,6 +36,9 @@
 //   for the whole group stay in f32 registers and are written once at
 //   kv-head width: no [b, h, sk, d] buffer and no separate fold. Every
 //   block writes its keys, so keys that no query sees come out exactly 0.
+//   At d=256 the head_dim is split across two blocks per kv tile (DSPLIT):
+//   each forms S^T and dP^T over the whole head_dim and accumulates dK and
+//   dV for its 128 columns.
 //
 // Step by step, what each part does:
 //
@@ -75,18 +80,40 @@
 // cores are the only way to the bf16 peak. mma.sync reaches a fraction of
 // it; wgmma with TMA-fed, warp-specialised pipelines is later work.
 //
-// Registers and shared memory: 128-thread blocks, two per SM
-// (__launch_bounds__(128, 2)). K2 holds Q and dO fragments (64 registers at
-// d=128) and 64 dq accumulators; K3 holds 128 dk/dv accumulators and
-// reloads K and V fragments from shared memory per 32-query chunk. The
-// -Xptxas -v report of the H100 build (chip_smoke.py prints it): K2 239
-// registers at d=128 and 156 at d=64, K3 250 and 186, no spills. Shared
-// memory per block: K2 Q, dO and two K/V stages, (2 * 64 + 4 * 64) rows of
-// D + 8 bf16 (104448 bytes at d=128, 55296 at d=64), 1 KB of key positions
-// and segment ids, 5 bytes per kv tile for the classes; K3 K, V and two
-// Q/dO stages (the same 104448 / 55296 bytes), 2 KB of row words, 5 bytes
-// per q tile. Shared memory, not registers, holds it at two blocks (eight
-// warps) per SM.
+// Registers and shared memory: 128-thread blocks, two per SM at d=64 and
+// d=128 (__launch_bounds__(128, 2)). K2 holds Q and dO fragments (64
+// registers at d=128) and 64 dq accumulators; K3 holds 128 dk/dv
+// accumulators and reloads K and V fragments from shared memory per
+// 32-query chunk. The -Xptxas -v report of the H100 build (chip_smoke.py
+// prints it): K2 239 registers at d=128 and 156 at d=64, K3 250 and 186,
+// no spills. Shared memory per block: K2 Q, dO and two K/V stages, (2 * 64
+// + 4 * 64) rows of D + 8 bf16 (104448 bytes at d=128, 55296 at d=64), 1
+// KB of key positions and segment ids, 5 bytes per kv tile for the
+// classes; K3 K, V and two Q/dO stages (the same 104448 / 55296 bytes), 2
+// KB of row words, 5 bytes per q tile. Shared memory, not registers, holds
+// it at two blocks (eight warps) per SM.
+//
+// At d=256 (gemma) the same layout takes 202752 bytes a block, so both
+// kernels run one block per SM (MIN_BLOCKS, __launch_bounds__(128, 1)).
+// Registers, not shared memory, are what the design has to answer there:
+// a thread's dq accumulators alone are 16 rows x 256 / 32 lanes = 128 f32,
+// and the Q and dO fragments held at d=128 would add 128 more, so K2
+// reloads those fragments from shared memory per 16-key chunk by ldmatrix
+// (two x4 loads per 16-deep step). K3's dk and dv for a warp's 16 keys
+// over the whole head_dim would be 256 f32 a thread, the register file's
+// limit on its own, and mma's 16-row grain keeps a warp from owning fewer
+// keys. So at d=256 K3 splits the head_dim across blocks (DSPLIT = 2;
+// grid z is kv tiles x 2): each block recomputes S^T and dP^T over the
+// full 256 and accumulates dK and dV for its 128 columns, holding the 128
+// accumulators of d=128. That is 12 d h P operations where 8 are needed
+// (1.5x), and it doubles the grid of a thin MQA layout (gemma-2b's 8/1 at
+// 2 x 2048: 64 blocks become 128 on 132 SMs). Only the first half of each
+// kv tile counts tiles, so flash_bwd_tile_counts reads the same counts as
+// at d=128. The other design, eight warps a block with one warp of each
+// pair holding dV and the other dK and P^T / dS^T exchanged through
+// shared memory, does no extra work but needs named barriers between warp
+// pairs and ~211 KB a block; the split keeps each warp's code that of
+// d<=128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,6 +133,19 @@ constexpr int QC = 32;          // queries per inner chunk of K3
 // With one skip group per q tile, the block skip closes whole tiles: K2
 // stops at its diagonal kv tile and K3 starts at its diagonal q tile.
 static_assert(BQ == SKIP_ROWS && BK == SKIP_ROWS, "tiles are skip groups");
+
+// Blocks per SM the register budget is set for: two at d <= 128, one at
+// d=256 (its dq accumulators alone take 128 registers a thread).
+template <int D>
+constexpr int MIN_BLOCKS = D > 128 ? 1 : 2;
+// K2 at d=256 reloads the Q and dO fragments per 16-key chunk from shared
+// memory instead of holding all of them in registers.
+template <int D>
+constexpr bool RELOAD_Q = D > 128;
+// K3's blocks per kv tile, each accumulating dK and dV for D / DSPLIT
+// columns of the head_dim.
+template <int D>
+constexpr int DSPLIT = D > 128 ? 2 : 1;
 
 // (q tile, kv tile) pairs the launches left to compute ([0] K2, [2] K3,
 // once per query head) and the open ones of those ([1], [3]), summed over
@@ -307,12 +347,13 @@ __device__ __forceinline__ void count_tiles(const unsigned char* cls, int first,
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS, 2)
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS<D>)
 flash_bwd_dq_kernel(const Params p) {
   constexpr int LD = D + 8;          // padded row length in shared memory
   constexpr int CHUNKS = D / 8;      // 16-byte chunks per row
   constexpr int KSTEPS = D / 16;     // mma depth steps over head_dim
   constexpr int NT_O = D / 8;        // n-tiles of dQ per warp
+  constexpr int KF = RELOAD_Q<D> ? 1 : KSTEPS;   // Q/dO fragments held
   constexpr int STAGE = BK * LD;     // elements of one K or V stage
 
   extern __shared__ __align__(128) unsigned char smem[];
@@ -436,11 +477,13 @@ flash_bwd_dq_kernel(const Params p) {
     cp_async_wait<1>();
     __syncthreads();
 
-    uint32_t qf[KSTEPS][4], dof[KSTEPS][4];
+    uint32_t qf[KF][4], dof[KF][4];
+    if constexpr (!RELOAD_Q<D>) {
 #pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      ld_a<LD>(qf[kk], sQ + warp * 16 * LD, kk * 16, lane);
-      ld_a<LD>(dof[kk], sdO + warp * 16 * LD, kk * 16, lane);
+      for (int kk = 0; kk < KSTEPS; ++kk) {
+        ld_a<LD>(qf[kk], sQ + warp * 16 * LD, kk * 16, lane);
+        ld_a<LD>(dof[kk], sdO + warp * 16 * LD, kk * 16, lane);
+      }
     }
 
     int stage = 0;
@@ -463,13 +506,18 @@ flash_bwd_dq_kernel(const Params p) {
           }
 #pragma unroll
           for (int kk = 0; kk < KSTEPS; ++kk) {
+            const int f = RELOAD_Q<D> ? 0 : kk;
+            if constexpr (RELOAD_Q<D>) {
+              ld_a<LD>(qf[0], sQ + warp * 16 * LD, kk * 16, lane);
+              ld_a<LD>(dof[0], sdO + warp * 16 * LD, kk * 16, lane);
+            }
             uint32_t b[4];
             ld_b<LD>(b, tK + c * 16 * LD, kk * 16, lane);
-            mma_16816(s[0], qf[kk], b[0], b[1]);
-            mma_16816(s[1], qf[kk], b[2], b[3]);
+            mma_16816(s[0], qf[f], b[0], b[1]);
+            mma_16816(s[1], qf[f], b[2], b[3]);
             ld_b<LD>(b, tV + c * 16 * LD, kk * 16, lane);
-            mma_16816(dp[0], dof[kk], b[0], b[1]);
-            mma_16816(dp[1], dof[kk], b[2], b[3]);
+            mma_16816(dp[0], dof[f], b[0], b[1]);
+            mma_16816(dp[1], dof[f], b[2], b[3]);
           }
           // Element e sits at row g + 8 (e >> 1), key c*16 + j*8 + 2t + (e & 1);
           // s becomes ds.
@@ -545,12 +593,13 @@ flash_bwd_dq_kernel(const Params p) {
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(NTHREADS, 2)
+__global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS<D>)
 flash_bwd_dkv_kernel(const Params p) {
   constexpr int LD = D + 8;
   constexpr int CHUNKS = D / 8;
   constexpr int KSTEPS = D / 16;
-  constexpr int NT_O = D / 8;        // n-tiles of dK and dV per warp
+  constexpr int DO = D / DSPLIT<D>;  // dK and dV columns this block sums
+  constexpr int NT_O = DO / 8;       // n-tiles of dK and dV per warp
   constexpr int NJ = QC / 8;         // n-tiles of S^T per chunk
   constexpr int STAGE = BQ * LD;     // elements of one Q or dO stage
 
@@ -566,7 +615,8 @@ flash_bwd_dkv_kernel(const Params p) {
   int* sQmax = reinterpret_cast<int*>(sDelta + 2 * BQ);   // [n_tiles]
   unsigned char* sClass = reinterpret_cast<unsigned char*>(sQmax + p.n_tiles);
 
-  const int kt = blockIdx.z;
+  const int kt = blockIdx.z / DSPLIT<D>;
+  const int c_out = (blockIdx.z % DSPLIT<D>) * DO;   // its first column
   const int k0 = kt * BK;
   const int hk = blockIdx.x;
   const int bi = blockIdx.y;
@@ -781,10 +831,10 @@ flash_bwd_dkv_kernel(const Params p) {
 #pragma unroll
             for (int n = 0; n < NT_O; n += 2) {
               uint32_t b[4];
-              ld_b_trans<LD>(b, tdO + r * LD, n * 8, lane);
+              ld_b_trans<LD>(b, tdO + r * LD, c_out + n * 8, lane);
               mma_16816(dv[n], ap, b[0], b[1]);
               mma_16816(dv[n + 1], ap, b[2], b[3]);
-              ld_b_trans<LD>(b, tQ + r * LD, n * 8, lane);
+              ld_b_trans<LD>(b, tQ + r * LD, c_out + n * 8, lane);
               mma_16816(dk[n], ads, b[0], b[1]);
               mma_16816(dk[n + 1], ads, b[2], b[3]);
             }
@@ -809,19 +859,21 @@ flash_bwd_dkv_kernel(const Params p) {
     }
   }
 
-  // Every key below sk is written; keys no query sees get exactly 0.
+  // Every key below sk is written (each block its columns); keys no query
+  // sees get exactly 0.
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     const int key = k0 + warp * 16 + g + rr * 8;
     if (key >= p.sk) continue;
-    const long long base = ((krow0 + key) * p.kvh + hk) * D;
+    const long long base = ((krow0 + key) * p.kvh + hk) * D + c_out;
 #pragma unroll
     for (int n = 0; n < NT_O; ++n) {
       store_pair(p.dk, base + n * 8 + 2 * t, dk[n][2 * rr], dk[n][2 * rr + 1], p.out_f32);
       store_pair(p.dv, base + n * 8 + 2 * t, dv[n][2 * rr], dv[n][2 * rr + 1], p.out_f32);
     }
   }
-  count_tiles(sClass, qt_begin, num_q, n_rep, 2);
+  // One block of each kv tile counts its pairs.
+  if (c_out == 0) count_tiles(sClass, qt_begin, num_q, n_rep, 2);
 }
 
 template <int D>
@@ -851,7 +903,9 @@ cudaError_t launch_dkv(Params p, cudaStream_t stream) {
       flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(p.kvh, p.b, (p.sk + BK - 1) / BK);
+  const int z = (p.sk + BK - 1) / BK * DSPLIT<D>;
+  if (z > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(p.kvh, p.b, z);
   flash_bwd_dkv_kernel<D><<<grid, NTHREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
@@ -923,6 +977,7 @@ extern "C" int flash_bwd_dq_bf16(
   switch (d) {
     case 64: return static_cast<int>(launch_dq<64>(p, s));
     case 128: return static_cast<int>(launch_dq<128>(p, s));
+    case 256: return static_cast<int>(launch_dq<256>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -947,6 +1002,7 @@ extern "C" int flash_bwd_dkv_bf16(
   switch (d) {
     case 64: return static_cast<int>(launch_dkv<64>(p, s));
     case 128: return static_cast<int>(launch_dkv<128>(p, s));
+    case 256: return static_cast<int>(launch_dkv<256>(p, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

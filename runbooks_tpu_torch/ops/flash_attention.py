@@ -23,12 +23,14 @@ Replaces the Pallas TPU kernels of ``runbooks_tpu/ops/flash_attention.py``:
 A CPU tensor goes to the plain versions; a CUDA tensor goes to the kernels
 or raises. The kernels take bfloat16 q/k/v (and do); the forward kernel
 takes head_dim 64, 128 or 256 (FWD_HEAD_DIMS) and a scale > 0 (it takes
-the row max on the raw scores), the backward kernels head_dim 64 or 128
-(BWD_HEAD_DIMS). ``flash_attention.launches`` counts forward launches,
-``flash_attention_bwd.dq_launches`` and ``.dkv_launches`` the backward's;
-``fwd_tile_counts`` and ``bwd_tile_counts`` read the kernels' own counts of
-the tiles they computed, which ``fwd_tile_plan`` predicts at each kernel's
-tile sizes.
+the row max on the raw scores), the backward kernels head_dim 64, 128 or
+256 (BWD_HEAD_DIMS; at 256 K3 splits the head_dim across two blocks per kv
+tile). Any other head_dim on a CUDA tensor raises by name: nothing falls
+back to the plain versions. ``flash_attention.launches`` counts forward
+launches, ``flash_attention_bwd.dq_launches`` and ``.dkv_launches`` the
+backward's; ``fwd_tile_counts`` and ``bwd_tile_counts`` read the kernels'
+own counts of the tiles they computed, which ``fwd_tile_plan`` predicts at
+each kernel's tile sizes.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ TILE_CLOSED, TILE_PARTIAL, TILE_OPEN = 0, 1, 2
 # The head dims each kernel is built for (csrc/flash_fwd.cu and
 # csrc/flash_bwd.cu instantiate these and no others).
 FWD_HEAD_DIMS = (64, 128, 256)
-BWD_HEAD_DIMS = (64, 128)
+BWD_HEAD_DIMS = (64, 128, 256)
 
 _ll = ctypes.c_longlong
 _vp = ctypes.c_void_p

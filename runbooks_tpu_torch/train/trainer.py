@@ -298,16 +298,19 @@ def refuse_unported_attention(model_cfg: ModelConfig,
                               dev: torch.device) -> None:
     """On CUDA the step's flash attention is K1 forward and K2/K3
     backward: a head_dim the backward kernels are not built for
-    (ops/flash_attention.BWD_HEAD_DIMS; gemma's 256) is refused by name
-    before any work. Gemma's fine-tune on the card is ROADMAP §1 item 2
-    (b). The CPU takes the plain versions at any head_dim."""
+    (ops/flash_attention.BWD_HEAD_DIMS: 64, 128 and gemma's 256; the
+    ``debug`` config's 32, say) is refused by name before any work,
+    rather than in the first backward. The CPU takes the plain versions
+    at any head_dim, and the plain attention ("xla") any head_dim on
+    either device."""
     if (dev.type == "cuda" and model_cfg.head_dim not in BWD_HEAD_DIMS
             and resolve_attention_impl(model_cfg, dev) == "flash"):
         raise NotImplementedError(
             f"config {model_cfg.name!r} has head_dim {model_cfg.head_dim}: "
             f"the backward flash kernels take {BWD_HEAD_DIMS}, so the "
-            f"PyTorch port does not fine-tune it on the card yet "
-            f"(ROADMAP.md §1 item 2 (b))")
+            f"PyTorch port does not fine-tune it on the card with "
+            f"attention_impl 'flash' (set attention_impl 'xla' for the "
+            f"plain attention)")
 
 
 def run_training(job: TrainJobConfig, base_params=None,

@@ -165,24 +165,22 @@ def test_kernel_launch_is_counted_and_checked():
 
 
 @pytest.mark.cuda
-def test_backward_kernels_refuse_head_dim_256():
-    """K1 takes head_dim 256 (gemma); K2 and K3 do not yet, and say so
-    by name on a CUDA tensor instead of falling back to the plain
-    version."""
+def test_backward_kernels_refuse_head_dim_96():
+    """K2 and K3 are built for head_dim 64, 128 and 256: at any other
+    (96 here) a CUDA tensor raises by name, with no launch, instead of
+    falling back to the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; the kernel has no CPU mode")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    q = torch.randn((1, 64, 4, 256), generator=g, device=dev,
-                    dtype=torch.bfloat16, requires_grad=True)
-    k = torch.randn((1, 64, 2, 256), generator=g, device=dev,
-                    dtype=torch.bfloat16, requires_grad=True)
-    pos = torch.arange(64, device=dev, dtype=torch.int32)[None]
+    q, k, v, do, qp, kp, _ = _bwd_case(dev, g, 1, 64, 64, 4, 2, 96)
+    out = torch.zeros_like(q)
+    lse = torch.zeros((1, 4, 64), device=dev)
     before = (flash_attention_bwd.dq_launches,
               flash_attention_bwd.dkv_launches)
-    out = flash_attention(q, k, k, pos, pos)
-    with pytest.raises(ValueError, match=r"backward kernels take head_dim"):
-        out.float().sum().backward()
+    with pytest.raises(ValueError, match=r"backward kernels take head_dim "
+                                         r"in \(64, 128, 256\), got 96"):
+        flash_attention_bwd(q, k, v, qp, kp, None, None, out, lse, do)
     assert (flash_attention_bwd.dq_launches,
             flash_attention_bwd.dkv_launches) == before
 
@@ -227,7 +225,10 @@ def _assert_bwd_close(got, ref):
 @pytest.mark.parametrize("case", ["skip_gqa4", "segments", "ragged",
                                   "d64_rep2", "sk_gt_sq", "f32_grads",
                                   "segment_closed_tiles", "falcon7b_mqa71",
-                                  "falcon40b_rep16"])
+                                  "falcon40b_rep16", "gemma7b_d256",
+                                  "gemma2b_d256_ragged_skip",
+                                  "d256_segment_closed_tiles",
+                                  "d256_f32_grads"])
 def test_backward_kernels_match_plain_version_on_card(case):
     """K2 (dq) and K3 (dk, dv) against the plain backward: GQA 32/8 at
     d=128 with the causal skip, packed segments with padding rows, a
@@ -236,9 +237,13 @@ def test_backward_kernels_match_plain_version_on_card(case):
     documents of 70, 300 and 150 tokens with a padding tail, whose
     boundaries fall inside tiles and close whole ones; falcon-7b's 71
     query heads on one kv head (K3 walks all 71 in each block) and
-    falcon-40b's 128 on 8, both at d=64. The (q tile, kv
-    tile) pairs each kernel counts as computed and open on the card are
-    those fwd_tile_plan gives at the backward's tiles, for every head."""
+    falcon-40b's 128 on 8, both at d=64; and gemma's head_dim 256 (one
+    block per SM; K3 splits the head_dim across two blocks per kv tile):
+    gemma-7b's 16/16, gemma-2b's 8 on 1 at a ragged length with the skip,
+    the documents that close whole tiles at 8/4, and f32 gradients. The
+    (q tile, kv tile) pairs each kernel counts as computed and open on the
+    card are those fwd_tile_plan gives at the backward's tiles, for every
+    head (at d=256 one block of each kv tile counts)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; the kernels have no CPU mode")
     dev = torch.device("cuda")
@@ -251,15 +256,20 @@ def test_backward_kernels_match_plain_version_on_card(case):
              "f32_grads": (1, 128, 128, 32, 8, 128),
              "segment_closed_tiles": (2, 640, 640, 32, 8, 128),
              "falcon7b_mqa71": (2, 256, 256, 71, 1, 64),
-             "falcon40b_rep16": (1, 192, 192, 128, 8, 64)}[case]
+             "falcon40b_rep16": (1, 192, 192, 128, 8, 64),
+             "gemma7b_d256": (2, 256, 256, 16, 16, 256),
+             "gemma2b_d256_ragged_skip": (2, 333, 333, 8, 1, 256),
+             "d256_segment_closed_tiles": (2, 640, 640, 8, 4, 256),
+             "d256_f32_grads": (1, 128, 128, 8, 2, 256)}[case]
     start = 100 if case == "sk_gt_sq" else 0
     # Documents packed from row 0; the rest of each row is padding.
     docs = {"segments": (106, 150),
-            "segment_closed_tiles": (70, 300, 150)}.get(case)
+            "segment_closed_tiles": (70, 300, 150),
+            "d256_segment_closed_tiles": (70, 300, 150)}.get(case)
     q, k, v, do, qp, kp, seg = _bwd_case(dev, g, *shape, start=start,
                                          docs=docs)
     skip = case != "sk_gt_sq"
-    gd = torch.float32 if case == "f32_grads" else None
+    gd = torch.float32 if case.endswith("f32_grads") else None
     out, lse = flash_attention_fwd(q, k, v, qp, kp, seg, seg,
                                    block_skip=skip)
     before = (flash_attention_bwd.dq_launches,
@@ -293,7 +303,7 @@ def test_backward_kernels_match_plain_version_on_card(case):
         pad = seg[0] == 0
         assert (got[0][:, pad] == 0).all()
         assert (got[1][:, pad] == 0).all() and (got[2][:, pad] == 0).all()
-    if case == "segment_closed_tiles":
+    if case.endswith("segment_closed_tiles"):
         # Whole tiles are closed here: the counts say the kernels skipped
         # some pairs the causal skip alone leaves.
         causal_only = fwd_tile_plan(qp, qp, causal=True, block_skip=True,
@@ -363,6 +373,56 @@ def test_remat_policy_on_the_kernels(policy):
     assert torch.equal(l0, l1) and torch.equal(g0, g1)
     assert n0 == 2 * base.num_layers
     assert n1 == (base.num_layers if policy == "save_attn_out" else n0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["nothing_saveable",
+                                    "dots_with_no_batch_dims_saveable",
+                                    "dots_saveable", "save_attn_out"])
+def test_gemma_fine_tune_runs_the_kernels_at_head_dim_256(policy):
+    """A 2-layer gemma-2b (8 query heads of 256 on 1 kv head, width 2048,
+    the scaled embedding and the tied head) through K1-K3 under each remat
+    policy: K2 and K3 launch once per layer, K1 twice (once under
+    save_attn_out, whose saved out and lse the recompute takes), the
+    logits and the embedding's gradient equal nothing_saveable's bit for
+    bit, and the embedding's gradient (the scaled lookup's rows and the
+    tied head's share) is finite and reaches every looked-up row."""
+    import dataclasses
+
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.transformer import forward, init_params
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    base = get_config("gemma-2b", num_layers=2, vocab_size=1024,
+                      attention_impl="flash")
+    params = init_params(base, torch.Generator(device=dev).manual_seed(5),
+                         dev)
+    tokens = torch.randint(0, 1024, (2, 256), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(6))
+    runs = {}
+    for name in dict.fromkeys(("nothing_saveable", policy)):
+        emb = params["embed"].detach().clone().requires_grad_()
+        counts = (flash_attention.launches, flash_attention_bwd.dq_launches,
+                  flash_attention_bwd.dkv_launches)
+        logits, _ = forward(dataclasses.replace(base, remat_policy=name),
+                            dict(params, embed=emb), tokens, remat=True)
+        (grad,) = torch.autograd.grad(logits.float().square().mean(), emb)
+        torch.cuda.synchronize()
+        runs[name] = (logits.detach(), grad, tuple(
+            a - b for a, b in zip((flash_attention.launches,
+                                   flash_attention_bwd.dq_launches,
+                                   flash_attention_bwd.dkv_launches),
+                                  counts)))
+    (l0, g0, _), (l1, g1, n1) = runs["nothing_saveable"], runs[policy]
+    n = base.num_layers
+    assert n1 == ((n if policy == "save_attn_out" else 2 * n), n, n)
+    assert torch.equal(l0, l1) and torch.equal(g0, g1)
+    assert torch.isfinite(g1).all()
+    seen = torch.unique(tokens)
+    assert (g1[seen].abs().sum(-1) > 0).all()
 
 
 def _post(base, body):

@@ -9,7 +9,7 @@ one shared layernorm, parallel block, gelu, tied head), falcon-40b-like
 positions, biases everywhere, relu / gelu MLP, tied head), gemma-2b-like
 (one kv head) and gemma-7b-like (MHA; both with the embedding scaled by
 sqrt(hidden), GeGLU, tied head), and one gemma case at head_dim 256, the
-width K1 gains for gemma (hidden 512, 2 query heads on 1 kv head). The
+width K1-K3 take for gemma (hidden 512, 2 query heads on 1 kv head). The
 reference's
 ``init_params`` weights cross through numpy by ``models/bridge.py``, with
 the biases and norm parameters (zeros and ones at init) replaced by seeded
@@ -59,8 +59,9 @@ DEBUG_WIDTH = dict(vocab_size=512, hidden_size=128, intermediate_size=384,
                    dtype="float32")
 # One override set per family: its registry entry cut to debug width.
 # FAMILIES also drive the serving, speculation, adapter and training files;
-# gemma (served by the port, not yet fine-tuned on the card) is held to
-# the reference here and in tests/test_torch_families_serving.py.
+# gemma is held to the reference here, in
+# tests/test_torch_families_serving.py and in
+# tests/test_torch_families_training.py.
 FAMILIES = {
     "falcon-7b": dict(num_kv_heads=1),
     "falcon-40b": dict(num_kv_heads=2),

@@ -2,11 +2,13 @@
 fine-tune steps against the JAX package's.
 
 Each family at debug width (tests/test_torch_families_forward.py's
-configs and noisy weights, carried across by ``models/bridge.py``), on
+configs and noisy weights, carried across by ``models/bridge.py``; gemma-2b
+at its head_dim 256, gemma-7b at debug width), on
 packed batches (segments, restarting positions, a loss mask). The LoRA
 step runs the flash path: the reference's Pallas kernels in interpret
 mode (forward, dq, dk/dv) against the port's plain versions of K1-K3,
-the targets including the plain MLP's ``mlp.wi`` and ``mlp.wo``. The full
+the targets including the MLP's ``mlp.wi`` (gated: ``mlp.wi_gate``) and
+``mlp.wo``. The full
 step runs the plain attention, so every leaf's gradient (the tied
 embedding's with both its shares, the learned positions', the biases')
 reaches the update. Both sides compute in f32 (JAX matmuls at
@@ -38,7 +40,9 @@ from runbooks_tpu_torch.train.optimizer import OptimizerConfig, make_optimizer
 from runbooks_tpu_torch.train.step import TrainState
 from runbooks_tpu_torch.utils.tree import tree_leaves
 from tests.test_torch_families_forward import (
+    D256,
     FAMILIES,
+    GEMMA,
     family_configs,
     family_params,
 )
@@ -48,6 +52,12 @@ torch.set_num_threads(2)
 TOL = 1e-5
 OPT = dict(learning_rate=1e-3, warmup_steps=0, total_steps=10, eps=1e-3)
 TARGETS = ("attn.wq", "attn.wv", "mlp.wi", "mlp.wo")
+# The gated MLP's matrices in place of the plain one's mlp.wi.
+GATED_TARGETS = ("attn.wq", "attn.wv", "mlp.wi_gate", "mlp.wo")
+# Every family, gemma included: gemma-2b at its own head_dim 256 (2 query
+# heads on 1, the least width that holds it), gemma-7b at debug width.
+TRAINED = sorted(FAMILIES) + sorted(GEMMA)
+WIDTH = {"gemma-2b": D256}
 
 
 def _t(a):
@@ -66,27 +76,29 @@ def one_device_mesh():
     return make_mesh(MeshConfig(fsdp=1), devices=jax.devices()[:1])
 
 
-@pytest.mark.parametrize("name", sorted(FAMILIES))
+@pytest.mark.parametrize("name", TRAINED)
 def test_lora_steps_match_reference(name):
     """Two LoRA steps in two microbatches through the flash path."""
-    jcfg, tcfg = family_configs(name, attention_impl="flash")
+    jcfg, tcfg = family_configs(name, attention_impl="flash",
+                                **WIDTH.get(name, {}))
+    targets = GATED_TARGETS if tcfg.gated_mlp else TARGETS
     np_base = family_params(jcfg)
     mesh = one_device_mesh()
     base_sh = tree_shardings(jax.eval_shape(lambda: np_base),
                              param_logical_axes(jcfg), mesh)
     base = jax.device_put(jax.tree.map(jnp.asarray, np_base), base_sh)
-    jlcfg = jax_lora.LoraConfig(rank=4, alpha=8.0, targets=TARGETS)
+    jlcfg = jax_lora.LoraConfig(rank=4, alpha=8.0, targets=targets)
     jo = jax_opt.make_optimizer(jax_opt.OptimizerConfig(**OPT))
     jstate, shardings = jax_lora.create_lora_train_state(
         jcfg, jlcfg, base, jo, mesh, jax.random.key(1))
     jstep = jax_lora.make_lora_train_step(jcfg, jlcfg, jo, mesh, shardings,
                                           base_sh, accumulate_steps=2)
 
-    tlcfg = lora.LoraConfig(rank=4, alpha=8.0, targets=TARGETS)
+    tlcfg = lora.LoraConfig(rank=4, alpha=8.0, targets=targets)
     to = make_optimizer(OptimizerConfig(**OPT))
     tbase = bridge.from_jax_numpy(tcfg, np_base)
     tl = bridge.tree_from_numpy(jax.tree.map(np.asarray, jstate.params))
-    assert sorted(tl) == sorted(TARGETS)
+    assert sorted(tl) == sorted(targets)
     tstate = TrainState(step=0, params=tl, opt_state=to.init(tl))
     tstep = lora.make_lora_train_step(tcfg, tlcfg, to, accumulate_steps=2)
 
@@ -109,11 +121,13 @@ def test_lora_steps_match_reference(name):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
-@pytest.mark.parametrize("name", sorted(FAMILIES))
+@pytest.mark.parametrize("name", TRAINED)
 def test_full_step_matches_reference(name):
     """One full fine-tune step: every leaf, the tied embedding and the
-    learned positions included."""
-    jcfg, tcfg = family_configs(name, attention_impl="xla")
+    learned positions included (gemma's embedding through both its scaled
+    lookup and its tied head)."""
+    jcfg, tcfg = family_configs(name, attention_impl="xla",
+                                **WIDTH.get(name, {}))
     jo = jax_opt.make_optimizer(jax_opt.OptimizerConfig(**OPT))
     mesh = one_device_mesh()
     state, shardings = jax_step.create_train_state(jcfg, jo, mesh,

@@ -82,10 +82,15 @@ def _close(jg, tg):
         np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("kvh", [4, 2, 1])   # n_rep 1, 2, 4
-def test_causal_skip_gqa_ragged(kvh):
+@pytest.mark.parametrize("h,kvh,d", [
+    pytest.param(4, 4, 32, id="4"),     # n_rep 1, 2, 4
+    pytest.param(4, 2, 32, id="2"),
+    pytest.param(4, 1, 32, id="1"),
+    pytest.param(2, 1, 256, id="gemma2b_d256"),   # 2 on 1 at gemma's 256
+])
+def test_causal_skip_gqa_ragged(h, kvh, d):
     # 100 rows: a ragged last tile on both sides (JAX blocks 32, port 64).
-    b, s, h, d = 2, 100, 4, 32
+    b, s = 2, 100
     q, k, v, do = _inputs(0, b, s, s, h, kvh, d)
     pos = _arange(b, s)
     jg, tg, _ = _both_bwd(q, k, v, do, pos, pos)
@@ -93,7 +98,16 @@ def test_causal_skip_gqa_ragged(kvh):
 
 
 def test_segments_with_padding_rows():
-    b, s, h, kvh, d = 2, 96, 4, 2, 32
+    _segments_with_padding_rows(4, 2, 32)
+
+
+def test_segments_with_padding_rows_at_head_dim_256():
+    """Gemma's head_dim: 2 query heads on 1 kv head."""
+    _segments_with_padding_rows(2, 1, 256)
+
+
+def _segments_with_padding_rows(h, kvh, d):
+    b, s = 2, 96
     q, k, v, do = _inputs(1, b, s, s, h, kvh, d)
     seg = np.ones((b, s), np.int32)
     seg[:, 30:70] = 2

@@ -326,6 +326,33 @@ def test_chip_smoke_gemma_cases(name):
         == GEMMA_TILES[name]
 
 
+# Phase 22's K2/K3 cases at gemma's head_dim 256: the backward keeps its
+# 64 x 64 tiles at every head_dim (at 256 K3 splits the head_dim over two
+# blocks per kv tile, one of which counts), so the counts are phase 5's
+# at the same positions; the card multiplies them by 16 or 8 heads.
+GEMMA_BWD_TILES = {
+    "a_gemma7b_packed_2x2048": (822, 727, 2048),
+    "b_gemma7b_causal_2x2048": (1056, 992, 2048),
+    "a_gemma2b_packed_2x2048": (822, 727, 2048),
+    "b_gemma2b_causal_2x2048": (1056, 992, 2048),
+}
+
+
+@pytest.mark.parametrize("name", list(GEMMA_BWD_TILES))
+def test_chip_smoke_gemma_bwd_cases(train_batch, name):
+    layouts = {case[0]: case for case in chip_smoke.gemma_bwd_layouts(
+        torch, torch.device("cpu"), train_batch)}
+    assert set(layouts) == set(GEMMA_BWD_TILES)
+    (_, (b, sq, sk, h, kvh, d), qp, kp, seg, skip, _) = layouts[name]
+    assert (h, kvh) in ((16, 16), (8, 1)) and d == 256 \
+        and d in BWD_HEAD_DIMS
+    np_ = lambda a: None if a is None else a.numpy()  # noqa: E731
+    _check(np_(qp), np_(kp), np_(seg), np_(seg), block_skip=skip,
+           bq=BWD_BQ, bk=BWD_BK, tight=seg is None)
+    assert chip_smoke.tile_counts(torch, qp, kp, seg, seg, skip,
+                                  backward=True) == GEMMA_BWD_TILES[name]
+
+
 @pytest.mark.parametrize("name", list(FAMILY_BWD_TILES))
 def test_chip_smoke_family_bwd_cases(train_batch, name):
     layouts = {case[0]: case for case in chip_smoke.family_bwd_layouts(

@@ -124,6 +124,56 @@ def test_save_attn_out_runs_k1_once_per_layer(monkeypatch):
     assert counts == {"nothing_saveable": 2, "save_attn_out": 1}, counts
 
 
+@pytest.mark.parametrize("policy", ("nothing_saveable", *POLICIES))
+def test_gemma_at_head_dim_256_runs_k1_k3_under_every_policy(monkeypatch,
+                                                             policy):
+    """A 2-layer gemma-2b at its head_dim 256 (2 query heads on 1, the
+    scaled embedding, the tied head) on the flash path, under each policy
+    phase 17 runs: K1's plain version runs twice per layer (once under
+    save_attn_out, which saves its out and lse as at d=128), K2's and
+    K3's once, all at head_dim 256; every leaf's gradient, the
+    embedding's (its scaled lookup and the tied head together) among
+    them, equals nothing_saveable's."""
+    calls = {"fwd": 0, "dq": 0, "dkv": 0}
+    fwd, bwd = fa.flash_attention_reference, fa.flash_attention_bwd_reference
+
+    def counted_fwd(q, *args, **kwargs):
+        assert q.shape[-1] == 256
+        calls["fwd"] += 1
+        return fwd(q, *args, **kwargs)
+
+    def counted_bwd(q, *args, which=None, **kwargs):
+        assert q.shape[-1] == 256
+        calls[which] += 1
+        return bwd(q, *args, which=which, **kwargs)
+
+    monkeypatch.setattr(fa, "flash_attention_reference", counted_fwd)
+    monkeypatch.setattr(fa, "flash_attention_bwd_reference", counted_bwd)
+    base = get_config("gemma-2b", dtype="float32", attention_impl="flash",
+                      vocab_size=512, num_layers=2, hidden_size=512,
+                      intermediate_size=1024, num_heads=2, num_kv_heads=1,
+                      max_seq_len=64)
+    assert base.head_dim == 256 and base.embed_scale and base.tie_embeddings
+    params = init_params(base, torch.Generator().manual_seed(0),
+                         torch.device("cpu"))
+    tokens = _tokens(5, seq=32)
+    grads = {}
+    for name in dict.fromkeys(("nothing_saveable", policy)):
+        calls.update(fwd=0, dq=0, dkv=0)
+        grads[name] = _port_grads(dataclasses.replace(
+            base, remat_policy=name), params, tokens)
+        layers = base.num_layers
+        assert calls == {"fwd": layers * (1 if name == "save_attn_out"
+                                          else 2),
+                         "dq": layers, "dkv": layers}, (name, calls)
+    for a, b in zip(grads["nothing_saveable"], grads[policy]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=TOL)
+    (embed,) = [i for i, t in enumerate(tree_leaves(params))
+                if t is params["embed"]]
+    assert torch.isfinite(grads[policy][embed]).all()
+    assert (grads[policy][embed][np.unique(tokens)].abs().sum(-1) > 0).all()
+
+
 class _LiveStorages(TorchDispatchMode):
     """Records every storage an operator creates under it."""
 

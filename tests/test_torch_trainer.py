@@ -238,26 +238,28 @@ def test_full_mode_trains_and_main_reads_the_contract(tmp_path,
 def test_fine_tune_the_backward_kernels_cannot_take_is_refused_on_cuda(
         tmp_path, monkeypatch):
     """On CUDA the step's flash attention is K1 then K2/K3, which take
-    head_dim 64 and 128: a gemma fine-tune (head_dim 256) is refused by
-    name before any work, rather than failing in its first backward. The
-    CPU (the plain versions), the plain attention and the other families
-    pass."""
+    head_dim 64, 128 and 256: gemma (256) passes, and a job at another
+    head_dim (the ``debug`` config's 32) is refused by name before any
+    work, rather than failing in its first backward. The CPU (the plain
+    versions) and the plain attention take any head_dim."""
     from runbooks_tpu_torch.models.config import get_config
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    gemma = get_config("gemma-2b")
+    for name in ("gemma-2b", "gemma-7b", "llama3-8b", "falcon-7b"):
+        trainer.refuse_unported_attention(get_config(name), cuda)
+    debug = get_config("debug")
+    assert debug.head_dim not in trainer.BWD_HEAD_DIMS
     with pytest.raises(NotImplementedError,
-                       match=r"head_dim 256.*ROADMAP.md §1 item 2 \(b\)"):
-        trainer.refuse_unported_attention(gemma, cuda)
-    trainer.refuse_unported_attention(gemma, cpu)
+                       match=r"'debug' has head_dim 32.*\(64, 128, 256\)"):
+        trainer.refuse_unported_attention(debug, cuda)
+    trainer.refuse_unported_attention(debug, cpu)
     trainer.refuse_unported_attention(
-        dataclasses.replace(gemma, attention_impl="xla"), cuda)
-    trainer.refuse_unported_attention(get_config("llama3-8b"), cuda)
+        dataclasses.replace(debug, attention_impl="xla"), cuda)
     # run_training on the card: nothing drawn, built or written.
     monkeypatch.setattr(trainer, "resolve_device", lambda device=None: cuda)
-    job = trainer.TrainJobConfig(model="gemma-2b", lora=LoraConfig(),
+    job = trainer.TrainJobConfig(model="debug", lora=LoraConfig(),
                                  artifacts_dir=str(tmp_path / "a"))
-    with pytest.raises(NotImplementedError, match="head_dim 256"):
+    with pytest.raises(NotImplementedError, match="head_dim 32"):
         trainer.run_training(job)
     assert not (tmp_path / "a").exists()
 
