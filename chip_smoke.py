@@ -243,9 +243,10 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    steps and a resume, then one traced step (idle share); (d) two HF
    falcon directories (7b-style
    fused MQA with one norm, 40b-style with 8 kv heads and split norms;
-   BF16, two shards, 2 layers at full width) through ``python -m
-   runbooks_tpu_torch.models.loader``, every leaf bit-equal to the source
-   taken apart by hand, the 7b import served; (e) ``python -m
+   BF16, two shards, full width, 7b at 2 layers and 40b at 1 since
+   phase 23) through ``python -m runbooks_tpu_torch.models.loader``,
+   every leaf bit-equal to the source taken apart by hand, the 7b import
+   served; (e) ``python -m
    runbooks_tpu_torch.serve.api`` serving opt-125m and gpt2 at full size
    from bf16 checkpoints on the model mount, greedy answers equal to this
    process's decode (gpt2's longest within 5 positions of its 1024-row
@@ -356,8 +357,8 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    packed from the job's data and causal) at gemma-7b's 16/16 and
    gemma-2b's 8/1, with phase 5's tolerances, tile counts, times, bound,
    rate, and SDPA's masked backward (enable_gqa) as the yardstick; (b)
-   gemma-7b bf16 at full width and depth from the seed (phase 16 (b)'s
-   check): prefill logits through K1 against the plain attention, phase
+   gemma-7b bf16 at full width cut to GEMMA7B_SERVE_LAYERS from the
+   seed (phase 16 (b)'s check): prefill logits through K1 against the plain attention, phase
    4's mix through the dense and the paged engine, greedy ids equal up to
    near-ties, K1's launches equal; (c) ``python -m
    runbooks_tpu_torch.serve.api`` serving gemma-2b at full size from a
@@ -373,6 +374,26 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    through ``python -m runbooks_tpu_torch.models.loader``, every leaf
    bit-equal to the source taken apart by hand (the norms' +1 included),
    the import served through K1.
+23. Mixtral (the MoE FFN; no kernel of its own): (a) one full-width
+   layer in bf16 (8 experts of 4096 x 14336) from the seed at the serving
+   burst (an 8-row 128 bucket: T 1024, capacity 320) and the decode step
+   (8 slots: T 8, capacity 3): moe_block against moe_block_dense (the
+   reference's one-hot formulation) with the same kept assignments in
+   the same slots and outputs within MOE_LAYER_RTOL, each version's time,
+   the layer's bound for that routing (the experts it reads over HBM,
+   the kept assignments' operations) and the kept share; (b)
+   mixtral-8x7b bf16 at full width cut to MIXTRAL_SERVE_LAYERS (phase 16
+   (b)'s check): prefill logits through K1 against the plain attention,
+   phase 4's mix through the dense and the paged engine at the config's
+   capacity factor (K1's launches, TTFT, decode tokens/s, peak, the kept
+   share of each dispatch kind), then both engines again at a capacity
+   that drops nothing, greedy ids equal up to near-ties; (d) on those
+   weights, one decode forward under torch.profiler: the MoE layers'
+   share of its device time; (c) an HF mixtral directory (router and
+   per-expert w1 / w3 / w2; BF16, two shards, 1 layer at full width)
+   through ``python -m runbooks_tpu_torch.models.loader``, every leaf
+   bit-equal to the source taken apart by hand, the import served
+   through K1.
 
 Each phase's end prints the seconds since the start; a run still going
 after WATCHDOG_S dumps every thread's stack to standard error. Checks
@@ -390,8 +411,9 @@ The last three lines of standard output are the card's name and power
 limit, the kernels' JSON record (K1, K2 and K3 at head_dim 256 rows of
 their own, ``flash_fwd_d256``, ``flash_bwd_dq_d256`` and
 ``flash_bwd_dkv_d256``) and {"ok": true, "device": {...}};
-quantized_matmul's records ({"quantized_ops": [...]}) stand on the line
-before them. Without a CUDA device, or without the runbooks_tpu_torch
+quantized_matmul's and the MoE layer's records ({"quantized_ops": [...],
+"moe_layer": {...}}: plain PyTorch, no Pallas kernel in the reference)
+stand on the line before them. Without a CUDA device, or without the runbooks_tpu_torch
 package beside it, the script exits nonzero and prints no result.
 """
 
@@ -2273,13 +2295,31 @@ def hf_gemma_names(cfg):
     return shapes
 
 
+def hf_mixtral_names(cfg):
+    """HF MixtralForCausalLM's tensor names and [out, in] shapes: llama's
+    without the dense MLP, and per layer the router
+    (block_sparse_moe.gate [E, h]) and each expert's w1 (gate), w3 (up)
+    and w2 (down)."""
+    h, m = cfg.hidden_size, cfg.intermediate_size
+    shapes = {k: v for k, v in hf_llama_names(cfg).items()
+              if ".mlp." not in k}
+    for i in range(cfg.num_layers):
+        pre = f"model.layers.{i}.block_sparse_moe."
+        shapes[pre + "gate.weight"] = (cfg.moe_num_experts, h)
+        for e in range(cfg.moe_num_experts):
+            shapes.update({pre + f"experts.{e}.w1.weight": (m, h),
+                           pre + f"experts.{e}.w3.weight": (m, h),
+                           pre + f"experts.{e}.w2.weight": (h, m)})
+    return shapes
+
+
 def hf_names(cfg):
     """The HF tensor names and shapes of cfg's family."""
     from runbooks_tpu_torch.models.convert import family_of
 
     return {"llama": hf_llama_names, "gemma": hf_gemma_names,
-            "falcon": hf_falcon_names, "opt": hf_opt_names,
-            "gpt2": hf_gpt2_names}[family_of(cfg)](cfg)
+            "mixtral": hf_mixtral_names, "falcon": hf_falcon_names,
+            "opt": hf_opt_names, "gpt2": hf_gpt2_names}[family_of(cfg)](cfg)
 
 
 def _is_norm_weight(name):
@@ -2327,12 +2367,13 @@ def write_hf_llama(torch, dev, cfg, directory, seed, shards):
 
 def family_expected(torch, tensors, cfg):
     """(dotted leaf, layer or None, what that leaf must hold) for every
-    leaf of a falcon, opt, gpt2 or gemma import, worked out here from the
-    HF tensors by hand: Falcon's fused rows taken apart per kv head (rep
-    query heads, then its key, then its value), OPT's positions without
-    their first 2 rows, GPT-2's c_attn columns split in three, Gemma's
-    norm weights plus 1 (in f32: the leaf holds that sum cast to its
-    dtype), every [out, in] linear transposed."""
+    leaf of a falcon, opt, gpt2, gemma or mixtral import, worked out here
+    from the HF tensors by hand: Falcon's fused rows taken apart per kv
+    head (rep query heads, then its key, then its value), OPT's positions
+    without their first 2 rows, GPT-2's c_attn columns split in three,
+    Gemma's norm weights plus 1 (in f32: the leaf holds that sum cast to
+    its dtype), Mixtral's experts by (layer, expert), every [out, in]
+    linear transposed."""
     from runbooks_tpu_torch.models.convert import family_of
 
     fam = family_of(cfg)
@@ -2436,6 +2477,26 @@ def family_expected(torch, tensors, cfg):
         add("embed", "model.embed_tokens.weight", layered=False)
         add("final_norm.scale", "model.norm.weight", layered=False,
             pick=plus_one)
+    elif fam == "mixtral":
+        pre = "model.layers.{i}."
+        for leaf, n in (("attn.wq", "self_attn.q_proj"),
+                        ("attn.wk", "self_attn.k_proj"),
+                        ("attn.wv", "self_attn.v_proj"),
+                        ("attn.wo", "self_attn.o_proj"),
+                        ("moe.router", "block_sparse_moe.gate")):
+            add(f"layers.{leaf}", pre + n + ".weight", True)
+        for i in range(L):
+            for e in range(cfg.moe_num_experts):
+                for leaf, w in (("wi_gate", "w1"), ("wi_up", "w3"),
+                                ("wo", "w2")):
+                    out.append((f"layers.moe.{leaf}", (i, e), tensors[
+                        f"model.layers.{i}.block_sparse_moe.experts.{e}."
+                        f"{w}.weight"].T))
+        add("layers.ln1.scale", pre + "input_layernorm.weight")
+        add("layers.ln2.scale", pre + "post_attention_layernorm.weight")
+        add("embed", "model.embed_tokens.weight", layered=False)
+        add("final_norm.scale", "model.norm.weight", layered=False)
+        add("head", "lm_head.weight", True, layered=False)
     else:
         raise ValueError(f"no hand expectation for the {fam} family")
     return out
@@ -5530,8 +5591,19 @@ FAMILY_TRAIN_STEPS = 2
 # full depth). K1-K3's launches are counted per layer, so the check does
 # not depend on the depth.
 FALCON_TRAIN_LAYERS = 4
-# (d) the two HF directories are cut to this depth (full width).
+# (d) the HF directories are cut to this depth (full width), and the two
+# widest (one falcon-40b layer is 0.68 B parameters, one mixtral layer
+# 1.45 B) to IMPORT_ONE_LAYER's: the card's machine stops a run that has
+# written 45 GiB to its disk, deleted files included, and each import
+# writes its source and its checkpoint.
 FAMILY_IMPORT_LAYERS = 2
+IMPORT_ONE_LAYER = ("falcon-40b", "mixtral-8x7b")
+
+
+def family_import_overrides(name):
+    """The model_overrides of ``name``'s import: bf16, cut in depth."""
+    return {"num_layers": 1 if name in IMPORT_ONE_LAYER
+            else FAMILY_IMPORT_LAYERS, "param_dtype": "bfloat16"}
 # (e) gpt2's long request: a prompt of GPT2_LONG_PROMPT tokens and
 # GPT2_LONG_NEW new ones end 5 positions short of its 1024-row position
 # table (its prefill bucket of 1024 parks 24 padding rows past it).
@@ -5597,15 +5669,20 @@ def family_bwd_layouts(torch, dev, batch):
 FALCON_SERVE_LAYERS = 8
 
 
-def family_serve(torch, seed, model, layers=None):
+def family_serve(torch, seed, model, layers=None, after=None):
     """One family's serving check (phase 16 (b): falcon-7b cut to
-    FALCON_SERVE_LAYERS; phase 22 (b): gemma-7b at full depth): ``model``
-    bf16 at full width (``layers``: cut to that depth), the prefill logits
-    through K1 against the plain attention, then phase 4's mix through the
-    dense and the paged engine, each warmed up: every request its
-    MAX_TOKENS, K1's launches equal, the greedy ids equal up to
-    near-ties. Returns (record, K1 launches by engine)."""
+    FALCON_SERVE_LAYERS; phase 22 (b): gemma-7b cut to
+    GEMMA7B_SERVE_LAYERS; phase 23
+    (b): mixtral-8x7b cut to MIXTRAL_SERVE_LAYERS): ``model`` bf16 at full
+    width (``layers``: cut to that depth), the prefill logits through K1
+    against the plain attention, then phase 4's mix through the dense and
+    the paged engine, each warmed up: every request its MAX_TOKENS, K1's
+    launches equal, the greedy ids equal up to near-ties (for an MoE
+    model, of both engines run again at a capacity that drops nothing).
+    ``after(cfg, params)``, when given, runs on the served weights at the
+    end. Returns (record, K1 launches by engine)."""
     from runbooks_tpu_torch.serve.api import load_model
+    from runbooks_tpu_torch.serve.engine import InferenceEngine
     from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
     from runbooks_tpu_torch.utils.tree import tree_leaves
 
@@ -5658,15 +5735,38 @@ def family_serve(torch, seed, model, layers=None):
         launches[f"{label}_serve_{name}"] = st["flash_fwd_launches"]
         free_engine(torch, engine)
         del engine
-    print(f"{model} serve " + json.dumps(record), flush=True)
     dense, paged = (launches[f"{label}_serve_{k}"] for k in ("dense",
                                                               "paged"))
     if dense != paged or dense < cfg.num_layers:
         raise SystemExit(f"{model}: K1 launches dense vs paged {launches}")
+    gate_cfg = cfg
+    if cfg.moe_num_experts:
+        # Capacity ties a token's experts to every row of its dispatch,
+        # and the two engines dispatch other rows (as the reference's
+        # do), so their ids may part away from a near-tie. The ids gate
+        # runs both engines again at a capacity that drops nothing,
+        # where a token's output is its own.
+        record["identical_requests_served"] = sum(
+            a == b for a, b in zip(ids["dense"], ids["paged"]))
+        gate_cfg = dataclasses.replace(cfg, moe_capacity_factor=(
+            cfg.moe_num_experts / cfg.moe_top_k))
+        for name, cls in (("dense", None), ("paged", PagedInferenceEngine)):
+            engine = (cls or InferenceEngine)(gate_cfg, params, max_slots=8,
+                                              max_seq_len=2048, seed=seed)
+            reqs = smoke_requests(prompts, {})
+            with torch.no_grad():
+                engine.generate(reqs)
+            ids[name] = [r.output_tokens for r in reqs]
+            free_engine(torch, engine)
+            del engine
+        record["dropless_capacity_factor"] = gate_cfg.moe_capacity_factor
+    print(f"{model} serve " + json.dumps(record), flush=True)
     for i in range(0, len(prompts), 2):      # the greedy requests
-        near_tie_check(torch, cfg, params, f"{model} request r{i}: "
+        near_tie_check(torch, gate_cfg, params, f"{model} request r{i}: "
                        "greedy ids dense vs paged", prompts[i],
                        ids["dense"][i], ids["paged"][i])
+    if after is not None:
+        after(cfg, params)
     del params, flash, plain
     gc.collect()
     torch.cuda.empty_cache()
@@ -5836,16 +5936,44 @@ def family_train(torch, dev, seed, data_path, workdir, model, layers=None):
     return record, launches
 
 
-def family_import(torch, dev, seed, workdir, names, served):
-    """HF directories of the models ``names`` (BF16, two shards, full
-    width, FAMILY_IMPORT_LAYERS layers) through ``python -m
-    runbooks_tpu_torch.models.loader``; every leaf against the HF tensors
-    taken apart here by hand (family_expected); then load_model restores
-    the import of ``served`` and its greedy ids equal those of the tree
-    converted in memory. Phase 16 (d): falcon-7b style (fused MQA
-    query_key_value, one input_layernorm) and falcon-40b style (8 kv
+def family_import_start(torch, dev, seed, workdir, names):
+    """The first half of family_import: each model's HF directory (BF16,
+    two shards, full width, cut to family_import_overrides' depth) written
+    from the seed, then one Background that imports them in turn through ``python
+    -m runbooks_tpu_torch.models.loader``. Returns ({name: the HF
+    tensors}, {name: its record so far}, the Background)."""
+    from runbooks_tpu_torch.models.config import get_config
+
+    tensors, record = {}, {}
+    for name in names:
+        cfg = get_config(name, **family_import_overrides(name))
+        t0 = time.perf_counter()
+        tensors[name], src_bytes = write_hf_checkpoint(
+            torch, dev, hf_names(cfg), f"{workdir}/hf_{name}", seed,
+            IMPORT_SHARDS)
+        record[name] = {"source_bytes": src_bytes,
+                        "write_s": time.perf_counter() - t0}
+
+    def load_all():
+        return {name: run_loader(f"{workdir}/import_{name}", {
+            "model": name, "model_overrides": family_import_overrides(name),
+            "source": "dir", "dir": f"{workdir}/hf_{name}"})
+            for name in names}
+
+    return tensors, record, Background(load_all)
+
+
+def family_import(torch, dev, seed, workdir, names, served, started=None):
+    """HF directories of the models ``names`` through ``python -m
+    runbooks_tpu_torch.models.loader`` (family_import_start, unless
+    ``started`` holds what it returned); every leaf against the HF
+    tensors taken apart here by hand (family_expected); then load_model
+    restores the import of ``served`` and its greedy ids equal those of
+    the tree converted in memory. Phase 16 (d): falcon-7b style (fused
+    MQA query_key_value, one input_layernorm) and falcon-40b style (8 kv
     heads, ln_attn / ln_mlp); phase 22 (d): gemma-7b (llama's names, no
-    lm_head, the norms' +1). Returns (record, K1 launches)."""
+    lm_head, the norms' +1); phase 23 (c): mixtral-8x7b (the router and
+    each expert's w1 / w3 / w2). Returns (record, K1 launches)."""
     from runbooks_tpu_torch.models.config import get_config
     from runbooks_tpu_torch.models.convert import convert
     from runbooks_tpu_torch.models.safetensors_io import load_state_dict
@@ -5855,20 +5983,15 @@ def family_import(torch, dev, seed, workdir, names, served):
     from runbooks_tpu_torch.train.checkpoint import restore_params
     from runbooks_tpu_torch.utils.tree import tree_map
 
-    overrides = {"num_layers": FAMILY_IMPORT_LAYERS,
-                 "param_dtype": "bfloat16"}
-    record = {}
+    if started is None:
+        started = family_import_start(torch, dev, seed, workdir, names)
+    all_tensors, record, loads = started
+    loaded = loads.result()
     for name in names:
-        cfg = get_config(name, **overrides)
-        src = f"{workdir}/hf_{name}"
-        t0 = time.perf_counter()
-        tensors, src_bytes = write_hf_checkpoint(
-            torch, dev, hf_names(cfg), src, seed, IMPORT_SHARDS)
-        write_s = time.perf_counter() - t0
+        cfg = get_config(name, **family_import_overrides(name))
+        tensors = all_tensors.pop(name)
         content = f"{workdir}/import_{name}"
-        rc, import_s, peak_rss_gb, log_text = run_loader(
-            content, {"model": name, "model_overrides": overrides,
-                      "source": "dir", "dir": src})
+        rc, import_s, peak_rss_gb, log_text = loaded[name]
         if rc != 0:
             print(log_text[-3000:], flush=True)
             raise SystemExit(f"the {name} import exited {rc}")
@@ -5884,12 +6007,12 @@ def family_import(torch, dev, seed, workdir, names, served):
             n_leaves += 1
             n_equal += int(got.dtype == torch.bfloat16
                            and torch.equal(got, want.to(torch.bfloat16)))
-        record[name] = {"source_bytes": src_bytes, "write_s": write_s,
-                        "import_s": import_s,
-                        "import_gb_per_s": src_bytes / import_s / 1e9,
-                        "loader_peak_rss_gb": peak_rss_gb,
-                        "leaves": n_leaves, "leaves_equal": n_equal}
-        print(f"import {name} x{FAMILY_IMPORT_LAYERS} layers: "
+        record[name].update(
+            import_s=import_s,
+            import_gb_per_s=record[name]["source_bytes"] / import_s / 1e9,
+            loader_peak_rss_gb=peak_rss_gb, leaves=n_leaves,
+            leaves_equal=n_equal)
+        print(f"import {name} x{cfg.num_layers} layers: "
               f"{json.dumps(record[name])}", flush=True)
         if n_equal != n_leaves:
             raise SystemExit(f"the {name} import differs from its source "
@@ -5898,7 +6021,7 @@ def family_import(torch, dev, seed, workdir, names, served):
         gc.collect()
 
     cfg, restored = load_model({
-        "model": served, "model_overrides": overrides,
+        "model": served, "model_overrides": family_import_overrides(served),
         "checkpoint": f"{workdir}/import_{served}/artifacts"})
     prompts = smoke_prompts(seed)[:4]
 
@@ -8280,6 +8403,10 @@ def fsdp_phase(torch, seed, data_path, workdir, started):
 # Gemma serving: phase 22
 # ---------------------------------------------------------------------------
 
+# (b) gemma-7b at full width cut to this depth (28 layers until phase 23
+# came in; its checks do not depend on the depth, and gemma-2b serves at
+# its full 18 layers in (c)).
+GEMMA7B_SERVE_LAYERS = 8
 # (c) gemma-2b over HTTP: greedy completions of prompts of these lengths,
 # GEMMA_HTTP_NEW new tokens each (the first one also streamed).
 GEMMA_HTTP_LENS = (300, 1000)
@@ -8376,7 +8503,8 @@ def gemma_phase(torch, dev, seed, batch, data_path, workdir):
     server = Background(family_server, *family_server_setup(
         torch, dev, seed, workdir, "gemma-2b", GEMMA_HTTP_LENS,
         {n: GEMMA_HTTP_NEW for n in GEMMA_HTTP_LENS}), True)
-    serve, serve_launches = family_serve(torch, seed, "gemma-7b")
+    serve, serve_launches = family_serve(torch, seed, "gemma-7b",
+                                         GEMMA7B_SERVE_LAYERS)
     imported, import_launches = family_import(
         torch, dev, seed, workdir, ("gemma-7b",), "gemma-7b")
     gc.collect()
@@ -8438,6 +8566,240 @@ def gemma_bwd_rows(records, worst, train_launches):
                 for case, r in records.items()},
         })
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Mixtral serving: phase 23
+# ---------------------------------------------------------------------------
+
+# (b) mixtral-8x7b at full width cut to this depth: 11.87 B parameters,
+# 23.7 GB in bf16 (one layer is 1.451 B; all 32 do not fit one card).
+MIXTRAL_SERVE_LAYERS = 8
+# (a) one full-width MoE layer at the serving burst (an 8-row 128 bucket)
+# and the decode step (8 slots, one token each).
+MOE_LAYER_SHAPES = (("burst", 8, 128), ("decode", 8, 1))
+# moe_block against moe_block_dense on the card: |err| <= MOE_LAYER_RTOL x
+# max |plain output|, one bf16 ulp (both round the same f32 and f64 sums
+# to bf16, so they are expected bit-equal; the record says whether).
+MOE_LAYER_RTOL = 2.0 ** -8
+# (d) the profiled decode forward: 8 rows after this many cached tokens.
+MOE_SHARE_CTX = 1024
+
+
+def moe_layer_bound(torch, cfg, r, n_tokens):
+    """(bound_ms, bound_by, flops) of one MoE layer on an H100 for this
+    routing: the bytes it must move (the router, every expert that
+    receives a kept assignment, the tokens in and out, bf16) and the
+    operations this data needs (the router's product, and the three
+    expert products of each kept assignment)."""
+    from runbooks_tpu_torch.utils.hw import H100_HBM_BW, H100_PEAK_BF16_FLOPS
+
+    h, m, E = cfg.hidden_size, cfg.intermediate_size, cfg.moe_num_experts
+    kept = int(r.keep.sum().item())
+    hit = int(torch.unique(r.expert[r.keep]).numel())
+    nbytes = 2 * (h * E + hit * 3 * h * m + 2 * n_tokens * h)
+    flops = 2 * n_tokens * h * E + kept * 3 * 2 * h * m
+    t_ops = flops / H100_PEAK_BF16_FLOPS
+    t_bytes = nbytes / H100_HBM_BW
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def moe_layer_phase(torch, dev, seed):
+    """Phase 23 (a): one full-width mixtral layer's MoE FFN in bf16 from
+    the seed, moe_block against moe_block_dense (the reference's one-hot
+    formulation) at MOE_LAYER_SHAPES: the same kept assignments in the
+    same slots, outputs within MOE_LAYER_RTOL, each version's time (CUDA
+    events over warm calls), the layer's bound for this routing, and the
+    share of assignments kept."""
+    from runbooks_tpu_torch.models import moe
+    from runbooks_tpu_torch.models.config import get_config
+
+    cfg = get_config("mixtral-8x7b", param_dtype="bfloat16")
+    E, h, m = cfg.moe_num_experts, cfg.hidden_size, cfg.intermediate_size
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 23)
+
+    def normal(shape, fan_in):
+        return (torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.bfloat16) * fan_in ** -0.5)
+
+    p = {"router": normal((h, E), h), "wi_gate": normal((E, h, m), h),
+         "wi_up": normal((E, h, m), h), "wo": normal((E, m, h), m)}
+    out = {}
+    with torch.no_grad():
+        for name, b, s in MOE_LAYER_SHAPES:
+            x = torch.randn((b, s, h), generator=gen, device=dev,
+                            dtype=torch.bfloat16)
+            T = b * s
+            probs = moe.router_probs(p, x.reshape(T, h))
+            r = moe.route(cfg, probs)
+            dispatch, _, _ = moe.dispatch_combine_dense(cfg, probs)
+            same_routing = torch.equal(moe.routing_dispatch(r, T, E),
+                                       dispatch)
+            got, aux = moe.moe_block(cfg, p, x)
+            want, want_aux = moe.moe_block_dense(cfg, p, x)
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            iters = 20 if s == 1 else 10
+            bound_ms, bound_by, flops = moe_layer_bound(torch, cfg, r, T)
+            ms = cuda_ms(lambda: moe.moe_block(cfg, p, x), iters)
+            out[name] = {
+                "tokens": T, "capacity": r.capacity,
+                "kept": int(r.keep.sum().item()),
+                "assignments": int(r.keep.numel()),
+                "experts_hit": int(torch.unique(r.expert[r.keep]).numel()),
+                "same_routing": same_routing,
+                "bit_equal": torch.equal(got, want),
+                "max_abs_err": err, "max_abs_plain": scale,
+                "aux_equal": float(aux) == float(want_aux),
+                "ms": ms,
+                "plain_ms": cuda_ms(lambda: moe.moe_block_dense(cfg, p, x),
+                                    iters),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "tflops": flops / ms / 1e9, "library_ms": None}
+            print(f"moe layer {name} (T {T}, C {r.capacity}): "
+                  f"{json.dumps(out[name])}", flush=True)
+            if not same_routing or err > MOE_LAYER_RTOL * scale:
+                raise SystemExit(f"phase 23 (a): moe_block disagrees with "
+                                 f"moe_block_dense at {name}: {out[name]}")
+    del p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_device_share(torch, cfg, params, seed):
+    """Phase 23 (d): one decode forward (8 rows after MOE_SHARE_CTX cached
+    tokens, the cache's 2048-slot view) under torch.profiler with each
+    moe_block call in a range: the device time of the forward's kernels,
+    the MoE layers' part of it, and the forward's time between CUDA
+    events over warm calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from runbooks_tpu_torch.models import transformer
+    from runbooks_tpu_torch.models.transformer import KVCache, forward
+
+    dev = params["embed"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 230)
+    rows, ctx = 8, MOE_SHARE_CTX
+    tokens = torch.randint(0, cfg.vocab_size, (rows, ctx + 1), generator=gen,
+                           device=dev)
+    pos = torch.arange(ctx + 1, device=dev, dtype=torch.int32)[None].expand(
+        rows, ctx + 1)
+    cache = KVCache.create(cfg, rows, 2048, dev, trash_slot=True)
+    block = transformer.moe_block
+
+    def ranged(*args):
+        with record_function("moe_block"):
+            return block(*args)
+
+    def step():
+        return forward(cfg, params, tokens[:, ctx:], positions=pos[:, ctx:],
+                       cache=cache, cache_view=2048)
+
+    with torch.no_grad():
+        forward(cfg, params, tokens[:, :ctx], positions=pos[:, :ctx],
+                cache=cache, return_activations=True)
+        forward_ms = cuda_ms(step, 10)
+        transformer.moe_block = ranged
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step()
+                torch.cuda.synchronize()
+        finally:
+            transformer.moe_block = block
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.key != "moe_block"]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    moe_ms = sum(e.device_time_total for e in events
+                 if e.key == "moe_block"
+                 and e.device_type == DeviceType.CPU) / 1e3
+    calls = sum(e.count for e in events if e.key == "moe_block"
+                and e.device_type == DeviceType.CPU)
+    del cache
+    return {"rows": rows, "cached_tokens": ctx, "moe_calls": calls,
+            "kernels": sum(e.count for e in kernels),
+            "device_busy_ms": busy_ms, "moe_device_ms": moe_ms,
+            "moe_share": moe_ms / busy_ms if busy_ms else None,
+            "forward_ms": forward_ms}
+
+
+def count_routing(torch, records):
+    """Wrap models.moe.route to record each dispatch's (capacity factor,
+    tokens, kept assignments as a device tensor, assignments) into
+    ``records``; returns the restore function."""
+    from runbooks_tpu_torch.models import moe
+
+    route = moe.route
+
+    def counting(cfg, probs):
+        r = route(cfg, probs)
+        records.append((cfg.moe_capacity_factor, probs.shape[0],
+                        r.keep.sum(), r.keep.numel()))
+        return r
+
+    moe.route = counting
+    return lambda: setattr(moe, "route", route)
+
+
+def routing_summary(records):
+    """Kept share of the recorded dispatches' assignments by capacity
+    factor and kind (decode: one token per slot; prefill: the rest)."""
+    out = {}
+    for cf, T, kept, total in records:
+        kind = "decode" if T <= 8 else "prefill"
+        row = out.setdefault(f"cf{cf}", {}).setdefault(
+            kind, {"dispatches": 0, "kept": 0, "assignments": 0})
+        row["dispatches"] += 1
+        row["kept"] += int(kept.item())
+        row["assignments"] += total
+    for by_kind in out.values():
+        for row in by_kind.values():
+            row["kept_share"] = row["kept"] / row["assignments"]
+    return out
+
+
+def mixtral_phase(torch, dev, seed, workdir):
+    """Phase 23: mixtral serving. (a) the MoE layer alone; (b)
+    mixtral-8x7b served at full width over MIXTRAL_SERVE_LAYERS layers
+    (family_serve) with (d), the MoE share of a decode forward, on its
+    weights; (c) a 1-layer full-width HF directory through the loader
+    (family_import), whose loader process runs while (a) and (b) do:
+    their times share the host with it. Returns (K1 launches by path,
+    (a)'s records)."""
+    t_phase = time.perf_counter()
+    # (c)'s loader runs beside (a) and (b): it only waits on a process.
+    started = family_import_start(torch, dev, seed, workdir,
+                                  ("mixtral-8x7b",))
+    layer = moe_layer_phase(torch, dev, seed)
+    mark("phase 23 (a)")
+    records = []
+    restore = count_routing(torch, records)
+    share = {}
+    try:
+        serve, serve_launches = family_serve(
+            torch, seed, "mixtral-8x7b", MIXTRAL_SERVE_LAYERS,
+            after=lambda cfg, params: share.update(moe_device_share(
+                torch, cfg, params, seed)))
+    finally:
+        restore()
+    routing = routing_summary(records)
+    mark("phase 23 (b)")
+    imported, import_launches = family_import(
+        torch, dev, seed, workdir, ("mixtral-8x7b",), "mixtral-8x7b",
+        started)
+    launches = {**serve_launches, "mixtral_import": import_launches}
+    print("phase 23 " + json.dumps({
+        "card": card_line(), "moe_layer": layer, "serve": serve,
+        "routing": routing, "moe_device_share": share, "import": imported,
+        "flash_fwd_launches": launches,
+        "seconds": time.perf_counter() - t_phase}), flush=True)
+    return launches, layer
 
 
 def main():
@@ -8564,6 +8926,11 @@ def main():
          gemma_bwd_worst, gemma_train_launches) = gemma_phase(
             torch, dev, args.seed, batch, data_path, workdir)
         mark("phase 22")
+        gc.collect()
+        torch.cuda.empty_cache()
+        mixtral_launches, moe_records = mixtral_phase(torch, dev, args.seed,
+                                                      workdir)
+        mark("phase 23")
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -8583,7 +8950,8 @@ def main():
                      + sum(entry_launches["flash_fwd"].values())
                      + obs_launches + sum(gateway_launches.values())
                      + sum(tp_launches.values())
-                     + sum(fsdp_launches["flash_fwd"].values())),
+                     + sum(fsdp_launches["flash_fwd"].values())
+                     + sum(mixtral_launches.values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
@@ -8598,7 +8966,8 @@ def main():
                              **entry_launches["flash_fwd"],
                              "obs_overhead": obs_launches,
                              **gateway_launches, **tp_launches,
-                             **fsdp_launches["flash_fwd"]},
+                             **fsdp_launches["flash_fwd"],
+                             **mixtral_launches},
         "max_abs_err": max(worst, family_records["fwd_worst"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -8699,9 +9068,10 @@ def main():
     print(f"train summary: tokens/s {summary['tokens_per_sec']:.1f} | "
           f"history {json.dumps(summary['history'])} | peak memory "
           f"{peak / 1e9:.2f} GB", flush=True)
-    # quantized_matmul is plain PyTorch (no Pallas kernel in the
-    # reference): its records stand on their own line.
-    print(json.dumps({"quantized_ops": qmm_records}), flush=True)
+    # quantized_matmul and the MoE layer are plain PyTorch (no Pallas
+    # kernel in the reference): their records stand on their own line.
+    print(json.dumps({"quantized_ops": qmm_records,
+                      "moe_layer": moe_records}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

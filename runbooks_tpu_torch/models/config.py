@@ -3,9 +3,8 @@
 
 Same ``ModelConfig`` fields and the same ``CONFIGS`` registry, so a config
 name or override means the same model in both packages. Dtype strings map
-to torch dtypes. Fields this slice of the port does not act on (MoE,
-quantization, the LoRA pool, mesh and training knobs) stay as inert
-fields; ``models.transformer.check_supported`` rejects a config that
+to torch dtypes. Fields of modules not ported yet stay as inert fields;
+``models.transformer.check_supported`` rejects a config that
 needs an architecture feature the port's forward does not implement yet.
 """
 
@@ -69,7 +68,8 @@ class ModelConfig:
     activation: str = "silu"          # "silu" | "gelu" | "relu"
     mlp_bias: bool = False
 
-    # Mixture of Experts (not ported yet)
+    # Mixture of Experts (models/moe.py). 0 experts = dense MLP; with
+    # experts the FFN is top-k-routed gated experts over a static capacity.
     moe_num_experts: int = 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25

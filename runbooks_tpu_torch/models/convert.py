@@ -1,11 +1,13 @@
 """HF checkpoint conversion: state dict -> the port's param tree (the port
-of ``runbooks_tpu.models.convert``: the llama, gemma, falcon, opt and
-gpt2 families).
+of ``runbooks_tpu.models.convert``: the llama, mixtral, gemma, falcon,
+opt and gpt2 families).
 
 HF keeps each linear layer as ``[out, in]`` per layer (GPT-2's Conv1D as
 ``[in, out]``); the port keeps the reference's stacked ``[L, in, out]``
 layout (models/bridge.py ``expected_shapes``). HF's rotate_half RoPE is
-the port's split-half RoPE, so the weights transpose directly. Falcon's
+the port's split-half RoPE, so the weights transpose directly. Mixtral
+is llama's attention with a router and per-expert w1 / w3 / w2 stacked
+into ``moe`` [L, E, in, out]. Falcon's
 fused ``query_key_value`` is unfused as ``[nkv, rep + 2, d, h]`` (the 7b
 multi-query layout and the 40b grouped one alike); OPT's learned
 positions drop HF's first 2 rows; GPT-2's fused ``c_attn`` splits three
@@ -39,12 +41,6 @@ from runbooks_tpu_torch.ops.quantization import (
 StateDict = Mapping[str, torch.Tensor]
 Layer = Callable[[int], torch.Tensor]
 
-# The reference's converter families, in its lookup order (mixtral and
-# gemma before llama: their names and keys extend llama's). mixtral waits
-# for its forward feature (MoE).
-FAMILIES = ("mixtral", "gemma", "gpt2", "llama", "falcon", "opt")
-NOT_PORTED = {"mixtral": "MoE (models/moe.py)"}
-
 
 class _Stacker:
     """Casts and stacks into ``dtype``; ``matrix`` stacks quantize when
@@ -65,6 +61,17 @@ class _Stacker:
         out[0].copy_(first)
         for i in range(1, self.L):
             out[i].copy_(layer(i))
+        return out
+
+    def experts(self, expert: Callable[[int, int], torch.Tensor],
+                n: int) -> torch.Tensor:
+        """[L, n, ...] of expert(i, e), preallocated once and filled one
+        expert at a time."""
+        first = expert(0, 0)
+        out = torch.empty((self.L, n, *first.shape), dtype=self.dtype)
+        for i in range(self.L):
+            for e in range(n):
+                out[i, e].copy_(first if i == e == 0 else expert(i, e))
         return out
 
     def matrix(self, layer: Layer):
@@ -99,6 +106,50 @@ def convert_llama(cfg: ModelConfig, sd: StateDict, dtype: torch.dtype,
                 "wi_gate": st.matrix(t("mlp.gate_proj.weight")),
                 "wi_up": st.matrix(t("mlp.up_proj.weight")),
                 "wo": st.matrix(t("mlp.down_proj.weight")),
+            },
+            "ln1": {"scale": st.stack(g("input_layernorm.weight"))},
+            "ln2": {"scale": st.stack(g("post_attention_layernorm.weight"))},
+        },
+    }
+    if not cfg.tie_embeddings:
+        head = sd.get("lm_head.weight")
+        params["head"] = st.cast((head if head is not None
+                                  else sd["model.embed_tokens.weight"]).T)
+    return params
+
+
+def convert_mixtral(cfg: ModelConfig, sd: StateDict, dtype: torch.dtype,
+                    quantize: str = "none") -> Dict:
+    """Mixtral: llama's attention, norms, embedding and head, and per layer
+    an MoE FFN: ``block_sparse_moe.gate.weight`` [E, h] is the router
+    (transposed to [h, E]) and ``block_sparse_moe.experts.{e}.w1 / w3 /
+    w2`` are each expert's gate, up and down projections ([out, in],
+    transposed into [L, E, in, out] stacks). ``quantize`` packs the
+    attention matrices only: the experts stay in ``dtype``, as the
+    reference's quantization leaves the ``moe`` group alone."""
+    st = _Stacker(cfg, dtype, quantize)
+    g = lambda name: lambda i: sd[f"model.layers.{i}.{name}"]  # noqa: E731
+    t = lambda name: lambda i: sd[f"model.layers.{i}.{name}"].T  # noqa: E731
+
+    def expert(w):
+        return lambda i, e: sd[f"model.layers.{i}.block_sparse_moe.experts."
+                               f"{e}.{w}.weight"].T
+
+    params = {
+        "embed": st.cast(sd["model.embed_tokens.weight"]),
+        "final_norm": {"scale": st.cast(sd["model.norm.weight"])},
+        "layers": {
+            "attn": {
+                "wq": st.matrix(t("self_attn.q_proj.weight")),
+                "wk": st.matrix(t("self_attn.k_proj.weight")),
+                "wv": st.matrix(t("self_attn.v_proj.weight")),
+                "wo": st.matrix(t("self_attn.o_proj.weight")),
+            },
+            "moe": {
+                "router": st.stack(t("block_sparse_moe.gate.weight")),
+                "wi_gate": st.experts(expert("w1"), cfg.moe_num_experts),
+                "wi_up": st.experts(expert("w3"), cfg.moe_num_experts),
+                "wo": st.experts(expert("w2"), cfg.moe_num_experts),
             },
             "ln1": {"scale": st.stack(g("input_layernorm.weight"))},
             "ln2": {"scale": st.stack(g("post_attention_layernorm.weight"))},
@@ -251,7 +302,10 @@ def convert_gpt2(cfg: ModelConfig, sd: StateDict, dtype: torch.dtype,
     }
 
 
+# The reference's families, in its lookup order (mixtral and gemma
+# before llama: their names and keys extend llama's).
 CONVERTERS = {
+    "mixtral": convert_mixtral,
     "gemma": convert_gemma,
     "gpt2": convert_gpt2,
     "llama": convert_llama,
@@ -262,7 +316,7 @@ CONVERTERS = {
 
 def family_of(cfg: ModelConfig) -> str:
     name = cfg.name.lower()
-    for fam in FAMILIES:
+    for fam in CONVERTERS:
         if fam in name:
             return fam
     # Structural fallback
@@ -280,15 +334,9 @@ def convert(cfg: ModelConfig, state_dict: StateDict,
             quantize: str = "none") -> Dict:
     """HF state dict -> param tree on the host, every leaf in ``dtype``;
     ``quantize`` int8/int4 packs the attention and MLP matrices
-    (QuantizedArray leaves). Raises NotImplementedError, by name, for a
-    family whose converter is not ported."""
+    (QuantizedArray leaves; MoE experts stay in ``dtype``)."""
     if quantize not in QUANTIZE_MODES:
         raise ValueError(f"unknown quantize mode {quantize!r}; expected one "
                          f"of {'|'.join(QUANTIZE_MODES)}")
-    family = family_of(cfg)
-    if family in NOT_PORTED:
-        raise NotImplementedError(
-            f"the {family} converter is not ported yet (config "
-            f"{cfg.name!r}: its forward needs {NOT_PORTED[family]}); the "
-            f"PyTorch port imports the {', '.join(CONVERTERS)} families")
-    return CONVERTERS[family](cfg, state_dict, torch_dtype(dtype), quantize)
+    return CONVERTERS[family_of(cfg)](cfg, state_dict, torch_dtype(dtype),
+                                      quantize)

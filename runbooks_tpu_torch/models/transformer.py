@@ -1,6 +1,6 @@
 """Decoder-only transformer over a params dict (the port of
 ``runbooks_tpu.models.transformer``: the dense Llama, Falcon, OPT, GPT-2
-and Gemma families).
+and Gemma families, and Mixtral's routed experts).
 
 - Params keep the reference's layout: {"embed", "final_norm", "head",
   "layers": {...stacked [L, ...] tensors...}}; the forward loops over the
@@ -10,7 +10,10 @@ and Gemma families).
   positions ``pos_embed``, no ``head`` under a tied head (the logits use
   ``embed.T``), no ``ln2`` under a parallel block with one shared norm.
   Gemma's embedding is scaled by sqrt(hidden_size) (``embed_scale``); its
-  RMSNorm's (1 + w) is folded into the scales by the converter.
+  RMSNorm's (1 + w) is folded into the scales by the converter. An MoE
+  config (``moe_num_experts``) holds a ``moe`` group in place of ``mlp``
+  and its FFN is models/moe.moe_block; ``forward(with_aux=True)`` also
+  returns the summed per-layer load-balance loss.
 - f32 norms, softmax and logits; matmuls in the activation dtype.
 - One forward serves the no-cache path and the KV-cache path. The cache
   path writes in place (the reference's donated buffers): the KVCache's
@@ -43,6 +46,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from runbooks_tpu_torch.models.config import ModelConfig
+from runbooks_tpu_torch.models.moe import moe_block, moe_logical_axes
 from runbooks_tpu_torch.ops.attention import (
     dot_product_attention,
     make_attention_mask,
@@ -73,11 +77,9 @@ FLASH_CACHED_PREFILL_MIN_Q = 16
 def check_supported(cfg: ModelConfig) -> None:
     """Reject a config that needs a feature the port's forward does not
     implement yet, naming it (the dense Llama, Falcon, OPT, GPT-2 and
-    Gemma features are ported; MoE, qk-norm, softcap and ALiBi wait for
-    later slices, see ROADMAP.md)."""
+    Gemma features and Mixtral's MoE are ported; qk-norm, softcap and
+    ALiBi wait for later slices, see ROADMAP.md)."""
     missing = []
-    if cfg.moe_num_experts:
-        missing.append(f"moe_num_experts={cfg.moe_num_experts} (MoE)")
     if cfg.qk_norm:
         missing.append("qk_norm")
     if cfg.logit_softcap is not None:
@@ -143,17 +145,28 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
     if cfg.attn_bias:
         attn.update(bq=zeros((L, cfg.q_dim)), bk=zeros((L, cfg.kv_dim)),
                     bv=zeros((L, cfg.kv_dim)), bo=zeros((L, h)))
-    if cfg.gated_mlp:
-        mlp = {"wi_gate": normal((L, h, m), h ** -0.5),
-               "wi_up": normal((L, h, m), h ** -0.5)}
+    layers = {"attn": attn, "ln1": norm((L,))}
+    if cfg.moe_num_experts:
+        if not cfg.gated_mlp:
+            raise ValueError("MoE experts are gated (mixtral-style): set "
+                             "gated_mlp")
+        E = cfg.moe_num_experts
+        layers["moe"] = {"router": normal((L, h, E), h ** -0.5),
+                         "wi_gate": normal((L, E, h, m), h ** -0.5),
+                         "wi_up": normal((L, E, h, m), h ** -0.5),
+                         "wo": normal((L, E, m, h), m ** -0.5)}
     else:
-        mlp = {"wi": normal((L, h, m), h ** -0.5)}
-    mlp["wo"] = normal((L, m, h), m ** -0.5)
-    if cfg.mlp_bias:
-        for k in [k for k in mlp if k.startswith("wi")]:
-            mlp["b" + k[1:]] = zeros((L, m))
-        mlp["bo"] = zeros((L, h))
-    layers = {"attn": attn, "ln1": norm((L,)), "mlp": mlp}
+        if cfg.gated_mlp:
+            mlp = {"wi_gate": normal((L, h, m), h ** -0.5),
+                   "wi_up": normal((L, h, m), h ** -0.5)}
+        else:
+            mlp = {"wi": normal((L, h, m), h ** -0.5)}
+        mlp["wo"] = normal((L, m, h), m ** -0.5)
+        if cfg.mlp_bias:
+            for k in [k for k in mlp if k.startswith("wi")]:
+                mlp["b" + k[1:]] = zeros((L, m))
+            mlp["bo"] = zeros((L, h))
+        layers["mlp"] = mlp
     if not (cfg.parallel_block and cfg.shared_layer_norm):
         layers["ln2"] = norm((L,))
     params["layers"] = layers
@@ -195,18 +208,22 @@ def param_logical_axes(cfg: ModelConfig) -> Params:
                      "bk": ("layers", "kv_heads"),
                      "bv": ("layers", "kv_heads"),
                      "bo": ("layers", "norm")})
-    mlp = {"wo": ("layers", "mlp", "embed")}
-    if cfg.gated_mlp:
-        mlp.update({"wi_gate": ("layers", "embed", "mlp"),
-                    "wi_up": ("layers", "embed", "mlp")})
+    layers = {"attn": attn, "ln1": norm1(("layers",))}
+    if cfg.moe_num_experts:
+        layers["moe"] = moe_logical_axes()
     else:
-        mlp["wi"] = ("layers", "embed", "mlp")
-    if cfg.mlp_bias:
-        for k in list(mlp):
-            if k.startswith("wi"):
-                mlp["b" + k[1:]] = ("layers", "mlp")
-        mlp["bo"] = ("layers", "norm")
-    layers = {"attn": attn, "mlp": mlp, "ln1": norm1(("layers",))}
+        mlp = {"wo": ("layers", "mlp", "embed")}
+        if cfg.gated_mlp:
+            mlp.update({"wi_gate": ("layers", "embed", "mlp"),
+                        "wi_up": ("layers", "embed", "mlp")})
+        else:
+            mlp["wi"] = ("layers", "embed", "mlp")
+        if cfg.mlp_bias:
+            for k in list(mlp):
+                if k.startswith("wi"):
+                    mlp["b" + k[1:]] = ("layers", "mlp")
+            mlp["bo"] = ("layers", "norm")
+        layers["mlp"] = mlp
     if not (cfg.parallel_block and cfg.shared_layer_norm):
         layers["ln2"] = norm1(("layers",))
     axes["layers"] = layers
@@ -595,6 +612,17 @@ def _mlp_block(cfg, p, layer_idx, x, lora=None, adapter=None, tp=None,
     return proj(hidden, "wo")
 
 
+def _ffn_block(cfg, layers, layer_idx, x, lora=None, adapter=None, tp=None,
+               partial=False):
+    """The dense MLP or, under ``moe_num_experts``, the routed experts of
+    layer ``layer_idx``: (out, aux), aux None for the dense MLP."""
+    if cfg.moe_num_experts:
+        return moe_block(cfg, {k: w[layer_idx]
+                               for k, w in layers["moe"].items()}, x)
+    return _mlp_block(cfg, layers["mlp"], layer_idx, x, lora, adapter, tp,
+                      partial), None
+
+
 def head_weight(cfg: ModelConfig, params: Params) -> torch.Tensor:
     """The [hidden, vocab] output projection: ``embed.T`` under a tied
     head (a view, so a gradient reaches the embedding), else ``head``."""
@@ -630,13 +658,16 @@ def forward(
     cache: Optional[KVCache] = None,
     cache_view: Optional[int] = None,
     remat: bool = False,
+    with_aux: bool = False,
     return_activations: bool = False,
     lora: Optional[LoraDeltas] = None,
     adapters: Optional[Tuple[Params, torch.Tensor]] = None,
     tp=None,
     fsdp=None,
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Returns (logits [b, s, vocab] f32, updated cache or None).
+    """Returns (logits [b, s, vocab] f32, updated cache or None), or with
+    ``with_aux`` (logits, cache, aux): aux is the f32 sum of the layers'
+    MoE load-balance losses (0.0 for a dense model).
 
     segment_ids (no-cache path only, as in the reference) keep packed
     documents apart: the flash kernels take them, the plain path builds
@@ -676,6 +707,13 @@ def forward(
     recompute gathers them again; their gradients come back
     reduce-scattered."""
     check_supported(cfg)
+    if cfg.moe_num_experts and (tp is not None or fsdp is not None):
+        raise NotImplementedError(
+            f"config {cfg.name!r} (MoE: moe_num_experts="
+            f"{cfg.moe_num_experts}) under a "
+            f"{'tensor-parallel' if tp is not None else 'FSDP'} forward: "
+            "the PyTorch port runs the experts on one device; MoE under a "
+            "mesh is not ported yet (ROADMAP.md §1 item 4)")
     if tp is not None and (lora is not None or remat):
         raise NotImplementedError(
             "a tensor-parallel forward serves: LoRA merges and remat are "
@@ -770,18 +808,20 @@ def forward(
             # shared norm (7b) or their own (40b's ln_attn / ln_mlp).
             h2 = (h1 if cfg.shared_layer_norm
                   else _norm(cfg, layers["ln2"], x, li))
-            mlp_out = _mlp_block(cfg, layers["mlp"], li, h2, lora_l,
-                                 rows.get("mlp"), tp, fused)
+            mlp_out, aux = _ffn_block(cfg, layers, li, h2, lora_l,
+                                      rows.get("mlp"), tp, fused)
             if fused:
                 out = tp.all_reduce(attn_out + mlp_out)
                 out = _add_bias(layers["attn"], "bo", li, out, ad)
-                return x + _add_bias(layers["mlp"], "bo", li, out, ad)
-            return x + attn_out + mlp_out
+                return x + _add_bias(layers["mlp"], "bo", li, out, ad), aux
+            return x + attn_out + mlp_out, aux
         x = x + attn_out
         h2 = _norm(cfg, layers["ln2"], x, li)
-        return x + _mlp_block(cfg, layers["mlp"], li, h2, lora_l,
-                              rows.get("mlp"), tp)
+        ffn_out, aux = _ffn_block(cfg, layers, li, h2, lora_l,
+                                  rows.get("mlp"), tp)
+        return x + ffn_out, aux
 
+    aux_total = None
     for li in range(cfg.num_layers):
         layer_cache = None
         if cache is not None:
@@ -790,12 +830,15 @@ def forward(
             layer_cache = (cache.k[li], cache.v[li], *scales,
                            None if scatter_mode else cache.index, cache_view)
         if context_fn is not None:
-            x = checkpoint(block, x, li, layer_cache, use_reentrant=False,
-                           context_fn=context_fn)
+            x, aux = checkpoint(block, x, li, layer_cache,
+                                use_reentrant=False, context_fn=context_fn)
         elif remat:
-            x = checkpoint(block, x, li, layer_cache, use_reentrant=False)
+            x, aux = checkpoint(block, x, li, layer_cache,
+                                use_reentrant=False)
         else:
-            x = block(x, li, layer_cache)
+            x, aux = block(x, li, layer_cache)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
 
     new_cache = None
     if cache is not None:
@@ -804,6 +847,9 @@ def forward(
                             else cache.index + s,
                             k_scale=cache.k_scale, v_scale=cache.v_scale)
     x = _norm(cfg, params["final_norm"], x)
-    if return_activations:
-        return x, new_cache
-    return lm_head(cfg, params, x, tp), new_cache
+    out = x if return_activations else lm_head(cfg, params, x, tp)
+    if with_aux:
+        if aux_total is None:
+            aux_total = torch.zeros((), dtype=torch.float32, device=device)
+        return out, new_cache, aux_total
+    return out, new_cache

@@ -17,7 +17,8 @@ resolved config and named by ``MESH_AXES``.
 The port serves over the ``tensor`` axis only (``check_serving_mesh``)
 and trains over ``data`` and ``fsdp`` only (``check_training_mesh``): the
 other axes are refused by name until their slices land (ROADMAP §1).
-Gemma runs on one device only (``check_mesh_model``).
+Gemma and MoE models (mixtral) run on one device only
+(``check_mesh_model``).
 """
 
 from __future__ import annotations
@@ -103,17 +104,27 @@ def check_training_mesh(config: MeshConfig,
 
 
 def check_mesh_model(cfg, config: MeshConfig) -> None:
-    """Refuse, by name, gemma (a config with ``embed_scale``) under
-    ``mesh_tensor``, ``mesh_fsdp`` or ``mesh_data`` above 1: the port
-    serves it on one device only, and gemma under a mesh waits for
-    ROADMAP §1 item 4. Every other model passes."""
+    """Refuse, by name, gemma (a config with ``embed_scale``) and an MoE
+    model (``moe_num_experts``: mixtral) under ``mesh_tensor``,
+    ``mesh_fsdp`` or ``mesh_data`` above 1: the port runs them on one
+    device only, and either under a mesh waits for ROADMAP §1 item 4
+    (``mesh_expert`` is refused for every model by the serving and
+    training checks). Every other model passes."""
     axes = [f"mesh_{a}={getattr(config, a)}"
             for a in ("tensor", "fsdp", "data") if getattr(config, a) > 1]
-    if cfg.embed_scale and axes:
+    if not axes:
+        return
+    if cfg.embed_scale:
         raise NotImplementedError(
             f"config {cfg.name!r} (gemma: embed_scale) under "
             f"{', '.join(axes)}: the PyTorch port runs gemma on one device; "
             f"gemma under a mesh is not ported yet (ROADMAP.md §1 item 4)")
+    if cfg.moe_num_experts:
+        raise NotImplementedError(
+            f"config {cfg.name!r} (MoE: moe_num_experts="
+            f"{cfg.moe_num_experts}) under {', '.join(axes)}: the PyTorch "
+            "port runs MoE models on one device; MoE under a mesh is not "
+            "ported yet (ROADMAP.md §1 item 4)")
 
 
 def make_mesh(config: Optional[MeshConfig] = None,

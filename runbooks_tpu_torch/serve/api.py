@@ -39,7 +39,9 @@ follower replays rank 0's program calls on its shard (serve/engine.py).
 SIGTERM drains, stops every follower and exits 0; a follower that dies
 ends rank 0 with a non-zero code. Other mesh axes, a multi-host mesh, and
 quantization, the adapter pool, the host tier, preemption and
-collective_matmul under ``mesh_tensor`` > 1 are refused by name.
+collective_matmul "ring" under ``mesh_tensor`` > 1 are refused by name;
+collective_matmul "auto" resolves to the port's one all-reduce after each
+sharded sublayer, which ``main`` logs at startup.
 """
 
 from __future__ import annotations
@@ -91,6 +93,7 @@ from runbooks_tpu_torch.ops.quantization import (
     tree_quantize_mode,
 )
 from runbooks_tpu_torch.serve.engine import (
+    COLLECTIVE_MATMUL_AUTO,
     PRIORITY_RANK,
     EngineDraining,
     EngineOverloaded,
@@ -206,6 +209,14 @@ def load_model(params: dict,
                              "quantizekv")
     if quantize_kv is not None:
         overrides["quantize_kv"] = _param_on(quantize_kv)
+    if _param_any(params, "collective_matmul", "collectiveMatmul",
+                  "collectivematmul") is not None:
+        # The engine resolves it under a mesh (COLLECTIVE_MATMUL_AUTO).
+        cm = collective_matmul_param(params)
+        if cm not in COLLECTIVE_MATMUL_MODES:
+            raise ValueError(f"unknown collective_matmul {cm!r}; expected "
+                             f"{'|'.join(COLLECTIVE_MATMUL_MODES)}")
+        overrides["collective_matmul"] = cm
     cfg = dataclasses.replace(cfg, **overrides)
     check_supported(cfg)
     cut = None
@@ -1493,6 +1504,31 @@ def serve_mesh(params: dict) -> Optional[MeshConfig]:
     return mc
 
 
+# The reference's collective_matmul modes (runbooks_tpu.models.config).
+COLLECTIVE_MATMUL_MODES = ("off", "ring", "auto")
+
+
+def collective_matmul_param(params: dict) -> str:
+    """params.json's collective_matmul (any spelling), lower-cased; "off"
+    when unset or false."""
+    cm = str(_param_any(params, "collective_matmul", "collectiveMatmul",
+                        "collectivematmul", default="off")).lower()
+    return "off" if cm in ("false", "0") else cm
+
+
+def collective_matmul_choice(params: dict) -> Optional[str]:
+    """The startup line naming what collective_matmul "auto" resolves to
+    under ``mesh_tensor`` > 1 (None otherwise)."""
+    mc = serve_mesh(params)
+    if (mc is None or mc.tensor == 1
+            or collective_matmul_param(params) != "auto"):
+        return None
+    return (f"serve: collective_matmul='auto' under mesh_tensor={mc.tensor} "
+            f"resolves to {COLLECTIVE_MATMUL_AUTO!r}: one all-reduce after "
+            "each sharded sublayer (the ring collective matmul is not "
+            "ported)")
+
+
 def refuse_unported(params: dict) -> None:
     """Raise naming every params knob whose feature this port does not
     serve yet (serving without it would silently change what the
@@ -1525,9 +1561,7 @@ def refuse_unported(params: dict) -> None:
         bad.append("kv_host_pages")
     if (params.get("preemption") or "off") != "off":
         bad.append("preemption")
-    cm = _param_any(params, "collective_matmul", "collectiveMatmul",
-                    "collectivematmul", default="off")
-    if str(cm).lower() not in ("off", "false", "0"):
+    if collective_matmul_param(params) not in ("off", "auto"):
         bad.append("collective_matmul")
     if bad:
         raise NotImplementedError(
@@ -1694,6 +1728,9 @@ def main(backend: Optional[str] = None) -> int:
     when the caller asks, "gloo" on the CPU."""
     params = contract.load_params()
     refuse_unported(params)
+    choice = collective_matmul_choice(params)
+    if choice is not None:
+        print(choice, flush=True)
     mc = serve_mesh(params)
     if mc is not None and mc.tensor > 1:
         return _main_tensor_parallel(params, mc.tensor, backend or "nccl")

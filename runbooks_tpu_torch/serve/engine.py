@@ -281,6 +281,12 @@ def auto_prefix_plens(buckets: List[int], max_seq_len: int) -> List[int]:
 # inside a collective, which carries the group's finite timeout).
 HEARTBEAT_S = 5.0
 
+# What collective_matmul "auto" resolves to under mesh_tensor > 1. The
+# reference leaves "auto" free to choose; the port keeps its one
+# all-reduce after each sharded sublayer (the ring collective matmul,
+# ops/collective_matmul.py, is not ported, so "ring" is refused).
+COLLECTIVE_MATMUL_AUTO = "all_reduce"
+
 
 def local_kv_heads(cfg: ModelConfig, tp: Optional[TensorParallel]) -> int:
     """The kv heads one rank's cache holds (all of them without ``tp``)."""
@@ -564,7 +570,9 @@ class InferenceEngine:
         the same arguments; rank 0 drives it and the others run
         ``serve_follower``. Other axes above 1, quantized weights or KV,
         the adapter pool, the host tier, preemption and collective_matmul
-        are refused by name under a mesh."""
+        "ring" are refused by name under a mesh; collective_matmul "auto"
+        resolves to the port's one all-reduce after each sharded sublayer
+        (``self.collective_matmul``, COLLECTIVE_MATMUL_AUTO)."""
         check_supported(cfg)
         self.cfg = cfg
         if quantize_kv is None:
@@ -576,6 +584,8 @@ class InferenceEngine:
         # followers, and the choke point's nesting depth.
         self.mesh = mesh
         self.tp: Optional[TensorParallel] = None
+        # What the tensor-parallel collectives are: None on one device.
+        self.collective_matmul: Optional[str] = None
         self._leader = False
         self._program_depth = 0
         self._last_send = time.monotonic()
@@ -759,7 +769,7 @@ class InferenceEngine:
                 refused.append("the adapter pool (adapter_pool)")
             if preemption != "off":
                 refused.append(f"preemption={preemption!r}")
-            if self.cfg.collective_matmul != "off":
+            if self.cfg.collective_matmul not in ("off", "auto"):
                 refused.append(
                     f"collective_matmul={self.cfg.collective_matmul!r}")
             refused += self._mesh_refusals()
@@ -774,6 +784,7 @@ class InferenceEngine:
             rank = mesh.get_local_rank("tensor")
             self.tp = TensorParallel(serve_plan(self.cfg, mc.tensor), rank,
                                      mesh.get_group("tensor"))
+            self.collective_matmul = COLLECTIVE_MATMUL_AUTO
             self._leader = rank == 0
             params = shard_params(params, self.tp.plan, rank)
         return tree_map(lambda t: t.to(dev), params)

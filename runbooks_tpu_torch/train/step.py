@@ -98,6 +98,20 @@ def chunked_cross_entropy(acts: torch.Tensor, head: torch.Tensor,
     return nll_sum / total, total
 
 
+def refuse_moe_training(cfg: ModelConfig) -> None:
+    """Refuse, by name, training an MoE config: its objective adds
+    ``moe_aux_coef`` times the router's load-balance loss, which the
+    port's train step does not add yet, so a step would silently train
+    another objective."""
+    if cfg.moe_num_experts:
+        raise NotImplementedError(
+            f"training config {cfg.name!r} (moe_num_experts="
+            f"{cfg.moe_num_experts}): the MoE objective adds moe_aux_coef x "
+            "the load-balance aux loss, which the PyTorch port's train step "
+            "does not add yet (ROADMAP.md §1 item 3 (b)); the port serves "
+            "MoE models only")
+
+
 def make_ce_terms(cfg: ModelConfig, remat: bool, loss_chunk: int,
                   fsdp=None):
     """(params, batch, lora=None) -> (mean CE loss, total weight).
@@ -106,7 +120,9 @@ def make_ce_terms(cfg: ModelConfig, remat: bool, loss_chunk: int,
     ``embed.T`` (its gradient reaches the embedding), as the
     reference's. Under ``fsdp`` the params are the rank's pieces: the
     leaves outside the layers are gathered here (``Fsdp.outer``), the
-    layers' inside the forward's blocks."""
+    layers' inside the forward's blocks. An MoE config is refused
+    (refuse_moe_training)."""
+    refuse_moe_training(cfg)
 
     def ce_terms(params, batch: Batch, lora=None):
         if fsdp is not None:

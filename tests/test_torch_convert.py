@@ -333,10 +333,31 @@ def test_tiny_hf_gemma_logits_match_port_forward(kv_heads, head_dim):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("name,family", [("mixtral-8x7b", "mixtral")])
-def test_other_families_raise_by_name(name, family):
-    with pytest.raises(NotImplementedError, match=f"the {family} converter"):
-        convert(get_config(name), {})
+def test_tiny_hf_mixtral_logits_match_port_forward():
+    """tests/test_convert.py's Mixtral parity on the port: capacity
+    factor 8.0 drops nothing, so the routed top-2 output is HF's (which
+    has no capacity)."""
+    transformers = pytest.importorskip("transformers")
+    hf_cfg = transformers.MixtralConfig(
+        vocab_size=128, hidden_size=64, intermediate_size=96,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=64, rms_norm_eps=1e-5, rope_theta=10000.0,
+        num_local_experts=4, num_experts_per_tok=2,
+        tie_word_embeddings=False)
+    torch.manual_seed(0)
+    hf = transformers.MixtralForCausalLM(hf_cfg).eval()
+    cfg = get_config("debug", vocab_size=128, hidden_size=64,
+                     intermediate_size=96, num_layers=2, num_heads=4,
+                     num_kv_heads=2, head_dim=16, max_seq_len=64,
+                     dtype="float32", moe_num_experts=4, moe_top_k=2,
+                     moe_capacity_factor=8.0)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 128, (2, 12)))
+    with torch.no_grad():
+        want = hf(tokens).logits
+        params = convert(cfg, hf.state_dict())
+        got, _ = forward(cfg, params, tokens)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("mode", ["int8", "int4"])

@@ -898,3 +898,46 @@ def test_family_engines_match_cpu_port_on_card(name):
                 eng.generate(reqs)
             outs[dev, cls.__name__] = [r.output_tokens for r in reqs]
     assert len(set(map(str, outs.values()))) == 1, outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s", [(8, 128), (8, 1)])
+def test_moe_block_equals_dense_formulation_on_card(dtype, b, s):
+    """models/moe.py on the card (TF32 off, as chip_smoke.py sets it), 8
+    experts of top 2 at capacity factor 1.25, a burst bucket and a decode
+    step: moe_block's kept set and slots equal the one-hot formulation's,
+    its output equals moe_block_dense's bit for bit (both sum the combine
+    in f64), and its routing equals the CPU port's on the same inputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.models import moe
+    from runbooks_tpu_torch.models.config import get_config
+
+    cfg = get_config("debug", hidden_size=256, intermediate_size=512,
+                     moe_num_experts=8, moe_top_k=2, dtype=dtype)
+    E, h, m = 8, 256, 512
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = torch.Generator().manual_seed(b * s)
+        p = {"router": torch.randn((h, E), generator=g) * h ** -0.5,
+             "wi_gate": torch.randn((E, h, m), generator=g) * h ** -0.5,
+             "wi_up": torch.randn((E, h, m), generator=g) * h ** -0.5,
+             "wo": torch.randn((E, m, h), generator=g) * m ** -0.5}
+        x = torch.randn((b, s, h), generator=g).to(cfg.activation_dtype)
+        cp = {k: v.cuda() for k, v in p.items()}
+        cx = x.cuda()
+        probs = moe.router_probs(cp, cx.reshape(b * s, h))
+        r = moe.route(cfg, probs)
+        dispatch, _, _ = moe.dispatch_combine_dense(cfg, probs)
+        assert torch.equal(moe.routing_dispatch(r, b * s, E), dispatch)
+        cpu = moe.route(cfg, moe.router_probs(p, x.reshape(b * s, h)))
+        assert torch.equal(r.keep.cpu(), cpu.keep)
+        assert torch.equal(r.slot.cpu(), cpu.slot)
+        got, aux = moe.moe_block(cfg, cp, cx)
+        want, want_aux = moe.moe_block_dense(cfg, cp, cx)
+        assert torch.equal(got, want)
+        assert float(aux) == float(want_aux)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -129,11 +129,12 @@ def _flat(tree, prefix=""):
 
 @pytest.mark.parametrize("name", ["falcon-7b", "falcon-40b", "opt-125m",
                                   "opt-1.3b", "gpt2", "gpt2-xl", "gemma-2b",
-                                  "gemma-7b"])
+                                  "gemma-7b", "mixtral-8x7b"])
 def test_init_params_leaves_equal_the_references(name):
     """Full-size configs: the port's init on the meta device has exactly
     the reference's leaves and shapes (biases, plain MLP, positions, no
-    head when tied, no ln2 under a shared-norm parallel block)."""
+    head when tied, no ln2 under a shared-norm parallel block, mixtral's
+    moe group in place of mlp)."""
     tcfg = get_config(name)
     check_supported(tcfg)
     got = _flat(init_params(tcfg, None, torch.device("meta")))
@@ -143,16 +144,6 @@ def test_init_params_leaves_equal_the_references(name):
     assert got == bridge.expected_shapes(tcfg)
     assert ("head" in got) == (not tcfg.tie_embeddings)
     assert ("pos_embed" in got) == (tcfg.position_type == "learned")
-
-
-@pytest.mark.parametrize("name,feature", [
-    ("mixtral-8x7b", "moe_num_experts")])
-def test_unported_features_are_refused_by_name(name, feature):
-    cfg = get_config(name)
-    for call in (lambda: check_supported(cfg),
-                 lambda: init_params(cfg, None, torch.device("meta"))):
-        with pytest.raises(NotImplementedError, match=feature):
-            call()
 
 
 @pytest.mark.parametrize("override,feature", [

@@ -271,8 +271,16 @@ def test_load_model_refuses_what_it_cannot_do():
                           "seed": 1}, device="cpu")[1]
     assert torch.equal(nothing["embed"], load_model(
         {"model": "debug", "seed": 1}, device="cpu")[1]["embed"])
-    with pytest.raises(NotImplementedError, match="moe_num_experts"):
-        load_model({"model": "mixtral-8x7b"}, device="cpu")
+    # A debug-size MoE loads on the CPU; under a tensor-parallel shard it
+    # is refused by name.
+    moe = {"model": "debug", "model_overrides": {
+        "moe_num_experts": 4, "moe_top_k": 2, "num_layers": 1}}
+    cfg, params = load_model(moe, device="cpu")
+    assert cfg.moe_num_experts == 4 and "mlp" not in params["layers"]
+    assert params["layers"]["moe"]["wo"].shape == (
+        1, 4, cfg.intermediate_size, cfg.hidden_size)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        load_model(moe, device="cpu", shard=(2, 0))
     with pytest.raises(NotImplementedError, match="gemma under a mesh"):
         load_model({"model": "gemma-2b"}, device="cpu", shard=(2, 0))
     cfg, params = load_model(

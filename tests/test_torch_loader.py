@@ -6,7 +6,8 @@ The same params.json goes through both loaders: ``model.json`` must be
 the JAX loader's, the restored params the JAX import's (bridged), and the
 port's engine on the port's import must give the JAX engine's greedy
 tokens on the JAX import. HF directories come from a tiny seeded
-``transformers`` llama (safetensors, sharded, and torch .bin).
+``transformers`` llama (safetensors, sharded, and torch .bin), gemma,
+and chip_smoke.py's writer under Mixtral's names.
 """
 
 import json
@@ -24,7 +25,9 @@ from runbooks_tpu.serve.api import load_model as jax_load_model
 from runbooks_tpu.serve.engine import InferenceEngine as JaxEngine
 from runbooks_tpu.serve.engine import Request as JaxRequest
 
+import chip_smoke
 from runbooks_tpu_torch.models import bridge, loader
+from runbooks_tpu_torch.models.config import get_config
 from runbooks_tpu_torch.ops.quantization import QuantizedArray
 from runbooks_tpu_torch.serve.api import load_model
 from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
@@ -250,13 +253,47 @@ def test_gemma_hf_dir_loads_like_jax(tmp_path, kind):
     assert weights["final_norm"]["scale"].dtype == getattr(torch, dtype)
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x7b"])
-def test_other_families_raise_by_name(tmp_path, name):
-    model_dir = _hf_llama_dir(tmp_path / "model", "f32")
-    family = name.split("-")[0]
-    with pytest.raises(NotImplementedError, match=family):
-        loader.load_weights({"model": name, "source": "dir",
-                             "dir": str(model_dir)}, device="cpu")
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}."))
+        return out
+    return {prefix[:-1]: tree}
+
+
+# A tiny Mixtral (4 experts, top 2) at HF_OVERRIDES' width.
+MIXTRAL = {**HF_OVERRIDES, "max_seq_len": 64, "moe_num_experts": 4,
+           "moe_top_k": 2}
+
+
+def test_mixtral_hf_dir_loads_like_reference(tmp_path):
+    """A BF16 HF directory in two shards (chip_smoke's writer, the names
+    of HF MixtralForCausalLM) into a bf16 model: load_weights gives the
+    reference loader's params leaf for leaf, and the quantized import
+    (int8) leaves the experts in bf16 as the reference's."""
+    cfg = get_config("debug", **MIXTRAL)
+    chip_smoke.write_hf_checkpoint(torch, torch.device("cpu"),
+                                   chip_smoke.hf_names(cfg), str(tmp_path),
+                                   3, 2)
+    for quantize in ("none", "int8"):
+        params = {"model": "mixtral-8x7b", "source": "dir",
+                  "dir": str(tmp_path), "quantize": quantize,
+                  "model_overrides": {**MIXTRAL, "param_dtype": "bfloat16"}}
+        jcfg, jweights = jax_loader.load_weights(params)
+        tcfg, weights = loader.load_weights(params, device="cpu")
+        want = _flat(bridge.tree_from_numpy(jax.tree.map(np.asarray,
+                                                         jweights)))
+        got = _flat(weights)
+        assert got.keys() == want.keys()
+        for k, w in want.items():
+            if isinstance(w, QuantizedArray):
+                assert torch.equal(got[k].values, w.values), k
+                assert torch.equal(got[k].scales, w.scales), k
+            else:
+                assert got[k].dtype == torch.bfloat16, k
+                assert torch.equal(got[k], w), k
+        assert tcfg.quantize == jcfg.quantize == quantize
 
 
 def test_entry_point_runs_on_cuda_unless_told(monkeypatch):

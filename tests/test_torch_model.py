@@ -243,10 +243,10 @@ def test_config_registry_matches_reference():
 
 
 def test_unsupported_config_is_refused():
-    # mixtral's MoE layer is not ported yet (gemma's and gpt2's features
+    # qk-norm is not ported yet (gemma's, gpt2's and mixtral's features
     # are).
-    with pytest.raises(NotImplementedError, match="moe_num_experts"):
-        forward(get_config("mixtral-8x7b"), {},
+    with pytest.raises(NotImplementedError, match="qk_norm"):
+        forward(get_config("llama3-8b", qk_norm=True), {},
                 torch.zeros((1, 1), dtype=torch.long))
 
 

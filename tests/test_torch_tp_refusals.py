@@ -3,8 +3,8 @@ the paged engine's geometry check where the reference's raises it
 ("kv-heads not divisible by mesh_tensor", at 6 kv heads on 3 and 3 on 1),
 a mesh that is not a DeviceMesh, and each feature the slice leaves out
 under ``mesh_tensor`` > 1 (quantized weights and the int8 KV cache, the
-adapter pool, the host KV tier, preemption, collective_matmul), which
-ROADMAP.md queues."""
+adapter pool, the host KV tier, preemption, collective_matmul "ring"),
+which ROADMAP.md queues."""
 
 import pytest
 
@@ -30,6 +30,6 @@ def test_paged_geometry_and_out_of_scope_refused_by_name(tmp_path,
                 ("adapter_pool", "adapter pool"),
                 ("host_tier", "host KV tier (kv_host_pages)"),
                 ("preemption", "preemption='swap'"),
-                ("collective_matmul", "collective_matmul='auto'")]:
+                ("collective_matmul", "collective_matmul='ring'")]:
             assert r[name].startswith("NotImplementedError"), name
             assert words in r[name] and "mesh_tensor=2" in r[name], r[name]

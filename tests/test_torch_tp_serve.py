@@ -11,7 +11,8 @@ gloo) starts its follower rank itself and answers over HTTP.
 - With the default backend (NCCL, one GPU per rank) ``mesh_tensor: 2``
   on a machine with fewer GPUs raises naming the device count; the axes
   and features the tensor-parallel server does not take are refused by
-  name before any rank starts.
+  name before any rank starts; the example servers' ``collective_matmul:
+  auto`` passes and its resolution is logged.
 """
 
 import http.client
@@ -221,6 +222,8 @@ def test_main_mesh_tensor_beyond_the_gpus_raises_naming_the_count(
      "quantize_kv"),
     ({"mesh_tensor": 2, "collective_matmul": "on"}, NotImplementedError,
      "collective_matmul"),
+    ({"mesh_tensor": 2, "collective_matmul": "ring"}, NotImplementedError,
+     "collective_matmul"),
 ])
 def test_main_refuses_what_the_tp_server_does_not_take(
         tmp_path, monkeypatch, params, exc, words):
@@ -235,3 +238,29 @@ def test_main_refuses_a_multi_host_serving_mesh(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="over 2 hosts"):
         _main_with(tmp_path, monkeypatch, {"mesh_tensor": 2},
                    backend="gloo")
+
+
+@pytest.mark.parametrize("example", ["llama2-70b", "falcon-40b"])
+def test_main_takes_the_examples_collective_matmul_auto(
+        tmp_path, monkeypatch, capsys, example):
+    """The two example servers that set ``collective_matmul: auto`` under
+    ``mesh_tensor: 4`` pass main's parse (no refusal; the replica itself,
+    which needs four GPUs, is stubbed) and main logs what "auto"
+    resolves to."""
+    import yaml
+
+    spec = yaml.safe_load((ROOT / "examples" / example / "server.yaml")
+                          .read_text())
+    params = spec["spec"]["params"]
+    assert params["mesh_tensor"] == 4 and params["collective_matmul"] \
+        == "auto"
+    started = []
+    monkeypatch.setattr(api, "_main_tensor_parallel",
+                        lambda p, world, backend: started.append(
+                            (p["model"], world, backend)) or 0)
+    (tmp_path / "params.json").write_text(json.dumps(params))
+    monkeypatch.setenv("RBT_CONTENT_DIR", str(tmp_path))
+    assert api.main() == 0
+    assert started == [(example, 4, "nccl")]
+    assert ("serve: collective_matmul='auto' under mesh_tensor=4 resolves "
+            "to 'all_reduce'") in capsys.readouterr().out

@@ -114,7 +114,8 @@ def check_dense(tmp_path, geometry):
     sharded forward, each rank's parameter bytes equal to the plan's, one
     forward's collectives, and the engine's greedy ids equal (where the
     heads shard: a registered shared prefix, requests that extend it and
-    plain ones)."""
+    plain ones); at 4 on 2, the engine under collective_matmul "auto"
+    gives the ids and prefill logits of "off" bit for bit."""
     jcfg, jparams, spec = model(geometry, tmp_path)
     mesh = ref_mesh()
     # The shared prefix where the heads shard (its splice reads the
@@ -126,11 +127,23 @@ def check_dense(tmp_path, geometry):
             "prompts": ([SHARED + [40], PROMPTS[1], SHARED + [41, 3],
                          PROMPTS[3]] if prefix else PROMPTS),
             "max_tokens": 6}
+    # collective_matmul "auto" resolves to the same all-reduces as "off"
+    # (ROADMAP §1 item 1 step 1): its engine, one more case of the same
+    # ranks at the 4-on-2 geometry, must give the same bits.
+    cases = [case] + ([dict(case, config={"collective_matmul": "auto"})]
+                      if geometry == "4on2" else [])
     want = ref_serve(jcfg, jparams, case, mesh)
     want_logits = ref_logits(jcfg, jparams, TOKENS, mesh)
-    ranks = tp_ranks.run_ranks(tp_ranks.serve, 2, tmp_path, spec, [case],
+    ranks = tp_ranks.run_ranks(tp_ranks.serve, 2, tmp_path, spec, cases,
                                TOKENS)
     got, fwd = ranks[0]["cases"], [r["forward"] for r in ranks]
+    assert got[0]["collective_matmul"] == "all_reduce"
+    for auto in got[1:]:
+        assert auto["collective_matmul"] == "all_reduce"
+        assert auto["ids"] == got[0]["ids"]
+        assert len(auto["prefill_logits"]) == len(got[0]["prefill_logits"])
+        for a, b in zip(auto["prefill_logits"], got[0]["prefill_logits"]):
+            assert a.shape == b.shape and (a == b).all()
     for r in fwd:
         np.testing.assert_allclose(r["logits"], want_logits,
                                    atol=LOGITS_ATOL, rtol=0)

@@ -161,18 +161,23 @@ def forward_logits(rank, mesh, spec: dict, tokens):
 def serve(rank, mesh, spec: dict, cases: list, tokens=None):
     """Each case through an engine built on every rank with the mesh:
     rank 0 drives it (prefix registration, then one generate of the
-    case's greedy requests) and the followers replay. Returns {"cases":
-    rank 0's output ids, kv_occupancy and counters per case (None on a
-    follower), "forward": forward_logits' result on ``tokens``, if
+    case's greedy requests) and the followers replay. A case's "config"
+    replaces fields of the model config. Returns {"cases": rank 0's
+    output ids, kv_occupancy, counters, the collective_matmul the engine
+    resolved and the f32 logits of every prefill dispatch, per case (None
+    on a follower), "forward": forward_logits' result on ``tokens``, if
     given}."""
+    import dataclasses
+
     from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
     from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
 
     out = {"forward": (None if tokens is None
                        else forward_logits(rank, mesh, spec, tokens))}
-    cfg, params = _model(spec)
+    base_cfg, params = _model(spec)
     results = out["cases"] = []
     for case in cases:
+        cfg = dataclasses.replace(base_cfg, **case.get("config", {}))
         kw = dict(case.get("engine", {}))
         if case["paged"]:
             engine = PagedInferenceEngine(cfg, params, mesh=mesh, **kw)
@@ -182,6 +187,15 @@ def serve(rank, mesh, spec: dict, cases: list, tokens=None):
             engine.serve_follower()
             results.append(None)
             continue
+        prefill_logits = []
+        prefill = engine._prefill
+
+        def recording(*args, **kw):
+            got = prefill(*args, **kw)
+            prefill_logits.append(got[2].numpy())
+            return got
+
+        engine._prefill = recording
         try:
             for prefix in case.get("prefixes", []):
                 engine.register_prefix(prefix)
@@ -202,7 +216,9 @@ def serve(rank, mesh, spec: dict, cases: list, tokens=None):
                 "spec_drafted": engine.spec_drafted,
                 "prefix_tokens_reused": engine.prefix_tokens_reused,
                 "kv_heads": int(engine.cache.k.shape[-2]),
-                "counts": dict(engine.tp.counts)})
+                "counts": dict(engine.tp.counts),
+                "collective_matmul": engine.collective_matmul,
+                "prefill_logits": prefill_logits})
         finally:
             engine.stop_followers()
     return out
@@ -238,7 +254,7 @@ def refusals(rank, mesh, spec: dict) -> dict:
         "preemption": lambda: InferenceEngine(cfg, params, mesh=mesh,
                                               preemption="swap"),
         "collective_matmul": lambda: InferenceEngine(
-            dataclasses.replace(cfg, collective_matmul="auto"), params,
+            dataclasses.replace(cfg, collective_matmul="ring"), params,
             mesh=mesh),
         "not_a_mesh": lambda: InferenceEngine(cfg, params, mesh=object()),
     }
