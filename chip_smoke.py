@@ -394,6 +394,23 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    through ``python -m runbooks_tpu_torch.models.loader``, every leaf
    bit-equal to the source taken apart by hand, the import served
    through K1.
+24. Mixtral's fine-tune (no kernel of its own; K1-K3 at llama3-8b's
+   32/8 heads of 128): (a) mixtral-8x7b at full width (8 experts of
+   4096 x 14336, vocab 32000), one packed 2048-token row, the MoE
+   objective (CE + moe_aux_coef x the summed aux): the LoRA gradient
+   (rank 16 on the attention, remat) over MIXTRAL_GRAD_LAYERS and the
+   full-parameter gradient (router and experts too, no remat) at 1
+   layer, each with K1-K3 and moe_block against the plain attention
+   and moe_block_dense, and against K1-K3 with moe_block_dense, under
+   phase 6's gates, with the kept share and the assignments routed
+   differently; (b) phase 7's LoRA job on an f32 base cut to
+   MIXTRAL_TRAIN_LAYERS through run_training: MIXTRAL_TRAIN_STEPS steps
+   with K1-K3's launches (2·L·4, L·4, L·4 a step) and the kept share,
+   a resume from the last checkpoint to one step more, tokens/s, MFU,
+   peak, and one traced step: idle share, K1-K3 and the MoE's device
+   time (each kernel charged to the op that launched it), and the
+   logged loss against CE + aux recomputed by hand (within
+   MIXTRAL_OBJECTIVE_RTOL).
 
 Each phase's end prints the seconds since the start; a run still going
 after WATCHDOG_S dumps every thread's stack to standard error. Checks
@@ -1298,15 +1315,32 @@ def bwd_kernel_phase(torch, dev, seed, batch, layouts=None):
     return records, worst
 
 
+def grad_gaps(torch, got, want):
+    """(worst relative L2, worst cosine, worst leaf's name) of gradients
+    ``got`` against ``want``, both {name: gradient}."""
+    worst_l2, worst_cos, name = 0.0, 1.0, None
+    for n, b in want.items():
+        a, b = got[n].float().flatten(), b.float().flatten()
+        rel = ((a - b).norm() / b.norm()).item()
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+        if rel > worst_l2:
+            name = n
+        worst_l2, worst_cos = max(worst_l2, rel), min(worst_cos, cos)
+    return worst_l2, worst_cos, name
+
+
 def lora_grads(torch, cfg, base, lora, lora_cfg, batch):
-    """(loss, [grad of each LoRA leaf]) of one loss-and-grad."""
+    """(loss, [grad of each LoRA leaf]) of one loss-and-grad (an MoE
+    config's objective with its moe_aux_coef x aux term)."""
     from runbooks_tpu_torch.train.lora import deltas
-    from runbooks_tpu_torch.train.step import make_ce_terms
+    from runbooks_tpu_torch.train.step import make_ce_terms, moe_aux_coef
 
     leaves = {t: {n: x.detach().clone().requires_grad_() for n, x in
                   ab.items()} for t, ab in lora.items()}
     ce = make_ce_terms(cfg, remat=True, loss_chunk=0)
-    loss, _ = ce(base, batch, deltas(leaves, lora_cfg))
+    loss, _, aux = ce(base, batch, deltas(leaves, lora_cfg))
+    if cfg.moe_num_experts:
+        loss = loss + moe_aux_coef(cfg) * aux
     flat = [x for ab in leaves.values() for x in ab.values()]
     return loss.item(), torch.autograd.grad(loss, flat)
 
@@ -1340,14 +1374,10 @@ def grad_check_phase(torch, dev, seed, batch, model="llama3-8b"):
         cfg, attention_impl="xla"), base, lora, lora_cfg, row)
     torch.cuda.synchronize()
     loss_rel = abs(loss_f - loss_x) / abs(loss_x)
-    ok = loss_rel <= GRAD_LOSS_RTOL
-    worst_l2, worst_cos = 0.0, 1.0
-    for a, b in zip(g_f, g_x):
-        a, b = a.float().flatten(), b.float().flatten()
-        rel = ((a - b).norm() / b.norm()).item()
-        cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
-        worst_l2, worst_cos = max(worst_l2, rel), min(worst_cos, cos)
-    ok &= worst_l2 <= GRAD_REL_L2_TOL and worst_cos >= GRAD_COS_MIN
+    worst_l2, worst_cos, _ = grad_gaps(torch, dict(enumerate(g_f)),
+                                       dict(enumerate(g_x)))
+    ok = (loss_rel <= GRAD_LOSS_RTOL and worst_l2 <= GRAD_REL_L2_TOL
+          and worst_cos >= GRAD_COS_MIN)
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     print(f"full-width LoRA gradient check ({model}, {GRAD_LAYERS} layers, "
@@ -8729,35 +8759,45 @@ def moe_device_share(torch, cfg, params, seed):
             "forward_ms": forward_ms}
 
 
-def count_routing(torch, records):
-    """Wrap models.moe.route to record each dispatch's (capacity factor,
-    tokens, kept assignments as a device tensor, assignments) into
-    ``records``; returns the restore function."""
+def count_routing(records):
+    """Wrap models.moe.route and moe.dispatch_combine_dense (the one-hot
+    formulation's routing, whose dispatch equals route's on the same
+    probabilities) to append each dispatch's (capacity factor, tokens,
+    expert, keep) to ``records`` (device tensors: no sync); returns the
+    restore function."""
     from runbooks_tpu_torch.models import moe
 
-    route = moe.route
+    route, dense = moe.route, moe.dispatch_combine_dense
 
     def counting(cfg, probs):
         r = route(cfg, probs)
-        records.append((cfg.moe_capacity_factor, probs.shape[0],
-                        r.keep.sum(), r.keep.numel()))
+        records.append((cfg.moe_capacity_factor, probs.shape[0], r.expert,
+                        r.keep))
         return r
 
-    moe.route = counting
-    return lambda: setattr(moe, "route", route)
+    def counting_dense(cfg, probs):
+        counting(cfg, probs.detach())
+        return dense(cfg, probs)
+
+    moe.route, moe.dispatch_combine_dense = counting, counting_dense
+
+    def restore():
+        moe.route, moe.dispatch_combine_dense = route, dense
+
+    return restore
 
 
 def routing_summary(records):
     """Kept share of the recorded dispatches' assignments by capacity
     factor and kind (decode: one token per slot; prefill: the rest)."""
     out = {}
-    for cf, T, kept, total in records:
+    for cf, T, _, keep in records:
         kind = "decode" if T <= 8 else "prefill"
         row = out.setdefault(f"cf{cf}", {}).setdefault(
             kind, {"dispatches": 0, "kept": 0, "assignments": 0})
         row["dispatches"] += 1
-        row["kept"] += int(kept.item())
-        row["assignments"] += total
+        row["kept"] += int(keep.sum().item())
+        row["assignments"] += keep.numel()
     for by_kind in out.values():
         for row in by_kind.values():
             row["kept_share"] = row["kept"] / row["assignments"]
@@ -8779,7 +8819,7 @@ def mixtral_phase(torch, dev, seed, workdir):
     layer = moe_layer_phase(torch, dev, seed)
     mark("phase 23 (a)")
     records = []
-    restore = count_routing(torch, records)
+    restore = count_routing(records)
     share = {}
     try:
         serve, serve_launches = family_serve(
@@ -8800,6 +8840,459 @@ def mixtral_phase(torch, dev, seed, workdir):
         "flash_fwd_launches": launches,
         "seconds": time.perf_counter() - t_phase}), flush=True)
     return launches, layer
+
+
+# ---------------------------------------------------------------------------
+# Mixtral's fine-tune: phase 24
+# ---------------------------------------------------------------------------
+
+# (a) the LoRA gradient check at full width cut to this depth (remat on);
+# the full-parameter gradient (router and experts too) runs at 1 layer
+# without remat.
+MIXTRAL_GRAD_LAYERS = 2
+# (b) run_training at full width cut to this depth: a layer is 1.451 B
+# parameters and embedding plus head 0.262 B, so the f32 base is 24.3 GB
+# at 4 layers and 47.5 GB at 8 (peak 29.7 GB at 4 layers on an H100; the
+# phase took 22 s there, so 8 fit the card and the script's time).
+MIXTRAL_TRAIN_LAYERS = 8
+MIXTRAL_TRAIN_STEPS = 3
+# The objective recomputed by hand (each microbatch's CE and aux, no
+# gradient) against the step's logged loss: the same sums in f32.
+MIXTRAL_OBJECTIVE_RTOL = 1e-5
+
+
+def named_leaves(tree, prefix=""):
+    """{dotted path: leaf} of a nested dict of tensors."""
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(named_leaves(v, path + "."))
+        else:
+            out[path] = v
+    return out
+
+
+def routing_gap(a, b):
+    """(assignments, kept in a, kept in b, assignments whose expert or
+    keep differ) of two runs' dispatches (count_routing's records)."""
+    total = sum(k.numel() for *_, k in a)
+    kept_a = sum(int(k.sum().item()) for *_, k in a)
+    kept_b = sum(int(k.sum().item()) for *_, k in b)
+    differ = sum(int(((ea != eb) | (ka != kb)).sum().item())
+                 for (*_, ea, ka), (*_, eb, kb) in zip(a, b))
+    return total, kept_a, kept_b, differ
+
+
+def with_moe_block(block, fn, *args):
+    """``fn(*args)`` with the forward's MoE FFN set to ``block``."""
+    from runbooks_tpu_torch.models import transformer
+
+    saved = transformer.moe_block
+    transformer.moe_block = block
+    try:
+        return fn(*args)
+    finally:
+        transformer.moe_block = saved
+
+
+# Phase 24 (a)'s three ways of computing one gradient: (name, attention,
+# MoE FFN). "kernels" against "plain" is the port's path against the plain
+# versions of both; "kernels" against "dense_moe" holds moe_block's
+# backward alone to the one-hot formulation's under the same attention,
+# so the same routing.
+MIXTRAL_GRAD_WAYS = (("kernels", "flash", "moe_block"),
+                     ("plain", "xla", "moe_block_dense"),
+                     ("dense_moe", "flash", "moe_block_dense"))
+
+
+def grad_ways(torch, fn):
+    """{way: (loss, {name: grad}, recorded routing)} of ``fn(cfg
+    replacement)`` -> (loss, {name: grad}) under each of
+    MIXTRAL_GRAD_WAYS."""
+    from runbooks_tpu_torch.models import moe
+
+    out = {}
+    for name, impl, block in MIXTRAL_GRAD_WAYS:
+        calls = []
+        restore = count_routing(calls)
+        try:
+            loss, grads = with_moe_block(getattr(moe, block), fn, impl)
+        finally:
+            restore()
+        out[name] = (loss, grads, calls)
+    torch.cuda.synchronize()
+    return out
+
+
+def grad_way_gaps(torch, ways, other):
+    """Phase 6's numbers for "kernels" against ``other``: loss relative
+    gap, worst leaf relative L2 and cosine, the routing."""
+    (loss_a, g_a, calls_a), (loss_b, g_b, calls_b) = ways["kernels"], \
+        ways[other]
+    l2, cos, worst = grad_gaps(torch, g_a, g_b)
+    total, kept_a, kept_b, differ = routing_gap(calls_a, calls_b)
+    return {"loss_kernels": loss_a, f"loss_{other}": loss_b,
+            "loss_rel": abs(loss_a - loss_b) / abs(loss_b),
+            "worst_rel_l2": l2, "worst_leaf": worst, "worst_cosine": cos,
+            "assignments": total, "kept_share_kernels": kept_a / total,
+            f"kept_share_{other}": kept_b / total,
+            "assignments_routed_differently": differ}
+
+
+def mixtral_grad_check(torch, dev, seed, batch):
+    """Phase 24 (a): mixtral-8x7b at full width, one packed 2048-token
+    row, the MoE objective (CE + moe_aux_coef x aux). LoRA (rank 16 on
+    the attention, remat) over MIXTRAL_GRAD_LAYERS, then the
+    full-parameter gradient (router and experts too) at 1 layer without
+    remat, each computed MIXTRAL_GRAD_WAYS' three ways: K1-K3 with
+    moe_block against the plain attention with moe_block_dense (the
+    reference's one-hot formulation) under autograd, and against K1-K3
+    with moe_block_dense; every pair held to phase 6's gates. The kept
+    share of assignments and the assignments two ways route differently
+    (the attentions' roundings move near-ties) are reported."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.transformer import init_params
+    from runbooks_tpu_torch.train.lora import LoraConfig, init_lora
+    from runbooks_tpu_torch.train.step import (
+        make_ce_terms,
+        moe_aux_coef,
+        trainable_copy,
+    )
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    row = {k: torch.from_numpy(v[:1]).to(dev) for k, v in batch.items()}
+    cfg = get_config("mixtral-8x7b", num_layers=MIXTRAL_GRAD_LAYERS)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 24)
+    base = init_params(cfg, gen, dev)
+    lora_cfg = LoraConfig(rank=16, alpha=32.0)
+    lora = init_lora(base, lora_cfg, gen)
+    for ab in lora.values():
+        ab["b"] = torch.randn(ab["b"].shape, generator=gen, device=dev) \
+            * 0.02
+
+    def lora_way(impl):
+        loss, grads = lora_grads(
+            torch, dataclasses.replace(cfg, attention_impl=impl), base,
+            lora, lora_cfg, row)
+        return loss, dict(enumerate(grads))
+
+    ways = grad_ways(torch, lora_way)
+    record = {"lora": {"layers": MIXTRAL_GRAD_LAYERS,
+                       "leaves": len(ways["kernels"][1]),
+                       **{other: grad_way_gaps(torch, ways, other)
+                          for other in ("plain", "dense_moe")}}}
+    del base, lora, ways
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg1 = get_config("mixtral-8x7b", num_layers=1)
+    params = init_params(cfg1, gen, dev)
+
+    def full_way(impl):
+        leaves = trainable_copy(params)
+        ce = make_ce_terms(dataclasses.replace(cfg1, attention_impl=impl),
+                           remat=False, loss_chunk=0)
+        loss, _, aux = ce(leaves, row)
+        loss = loss + moe_aux_coef(cfg1) * aux
+        named = named_leaves(leaves)
+        return loss.item(), dict(zip(named, torch.autograd.grad(
+            loss, list(named.values()))))
+
+    ways = grad_ways(torch, full_way)
+    g_a, g_b = ways["kernels"][1], ways["plain"][1]
+    record["full"] = {
+        "layers": 1, "leaves": len(g_a),
+        **{other: grad_way_gaps(torch, ways, other)
+           for other in ("plain", "dense_moe")},
+        "moe_rel_l2_plain": {
+            n: ((g_a[n].float() - g_b[n].float()).norm()
+                / g_b[n].float().norm()).item()
+            for n in g_b if n.startswith("layers.moe.")}}
+    del params, ways, g_a, g_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    record.update(seconds=time.perf_counter() - t0,
+                  peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print("phase 24 (a) " + json.dumps(record), flush=True)
+    pairs = [record[g][o] for g in ("lora", "full")
+             for o in ("plain", "dense_moe")]
+    if not all(r["loss_rel"] <= GRAD_LOSS_RTOL
+               and r["worst_rel_l2"] <= GRAD_REL_L2_TOL
+               and r["worst_cosine"] >= GRAD_COS_MIN for r in pairs):
+        raise SystemExit("phase 24 (a): mixtral's gradients with K1-K3 and "
+                         "moe_block disagree with the plain versions")
+    return record
+
+
+def moe_device_split(torch, prof):
+    """(device busy ms, MoE device ms, summed kernel ms) of a profiled
+    training step whose moe_block calls ran in "moe_block" ranges. Busy
+    is the union of the kernels' intervals (equal to their sum unless
+    two overlap). Each kernel belongs to the op
+    that launched it; it is the MoE's when the nearest enclosing
+    "moe_block" range or autograd backward node on the way up is a
+    moe_block range (its forward, or remat's recompute inside a backward
+    node) or a backward node created by an op inside such a range
+    (matched by autograd sequence number)."""
+    from torch.autograd import DeviceType
+
+    events = prof.events()
+    ranges = [e for e in events if e.name == "moe_block"
+              and e.device_type == DeviceType.CPU]
+    seqs = set()
+    for r in ranges:
+        lo, hi = r.time_range.start, r.time_range.end
+        for e in events:
+            if (e.thread == r.thread and e.sequence_nr >= 0
+                    and e.device_type == DeviceType.CPU
+                    and not e.name.startswith("autograd::engine")
+                    and lo <= e.time_range.start
+                    and e.time_range.end <= hi):
+                seqs.add(e.sequence_nr)
+
+    def moe_owned(e):
+        while e is not None:
+            if e.name == "moe_block":
+                return True
+            if e.name.startswith("autograd::engine::evaluate_function"):
+                return e.sequence_nr in seqs
+            e = e.cpu_parent
+        return False
+
+    moe_us = sum(k.duration for e in events
+                 if e.device_type == DeviceType.CPU and moe_owned(e)
+                 for k in e.kernels)
+    # The device timeline also holds the "moe_block" ranges themselves
+    # (user annotations spanning their kernels): only kernels, copies and
+    # sets count.
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and e.name != "moe_block")
+    busy_us = summed_us = 0.0
+    end = None
+    for lo, hi in spans:
+        summed_us += hi - lo
+        if end is None or lo > end:
+            busy_us += hi - lo
+            end = hi
+        elif hi > end:
+            busy_us += hi - end
+            end = hi
+    return busy_us / 1e3, moe_us / 1e3, summed_us / 1e3
+
+
+def mixtral_traced_step(torch, dev, seed, data_path, cfg, lora_cfg,
+                        opt_cfg):
+    """One LoRA step of the fine-tune (after a warm one) on a seeded base
+    under torch.profiler, each moe_block call in a range: the step's
+    wall time, the device's idle share, K1-K3's device time and the MoE's
+    share (moe_device_split). Before it, the objective by hand on the
+    traced step's batch (each microbatch's CE x its weight / the
+    batch's, plus moe_aux_coef x its aux / 4, from make_ce_terms without
+    gradient) against the step's logged loss."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from runbooks_tpu_torch.models import transformer
+    from runbooks_tpu_torch.models.transformer import init_params
+    from runbooks_tpu_torch.train import data
+    from runbooks_tpu_torch.train.lora import (
+        create_lora_train_state,
+        deltas,
+        make_lora_train_step,
+    )
+    from runbooks_tpu_torch.train.optimizer import make_optimizer
+    from runbooks_tpu_torch.train.step import make_ce_terms, moe_aux_coef
+
+    k = 4
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    base = init_params(cfg, gen, dev)
+    optimizer = make_optimizer(opt_cfg)
+    state = create_lora_train_state(lora_cfg, base, optimizer, gen)
+    step_fn = make_lora_train_step(cfg, lora_cfg, optimizer,
+                                   accumulate_steps=k)
+    batches = data.dataset(data_path, TRAIN_SEQ, 8, epochs=None)
+
+    def next_batch():
+        return {n: torch.from_numpy(v).to(dev)
+                for n, v in next(batches).items()}
+
+    state, _ = step_fn(state, base, next_batch())
+    torch.cuda.synchronize()
+    b = next_batch()
+    ce = make_ce_terms(cfg, remat=False, loss_chunk=0)
+    total_w = b["loss_mask"].float().sum().clamp(min=1.0)
+    m = b["tokens"].shape[0] // k
+    ce_part = aux_part = 0.0
+    with torch.no_grad():
+        for i in range(k):
+            micro = {n: v[i * m:(i + 1) * m] for n, v in b.items()}
+            loss, total, aux = ce(base, micro, deltas(state.params,
+                                                      lora_cfg))
+            ce_part += (loss * total / total_w).item()
+            aux_part += moe_aux_coef(cfg) * aux.item() / k
+    block = transformer.moe_block
+
+    def ranged(*args):
+        with record_function("moe_block"):
+            return block(*args)
+
+    def traced_step():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = step_fn(state, base, b)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        return prof, out, seconds
+
+    prof, (state, metrics), traced_s = with_moe_block(ranged, traced_step)
+    busy_ms, moe_ms, summed_ms = moe_device_split(torch, prof)
+    groups = {"flash_fwd_kernel": 0.0, "flash_bwd_dq_kernel": 0.0,
+              "flash_bwd_dkv_kernel": 0.0}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for g in groups:
+                if g in e.key:
+                    groups[g] += e.self_device_time_total / 1e3
+    logged = metrics["loss"].item()
+    objective = ce_part + aux_part
+    del state, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"traced_step_s": traced_s, "device_busy_ms": busy_ms,
+            "kernel_ms_summed": summed_ms,
+            "idle_share": 1 - busy_ms / 1e3 / traced_s,
+            "moe_device_ms": moe_ms,
+            "moe_share": moe_ms / busy_ms if busy_ms else None,
+            "k1_ms": groups["flash_fwd_kernel"],
+            "k2_ms": groups["flash_bwd_dq_kernel"],
+            "k3_ms": groups["flash_bwd_dkv_kernel"],
+            "logged_loss": logged, "loss_ce": ce_part,
+            "aux_term": aux_part, "loss_by_hand": objective,
+            "objective_rel": abs(objective - logged) / abs(logged)}
+
+
+def mixtral_fine_tune(torch, dev, seed, data_path, workdir):
+    """Phase 24 (b): phase 7's job (LoRA rank 16, alpha 32 on the
+    attention; batch 8 in 4 microbatches of 2 x 2048; lr 2e-5) on an f32
+    mixtral-8x7b base at full width cut to MIXTRAL_TRAIN_LAYERS through
+    run_training: MIXTRAL_TRAIN_STEPS steps with K1-K3's launches read
+    around them and the kept share of the MoE's assignments, a resume from
+    the last checkpoint to one step more, then one traced step
+    (mixtral_traced_step). Returns (record, launches of the first run)."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.ops.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+    )
+    from runbooks_tpu_torch.train.checkpoint import CheckpointManager
+    from runbooks_tpu_torch.train.lora import LoraConfig
+    from runbooks_tpu_torch.train.optimizer import OptimizerConfig
+    from runbooks_tpu_torch.train.trainer import TrainJobConfig, run_training
+
+    t0 = time.perf_counter()
+    steps, model = MIXTRAL_TRAIN_STEPS, "mixtral-8x7b"
+    overrides = {"num_layers": MIXTRAL_TRAIN_LAYERS}
+    cfg = get_config(model, **overrides)
+    art = f"{workdir}/{model}_artifacts"
+    lora_cfg = LoraConfig(rank=16, alpha=32.0)
+    opt_cfg = OptimizerConfig(learning_rate=2e-5)
+    job = TrainJobConfig(
+        model=model, model_overrides=overrides, lora=lora_cfg,
+        optimizer=opt_cfg, batch_size=8, seq_len=TRAIN_SEQ,
+        accumulate_steps=4, steps=steps, data_path=data_path,
+        artifacts_dir=art, log_every=1, seed=seed)
+    records = []
+    restore = count_routing(records)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    flash_attention_bwd.dq_launches = 0
+    flash_attention_bwd.dkv_launches = 0
+    try:
+        t_run = time.perf_counter()
+        summary = run_training(job)
+        wall = time.perf_counter() - t_run
+    finally:
+        launches = {"flash_fwd": flash_attention.launches,
+                    "flash_bwd_dq": flash_attention_bwd.dq_launches,
+                    "flash_bwd_dkv": flash_attention_bwd.dkv_launches}
+        restore()
+    peak = torch.cuda.max_memory_allocated()
+    # Each microbatch's dispatch, once in the forward and once in remat's
+    # recompute.
+    routing = {"dispatches": len(records),
+               "kept_share": sum(int(k.sum().item()) for *_, k in records)
+               / sum(k.numel() for *_, k in records)}
+    hist = summary["history"]
+    losses = [e["loss"] for e in hist]
+    # Each layer of each of the 4 microbatches: K1 twice (the forward
+    # and the remat's recompute), K2 and K3 once.
+    n = cfg.num_layers * 4
+    per_step = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    for name, want in per_step.items():
+        if launches[name] != want * steps:
+            raise SystemExit(f"phase 24 (b): {name} launched "
+                             f"{launches[name]} times in {steps} steps, "
+                             f"not {want * steps}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
+        raise SystemExit(f"phase 24 (b): losses {losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    resumed = run_training(dataclasses.replace(job, steps=steps + 1))
+    cursor = CheckpointManager(art).read_cursor(steps)
+    r_losses = [e["loss"] for e in resumed["history"]]
+    if (resumed["restored_step"] != steps
+            or cursor.get("batches_consumed") != steps
+            or resumed["batches_consumed"] != steps + 1
+            or [e["step"] for e in resumed["history"]] != [steps + 1]
+            or not all(math.isfinite(x) for x in r_losses)):
+        raise SystemExit("phase 24 (b): the resume did not continue at the "
+                         "saved step and cursor")
+    gc.collect()
+    torch.cuda.empty_cache()
+    traced = mixtral_traced_step(torch, dev, seed, data_path, cfg, lora_cfg,
+                                 opt_cfg)
+    last = hist[-1]
+    record = {"layers": cfg.num_layers, "steps": steps,
+              "wall_s_with_init": wall, "losses": losses,
+              "resumed_losses": r_losses,
+              "restored_step": resumed["restored_step"],
+              "cursor": cursor.get("batches_consumed"),
+              "first_step_s": summary["first_step_s"],
+              "step_s": last.get("step_s"),
+              "tokens_per_s": last["tokens_per_sec"],
+              "mfu": last.get("mfu"),
+              "flops_per_token_x3": 3.0 * cfg.flops_per_token(TRAIN_SEQ),
+              "peak_memory_gb": peak / 1e9, "launches": launches,
+              "launches_per_step_expected": per_step,
+              "routing": routing, "traced": traced,
+              "seconds": time.perf_counter() - t0}
+    print("phase 24 (b) " + json.dumps(record), flush=True)
+    if traced["objective_rel"] > MIXTRAL_OBJECTIVE_RTOL:
+        raise SystemExit("phase 24 (b): the logged loss is not CE plus "
+                         f"moe_aux_coef x aux: {traced}")
+    return record, launches
+
+
+def mixtral_train_phase(torch, dev, seed, batch, data_path, workdir):
+    """Phase 24: mixtral's fine-tune. (a) the gradient check; (b) the
+    LoRA fine-tune through run_training. Returns the fine-tune's K1-K3
+    launches."""
+    t0 = time.perf_counter()
+    grads = mixtral_grad_check(torch, dev, seed, batch)
+    mark("phase 24 (a)")
+    train, launches = mixtral_fine_tune(torch, dev, seed, data_path,
+                                        workdir)
+    print("phase 24 " + json.dumps({
+        "card": card_line(), "grad_check_s": grads["seconds"],
+        "fine_tune_s": train["seconds"], "launches": launches,
+        "seconds": time.perf_counter() - t0}), flush=True)
+    return launches
 
 
 def main():
@@ -8931,6 +9424,11 @@ def main():
         mixtral_launches, moe_records = mixtral_phase(torch, dev, args.seed,
                                                       workdir)
         mark("phase 23")
+        gc.collect()
+        torch.cuda.empty_cache()
+        mixtral_train_launches = mixtral_train_phase(
+            torch, dev, args.seed, batch, data_path, workdir)
+        mark("phase 24")
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -8951,7 +9449,8 @@ def main():
                      + obs_launches + sum(gateway_launches.values())
                      + sum(tp_launches.values())
                      + sum(fsdp_launches["flash_fwd"].values())
-                     + sum(mixtral_launches.values())),
+                     + sum(mixtral_launches.values())
+                     + mixtral_train_launches["flash_fwd"]),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
@@ -8967,7 +9466,9 @@ def main():
                              "obs_overhead": obs_launches,
                              **gateway_launches, **tp_launches,
                              **fsdp_launches["flash_fwd"],
-                             **mixtral_launches},
+                             **mixtral_launches,
+                             "mixtral_train":
+                                 mixtral_train_launches["flash_fwd"]},
         "max_abs_err": max(worst, family_records["fwd_worst"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -9027,12 +9528,15 @@ def main():
             "launches": (train_launches[name] + text_launches[name]
                          + family_bwd_launches[name]
                          + sum(entry_launches[name].values())
-                         + sum(fsdp_launches[name].values())),
+                         + sum(fsdp_launches[name].values())
+                         + mixtral_train_launches[name]),
             "launches_by_path": {"train": train_launches[name],
                                  "text_train": text_launches[name],
                                  "falcon_train": family_bwd_launches[name],
                                  **entry_launches[name],
-                                 **fsdp_launches[name]},
+                                 **fsdp_launches[name],
+                                 "mixtral_train":
+                                     mixtral_train_launches[name]},
             "max_abs_err": max(bwd_worst[name],
                                family_records["bwd_worst"][name]),
             "ms": train_case["ms"][name],

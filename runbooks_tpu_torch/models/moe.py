@@ -13,16 +13,32 @@ function without them:
   token's first choice before any second choice), and the reference's
   ``keep = slot < capacity``: assignments past an expert's capacity are
   dropped;
-- dispatch gathers the kept tokens' rows into [E, C, h] (zeros in the
-  unfilled slots), the experts are three batched products with f32
-  accumulation, each cast to the activation dtype, and combine
-  scatter-adds ``weight · out_e`` with the weights first rounded to the
+- dispatch writes the kept assignments' token rows into [E, C, h]
+  (zeros in the unfilled slots), the experts are three batched products
+  with f32 accumulation, each cast to the activation dtype, and combine
+  gathers each assignment's expert output and sums ``weight · out_e``
+  over the token's k choices, the weights first rounded to the
   activation dtype, as the reference's ``combine.astype(ad)``. The
   combine's products and sums are taken in f64 and rounded to f32 once:
   a token's result is then the same whatever order its k terms arrive
   in. In bf16 the products are exact in f32 and this is the reference's
   f32 sum bit for bit; in f32 it is the correctly rounded sum, within an
   f32 rounding of the reference's.
+
+The backward is autograd's, and it is exact and deterministic on CUDA
+without a hand-written ``autograd.Function``. Assignments are laid out
+choice-major (index j·T + t), so the token side of dispatch is the rows
+repeated k times and the combine's sum a sum over that leading axis of
+k: their backwards are a sum and a broadcast, with no atomic adds. The
+two gathers by slot take a gradient that is a gather (dispatch) and an
+accumulating ``index_put_`` (combine), which CUDA runs sorted by index;
+the only indices they repeat are the trash row and the last slot that
+dropped assignments point at, and those carry exact zeros (``keep``),
+as the reference's ``combine`` gives a dropped assignment none. The
+gradient reaches x, the router (through the renormalised gates and, in
+the aux, through the mean probabilities ``me``) and the three expert
+weights; the first-choice fractions ``ce`` are counts and carry none, as
+in the reference.
 
 ``moe_block_dense`` is the reference's one-hot formulation written out
 literally, the plain version the tests and chip_smoke.py hold
@@ -115,23 +131,23 @@ def moe_block(cfg, p: Params, x: torch.Tensor
     """MoE FFN over x [b, s, h] with one layer's ``p`` (router [h, E],
     wi_gate / wi_up [E, h, m], wo [E, m, h]) -> (out [b, s, h], aux).
     Shapes stay static (no host sync): a dropped assignment writes its
-    token to a trash row past the E·C slots and combines with weight 0."""
+    token to a trash row past the E·C slots and combines with weight 0
+    (and so takes no gradient)."""
     ad = cfg.activation_dtype
     b, s, h = x.shape
-    T, E = b * s, cfg.moe_num_experts
+    T, E, k = b * s, cfg.moe_num_experts, cfg.moe_top_k
     xt = x.reshape(T, h)
     r = route(cfg, router_probs(p, xt))
     EC = E * r.capacity
-    token = torch.arange(r.expert.shape[0], device=x.device) % T
     row = torch.where(r.keep, r.expert * r.capacity + r.slot, EC)
-    expert_in = torch.zeros((EC + 1, h), dtype=ad, device=x.device)
-    expert_in[row] = xt.to(ad)[token]
+    # Assignment j·T + t carries token t: the rows repeated k times.
+    expert_in = torch.zeros((EC + 1, h), dtype=ad, device=x.device
+                            ).index_put((row,), xt.to(ad).repeat(k, 1))
     out_e = _experts(cfg, p, expert_in[:EC].reshape(E, r.capacity, h))
     picked = out_e.reshape(EC, h)[row.clamp(max=EC - 1)].double()
     weight = r.gate.to(ad).double()
     contrib = torch.where(r.keep[:, None], weight[:, None] * picked, 0.0)
-    out = torch.zeros((T, h), dtype=torch.float64, device=x.device)
-    out.index_add_(0, token, contrib)
+    out = contrib.reshape(k, T, h).sum(0)
     return out.float().to(ad).reshape(b, s, h), r.aux
 
 

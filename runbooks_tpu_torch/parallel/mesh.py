@@ -123,8 +123,10 @@ def check_mesh_model(cfg, config: MeshConfig) -> None:
         raise NotImplementedError(
             f"config {cfg.name!r} (MoE: moe_num_experts="
             f"{cfg.moe_num_experts}) under {', '.join(axes)}: the PyTorch "
-            "port runs MoE models on one device; MoE under a mesh is not "
-            "ported yet (ROADMAP.md §1 item 4)")
+            "port runs MoE models on one device; the reference routes "
+            "over the global batch (capacity, slots and the aux loss span "
+            "every rank), and MoE under a mesh is not ported yet "
+            "(ROADMAP.md §1 item 4)")
 
 
 def make_mesh(config: Optional[MeshConfig] = None,

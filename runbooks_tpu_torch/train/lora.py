@@ -22,6 +22,7 @@ from runbooks_tpu_torch.train.step import (
     TrainState,
     apply_step,
     make_ce_terms,
+    moe_aux_coef,
     trainable_copy,
     value_and_grad,
 )
@@ -31,7 +32,9 @@ Params = Any
 
 # Matrices eligible for LoRA, by their path inside params["layers"]
 # ("mlp.wi" is the plain MLP's input matrix; "wi_gate"/"wi_up" the gated
-# one's). Targets a model lacks are skipped.
+# one's). Targets a model lacks are skipped: an MoE model has no "mlp"
+# group (its experts are "moe"), so only its attention takes adapters, as
+# in the reference.
 DEFAULT_TARGETS = ("attn.wq", "attn.wk", "attn.wv", "attn.wo")
 ALL_TARGETS = DEFAULT_TARGETS + ("mlp.wi_gate", "mlp.wi_up", "mlp.wi",
                                  "mlp.wo")
@@ -159,18 +162,22 @@ def make_lora_train_step(model_cfg: ModelConfig, lora_cfg: LoraConfig,
     """(state, base_params, batch) -> (state, metrics); gradients reach
     only the LoRA tree. accumulate_steps, loss_chunk and fsdp as in
     ``make_train_step`` (the base, too, holds the rank's pieces; it is
-    gathered without gradient traffic)."""
+    gathered without gradient traffic). An MoE model's objective is full
+    fine-tuning's, the load-balance term included (the reference's: it
+    keeps the routing balanced while adapting; its gradient reaches the
+    adapters through the router's inputs)."""
     k = int(accumulate_steps)
     if k < 1:
         raise ValueError(f"accumulate_steps must be >= 1, got {k}")
     ce_terms = make_ce_terms(model_cfg, remat, int(loss_chunk), fsdp)
+    coef = moe_aux_coef(model_cfg)
 
     def step_fn(state: TrainState, base_params: Params, batch):
         def loss_fn(lora, micro):
             return ce_terms(base_params, micro, deltas(lora, lora_cfg))
 
         (loss, total), grads = value_and_grad(
-            loss_fn, trainable_copy(state.params), batch, k, fsdp)
+            loss_fn, trainable_copy(state.params), batch, k, fsdp, coef)
         return apply_step(optimizer, state, loss, total, grads, fsdp)
 
     return step_fn

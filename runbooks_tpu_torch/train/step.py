@@ -98,61 +98,63 @@ def chunked_cross_entropy(acts: torch.Tensor, head: torch.Tensor,
     return nll_sum / total, total
 
 
-def refuse_moe_training(cfg: ModelConfig) -> None:
-    """Refuse, by name, training an MoE config: its objective adds
-    ``moe_aux_coef`` times the router's load-balance loss, which the
-    port's train step does not add yet, so a step would silently train
-    another objective."""
-    if cfg.moe_num_experts:
-        raise NotImplementedError(
-            f"training config {cfg.name!r} (moe_num_experts="
-            f"{cfg.moe_num_experts}): the MoE objective adds moe_aux_coef x "
-            "the load-balance aux loss, which the PyTorch port's train step "
-            "does not add yet (ROADMAP.md §1 item 3 (b)); the port serves "
-            "MoE models only")
+def moe_aux_coef(cfg: ModelConfig) -> float:
+    """The weight of the router's load-balance loss in the objective:
+    ``cfg.moe_aux_coef`` for an MoE config, 0 (no term) for a dense one."""
+    return float(cfg.moe_aux_coef) if cfg.moe_num_experts else 0.0
 
 
 def make_ce_terms(cfg: ModelConfig, remat: bool, loss_chunk: int,
                   fsdp=None):
-    """(params, batch, lora=None) -> (mean CE loss, total weight).
+    """(params, batch, lora=None) -> (mean CE loss, total weight, MoE aux),
+    as the reference's: aux is the layers' summed load-balance loss (0
+    for a dense model), which the train steps weigh by ``moe_aux_coef``.
     loss_chunk > 0 takes the chunked loss over the post-norm activations;
     0 the full logits and ``cross_entropy_loss``. A tied head is
     ``embed.T`` (its gradient reaches the embedding), as the
     reference's. Under ``fsdp`` the params are the rank's pieces: the
     leaves outside the layers are gathered here (``Fsdp.outer``), the
-    layers' inside the forward's blocks. An MoE config is refused
-    (refuse_moe_training)."""
-    refuse_moe_training(cfg)
+    layers' inside the forward's blocks."""
 
     def ce_terms(params, batch: Batch, lora=None):
         if fsdp is not None:
             params = fsdp.outer(params)
-        out, _ = forward(cfg, params, batch["tokens"],
-                         positions=batch.get("positions"),
-                         segment_ids=batch.get("segment_ids"), remat=remat,
-                         return_activations=True, lora=lora, fsdp=fsdp)
+        out, _, aux = forward(cfg, params, batch["tokens"],
+                              positions=batch.get("positions"),
+                              segment_ids=batch.get("segment_ids"),
+                              remat=remat, with_aux=True,
+                              return_activations=True, lora=lora, fsdp=fsdp)
         if loss_chunk:
-            return chunked_cross_entropy(
+            loss, total = chunked_cross_entropy(
                 out, head_weight(cfg, params), batch["targets"],
                 batch.get("loss_mask"), chunk_size=loss_chunk,
                 compute_dtype=cfg.activation_dtype)
-        return cross_entropy_loss(lm_head(cfg, params, out),
-                                  batch["targets"], batch.get("loss_mask"))
+        else:
+            loss, total = cross_entropy_loss(
+                lm_head(cfg, params, out), batch["targets"],
+                batch.get("loss_mask"))
+        return loss, total, aux
 
     return ce_terms
 
 
-def value_and_grad(loss_fn: Callable[[Any, Batch], Tuple[torch.Tensor,
-                                                          torch.Tensor]],
-                   trainable: Any, batch: Batch, k: int = 1, fsdp=None):
-    """((loss, total weight), grads) of ``loss_fn(trainable, batch)`` over
-    k microbatches of the batch's leading axis. Each microbatch's mean loss
-    is rescaled to its share of the global mean (loss * its weight / total
-    weight of the whole batch), and its gradients sum into an f32
-    accumulator, cast back to each leaf's dtype at the end. Under ``fsdp``
-    the batch is the rank's rows (``shard_batch``): the total weight and
-    the loss are summed over every rank, and the gradients as
-    ``Fsdp.reduce_grads`` says."""
+def value_and_grad(loss_fn: Callable[[Any, Batch],
+                                     Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]],
+                   trainable: Any, batch: Batch, k: int = 1, fsdp=None,
+                   aux_coef: float = 0.0):
+    """((loss, total weight), grads) of ``loss_fn(trainable, batch)``
+    (make_ce_terms' triple) over k microbatches of the batch's leading
+    axis. Each microbatch's mean loss is rescaled to its share of the
+    global mean (loss * its weight / total weight of the whole batch),
+    and then, as the reference's objective, ``aux_coef * aux / k`` is
+    added: each microbatch routes its own tokens and the aux term is
+    their mean (with one microbatch and no FSDP, ``loss + aux_coef *
+    aux``). The gradients sum into an f32 accumulator, cast back to each
+    leaf's dtype at the end; the loss returned includes the aux term.
+    Under ``fsdp`` the batch is the rank's rows (``shard_batch``): the
+    total weight and the loss are summed over every rank, and the
+    gradients as ``Fsdp.reduce_grads`` says."""
     b = batch["tokens"].shape[0]
     if b % k:
         raise ValueError(f"accumulate_steps={k} must divide batch size {b}")
@@ -170,9 +172,11 @@ def value_and_grad(loss_fn: Callable[[Any, Batch], Tuple[torch.Tensor,
     m = b // k
     for i in range(k):
         micro = {key: val[i * m:(i + 1) * m] for key, val in batch.items()}
-        loss, total = loss_fn(trainable, micro)
+        loss, total, aux = loss_fn(trainable, micro)
         if rescale:
             loss = loss * total / total_weight
+        if aux_coef:
+            loss = loss + aux_coef * aux / k
         grads = torch.autograd.grad(loss, leaves)
         for a, g in zip(acc, grads):
             a.add_(g.float())
@@ -238,7 +242,8 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, remat: bool = True,
                     fsdp=None):
     """(state, batch) -> (state, metrics) for full fine-tuning. Batch keys:
     tokens and targets [b, s], optional loss_mask, segment_ids and
-    positions [b, s], tensors on the params' device. Metrics: loss,
+    positions [b, s], tensors on the params' device. Metrics: loss (with
+    an MoE config's ``moe_aux_coef`` x aux term, as the reference's),
     grad_norm, weight_tokens, nonfinite (0 or 1). Under ``fsdp`` (a
     parallel/sharding.Fsdp) the state holds the rank's pieces and the
     batch its rows (``shard_batch``); the metrics are the global ones."""
@@ -246,10 +251,11 @@ def make_train_step(cfg: ModelConfig, optimizer: AdamW, remat: bool = True,
     if k < 1:
         raise ValueError(f"accumulate_steps must be >= 1, got {k}")
     ce_terms = make_ce_terms(cfg, remat, int(loss_chunk), fsdp)
+    coef = moe_aux_coef(cfg)
 
     def step_fn(state: TrainState, batch: Batch):
         (loss, total), grads = value_and_grad(
-            ce_terms, trainable_copy(state.params), batch, k, fsdp)
+            ce_terms, trainable_copy(state.params), batch, k, fsdp, coef)
         return apply_step(optimizer, state, loss, total, grads, fsdp)
 
     return step_fn

@@ -30,9 +30,8 @@ form a MeshConfig, as the reference's; ``mesh_data`` and ``mesh_fsdp``
 train over that many ranks, and the other axes above 1 are refused by
 name (parallel/mesh.check_training_mesh), as is a multi-host env, and so
 is gemma or an MoE model under any mesh (parallel/mesh.check_mesh_model).
-An MoE config (mixtral) is refused by name before any work: its
-objective's load-balance aux loss is not ported yet
-(train/step.refuse_moe_training). ``main``
+An MoE config (mixtral) trains in one process, its objective with the
+router's load-balance term (train/step.value_and_grad). ``main``
 resolves the mesh against the GPUs it sees (a -1 axis fills with them; a
 mesh that needs more raises naming ``torch.cuda.device_count()``) and
 runs one rank per GPU over NCCL: it is rank 0 and spawns the others.
@@ -116,7 +115,6 @@ from runbooks_tpu_torch.train.step import (
     first_step,
     fsdp_plan,
     make_train_step,
-    refuse_moe_training,
     shard_batch,
 )
 from runbooks_tpu_torch.utils import contract, cuda_build
@@ -340,7 +338,6 @@ def run_training(job: TrainJobConfig, base_params=None,
         mesh_cfg = check_training_mesh(mesh_config_of(mesh))
     world = mesh_cfg.data * mesh_cfg.fsdp
     model_cfg = get_config(job.model, **job.model_overrides)
-    refuse_moe_training(model_cfg)
     check_mesh_model(model_cfg, mesh_cfg)
     refuse_unported_attention(model_cfg, dev)
     if job.accumulate_steps < 1:
@@ -936,7 +933,6 @@ def main(backend: Optional[str] = None) -> int:
     backend = backend or "nccl"
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
-    refuse_moe_training(get_config(job.model, **job.model_overrides))
     mesh = training_world(job.mesh, backend)
     check_mesh_model(get_config(job.model, **job.model_overrides), mesh)
     world = mesh.data * mesh.fsdp

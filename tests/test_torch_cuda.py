@@ -941,3 +941,63 @@ def test_moe_block_equals_dense_formulation_on_card(dtype, b, s):
         assert float(aux) == float(want_aux)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+# moe_block's gradients against moe_block_dense's on the card, each leaf
+# within this share of its largest magnitude: f32 sums the same products
+# in another order; in bf16 both round the same f32 sums to bf16, except
+# where x's two paths (router and experts) meet.
+MOE_GRAD_RTOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_block_backward_equals_dense_formulation_on_card(dtype):
+    """The training microbatch's shape at debug width (2 x 512 tokens, 8
+    experts of top 2, capacity factor 1.25, so assignments drop): the
+    gradients of out . cot + aux for x, the router, wi_gate, wi_up and wo
+    from moe_block equal moe_block_dense's within MOE_GRAD_RTOL, reach
+    every leaf, and are the same bits when the backward runs twice (no
+    atomic adds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from runbooks_tpu_torch.models import moe
+    from runbooks_tpu_torch.models.config import get_config
+
+    cfg = get_config("debug", hidden_size=256, intermediate_size=512,
+                     moe_num_experts=8, moe_top_k=2, dtype=dtype)
+    E, h, m, b, s = 8, 256, 512, 2, 512
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        g = torch.Generator(device="cuda").manual_seed(7)
+
+        def normal(shape, fan_in):
+            return torch.randn(shape, generator=g, device="cuda") \
+                * fan_in ** -0.5
+
+        p = {"router": normal((h, E), 1), "wi_gate": normal((E, h, m), h),
+             "wi_up": normal((E, h, m), h), "wo": normal((E, m, h), m)}
+        x = (normal((b, s, h), 1) + normal((h,), 1)).to(
+            cfg.activation_dtype)
+        cot = normal((b, s, h), 1).to(cfg.activation_dtype)
+
+        def grads(block):
+            leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+            xx = x.clone().requires_grad_()
+            out, aux = block(cfg, leaves, xx)
+            loss = (out.float() * cot.float()).sum() + aux
+            return torch.autograd.grad(loss, [xx] + list(leaves.values()))
+
+        r = moe.route(cfg, moe.router_probs(p, x.reshape(b * s, h)))
+        assert 0 < int(r.keep.sum()) < r.keep.numel()
+        got, again, want = (grads(moe.moe_block), grads(moe.moe_block),
+                            grads(moe.moe_block_dense))
+        for name, a, a2, w in zip(["x"] + list(p), got, again, want):
+            assert torch.equal(a, a2), name
+            scale = w.float().abs().max().item()
+            assert scale > 0, name
+            err = (a.float() - w.float()).abs().max().item()
+            assert err <= MOE_GRAD_RTOL[dtype] * scale, (name, err, scale)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

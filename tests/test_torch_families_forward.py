@@ -309,7 +309,7 @@ def test_tied_head_chunked_ce_equals_dense(name):
         leaves = {k: v for k, v in _named(tparams).items()}
         for t in leaves.values():
             t.requires_grad_(True)
-        loss, _ = make_ce_terms(tcfg, remat=False, loss_chunk=chunk)(
+        loss, _, _ = make_ce_terms(tcfg, remat=False, loss_chunk=chunk)(
             tparams, batch)
         grads = torch.autograd.grad(loss, list(leaves.values()))
         for t in leaves.values():

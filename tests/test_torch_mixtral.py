@@ -23,8 +23,10 @@ matmuls at "highest", tests/conftest.py).
   logits are in tests/test_torch_convert.py and the import of an HF
   directory in tests/test_torch_loader.py.
 - Refusals by name: MoE under mesh_tensor / mesh_fsdp / mesh_data,
-  mesh_expert, a tensor-parallel or FSDP forward, and the fine-tune (the
-  aux loss).
+  mesh_expert, a tensor-parallel or FSDP forward, and the fine-tune's
+  example manifest (mesh_expert 8, mesh_tensor 2). In one process the
+  fine-tune trains through every entry point (its parity with the
+  reference is tests/test_torch_moe_training.py's).
 """
 
 import dataclasses
@@ -375,27 +377,65 @@ def test_sharded_forwards_refuse_moe(world):
             forward(tcfg, tparams, tokens, **kw)
 
 
-def test_fine_tune_is_refused_naming_the_aux_loss(tmp_path, monkeypatch):
+def test_fine_tune_trains_and_the_examples_manifest_is_refused(
+        tmp_path, monkeypatch):
+    """make_train_step, make_lora_train_step, run_training and main each
+    take a step of the debug MoE in one process; main refuses
+    examples/mixtral-8x7b/finetuned-model.yaml's params by naming
+    mesh_expert."""
     from runbooks_tpu_torch.train import trainer
-    from runbooks_tpu_torch.train.lora import LoraConfig, make_lora_train_step
+    from runbooks_tpu_torch.train.lora import (
+        LoraConfig,
+        create_lora_train_state,
+        make_lora_train_step,
+    )
     from runbooks_tpu_torch.train.optimizer import AdamW, OptimizerConfig
-    from runbooks_tpu_torch.train.step import make_train_step
+    from runbooks_tpu_torch.train.step import (
+        create_train_state,
+        make_train_step,
+    )
 
-    cfg = get_config("debug", **MOE)
-    words = r"load-balance aux loss.*ROADMAP.md §1 item 3 \(b\)"
+    moe = {**MOE, "vocab_size": 512}     # the trainer's byte tokenizer
+    cfg = get_config("debug", **moe)
+    params = api.load_model({"model": "debug", "model_overrides": moe,
+                             "seed": 1}, device="cpu")[1]
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(1, 512, (2, 17)))
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:]}
     opt = AdamW(OptimizerConfig())
-    for call in (lambda: make_train_step(cfg, opt),
-                 lambda: make_lora_train_step(cfg, LoraConfig(rank=4), opt),
-                 lambda: trainer.run_training(trainer.TrainJobConfig(
-                     model="debug", model_overrides=MOE,
-                     artifacts_dir=str(tmp_path)), device="cpu")):
-        with pytest.raises(NotImplementedError, match=words):
-            call()
-    (tmp_path / "params.json").write_text(json.dumps(
-        {"model": "mixtral-8x7b", "maintenance_poll_s": 0}))
-    monkeypatch.setenv("RBT_CONTENT_DIR", str(tmp_path))
+    state, m = make_train_step(cfg, opt, accumulate_steps=2)(
+        create_train_state(params, opt), batch)
+    assert state.step == 1 and m["nonfinite"] == 0
+    lcfg = LoraConfig(rank=4)
+    state, m = make_lora_train_step(cfg, lcfg, opt)(
+        create_lora_train_state(lcfg, params, opt,
+                                torch.Generator().manual_seed(0)),
+        params, batch)
+    assert state.step == 1 and m["nonfinite"] == 0
+    docs = tmp_path / "docs.jsonl"
+    docs.write_text("".join(json.dumps({"text": "moe " * n}) + "\n"
+                            for n in range(5, 60)))
+    summary = trainer.run_training(trainer.TrainJobConfig(
+        model="debug", model_overrides=moe, seq_len=16, batch_size=2,
+        steps=1, data_path=str(docs),
+        artifacts_dir=str(tmp_path / "run")), device="cpu")
+    assert [e["step"] for e in summary["history"]] == [1]
+    content = tmp_path / "content"
+    (content / "data").mkdir(parents=True)
+    (content / "data" / "docs.jsonl").write_text(docs.read_text())
+    (content / "params.json").write_text(json.dumps({
+        "model": "debug", "model_overrides": moe, "seq_len": 16,
+        "batch_size": 2, "steps": 1, "maintenance_poll_s": 0}))
+    monkeypatch.setenv("RBT_CONTENT_DIR", str(content))
     monkeypatch.setenv("GCE_METADATA_HOST", "127.0.0.1:9")
-    with pytest.raises(NotImplementedError, match=words):
+    monkeypatch.setattr(trainer, "resolve_device",
+                        lambda device=None: torch.device("cpu"))
+    assert trainer.main() == 0
+    # examples/mixtral-8x7b/finetuned-model.yaml's params.
+    (content / "params.json").write_text(json.dumps({
+        "model": "mixtral-8x7b", "lora": {"rank": 16, "alpha": 32.0},
+        "steps": 500, "batch_size": 8, "seq_len": 4096,
+        "learning_rate": 1.0e-5, "mesh_expert": 8, "mesh_tensor": 2,
+        "maintenance_poll_s": 0}))
+    with pytest.raises(NotImplementedError, match="mesh_expert=8"):
         trainer.main(backend="gloo")
-    # The dense models still train.
-    make_train_step(dataclasses.replace(cfg, moe_num_experts=0), opt)

@@ -7,6 +7,7 @@ speculation, grammar, each histogram's _count), one request's flight
 timeline has the reference's span names in order, and the /debug routes
 answer with the reference's shape."""
 
+import gc
 import json
 
 import jax
@@ -16,6 +17,7 @@ import torch
 
 from runbooks_tpu.models.config import get_config as jax_get_config
 from runbooks_tpu.models.transformer import init_params as jax_init_params
+from runbooks_tpu.obs import device as ref_device
 from runbooks_tpu.obs import flight as ref_flight
 from runbooks_tpu.obs import incident as ref_incident
 from runbooks_tpu.obs import metrics as ref_metrics
@@ -23,7 +25,7 @@ from runbooks_tpu.serve.api import create_server as jax_create_server
 from runbooks_tpu.train.data import ByteTokenizer as JaxByteTokenizer
 from runbooks_tpu_torch.models import bridge
 from runbooks_tpu_torch.models.config import get_config
-from runbooks_tpu_torch.obs import flight, incident, metrics
+from runbooks_tpu_torch.obs import device, flight, incident, metrics
 from runbooks_tpu_torch.serve import api
 from runbooks_tpu_torch.train.data import ByteTokenizer
 from tests.test_obs import lint_exposition
@@ -125,7 +127,17 @@ def _families(text):
 
 
 def _scrape(servers):
+    """Both servers' /metrics. Each /metrics mirrors its package's
+    process-wide "serve" program census (obs/device.PROGRAMS, which the
+    fixture's reset does not touch): a warmed engine of an earlier test
+    that is garbage but not yet collected (its jitted programs close
+    over it, a cycle only the cyclic collector frees) would add its
+    programs' cost families (xla_program_flops, _hbm_bytes,
+    _arithmetic_intensity, _bandwidth_bound) to one side. Collecting
+    first drops such dead programs from both censuses; a live leftover
+    engine still shows."""
     jax_srv, torch_srv, _ = servers
+    gc.collect()
     (js, jh, jt), (ts, th, tt) = [_call(s.base, "/metrics")
                                   for s in (jax_srv, torch_srv)]
     assert js == ts == 200
@@ -169,6 +181,37 @@ def test_metric_families_ignore_other_reference_code(servers):
     ref_metrics.REGISTRY.set_gauge("fleet_history_points", 30)
     ref_metrics.REGISTRY.observe("controller_fleet_scrape_seconds", 0.01)
     test_metric_families_equal_the_references(servers)
+
+
+class _DeadEngine:
+    """What a warmed engine of an earlier test leaves when it becomes
+    garbage: its program, registered in a "serve" census with a recorded
+    cost, and a reference cycle that keeps both until the cyclic
+    collector runs."""
+
+    def __init__(self, programs):
+        self.program = lambda: self      # closes over its owner
+        programs.register("serve", "decode_v4096", self.program)
+        programs.record_cost("serve", "decode_v4096", "v4096", {
+            "flops": 1e9, "hbm_bytes": 1e8, "arithmetic_intensity": 10.0,
+            "bound": "bandwidth"})
+
+
+@pytest.mark.parametrize("side", ["reference", "port"])
+def test_metric_families_ignore_dead_engines_programs(servers, side):
+    """A dead engine's warmed programs, still in its package's census at
+    the scrape (the order-dependent failure P5: a warmed reference
+    engine of an earlier test in the worker, not yet collected), are not
+    the server's: the families still equal the references."""
+    gc_was = gc.isenabled()
+    gc.disable()
+    try:
+        _DeadEngine(ref_device.PROGRAMS if side == "reference"
+                    else device.PROGRAMS)
+        test_metric_families_equal_the_references(servers)
+    finally:
+        if gc_was:
+            gc.enable()
 
 
 COUNTERS = ("serve_requests_total", "serve_requests_failed_total",
