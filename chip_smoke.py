@@ -411,6 +411,29 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    time (each kernel charged to the op that launched it), and the
    logged loss against CE + aux recomputed by hand (within
    MIXTRAL_OBJECTIVE_RTOL).
+25. Expert-parallel mixtral serving (``mesh_expert`` x ``mesh_tensor``;
+   no kernel of its own, K1 at 16/4 local heads of 128): (a)
+   mixtral-8x7b bf16 at full width cut to MIXTRAL_EP_LAYERS as four
+   ranks (EP_MESH: expert 2 x tensor 2) sharing the card over gloo, each
+   loading only its shard (16/4 heads, experts {0-3} or {4-7} on 7168
+   MLP columns, half the vocabulary; bytes equal to the plan's); the
+   dense engine serves phase 20's 8-request mix and the paged one the
+   same lengths behind a registered shared prefix, rank 0 driving and
+   the others replaying; gates: greedy ids equal to one process's on the
+   same weights (run after the ranks end) or differing first at a
+   near-tie, the longest prompt's prefill logits within EP_LOGIT_GAP and
+   the two planted faults (EP_FAULTS) outside it, every rank's routing
+   of that prefill identical, each rank's K1 launches equal to one
+   process's; reported: peak memory per rank, one forward's collectives
+   by group, the kept share, the assignments routed otherwise than in
+   one process and tokens/s (gloo over host memory on one card, not an
+   EP speed). (b) NCCL at world 1 under mesh_expert 1 x mesh_tensor 1:
+   the serving group's f64 combine, the broadcast and the program-call
+   exchange on CUDA tensors return their input, the engine under that
+   mesh equals the unsharded one (mixtral at ENTRY_LAYERS), and ``python
+   -m runbooks_tpu_torch.serve.api`` under mesh_expert 2 x mesh_tensor
+   2 exits non-zero naming the device count (over HTTP where four GPUs
+   exist).
 
 Each phase's end prints the seconds since the start; a run still going
 after WATCHDOG_S dumps every thread's stack to standard error. Checks
@@ -1705,20 +1728,24 @@ def serve_http(torch, cfg, params, seed):
 
 
 def near_tie_check(torch, cfg, params, name, prompt, a, b, allowed=None,
-                   adapters=None):
+                   adapters=None, fail=True):
     """Greedy ids a and b of one prompt are identical, or differ first at
     a near-tie: both tokens within LOGIT_TOL of the top logit of a full
     prefill of the context before them. ``allowed(ids)`` (grammar) gives
     the allowed-token row after the generated ids, and the top logit is
     then the top allowed one. ``adapters`` (pool, [lane]): the prefill
-    runs through that pool lane."""
+    runs through that pool lane. With ``fail`` False the verdict comes
+    back (a dict) instead of ending the run."""
     from runbooks_tpu_torch.serve.engine import _buckets, bucket_for
 
     j = next((k for k in range(len(a)) if a[k] != b[k]), None)
     if j is None and len(a) == len(b):
         print(f"{name}: identical", flush=True)
-        return
+        return {"identical": True, "ok": True}
     if j is None:
+        if not fail:
+            return {"identical": False, "ok": False, "lengths": (len(a),
+                                                                 len(b))}
         raise SystemExit(f"{name}: {len(a)} vs {len(b)} tokens")
     ctx = list(prompt) + a[:j]
     with torch.no_grad():
@@ -1734,8 +1761,10 @@ def near_tie_check(torch, cfg, params, name, prompt, a, b, allowed=None,
     print(f"{name}: first differs at token {j} ({a[j]} vs {b[j]}), logit "
           f"gaps to the max {gaps} -> {'near-tie' if ok else 'FAIL'}",
           flush=True)
-    if not ok:
+    if not ok and fail:
         raise SystemExit(f"{name}: differs away from a near-tie")
+    return {"identical": False, "ok": ok, "first_differs_at": j,
+            "gaps": gaps}
 
 
 def free_port():
@@ -7881,11 +7910,12 @@ def tp_two_ranks(torch, seed, workdir, setup, device_type="cuda"):
 
 
 def tp_nccl_collectives(torch, cfg, group, dev):
-    """The NCCL calls of the tensor-parallel path at world 1, on CUDA
+    """The NCCL calls of the sharded serving path at world 1, on CUDA
     tensors of one forward's shapes: TensorParallel's all-reduce,
-    vocabulary gather and broadcast, and the engine's program-call
-    exchange (broadcast_object_list with device=). {name: returned its
-    input exactly}."""
+    vocabulary gather, the MoE combine (f64, over the serving group) and
+    broadcast, and the engine's program-call exchange
+    (broadcast_object_list with device=). {name: returned its input
+    exactly}."""
     import numpy as np
 
     from runbooks_tpu_torch.parallel.sharding import (
@@ -7894,10 +7924,12 @@ def tp_nccl_collectives(torch, cfg, group, dev):
     )
     from runbooks_tpu_torch.serve.engine import InferenceEngine
 
-    tp = TensorParallel(serve_plan(cfg, 1), 0, group)
+    tp = TensorParallel(serve_plan(cfg, 1, 1), 0, group, group)
     g = torch.Generator(device=dev).manual_seed(7)
     hidden = torch.randn((8, 1, cfg.hidden_size), generator=g, device=dev,
                          dtype=torch.bfloat16)
+    partial = torch.randn((8, cfg.hidden_size), generator=g, device=dev,
+                          dtype=torch.float64)
     logits = torch.randn((8, 1, cfg.vocab_size), generator=g, device=dev)
     ids = torch.randint(0, cfg.vocab_size, (8,), generator=g, device=dev)
     msg = ("decode", (np.arange(24, dtype=np.int32).reshape(8, 3), 5),
@@ -7908,12 +7940,14 @@ def tp_nccl_collectives(torch, cfg, group, dev):
     got = InferenceEngine._exchange(holder, msg)
     return {
         "all_reduce": torch.equal(tp.all_reduce(hidden.clone()), hidden),
+        "combine_f64": torch.equal(tp.combine(partial.clone()), partial),
         "gather_vocab": torch.equal(tp.gather_vocab(logits), logits),
         "broadcast": torch.equal(tp.broadcast(ids.clone()), ids),
         "exchange": (got[0] == msg[0] and got[2] == msg[2]
                      and np.array_equal(got[1][0], msg[1][0])
                      and got[1][1] == msg[1][1]),
-        "counts": dict(tp.counts)}
+        "counts": dict(tp.counts),
+        "group_counts": {k: dict(v) for k, v in tp.group_counts.items()}}
 
 
 def tp_nccl_rank(store_path, out_path, seed):
@@ -9295,6 +9329,478 @@ def mixtral_train_phase(torch, dev, seed, batch, data_path, workdir):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Expert-parallel mixtral serving: phase 25
+# ---------------------------------------------------------------------------
+
+# mixtral-8x7b at full width cut to this depth, served as four ranks
+# (EP_MESH) sharing one card over gloo: a rank holds 16/4 heads, experts
+# {0-3} or {4-7} on 7168 of their 14336 MLP columns and half the
+# vocabulary, about 6.2 GB in bf16 at 8 layers.
+MIXTRAL_EP_LAYERS = 8
+EP_MESH = {"expert": 2, "tensor": 2}
+EP_RANK_TIMEOUT_S = 420
+# Last-position prefill logits of the four ranks against one process's
+# on the same bf16 weights, stated before the first run on the card:
+# phase 20's tensor-parallel gap (0.04699) from the attention's partial
+# sums, plus the experts' partial products rounded to bf16 before the
+# combine, and a token routed to another expert where its router's top
+# choices lie within that rounding (PR 24 moved 136 of 16,384 such
+# assignments with another attention's roundings).
+EP_LOGIT_GAP = 0.25
+# Faults planted for one prefill each, every rank running it, to show the
+# gap gate catches them: each expert row runs its experts under the
+# other row's expert ids (experts swapped between the expert ranks), and
+# the router's columns of experts 0 and E/2 swapped in layer 0 (on every
+# rank, as a converter's fault would be; layer 0 so that the tokens it
+# moves reach the last position through the later attentions).
+EP_FAULTS = ("experts_swapped_between_ranks", "router_columns_swapped")
+# The engine runs of phase 25 (a): (name, mix, config overrides, whether
+# its greedy ids are gated). bf16 at the capacity factor 1.25 is the path
+# as served, and its ids are reported, not gated: capacity couples a
+# token to every row of its dispatch and a dropped assignment's slot to
+# every earlier one, so the ranks' bf16 partial sums, which move router
+# near-ties (PR 24: 136 of 16,384 assignments under another attention's
+# roundings), move drops and then ids far from any logit near-tie (on an
+# H100 the first run parted 6 of 8 dense requests from one process's;
+# even f32 activations at 1.25 parted one). The gated run repeats the
+# dense mix with the same bf16 weights, f32 activations (the plain
+# attention: K1 takes bf16) and the capacity that drops nothing (E / k:
+# 4.0 for mixtral), where a token's output is its own and the ranks'
+# rounding sits far below a router's near-tie, as phase 23 gates its ids.
+EP_RUNS = (("dense", "dense", {}, False), ("paged", "paged", {}, False),
+           ("dense_f32_dropless", "dense",
+            {"dtype": "float32", "attention_impl": "xla",
+             "moe_capacity_factor": 4.0}, True))
+
+
+def ep_model_params(seed, layers=MIXTRAL_EP_LAYERS):
+    return {"model": "mixtral-8x7b",
+            "model_overrides": {"param_dtype": "bfloat16",
+                                "num_layers": layers},
+            "seed": seed}
+
+
+def capture_routing(records):
+    """Wrap models.moe.route to append each call's Routing (expert, slot,
+    keep and gate, on the host) to ``records``; returns the restore
+    function."""
+    from runbooks_tpu_torch.models import moe
+
+    route = moe.route
+
+    def capturing(cfg, probs):
+        r = route(cfg, probs)
+        records.append({k: getattr(r, k).cpu() for k in ("expert", "slot",
+                                                         "keep", "gate")})
+        return r
+
+    moe.route = capturing
+
+    def restore():
+        moe.route = route
+
+    return restore
+
+
+def routed_logits(torch, cfg, params, prompt, seq, tp=None):
+    """(prefill_logits of ``prompt``, its Routing per layer)."""
+    routes = []
+    restore = capture_routing(routes)
+    try:
+        with torch.no_grad():
+            logits = prefill_logits(torch, cfg, params, prompt,
+                                    bucket_of(len(prompt)), seq,
+                                    tp=tp).float().cpu()
+    finally:
+        restore()
+    return logits, routes
+
+
+def ep_planted_logits(torch, cfg, engine, prompt, seq):
+    """{fault: last-position prefill logits} with each EP_FAULTS fault
+    planted (every rank runs the forward; each fault is undone after)."""
+    tp = engine.tp
+    out = {}
+    held = tp.experts
+    other = (tp.expert_rank + 1) % tp.plan.expert
+    tp.experts = tp.plan.expert_range(other * tp.plan.tensor
+                                      + tp.tensor_rank)
+    try:
+        out[EP_FAULTS[0]] = routed_logits(torch, cfg, engine.params, prompt,
+                                          seq, tp)[0]
+    finally:
+        tp.experts = held
+    router = engine.params["layers"]["moe"]["router"][0]
+    saved = router.clone()
+    j = cfg.moe_num_experts // 2
+    router[:, 0], router[:, j] = saved[:, j], saved[:, 0]
+    try:
+        out[EP_FAULTS[1]] = routed_logits(torch, cfg, engine.params, prompt,
+                                          seq, tp)[0]
+    finally:
+        router.copy_(saved)
+    return out
+
+
+def ep_rank(rank, world, store_path, out_path, seed, device_type, setup):
+    """Phase 25 (a)'s rank body (a spawned process): join the gloo group
+    over EP_MESH, load only this rank's shard (``load_model(shard=)``:
+    its heads, experts and MLP columns), then one prefill of the longest
+    prompt with its routing per layer and one forward's collectives by
+    group, the planted faults, and per kind (dense, paged) drive (rank
+    0) or replay (the others); K1 launches, parameter bytes against the
+    plan's, local widths, peak memory. ``setup``: the parent's {"params",
+    "mixes", "seq", "new"}. The result is pickled to out_path (an
+    exception's traceback instead, on failure)."""
+    import pickle
+    import traceback
+
+    import torch
+
+    result = {"ok": False}
+    try:
+        import torch.distributed as dist
+
+        from runbooks_tpu_torch.models.transformer import init_params
+        from runbooks_tpu_torch.ops.flash_attention import flash_attention
+        from runbooks_tpu_torch.parallel import distributed
+        from runbooks_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+        from runbooks_tpu_torch.serve.api import load_model
+        from runbooks_tpu_torch.utils.tree import tree_leaves
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", 0) if device_type == "cuda" \
+            else torch.device("cpu")
+        distributed.initialize(EP_RANK_TIMEOUT_S, backend="gloo", rank=rank,
+                               world_size=world, device=dev,
+                               store=dist.FileStore(store_path, world))
+        mesh = make_mesh(MeshConfig(fsdp=1, **EP_MESH),
+                         device_type=device_type)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        cfg, params = load_model(setup["params"], device=dev,
+                                 shard=(EP_MESH["tensor"], rank,
+                                        EP_MESH["expert"]))
+        if dev.type == "cuda":
+            result["load_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        shapes = init_params(cfg, None, torch.device("meta"))
+        mixes, seq = setup["mixes"], setup["seq"]
+        for kind, mix, over, _ in EP_RUNS:
+            engine = tp_engine(torch, dataclasses.replace(cfg, **over),
+                               params, mix, seed, seq, mesh)
+            tp = engine.tp
+            if kind == "dense":
+                layers = engine.params["layers"]
+                result.update(
+                    local_bytes=sum(t.numel() * t.element_size()
+                                    for t in tree_leaves(engine.params)),
+                    plan_bytes=tp.plan.local_param_bytes(shapes, rank),
+                    plan=tp.plan.describe(),
+                    coords=(tp.expert_rank, tp.tensor_rank),
+                    experts=(tp.experts.start, tp.experts.stop),
+                    local={"q_heads": layers["attn"]["wq"].shape[-1]
+                           // cfg.head_dim,
+                           "kv_heads": layers["attn"]["wk"].shape[-1]
+                           // cfg.head_dim,
+                           "experts": layers["moe"]["wi_gate"].shape[1],
+                           "mlp": layers["moe"]["wi_gate"].shape[-1],
+                           "router": list(layers["moe"]["router"].shape),
+                           "vocab": engine.params["embed"].shape[0]})
+                counts0 = {g: dict(c) for g, c in tp.group_counts.items()}
+                prompt = mixes["dense"][-1]
+                result["logits"], result["routing"] = routed_logits(
+                    torch, cfg, engine.params, prompt, seq, tp)
+                result["collectives_per_forward"] = {
+                    g: {k: tp.group_counts[g][k] - counts0[g][k]
+                        for k in c} for g, c in counts0.items()}
+                with torch.no_grad():
+                    result["planted"] = ep_planted_logits(
+                        torch, cfg, engine, prompt, seq)
+            if rank == 0:
+                records = []
+                restore = count_routing(records)
+                try:
+                    ids, launches, wall, tokens = tp_drive(
+                        torch, engine, mix, mixes, setup["new"])
+                finally:
+                    restore()
+                    engine.stop_followers()
+                result[kind] = {"ids": ids, "launches": launches,
+                                "wall_s": wall, "tokens": tokens,
+                                "routing": routing_summary(records)}
+            else:
+                flash_attention.launches = 0
+                engine.serve_follower()
+                result[kind] = {"launches": flash_attention.launches}
+            result[kind]["collectives"] = {
+                g: dict(c) for g, c in tp.group_counts.items()}
+            engine.cache = None
+            del engine
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        if dev.type == "cuda":
+            result["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        result["ok"] = True
+        distributed.shutdown()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        result["error"] = traceback.format_exc()
+    with open(out_path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def ep_four_ranks(torch, seed, workdir, setup, device_type="cuda"):
+    """Phase 25 (a): ep_rank on the four spawned processes of EP_MESH."""
+    return spawn_ranks(ep_rank, EP_MESH["expert"] * EP_MESH["tensor"],
+                       workdir, "phase 25 (a)", EP_RANK_TIMEOUT_S, seed,
+                       device_type, setup)
+
+
+def routing_differences(a, b):
+    """Assignments (over every layer) that differ between two runs'
+    Routing records: in their expert (a router near-tie moved), and in
+    their expert, slot or keep (an earlier move shifts every later slot
+    of the experts involved)."""
+    def count(field_sets):
+        return sum(int(sum((x[f] != y[f]) for f in field_sets).bool().sum())
+                   for x, y in zip(a, b, strict=True))
+
+    return {"expert": count(("expert",)),
+            "expert_slot_or_keep": count(("expert", "slot", "keep"))}
+
+
+def ep_nccl_rank(store_path, out_path, seed):
+    """Phase 25 (b)'s one-process NCCL group under mesh_expert 1 x
+    mesh_tensor 1: the serving path's collectives (tp_nccl_collectives:
+    the f64 combine over the serving group, the exchange and the
+    broadcast among them) on mixtral's shapes, then the engine under that
+    mesh against the unsharded one on the same weights (mixtral-8x7b at
+    full width cut to ENTRY_LAYERS), ids exact."""
+    import pickle
+    import traceback
+
+    import torch
+
+    result = {"ok": False}
+    try:
+        import torch.distributed as dist
+
+        from runbooks_tpu_torch.parallel import distributed
+        from runbooks_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+        from runbooks_tpu_torch.serve.api import load_model
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        distributed.initialize(EP_RANK_TIMEOUT_S, backend="nccl", rank=0,
+                               world_size=1, device=dev,
+                               store=dist.FileStore(store_path, 1))
+        mesh = make_mesh(MeshConfig(expert=1, fsdp=1, tensor=1))
+        cfg, params = load_model(ep_model_params(seed, ENTRY_LAYERS),
+                                 device=dev)
+        result["collectives"] = tp_nccl_collectives(
+            torch, cfg, mesh.get_group("tensor"), dev)
+        mixes = tp_mixes(seed)
+        meshed = tp_engine(torch, cfg, params, "dense", seed, TP_SEQ, mesh)
+        ids_mesh, launches_mesh, _, _ = tp_drive(torch, meshed, "dense",
+                                                 mixes)
+        del meshed
+        plain = tp_engine(torch, cfg, params, "dense", seed, TP_SEQ)
+        ids_plain, launches_plain, _, _ = tp_drive(torch, plain, "dense",
+                                                   mixes)
+        result.update(ok=True, backend=dist.get_backend(),
+                      world=dist.get_world_size(),
+                      equal=ids_mesh == ids_plain,
+                      launches=(launches_mesh, launches_plain))
+        distributed.shutdown()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        result["error"] = traceback.format_exc()
+    with open(out_path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def ep_nccl_phase(torch, seed, workdir):
+    """Phase 25 (b): the NCCL group at world 1 (a spawned process), then
+    ``main`` under mesh_expert 2 x mesh_tensor 2 over HTTP where four
+    GPUs exist, else its refusal naming the device count."""
+    import multiprocessing as mp
+    import pickle
+
+    out = f"{workdir}/ep_nccl.pkl"
+    p = mp.get_context("spawn").Process(
+        target=ep_nccl_rank, args=(f"{workdir}/ep_nccl_store", out, seed),
+        daemon=True)
+    p.start()
+    p.join(EP_RANK_TIMEOUT_S)
+    if p.is_alive():
+        p.kill()
+        raise SystemExit("phase 25 (b): the NCCL process did not finish")
+    with open(out, "rb") as f:
+        res = pickle.load(f)
+    if not res["ok"]:
+        raise SystemExit(f"phase 25 (b): NCCL world 1 failed:\n"
+                         f"{res['error']}")
+    record = {"nccl_world1": {k: res[k] for k in (
+        "backend", "world", "collectives", "equal", "launches")}}
+    content = f"{workdir}/ep_content"
+    os.makedirs(content, exist_ok=True)
+    port = free_port()
+    with open(f"{content}/params.json", "w") as f:
+        json.dump(dict(ep_model_params(seed, ENTRY_LAYERS),
+                       mesh_expert=EP_MESH["expert"],
+                       mesh_tensor=EP_MESH["tensor"], port=port,
+                       max_slots=4, max_seq_len=256), f)
+    n = torch.cuda.device_count()
+    world = EP_MESH["expert"] * EP_MESH["tensor"]
+    log = f"{workdir}/ep_main.log"
+    if n >= world:
+        proc, base, ready_s = start_entry_point(content, port, log,
+                                                HTTP_TIMEOUT)
+        status, body = http_call(base, "/v1/completions", {
+            "prompt": "expert parallel", "max_tokens": 8,
+            "temperature": 0.0})
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(ENTRY_DRAIN_S + 60)
+        record["main_mesh_expert_2_tensor_2"] = {
+            "ran": True, "ready_s": ready_s, "status": status,
+            "completion_tokens": body["usage"]["completion_tokens"],
+            "exit": code}
+        ok = status == 200 and code == 0
+    else:
+        root = os.path.dirname(os.path.abspath(__file__))
+        done = subprocess.run(
+            [sys.executable, "-m", "runbooks_tpu_torch.serve.api"],
+            cwd=root, capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, RBT_CONTENT_DIR=content))
+        named = (f"needs {world} GPUs" in done.stderr
+                 and f"torch.cuda.device_count() is {n}" in done.stderr)
+        print(f"phase 25 (b): main with mesh_expert 2 x mesh_tensor 2 over "
+              f"HTTP not run: this machine has {n} GPU", flush=True)
+        record["main_mesh_expert_2_tensor_2"] = {
+            "ran": False, "devices": n, "exit": done.returncode,
+            "names_device_count": named}
+        ok = done.returncode != 0 and named
+    coll = res["collectives"]
+    record["gates"] = {
+        "nccl_world1_collectives": res["backend"] == "nccl" and all(
+            coll[k] for k in ("combine_f64", "broadcast", "exchange")),
+        "nccl_world1_engine_equal": res["equal"],
+        "main_mesh_expert_2_tensor_2": ok}
+    return record
+
+
+def ep_phase(torch, seed, workdir):
+    """Phase 25 (see the module docstring). Returns K1's launches by path
+    (each rank's dense and paged runs)."""
+    from runbooks_tpu_torch.serve.api import load_model
+
+    t_phase = time.perf_counter()
+    mixes = tp_mixes(seed)
+    setup = {"params": ep_model_params(seed), "mixes": mixes,
+             "seq": TP_SEQ, "new": TP_NEW}
+    ranks = ep_four_ranks(torch, seed, workdir, setup)
+    t_ranks = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The single-process engine on the same weights, this process, once
+    # the ranks have ended.
+    cfg, params = load_model(setup["params"])
+    prompt = mixes["dense"][-1]
+    plain_logits, plain_routes = routed_logits(torch, cfg, params, prompt,
+                                               TP_SEQ)
+    single, run_cfgs = {}, {}
+    for kind, mix, over, _ in EP_RUNS:
+        run_cfgs[kind] = dataclasses.replace(cfg, **over)
+        engine = tp_engine(torch, run_cfgs[kind], params, mix, seed, TP_SEQ)
+        ids, launches, wall, tokens = tp_drive(torch, engine, mix, mixes)
+        single[kind] = {"ids": ids, "launches": launches, "wall_s": wall,
+                        "tokens": tokens}
+        free_engine(torch, engine)
+    gates, ties = {}, {}
+    for kind, mix, _, gated in EP_RUNS:
+        got, want = ranks[0][kind]["ids"], single[kind]["ids"]
+        ties[kind] = [near_tie_check(
+            torch, run_cfgs[kind], params, f"phase 25 {kind} request {i}",
+            mixes[mix][i], a, b, fail=False)
+            for i, (a, b) in enumerate(zip(got, want))]
+        if gated:
+            gates[f"{kind}_ids_equal_or_near_tie"] = all(
+                t["ok"] for t in ties[kind])
+        gates[f"{kind}_k1_launches_per_rank"] = all(
+            r[kind]["launches"] == single[kind]["launches"]
+            for r in ranks) and (single[kind]["launches"] > 0
+                                 or run_cfgs[kind].attention_impl == "xla")
+    gaps = [float((r["logits"] - plain_logits).abs().max()) for r in ranks]
+    gates["logits_within_gap"] = max(gaps) <= EP_LOGIT_GAP
+    planted = {f: min(float((r["planted"][f] - plain_logits).abs().max())
+                      for r in ranks) for f in EP_FAULTS}
+    gates["planted_faults_outside_gap"] = min(planted.values()) > EP_LOGIT_GAP
+    gates["routing_identical_on_every_rank"] = all(
+        routing_differences(r["routing"], ranks[0]["routing"])[
+            "expert_slot_or_keep"] == 0
+        and all(torch.equal(x["gate"], y["gate"])
+                for x, y in zip(r["routing"], ranks[0]["routing"]))
+        for r in ranks[1:])
+    gates["param_bytes_equal_plan"] = all(
+        r["local_bytes"] == r["plan_bytes"] for r in ranks)
+    E, tensor = cfg.moe_num_experts, EP_MESH["tensor"]
+    n_e = E // EP_MESH["expert"]
+    gates["local_widths"] = all(
+        r["local"] == {"q_heads": cfg.num_heads // tensor,
+                       "kv_heads": cfg.num_kv_heads // tensor,
+                       "experts": n_e,
+                       "mlp": cfg.intermediate_size // tensor,
+                       "router": [cfg.num_layers, cfg.hidden_size, E],
+                       "vocab": cfg.vocab_size // tensor}
+        and r["experts"] == (r["coords"][0] * n_e, (r["coords"][0] + 1) * n_e)
+        for r in ranks)
+    free_engine(torch)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    nccl = ep_nccl_phase(torch, seed, workdir)
+    gates.update(nccl.pop("gates"))
+    label = "gloo over host memory on one card, not an EP speed"
+    record = {
+        "card": card_line(), "layers": cfg.num_layers, "mesh": EP_MESH,
+        "plan": ranks[0]["plan"],
+        "local": ranks[0]["local"],
+        "experts_per_rank": [r["experts"] for r in ranks],
+        "param_bytes_per_rank": [r["local_bytes"] for r in ranks],
+        "peak_gb_per_rank": [r.get("peak_gb") for r in ranks],
+        "load_peak_gb_per_rank": [r.get("load_peak_gb") for r in ranks],
+        "collectives_per_forward": ranks[0]["collectives_per_forward"],
+        "logit_gap_per_rank": gaps, "logit_gap_limit": EP_LOGIT_GAP,
+        "planted_fault_gaps": planted,
+        "routed_differently_vs_one_process": routing_differences(
+            ranks[0]["routing"], plain_routes),
+        "assignments_per_prefill": sum(r["keep"].numel()
+                                       for r in plain_routes),
+        "near_ties": ties,
+        "ids_gated": [kind for kind, _, _, gated in EP_RUNS if gated],
+        "identical_requests": {
+            kind: sum(t["identical"] for t in ties[kind]) for kind in ties},
+        "kept_share": {kind: ranks[0][kind]["routing"] for kind in ties},
+        "k1_launches": {kind: {"single": single[kind]["launches"],
+                               "ranks": [r[kind]["launches"]
+                                         for r in ranks]}
+                        for kind in ties},
+        "tokens_per_s": {
+            kind: {label: ranks[0][kind]["tokens"]
+                   / ranks[0][kind]["wall_s"],
+                   "one_process_same_card": single[kind]["tokens"]
+                   / single[kind]["wall_s"]}
+            for kind in ties},
+        "ranks_s": t_ranks, **nccl,
+        "seconds": time.perf_counter() - t_phase, "gates": gates}
+    print("phase 25 " + json.dumps(record), flush=True)
+    failed = [k for k, v in gates.items() if not v]
+    if failed:
+        raise SystemExit(f"phase 25: gates failed: {failed}")
+    return {f"ep_{kind}_rank{r}": ranks[r][kind]["launches"]
+            for kind in ("dense", "paged") for r in range(len(ranks))}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9429,6 +9935,10 @@ def main():
         mixtral_train_launches = mixtral_train_phase(
             torch, dev, args.seed, batch, data_path, workdir)
         mark("phase 24")
+        gc.collect()
+        torch.cuda.empty_cache()
+        ep_launches = ep_phase(torch, args.seed, workdir)
+        mark("phase 25")
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -9450,7 +9960,8 @@ def main():
                      + sum(tp_launches.values())
                      + sum(fsdp_launches["flash_fwd"].values())
                      + sum(mixtral_launches.values())
-                     + mixtral_train_launches["flash_fwd"]),
+                     + mixtral_train_launches["flash_fwd"]
+                     + sum(ep_launches.values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
@@ -9468,7 +9979,8 @@ def main():
                              **fsdp_launches["flash_fwd"],
                              **mixtral_launches,
                              "mixtral_train":
-                                 mixtral_train_launches["flash_fwd"]},
+                                 mixtral_train_launches["flash_fwd"],
+                             **ep_launches},
         "max_abs_err": max(worst, family_records["fwd_worst"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],

@@ -40,6 +40,36 @@ the aux, through the mean probabilities ``me``) and the three expert
 weights; the first-choice fractions ``ce`` are counts and carry none, as
 in the reference.
 
+Served over a mesh of ``expert`` x ``tensor`` ranks (``moe_block``'s
+``tp``, a parallel/sharding.TensorParallel), each rank holds its experts
+(``tp.experts``: E / expert of them, or all where ``expert`` does not
+divide E) on its MLP columns (m / tensor), and the router whole. Every
+rank routes all T tokens of the dispatch, so capacity, slots and drops
+are one device's; it dispatches only the kept assignments to experts it
+holds, runs them, and sums its own terms in f64; one all-reduce of that
+[T, h] partial sum over the serving group (every rank) completes the
+combine, rounded to f32 and the activation dtype once, as one device
+rounds it. Under ``expert`` alone and k = 2 that all-reduce adds to a
+rank's own sum either zeros or the other expert's term, the two terms
+one device adds: the result is one device's bit for bit (given the same
+bits from each expert's batched products). Under ``tensor`` each
+rank's ``wo`` product over its MLP columns is rounded to the activation
+dtype before the sum, as the dense MLP's partial products are. A side
+that replicates (``expert`` not dividing E, or ``tensor`` not dividing
+m) is summed from its first index only (``tp.moe_owner``), so each
+(expert, column) piece counts once; ``aux`` comes from the whole
+``probs`` every rank holds and is not reduced.
+
+Routing is the same on every rank because its input is: the residual
+stream is the same function of the same bits on each rank. The
+attention's all-reduce runs in each expert row's own tensor group, and
+groups of one size given the same inputs return the same sums: with two
+ranks the sum is one correctly rounded addition, whose result does not
+depend on the order; with more, gloo's ring and NCCL's algorithm (chosen
+per group size on one host whose GPUs are joined all to all) add in the
+same order in every group. tests/test_torch_ep_serve.py holds every
+rank's routing equal, layer by layer.
+
 ``moe_block_dense`` is the reference's one-hot formulation written out
 literally, the plain version the tests and chip_smoke.py hold
 ``moe_block`` to. Capacity counts every token of the dispatch (T = b·s),
@@ -126,28 +156,38 @@ def _experts(cfg, p: Params, expert_in: torch.Tensor) -> torch.Tensor:
     return torch.bmm(hidden, p["wo"].to(ad))
 
 
-def moe_block(cfg, p: Params, x: torch.Tensor
+def moe_block(cfg, p: Params, x: torch.Tensor, tp=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN over x [b, s, h] with one layer's ``p`` (router [h, E],
     wi_gate / wi_up [E, h, m], wo [E, m, h]) -> (out [b, s, h], aux).
     Shapes stay static (no host sync): a dropped assignment writes its
     token to a trash row past the E·C slots and combines with weight 0
-    (and so takes no gradient)."""
+    (and so takes no gradient). ``tp``: one serving rank's view, its
+    experts and MLP columns in ``p`` (see the module docstring)."""
     ad = cfg.activation_dtype
     b, s, h = x.shape
-    T, E, k = b * s, cfg.moe_num_experts, cfg.moe_top_k
+    T, k = b * s, cfg.moe_top_k
     xt = x.reshape(T, h)
     r = route(cfg, router_probs(p, xt))
+    first, E = 0, cfg.moe_num_experts
+    held = r.keep
+    if tp is not None:
+        first, E = tp.experts.start, len(tp.experts)
+        held = held & (r.expert >= first) & (r.expert < first + E)
+        if not tp.moe_owner:
+            held = torch.zeros_like(held)
     EC = E * r.capacity
-    row = torch.where(r.keep, r.expert * r.capacity + r.slot, EC)
+    row = torch.where(held, (r.expert - first) * r.capacity + r.slot, EC)
     # Assignment j·T + t carries token t: the rows repeated k times.
     expert_in = torch.zeros((EC + 1, h), dtype=ad, device=x.device
                             ).index_put((row,), xt.to(ad).repeat(k, 1))
     out_e = _experts(cfg, p, expert_in[:EC].reshape(E, r.capacity, h))
     picked = out_e.reshape(EC, h)[row.clamp(max=EC - 1)].double()
     weight = r.gate.to(ad).double()
-    contrib = torch.where(r.keep[:, None], weight[:, None] * picked, 0.0)
+    contrib = torch.where(held[:, None], weight[:, None] * picked, 0.0)
     out = contrib.reshape(k, T, h).sum(0)
+    if tp is not None:
+        out = tp.combine(out)
     return out.float().to(ad).reshape(b, s, h), r.aux
 
 
@@ -189,14 +229,19 @@ def routing_dispatch(r: Routing, n_tokens: int, n_experts: int
     return out
 
 
-def moe_block_dense(cfg, p: Params, x: torch.Tensor
+def moe_block_dense(cfg, p: Params, x: torch.Tensor, tp=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's moe_block as it is written: dense one-hot dispatch
     and combine [T, E, C] (dispatch_combine_dense) and the einsums over
     them (f32 accumulation, each product cast to the activation dtype;
     the combine's in f64, rounded to f32 once, as moe_block's). O(T·E·C)
     memory: the plain version for tests and the card's check, not for
-    serving."""
+    serving. It runs on one device (``tp`` None: it takes moe_block's
+    arguments, so that a forward can run either)."""
+    if tp is not None:
+        raise NotImplementedError(
+            "moe_block_dense is the single-device plain version; a "
+            "serving rank's experts run through moe_block")
     ad = cfg.activation_dtype
     b, s, h = x.shape
     xt = x.reshape(b * s, h)

@@ -615,10 +615,11 @@ def _mlp_block(cfg, p, layer_idx, x, lora=None, adapter=None, tp=None,
 def _ffn_block(cfg, layers, layer_idx, x, lora=None, adapter=None, tp=None,
                partial=False):
     """The dense MLP or, under ``moe_num_experts``, the routed experts of
-    layer ``layer_idx``: (out, aux), aux None for the dense MLP."""
+    layer ``layer_idx`` (under ``tp`` combined over the serving group):
+    (out, aux), aux None for the dense MLP."""
     if cfg.moe_num_experts:
         return moe_block(cfg, {k: w[layer_idx]
-                               for k, w in layers["moe"].items()}, x)
+                               for k, w in layers["moe"].items()}, x, tp)
     return _mlp_block(cfg, layers["mlp"], layer_idx, x, lora, adapter, tp,
                       partial), None
 
@@ -697,7 +698,8 @@ def forward(
     cache then hold one rank's shard (TensorPlan), the forward runs on
     local widths and its collectives make every rank's output the whole
     model's: hidden states all-reduced after each sharded sublayer,
-    logits gathered over the vocabulary.
+    logits gathered over the vocabulary, an MoE layer's combine summed
+    over the serving group (models/moe.py).
 
     fsdp (training): a parallel/sharding.Fsdp. ``params["layers"]`` (and
     the LoRA factors) then hold the rank's pieces, and every other leaf
@@ -707,13 +709,12 @@ def forward(
     recompute gathers them again; their gradients come back
     reduce-scattered."""
     check_supported(cfg)
-    if cfg.moe_num_experts and (tp is not None or fsdp is not None):
+    if cfg.moe_num_experts and fsdp is not None:
         raise NotImplementedError(
             f"config {cfg.name!r} (MoE: moe_num_experts="
-            f"{cfg.moe_num_experts}) under a "
-            f"{'tensor-parallel' if tp is not None else 'FSDP'} forward: "
-            "the PyTorch port runs the experts on one device; MoE under a "
-            "mesh is not ported yet (ROADMAP.md §1 item 4)")
+            f"{cfg.moe_num_experts}) under an FSDP forward: the reference "
+            "routes over the global batch, and MoE training under a mesh "
+            "is not ported yet (ROADMAP.md §1 item 4)")
     if tp is not None and (lora is not None or remat):
         raise NotImplementedError(
             "a tensor-parallel forward serves: LoRA merges and remat are "
@@ -789,7 +790,7 @@ def forward(
     # A tensor-parallel parallel block whose two sublayers both shard sums
     # their partial products in one all-reduce.
     fused = (tp is not None and cfg.parallel_block and tp.plan.heads
-             and tp.plan.mlp)
+             and tp.plan.mlp and not cfg.moe_num_experts)
 
     def block(x, li, layer_cache):
         layers, lora_l = params["layers"], lora

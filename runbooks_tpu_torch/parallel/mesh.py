@@ -14,11 +14,11 @@ Axes, outermost to innermost, as the reference's:
 the processes of the default group (one process per GPU), shaped by the
 resolved config and named by ``MESH_AXES``.
 
-The port serves over the ``tensor`` axis only (``check_serving_mesh``)
-and trains over ``data`` and ``fsdp`` only (``check_training_mesh``): the
-other axes are refused by name until their slices land (ROADMAP §1).
-Gemma and MoE models (mixtral) run on one device only
-(``check_mesh_model``).
+The port serves over the ``expert`` and ``tensor`` axes
+(``check_serving_mesh``) and trains over ``data`` and ``fsdp``
+(``check_training_mesh``): the other axes are refused by name until
+their slices land (ROADMAP §1). ``check_mesh_model`` refuses gemma under
+a mesh, and an MoE model (mixtral) under a training mesh.
 """
 
 from __future__ import annotations
@@ -64,19 +64,29 @@ class MeshConfig:
 
 
 def check_serving_mesh(config: MeshConfig) -> None:
-    """Refuse, by name, every resolved serving axis but ``tensor`` above 1.
-    ``stage`` as the reference's engine refuses it; the others wait for
-    their slices of ROADMAP §1 item 5."""
+    """Refuse, by name, every resolved serving axis but ``expert`` and
+    ``tensor`` above 1. ``stage`` as the reference's engine refuses it;
+    the others wait for their slices of ROADMAP §1 item 5. (A dense model
+    under ``expert`` replicates over that axis, as the reference drops an
+    axis that no dimension uses.)"""
     if config.stage > 1:
         raise ValueError(
             "pipeline (stage) parallelism is a training-path feature; "
             "serve with tensor/data parallelism instead (mesh_tensor)")
-    for axis in ("data", "expert", "fsdp", "sequence"):
+    for axis in ("data", "fsdp", "sequence"):
         if getattr(config, axis) > 1:
             raise NotImplementedError(
                 f"mesh_{axis}={getattr(config, axis)}: the PyTorch port "
-                f"serves over the tensor axis only (mesh_tensor); "
-                f"{axis} parallelism is not ported yet (ROADMAP.md §1)")
+                f"serves over the expert and tensor axes only "
+                f"(mesh_expert, mesh_tensor); {axis} parallelism is not "
+                f"ported yet (ROADMAP.md §1)")
+
+
+def serving_axes(config: MeshConfig) -> str:
+    """The serving axes above 1 as params.json spells them
+    ("mesh_expert=2, mesh_tensor=2")."""
+    return ", ".join(f"mesh_{a}={getattr(config, a)}"
+                     for a in ("expert", "tensor") if getattr(config, a) > 1)
 
 
 def check_training_mesh(config: MeshConfig,
@@ -103,30 +113,39 @@ def check_training_mesh(config: MeshConfig,
     return config
 
 
-def check_mesh_model(cfg, config: MeshConfig) -> None:
-    """Refuse, by name, gemma (a config with ``embed_scale``) and an MoE
-    model (``moe_num_experts``: mixtral) under ``mesh_tensor``,
-    ``mesh_fsdp`` or ``mesh_data`` above 1: the port runs them on one
-    device only, and either under a mesh waits for ROADMAP §1 item 4
-    (``mesh_expert`` is refused for every model by the serving and
-    training checks). Every other model passes."""
-    axes = [f"mesh_{a}={getattr(config, a)}"
-            for a in ("tensor", "fsdp", "data") if getattr(config, a) > 1]
-    if not axes:
-        return
-    if cfg.embed_scale:
+def check_mesh_model(cfg, config: MeshConfig, serving: bool = False
+                     ) -> None:
+    """Refuse, by name, what the port does not run of a model under a
+    mesh. Gemma (a config with ``embed_scale``) under ``mesh_tensor``,
+    ``mesh_fsdp`` or ``mesh_data`` above 1, on either path (ROADMAP §1
+    item 4). An MoE model (``moe_num_experts``: mixtral) in training
+    (``serving`` False) under ``mesh_fsdp`` or ``mesh_data``: the
+    reference routes over the global batch there, so capacity, slots and
+    the aux loss span every rank. (check_training_mesh refuses
+    ``expert`` and ``tensor`` for every model.) Serving (``serving``
+    True) takes an MoE model under ``tensor`` and ``expert``: every rank
+    of that mesh holds the whole dispatch. Every other model passes."""
+    def over(names):
+        return [f"mesh_{a}={getattr(config, a)}" for a in names
+                if getattr(config, a) > 1]
+
+    axes = over(("tensor", "fsdp", "data"))
+    if cfg.embed_scale and axes:
         raise NotImplementedError(
             f"config {cfg.name!r} (gemma: embed_scale) under "
             f"{', '.join(axes)}: the PyTorch port runs gemma on one device; "
             f"gemma under a mesh is not ported yet (ROADMAP.md §1 item 4)")
-    if cfg.moe_num_experts:
+    moe_axes = over(("fsdp", "data") if serving else ("tensor", "fsdp",
+                                                       "data"))
+    if cfg.moe_num_experts and moe_axes:
         raise NotImplementedError(
             f"config {cfg.name!r} (MoE: moe_num_experts="
-            f"{cfg.moe_num_experts}) under {', '.join(axes)}: the PyTorch "
-            "port runs MoE models on one device; the reference routes "
+            f"{cfg.moe_num_experts}) under {', '.join(moe_axes)}"
+            f"{'' if serving else ' in training'}: the reference routes "
             "over the global batch (capacity, slots and the aux loss span "
-            "every rank), and MoE under a mesh is not ported yet "
-            "(ROADMAP.md §1 item 4)")
+            "every rank), and MoE training under a mesh is not ported yet "
+            "(ROADMAP.md §1 item 4); the port serves MoE under mesh_expert "
+            "and mesh_tensor")
 
 
 def make_mesh(config: Optional[MeshConfig] = None,

@@ -24,6 +24,15 @@ the forward (models/transformer.py), which runs on local widths:
   summed over ranks (exact: one rank holds each row);
 - the head's local logits are all-gathered over the vocabulary.
 
+Under ``expert`` as well (an MoE model served over ``mesh_expert`` x
+``mesh_tensor``), ranks are numbered as the DeviceMesh orders them,
+``expert`` outer and ``tensor`` inner: rank r sits at expert index r //
+tensor and tensor index r % tensor. The experts shard over ``expert``
+(the ``experts`` rule) and their MLP width over ``tensor``; attention,
+the dense leaves and the vocabulary are cut by the tensor index alone,
+so every expert row holds the same pieces of them. The MoE combine sums
+over the serving group, every rank of the mesh (models/moe.py).
+
 ``FsdpPlan`` holds what each rank of a training mesh over ``data`` and
 ``fsdp`` (ZeRO-3) keeps: each leaf shards the dimension that the same
 table gives ``fsdp`` (the reference's "embed" rule), or replicates where
@@ -191,30 +200,42 @@ def tree_shardings(
 
 @dataclasses.dataclass(frozen=True)
 class TensorPlan:
-    """What each of ``tensor`` ranks holds of one model: per side, shard
-    (contiguous equal pieces, rank r the r-th) or replicate."""
+    """What each rank of a serving mesh of ``expert`` x ``tensor`` ranks
+    holds of one model: per side, shard (contiguous equal pieces) or
+    replicate. A rank is its place in the mesh (``coords``); the tensor
+    sides are cut by its tensor index, the experts by its expert index."""
 
     cfg: Any                 # the ModelConfig
     tensor: int
     heads: bool              # q heads: wq's columns, bq, wo's rows
     kv_heads: bool           # kv heads: wk/wv's columns, bk/bv, the cache
-    mlp: bool                # the MLP width
+    mlp: bool                # the MLP width (the experts' too)
     vocab: bool              # the embedding's rows and the head's columns
+    expert: int = 1
+    experts: bool = False    # the MoE experts over ``expert``
+
+    @property
+    def world(self) -> int:
+        return self.expert * self.tensor
+
+    def coords(self, rank: int) -> Tuple[int, int]:
+        """(expert index, tensor index) of serving rank ``rank``."""
+        return divmod(int(rank), self.tensor)
 
     def q_heads(self, rank: int) -> range:
         h = self.cfg.num_heads
         if not self.heads:
             return range(h)
-        n = h // self.tensor
-        return range(rank * n, (rank + 1) * n)
+        n, t = h // self.tensor, self.coords(rank)[1]
+        return range(t * n, (t + 1) * n)
 
     def kv_head_ids(self, rank: int) -> range:
         """The kv heads rank ``rank`` holds: its shard, or, where q heads
         shard alone, the (contiguous) kv heads its q heads read."""
         kvh = self.cfg.num_kv_heads
         if self.kv_heads:
-            n = kvh // self.tensor
-            return range(rank * n, (rank + 1) * n)
+            n, t = kvh // self.tensor, self.coords(rank)[1]
+            return range(t * n, (t + 1) * n)
         if not self.heads:
             return range(kvh)
         rep = self.cfg.num_heads // kvh
@@ -238,15 +259,31 @@ class TensorPlan:
         v = self.cfg.vocab_size
         if not self.vocab:
             return range(v)
-        n = v // self.tensor
-        return range(rank * n, (rank + 1) * n)
+        n, t = v // self.tensor, self.coords(rank)[1]
+        return range(t * n, (t + 1) * n)
 
     def mlp_range(self, rank: int) -> range:
         m = self.cfg.intermediate_size
         if not self.mlp:
             return range(m)
-        n = m // self.tensor
-        return range(rank * n, (rank + 1) * n)
+        n, t = m // self.tensor, self.coords(rank)[1]
+        return range(t * n, (t + 1) * n)
+
+    def expert_range(self, rank: int) -> range:
+        """The MoE experts rank ``rank`` holds (every one where they
+        replicate; empty for a dense model)."""
+        e = self.cfg.moe_num_experts or 0
+        if not self.experts:
+            return range(e)
+        n, i = e // self.expert, self.coords(rank)[0]
+        return range(i * n, (i + 1) * n)
+
+    def moe_owner(self, rank: int) -> bool:
+        """Whether rank ``rank``'s (experts, MLP columns) piece enters the
+        MoE combine's sum over the serving group: a side that replicates
+        is summed from its first index only, so each piece counts once."""
+        e, t = self.coords(rank)
+        return (self.experts or e == 0) and (self.mlp or t == 0)
 
     def _dim_range(self, name: Optional[str], rank: int) -> Optional[range]:
         """The columns of a dimension named ``name`` rank ``rank`` holds
@@ -264,12 +301,14 @@ class TensorPlan:
             return self.mlp_range(rank)
         if name == "vocab" and self.vocab:
             return self.vocab_range(rank)
+        if name == "experts" and self.experts:
+            return self.expert_range(rank)
         return None
 
     def local_shape(self, shape: Sequence[int], axes: LogicalSpec,
                     rank: int) -> Tuple[int, ...]:
         out = []
-        for dim, name in zip(shape, axes):
+        for dim, name in zip(shape, _serving_axes(axes)):
             r = self._dim_range(name, rank)
             out.append(dim if r is None else len(r))
         return tuple(out)
@@ -290,28 +329,47 @@ class TensorPlan:
         return total
 
     def describe(self) -> dict:
-        return {"tensor": self.tensor, "heads": self.heads,
-                "kv_heads": self.kv_heads, "mlp": self.mlp,
-                "vocab": self.vocab}
+        out = {"tensor": self.tensor, "heads": self.heads,
+               "kv_heads": self.kv_heads, "mlp": self.mlp,
+               "vocab": self.vocab}
+        if self.expert > 1 or self.cfg.moe_num_experts:
+            out.update(expert=self.expert, experts=self.experts)
+        return out
 
 
-def serve_plan(cfg, tensor: int) -> TensorPlan:
-    """The plan of ``cfg`` over ``tensor`` ranks, from DEFAULT_RULES at
-    whole-head granularity: a side shards when the table maps its logical
-    axis to ``tensor`` and ``tensor`` divides its count (heads, kv heads,
-    the MLP width, the vocabulary). kv heads shard only with the q heads
-    (a q head never reads a kv head of another rank's)."""
-    mesh = {"tensor": int(tensor)}
+def _serving_axes(axes: LogicalSpec) -> LogicalSpec:
+    """A leaf's logical axes as the serving plan cuts them: the MoE
+    router's ``experts`` column (the one leaf naming ``experts`` without
+    ``mlp``) stays whole, since every rank routes every token."""
+    if "experts" in axes and "mlp" not in axes:
+        return tuple(None if a == "experts" else a for a in axes)
+    return axes
 
-    def shards(count: int, name: str) -> bool:
-        return int(tensor) > 1 and spec_for_array(
-            (count,), (name,), mesh) == ("tensor",)
+
+def serve_plan(cfg, tensor: int, expert: int = 1) -> TensorPlan:
+    """The plan of ``cfg`` over ``expert`` x ``tensor`` ranks, from
+    DEFAULT_RULES at whole-head granularity: a side shards when the table
+    maps its logical axis to ``tensor`` and ``tensor`` divides its count
+    (heads, kv heads, the MLP width, the vocabulary), and the MoE experts
+    when the table maps ``experts`` to ``expert`` and ``expert`` divides
+    ``moe_num_experts`` (else they replicate, as the reference drops an
+    axis that does not divide; a dense model replicates over ``expert``).
+    kv heads shard only with the q heads (a q head never reads a kv head
+    of another rank's)."""
+    mesh = {"tensor": int(tensor), "expert": int(expert)}
+
+    def shards(count: int, name: str, axis: str = "tensor") -> bool:
+        return mesh[axis] > 1 and spec_for_array(
+            (count,), (name,), mesh) == (axis,)
 
     heads = shards(cfg.num_heads, "heads")
     return TensorPlan(cfg=cfg, tensor=int(tensor), heads=heads,
                       kv_heads=heads and shards(cfg.num_kv_heads, "kv_heads"),
                       mlp=shards(cfg.intermediate_size, "mlp"),
-                      vocab=shards(cfg.vocab_size, "vocab"))
+                      vocab=shards(cfg.vocab_size, "vocab"),
+                      expert=int(expert),
+                      experts=bool(cfg.moe_num_experts) and shards(
+                          cfg.moe_num_experts, "experts", "expert"))
 
 
 def shard_leaf(leaf, axes: LogicalSpec, plan: TensorPlan, rank: int):
@@ -322,13 +380,15 @@ def shard_leaf(leaf, axes: LogicalSpec, plan: TensorPlan, rank: int):
 
     if isinstance(leaf, QuantizedArray):
         raise NotImplementedError(
-            "quantized weights under a mesh (mesh_tensor > 1) are not "
-            "ported yet (ROADMAP.md §1): serve them on one device")
+            "quantized weights under a mesh (mesh_tensor or mesh_expert "
+            "> 1) are not ported yet (ROADMAP.md §1): serve them on one "
+            "device")
     cfg = plan.cfg
     full = {"heads": cfg.q_dim, "kv_heads": cfg.kv_dim,
-            "mlp": cfg.intermediate_size, "vocab": cfg.vocab_size}
+            "mlp": cfg.intermediate_size, "vocab": cfg.vocab_size,
+            "experts": cfg.moe_num_experts}
     out = leaf
-    for dim, name in enumerate(axes):
+    for dim, name in enumerate(_serving_axes(axes)):
         r = plan._dim_range(name, rank)
         if r is None or out.shape[dim] == len(r):
             continue
@@ -359,32 +419,65 @@ def shard_params(params, plan: TensorPlan, rank: int):
 # ---------------------------------------------------------------------------
 
 class TensorParallel:
-    """One rank's view of a tensor-parallel group: its plan, its rank in
-    the group and the group (None: the default group). The forward calls
-    the collectives; ``counts`` tallies them by kind."""
+    """One rank's view of a serving mesh: its plan, its rank in the mesh
+    (``plan.coords``), its tensor group (None: the default group) and
+    its serving group, every rank of the mesh (the tensor group when
+    ``expert`` is 1). Attention, the dense MLP and the vocabulary run
+    their collectives on the tensor group; the MoE combine and the
+    sampled ids' broadcast (and the engine's program-call exchange) on
+    the serving group. ``counts`` tallies the collectives by kind and
+    ``group_counts`` by group and kind."""
 
-    def __init__(self, plan: TensorPlan, rank: int, group=None):
+    def __init__(self, plan: TensorPlan, rank: int, group=None,
+                 serve_group=None):
         self.plan = plan
         self.rank = rank
+        self.expert_rank, self.tensor_rank = plan.coords(rank)
         self.group = group
+        self.serve_group = group if plan.expert == 1 else serve_group
         self.size = plan.tensor
+        self.world = plan.world
         self.kv_map = plan.kv_map(rank)
         self.vocab_start = plan.vocab_range(rank).start
+        self.experts = plan.expert_range(rank)
+        self.moe_owner = plan.moe_owner(rank)
         self._kv_index: Dict[torch.device, torch.Tensor] = {}
         self.counts: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
                                        "broadcast": 0}
+        self.group_counts: Dict[str, Dict[str, int]] = {
+            "tensor": dict(self.counts), "serve": dict(self.counts)}
 
-    def _leader(self) -> int:
+    def _tally(self, group: str, kind: str) -> None:
+        self.counts[kind] += 1
+        self.group_counts[group][kind] += 1
+
+    @staticmethod
+    def _src(group) -> int:
+        """The global rank of ``group``'s rank 0."""
         import torch.distributed as dist
 
-        return dist.get_global_rank(self.group, 0) if self.group else 0
+        return 0 if group is None else dist.get_global_rank(group, 0)
+
+    def _leader(self) -> int:
+        """The serving group's leader (global rank): rank 0 drives."""
+        return self._src(self.serve_group)
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         import torch.distributed as dist
 
         x = x.contiguous()
         dist.all_reduce(x, group=self.group)
-        self.counts["all_reduce"] += 1
+        self._tally("tensor", "all_reduce")
+        return x
+
+    def combine(self, x: torch.Tensor) -> torch.Tensor:
+        """The MoE combine: every rank's partial sum (its experts' terms
+        on its MLP columns) summed over the serving group."""
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        dist.all_reduce(x, group=self.serve_group)
+        self._tally("serve", "all_reduce")
         return x
 
     def gather_vocab(self, x: torch.Tensor) -> torch.Tensor:
@@ -394,16 +487,17 @@ class TensorParallel:
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x, group=self.group)
-        self.counts["all_gather"] += 1
+        self._tally("tensor", "all_gather")
         return torch.cat(parts, dim=-1)
 
     def broadcast(self, x: torch.Tensor) -> torch.Tensor:
-        """Rank 0's ``x`` on every rank (sampled ids: one stream decides)."""
+        """The serving group's rank 0's ``x`` on every rank (sampled ids:
+        one stream decides)."""
         import torch.distributed as dist
 
         x = x.contiguous()
-        dist.broadcast(x, src=self._leader(), group=self.group)
-        self.counts["broadcast"] += 1
+        dist.broadcast(x, src=self._leader(), group=self.serve_group)
+        self._tally("serve", "broadcast")
         return x
 
     def embed(self, table: torch.Tensor, tokens: torch.Tensor,

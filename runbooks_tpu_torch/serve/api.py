@@ -31,15 +31,16 @@ capture under ``{artifacts}/profiles/``; 409 while one runs), ``GET
 /debug/incidents[?name=]``; a failed engine step captures an incident
 bundle.
 
-Tensor parallelism: ``mesh_tensor: N`` serves one replica over N
-processes, one per GPU (rank r on ``cuda:r``, NCCL). ``main`` is rank 0:
-it starts ranks 1..N-1 itself (``torch.multiprocessing``, spawn), and
-alone runs HTTP, the worker, the scheduler and the page tables; each
-follower replays rank 0's program calls on its shard (serve/engine.py).
-SIGTERM drains, stops every follower and exits 0; a follower that dies
-ends rank 0 with a non-zero code. Other mesh axes, a multi-host mesh, and
-quantization, the adapter pool, the host tier, preemption and
-collective_matmul "ring" under ``mesh_tensor`` > 1 are refused by name;
+Sharded serving: ``mesh_tensor: N`` (and, for an MoE model,
+``mesh_expert: E``) serves one replica over E x N processes, one per GPU
+(rank r on ``cuda:r``, NCCL). ``main`` is rank 0: it starts the other
+ranks itself (``torch.multiprocessing``, spawn), and alone runs HTTP,
+the worker, the scheduler and the page tables; each follower replays
+rank 0's program calls on its shard (serve/engine.py). SIGTERM drains,
+stops every follower and exits 0; a follower that dies ends rank 0 with
+a non-zero code. Other mesh axes, a multi-host mesh, and quantization,
+the adapter pool, the host tier, preemption and collective_matmul "ring"
+under a mesh of more than one rank are refused by name;
 collective_matmul "auto" resolves to the port's one all-reduce after each
 sharded sublayer, which ``main`` logs at startup.
 """
@@ -81,6 +82,7 @@ from runbooks_tpu_torch.parallel.mesh import (
     check_mesh_model,
     check_serving_mesh,
     make_mesh,
+    serving_axes,
 )
 from runbooks_tpu_torch.parallel.sharding import (
     serve_plan,
@@ -165,7 +167,7 @@ def _param_on(value) -> bool:
 
 def load_model(params: dict,
                device: Optional[Union[str, torch.device]] = None,
-               shard: Optional[Tuple[int, int]] = None
+               shard: Optional[Tuple[int, ...]] = None
                ) -> Tuple[ModelConfig, Any]:
     """(cfg, model params) from a params.json-style dict: a named config
     plus ``model_overrides``; the params of the newest intact checkpoint
@@ -185,9 +187,12 @@ def load_model(params: dict,
     says so. ``quantize_kv`` in params sets the config's field, which the
     engines read (default: on with quantized weights).
 
-    ``shard`` = (tensor, rank): only rank ``rank``'s shard of the
-    tensor-parallel plan over ``tensor`` ranks (parallel/sharding.
-    serve_plan) is materialised: a checkpoint is cut while it is mapped, a
+    ``shard`` = (tensor, rank) or (tensor, rank, expert): only rank
+    ``rank``'s shard of the serving plan over ``expert`` x ``tensor``
+    ranks (parallel/sharding.serve_plan; rank r at expert index r //
+    tensor, tensor index r % tensor: its heads, MLP columns and
+    vocabulary rows by the tensor index, an MoE model's experts by the
+    expert index) is materialised: a checkpoint is cut while it is mapped, a
     random init cuts each leaf as it is drawn (the same draws as the full
     tree's), an adapter's pairs are cut to the shard's columns before the
     fold. The full tree is never held."""
@@ -221,8 +226,10 @@ def load_model(params: dict,
     check_supported(cfg)
     cut = None
     if shard is not None:
-        check_mesh_model(cfg, MeshConfig(fsdp=1, tensor=shard[0]))
-        plan, rank = serve_plan(cfg, shard[0]), shard[1]
+        tensor, rank, expert = (*shard, 1)[:3]
+        check_mesh_model(cfg, MeshConfig(expert=expert, fsdp=1,
+                                         tensor=tensor), serving=True)
+        plan = serve_plan(cfg, tensor, expert)
         cut = functools.partial(shard_leaf, plan=plan, rank=rank)
     ckpt_dir = params.get("checkpoint") or contract.model_dir()
 
@@ -1485,8 +1492,8 @@ def serve_mesh(params: dict) -> Optional[MeshConfig]:
     """The ``mesh_*`` params as a MeshConfig (the reference's reading), or
     None when none is set. A replica is one pod: the mesh spans exactly
     the processes its fixed axes name (a -1 axis fills to 1), one per
-    GPU. Any axis but ``tensor`` above 1 is refused by name (mesh.
-    check_serving_mesh), and so is an unknown ``mesh_`` key."""
+    GPU. Any axis but ``expert`` and ``tensor`` above 1 is refused by name
+    (mesh.check_serving_mesh), and so is an unknown ``mesh_`` key."""
     fields = {f.name for f in dataclasses.fields(MeshConfig)}
     args = {}
     for k, v in params.items():
@@ -1532,17 +1539,19 @@ def collective_matmul_choice(params: dict) -> Optional[str]:
 def refuse_unported(params: dict) -> None:
     """Raise naming every params knob whose feature this port does not
     serve yet (serving without it would silently change what the
-    deployment asked for): serving axes other than ``tensor``, and under
-    ``mesh_tensor`` > 1 the features the sharded engines refuse."""
+    deployment asked for): serving axes other than ``expert`` and
+    ``tensor``, and under a mesh of more than one rank the features the
+    sharded engines refuse."""
     mc = serve_mesh(params)
-    if mc is None or mc.tensor == 1:
+    if mc is None or mc.expert * mc.tensor == 1:
         return
     check_mesh_model(get_config(params.get("model", "debug"),
-                                **params.get("model_overrides", {})), mc)
+                                **params.get("model_overrides", {})), mc,
+                     serving=True)
     info = distributed.env_process_info()
     if info is not None and info["num_processes"] > 1:
         raise NotImplementedError(
-            f"mesh_tensor={mc.tensor} over {info['num_processes']} hosts: "
+            f"{serving_axes(mc)} over {info['num_processes']} hosts: "
             "a serving replica is one pod (one process per GPU of one "
             "host); multi-host serving meshes are refused")
     overrides = params.get("model_overrides", {})
@@ -1565,9 +1574,8 @@ def refuse_unported(params: dict) -> None:
         bad.append("collective_matmul")
     if bad:
         raise NotImplementedError(
-            f"params {bad} under mesh_tensor={mc.tensor}: not ported to "
-            "the tensor-parallel server yet (ROADMAP.md §1); serve them on "
-            "one device")
+            f"params {bad} under {serving_axes(mc)}: not ported to the "
+            "sharded server yet (ROADMAP.md §1); serve them on one device")
 
 
 def _server_options(params: dict) -> dict:
@@ -1633,32 +1641,36 @@ _FRONT_END_OPTIONS = ("port", "warmup", "request_timeout_s",
 TP_TIMEOUT_S = 300
 
 
-def _join_mesh(rank: int, world: int, store_path: str, backend: str):
+def _join_mesh(rank: int, mc: MeshConfig, store_path: str, backend: str):
     """Form the replica's process group (a FileStore rendezvous) and its
-    DeviceMesh over the tensor axis. (mesh, this rank's device: cuda:rank
-    under NCCL, the CPU under gloo.)"""
+    DeviceMesh over the expert and tensor axes. (mesh, this rank's
+    device: cuda:rank under NCCL, the CPU under gloo.)"""
     import torch.distributed as dist
 
+    world = mc.expert * mc.tensor
     distributed.initialize(TP_TIMEOUT_S, backend=backend, rank=rank,
                            world_size=world,
                            store=dist.FileStore(store_path, world))
     dev = (torch.device("cuda", rank) if backend == "nccl"
            else torch.device("cpu"))
-    return make_mesh(MeshConfig(fsdp=1, tensor=world)), dev
+    return make_mesh(MeshConfig(expert=mc.expert, fsdp=1,
+                                tensor=mc.tensor)), dev
 
 
 def _follower_main(rank: int, world: int, store_path: str,
                    backend: str) -> None:
-    """A follower rank of the tensor-parallel server: its own shard of the
-    model, the same engine as rank 0's, and rank 0's program calls until
-    rank 0 stops it. Signals are rank 0's to handle."""
+    """A follower rank of the sharded server: its own shard of the model,
+    the same engine as rank 0's, and rank 0's program calls until rank 0
+    stops it. Signals are rank 0's to handle."""
     signal.signal(signal.SIGTERM, signal.SIG_IGN)
     signal.signal(signal.SIGINT, signal.SIG_IGN)
     params = contract.load_params()
     cuda_build.use_kernel_cache(
         cuda_build.kernel_cache_dir(contract.artifacts_dir()))
-    mesh, dev = _join_mesh(rank, world, store_path, backend)
-    cfg, model_params = load_model(params, device=dev, shard=(world, rank))
+    mc = serve_mesh(params)
+    mesh, dev = _join_mesh(rank, mc, store_path, backend)
+    cfg, model_params = load_model(params, device=dev,
+                                   shard=(mc.tensor, rank, mc.expert))
     opts = _server_options(params)
     for k in _FRONT_END_OPTIONS:
         opts.pop(k)
@@ -1721,19 +1733,21 @@ def _serve(srv: Server, cfg: ModelConfig,
 
 
 def main(backend: Optional[str] = None) -> int:
-    """The serving container's entry point. ``mesh_tensor: N`` > 1 serves
-    one tensor-parallel replica over N processes, one per GPU: this
-    process is rank 0 (HTTP, the worker, the scheduler) and starts ranks
-    1..N-1 itself. ``backend``: "nccl" (default, rank r on cuda:r) or,
-    when the caller asks, "gloo" on the CPU."""
+    """The serving container's entry point. ``mesh_expert: E`` x
+    ``mesh_tensor: N`` above one rank serves one sharded replica over E x
+    N processes, one per GPU: this process is rank 0 (HTTP, the worker,
+    the scheduler) and starts the others itself. ``backend``: "nccl"
+    (default, rank r on cuda:r) or, when the caller asks, "gloo" on the
+    CPU."""
     params = contract.load_params()
     refuse_unported(params)
     choice = collective_matmul_choice(params)
     if choice is not None:
         print(choice, flush=True)
     mc = serve_mesh(params)
-    if mc is not None and mc.tensor > 1:
-        return _main_tensor_parallel(params, mc.tensor, backend or "nccl")
+    if mc is not None and mc.expert * mc.tensor > 1:
+        return _main_tensor_parallel(params, mc.expert * mc.tensor,
+                                     backend or "nccl")
     # Kernels build into and load from <artifacts>/kernel_cache: a
     # restarted server loads K1 instead of running nvcc again.
     cuda_build.use_kernel_cache(
@@ -1752,19 +1766,21 @@ def main(backend: Optional[str] = None) -> int:
 
 
 def _main_tensor_parallel(params: dict, world: int, backend: str) -> int:
-    """Rank 0 of a tensor-parallel replica: start the followers, serve,
-    and on SIGTERM drain, release and join every follower, exit 0."""
+    """Rank 0 of a sharded replica of ``world`` ranks (params' mesh):
+    start the followers, serve, and on SIGTERM drain, release and join
+    every follower, exit 0."""
     import tempfile
 
     import torch.multiprocessing as mp
 
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend must be 'nccl' or 'gloo', got {backend!r}")
+    mc = serve_mesh(params)
     if backend == "nccl":
         n = torch.cuda.device_count()
         if world > n:
             raise RuntimeError(
-                f"mesh_tensor={world} needs {world} GPUs (one process per "
+                f"{serving_axes(mc)} needs {world} GPUs (one process per "
                 f"GPU) but torch.cuda.device_count() is {n}")
     cuda_build.use_kernel_cache(
         cuda_build.kernel_cache_dir(contract.artifacts_dir()))
@@ -1783,13 +1799,14 @@ def _main_tensor_parallel(params: dict, world: int, backend: str) -> int:
                              name="tp-watch", daemon=True)
     guard.start()
     try:
-        mesh, dev = _join_mesh(0, world, store_path, backend)
-        cfg, model_params = load_model(params, device=dev, shard=(world, 0))
+        mesh, dev = _join_mesh(0, mc, store_path, backend)
+        cfg, model_params = load_model(params, device=dev,
+                                       shard=(mc.tensor, 0, mc.expert))
         srv = create_server(cfg, model_params,
                             load_tokenizer(params.get("tokenizer")),
                             mesh=mesh, **_server_options(params))
-        print(f"serve: tensor-parallel replica of {world} ranks "
-              f"({backend}); plan {srv.worker.engine.tp.plan.describe()}",
+        print(f"serve: sharded replica of {world} ranks ({serving_axes(mc)}; "
+              f"{backend}); plan {srv.worker.engine.tp.plan.describe()}",
               flush=True)
         _serve(srv, cfg, stopping)
         served.set()

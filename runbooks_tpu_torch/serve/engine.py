@@ -57,16 +57,20 @@
   FLOPs and bytes measured at warmup's first dispatch) and the build
   sentinel's steady mark after warmup.
 
-- Tensor-parallel serving (``mesh=``, a DeviceMesh whose ``tensor`` axis
-  is above 1; parallel/): one process per GPU, each engine holding its
-  rank's shard of the weights and of the KV cache (parallel/sharding
-  .TensorPlan). Rank 0 alone runs the scheduler, the queue, the prefix
-  cache's LRU, the page tables and the HTTP front end: every device
-  program goes through one choke point (``_program``), where rank 0 sends
-  the program's name and host operands to the followers, which run the
-  same program on their shards (``serve_follower``). Sampled ids are
-  rank 0's (broadcast inside the decode loop), so every rank feeds the
-  same tokens forward.
+- Sharded serving (``mesh=``, a DeviceMesh whose ``expert`` x ``tensor``
+  ranks are more than one; parallel/): one process per GPU, each engine
+  holding its rank's shard of the weights and of the KV cache
+  (parallel/sharding.TensorPlan: heads, the MLP and the vocabulary over
+  ``tensor``, an MoE model's experts over ``expert``). Rank 0 of the
+  serving group (every rank of the mesh) alone runs the scheduler, the
+  queue, the prefix cache's LRU, the page tables and the HTTP front end:
+  every device program goes through one choke point (``_program``),
+  where rank 0 sends the program's name and host operands to every
+  follower, which runs the same program on its shard
+  (``serve_follower``). Every rank so runs each dispatch on the same
+  rows (an MoE layer's capacity counts them all). Sampled ids are rank
+  0's (broadcast over the serving group inside the decode loop), so
+  every rank feeds the same tokens forward.
 """
 
 from __future__ import annotations
@@ -104,6 +108,7 @@ from runbooks_tpu_torch.parallel.mesh import (
     check_mesh_model,
     check_serving_mesh,
     mesh_config_of,
+    serving_axes,
 )
 from runbooks_tpu_torch.parallel.sharding import (
     TensorParallel,
@@ -423,12 +428,12 @@ def make_decode_fn(cfg: ModelConfig, chunk: int, max_len: int,
 
 def sample_ids(tp: Optional[TensorParallel], logits, generator, temperature,
                top_k, top_p, gmask=None) -> torch.Tensor:
-    """``ops/sampling.sample``; under tensor parallelism the ids rank 0
-    drew, broadcast, so every rank feeds the same tokens forward (each
-    rank's logits are the same gathered logits, but its generator is its
-    own)."""
+    """``ops/sampling.sample``; under a serving mesh the ids rank 0
+    drew, broadcast over the serving group, so every rank feeds the same
+    tokens forward (each rank's logits are the same gathered logits, but
+    its generator is its own)."""
     ids = sample(logits, generator, temperature, top_k, top_p, gmask=gmask)
-    if tp is not None and tp.size > 1:
+    if tp is not None and tp.world > 1:
         ids = tp.broadcast(ids)
     return ids
 
@@ -562,13 +567,13 @@ class InferenceEngine:
         degrade-to-recompute paths can be exercised.
 
         mesh: a torch.distributed.device_mesh.DeviceMesh (parallel/mesh
-        .make_mesh) to serve one replica over its ``tensor`` axis, one
-        process per device. ``params`` is then the full tree or the
-        rank's shard (serve/api.load_model's ``shard``), on any device:
-        each rank keeps its shard (parallel/sharding.serve_plan,
-        shard_params) on its own device. Every rank builds the engine with
-        the same arguments; rank 0 drives it and the others run
-        ``serve_follower``. Other axes above 1, quantized weights or KV,
+        .make_mesh) to serve one replica over its ``expert`` and
+        ``tensor`` axes, one process per device. ``params`` is then the
+        full tree or the rank's shard (serve/api.load_model's
+        ``shard``), on any device: each rank keeps its shard
+        (parallel/sharding.serve_plan, shard_params) on its own device.
+        Every rank builds the engine with the same arguments; rank 0
+        drives it and the others run ``serve_follower``. Other axes above 1, quantized weights or KV,
         the adapter pool, the host tier, preemption and collective_matmul
         "ring" are refused by name under a mesh; collective_matmul "auto"
         resolves to the port's one all-reduce after each sharded sublayer
@@ -579,12 +584,12 @@ class InferenceEngine:
             quantize_kv = (cfg.quantize_kv if cfg.quantize_kv is not None
                            else cfg.quantize != "none")
         self.quantize_kv = bool(quantize_kv)
-        # The tensor-parallel state: this rank's view of the group (None
-        # without a mesh of tensor > 1), whether this engine drives
+        # The sharded state: this rank's view of the mesh (None without a
+        # mesh of more than one rank), whether this engine drives
         # followers, and the choke point's nesting depth.
         self.mesh = mesh
         self.tp: Optional[TensorParallel] = None
-        # What the tensor-parallel collectives are: None on one device.
+        # What the sharded forward's collectives are: None on one device.
         self.collective_matmul: Optional[str] = None
         self._leader = False
         self._program_depth = 0
@@ -758,8 +763,9 @@ class InferenceEngine:
                 f"got {type(mesh).__name__}")
         mc = mesh_config_of(mesh)
         check_serving_mesh(mc)
-        check_mesh_model(self.cfg, mc)
-        if mc.tensor > 1:
+        check_mesh_model(self.cfg, mc, serving=True)
+        world = mc.expert * mc.tensor
+        if world > 1:
             refused = []
             if self.quantize_kv or any(
                     isinstance(leaf, QuantizedArray)
@@ -775,15 +781,25 @@ class InferenceEngine:
             refused += self._mesh_refusals()
             if refused:
                 raise NotImplementedError(
-                    f"{', '.join(refused)} under a mesh (mesh_tensor="
-                    f"{mc.tensor}): not ported yet (ROADMAP.md §1); serve "
-                    f"without it or on one device")
+                    f"{', '.join(refused)} under a mesh "
+                    f"({serving_axes(mc)}): not "
+                    f"ported yet (ROADMAP.md §1); serve without it or on "
+                    f"one device")
         dev = (torch.device("cuda", torch.cuda.current_device())
                if mesh.device_type == "cuda" else torch.device("cpu"))
-        if mc.tensor > 1:
-            rank = mesh.get_local_rank("tensor")
-            self.tp = TensorParallel(serve_plan(self.cfg, mc.tensor), rank,
-                                     mesh.get_group("tensor"))
+        if world > 1:
+            import torch.distributed as dist
+
+            if world != dist.get_world_size():
+                raise ValueError(
+                    f"a serving mesh of {world} ranks in a group of "
+                    f"{dist.get_world_size()}: the mesh spans the group "
+                    "(parallel/mesh.make_mesh)")
+            rank = (mesh.get_local_rank("expert") * mc.tensor
+                    + mesh.get_local_rank("tensor"))
+            self.tp = TensorParallel(
+                serve_plan(self.cfg, mc.tensor, mc.expert), rank,
+                mesh.get_group("tensor"), dist.group.WORLD)
             self.collective_matmul = COLLECTIVE_MATMUL_AUTO
             self._leader = rank == 0
             params = shard_params(params, self.tp.plan, rank)
@@ -851,15 +867,16 @@ class InferenceEngine:
             self._program_depth -= 1
 
     def _exchange(self, msg=None):
-        """Rank 0's ``msg`` on every rank of the group (host objects,
-        pickled; the leader sends, a follower receives)."""
+        """Rank 0's ``msg`` on every rank of the serving group (host
+        objects, pickled; the leader sends, a follower receives)."""
         import torch.distributed as dist
 
         box = [msg]
+        group = self.tp.serve_group
         kw = ({"device": self.device} if self.device.type == "cuda"
-              and dist.get_backend(self.tp.group) == "nccl" else {})
-        dist.broadcast_object_list(box, src=self.tp._leader(),
-                                   group=self.tp.group, **kw)
+              and dist.get_backend(group) == "nccl" else {})
+        dist.broadcast_object_list(box, src=self.tp._leader(), group=group,
+                                   **kw)
         return box[0]
 
     def _send(self, msg) -> None:
@@ -885,7 +902,7 @@ class InferenceEngine:
         (queue, slots, page tables, the prefix LRU) has no copy here."""
         if self.tp is None or self.tp.rank == 0:
             raise RuntimeError("serve_follower runs on a follower rank of "
-                               "a tensor-parallel mesh")
+                               "a serving mesh")
         with torch.no_grad():
             while True:
                 name, args, kwargs = self._exchange()

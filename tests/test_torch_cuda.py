@@ -1001,3 +1001,34 @@ def test_moe_block_backward_equals_dense_formulation_on_card(dtype):
             assert err <= MOE_GRAD_RTOL[dtype] * scale, (name, err, scale)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.cuda
+def test_serving_group_collectives_at_nccl_world_one(tmp_path):
+    """chip_smoke.py phase 25 (b)'s collectives in this process, on an
+    NCCL group of one rank at mixtral-8x7b's widths: TensorParallel's
+    all-reduce, vocabulary gather, the MoE combine (f64, over the serving
+    group) and the sampled ids' broadcast, and the engine's program-call
+    exchange, each return their input exactly and count on their group."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (NCCL)")
+    import torch.distributed as dist
+
+    import chip_smoke
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.parallel import distributed
+
+    dev = torch.device("cuda", 0)
+    distributed.initialize(60, backend="nccl", rank=0, world_size=1,
+                           device=dev,
+                           store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        got = chip_smoke.tp_nccl_collectives(
+            torch, get_config("mixtral-8x7b"), dist.group.WORLD, dev)
+    finally:
+        distributed.shutdown()
+    assert all(got[k] for k in ("all_reduce", "combine_f64", "gather_vocab",
+                                "broadcast", "exchange")), got
+    assert got["group_counts"] == {
+        "tensor": {"all_reduce": 1, "all_gather": 1, "broadcast": 0},
+        "serve": {"all_reduce": 1, "all_gather": 0, "broadcast": 1}}

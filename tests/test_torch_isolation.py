@@ -271,16 +271,21 @@ def test_load_model_refuses_what_it_cannot_do():
                           "seed": 1}, device="cpu")[1]
     assert torch.equal(nothing["embed"], load_model(
         {"model": "debug", "seed": 1}, device="cpu")[1]["embed"])
-    # A debug-size MoE loads on the CPU; under a tensor-parallel shard it
-    # is refused by name.
+    # A debug-size MoE loads on the CPU, and a serving shard holds its
+    # experts' MLP columns (tensor 2) and, under expert 2, half of them.
     moe = {"model": "debug", "model_overrides": {
         "moe_num_experts": 4, "moe_top_k": 2, "num_layers": 1}}
     cfg, params = load_model(moe, device="cpu")
     assert cfg.moe_num_experts == 4 and "mlp" not in params["layers"]
     assert params["layers"]["moe"]["wo"].shape == (
         1, 4, cfg.intermediate_size, cfg.hidden_size)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        load_model(moe, device="cpu", shard=(2, 0))
+    m, h = cfg.intermediate_size, cfg.hidden_size
+    for shard, experts in (((2, 0), 4), ((2, 3, 2), 2)):
+        part = load_model(moe, device="cpu", shard=shard)[1]
+        assert part["layers"]["moe"]["wo"].shape == (1, experts, m // 2, h)
+        assert part["layers"]["moe"]["router"].shape == (1, h, 4)
+    assert torch.equal(part["layers"]["moe"]["wo"],
+                       params["layers"]["moe"]["wo"][:, 2:, m // 2:])
     with pytest.raises(NotImplementedError, match="gemma under a mesh"):
         load_model({"model": "gemma-2b"}, device="cpu", shard=(2, 0))
     cfg, params = load_model(

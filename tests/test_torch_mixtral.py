@@ -22,11 +22,14 @@ matmuls at "highest", tests/conftest.py).
   under int8, which leaves the experts alone); HF ``MixtralForCausalLM``'s
   logits are in tests/test_torch_convert.py and the import of an HF
   directory in tests/test_torch_loader.py.
-- Refusals by name: MoE under mesh_tensor / mesh_fsdp / mesh_data,
-  mesh_expert, a tensor-parallel or FSDP forward, and the fine-tune's
-  example manifest (mesh_expert 8, mesh_tensor 2). In one process the
-  fine-tune trains through every entry point (its parity with the
-  reference is tests/test_torch_moe_training.py's).
+- Refusals by name: MoE training under mesh_fsdp / mesh_data,
+  mesh_expert in training, an FSDP forward, and the fine-tune's example
+  manifest (mesh_expert 8, mesh_tensor 2). Serving takes MoE under
+  mesh_tensor and mesh_expert (the serving example's manifest passes the
+  parse; the ranks' parity is tests/test_torch_ep_serve.py's), and a
+  forward with ``tp=`` runs it. In one process the fine-tune trains
+  through every entry point (its parity with the reference is
+  tests/test_torch_moe_training.py's).
 """
 
 import dataclasses
@@ -341,40 +344,88 @@ def test_load_model_serves_a_debug_moe_on_the_cpu():
 # Refusals
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("axis", ["tensor", "fsdp", "data"])
+@pytest.mark.parametrize("axis", ["fsdp", "data"])
 def test_moe_under_a_mesh_is_refused_by_name(axis):
     cfg = get_config("mixtral-8x7b")
-    with pytest.raises(NotImplementedError,
-                       match=rf"MoE: moe_num_experts=8\) under mesh_{axis}=2"):
-        check_mesh_model(cfg, MeshConfig(**{"fsdp": 1, axis: 2}))
+    for serving in (False, True):
+        with pytest.raises(NotImplementedError,
+                           match=rf"MoE: moe_num_experts=8\) under "
+                                 rf"mesh_{axis}=2"):
+            check_mesh_model(cfg, MeshConfig(**{"fsdp": 1, axis: 2}),
+                             serving=serving)
     check_mesh_model(cfg, MeshConfig(fsdp=1))
-    if axis == "tensor":
-        with pytest.raises(NotImplementedError, match="MoE"):
-            api.refuse_unported({"model": "mixtral-8x7b",
-                                 "mesh_tensor": 2})
-        with pytest.raises(NotImplementedError, match="MoE"):
-            api.load_model({"model": "debug", "model_overrides": MOE},
-                           device="cpu", shard=(2, 0))
+
+
+def test_moe_serves_under_mesh_tensor():
+    """mesh_tensor passes every serving check for an MoE model (the
+    reference shards its experts' MLP width over tensor), and a shard
+    loads with the experts' MLP columns cut; training still refuses the
+    tensor axis."""
+    cfg = get_config("mixtral-8x7b")
+    check_mesh_model(cfg, MeshConfig(fsdp=1, tensor=2), serving=True)
+    api.refuse_unported({"model": "mixtral-8x7b", "mesh_tensor": 2})
+    tcfg, shard = api.load_model({"model": "debug", "model_overrides": MOE},
+                                 device="cpu", shard=(2, 1))
+    assert shard["layers"]["moe"]["wi_up"].shape == (2, 4, 32, 24)
+    assert shard["layers"]["attn"]["wq"].shape == (2, 32, 16)
+    with pytest.raises(NotImplementedError, match="mesh_tensor=2"):
+        check_training_mesh(MeshConfig(fsdp=1, tensor=2))
 
 
 def test_mesh_expert_and_the_examples_manifest_are_refused():
-    with pytest.raises(NotImplementedError, match="mesh_expert=2"):
-        check_serving_mesh(MeshConfig(expert=2, fsdp=1, tensor=2))
+    """In training: mesh_expert is refused by name (the fine-tune's
+    manifest is in test_fine_tune_trains_and_the_examples_manifest_is_
+    refused)."""
     with pytest.raises(NotImplementedError, match="mesh_expert=8"):
         check_training_mesh(MeshConfig(expert=8, fsdp=1))
-    # examples/mixtral-8x7b/server.yaml's params.
     with pytest.raises(NotImplementedError, match="mesh_expert=2"):
-        api.refuse_unported({"model": "mixtral-8x7b", "mesh_expert": 2,
-                             "mesh_tensor": 2})
+        check_training_mesh(MeshConfig(expert=2, fsdp=1, tensor=2))
+
+
+def test_mesh_expert_and_the_serving_examples_manifest_serve():
+    check_serving_mesh(MeshConfig(expert=2, fsdp=1, tensor=2))
+    check_mesh_model(get_config("mixtral-8x7b"),
+                     MeshConfig(expert=2, fsdp=1, tensor=2), serving=True)
+    # examples/mixtral-8x7b/server.yaml's params.
+    api.refuse_unported({"model": "mixtral-8x7b", "mesh_expert": 2,
+                         "mesh_tensor": 2})
+    assert api.serve_mesh({"model": "mixtral-8x7b", "mesh_expert": 2,
+                           "mesh_tensor": 2}) == MeshConfig(
+        expert=2, fsdp=1, tensor=2)
 
 
 def test_sharded_forwards_refuse_moe(world):
     _, tcfg, _, tparams = world
     tokens = torch.zeros((1, 4), dtype=torch.long)
-    for kw, words in (({"tp": object()}, "tensor-parallel"),
-                      ({"fsdp": object()}, "FSDP")):
-        with pytest.raises(NotImplementedError, match=f"MoE.*{words}"):
-            forward(tcfg, tparams, tokens, **kw)
+    with pytest.raises(NotImplementedError, match="MoE.*FSDP"):
+        forward(tcfg, tparams, tokens, fsdp=object())
+
+
+def test_tensor_parallel_forward_runs_moe_at_world_one(world, tmp_path):
+    """A forward with ``tp=`` (one rank of a world-1 gloo group, the
+    experts combined over its serving group) gives one device's logits
+    bit for bit: the combine's all-reduce returns its input."""
+    import torch.distributed as dist
+
+    from runbooks_tpu_torch.parallel.sharding import (
+        TensorParallel,
+        serve_plan,
+    )
+
+    _, tcfg, _, tparams = world
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(0, 64,
+                                                               (2, 9)))
+    want, _ = forward(tcfg, tparams, tokens)
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "s"), 1))
+    try:
+        tp = TensorParallel(serve_plan(tcfg, 1, 1), 0, dist.group.WORLD,
+                            dist.group.WORLD)
+        got, _ = forward(tcfg, tparams, tokens, tp=tp)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want)
+    assert tp.group_counts["serve"]["all_reduce"] == tcfg.num_layers
 
 
 def test_fine_tune_trains_and_the_examples_manifest_is_refused(

@@ -204,12 +204,43 @@ def test_main_mesh_tensor_beyond_the_gpus_raises_naming_the_count(
                        match=r"mesh_tensor=2 needs 2 GPUs .* "
                              r"torch.cuda.device_count\(\) is 1"):
         _main_with(tmp_path, monkeypatch, {"mesh_tensor": 2})
+    with pytest.raises(RuntimeError,
+                       match=r"mesh_expert=2, mesh_tensor=2 needs 4 GPUs .* "
+                             r"torch.cuda.device_count\(\) is 1"):
+        _main_with(tmp_path, monkeypatch, {"mesh_expert": 2,
+                                           "mesh_tensor": 2})
+
+
+def test_main_takes_the_mixtral_examples_expert_mesh(tmp_path, monkeypatch):
+    """examples/mixtral-8x7b/server.yaml (mesh_expert 2 x mesh_tensor 2)
+    passes main's parse: a replica of four ranks (started, stubbed: it
+    needs four GPUs)."""
+    import yaml
+
+    spec = yaml.safe_load((ROOT / "examples" / "mixtral-8x7b" /
+                           "server.yaml").read_text())
+    params = spec["spec"]["params"]
+    assert (params["mesh_expert"], params["mesh_tensor"]) == (2, 2)
+    started = []
+    monkeypatch.setattr(api, "_main_tensor_parallel",
+                        lambda p, world, backend: started.append(
+                            (p["model"], world, backend)) or 0)
+    (tmp_path / "params.json").write_text(json.dumps(params))
+    monkeypatch.setenv("RBT_CONTENT_DIR", str(tmp_path))
+    assert api.main() == 0
+    assert started == [("mixtral-8x7b", 4, "nccl")]
 
 
 @pytest.mark.parametrize("params,exc,words", [
     ({"mesh_sequence": 2}, NotImplementedError, "mesh_sequence=2"),
-    ({"mesh_expert": 2, "mesh_tensor": 2}, NotImplementedError,
-     "mesh_expert=2"),
+    ({"mesh_expert": 2, "adapter_pool": 2}, NotImplementedError,
+     r"\['adapter_pool'\] under mesh_expert=2"),
+    ({"mesh_expert": 2, "mesh_tensor": 2, "quantize": "int8"},
+     NotImplementedError, "quantize=.*under mesh_expert=2, mesh_tensor=2"),
+    ({"mesh_expert": 2, "kv_host_pages": 8, "kv_paging": "paged"},
+     NotImplementedError, "kv_host_pages"),
+    ({"mesh_expert": 2, "preemption": "swap"}, NotImplementedError,
+     "preemption"),
     ({"mesh_stage": 2}, ValueError, "pipeline \\(stage\\)"),
     ({"mesh_tensro": 2}, ValueError, "unknown mesh axis"),
     ({"mesh_tensor": 2, "kv_host_pages": 8, "kv_paging": "paged"},

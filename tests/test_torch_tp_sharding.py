@@ -189,7 +189,7 @@ def test_mesh_config_resolve_matches_reference():
     assert mesh.MESH_AXES == jax_mesh.MESH_AXES
 
 
-@pytest.mark.parametrize("axis", ["data", "expert", "fsdp", "sequence"])
+@pytest.mark.parametrize("axis", ["data", "fsdp", "sequence"])
 def test_serving_mesh_refuses_other_axes_by_name(axis):
     with pytest.raises(NotImplementedError, match=f"mesh_{axis}=2"):
         mesh.check_serving_mesh(
@@ -197,6 +197,23 @@ def test_serving_mesh_refuses_other_axes_by_name(axis):
     with pytest.raises(ValueError, match="pipeline \\(stage\\)"):
         mesh.check_serving_mesh(mesh.MeshConfig(fsdp=1, stage=2).resolve(2))
     mesh.check_serving_mesh(mesh.MeshConfig(fsdp=1, tensor=4).resolve(4))
+
+
+def test_serving_mesh_takes_the_expert_axis():
+    """mesh_expert serves (an MoE model's experts shard over it; a dense
+    model replicates over it, as the reference drops an axis no
+    dimension uses); training still refuses it by name."""
+    for axes in (dict(expert=2), dict(expert=2, tensor=2),
+                 dict(expert=8, tensor=2)):
+        mc = mesh.MeshConfig(fsdp=1, **axes)
+        mesh.check_serving_mesh(mc)
+        mesh.check_mesh_model(get_config("llama3-8b"), mc, serving=True)
+        mesh.check_mesh_model(get_config("mixtral-8x7b"), mc, serving=True)
+        with pytest.raises(NotImplementedError, match="mesh_expert="):
+            mesh.check_training_mesh(mc)
+    plan = sharding.serve_plan(get_config("llama3-8b"), 2, 2)
+    assert not plan.experts and plan.expert_range(3) == range(0)
+    assert plan.q_heads(3) == plan.q_heads(1)
 
 
 @pytest.mark.parametrize("name", ["gemma-2b", "gemma-7b"])

@@ -1,7 +1,9 @@
-"""The reference side of the tensor-parallel tests: the geometries, the
-reference's weights carried to a file the port's ranks load, and the
-reference's mesh engine (``tensor=2`` over the conftest's 8 virtual CPU
-devices, as tests/test_mesh_serving.py builds it) as the oracle.
+"""The reference side of the tensor- and expert-parallel tests: the
+geometries, the reference's weights carried to a file the port's ranks
+load, and the reference's mesh engine (``tensor=2`` over the conftest's 8
+virtual CPU devices, as tests/test_mesh_serving.py builds it; ``expert=2``
+x ``tensor=2`` for an MoE model, as tests/test_moe.py serves one) as the
+oracle.
 
 Imported by the test modules only; the spawned ranks import
 tests/tp_ranks.py, which never imports JAX.
@@ -44,6 +46,16 @@ GEOMETRIES = {
                           num_kv_heads=4)),
 }
 
+# tests/test_torch_mixtral.py's debug MoE (tests/test_moe.py's size: 4
+# experts, top 2, f32, 2 layers), and the same with 3 experts, which 2
+# expert ranks do not divide (the experts replicate).
+MOE = dict(vocab_size=64, hidden_size=32, intermediate_size=48,
+           num_layers=2, num_heads=4, num_kv_heads=2, head_dim=8,
+           max_seq_len=32, dtype="float32", moe_num_experts=4,
+           moe_top_k=2, moe_capacity_factor=1.25)
+GEOMETRIES["moe4"] = ("debug", MOE)
+GEOMETRIES["moe3"] = ("debug", dict(MOE, moe_num_experts=3))
+
 PROMPTS = [[5, 9, 17], [3, 4, 5, 6, 7], [40, 2], [8, 8, 8, 9]]
 REP_PROMPT = [5, 6, 7, 8] * 5 + [5, 6]
 SHARED = list(range(1, 33))
@@ -56,6 +68,12 @@ LOGITS_ATOL = 1e-4
 
 def ref_mesh():
     return make_mesh(MeshConfig(data=1, fsdp=4, tensor=2))
+
+
+def ref_ep_mesh():
+    """The reference's expert x tensor serving mesh over the 8 virtual
+    devices (fsdp takes the remaining 2)."""
+    return make_mesh(MeshConfig(data=1, expert=2, fsdp=2, tensor=2))
 
 
 def model(name: str, tmp_path, seed: int = 0):

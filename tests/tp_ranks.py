@@ -132,10 +132,34 @@ def _model(spec: dict):
     return cfg, params
 
 
+def record_routing(records: list):
+    """Wrap models.moe.route to append each call's Routing (expert, slot,
+    keep, gate as numpy) to ``records``; returns the restore function."""
+    from runbooks_tpu_torch.models import moe
+
+    route = moe.route
+
+    def recording(cfg, probs):
+        r = route(cfg, probs)
+        records.append({k: getattr(r, k).numpy()
+                        for k in ("expert", "slot", "keep", "gate")})
+        return r
+
+    moe.route = recording
+
+    def restore():
+        moe.route = route
+
+    return restore
+
+
 def forward_logits(rank, mesh, spec: dict, tokens):
-    """The tensor-parallel forward (no cache) of every rank on the same
-    tokens: each rank's logits, its local parameter bytes and the plan's
-    analytic ones."""
+    """The sharded forward (no cache) of every rank on the same tokens:
+    each rank's logits, its local parameter bytes and the plan's analytic
+    ones, one forward's collectives (by kind and by group) and, for an
+    MoE model, each layer's Routing."""
+    import torch.distributed as dist
+
     from runbooks_tpu_torch.models.transformer import forward
     from runbooks_tpu_torch.parallel.sharding import (
         TensorParallel,
@@ -145,88 +169,119 @@ def forward_logits(rank, mesh, spec: dict, tokens):
     from runbooks_tpu_torch.utils.tree import tree_leaves
 
     cfg, params = _model(spec)
-    plan = serve_plan(cfg, mesh.size(mesh.mesh_dim_names.index("tensor")))
+    size = lambda a: mesh.size(mesh.mesh_dim_names.index(a))  # noqa: E731
+    plan = serve_plan(cfg, size("tensor"), size("expert"))
     local = shard_params(params, plan, rank)
-    tp = TensorParallel(plan, rank, mesh.get_group("tensor"))
-    with torch.no_grad():
-        logits, _ = forward(cfg, local, torch.as_tensor(tokens), tp=tp)
+    tp = TensorParallel(plan, rank, mesh.get_group("tensor"),
+                        dist.group.WORLD)
+    routing = []
+    restore = record_routing(routing)
+    try:
+        with torch.no_grad():
+            logits, _ = forward(cfg, local, torch.as_tensor(tokens), tp=tp)
+    finally:
+        restore()
     return {"logits": logits.numpy(), "plan": plan.describe(),
             "kv_map": tp.kv_map,
             "local_bytes": sum(t.numel() * t.element_size()
                                for t in tree_leaves(local)),
             "plan_bytes": plan.local_param_bytes(params, rank),
-            "counts": dict(tp.counts)}
+            "local_shapes": {k: tuple(v.shape) for k, v in
+                             local["layers"].get("moe", {}).items()},
+            "counts": dict(tp.counts),
+            "group_counts": {g: dict(c) for g, c in tp.group_counts.items()},
+            "routing": routing}
+
+
+def make_engine(cfg, params, case: dict, mesh=None):
+    """The case's engine (paged or dense, its "engine" arguments; its
+    "config" replaces fields of ``cfg``)."""
+    import dataclasses
+
+    from runbooks_tpu_torch.serve.engine import InferenceEngine
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+
+    cfg = dataclasses.replace(cfg, **case.get("config", {}))
+    cls = PagedInferenceEngine if case["paged"] else InferenceEngine
+    return cls(cfg, params, mesh=mesh, **case.get("engine", {}))
+
+
+def drive(engine, case: dict) -> dict:
+    """One case on a driving engine (rank 0, or one process): prefix
+    registration, chat turns, then one generate of the case's greedy
+    requests. Its output ids, kv_occupancy, counters, the
+    collective_matmul the engine resolved and the f32 logits of every
+    prefill dispatch."""
+    from runbooks_tpu_torch.serve.engine import Request
+
+    prefill_logits = []
+    prefill = engine._prefill
+
+    def recording(*args, **kw):
+        got = prefill(*args, **kw)
+        prefill_logits.append(got[2].numpy())
+        return got
+
+    engine._prefill = recording
+    for prefix in case.get("prefixes", []):
+        engine.register_prefix(prefix)
+    for turn in case.get("turns", []):
+        # A chat turn: its prompt's K/V lifted from the slot (no
+        # forward), as the worker does under auto_prefix.
+        done = engine.generate([Request(
+            prompt_tokens=list(turn), max_tokens=case["max_tokens"],
+            temperature=0.0)])[0]
+        engine.register_prefix_from_slot(done._slot, turn)
+    reqs = [Request(prompt_tokens=list(p), max_tokens=case["max_tokens"],
+                    temperature=0.0) for p in case["prompts"]]
+    engine.generate(reqs)
+    return {"ids": [r.output_tokens for r in reqs],
+            "occupancy": engine.kv_occupancy(),
+            "spec_drafted": engine.spec_drafted,
+            "prefix_tokens_reused": engine.prefix_tokens_reused,
+            "kv_heads": int(engine.cache.k.shape[-2]),
+            "counts": None if engine.tp is None else dict(engine.tp.counts),
+            "collective_matmul": engine.collective_matmul,
+            "prefill_logits": prefill_logits}
 
 
 def serve(rank, mesh, spec: dict, cases: list, tokens=None):
     """Each case through an engine built on every rank with the mesh:
-    rank 0 drives it (prefix registration, then one generate of the
-    case's greedy requests) and the followers replay. A case's "config"
-    replaces fields of the model config. Returns {"cases": rank 0's
-    output ids, kv_occupancy, counters, the collective_matmul the engine
-    resolved and the f32 logits of every prefill dispatch, per case (None
-    on a follower), "forward": forward_logits' result on ``tokens``, if
-    given}."""
-    import dataclasses
-
-    from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
-    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
-
+    rank 0 drives it (``drive``) and the followers replay. Returns
+    {"cases": rank 0's ``drive`` result per case (None on a follower),
+    "forward": forward_logits' result on ``tokens``, if given}."""
     out = {"forward": (None if tokens is None
                        else forward_logits(rank, mesh, spec, tokens))}
     base_cfg, params = _model(spec)
     results = out["cases"] = []
     for case in cases:
-        cfg = dataclasses.replace(base_cfg, **case.get("config", {}))
-        kw = dict(case.get("engine", {}))
-        if case["paged"]:
-            engine = PagedInferenceEngine(cfg, params, mesh=mesh, **kw)
-        else:
-            engine = InferenceEngine(cfg, params, mesh=mesh, **kw)
+        engine = make_engine(base_cfg, params, case, mesh)
         if rank:
             engine.serve_follower()
             results.append(None)
             continue
-        prefill_logits = []
-        prefill = engine._prefill
-
-        def recording(*args, **kw):
-            got = prefill(*args, **kw)
-            prefill_logits.append(got[2].numpy())
-            return got
-
-        engine._prefill = recording
         try:
-            for prefix in case.get("prefixes", []):
-                engine.register_prefix(prefix)
-            for turn in case.get("turns", []):
-                # A chat turn: its prompt's K/V lifted from the slot
-                # (no forward), as the worker does under auto_prefix.
-                done = engine.generate([Request(
-                    prompt_tokens=list(turn), max_tokens=case["max_tokens"],
-                    temperature=0.0)])[0]
-                engine.register_prefix_from_slot(done._slot, turn)
-            reqs = [Request(prompt_tokens=list(p),
-                            max_tokens=case["max_tokens"], temperature=0.0)
-                    for p in case["prompts"]]
-            engine.generate(reqs)
-            results.append({
-                "ids": [r.output_tokens for r in reqs],
-                "occupancy": engine.kv_occupancy(),
-                "spec_drafted": engine.spec_drafted,
-                "prefix_tokens_reused": engine.prefix_tokens_reused,
-                "kv_heads": int(engine.cache.k.shape[-2]),
-                "counts": dict(engine.tp.counts),
-                "collective_matmul": engine.collective_matmul,
-                "prefill_logits": prefill_logits})
+            results.append(drive(engine, case))
         finally:
             engine.stop_followers()
     return out
 
 
-def refusals(rank, mesh, spec: dict) -> dict:
+def serve_specs(rank, mesh, runs: list, refusal_spec: dict = None):
+    """``serve`` of each (spec, cases, tokens) in turn (one spawn for
+    several models); then, with ``refusal_spec``, ``refusals`` on that
+    model (its own host tier) as the last entry."""
+    out = [serve(rank, mesh, *run) for run in runs]
+    if refusal_spec is not None:
+        out.append(refusals(rank, mesh, refusal_spec, own_host_tier=True))
+    return out
+
+
+def refusals(rank, mesh, spec: dict, own_host_tier: bool = False) -> dict:
     """What a mesh engine refuses, by message: the paged geometry check
-    and each feature out of the slice's scope under tensor > 1."""
+    and each feature out of the slice's scope under a mesh of more than
+    one rank. The host tier is tried on a debug model whose kv heads
+    shard, or (``own_host_tier``) on the spec's model."""
     import dataclasses
 
     from runbooks_tpu_torch.models.config import get_config
@@ -250,7 +305,8 @@ def refusals(rank, mesh, spec: dict) -> dict:
                                                 adapter_pool=2),
         # On a geometry whose kv heads shard, so the tier is what fails.
         "host_tier": lambda: PagedInferenceEngine(
-            debug, debug_params, mesh=mesh, kv_host_pages=4),
+            *((cfg, params) if own_host_tier else (debug, debug_params)),
+            mesh=mesh, kv_host_pages=4),
         "preemption": lambda: InferenceEngine(cfg, params, mesh=mesh,
                                               preemption="swap"),
         "collective_matmul": lambda: InferenceEngine(
