@@ -434,6 +434,33 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    -m runbooks_tpu_torch.serve.api`` under mesh_expert 2 x mesh_tensor
    2 exits non-zero naming the device count (over HTTP where four GPUs
    exist).
+26. Mixtral's fine-tune under ``mesh_fsdp`` (no kernel of its own; K1-K3
+   at 32/8 heads of 128 on each rank): (a) phase 24 (b)'s LoRA job on an
+   f32 mixtral-8x7b base at full width cut to MIXTRAL_FSDP_LAYERS, on a
+   global batch of 4 packed rows of 2048 in 2 microbatches for
+   MIXTRAL_FSDP_STEPS steps, as two fsdp ranks sharing the card over
+   gloo, each routing its rows as the reference routes the global
+   microbatch (models/moe.py), held against one process on the same seed
+   and batch (run after the ranks end, routed as the ranks routed; no
+   base weights are written to disk); gates: each step's loss (CE + aux)
+   and global gradient norm within FSDP_LOSS_RTOL of one process's, the
+   LoRA tree within 2 x lr x steps, each rank's K1-K3 launches equal to
+   one process's, each rank's parameter bytes equal to the plan's, and
+   the routing gate: the ranks' (expert, slot, keep) of layer 0 of the
+   first microbatch equal to ``route`` on one device of their
+   probabilities concatenated in block order, exactly, where each rank
+   routing its rows alone (the planted fault) must not; reported: one
+   process routing on its own (its losses, norms and LoRA gap, and the
+   assignments it routes otherwise: the router's product and PyTorch's
+   reductions round by batch shape, and a moved near-tie shifts every
+   later slot of its expert), the kept share, each rank's peak and step
+   seconds (gloo over host memory on one card, not an FSDP speed) and
+   the collectives by kind. (b) NCCL at world 1: the routing all-gather of a
+   CUDA int64 tensor returns its input and ``route`` with that group
+   gives one device's routing; ``python -m
+   runbooks_tpu_torch.train.trainer`` on mixtral under mesh_fsdp 2 trains
+   where two GPUs exist, and otherwise exits non-zero naming the device
+   count, not refusing the MoE.
 
 Each phase's end prints the seconds since the start; a run still going
 after WATCHDOG_S dumps every thread's stack to standard error. Checks
@@ -441,8 +468,9 @@ that only start processes and wait on them run beside this process's
 own work (``Background``): phase 8 (c)'s and phase 15 (e)'s servers warm
 up while the phase's in-process steps run, phase 16 (e)'s servers while
 (d) imports, phase 17 (c)'s entry points while (b) and (d) run, and
-phase 21 (a)'s ranks while phase 20 runs, and phase 22 (c)'s server
-while (b) and (d) run (its fine-tune after the server has exited). The
+phase 21 (a)'s ranks while phase 20 runs, phase 22 (c)'s server
+while (b) and (d) run (its fine-tune after the server has exited), and
+phase 26 (b)'s entry point while (a)'s ranks run. The
 times those report, and those of the steps beside them, share the host
 and the card; the kernels' own timings (phases 3, 5, 14 (a), 16 (a) and
 22 (a)) run alone.
@@ -8803,8 +8831,8 @@ def count_routing(records):
 
     route, dense = moe.route, moe.dispatch_combine_dense
 
-    def counting(cfg, probs):
-        r = route(cfg, probs)
+    def counting(cfg, probs, group=None):
+        r = route(cfg, probs, group)
         records.append((cfg.moe_capacity_factor, probs.shape[0], r.expert,
                         r.keep))
         return r
@@ -9389,8 +9417,8 @@ def capture_routing(records):
 
     route = moe.route
 
-    def capturing(cfg, probs):
-        r = route(cfg, probs)
+    def capturing(cfg, probs, group=None):
+        r = route(cfg, probs, group)
         records.append({k: getattr(r, k).cpu() for k in ("expert", "slot",
                                                          "keep", "gate")})
         return r
@@ -9801,6 +9829,491 @@ def ep_phase(torch, seed, workdir):
             for kind in ("dense", "paged") for r in range(len(ranks))}
 
 
+# ---------------------------------------------------------------------------
+# Mixtral's fine-tune over FSDP ranks: phase 26
+# ---------------------------------------------------------------------------
+
+# mixtral-8x7b at full width cut to this depth, fine-tuned as two fsdp
+# ranks sharing the card over gloo: each holds half of every f32 leaf
+# that fsdp divides, about 6.3 GB of the 12.6 GB base at 2 layers.
+MIXTRAL_FSDP_LAYERS = 2
+MIXTRAL_FSDP_STEPS = 2
+MIXTRAL_FSDP_RANKS = 2
+MIXTRAL_FSDP_TIMEOUT_S = 600
+
+
+def moe_fsdp_job(seed, data_path, artifacts):
+    """Phase 24 (b)'s LoRA job (rank 16, alpha 32 on the attention, f32
+    base, remat, the config's capacity factor 1.25) on mixtral-8x7b at
+    full width cut to MIXTRAL_FSDP_LAYERS: a global batch of 4 packed
+    rows of TRAIN_SEQ in 2 microbatches, MIXTRAL_FSDP_STEPS steps at lr
+    FSDP_LR with no warmup, a checkpoint (the LoRA state alone) at the
+    last step."""
+    from runbooks_tpu_torch.train.lora import LoraConfig
+    from runbooks_tpu_torch.train.optimizer import OptimizerConfig
+    from runbooks_tpu_torch.train.trainer import TrainJobConfig
+
+    return TrainJobConfig(
+        model="mixtral-8x7b",
+        model_overrides={"num_layers": MIXTRAL_FSDP_LAYERS},
+        lora=LoraConfig(rank=16, alpha=32.0),
+        optimizer=OptimizerConfig(learning_rate=FSDP_LR, warmup_steps=0),
+        batch_size=4, seq_len=TRAIN_SEQ, accumulate_steps=2,
+        steps=MIXTRAL_FSDP_STEPS, checkpoint_every=1000,
+        data_path=data_path, artifacts_dir=artifacts, log_every=1,
+        seed=seed)
+
+
+ROUTE_FIELDS = ("expert", "slot", "keep")
+
+
+def record_routes(records, replay=None):
+    """Wrap models.moe.route to append each call's Routing to
+    ``records`` (device tensors: no sync), the first call's router
+    probabilities and routing group beside it; returns the restore
+    function. With ``replay`` (one process only), the i-th call returns
+    ``replay[i]``'s expert, slot and keep (whole-microbatch,
+    choice-major), its gates and aux taken from this call's own
+    probabilities as ``route`` takes them, and records its own routing."""
+    from runbooks_tpu_torch.models import moe
+
+    route = moe.route
+
+    def recording(cfg, probs, group=None):
+        r = route(cfg, probs, group)
+        first = None if records else (probs.detach().clone(), group)
+        records.append((r, first))
+        return r if replay is None else replayed(
+            cfg, probs, replay[len(records) - 1])
+
+    moe.route = recording
+
+    def restore():
+        moe.route = route
+
+    return restore
+
+
+def replayed(cfg, probs, want):
+    """A Routing of ``probs`` [T, E] with ``want``'s expert, slot and keep:
+    the gates renormalised over the k chosen experts' probabilities and
+    the aux from the first choices, as ``route`` computes both from its
+    own top-k (bit for bit where the choices are route's)."""
+    import torch
+    import torch.nn.functional as F
+
+    from runbooks_tpu_torch.models import moe
+
+    T, E = probs.shape
+    k = cfg.moe_top_k
+    expert, slot, keep = (want[f].to(probs.device) for f in ROUTE_FIELDS)
+    chosen = probs.gather(1, expert.view(k, T).T)
+    gate = chosen / torch.clamp(chosen.sum(-1, keepdim=True), min=1e-9)
+    me = probs.mean(dim=0)
+    ce = F.one_hot(expert[:T], E).to(probs.dtype).mean(dim=0)
+    aux = (E * (me * ce).sum()).float()
+    return moe.Routing(expert, slot, keep, gate.T.reshape(k * T),
+                       moe.moe_capacity(cfg, T), aux)
+
+
+def routes_on_host(records):
+    """Every recorded call's expert, slot and keep on the host, and the
+    first call's probabilities, capacity and routing group (on a rank:
+    its block of the global microbatch)."""
+    r, (probs, group) = records[0]
+    out = {"probs": probs.cpu(), "capacity": r.capacity,
+           "calls": [{f: getattr(c, f).cpu() for f in ROUTE_FIELDS}
+                     for c, _ in records]}
+    if group is not None:
+        out.update(block=group.block, blocks=group.blocks,
+                   owner=group.owner)
+    return out
+
+
+def kept_share(records):
+    return (sum(int(r.keep.sum()) for r, _ in records)
+            / sum(r.keep.numel() for r, _ in records))
+
+
+def global_calls(k, routes):
+    """The ranks' routings as one device's: each call's owners' blocks
+    put together in block order, choice-major over the whole
+    microbatch."""
+    import torch
+
+    owners = sorted((r for r in routes if r["owner"]),
+                    key=lambda r: r["block"])
+    out = []
+    for c in range(len(owners[0]["calls"])):
+        parts = [o["calls"][c] for o in owners]
+        out.append({f: torch.cat([p[f].view(k, -1) for p in parts],
+                                 1).reshape(-1) for f in ROUTE_FIELDS})
+    return out
+
+
+def moe_fsdp_rank(rank, world, store_path, out_path, setup):
+    """Phase 26 (a)'s rank body (a spawned process): join the gloo group
+    on this card, then ``run_training`` on the fsdp mesh, recording the
+    MoE's routing. The summary, K1-K3 launches, the first routing and the
+    kept share are pickled to out_path (a traceback instead, on
+    failure)."""
+    import pickle
+    import traceback
+
+    import torch
+
+    result = {"ok": False}
+    try:
+        import torch.distributed as dist
+
+        from runbooks_tpu_torch.parallel import distributed
+        from runbooks_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+        from runbooks_tpu_torch.train.trainer import run_training
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dev = torch.device("cuda", 0)
+        distributed.initialize(MIXTRAL_FSDP_TIMEOUT_S, backend="gloo",
+                               rank=rank, world_size=world, device=dev,
+                               store=dist.FileStore(store_path, world))
+        mesh = make_mesh(MeshConfig(fsdp=world), device_type="cuda")
+        records = []
+        restore = record_routes(records)
+        torch.cuda.reset_peak_memory_stats()
+        reset_flash_counts()
+        t0 = time.perf_counter()
+        try:
+            summary = run_training(moe_fsdp_job(**setup), device=dev,
+                                   mesh=mesh)
+        finally:
+            restore()
+        result.update(ok=True, summary=summary, launches=flash_counts(),
+                      wall_s=time.perf_counter() - t0,
+                      routing=routes_on_host(records),
+                      kept_share=kept_share(records))
+        distributed.shutdown()
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        result["error"] = traceback.format_exc()
+    with open(out_path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def moe_fsdp_main_check(workdir):
+    """Phase 26 (b): ``python -m runbooks_tpu_torch.train.trainer`` on
+    mixtral (LoRA, ENTRY_LAYERS) under mesh_fsdp 2 over NCCL: it trains
+    where two GPUs exist (exit 0, both ranks' codes 0); with one, it must
+    exit non-zero naming the device count, and not refuse the MoE."""
+    import torch
+
+    content = f"{workdir}/moe_fsdp_content"
+    os.makedirs(content, exist_ok=True)
+    with open(f"{content}/params.json", "w") as f:
+        json.dump({"model": "mixtral-8x7b",
+                   "model_overrides": {"num_layers": ENTRY_LAYERS},
+                   "lora": {"rank": 16, "alpha": 32.0}, "batch_size": 2,
+                   "seq_len": 512, "steps": 2, "log_every": 1,
+                   "mesh_fsdp": 2, "maintenance_poll_s": 0}, f)
+    n = torch.cuda.device_count()
+    root = os.path.dirname(os.path.abspath(__file__))
+    done = subprocess.run(
+        [sys.executable, "-m", "runbooks_tpu_torch.train.trainer"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, RBT_CONTENT_DIR=content))
+    if n >= 2:
+        last = [json.loads(x) for x in done.stdout.splitlines()
+                if x.startswith('{"done"')]
+        ok = (done.returncode == 0 and bool(last)
+              and last[-1]["rank_exit_codes"] == [0, 0])
+        return {"ran": True, "devices": n, "exit": done.returncode,
+                "rank_exit_codes": last[-1]["rank_exit_codes"] if last
+                else None}, ok
+    named = f"torch.cuda.device_count() is {n}" in done.stderr
+    moe_refused = "moe_num_experts" in done.stderr
+    return {"ran": False, "devices": n, "exit": done.returncode,
+            "names_device_count": named, "refuses_moe": moe_refused}, (
+        done.returncode != 0 and named and not moe_refused)
+
+
+def moe_fsdp_nccl_check(torch, seed, workdir):
+    """Phase 26 (b): the routing group's all-gather over NCCL at world 1
+    in this process, on a CUDA int64 [k, E] tensor, returns its input,
+    and ``route`` with that group gives one device's integers on
+    mixtral's router shape. ({check: passed}, backend)."""
+    import torch.distributed as dist
+
+    from runbooks_tpu_torch.models import moe
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.parallel import distributed
+    from runbooks_tpu_torch.parallel.mesh import MeshConfig
+    from runbooks_tpu_torch.parallel.sharding import FsdpPlan, RoutingGroup
+
+    dev = torch.device("cuda", 0)
+    cfg = get_config("mixtral-8x7b")
+    k, E = cfg.moe_top_k, cfg.moe_num_experts
+    g = torch.Generator(device=dev).manual_seed(seed)
+    probs = torch.softmax(torch.randn((TRAIN_SEQ, E), generator=g,
+                                      device=dev), -1)
+    want = moe.route(cfg, probs)
+    distributed.initialize(MIXTRAL_FSDP_TIMEOUT_S, backend="nccl", rank=0,
+                           world_size=1, device=dev,
+                           store=dist.FileStore(f"{workdir}/moe_nccl", 1))
+    try:
+        plan = FsdpPlan(mesh=dataclasses.asdict(MeshConfig(fsdp=1)),
+                        params={})
+        counts = {"routing_all_gather": 0}
+        group = RoutingGroup.of(plan, 1, 0, counts=counts)
+        x = torch.arange(k * E, device=dev).reshape(k, E)
+        gathered = group.gather(x)
+        got = moe.route(cfg, probs, group)
+        torch.cuda.synchronize()
+        checks = {
+            "all_gather_returns_input": torch.equal(gathered, x[None])
+            and gathered.device == x.device,
+            "route_equals_one_device": all(
+                torch.equal(getattr(got, f), getattr(want, f))
+                for f in ("expert", "slot", "keep", "gate"))
+            and got.capacity == want.capacity,
+            "gathers_counted": counts["routing_all_gather"] == 2}
+        return checks, dist.get_backend()
+    finally:
+        distributed.shutdown()
+
+
+def moe_fsdp_start(seed, data_path, workdir):
+    """Phase 26 (a)'s ranks and (b)'s entry point, started: the calls that
+    join them, and when the ranks started."""
+    setup = {"seed": seed, "data_path": data_path,
+             "artifacts": f"{workdir}/moe_fsdp_ranks"}
+    join = start_ranks(moe_fsdp_rank, MIXTRAL_FSDP_RANKS, workdir,
+                       "phase 26 (a)", MIXTRAL_FSDP_TIMEOUT_S, setup)
+    return join, time.perf_counter(), Background(moe_fsdp_main_check,
+                                                 workdir)
+
+
+def global_routing_gate(torch, cfg, routes, dev):
+    """Phase 26 (a)'s routing gate: each rank's routing of layer 0 of the
+    first microbatch (``routes``: its ``routes_on_host``) against
+    ``route`` on one device of the owners' probabilities concatenated in
+    block order; and the planted fault, each rank routing its own rows
+    alone, against the same. Returns (the one-device routing on the host,
+    ranks equal, rank-local equal)."""
+    from runbooks_tpu_torch.models import moe
+
+    probs = torch.cat([r["probs"] for r in sorted(
+        (r for r in routes if r["owner"]), key=lambda r: r["block"])])
+    g = moe.route(cfg, probs.to(dev))
+    want = {f: getattr(g, f).cpu() for f in ROUTE_FIELDS}
+    T_all, k = probs.shape[0], cfg.moe_top_k
+
+    def block_of(a, block, T):
+        return torch.cat([a[j * T_all + block * T:j * T_all + (block + 1)
+                            * T] for j in range(k)])
+
+    def equal(route_of):
+        ok = True
+        for r in routes:
+            T = r["probs"].shape[0]
+            got = route_of(r)
+            ok &= got["capacity"] == g.capacity and all(
+                torch.equal(got[f], block_of(want[f], r["block"], T))
+                for f in ROUTE_FIELDS)
+        return bool(ok)
+
+    def rank_local(r):
+        local = moe.route(cfg, r["probs"].to(dev))
+        return {"capacity": local.capacity,
+                **{f: getattr(local, f).cpu() for f in ROUTE_FIELDS}}
+
+    return ({**want, "probs": probs, "capacity": g.capacity},
+            equal(lambda r: {"capacity": r["capacity"], **r["calls"][0]}),
+            equal(rank_local))
+
+
+def routed_otherwise(a, b):
+    """Assignments whose expert, and whose expert, slot or keep, differ
+    between two lists of whole-microbatch routings."""
+    expert = sum(int((x["expert"] != y["expert"]).sum())
+                 for x, y in zip(a, b, strict=True))
+    any_field = sum(int(((x["expert"] != y["expert"])
+                         | (x["slot"] != y["slot"])
+                         | (x["keep"] != y["keep"])).sum())
+                    for x, y in zip(a, b, strict=True))
+    return {"expert": expert, "expert_slot_or_keep": any_field,
+            "assignments": sum(x["expert"].numel() for x in a)}
+
+
+def moe_fsdp_one_process(torch, seed, data_path, art, replay=None):
+    """Phase 26's one-process run of the job (``replay``: routed as the
+    ranks routed, ``record_routes``): (summary, K1-K3 launches, peak
+    bytes, seconds, its own routings on the host, kept share)."""
+    from runbooks_tpu_torch.train.trainer import run_training
+
+    records = []
+    restore = record_routes(records, replay)
+    reset_flash_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        summary = run_training(moe_fsdp_job(seed, data_path, art))
+    finally:
+        restore()
+    wall = time.perf_counter() - t0
+    out = (summary, flash_counts(), torch.cuda.max_memory_allocated(), wall,
+           routes_on_host(records), kept_share(records))
+    del records
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_fsdp_phase(torch, dev, seed, data_path, workdir, started):
+    """Phase 26 (see the module docstring), over the ranks and the entry
+    point of ``moe_fsdp_start`` (``started``). One process runs the job
+    twice after the ranks end: as it routes on its own, reported, and
+    routed as the ranks routed (the routing gate holds that routing to
+    one device's of the same probabilities), gated: a router near-tie
+    that the batch shape's bf16 rounding moves would shift every later
+    slot of its expert, and the drops at capacity with them. Returns
+    each kernel's launches by path (each rank's run, and the two
+    one-process runs)."""
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.train.checkpoint import CheckpointManager
+    from runbooks_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    join, t_start, main_check = started
+    nccl, backend = moe_fsdp_nccl_check(torch, seed, workdir)
+    ranks = join()
+    t_ranks = time.perf_counter() - t_start
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("mixtral-8x7b", num_layers=MIXTRAL_FSDP_LAYERS)
+    routes = [r["routing"] for r in ranks]
+    calls = global_calls(cfg.moe_top_k, routes)
+    device_route, routing_equal, local_equal = global_routing_gate(
+        torch, cfg, routes, dev)
+    own_art, aligned_art = (f"{workdir}/moe_fsdp_one",
+                            f"{workdir}/moe_fsdp_one_aligned")
+    own, own_launches, own_peak, own_s, own_routes, own_kept = \
+        moe_fsdp_one_process(torch, seed, data_path, own_art)
+    one, one_launches, one_peak, one_s, aligned_routes, one_kept = \
+        moe_fsdp_one_process(torch, seed, data_path, aligned_art, calls)
+
+    def lora_at(art):
+        state, _, _ = CheckpointManager(art).restore_with_cursor(
+            step=MIXTRAL_FSDP_STEPS, device=torch.device("cpu"))
+        return list(tree_leaves(state["params"]))
+
+    ranks_lora = lora_at(f"{workdir}/moe_fsdp_ranks")
+
+    def lora_gap(art):
+        return max(float((a - b).abs().max())
+                   for a, b in zip(ranks_lora, lora_at(art), strict=True))
+
+    main_record, main_ok = main_check.result()
+
+    def history(summary, key):
+        return [e[key] for e in summary["history"]]
+
+    def max_rel_gap(summary):
+        return {key: max(abs(e[key] - w) / abs(w) for r in ranks
+                         for e, w in zip(r["summary"]["history"],
+                                         history(summary, key)))
+                for key in ("loss", "grad_norm")}
+
+    def close(a, b):
+        return abs(a - b) <= FSDP_LOSS_RTOL * abs(b)
+
+    steps = MIXTRAL_FSDP_STEPS
+    gates = {}
+    for key, name in (("loss", "losses_within_rtol"),
+                      ("grad_norm", "grad_norms_within_rtol")):
+        gates[name] = all(
+            len(r["summary"]["history"]) == steps and all(
+                close(e[key], w) for e, w in zip(r["summary"]["history"],
+                                                 history(one, key)))
+            for r in ranks)
+    gates["lora_within_2_lr_steps"] = (lora_gap(aligned_art)
+                                       <= 2 * FSDP_LR * steps)
+    # Per step, each rank launches what one process launches.
+    gates["k1_k2_k3_launches_per_rank"] = all(
+        r["launches"][k] == one_launches[k] == own_launches[k] > 0
+        for r in ranks for k in one_launches)
+    gates["param_bytes_equal_plan"] = all(
+        r["summary"]["mesh"]["param_bytes"]["held"]
+        == r["summary"]["mesh"]["param_bytes"]["plan"] for r in ranks)
+    gates["routing_equals_one_device_route_of_the_global_microbatch"] = \
+        routing_equal
+    gates["planted_rank_local_routing_fails_the_routing_gate"] = \
+        not local_equal
+    # The aligned run made the ranks' calls, in their order.
+    gates["one_process_routed_as_the_ranks"] = (
+        len(aligned_routes["calls"]) == len(calls) == len(
+            own_routes["calls"]))
+    gates["nccl_world1_routing_gather"] = (backend == "nccl"
+                                           and all(nccl.values()))
+    gates["main_mesh_fsdp_2"] = main_ok
+    label = "gloo over host memory on one card: not an FSDP speed"
+    record = {
+        "card": card_line(), "layers": MIXTRAL_FSDP_LAYERS,
+        "plan": ranks[0]["summary"]["mesh"]["plan"],
+        "param_bytes_per_rank": [r["summary"]["mesh"]["param_bytes"]
+                                 for r in ranks],
+        "collectives_per_rank": [r["summary"]["mesh"]["collectives"]
+                                 for r in ranks],
+        "losses": {"ranks": [history(r["summary"], "loss") for r in ranks],
+                   "one_process_routed_as_the_ranks": history(one, "loss"),
+                   "one_process_own_routing": history(own, "loss")},
+        "grad_norms": {
+            "ranks": [history(r["summary"], "grad_norm") for r in ranks],
+            "one_process_routed_as_the_ranks": history(one, "grad_norm"),
+            "one_process_own_routing": history(own, "grad_norm")},
+        "max_rel_gap": {"routed_as_the_ranks": max_rel_gap(one),
+                        "own_routing": max_rel_gap(own)},
+        "lora_max_abs_gap": {"routed_as_the_ranks": lora_gap(aligned_art),
+                             "own_routing": lora_gap(own_art)},
+        "lora_gap_limit": 2 * FSDP_LR * steps,
+        "routing": {
+            "blocks": [(r["block"], r["blocks"], r["owner"])
+                       for r in routes],
+            "capacity": device_route["capacity"], "calls": len(calls),
+            "kept_share": {"ranks": [r["kept_share"] for r in ranks],
+                           "one_process_own": own_kept,
+                           "one_process_routed_as_the_ranks": one_kept},
+            "routed_otherwise_than_one_process": {
+                "layer0_first_microbatch": routed_otherwise(
+                    calls[:1], own_routes["calls"][:1]),
+                "every_call": routed_otherwise(calls, own_routes["calls"]),
+                "probs_max_abs_gap_layer0": float(
+                    (device_route["probs"] - own_routes["probs"]).abs().max())
+            }},
+        "launches": {"one_process": one_launches,
+                     "one_process_own_routing": own_launches,
+                     "ranks": [r["launches"] for r in ranks],
+                     "steps": steps},
+        label: {"peak_gb_per_rank": [r["summary"]["peak_memory_bytes"] / 1e9
+                                     for r in ranks],
+                "step_s_per_rank": [history(r["summary"], "step_s")
+                                    for r in ranks],
+                "first_step_s_per_rank": [r["summary"]["first_step_s"]
+                                          for r in ranks]},
+        "one_process_same_card": {
+            "peak_gb": max(one_peak, own_peak) / 1e9,
+            "run_s": [own_s, one_s],
+            "step_s": [history(own, "step_s"), history(one, "step_s")]},
+        "ranks_s_from_start": t_ranks,
+        "ranks_wall_s": [r["wall_s"] for r in ranks],
+        "nccl_world1": nccl, "main_mesh_fsdp_2": main_record,
+        "seconds": time.perf_counter() - t_phase, "gates": gates}
+    print("phase 26 " + json.dumps(record), flush=True)
+    failed = [k for k, v in gates.items() if not v]
+    if failed:
+        raise SystemExit(f"phase 26: gates failed: {failed}")
+    return {k: {**{f"moe_fsdp_rank{i}": r["launches"][k]
+                   for i, r in enumerate(ranks)},
+                "moe_fsdp_one_process": one_launches[k],
+                "moe_fsdp_one_process_own_routing": own_launches[k]}
+            for k in one_launches}
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9939,6 +10452,12 @@ def main():
         torch.cuda.empty_cache()
         ep_launches = ep_phase(torch, args.seed, workdir)
         mark("phase 25")
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_fsdp_launches = moe_fsdp_phase(
+            torch, dev, args.seed, data_path, workdir,
+            moe_fsdp_start(args.seed, data_path, workdir))
+        mark("phase 26")
 
     main_case = records["rows8_sq128"]
     kernels = [{
@@ -9961,7 +10480,8 @@ def main():
                      + sum(fsdp_launches["flash_fwd"].values())
                      + sum(mixtral_launches.values())
                      + mixtral_train_launches["flash_fwd"]
-                     + sum(ep_launches.values())),
+                     + sum(ep_launches.values())
+                     + sum(moe_fsdp_launches["flash_fwd"].values())),
         "launches_by_path": {"serve": serve_launches,
                              "train": train_launches["flash_fwd"],
                              "http": http_launches,
@@ -9980,7 +10500,8 @@ def main():
                              **mixtral_launches,
                              "mixtral_train":
                                  mixtral_train_launches["flash_fwd"],
-                             **ep_launches},
+                             **ep_launches,
+                             **moe_fsdp_launches["flash_fwd"]},
         "max_abs_err": max(worst, family_records["fwd_worst"]),
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -10041,14 +10562,16 @@ def main():
                          + family_bwd_launches[name]
                          + sum(entry_launches[name].values())
                          + sum(fsdp_launches[name].values())
-                         + mixtral_train_launches[name]),
+                         + mixtral_train_launches[name]
+                         + sum(moe_fsdp_launches[name].values())),
             "launches_by_path": {"train": train_launches[name],
                                  "text_train": text_launches[name],
                                  "falcon_train": family_bwd_launches[name],
                                  **entry_launches[name],
                                  **fsdp_launches[name],
                                  "mixtral_train":
-                                     mixtral_train_launches[name]},
+                                     mixtral_train_launches[name],
+                                 **moe_fsdp_launches[name]},
             "max_abs_err": max(bwd_worst[name],
                                family_records["bwd_worst"][name]),
             "ms": train_case["ms"][name],

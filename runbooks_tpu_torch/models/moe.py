@@ -70,6 +70,20 @@ per group size on one host whose GPUs are joined all to all) add in the
 same order in every group. tests/test_torch_ep_serve.py holds every
 rank's routing equal, layer by layer.
 
+Trained over data x fsdp ranks (``moe_block``'s ``group``, a
+parallel/sharding.RoutingGroup), each rank holds its block of the
+global microbatch, which the reference's sharded step routes as one:
+capacity from the global T, slots from a choice-major count over every
+rank's tokens, the aux's means over the global batch. ``route`` gets
+there from counts alone: one all-gather of each rank's [k, E]
+assignments per (choice, expert) per layer and pass (the recompute
+gathers again), no [T, E] tensor crossing ranks. Each rank's ``aux`` is
+its share (the global aux is linear in ``me`` once ``ce`` is fixed, and
+``ce`` carries no gradient), so the train step's sum over ranks counts
+it once. Each rank holds the experts whole (the FSDP gather) and runs
+them on its own kept assignments. With one rank there is no group, and
+the block is one device's.
+
 ``moe_block_dense`` is the reference's one-hot formulation written out
 literally, the plain version the tests and chip_smoke.py hold
 ``moe_block`` to. Capacity counts every token of the dispatch (T = b·s),
@@ -116,12 +130,27 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[:, :k], idx[:, :k]
 
 
-def route(cfg, probs: torch.Tensor) -> Routing:
+def route(cfg, probs: torch.Tensor, group=None) -> Routing:
     """Routing of router probabilities ``probs`` [T, E] (f32), as the
-    reference's ``_dispatch_combine`` decides it."""
+    reference's ``_dispatch_combine`` decides it.
+
+    ``group`` (a parallel/sharding.RoutingGroup): ``probs`` are this
+    rank's block of a global microbatch that the group's ranks hold
+    block by block, and the routing is the one ``route`` gives the whole
+    microbatch on one device, for this rank's assignments. It takes
+    counts, not probabilities, from the other ranks: each rank's
+    assignments per (choice, expert), [k, E], gathered in block order.
+    T is the global microbatch's; an assignment (j, t) to expert e takes
+    the slot after every block's choices j' < j to e, the earlier blocks'
+    choice-j assignments to e and its own block's before it. The gates
+    stay local. ``aux`` is the rank's share of the global aux (its
+    tokens' probabilities over the global T, times the global
+    first-choice fractions; a copy's share is 0): the shares sum to the
+    global aux, in value and in gradient, since ``ce`` carries none."""
     T, E = probs.shape
     k = cfg.moe_top_k
-    C = moe_capacity(cfg, T)
+    T_all = T if group is None else T * group.blocks
+    C = moe_capacity(cfg, T_all)
     gate_vals, gate_idx = _top_k(probs, k)                  # [T, k]
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(-1, keepdim=True), min=1e-9)
@@ -131,10 +160,26 @@ def route(cfg, probs: torch.Tensor) -> Routing:
     # order.
     before = torch.cumsum(onehot, dim=0) - onehot
     slot = before.gather(1, expert[:, None])[:, 0]
+    if group is None:
+        # Switch load balance: E · Σ_e mean_prob_e · first-choice
+        # fraction_e.
+        me = probs.mean(dim=0)
+        ce = F.one_hot(gate_idx[:, 0], E).to(probs.dtype).mean(dim=0)
+    else:
+        counts = onehot.reshape(k, T, E).sum(1)             # [k, E]
+        every = group.gather(counts)                        # [blocks, k, E]
+        total = every.sum(0)
+        # Per (j, e): the assignments before this block's choice j, less
+        # this block's own choices j' < j, which ``before`` counts.
+        offset = ((torch.cumsum(total, 0) - total)
+                  + every[:group.block].sum(0)
+                  - (torch.cumsum(counts, 0) - counts))
+        choice = torch.arange(k, device=probs.device).repeat_interleave(T)
+        slot = slot + offset[choice, expert]
+        # A copy's share is 0: its owner counts these tokens.
+        me = probs.sum(dim=0) / T_all * float(group.owner)
+        ce = total[0].to(probs.dtype) / T_all
     keep = slot < C
-    # Switch load balance: E · Σ_e mean_prob_e · first-choice fraction_e.
-    me = probs.mean(dim=0)
-    ce = F.one_hot(gate_idx[:, 0], E).to(probs.dtype).mean(dim=0)
     aux = (E * (me * ce).sum()).float()
     return Routing(expert, slot, keep, gate_vals.T.reshape(k * T), C, aux)
 
@@ -156,32 +201,44 @@ def _experts(cfg, p: Params, expert_in: torch.Tensor) -> torch.Tensor:
     return torch.bmm(hidden, p["wo"].to(ad))
 
 
-def moe_block(cfg, p: Params, x: torch.Tensor, tp=None
+def moe_block(cfg, p: Params, x: torch.Tensor, tp=None, group=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MoE FFN over x [b, s, h] with one layer's ``p`` (router [h, E],
     wi_gate / wi_up [E, h, m], wo [E, m, h]) -> (out [b, s, h], aux).
     Shapes stay static (no host sync): a dropped assignment writes its
     token to a trash row past the E·C slots and combines with weight 0
     (and so takes no gradient). ``tp``: one serving rank's view, its
-    experts and MLP columns in ``p`` (see the module docstring)."""
+    experts and MLP columns in ``p`` (see the module docstring).
+
+    ``group``: a training rank's block of the global microbatch (see
+    ``route``; ``aux`` is then the rank's share). The experts run on this
+    rank's kept assignments only, each at its place among them, in a
+    buffer of min(C, T) rows per expert (a token takes an expert at most
+    once): the global C would cost each of W ranks W times its share of
+    the experts' work."""
     ad = cfg.activation_dtype
     b, s, h = x.shape
     T, k = b * s, cfg.moe_top_k
     xt = x.reshape(T, h)
-    r = route(cfg, router_probs(p, xt))
+    r = route(cfg, router_probs(p, xt), group)
     first, E = 0, cfg.moe_num_experts
-    held = r.keep
+    held, cap, place = r.keep, r.capacity, r.slot
+    if group is not None:
+        cap = min(cap, T)
+        kept = F.one_hot(r.expert, E) * held[:, None]
+        place = (torch.cumsum(kept, 0) - kept).gather(
+            1, r.expert[:, None])[:, 0]
     if tp is not None:
         first, E = tp.experts.start, len(tp.experts)
         held = held & (r.expert >= first) & (r.expert < first + E)
         if not tp.moe_owner:
             held = torch.zeros_like(held)
-    EC = E * r.capacity
-    row = torch.where(held, (r.expert - first) * r.capacity + r.slot, EC)
+    EC = E * cap
+    row = torch.where(held, (r.expert - first) * cap + place, EC)
     # Assignment j·T + t carries token t: the rows repeated k times.
     expert_in = torch.zeros((EC + 1, h), dtype=ad, device=x.device
                             ).index_put((row,), xt.to(ad).repeat(k, 1))
-    out_e = _experts(cfg, p, expert_in[:EC].reshape(E, r.capacity, h))
+    out_e = _experts(cfg, p, expert_in[:EC].reshape(E, cap, h))
     picked = out_e.reshape(EC, h)[row.clamp(max=EC - 1)].double()
     weight = r.gate.to(ad).double()
     contrib = torch.where(held[:, None], weight[:, None] * picked, 0.0)
@@ -229,19 +286,19 @@ def routing_dispatch(r: Routing, n_tokens: int, n_experts: int
     return out
 
 
-def moe_block_dense(cfg, p: Params, x: torch.Tensor, tp=None
+def moe_block_dense(cfg, p: Params, x: torch.Tensor, tp=None, group=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's moe_block as it is written: dense one-hot dispatch
     and combine [T, E, C] (dispatch_combine_dense) and the einsums over
     them (f32 accumulation, each product cast to the activation dtype;
     the combine's in f64, rounded to f32 once, as moe_block's). O(T·E·C)
     memory: the plain version for tests and the card's check, not for
-    serving. It runs on one device (``tp`` None: it takes moe_block's
-    arguments, so that a forward can run either)."""
-    if tp is not None:
+    serving. It runs on one device (``tp`` and ``group`` None: it takes
+    moe_block's arguments, so that a forward can run either)."""
+    if tp is not None or group is not None:
         raise NotImplementedError(
             "moe_block_dense is the single-device plain version; a "
-            "serving rank's experts run through moe_block")
+            "serving or training rank's experts run through moe_block")
     ad = cfg.activation_dtype
     b, s, h = x.shape
     xt = x.reshape(b * s, h)

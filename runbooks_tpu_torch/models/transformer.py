@@ -613,13 +613,15 @@ def _mlp_block(cfg, p, layer_idx, x, lora=None, adapter=None, tp=None,
 
 
 def _ffn_block(cfg, layers, layer_idx, x, lora=None, adapter=None, tp=None,
-               partial=False):
+               partial=False, group=None):
     """The dense MLP or, under ``moe_num_experts``, the routed experts of
-    layer ``layer_idx`` (under ``tp`` combined over the serving group):
-    (out, aux), aux None for the dense MLP."""
+    layer ``layer_idx`` (under ``tp`` combined over the serving group;
+    under ``group``, a parallel/sharding.RoutingGroup, routed over the
+    global microbatch): (out, aux), aux None for the dense MLP."""
     if cfg.moe_num_experts:
         return moe_block(cfg, {k: w[layer_idx]
-                               for k, w in layers["moe"].items()}, x, tp)
+                               for k, w in layers["moe"].items()}, x, tp,
+                         group)
     return _mlp_block(cfg, layers["mlp"], layer_idx, x, lora, adapter, tp,
                       partial), None
 
@@ -707,14 +709,12 @@ def forward(
     head is the same gathered tensor). Each block gathers its layer's
     leaves first, inside its checkpoint: remat frees them and the
     recompute gathers them again; their gradients come back
-    reduce-scattered."""
+    reduce-scattered. An MoE layer routes the global microbatch as the
+    reference's sharded step does (``Fsdp.routing``, models/moe.route's
+    ``group``), also inside the checkpoint: the recompute gathers the
+    ranks' counts again and routes exactly as the forward did; ``aux``
+    is then this rank's share of the global aux."""
     check_supported(cfg)
-    if cfg.moe_num_experts and fsdp is not None:
-        raise NotImplementedError(
-            f"config {cfg.name!r} (MoE: moe_num_experts="
-            f"{cfg.moe_num_experts}) under an FSDP forward: the reference "
-            "routes over the global batch, and MoE training under a mesh "
-            "is not ported yet (ROADMAP.md §1 item 4)")
     if tp is not None and (lora is not None or remat):
         raise NotImplementedError(
             "a tensor-parallel forward serves: LoRA merges and remat are "
@@ -791,6 +791,9 @@ def forward(
     # their partial products in one all-reduce.
     fused = (tp is not None and cfg.parallel_block and tp.plan.heads
              and tp.plan.mlp and not cfg.moe_num_experts)
+    # An FSDP rank's MoE layers route the global microbatch.
+    group = (fsdp.routing(b) if fsdp is not None and cfg.moe_num_experts
+             else None)
 
     def block(x, li, layer_cache):
         layers, lora_l = params["layers"], lora
@@ -810,7 +813,7 @@ def forward(
             h2 = (h1 if cfg.shared_layer_norm
                   else _norm(cfg, layers["ln2"], x, li))
             mlp_out, aux = _ffn_block(cfg, layers, li, h2, lora_l,
-                                      rows.get("mlp"), tp, fused)
+                                      rows.get("mlp"), tp, fused, group)
             if fused:
                 out = tp.all_reduce(attn_out + mlp_out)
                 out = _add_bias(layers["attn"], "bo", li, out, ad)
@@ -819,7 +822,7 @@ def forward(
         x = x + attn_out
         h2 = _norm(cfg, layers["ln2"], x, li)
         ffn_out, aux = _ffn_block(cfg, layers, li, h2, lora_l,
-                                  rows.get("mlp"), tp)
+                                  rows.get("mlp"), tp, group=group)
         return x + ffn_out, aux
 
     aux_total = None

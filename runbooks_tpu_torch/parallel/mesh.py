@@ -18,7 +18,9 @@ The port serves over the ``expert`` and ``tensor`` axes
 (``check_serving_mesh``) and trains over ``data`` and ``fsdp``
 (``check_training_mesh``): the other axes are refused by name until
 their slices land (ROADMAP §1). ``check_mesh_model`` refuses gemma under
-a mesh, and an MoE model (mixtral) under a training mesh.
+a mesh; an MoE model (mixtral) trains over ``data`` x ``fsdp``, routed
+over the global microbatch as the reference routes it (models/moe.py),
+and serves over ``expert`` x ``tensor``.
 """
 
 from __future__ import annotations
@@ -66,7 +68,7 @@ class MeshConfig:
 def check_serving_mesh(config: MeshConfig) -> None:
     """Refuse, by name, every resolved serving axis but ``expert`` and
     ``tensor`` above 1. ``stage`` as the reference's engine refuses it;
-    the others wait for their slices of ROADMAP §1 item 5. (A dense model
+    the others wait for their slice, ROADMAP §1 item 4 (f). (A dense model
     under ``expert`` replicates over that axis, as the reference drops an
     axis that no dimension uses.)"""
     if config.stage > 1:
@@ -118,13 +120,15 @@ def check_mesh_model(cfg, config: MeshConfig, serving: bool = False
     """Refuse, by name, what the port does not run of a model under a
     mesh. Gemma (a config with ``embed_scale``) under ``mesh_tensor``,
     ``mesh_fsdp`` or ``mesh_data`` above 1, on either path (ROADMAP §1
-    item 4). An MoE model (``moe_num_experts``: mixtral) in training
-    (``serving`` False) under ``mesh_fsdp`` or ``mesh_data``: the
-    reference routes over the global batch there, so capacity, slots and
-    the aux loss span every rank. (check_training_mesh refuses
-    ``expert`` and ``tensor`` for every model.) Serving (``serving``
-    True) takes an MoE model under ``tensor`` and ``expert``: every rank
-    of that mesh holds the whole dispatch. Every other model passes."""
+    item 4 (c)). An MoE model (``moe_num_experts``: mixtral) trains
+    (``serving`` False) under ``mesh_data`` and ``mesh_fsdp``, each rank
+    routing its rows as the reference routes the global microbatch
+    (models/moe.py), and not under ``mesh_tensor`` or ``mesh_expert``
+    (ROADMAP §1 item 4 (d), (e); check_training_mesh refuses those axes
+    for every model). It serves (``serving`` True) under ``tensor`` and
+    ``expert``, where every rank holds the whole dispatch, and not under
+    ``mesh_fsdp`` or ``mesh_data`` (item 4 (f)). Every other model
+    passes."""
     def over(names):
         return [f"mesh_{a}={getattr(config, a)}" for a in names
                 if getattr(config, a) > 1]
@@ -134,18 +138,20 @@ def check_mesh_model(cfg, config: MeshConfig, serving: bool = False
         raise NotImplementedError(
             f"config {cfg.name!r} (gemma: embed_scale) under "
             f"{', '.join(axes)}: the PyTorch port runs gemma on one device; "
-            f"gemma under a mesh is not ported yet (ROADMAP.md §1 item 4)")
-    moe_axes = over(("fsdp", "data") if serving else ("tensor", "fsdp",
-                                                       "data"))
+            f"gemma under a mesh is not ported yet (ROADMAP.md §1 item 4 "
+            f"(c))")
+    moe_axes = over(("fsdp", "data") if serving else ("tensor", "expert"))
     if cfg.moe_num_experts and moe_axes:
         raise NotImplementedError(
             f"config {cfg.name!r} (MoE: moe_num_experts="
             f"{cfg.moe_num_experts}) under {', '.join(moe_axes)}"
-            f"{'' if serving else ' in training'}: the reference routes "
-            "over the global batch (capacity, slots and the aux loss span "
-            "every rank), and MoE training under a mesh is not ported yet "
-            "(ROADMAP.md §1 item 4); the port serves MoE under mesh_expert "
-            "and mesh_tensor")
+            f"{' in serving' if serving else ' in training'}: the PyTorch "
+            "port serves MoE under mesh_expert and mesh_tensor and trains "
+            "it under mesh_data and mesh_fsdp; "
+            + ("MoE serving over the batch axes is not ported yet "
+               "(ROADMAP.md §1 item 4 (f))" if serving else
+               "tensor and expert parallelism in training are not ported "
+               "yet (ROADMAP.md §1 item 4 (d), (e))"))
 
 
 def make_mesh(config: Optional[MeshConfig] = None,

@@ -42,7 +42,11 @@ its specs). ``Fsdp`` carries the plan, the rank and the mesh's groups
 into the train step (train/step.py) and the forward, which gathers each
 layer's leaves inside its block (an autograd Function whose backward
 reduce-scatters the gradient into the rank's piece) and sums the rest of
-the gradients over the ranks.
+the gradients over the ranks. An MoE layer routes the global microbatch
+as the reference's sharded step does: each rank's ``RoutingGroup`` (its
+block of the microbatch, from the same rule as the batch's rows:
+``FsdpPlan.block``) all-gathers the ranks' per-expert counts, from which
+models/moe.route takes the global capacity, slots and aux.
 """
 
 from __future__ import annotations
@@ -570,6 +574,26 @@ class FsdpPlan:
         """(data index, fsdp index) of ``rank``."""
         return divmod(int(rank), self.fsdp)
 
+    def block(self, rows: int, rank: int) -> Tuple[int, int, bool]:
+        """(block index, blocks, owner) of ``rank`` in a microbatch of
+        ``rows`` global rows: the microbatch splits into ``blocks`` equal
+        blocks of consecutive rows over the mesh axes its spec keeps (the
+        batch's ("data", "fsdp"), trailing axes dropped while their
+        product does not divide it, as the reference's spec degrades),
+        laid out data-major. A dropped axis holds copies of its index 0's
+        block, which only that index owns."""
+        axes = spec_for_array((rows,), ("batch",), self.mesh)[0]
+        axes = () if axes is None else (
+            (axes,) if isinstance(axes, str) else tuple(axes))
+        d, f = self.coords(rank)
+        index = {"data": d, "fsdp": f}
+        block, blocks = 0, 1
+        for a in axes:
+            block = block * self.mesh[a] + index[a]
+            blocks *= self.mesh[a]
+        owner = all(index[a] == 0 for a in ("data", "fsdp") if a not in axes)
+        return block, blocks, owner
+
     def local_shape(self, shape: Sequence[int], dim: Optional[int]
                     ) -> Tuple[int, ...]:
         out = list(shape)
@@ -641,6 +665,56 @@ class _GatherPiece(torch.autograd.Function):
         return ctx.fsdp._reduce_scatter(grad, ctx.dim), None, None
 
 
+@dataclasses.dataclass(frozen=True)
+class RoutingGroup:
+    """The batch ranks that route one global microbatch together, as the
+    reference's sharded step routes it (models/moe.route's ``group``):
+    this rank's ``block`` of the microbatch's ``blocks`` blocks of
+    consecutive rows, whether it owns its rows (a copy routes as its
+    owner does and counts nothing), and ``order``, the rank that owns
+    each block; ``world`` ranks in ``process_group`` (None: the default
+    group), whose gathers ``counts`` tallies."""
+
+    block: int
+    blocks: int
+    owner: bool
+    order: Tuple[int, ...]
+    world: int
+    process_group: Any = None
+    counts: Optional[Dict[str, int]] = None
+
+    @classmethod
+    def of(cls, plan: "FsdpPlan", rows: int, rank: int,
+           process_group=None, counts=None) -> "RoutingGroup":
+        """``rank``'s group in a global microbatch of ``rows`` rows split
+        as ``plan``'s batch is (``FsdpPlan.block``)."""
+        block, blocks, owner = plan.block(rows, rank)
+        order = [0] * blocks
+        for r in range(plan.world):
+            b, _, own = plan.block(rows, r)
+            if own:
+                order[b] = r
+        return cls(block, blocks, owner, tuple(order), plan.world,
+                   process_group, counts)
+
+    def gather(self, counts: torch.Tensor) -> torch.Tensor:
+        """Every owner's ``counts`` (integers) in block order, stacked:
+        [blocks, *counts.shape] on ``counts``' device. One all-gather over
+        the group; integers need no backward. Under gloo a CUDA tensor
+        goes through the host."""
+        import torch.distributed as dist
+
+        x = counts.detach().contiguous()
+        if (x.device.type != "cpu"
+                and dist.get_backend(self.process_group) == "gloo"):
+            x = x.cpu()
+        parts = [torch.empty_like(x) for _ in range(self.world)]
+        dist.all_gather(parts, x, group=self.process_group)
+        if self.counts is not None:
+            self.counts["routing_all_gather"] += 1
+        return torch.stack([parts[r] for r in self.order]).to(counts.device)
+
+
 # The stop decisions a trainer's rank 0 broadcasts at each step boundary.
 STOP_REASONS = (None, "sigterm", "sigint", "maintenance")
 
@@ -649,7 +723,9 @@ class Fsdp:
     """One rank's view of a data x fsdp training group: its plan, its rank,
     the mesh's fsdp and data groups (the default group spans both) and the
     device of its collectives' small tensors. The train step and the
-    forward call the collectives; ``counts`` tallies them by kind.
+    forward call the collectives; ``counts`` tallies them by kind. An MoE
+    forward routes each microbatch over every rank's rows (``routing``,
+    one ``RoutingGroup.gather`` of [k, E] counts per layer and pass).
 
     A gradient is reduce-scattered (NCCL, and gloo on CPU tensors) or,
     where the backend has no reduce-scatter for the tensor (gloo on CUDA
@@ -666,8 +742,12 @@ class Fsdp:
         self.device = torch.device(device)
         self.fsdp_group = mesh.get_group("fsdp")
         self.data_group = mesh.get_group("data")
+        # The global rows of one microbatch (train/step.shard_batch sets
+        # it): an MoE forward's block of the global microbatch.
+        self.micro_rows: Optional[int] = None
         self.counts: Dict[str, int] = {"all_gather": 0, "reduce_scatter": 0,
-                                       "all_reduce": 0, "broadcast": 0}
+                                       "all_reduce": 0, "broadcast": 0,
+                                       "routing_all_gather": 0}
 
     # -- collectives ---------------------------------------------------------
 
@@ -738,6 +818,27 @@ class Fsdp:
 
     def barrier(self) -> None:
         self.all_reduce(torch.zeros(1, device=self.device))
+
+    def routing(self, rows: int) -> Optional["RoutingGroup"]:
+        """The routing group of a microbatch of which this rank holds
+        ``rows`` rows (None on one rank: it routes its whole microbatch
+        alone). The global microbatch is ``micro_rows`` rows."""
+        if self.plan.world == 1:
+            return None
+        if self.micro_rows is None:
+            raise ValueError(
+                "an MoE forward over data x fsdp ranks routes the global "
+                "microbatch: cut the batch with train/step.shard_batch "
+                "(it records the microbatch's global rows)")
+        group = RoutingGroup.of(self.plan, self.micro_rows, self.rank,
+                                counts=self.counts)
+        if self.micro_rows // group.blocks != rows:
+            raise ValueError(
+                f"this rank holds {rows} rows of a microbatch, but its "
+                f"block of the global microbatch ({self.micro_rows} rows "
+                f"in {group.blocks} blocks) has "
+                f"{self.micro_rows // group.blocks}")
+        return group
 
     # -- the forward's gathers -------------------------------------------------
 

@@ -18,7 +18,9 @@ weigh them right; gradients of sharded leaves come back reduce-scattered
 from the forward's gathers and are summed over the data ranks, those of
 replicated leaves over every rank; the gradient norm counts each element
 once. Every rank therefore takes the one-process step, up to the order of
-its f32 sums, and skips a non-finite step together with the others.
+its f32 sums, and skips a non-finite step together with the others. An
+MoE model's microbatch routes over every rank's rows (models/moe.py), as
+the reference's does.
 """
 
 from __future__ import annotations
@@ -154,7 +156,11 @@ def value_and_grad(loss_fn: Callable[[Any, Batch],
     leaf's dtype at the end; the loss returned includes the aux term.
     Under ``fsdp`` the batch is the rank's rows (``shard_batch``): the
     total weight and the loss are summed over every rank, and the
-    gradients as ``Fsdp.reduce_grads`` says."""
+    gradients as ``Fsdp.reduce_grads`` says. Each microbatch then routes
+    over the global microbatch, as the reference's sharded step does (it
+    accumulates global microbatches), and each rank's ``aux`` is its
+    share of the global aux (models/moe.route): the sums over the ranks
+    count the aux term once, in the loss and in the gradients."""
     b = batch["tokens"].shape[0]
     if b % k:
         raise ValueError(f"accumulate_steps={k} must divide batch size {b}")
@@ -354,21 +360,12 @@ def batch_rows(plan, batch: int, k: int, rank: int
     microbatches, whether it owns them) under an FsdpPlan. Each
     microbatch splits over the mesh axes that ``batch_shardings``' spec
     keeps for it (trailing axes dropped while their product does not
-    divide it, as the reference's spec degrades); a dropped axis holds
-    copies, which only its index 0 owns (``shard_batch`` weighs the
-    others' rows 0, so every row counts once)."""
+    divide it, as the reference's spec degrades; ``FsdpPlan.block``); a
+    dropped axis holds copies, which only its index 0 owns
+    (``shard_batch`` weighs the others' rows 0, so every row counts
+    once)."""
     m = batch // k
-    axes = batch_shardings(plan.mesh, {"tokens": torch.empty(
-        (m,), device="meta")})["tokens"][0]
-    axes = () if axes is None else (
-        (axes,) if isinstance(axes, str) else tuple(axes))
-    d, f = plan.coords(rank)
-    index = {"data": d, "fsdp": f}
-    block, blocks = 0, 1
-    for a in axes:
-        block = block * plan.mesh[a] + index[a]
-        blocks *= plan.mesh[a]
-    owner = all(index[a] == 0 for a in ("data", "fsdp") if a not in axes)
+    block, blocks, owner = plan.block(m, rank)
     n = m // blocks
     return [i * m + block * n + j for i in range(k) for j in range(n)], owner
 
@@ -379,10 +376,13 @@ def shard_batch(batch: Dict[str, np.ndarray], fsdp, k: int = 1
     order (``batch_rows``: each of the k microbatches splits over the axes
     its spec keeps). A loss mask is always present, ones where the batch
     had none, and zeros on a rank that holds a copy of another's rows, so
-    that the global sums count every row once."""
+    that the global sums count every row once. Records the global
+    microbatch's rows in ``fsdp.micro_rows``, from which an MoE forward
+    knows the rank's block of it (``Fsdp.routing``)."""
     b = batch["tokens"].shape[0]
     if b % k:
         raise ValueError(f"accumulate_steps={k} must divide batch size {b}")
+    fsdp.micro_rows = b // k
     rows, owner = batch_rows(fsdp.plan, b, k, fsdp.rank)
     out = {key: v[rows] for key, v in batch.items()}
     mask = out.get("loss_mask")

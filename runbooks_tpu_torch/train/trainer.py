@@ -29,9 +29,13 @@ Data parallelism and FSDP (ZeRO-3): the ``mesh_*`` keys of params.json
 form a MeshConfig, as the reference's; ``mesh_data`` and ``mesh_fsdp``
 train over that many ranks, and the other axes above 1 are refused by
 name (parallel/mesh.check_training_mesh), as is a multi-host env, and so
-is gemma or an MoE model under any mesh (parallel/mesh.check_mesh_model).
-An MoE config (mixtral) trains in one process, its objective with the
-router's load-balance term (train/step.value_and_grad). ``main``
+is gemma under any mesh (parallel/mesh.check_mesh_model). An MoE config
+(mixtral) trains with the router's load-balance term in its objective
+(train/step.value_and_grad), in one process or over data x fsdp ranks,
+each routing its rows as the reference routes the global microbatch
+(models/moe.py): params that name no mesh get the reference's fsdp -1,
+one rank per GPU. The fine-tune example's mesh_expert x mesh_tensor is
+refused by name. ``main``
 resolves the mesh against the GPUs it sees (a -1 axis fills with them; a
 mesh that needs more raises naming ``torch.cuda.device_count()``) and
 runs one rank per GPU over NCCL: it is rank 0 and spawns the others.

@@ -43,6 +43,11 @@ GEOMETRIES = {
                                  num_kv_heads=1)),
     "gpt2": ("gpt2", dict(_BASE, hidden_size=64, num_heads=4,
                           num_kv_heads=4)),
+    # The reference's sharded step routes the global microbatch.
+    "mixtral": ("mixtral-8x7b", dict(_BASE, hidden_size=64, num_heads=4,
+                                     num_kv_heads=2, moe_num_experts=4,
+                                     moe_top_k=2,
+                                     moe_capacity_factor=1.25)),
 }
 LORA = dict(rank=4, alpha=8.0)
 

@@ -10,7 +10,10 @@ loss masks that leave one rank with no weighted token, and a tied head
 (its gradient and the embedding's meet in one reduce-scatter) with
 accumulate_steps 2, and the uneven masks again with the gradient's
 reduce-scatter done as gloo does it on CUDA tensors (an all-reduce, the
-rank's piece kept), which no CPU tensor takes otherwise.
+rank's piece kept), which no CPU tensor takes otherwise, and a mixtral
+geometry (4 experts, top 2, capacity factor 1.25) with accumulate_steps
+2 and the uneven masks: each rank routes its row of every microbatch as
+the reference routes the global microbatch (the loss with the aux).
 tests/test_torch_fsdp_train_lora.py runs the LoRA
 cases, tests/test_torch_fsdp_train_d2f2.py four ranks at data 2 x fsdp 2.
 
@@ -25,7 +28,7 @@ within these, not bitwise.
 import pytest
 import torch
 
-from tests.fsdp_oracle import check, run_cases
+from tests.fsdp_oracle import STEPS, check, run_cases
 
 torch.set_num_threads(2)
 
@@ -36,6 +39,7 @@ TWO_RANKS = {
     "full-gpt2-tied-accumulate2": ("gpt2", None, 4, 2, False),
     "full-llama-reduce-scatter-by-all-reduce": ("llama", None, 4, 2, True,
                                                 True),
+    "full-mixtral-accumulate2-uneven-masks": ("mixtral", None, 4, 2, True),
 }
 
 
@@ -56,3 +60,8 @@ def test_two_fsdp_ranks_take_the_reference_step(two_ranks, name):
     assert counts["all_gather"] > counts["reduce_scatter"] > 0
     by_all_reduce = len(TWO_RANKS[name]) > 5
     assert all(r["scatters"] is not by_all_reduce for r in ranks)
+    # Each of the 2 MoE layers gathers the ranks' routing counts for each
+    # microbatch in the forward and again in remat's recompute.
+    geometry, _, _, k, *_ = TWO_RANKS[name]
+    want = 2 * 2 * k * STEPS if geometry == "mixtral" else 0
+    assert counts["routing_all_gather"] == want

@@ -4,7 +4,9 @@ x fsdp 2) against the reference's sharded step under the same MeshConfig
 cases and the tolerances): a full fine-tune with accumulate_steps 2 and
 uneven loss masks, and a LoRA job on 6 rows, which data x fsdp = 4 does
 not divide, so the rows split over data alone and the fsdp copies weigh
-0.
+0; and that LoRA job on a mixtral geometry (4 experts, top 2, capacity
+factor 1.25), where the copies route as their owners and count no tokens
+and no aux share.
 """
 
 import pytest
@@ -19,6 +21,8 @@ FOUR_RANKS = {
     "full-llama-d2f2-accumulate2": ("llama", None, 8, 2, True),
     "lora-gpt2-d2f2-6-rows": ("gpt2", jax_lora.DEFAULT_TARGETS, 6, 1,
                               False),
+    "lora-mixtral-d2f2-6-rows": ("mixtral", jax_lora.DEFAULT_TARGETS, 6, 1,
+                                 False),
 }
 
 

@@ -15,7 +15,10 @@ jobs they are held to:
   and that two-rank checkpoint resumes in one process to the same steps
   3 and 4;
 - E: bf16 activations: the frozen base's non-target matrices are
-  gathered in bf16, and step 1's loss is one process's.
+  gathered in bf16, and step 1's loss is one process's;
+- M: a debug MoE (4 experts, top 2): each rank routes its rows as one
+  process routes the global batch, and two steps' losses (with the aux)
+  and gradient norms are one process's.
 
 ``train/trainer.main(backend="gloo")`` runs as a subprocess (``python
 tests/tp_ranks.py train``, rank 0 spawning rank 1): SIGTERM to it stops
@@ -71,6 +74,11 @@ def one_process(artifacts, **kw):
 BF16 = {"dtype": "bfloat16", "num_layers": 2}
 
 
+# The MoE job's model: a debug mixtral (its 4 experts gathered whole).
+MOE = {"dtype": "float32", "num_layers": 2, "moe_num_experts": 4,
+       "moe_top_k": 2}
+
+
 def losses(summary):
     return [h["loss"] for h in summary["history"]]
 
@@ -102,14 +110,17 @@ def two_ranks(tmp_path_factory, mains):
             {"job": dict(JOB, artifacts_dir=str(tmp / "D")),
              "rank0_env": {"RBT_FAULT_INJECT": "sigterm:2"}},
             {"job": dict(JOB, artifacts_dir=str(tmp / "E"), steps=2,
-                         model_overrides=BF16)}]
+                         model_overrides=BF16)},
+            {"job": dict(JOB, artifacts_dir=str(tmp / "M"), steps=2,
+                         model_overrides=MOE)}]
     ranks = tp_ranks.run_ranks(tp_ranks.train_jobs, 2, tmp, jobs,
                                mesh={"fsdp": 2}, timeout_s=240)
     intact_d = CheckpointManager(str(tmp / "D")).intact_steps()
     resumed = one_process(tmp / "D")
     bf16 = one_process(tmp / "F", steps=2, model_overrides=BF16)
+    moe = one_process(tmp / "N", steps=2, model_overrides=MOE)
     return {"tmp": tmp, "ref": ref, "ranks": ranks, "bf16": bf16,
-            "resumed_in_one": resumed, "intact_d": intact_d}
+            "moe": moe, "resumed_in_one": resumed, "intact_d": intact_d}
 
 
 def test_two_ranks_train_as_one_process(two_ranks):
@@ -186,6 +197,20 @@ def test_bf16_gathers_of_the_frozen_base_change_no_value(two_ranks):
         # scattered, nothing of the frozen base.
         counts = runs[4]["summary"]["mesh"]["collectives"]
         assert counts["reduce_scatter"] == 4 * 2 * 2
+
+
+def test_two_ranks_train_an_moe_as_one_process(two_ranks):
+    want = two_ranks["moe"]["history"]
+    for runs in two_ranks["ranks"]:
+        got = runs[5]["summary"]
+        for h, w in zip(got["history"], want, strict=True):
+            np.testing.assert_allclose(h["loss"], w["loss"], rtol=TOL)
+            np.testing.assert_allclose(h["grad_norm"], w["grad_norm"],
+                                       rtol=TOL)
+        # Each layer's routing gathers the ranks' counts in the forward
+        # and in remat's recompute, each step.
+        counts = got["mesh"]["collectives"]
+        assert counts["routing_all_gather"] == 2 * 2 * 2
 
 
 def start_main(content: Path, steps: int) -> subprocess.Popen:

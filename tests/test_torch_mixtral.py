@@ -22,13 +22,17 @@ matmuls at "highest", tests/conftest.py).
   under int8, which leaves the experts alone); HF ``MixtralForCausalLM``'s
   logits are in tests/test_torch_convert.py and the import of an HF
   directory in tests/test_torch_loader.py.
-- Refusals by name: MoE training under mesh_fsdp / mesh_data,
-  mesh_expert in training, an FSDP forward, and the fine-tune's example
-  manifest (mesh_expert 8, mesh_tensor 2). Serving takes MoE under
-  mesh_tensor and mesh_expert (the serving example's manifest passes the
-  parse; the ranks' parity is tests/test_torch_ep_serve.py's), and a
-  forward with ``tp=`` runs it. In one process the fine-tune trains
-  through every entry point (its parity with the reference is
+- Meshes: MoE trains under mesh_fsdp / mesh_data (an FSDP forward at
+  world 1 gives one device's logits bit for bit; the ranks' routing is
+  tests/test_torch_moe_fsdp.py's, their steps' parity with the
+  reference's sharded step tests/test_torch_fsdp_train*.py's). Refused
+  by name: MoE serving under mesh_fsdp / mesh_data, mesh_expert and
+  mesh_tensor in training, and the fine-tune's example manifest
+  (mesh_expert 8, mesh_tensor 2). Serving takes MoE under mesh_tensor
+  and mesh_expert (the serving example's manifest passes the parse; the
+  ranks' parity is tests/test_torch_ep_serve.py's), and a forward with
+  ``tp=`` runs it. In one process the fine-tune trains through every
+  entry point (its parity with the reference is
   tests/test_torch_moe_training.py's).
 """
 
@@ -346,13 +350,21 @@ def test_load_model_serves_a_debug_moe_on_the_cpu():
 
 @pytest.mark.parametrize("axis", ["fsdp", "data"])
 def test_moe_under_a_mesh_is_refused_by_name(axis):
+    """MoE trains under mesh_fsdp and mesh_data (routed over the global
+    microbatch) and is refused by name in serving there; in training
+    the tensor and expert axes are refused."""
     cfg = get_config("mixtral-8x7b")
-    for serving in (False, True):
+    mc = MeshConfig(**{"fsdp": 1, axis: 2})
+    check_mesh_model(cfg, mc)
+    check_mesh_model(cfg, check_training_mesh(mc))
+    with pytest.raises(NotImplementedError,
+                       match=rf"MoE: moe_num_experts=8\) under "
+                             rf"mesh_{axis}=2 in serving"):
+        check_mesh_model(cfg, mc, serving=True)
+    for other in ("tensor", "expert"):
         with pytest.raises(NotImplementedError,
-                           match=rf"MoE: moe_num_experts=8\) under "
-                                 rf"mesh_{axis}=2"):
-            check_mesh_model(cfg, MeshConfig(**{"fsdp": 1, axis: 2}),
-                             serving=serving)
+                           match=rf"mesh_{other}=2 in training"):
+            check_mesh_model(cfg, MeshConfig(**{"fsdp": 1, other: 2}))
     check_mesh_model(cfg, MeshConfig(fsdp=1))
 
 
@@ -394,11 +406,36 @@ def test_mesh_expert_and_the_serving_examples_manifest_serve():
         expert=2, fsdp=1, tensor=2)
 
 
-def test_sharded_forwards_refuse_moe(world):
+def test_sharded_forwards_refuse_moe(world, tmp_path):
+    """An FSDP forward of the MoE (one rank of a world-1 gloo group:
+    no routing group, the layers gathered from the rank's pieces) gives
+    one device's logits and aux bit for bit; a forward with both ``fsdp``
+    and ``tp`` is still refused."""
+    import torch.distributed as dist
+
+    from runbooks_tpu_torch.parallel.mesh import make_mesh
+    from runbooks_tpu_torch.parallel.sharding import Fsdp
+    from runbooks_tpu_torch.train.step import fsdp_plan
+
     _, tcfg, _, tparams = world
-    tokens = torch.zeros((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="MoE.*FSDP"):
-        forward(tcfg, tparams, tokens, fsdp=object())
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(0, 64,
+                                                               (2, 9)))
+    want, _, want_aux = forward(tcfg, tparams, tokens, with_aux=True)
+    dist.init_process_group("gloo", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "s"), 1))
+    try:
+        mesh = make_mesh(MeshConfig(fsdp=1))
+        fsdp = Fsdp(fsdp_plan(tcfg, mesh), 0, mesh, torch.device("cpu"),
+                    compute_dtype=tcfg.activation_dtype)
+        assert fsdp.routing(2) is None
+        got, _, aux = forward(tcfg, fsdp.outer(tparams), tokens,
+                              with_aux=True, fsdp=fsdp)
+        with pytest.raises(NotImplementedError, match="FSDP forward trains"):
+            forward(tcfg, tparams, tokens, fsdp=fsdp, tp=object())
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
+    assert fsdp.counts["routing_all_gather"] == 0
 
 
 def test_tensor_parallel_forward_runs_moe_at_world_one(world, tmp_path):

@@ -403,8 +403,8 @@ def test_remat_policy_routes_as_the_forward(oracle, policy, monkeypatch):
     calls = []
     route = moe.route
 
-    def recording(cfg, probs):
-        r = route(cfg, probs)
+    def recording(cfg, probs, group=None):
+        r = route(cfg, probs, group)
         calls.append((r.expert.clone(), r.slot.clone(), r.keep.clone(),
                       r.gate.detach().clone()))
         return r

@@ -139,8 +139,8 @@ def record_routing(records: list):
 
     route = moe.route
 
-    def recording(cfg, probs):
-        r = route(cfg, probs)
+    def recording(cfg, probs, group=None):
+        r = route(cfg, probs, group)
         records.append({k: getattr(r, k).numpy()
                         for k in ("expert", "slot", "keep", "gate")})
         return r
@@ -413,6 +413,102 @@ def fsdp_steps(rank, mesh, case: dict) -> dict:
                                k, rank),
             "counts": dict(fsdp.counts), "plan": plan.describe(),
             "scatters": fsdp._scatters(torch.zeros(1))}
+
+
+def moe_routing_cases(rank, mesh, cases: list) -> list:
+    """Each case's routing of this rank's block of a global microbatch's
+    router probabilities (the case's "probs", [rows, seq, E]) through
+    models/moe.route with its RoutingGroup: over every rank when the
+    case's (data, fsdp) mesh spans them all, else over the rank's pair
+    ([0, 1] or [2, 3], each an fsdp-2 group). Returns per case the
+    group's block layout, the Routing as numpy, the gradient of the
+    rank's aux share by its probabilities, and the rank-local routing
+    (``route`` without a group) of the same probabilities."""
+    import torch.distributed as dist
+
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.moe import route
+    from runbooks_tpu_torch.parallel.sharding import FsdpPlan, RoutingGroup
+
+    world = dist.get_world_size()
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    out = []
+    for case in cases:
+        cfg = get_config("debug", **case["overrides"])
+        data, fsdp = case["mesh"]
+        plan = FsdpPlan(mesh={"data": data, "fsdp": fsdp}, params={})
+        me, pg = ((rank, None) if plan.world == world
+                  else (rank % 2, pairs[rank // 2]))
+        counts = {"routing_all_gather": 0}
+        group = RoutingGroup.of(plan, case["rows"], me, pg, counts)
+        probs = torch.from_numpy(case["probs"])
+        n = case["rows"] // group.blocks
+        mine = probs[group.block * n:(group.block + 1) * n].reshape(
+            -1, probs.shape[-1]).clone().requires_grad_(True)
+        r = route(cfg, mine, group)
+        grad, = torch.autograd.grad(r.aux, mine)
+        local = route(cfg, mine.detach())
+        fields = ("expert", "slot", "keep", "gate")
+        out.append({
+            "block": group.block, "blocks": group.blocks,
+            "owner": group.owner, "order": group.order,
+            "routing": {f: getattr(r, f).detach().numpy() for f in fields},
+            "capacity": r.capacity, "aux": float(r.aux.detach()),
+            "grad": grad.numpy(), "gathers": counts["routing_all_gather"],
+            "local": {"capacity": local.capacity,
+                      **{f: getattr(local, f).numpy() for f in fields}}})
+    return out
+
+
+def moe_fsdp_remat(rank, mesh, spec: dict) -> dict:
+    """The debug MoE of ``spec`` (its "overrides"; params from seed 0 on
+    every rank, each keeping its pieces) on this rank's rows of
+    ``spec["batch"]``: the FSDP train step's gradients with remat off and
+    on (under the config's policy), and every routing its MoE layers
+    took, in call order (the forward's, then remat's recomputes)."""
+    from runbooks_tpu_torch.models import moe
+    from runbooks_tpu_torch.models.config import get_config
+    from runbooks_tpu_torch.models.transformer import init_params
+    from runbooks_tpu_torch.parallel.sharding import Fsdp
+    from runbooks_tpu_torch.train import step as t_step
+    from runbooks_tpu_torch.utils.tree import tree_leaves
+
+    cfg = get_config("debug", **spec["overrides"])
+    fsdp = Fsdp(t_step.fsdp_plan(cfg, mesh), rank, mesh, torch.device("cpu"),
+                compute_dtype=cfg.activation_dtype)
+    params = fsdp.plan.shard(init_params(cfg, torch.Generator().manual_seed(
+        0), torch.device("cpu")), fsdp.plan.params, rank)
+    batch = {k: torch.from_numpy(v)
+             for k, v in t_step.shard_batch(spec["batch"], fsdp).items()}
+    route, calls = moe.route, []
+
+    def recording(cfg, probs, group=None):
+        r = route(cfg, probs, group)
+        calls.append([getattr(r, f).detach().numpy()
+                      for f in ("expert", "slot", "keep", "gate")])
+        return r
+
+    out = {}
+    moe.route = recording
+    try:
+        for remat in (False, True):
+            calls.clear()
+            ce = t_step.make_ce_terms(cfg, remat=remat, loss_chunk=0,
+                                      fsdp=fsdp)
+            (loss, _), grads = t_step.value_and_grad(
+                ce, t_step.trainable_copy(params), batch, fsdp=fsdp,
+                aux_coef=t_step.moe_aux_coef(cfg))
+            out[remat] = {"loss": float(loss), "routing": list(calls),
+                          "grads": [g.numpy() for g in tree_leaves(grads)]}
+    finally:
+        moe.route = route
+    return out
+
+
+def moe_fsdp_checks(rank, mesh, cases: list, remat: dict) -> dict:
+    """``moe_routing_cases`` and ``moe_fsdp_remat`` in one spawn."""
+    return {"routing": moe_routing_cases(rank, mesh, cases),
+            "remat": moe_fsdp_remat(rank, mesh, remat)}
 
 
 def train_jobs(rank, mesh, jobs: list) -> list:
