@@ -314,7 +314,25 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    planted fault (TP_FAULTS on rank 1) outside it, and each rank's K1
    launches equal the single-process run's, at local shapes. Each rank's
    peak memory, the collectives of one forward and tokens/s, labelled
-   gloo over host memory on one card (not a TP speed).
+   gloo over host memory on one card (not a TP speed). On the same ranks
+   and loaded weights (no new spawn or load; one process's counterparts
+   run in this process after the ranks end, on the same seed's full
+   tree): (c) the paged engine with an adapter pool serves TP_POOL_MIX
+   requests on four distinct rank-16 adapters (TP_POOL; written once, on
+   the disk, before the ranks start); gate: ids equal to one process's
+   pooled engine's or differing first at a near-tie through the same
+   lane; reported: each rank's pool bytes against the plan's share, K1
+   launches per rank. (d) tests/test_mesh_serving.py's host-tier and
+   preemption scenario (TP_HOST_TIER: one slot, five pages, eight host
+   pages, decode chunk 2) after warmup; gates: pages swapped out >= 2
+   and in >= 2, preemptions = resumes = 1, ids equal to one process's,
+   no unexpected kernel build after warmup on any rank (obs/device
+   .SENTINEL). (e) each rank quantizes its bf16 shard in memory as
+   load_model(shard=, quantize=) does (int8 with the int8 KV cache on a
+   copy, then int4 on the shard itself) and the dense engine serves the
+   8-request mix; gate: ids equal to one process's quantized engine's
+   (or a near-tie); reported: each rank's weight bytes against the
+   plan's, its peak memory while quantizing (int4's: the load path's).
    (b) NCCL at world 1 (the card's one GPU; NCCL takes one rank per GPU,
    so a multi-rank NCCL group needs two): TensorParallel's all-reduce,
    vocabulary gather and broadcast, and the engine's program-call
@@ -433,7 +451,16 @@ Phases, each of which fails the run (nonzero exit) when it fails:
    mesh equals the unsharded one (mixtral at ENTRY_LAYERS), and ``python
    -m runbooks_tpu_torch.serve.api`` under mesh_expert 2 x mesh_tensor
    2 exits non-zero naming the device count (over HTTP where four GPUs
-   exist).
+   exist). (c) on (a)'s ranks and weights, with the adapter pool (phase
+   20 (c)'s adapters, four tenants), the int8 KV cache and the host tier
+   on (EP_FEATURE_RUNS): the pooled mix, every cached page demoted to
+   the host tier, the mix again; once at the settings (a)'s ids gate
+   uses (f32 activations, the plain attention, capacity E / k) and once
+   as served (bf16, capacity 1.25, K1 over the dequantized int8 view);
+   gates: the f32 run's ids equal to one process's (or a near-tie
+   through the same lane; the bf16 run's reported, as in (a)), pages
+   swapped out >= 2 and in >= 2, each rank's K1 launches one process's
+   and, in the bf16 run, > 0.
 26. Mixtral's fine-tune under ``mesh_fsdp`` (no kernel of its own; K1-K3
    at 32/8 heads of 128 on each rank): (a) phase 24 (b)'s LoRA job on an
    f32 mixtral-8x7b base at full width cut to MIXTRAL_FSDP_LAYERS, on a
@@ -7691,6 +7718,208 @@ TP_FAULTS = {"kv_heads_swapped": ("attn", ("wk", "wv")),
              "mlp_gate_misaligned": ("mlp", ("wi_gate",))}
 
 
+# Phase 20 (c)-(e): sharded serving's features on (a)'s ranks and weights.
+# (c) the paged engine's adapter pool: four tenants' rank-16 adapters, one
+# request each (the first TP_POOL_MIX prompts of the dense mix).
+TP_POOL = {"adapter_pool": 4, "lora_rank": 16}
+TP_TENANTS = tuple(f"tenant{i}" for i in range(4))
+TP_POOL_MIX = 4
+# (d) tests/test_mesh_serving.py's host-tier scenario: one slot, five
+# pages of 16 (so a 64-token window), eight host pages, decode chunk 2.
+TP_HOST_TIER = {"max_slots": 1, "max_seq_len": 64, "page_size": 16,
+                "num_pages": 5, "kv_host_pages": 8, "preemption": "swap",
+                "decode_chunk": 2}
+# (e) quantized weights on the dense engine: int8 with the int8 KV cache,
+# then int4 (the KV cache in bf16).
+TP_FEATURES = ("pooled", "host_tier", "int8", "int4")
+
+
+def write_tenant_adapters(torch, cfg, root, seed):
+    """TP_TENANTS' rank-16 adapters over ``cfg``'s LoRA targets (the
+    attention's four), seeded on the host and saved as LoRA training
+    artifacts (save_adapter) under ``root``; alpha 32, b drawn at 0.02,
+    so each tenant moves the base's logits (about 13.6 MB each at 8
+    layers of llama3-8b's or mixtral-8x7b's attention)."""
+    from runbooks_tpu_torch.ops.lora import target_dims
+    from runbooks_tpu_torch.serve.lora_pool import save_adapter
+
+    r = TP_POOL["lora_rank"]
+    for i, name in enumerate(TP_TENANTS):
+        g = torch.Generator().manual_seed(seed + 300 + i)
+        tree = {}
+        for t in cfg.lora_targets:
+            d_in, d_out = target_dims(cfg, t)
+            tree[t] = {
+                "a": torch.randn((cfg.num_layers, d_in, r), generator=g)
+                * d_in ** -0.5,
+                "b": torch.randn((cfg.num_layers, r, d_out), generator=g)
+                * 0.02}
+        save_adapter(f"{root}/{name}", tree, rank=r, alpha=2.0 * r)
+    return root
+
+
+def tp_feature_engine(torch, cfg, params, run, seed, seq, mesh=None,
+                      adapter_dir=None, keep=True):
+    """The engine of one TP_FEATURES run on ``params`` (a rank's shard or
+    the whole tree). The quantized runs quantize in memory with the
+    function load_model(shard=, quantize=) calls on a rank's shard: a
+    copy of the tree's dicts where the caller ``keep``s the bf16 tree,
+    else the tree itself, each bf16 leaf freed as its packed form
+    replaces it."""
+    from runbooks_tpu_torch.ops.quantization import quantize_params
+    from runbooks_tpu_torch.serve.engine import InferenceEngine
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+    from runbooks_tpu_torch.utils.tree import tree_map
+
+    if run in ("int8", "int4"):
+        params = quantize_params(
+            tree_map(lambda t: t, params) if keep else params, run)
+        return InferenceEngine(cfg, params, max_slots=8, max_seq_len=seq,
+                               seed=seed, mesh=mesh,
+                               quantize_kv=run == "int8")
+    if run == "pooled":
+        return PagedInferenceEngine(cfg, params, page_size=PAGE_SIZE,
+                                    max_slots=TP_POOL_MIX, max_seq_len=seq,
+                                    seed=seed, mesh=mesh,
+                                    adapter_dir=adapter_dir, **TP_POOL)
+    return PagedInferenceEngine(cfg, params, seed=seed, mesh=mesh,
+                                **TP_HOST_TIER)
+
+
+def tp_feature_drive(torch, engine, run, mixes, new):
+    """Rank 0's (or one process's) run of one TP_FEATURES feature (each
+    request ``new`` tokens; the host tier's scenario its own): ids, K1
+    launches, wall seconds and, for the pool, each tenant's lane; for the
+    host tier its counters."""
+    from runbooks_tpu_torch.obs import device as obs_device
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+    from runbooks_tpu_torch.serve.engine import Request
+    from tests.tp_ranks import host_tier_scenario
+
+    flash_attention.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        if run == "host_tier":
+            # The tests' scenario body (tests/tp_ranks.py imports the
+            # port and torch only), after warmup, with the build sentinel.
+            out = host_tier_scenario(engine, Request, list(range(1, 33)),
+                                     obs_device.SENTINEL)
+        else:
+            prompts = mixes["dense"][:TP_POOL_MIX] if run == "pooled" \
+                else mixes["dense"]
+            tenants = TP_TENANTS if run == "pooled" else [None] * len(prompts)
+            reqs = [Request(prompt_tokens=list(p), max_tokens=new,
+                            temperature=0.0, adapter=a)
+                    for p, a in zip(prompts, tenants)]
+            engine.generate(reqs)
+            for r in reqs:
+                if not (r.finished and len(r.output_tokens) == new):
+                    raise SystemExit(
+                        f"phase 20 {run}: a request ended with "
+                        f"{len(r.output_tokens)} tokens ({r.finish_reason})")
+            out = {"ids": [list(r.output_tokens) for r in reqs],
+                   "prompts": prompts}
+            if run == "pooled":
+                out["lanes"] = [engine.adapters._by_name[n]
+                                for n in TP_TENANTS]
+    torch.cuda.synchronize()
+    out.update(launches=flash_attention.launches,
+               wall_s=time.perf_counter() - t0)
+    return out
+
+
+def tp_feature_bytes(torch, engine, rank):
+    """This rank's pool bytes and the plan's share of the whole pool, or
+    its weight bytes and the plan's for a quantized tree."""
+    import numpy as np
+
+    from runbooks_tpu_torch.ops.lora import (
+        adapter_tree_logical_axes,
+        target_dims,
+    )
+    from runbooks_tpu_torch.ops.quantization import tree_weight_bytes
+
+    plan = engine.tp.plan
+    cfg = plan.cfg
+    if engine.adapters is not None:
+        pool = engine.adapters
+        lanes = pool.pool_size + 1
+        share = whole = 0
+        for t in pool.targets:
+            (d_in, d_out), axes = (target_dims(cfg, t),
+                                   adapter_tree_logical_axes(t))
+            for k, shape in (("a", (cfg.num_layers, lanes, d_in, pool.rank)),
+                             ("b", (cfg.num_layers, lanes, pool.rank,
+                                    d_out))):
+                n = cfg.activation_dtype.itemsize
+                share += n * int(np.prod(plan.local_shape(
+                    shape, (None,) + axes[k], rank)))
+                whole += n * int(np.prod(shape))
+        return {"pool_bytes": pool.pool_bytes(), "plan_pool_bytes": share,
+                "whole_pool_bytes": whole}
+    return {"weight_bytes": tree_weight_bytes(engine.params)}
+
+
+def quantized_meta(torch, cfg, mode):
+    """The whole tree quantized at ``mode``, on the meta device (shapes
+    and dtypes only)."""
+    from runbooks_tpu_torch.models.transformer import init_params
+    from runbooks_tpu_torch.ops.quantization import quantize_params
+
+    return quantize_params(init_params(cfg, None, torch.device("meta")),
+                           mode)
+
+
+def tp_feature_runs(torch, cfg, params, mesh, rank, seed, setup, dev):
+    """Phase 20 (c)-(e) on one rank, each feature's engine built on (a)'s
+    loaded shard: rank 0 drives (tp_feature_drive), the others replay,
+    counting K1's launches and the sentinel's unexpected builds."""
+    from runbooks_tpu_torch.obs import device as obs_device
+    from runbooks_tpu_torch.ops.flash_attention import flash_attention
+
+    out = {}
+    for run in TP_FEATURES:
+        quantized = run in ("int8", "int4")
+        # The last run quantizes the shard itself, as load_model(shard=,
+        # quantize=) does: its peak is the serving load's. An earlier one
+        # keeps the bf16 shard beside its quantized copy.
+        keep = run != TP_FEATURES[-1]
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        engine = tp_feature_engine(torch, cfg, params, run, seed,
+                                   setup["seq"], mesh, setup["adapters"],
+                                   keep)
+        rec = tp_feature_bytes(torch, engine, rank)
+        if quantized:
+            rec["bf16_kept"] = keep
+            if dev.type == "cuda":
+                rec["quantize_peak_gb"] = \
+                    torch.cuda.max_memory_allocated() / 1e9
+        if rank == 0:
+            try:
+                rec.update(tp_feature_drive(torch, engine, run,
+                                            setup["mixes"], setup["new"]))
+            finally:
+                engine.stop_followers()
+        else:
+            flash_attention.launches = 0
+            before = obs_device.SENTINEL.unexpected
+            engine.serve_follower()
+            rec.update(launches=flash_attention.launches,
+                       unexpected=obs_device.SENTINEL.unexpected - before)
+        if quantized:
+            rec["plan_weight_bytes"] = engine.tp.plan.local_param_bytes(
+                quantized_meta(torch, cfg, run), rank)
+        out[run] = rec
+        engine.cache = None
+        del engine
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def tp_planted_logits(torch, cfg, engine, prompt, seq, rank):
     """{fault: last-position prefill logits} with each TP_FAULTS fault
     planted in rank 1's shard (every rank runs the forward; rank 1's
@@ -7801,6 +8030,8 @@ def tp_rank(rank, world, store_path, out_path, seed, device_type, setup):
         from runbooks_tpu_torch.serve.api import load_model
         from runbooks_tpu_torch.utils.tree import tree_leaves
 
+        # quantized_matmul's f32 products (phase 20 (e)) take no TF32.
+        torch.backends.cuda.matmul.allow_tf32 = False
         dev = torch.device("cuda", 0) if device_type == "cuda" \
             else torch.device("cpu")
         distributed.initialize(TP_RANK_TIMEOUT_S, backend="gloo", rank=rank,
@@ -7866,6 +8097,9 @@ def tp_rank(rank, world, store_path, out_path, seed, device_type, setup):
                 torch.cuda.empty_cache()
         if dev.type == "cuda":
             result["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # (c)-(e) on the same shard.
+        result["features"] = tp_feature_runs(torch, cfg, params, mesh, rank,
+                                             seed, setup, dev)
         result["ok"] = True
         distributed.shutdown()
     except BaseException:  # noqa: BLE001 - reported to the parent
@@ -8095,10 +8329,15 @@ def tp_phase(torch, seed, workdir):
     (each rank's dense and paged runs)."""
     from runbooks_tpu_torch.serve.api import load_model
 
+    from runbooks_tpu_torch.models.config import get_config
+
     t_phase = time.perf_counter()
     mixes = tp_mixes(seed)
+    adapters = write_tenant_adapters(
+        torch, get_config("llama3-8b", num_layers=TP_LAYERS),
+        f"{workdir}/tp_adapters", seed)
     setup = {"params": tp_model_params(seed), "mixes": mixes,
-             "seq": TP_SEQ, "new": TP_NEW}
+             "seq": TP_SEQ, "new": TP_NEW, "adapters": adapters}
     ranks = tp_two_ranks(torch, seed, workdir, setup)
     t_ranks = time.perf_counter() - t_phase
     gc.collect()
@@ -8127,6 +8366,8 @@ def tp_phase(torch, seed, workdir):
         gates[f"{kind}_k1_launches_per_rank"] = all(
             r[kind]["launches"] == single[kind]["launches"] > 0
             for r in ranks)
+    features = tp_feature_checks(torch, cfg, params, seed, mixes, adapters,
+                                 ranks, gates)
     gaps = [float((r["logits"] - plain_logits).abs().max()) for r in ranks]
     gates["logits_within_gap"] = max(gaps) <= TP_LOGIT_GAP
     planted = {f: min(float((r["planted"][f] - plain_logits).abs().max())
@@ -8168,14 +8409,90 @@ def tp_phase(torch, seed, workdir):
                    "one_process_same_card": single[kind]["tokens"]
                    / single[kind]["wall_s"]}
             for kind in ("dense", "paged")},
+        "features": features,
         "ranks_s": t_ranks, **nccl,
         "seconds": time.perf_counter() - t_phase, "gates": gates}
     print("phase 20 " + json.dumps(record), flush=True)
     failed = [k for k, v in gates.items() if not v]
     if failed:
         raise SystemExit(f"phase 20: gates failed: {failed}")
-    return {f"tp_{kind}_rank{r}": ranks[r][kind]["launches"]
-            for kind in ("dense", "paged") for r in range(2)}
+    out = {f"tp_{kind}_rank{r}": ranks[r][kind]["launches"]
+           for kind in ("dense", "paged") for r in range(2)}
+    out.update({f"tp_{run}_rank{r}": ranks[r]["features"][run]["launches"]
+                for run in TP_FEATURES for r in range(2)})
+    return out
+
+
+def tp_feature_checks(torch, cfg, params, seed, mixes, adapters, ranks,
+                      gates):
+    """Phase 20 (c)-(e)'s one-process runs on the whole tree (this
+    process, after the ranks ended) and the gates against the ranks'
+    runs; returns the record (each run's K1 launches per rank and one
+    process's, bytes per rank, the host tier's counters, wall seconds)."""
+    from runbooks_tpu_torch.ops.quantization import tree_weight_bytes
+
+    record = {}
+    for run in TP_FEATURES:
+        engine = tp_feature_engine(torch, cfg, params, run, seed, TP_SEQ,
+                                   adapter_dir=adapters)
+        single = tp_feature_drive(torch, engine, run, mixes, TP_NEW)
+        got = [r["features"][run] for r in ranks]
+        lead = got[0]
+        ties = []
+        for i, (a, b) in enumerate(zip(lead["ids"], single["ids"])):
+            kw = {}
+            if run == "pooled":
+                kw["adapters"] = (engine.adapters.tree, torch.tensor(
+                    [single["lanes"][i]], device=params["embed"].device))
+            ties.append(near_tie_check(
+                torch, cfg, engine.params if run in ("int8", "int4")
+                else params, f"phase 20 {run} request {i}",
+                lead["prompts"][i], a, b, fail=False, **kw))
+        gates[f"{run}_ids_equal_or_near_tie"] = all(t["ok"] for t in ties)
+        gates[f"{run}_k1_launches_per_rank"] = all(
+            g["launches"] == single["launches"] for g in got) and (
+            single["launches"] > 0)
+        rec = {"identical_requests": sum(t["identical"] for t in ties),
+               "requests": len(ties),
+               "k1_launches": {"single": single["launches"],
+                               "ranks": [g["launches"] for g in got]},
+               "wall_s": {"rank0": lead["wall_s"],
+                          "one_process": single["wall_s"]}}
+        if run == "pooled":
+            gates["pooled_lanes_equal"] = lead["lanes"] == single["lanes"]
+            gates["pool_bytes_equal_plan_share"] = all(
+                g["pool_bytes"] == g["plan_pool_bytes"] for g in got)
+            rec.update(pool_bytes_per_rank=[g["pool_bytes"] for g in got],
+                       plan_pool_bytes=[g["plan_pool_bytes"] for g in got],
+                       whole_pool_bytes=got[0]["whole_pool_bytes"],
+                       one_process_pool_bytes=engine.adapters.pool_bytes())
+        elif run == "host_tier":
+            gates["host_tier_swapped_out_2"] = lead["swapped_out"] >= 2
+            gates["host_tier_swapped_in_2"] = lead["swapped_in"] >= 2
+            gates["host_tier_preempted_and_resumed_once"] = (
+                lead["preemptions"] == 1 == lead["resumed"])
+            gates["host_tier_no_unexpected_build"] = all(
+                g["unexpected"] == 0 for g in got)
+            rec.update({k: lead[k] for k in (
+                "evicted", "swapped_out", "swapped_in", "preemptions",
+                "resumed")}, unexpected_per_rank=[g["unexpected"]
+                                                  for g in got],
+                one_process={k: single[k] for k in (
+                    "swapped_out", "swapped_in", "preemptions",
+                    "resumed")})
+        else:
+            gates[f"{run}_weight_bytes_equal_plan"] = all(
+                g["weight_bytes"] == g["plan_weight_bytes"] for g in got)
+            rec.update(weight_bytes_per_rank=[g["weight_bytes"] for g in got],
+                       one_process_weight_bytes=tree_weight_bytes(
+                           engine.params),
+                       quantize_peak_gb_per_rank=[g.get("quantize_peak_gb")
+                                                  for g in got],
+                       bf16_shard_kept=got[0].get("bf16_kept"))
+        record[run] = rec
+        free_engine(torch, engine)
+        del engine
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -9402,6 +9719,49 @@ EP_RUNS = (("dense", "dense", {}, False), ("paged", "paged", {}, False),
              "moe_capacity_factor": 4.0}, True))
 
 
+# Phase 25 (c): on (a)'s ranks, the adapter pool (phase 20 (c)'s four
+# tenants, one request each), the int8 KV cache and the host tier on: the
+# pooled mix, then every cached page demoted to the host tier
+# (EP_FEATURE_ENGINE holds them all) and the mix again, its prefix pages
+# swapped back in. Run twice, as EP_RUNS: at the gated run's settings
+# (f32 activations, the plain attention, the dropless capacity E / k),
+# ids gated; and as served (bf16, capacity 1.25, K1 on every rank's
+# local heads over the dequantized int8 view), ids reported and K1's
+# launches gated.
+EP_FEATURE_RUNS = (("features", dict(EP_RUNS[2][2]), True),
+                   ("features_bf16", {}, False))
+EP_FEATURE_ENGINE = dict(TP_POOL, quantize_kv=True, kv_host_pages=32,
+                         max_slots=TP_POOL_MIX, page_size=PAGE_SIZE)
+
+
+def ep_feature_engine(torch, cfg, params, seed, seq, adapters, over,
+                      mesh=None):
+    from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+
+    return PagedInferenceEngine(
+        dataclasses.replace(cfg, **over), params, max_seq_len=seq,
+        seed=seed, mesh=mesh, adapter_dir=adapters, **EP_FEATURE_ENGINE)
+
+
+def ep_feature_drive(torch, engine, mixes, new):
+    """Phase 25 (c) on rank 0 or one process: the pooled mix, every
+    cached page demoted to the host tier, the mix again. Both passes'
+    ids, lanes and prompts, K1's launches over both, the tier's
+    counters."""
+    first = tp_feature_drive(torch, engine, "pooled", mixes, new)
+    demoted = engine.pager.radix.evict(10 ** 6)
+    again = tp_feature_drive(torch, engine, "pooled", mixes, new)
+    radix = engine.pager.radix
+    return {"ids": first["ids"] + again["ids"],
+            "prompts": first["prompts"] + again["prompts"],
+            "lanes": first["lanes"] + again["lanes"],
+            "launches": first["launches"] + again["launches"],
+            "wall_s": first["wall_s"] + again["wall_s"],
+            "demoted": demoted, "swapped_out": radix.pages_swapped_out,
+            "swap_dropped": radix.pages_swap_dropped,
+            "swapped_in": engine.pager.pages_swapped_in}
+
+
 def ep_model_params(seed, layers=MIXTRAL_EP_LAYERS):
     return {"model": "mixtral-8x7b",
             "model_overrides": {"param_dtype": "bfloat16",
@@ -9570,6 +9930,34 @@ def ep_rank(rank, world, store_path, out_path, seed, device_type, setup):
                 torch.cuda.empty_cache()
         if dev.type == "cuda":
             result["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        # (c) the features' runs on the same shard.
+        result["features"] = {}
+        for name, over, _ in EP_FEATURE_RUNS:
+            engine = ep_feature_engine(torch, cfg, params, seed, seq,
+                                       setup["adapters"], over, mesh)
+            rec = tp_feature_bytes(torch, engine, rank)
+            if rank == 0:
+                try:
+                    rec.update(ep_feature_drive(torch, engine, mixes,
+                                                setup["new"]))
+                finally:
+                    engine.stop_followers()
+                occ = engine.kv_occupancy()
+                rec["kv"] = {
+                    "dtype": str(engine.cache.k.dtype),
+                    "host_pages_total": occ["host_pages_total"],
+                    "kv_pool_bytes_per_device":
+                        occ["kv_pool_bytes_per_device"]}
+            else:
+                flash_attention.launches = 0
+                engine.serve_follower()
+                rec["launches"] = flash_attention.launches
+            result["features"][name] = rec
+            engine.cache = None
+            del engine
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
         result["ok"] = True
         distributed.shutdown()
     except BaseException:  # noqa: BLE001 - reported to the parent
@@ -9722,10 +10110,19 @@ def ep_phase(torch, seed, workdir):
     (each rank's dense and paged runs)."""
     from runbooks_tpu_torch.serve.api import load_model
 
+    from runbooks_tpu_torch.models.config import get_config
+
     t_phase = time.perf_counter()
     mixes = tp_mixes(seed)
+    # Mixtral's attention has llama3-8b's widths: phase 20's adapters
+    # serve it where the depths agree.
+    adapters = f"{workdir}/tp_adapters"
+    if MIXTRAL_EP_LAYERS != TP_LAYERS or not os.path.isdir(adapters):
+        adapters = write_tenant_adapters(
+            torch, get_config("mixtral-8x7b", num_layers=MIXTRAL_EP_LAYERS),
+            f"{workdir}/ep_adapters", seed)
     setup = {"params": ep_model_params(seed), "mixes": mixes,
-             "seq": TP_SEQ, "new": TP_NEW}
+             "seq": TP_SEQ, "new": TP_NEW, "adapters": adapters}
     ranks = ep_four_ranks(torch, seed, workdir, setup)
     t_ranks = time.perf_counter() - t_phase
     gc.collect()
@@ -9758,6 +10155,8 @@ def ep_phase(torch, seed, workdir):
             r[kind]["launches"] == single[kind]["launches"]
             for r in ranks) and (single[kind]["launches"] > 0
                                  or run_cfgs[kind].attention_impl == "xla")
+    features = ep_feature_check(torch, cfg, params, seed, mixes, adapters,
+                                ranks, gates)
     gaps = [float((r["logits"] - plain_logits).abs().max()) for r in ranks]
     gates["logits_within_gap"] = max(gaps) <= EP_LOGIT_GAP
     planted = {f: min(float((r["planted"][f] - plain_logits).abs().max())
@@ -9819,14 +10218,76 @@ def ep_phase(torch, seed, workdir):
                    "one_process_same_card": single[kind]["tokens"]
                    / single[kind]["wall_s"]}
             for kind in ties},
+        "features": features,
         "ranks_s": t_ranks, **nccl,
         "seconds": time.perf_counter() - t_phase, "gates": gates}
     print("phase 25 " + json.dumps(record), flush=True)
     failed = [k for k, v in gates.items() if not v]
     if failed:
         raise SystemExit(f"phase 25: gates failed: {failed}")
-    return {f"ep_{kind}_rank{r}": ranks[r][kind]["launches"]
-            for kind in ("dense", "paged") for r in range(len(ranks))}
+    out = {f"ep_{kind}_rank{r}": ranks[r][kind]["launches"]
+           for kind in ("dense", "paged") for r in range(len(ranks))}
+    out.update({f"ep_{name}_rank{r}": ranks[r]["features"][name]["launches"]
+                for name, _, _ in EP_FEATURE_RUNS for r in range(len(ranks))})
+    return out
+
+
+def ep_feature_check(torch, cfg, params, seed, mixes, adapters, ranks,
+                     gates):
+    """Phase 25 (c)'s one-process runs on the whole tree and their gates,
+    per EP_FEATURE_RUNS run: ids equal to rank 0's or differing first at
+    a near-tie through the same lane (where gated), the same lanes, each
+    rank's pool bytes the plan's share, an int8 cache and the host tier
+    on every rank, pages swapped out and in >= 2, each rank's K1
+    launches one process's (and > 0 where K1 is on the path)."""
+    record = {}
+    for name, over, gated in EP_FEATURE_RUNS:
+        run_cfg = dataclasses.replace(cfg, **over)
+        engine = ep_feature_engine(torch, cfg, params, seed, TP_SEQ,
+                                   adapters, over)
+        single = ep_feature_drive(torch, engine, mixes, TP_NEW)
+        got = [r["features"][name] for r in ranks]
+        lead = got[0]
+        ties = [near_tie_check(
+            torch, run_cfg, params, f"phase 25 (c) {name} request {i}",
+            lead["prompts"][i], a, b, fail=False,
+            adapters=(engine.adapters.tree, torch.tensor(
+                [single["lanes"][i]], device=params["embed"].device)))
+            for i, (a, b) in enumerate(zip(lead["ids"], single["ids"]))]
+        if gated:
+            gates[f"{name}_ids_equal_or_near_tie"] = all(
+                t["ok"] for t in ties)
+        gates[f"{name}_lanes_equal"] = lead["lanes"] == single["lanes"]
+        gates[f"{name}_pool_bytes_equal_plan_share"] = all(
+            g["pool_bytes"] == g["plan_pool_bytes"] for g in got)
+        gates[f"{name}_int8_kv_host_tier"] = (
+            lead["kv"]["dtype"] == "torch.int8"
+            and lead["kv"]["host_pages_total"]
+            == EP_FEATURE_ENGINE["kv_host_pages"])
+        gates[f"{name}_swapped_out_2_and_in_2"] = (
+            lead["swapped_out"] >= 2 and lead["swapped_in"] >= 2)
+        gates[f"{name}_k1_launches_per_rank"] = all(
+            g["launches"] == single["launches"] for g in got) and (
+            single["launches"] > 0 or run_cfg.attention_impl == "xla")
+        record[name] = {
+            "ids_gated": gated,
+            "identical_requests": sum(t["identical"] for t in ties),
+            "requests": len(ties), "near_ties": ties,
+            "pool_bytes_per_rank": [g["pool_bytes"] for g in got],
+            "plan_pool_bytes": [g["plan_pool_bytes"] for g in got],
+            "whole_pool_bytes": lead["whole_pool_bytes"],
+            "kv": lead["kv"],
+            "host_tier": {k: lead[k] for k in (
+                "demoted", "swapped_out", "swap_dropped", "swapped_in")},
+            "host_tier_one_process": {k: single[k] for k in (
+                "demoted", "swapped_out", "swap_dropped", "swapped_in")},
+            "k1_launches": {"single": single["launches"],
+                            "ranks": [g["launches"] for g in got]},
+            "wall_s": {"rank0": lead["wall_s"],
+                       "one_process": single["wall_s"]}}
+        free_engine(torch, engine)
+        del engine
+    return record
 
 
 # ---------------------------------------------------------------------------

@@ -28,8 +28,13 @@ adapters (or none) share one forward dispatch:
   ops/quantization.py) unchanged; base-only rows get the no-pool
   quantized engine's outputs bit for bit.
 
-The reference's ``adapter_pool_logical_axes`` (the pool's sharding under
-a serving mesh) waits for the port's mesh (ROADMAP.md §1, multi-device).
+- **Under a serving mesh** each rank holds its shard of every lane, by
+  ``adapter_pool_logical_axes`` (the reference's): a column-parallel
+  target keeps ``a`` whole and ``b`` cut to the rank's output columns, a
+  row-parallel one (``wo``) keeps ``a`` cut to the rank's input rows and
+  ``b`` whole, the cuts parallel/sharding.shard_leaf gives the base
+  matrix. A row-parallel delta is then the rank's partial sum and rides
+  the sublayer's one all-reduce (models/transformer.py).
 """
 
 from __future__ import annotations
@@ -83,24 +88,33 @@ def nest_targets(flat: Dict[str, Any]) -> Params:
 
 def init_adapter_pool(cfg, pool_size: int, rank: int,
                       targets: Sequence[str],
-                      device: torch.device) -> Params:
+                      device: torch.device, cut=None) -> Params:
     """All-zero stacked adapter pool on ``device``: per target
     {"a": [L, pool_size + 1, d_in, rank], "b": [L, pool_size + 1, rank,
     d_out]} in the activation dtype. Lane ``pool_size`` is the trash lane,
-    never written, so base-only rows gather exact zeros."""
+    never written, so base-only rows gather exact zeros. ``cut(leaf,
+    axes)`` (a serving rank's parallel/sharding.shard_leaf) gives each
+    leaf its shape on that rank, by ``adapter_pool_logical_axes``."""
     if pool_size < 1:
         raise ValueError(f"adapter pool_size must be >= 1, got {pool_size}")
     if rank < 1:
         raise ValueError(f"lora_rank must be >= 1, got {rank}")
     L, ad = cfg.num_layers, cfg.activation_dtype
+
+    def zeros(shape, axes):
+        if cut is not None:
+            shape = cut(torch.empty(shape, device="meta"), axes).shape
+        return torch.zeros(shape, dtype=ad, device=device)
+
     flat = {}
     for t in targets:
         d_in, d_out = target_dims(cfg, t)
+        in_ax, out_ax = _BASE_AXES[t]
         flat[t] = {
-            "a": torch.zeros((L, pool_size + 1, d_in, rank), dtype=ad,
-                             device=device),
-            "b": torch.zeros((L, pool_size + 1, rank, d_out), dtype=ad,
-                             device=device),
+            "a": zeros((L, pool_size + 1, d_in, rank),
+                       (None, None, in_ax, None)),
+            "b": zeros((L, pool_size + 1, rank, d_out),
+                       (None, None, None, out_ax)),
         }
     return nest_targets(flat)
 
@@ -186,26 +200,31 @@ def write_lane(pool: Params, adapter: Params, lane: int) -> None:
         dst.copy_(src)
 
 
+# Each target's (input, output) logical axes: its base matrix's.
+_BASE_AXES = {
+    "attn.wq": ("embed", "heads"), "attn.wk": ("embed", "kv_heads"),
+    "attn.wv": ("embed", "kv_heads"), "attn.wo": ("heads", "embed"),
+    "mlp.wi_gate": ("embed", "mlp"), "mlp.wi_up": ("embed", "mlp"),
+    "mlp.wi": ("embed", "mlp"), "mlp.wo": ("mlp", "embed"),
+}
+
+
 def adapter_pool_logical_axes(pool: Params) -> Params:
     """Logical axes for the pool under a serving mesh (the reference's):
     the lane and rank axes replicated, the in/out axes following the base
-    matrix's. The port's engines refuse a pool under a mesh (ROADMAP.md
-    §1); the axes are kept for the slice that lifts that."""
-    base_axes = {
-        ("attn", "wq"): ("embed", "heads"),
-        ("attn", "wk"): ("embed", "kv_heads"),
-        ("attn", "wv"): ("embed", "kv_heads"),
-        ("attn", "wo"): ("heads", "embed"),
-        ("mlp", "wi_gate"): ("embed", "mlp"),
-        ("mlp", "wi_up"): ("embed", "mlp"),
-        ("mlp", "wi"): ("embed", "mlp"),
-        ("mlp", "wo"): ("mlp", "embed"),
-    }
+    matrix's."""
     axes: Dict[str, Dict[str, dict]] = {}
     for group, sub in pool.items():
         axes[group] = {}
         for name in sub:
-            in_ax, out_ax = base_axes.get((group, name), (None, None))
+            in_ax, out_ax = _BASE_AXES.get(f"{group}.{name}", (None, None))
             axes[group][name] = {"a": (None, None, in_ax, None),
                                  "b": (None, None, None, out_ax)}
     return axes
+
+
+def adapter_tree_logical_axes(target: str) -> Dict[str, tuple]:
+    """One adapter's {"a": [L, d_in, r], "b": [L, r, d_out]} axes for
+    ``target`` (serve/lora_pool.load_adapter_tree's layout): a lane's."""
+    in_ax, out_ax = _BASE_AXES[target]
+    return {"a": (None, in_ax, None), "b": (None, None, out_ax)}

@@ -324,9 +324,9 @@ def quantized_logical_axes(params: Dict[str, Any],
                            axes: Dict[str, Any]) -> Dict[str, Any]:
     """Rewrite a ``param_logical_axes`` tree so positions holding a
     QuantizedArray get a QuantizedArray of axis tuples (the reference's):
-    values keep the weight's axes, the scales' block axis replicates. The
-    port's engines refuse quantized weights under a mesh (ROADMAP.md §1);
-    the axes are kept for the slice that lifts that."""
+    values keep the weight's axes, the scales' block axis replicates.
+    (The serving plan cuts a QuantizedArray by whole blocks instead,
+    parallel/sharding.shard_leaf.)"""
     def fix(p, a):
         if isinstance(p, dict):
             return {k: fix(p[k], a[k]) for k in p}

@@ -13,7 +13,11 @@ vocabulary each shard over ``tensor`` or replicate. The reference shards
 ``wq`` over the flattened q_dim, so GSPMD may split a head; the port never
 does. A head count that ``tensor`` does not divide replicates that side.
 Where q heads shard and kv heads do not, each rank holds the kv heads its
-q heads read. ``shard_params`` cuts one rank's tree by the plan, and
+q heads read. ``shard_params`` cuts one rank's tree by the plan (a
+QuantizedArray by whole quantization blocks: a rank whose contraction
+rows would start or end inside a block is refused by name,
+``check_quantized_cuts``; elsewhere quantizing a shard equals cutting
+the quantized whole), and
 ``TensorParallel`` carries the plan, the rank and the process group into
 the forward (models/transformer.py), which runs on local widths:
 
@@ -319,17 +323,33 @@ class TensorPlan:
 
     def local_param_bytes(self, params, rank: int) -> int:
         """The bytes rank ``rank``'s tree holds, from the full tree's
-        shapes and dtypes and the plan alone (no slicing)."""
+        shapes and dtypes and the plan alone (no slicing). A QuantizedArray
+        counts its values and scales, each cut as ``shard_leaf`` cuts
+        them."""
         from runbooks_tpu_torch.models.transformer import param_logical_axes
+        from runbooks_tpu_torch.ops.quantization import QuantizedArray
         from runbooks_tpu_torch.utils.tree import tree_leaves
+
+        def numel(shape):
+            n = 1
+            for s in shape:
+                n *= s
+            return n
 
         axes = list(tree_leaves(param_logical_axes(self.cfg)))
         total = 0
         for leaf, ax in zip(tree_leaves(params), axes, strict=True):
-            n = 1
-            for s in self.local_shape(leaf.shape, ax, rank):
-                n *= s
-            total += n * leaf.element_size()
+            if isinstance(leaf, QuantizedArray):
+                logical = self.local_shape(leaf.shape, ax, rank)
+                pack = 2 if leaf.bits == 4 else 1
+                total += numel((*logical[:-2], logical[-2] // pack,
+                                logical[-1])) * leaf.values.element_size()
+                total += numel((*logical[:-2],
+                                logical[-2] // leaf.block_size,
+                                logical[-1])) * leaf.scales.element_size()
+                continue
+            total += numel(self.local_shape(leaf.shape, ax, rank)) \
+                * leaf.element_size()
         return total
 
     def describe(self) -> dict:
@@ -376,32 +396,138 @@ def serve_plan(cfg, tensor: int, expert: int = 1) -> TensorPlan:
                           cfg.moe_num_experts, "experts", "expert"))
 
 
-def shard_leaf(leaf, axes: LogicalSpec, plan: TensorPlan, rank: int):
+def _full_dims(cfg) -> Dict[str, int]:
+    return {"heads": cfg.q_dim, "kv_heads": cfg.kv_dim,
+            "mlp": cfg.intermediate_size, "vocab": cfg.vocab_size,
+            "experts": cfg.moe_num_experts}
+
+
+def quantized_cut_refusal(plan: TensorPlan, rank: int, axis: Optional[str],
+                          bits: int, block_size: int,
+                          name: str = "a quantized weight") -> Optional[str]:
+    """Why rank ``rank``'s cut of a quantized weight's contraction axis
+    (logical ``axis``) cannot be served, or None. A rank's rows must start
+    and end on a quantization block (``block_size`` rows of ``bits``-bit
+    codes; for int4 the block is even, so a packed pair never straddles
+    the cut): its values and scales are then the full weight's blocks, and
+    quantizing its rows alone gives the same codes as cutting the
+    quantized whole."""
+    r = plan._dim_range(axis, rank)
+    if r is None or (r.start % block_size == 0
+                     and r.stop % block_size == 0):
+        return None
+    return (f"{name} quantized int{bits} in blocks of {block_size} rows is "
+            f"cut off its blocks under {plan.describe()}: rank {rank}'s "
+            f"rows {r.start}:{r.stop} of its {axis!r} axis do not start "
+            f"and end on a block boundary (an off-boundary quantized cut); "
+            f"pick a mesh_tensor whose cut lands on the blocks, or serve "
+            f"it unquantized or on one device")
+
+
+def _shard_quantized(qa, axes: LogicalSpec, plan: TensorPlan, rank: int,
+                     name: str):
+    """A QuantizedArray cut like a plain [..., in, out] weight: ``values``
+    and ``scales`` narrow on the output axis by its columns, and on the
+    contraction axis by whole blocks (an int4 value row holds a packed
+    pair of rows; a scale row one block), so the rank holds exactly the
+    full weight's blocks for its rows. A cut off the blocks raises."""
+    from runbooks_tpu_torch.ops.quantization import QuantizedArray
+
+    *_, in_ax, out_ax = _serving_axes(axes)
+    full = _full_dims(plan.cfg)
+    values, scales = qa.values, qa.scales
+    r = plan._dim_range(out_ax, rank)
+    if r is not None and values.shape[-1] != len(r):
+        if values.shape[-1] != full[out_ax]:
+            raise ValueError(
+                f"{name}: a {out_ax!r} dimension of {values.shape[-1]} is "
+                f"neither {plan.cfg.name!r}'s {full[out_ax]} nor rank "
+                f"{rank}'s {len(r)}")
+        values = values.narrow(-1, r.start, len(r))
+        scales = scales.narrow(-1, r.start, len(r))
+    r = plan._dim_range(in_ax, rank)
+    if r is not None and qa.in_dim != len(r):
+        if qa.in_dim != full[in_ax]:
+            raise ValueError(
+                f"{name}: a {in_ax!r} dimension of {qa.in_dim} is neither "
+                f"{plan.cfg.name!r}'s {full[in_ax]} nor rank {rank}'s "
+                f"{len(r)}")
+        why = quantized_cut_refusal(plan, rank, in_ax, qa.bits,
+                                    qa.block_size, name)
+        if why is not None:
+            raise NotImplementedError(why)
+        pack = 2 if qa.bits == 4 else 1
+        values = values.narrow(-2, r.start // pack, len(r) // pack)
+        scales = scales.narrow(-2, r.start // qa.block_size,
+                               len(r) // qa.block_size)
+    if values is qa.values and scales is qa.scales:
+        return qa
+    return QuantizedArray(values=values.contiguous(),
+                          scales=scales.contiguous(), bits=qa.bits,
+                          block_size=qa.block_size)
+
+
+def shard_leaf(leaf, axes: LogicalSpec, plan: TensorPlan, rank: int,
+               name: str = "a leaf"):
     """One leaf (logical ``axes``) cut to the columns the plan gives rank
     ``rank``, a tensor of its own where it is cut. A dimension already at
-    its local width is kept, so the rank's own shard passes through."""
+    its local width is kept, so the rank's own shard passes through. A
+    QuantizedArray is cut by whole blocks (``_shard_quantized``)."""
     from runbooks_tpu_torch.ops.quantization import QuantizedArray
 
     if isinstance(leaf, QuantizedArray):
-        raise NotImplementedError(
-            "quantized weights under a mesh (mesh_tensor or mesh_expert "
-            "> 1) are not ported yet (ROADMAP.md §1): serve them on one "
-            "device")
+        return _shard_quantized(leaf, axes, plan, rank, name)
     cfg = plan.cfg
-    full = {"heads": cfg.q_dim, "kv_heads": cfg.kv_dim,
-            "mlp": cfg.intermediate_size, "vocab": cfg.vocab_size,
-            "experts": cfg.moe_num_experts}
+    full = _full_dims(cfg)
     out = leaf
-    for dim, name in enumerate(_serving_axes(axes)):
-        r = plan._dim_range(name, rank)
+    for dim, ax in enumerate(_serving_axes(axes)):
+        r = plan._dim_range(ax, rank)
         if r is None or out.shape[dim] == len(r):
             continue
-        if out.shape[dim] != full[name]:
+        if out.shape[dim] != full[ax]:
             raise ValueError(
-                f"a {name!r} dimension of {out.shape[dim]} is neither "
-                f"{cfg.name!r}'s {full[name]} nor rank {rank}'s {len(r)}")
+                f"a {ax!r} dimension of {out.shape[dim]} is neither "
+                f"{cfg.name!r}'s {full[ax]} nor rank {rank}'s {len(r)}")
         out = out.narrow(dim, r.start, len(r))
     return out.contiguous() if out is not leaf else out
+
+
+def check_quantized_cuts(plan: TensorPlan, mode: str,
+                         rank: Optional[int] = None,
+                         block_size: int = 128) -> None:
+    """Raise NotImplementedError, naming the first leaf, where rank
+    ``rank`` (every rank of the plan when None) would cut a weight
+    quantized ``mode`` at ``block_size`` off its blocks. Where no rank
+    does, quantizing a rank's shard on its own equals cutting the
+    quantized whole: the plan cuts evenly, so a rank's contraction rows
+    are the full dimension over ``tensor``, and the whole tree's block
+    (the largest usable one that divides the full dimension) is then the
+    largest that divides the rank's rows too."""
+    from runbooks_tpu_torch.models.transformer import param_logical_axes
+    from runbooks_tpu_torch.ops.quantization import (
+        QUANTIZABLE_KEYS,
+        mode_bits,
+        resolve_block_size,
+    )
+
+    if mode == "none":
+        return
+    bits = mode_bits(mode)
+    cfg = plan.cfg
+    full = dict(_full_dims(cfg), embed=cfg.hidden_size)
+    layers = param_logical_axes(cfg)["layers"]
+    for r in range(plan.world) if rank is None else (rank,):
+        for group, keys in QUANTIZABLE_KEYS.items():
+            for key in keys:
+                axes = layers.get(group, {}).get(key)
+                if axes is None:
+                    continue
+                in_ax = axes[-2]
+                bs = resolve_block_size(full[in_ax], block_size, bits)
+                why = quantized_cut_refusal(plan, r, in_ax, bits, bs,
+                                            f"{group}.{key}")
+                if why is not None:
+                    raise NotImplementedError(why)
 
 
 def shard_params(params, plan: TensorPlan, rank: int):
@@ -410,12 +536,13 @@ def shard_params(params, plan: TensorPlan, rank: int):
     shard_leaf; the rank's own tree comes back as it is."""
     from runbooks_tpu_torch.models.transformer import param_logical_axes
 
-    def walk(p, a):
+    def walk(p, a, path):
         if isinstance(p, dict):
-            return {k: walk(p[k], a[k]) for k in p}
-        return shard_leaf(p, a, plan, rank)
+            return {k: walk(p[k], a[k], f"{path}.{k}" if path else k)
+                    for k in p}
+        return shard_leaf(p, a, plan, rank, path.removeprefix("layers."))
 
-    return walk(params, param_logical_axes(plan.cfg))
+    return walk(params, param_logical_axes(plan.cfg), "")
 
 
 # ---------------------------------------------------------------------------

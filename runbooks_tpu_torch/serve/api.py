@@ -38,11 +38,14 @@ ranks itself (``torch.multiprocessing``, spawn), and alone runs HTTP,
 the worker, the scheduler and the page tables; each follower replays
 rank 0's program calls on its shard (serve/engine.py). SIGTERM drains,
 stops every follower and exits 0; a follower that dies ends rank 0 with
-a non-zero code. Other mesh axes, a multi-host mesh, and quantization,
-the adapter pool, the host tier, preemption and collective_matmul "ring"
-under a mesh of more than one rank are refused by name;
-collective_matmul "auto" resolves to the port's one all-reduce after each
-sharded sublayer, which ``main`` logs at startup.
+a non-zero code. Every rank takes the same knobs: the adapter pool, the
+host tier, preemption, ``quantize`` (each rank quantizes its own shard:
+the cut of the quantized whole) and ``quantize_kv`` are served under the
+mesh. Other
+mesh axes, a multi-host mesh, collective_matmul "ring" and a quantized
+weight whose contraction rows a rank would cut off a block are refused by
+name; collective_matmul "auto" resolves to the port's one all-reduce
+after each sharded sublayer, which ``main`` logs at startup.
 """
 
 from __future__ import annotations
@@ -85,6 +88,7 @@ from runbooks_tpu_torch.parallel.mesh import (
     serving_axes,
 )
 from runbooks_tpu_torch.parallel.sharding import (
+    check_quantized_cuts,
     serve_plan,
     shard_leaf,
     shard_params,
@@ -195,7 +199,10 @@ def load_model(params: dict,
     expert index) is materialised: a checkpoint is cut while it is mapped, a
     random init cuts each leaf as it is drawn (the same draws as the full
     tree's), an adapter's pairs are cut to the shard's columns before the
-    fold. The full tree is never held."""
+    fold. The full tree is never held. Quantization then quantizes the
+    shard, which equals the cut of the quantized whole, bit for bit; a
+    rank whose contraction rows would be cut off a block raises by name
+    before anything is loaded (parallel/sharding.check_quantized_cuts)."""
     dev = resolve_device(device)
     adapter = params.get("adapter")
     pool = int(_param_any(params, "adapter_pool", "adapterPool",
@@ -231,6 +238,7 @@ def load_model(params: dict,
                                          tensor=tensor), serving=True)
         plan = serve_plan(cfg, tensor, expert)
         cut = functools.partial(shard_leaf, plan=plan, rank=rank)
+        check_quantized_cuts(plan, quantize, rank)
     ckpt_dir = params.get("checkpoint") or contract.model_dir()
 
     def fit_and_cut(tree):
@@ -1540,42 +1548,28 @@ def refuse_unported(params: dict) -> None:
     """Raise naming every params knob whose feature this port does not
     serve yet (serving without it would silently change what the
     deployment asked for): serving axes other than ``expert`` and
-    ``tensor``, and under a mesh of more than one rank the features the
-    sharded engines refuse."""
+    ``tensor``, and under a mesh of more than one rank a multi-host mesh,
+    collective_matmul "ring" and a quantized weight some rank would cut
+    off its blocks."""
     mc = serve_mesh(params)
     if mc is None or mc.expert * mc.tensor == 1:
         return
-    check_mesh_model(get_config(params.get("model", "debug"),
-                                **params.get("model_overrides", {})), mc,
-                     serving=True)
+    cfg = get_config(params.get("model", "debug"),
+                     **params.get("model_overrides", {}))
+    check_mesh_model(cfg, mc, serving=True)
     info = distributed.env_process_info()
     if info is not None and info["num_processes"] > 1:
         raise NotImplementedError(
             f"{serving_axes(mc)} over {info['num_processes']} hosts: "
             "a serving replica is one pod (one process per GPU of one "
             "host); multi-host serving meshes are refused")
-    overrides = params.get("model_overrides", {})
-    bad = []
-    quantize = params.get("quantize", overrides.get("quantize", "none"))
-    if quantize not in (None, "none"):
-        bad.append(f"quantize={quantize!r}")
-    if _param_on(_param_any(params, "quantize_kv", "quantizeKv",
-                            "quantizekv", default=False)):
-        bad.append("quantize_kv")
-    if int(_param_any(params, "adapter_pool", "adapterPool", "adapterpool",
-                      default=0) or 0) > 0:
-        bad.append("adapter_pool")
-    if int(_param_any(params, "kv_host_pages", "kvHostPages",
-                      "kvhostpages", default=0) or 0) > 0:
-        bad.append("kv_host_pages")
-    if (params.get("preemption") or "off") != "off":
-        bad.append("preemption")
     if collective_matmul_param(params) not in ("off", "auto"):
-        bad.append("collective_matmul")
-    if bad:
         raise NotImplementedError(
-            f"params {bad} under {serving_axes(mc)}: not ported to the "
-            "sharded server yet (ROADMAP.md §1); serve them on one device")
+            f"params ['collective_matmul'] under {serving_axes(mc)}: not "
+            "ported to the sharded server yet (ROADMAP.md §1); serve them "
+            "on one device")
+    check_quantized_cuts(serve_plan(cfg, mc.tensor, mc.expert),
+                         resolve_quantize_mode(params, cfg))
 
 
 def _server_options(params: dict) -> dict:

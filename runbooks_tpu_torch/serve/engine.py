@@ -70,7 +70,12 @@
   (``serve_follower``). Every rank so runs each dispatch on the same
   rows (an MoE layer's capacity counts them all). Sampled ids are rank
   0's (broadcast over the serving group inside the decode loop), so
-  every rank feeds the same tokens forward.
+  every rank feeds the same tokens forward. The adapter pool (each rank
+  its shard of every lane; rank 0's pool decides residency and every
+  lane write is a program), quantized weights (cut by whole blocks) and
+  the int8 KV cache (each rank its kv heads' values and scales) are
+  served under a mesh too; so are the paged engine's host tier and
+  preemption (serve/paging.py).
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import os
 import time
 from typing import Any, Callable, List, Optional
@@ -98,11 +104,8 @@ from runbooks_tpu_torch.obs import flight as obs_flight
 from runbooks_tpu_torch.obs import metrics as obs_metrics
 from runbooks_tpu_torch.obs.trace import complete as trace_complete
 from runbooks_tpu_torch.obs.trace import record_enabled, span
-from runbooks_tpu_torch.ops.quantization import (
-    QuantizedArray,
-    dequantize_kv,
-    quantize_kv,
-)
+from runbooks_tpu_torch.ops.lora import write_lane
+from runbooks_tpu_torch.ops.quantization import dequantize_kv, quantize_kv
 from runbooks_tpu_torch.ops.sampling import sample, speculative_verify
 from runbooks_tpu_torch.parallel.mesh import (
     check_mesh_model,
@@ -113,6 +116,7 @@ from runbooks_tpu_torch.parallel.mesh import (
 from runbooks_tpu_torch.parallel.sharding import (
     TensorParallel,
     serve_plan,
+    shard_leaf,
     shard_params,
 )
 from runbooks_tpu_torch.serve.grammar import (
@@ -127,7 +131,7 @@ from runbooks_tpu_torch.serve.speculative import (
 )
 from runbooks_tpu_torch.utils import cuda_build
 from runbooks_tpu_torch.utils.hw import backend_tuning
-from runbooks_tpu_torch.utils.tree import tree_leaves, tree_map
+from runbooks_tpu_torch.utils.tree import tree_map
 
 # QoS classes, best first: admission orders the queue by class (FIFO
 # within a class). The strings are the public API (the HTTP `priority`
@@ -573,10 +577,12 @@ class InferenceEngine:
         ``shard``), on any device: each rank keeps its shard
         (parallel/sharding.serve_plan, shard_params) on its own device.
         Every rank builds the engine with the same arguments; rank 0
-        drives it and the others run ``serve_follower``. Other axes above 1, quantized weights or KV,
-        the adapter pool, the host tier, preemption and collective_matmul
-        "ring" are refused by name under a mesh; collective_matmul "auto"
-        resolves to the port's one all-reduce after each sharded sublayer
+        drives it and the others run ``serve_follower``. The adapter
+        pool, quantized weights and the int8 KV cache are served under it
+        (a quantized weight whose contraction rows a rank would cut off a
+        block raises by name); other axes above 1 and collective_matmul
+        "ring" are refused by name; collective_matmul "auto" resolves to
+        the port's one all-reduce after each sharded sublayer
         (``self.collective_matmul``, COLLECTIVE_MATMUL_AUTO)."""
         check_supported(cfg)
         self.cfg = cfg
@@ -595,10 +601,7 @@ class InferenceEngine:
         self._program_depth = 0
         self._last_send = time.monotonic()
         if mesh is not None:
-            params = self._mesh_params(
-                params, mesh, preemption,
-                int(adapter_pool if adapter_pool is not None
-                    else cfg.adapter_pool))
+            params = self._mesh_params(params, mesh)
         self.params = params
         self.device = params["embed"].device
         tuning = backend_tuning(self.device)
@@ -698,7 +701,12 @@ class InferenceEngine:
         # validation.
         self.adapters: Optional[AdapterPool] = (
             AdapterPool(cfg, pool_size=pool_size, rank=lora_rank,
-                        root=adapter_dir, device=self.device)
+                        root=adapter_dir, device=self.device,
+                        cut=None if self.tp is None else functools.partial(
+                            shard_leaf, plan=self.tp.plan,
+                            rank=self.tp.rank),
+                        write=None if self.tp is None
+                        else self._adapter_write)
             if pool_size else None)
         # Each slot's adapter lane (-1: base only), the operand every
         # pooled dispatch gathers A/B by.
@@ -751,8 +759,7 @@ class InferenceEngine:
         self.prefix_lookups = 0
         self.prefix_hits = 0
 
-    def _mesh_params(self, params: Params, mesh, preemption: str,
-                     pool_size: int) -> Params:
+    def _mesh_params(self, params: Params, mesh) -> Params:
         """Validate a serving mesh, set up this rank's TensorParallel and
         return its shard of ``params`` on its device."""
         from torch.distributed.device_mesh import DeviceMesh
@@ -765,26 +772,11 @@ class InferenceEngine:
         check_serving_mesh(mc)
         check_mesh_model(self.cfg, mc, serving=True)
         world = mc.expert * mc.tensor
-        if world > 1:
-            refused = []
-            if self.quantize_kv or any(
-                    isinstance(leaf, QuantizedArray)
-                    for leaf in tree_leaves(params)):
-                refused.append("quantized weights and the int8 KV cache")
-            if pool_size > 0:
-                refused.append("the adapter pool (adapter_pool)")
-            if preemption != "off":
-                refused.append(f"preemption={preemption!r}")
-            if self.cfg.collective_matmul not in ("off", "auto"):
-                refused.append(
-                    f"collective_matmul={self.cfg.collective_matmul!r}")
-            refused += self._mesh_refusals()
-            if refused:
-                raise NotImplementedError(
-                    f"{', '.join(refused)} under a mesh "
-                    f"({serving_axes(mc)}): not "
-                    f"ported yet (ROADMAP.md §1); serve without it or on "
-                    f"one device")
+        if world > 1 and self.cfg.collective_matmul not in ("off", "auto"):
+            raise NotImplementedError(
+                f"collective_matmul={self.cfg.collective_matmul!r} under a "
+                f"mesh ({serving_axes(mc)}): not ported yet (ROADMAP.md "
+                f"§1); serve without it or on one device")
         dev = (torch.device("cuda", torch.cuda.current_device())
                if mesh.device_type == "cuda" else torch.device("cpu"))
         if world > 1:
@@ -804,11 +796,6 @@ class InferenceEngine:
             self._leader = rank == 0
             params = shard_params(params, self.tp.plan, rank)
         return tree_map(lambda t: t.to(dev), params)
-
-    def _mesh_refusals(self) -> List[str]:
-        """Engine-specific features refused under a mesh (the paged
-        engine's host tier)."""
-        return []
 
     def _new_cache(self) -> KVCache:
         return KVCache.create(self.cfg, self.max_slots, self.max_seq_len,
@@ -898,21 +885,34 @@ class InferenceEngine:
 
     def serve_follower(self) -> None:
         """A follower rank's life: run each program call rank 0 sends, on
-        this rank's shards, until rank 0 says stop. Rank 0's host state
-        (queue, slots, page tables, the prefix LRU) has no copy here."""
-        if self.tp is None or self.tp.rank == 0:
+        this rank's shards, until rank 0 says stop (which releases the
+        steady claim its warmup made). Rank 0's host state (queue, slots,
+        page tables, the prefix LRU) has no copy here."""
+        if not self._follower:
             raise RuntimeError("serve_follower runs on a follower rank of "
                                "a serving mesh")
         with torch.no_grad():
             while True:
                 name, args, kwargs = self._exchange()
                 if name == "stop":
+                    self.release_steady()
                     return
                 if name != "noop":
                     self._program(name, *args, **kwargs)
 
     def _dev(self, a):
         return a if isinstance(a, torch.Tensor) else self._tensor(a)
+
+    @property
+    def _follower(self) -> bool:
+        """A follower rank of a serving mesh (rank 0's program calls are
+        its only work)."""
+        return self.tp is not None and self.tp.rank != 0
+
+    def _lane_kwargs(self) -> dict:
+        """A pooled engine's slot lanes as a decode or verify program's
+        operand: a follower holds no slot state of its own."""
+        return {} if self.adapters is None else {"aslots": self.adapter_slots}
 
     def _operand_kwargs(self, gmask=None, aslots=None) -> dict:
         """A program's optional operands on the device: the grammar mask
@@ -1059,6 +1059,19 @@ class InferenceEngine:
         if aslots is None:
             aslots = self.adapter_slots
         return {"adapters": (self.adapters.tree, self._tensor(aslots))}
+
+    def _adapter_write(self, adapter, lane: int, path: str) -> None:
+        """The leader's lane write under a mesh (the pool's ``write``): it
+        sends the artifact's path and the lane to every follower
+        (_p_adapter_write) and writes its own loaded shard."""
+        if self._leader:
+            self._send(("adapter_write", (path, lane), {}))
+        write_lane(self.adapters.tree, adapter, lane)
+
+    def _p_adapter_write(self, path: str, lane: int) -> None:
+        """A follower's lane write: the same artifact, read and cut to
+        this rank's shard of the pool."""
+        write_lane(self.adapters.tree, self.adapters.load(path), lane)
 
     def adapter_stats(self) -> Optional[dict]:
         """Adapter pool snapshot (residency, loads, evictions, hits,
@@ -1308,17 +1321,20 @@ class InferenceEngine:
             "programs": [{"name": c["name"], "programs": c["programs"]}
                          for c in census],
         }
-        if self.tp is not None and self.tp.rank:
-            return   # a follower: rank 0 reports and claims steady
+        if not self._marked_steady:
+            # Every rank claims steady in its own process (a follower's
+            # build after warmup is as unexpected as rank 0's); rank 0
+            # alone reports.
+            self._marked_steady = True
+            sentinel.mark_steady("serve")
+        if self._follower:
+            return
         print(f"serve: warmup census: {self.warmup_census['prefill_programs']}"
               f" prefill shapes (buckets {self.prefill_buckets} x rows "
               f"{rows}), {len(views)} decode views {views}, {n_verify} "
               f"verify shapes; {self.warmup_census['compiles']} kernel "
               f"builds in {self.warmup_census['compile_seconds']}s; "
               f"{self.warmup_census['warmup_seconds']}s", flush=True)
-        if not self._marked_steady:
-            self._marked_steady = True
-            sentinel.mark_steady("serve")
 
     def release_steady(self) -> None:
         """Release this engine's steady claim (the worker calls it at
@@ -1976,15 +1992,15 @@ class InferenceEngine:
         with self._step_span("verify", view, drafted=int(draft_len.sum())):
             return self._program("verify", view, tokens, positions,
                                  draft_len, temps, top_ks, top_ps,
-                                 self.active, **gkw)
+                                 self.active, **gkw, **self._lane_kwargs())
 
     def _p_verify(self, view, tokens, positions, draft_len, temps, top_ks,
-                  top_ps, active, gmask=None):
+                  top_ps, active, gmask=None, aslots=None):
         t = self._tensor
         accept, resid, full, self.cache = self._verify_for(view)(
             self.params, self.cache, t(tokens), t(positions), t(draft_len),
             self.generator, t(temps), t(top_ks), t(top_ps), t(active),
-            **self._operand_kwargs(gmask))
+            **self._operand_kwargs(gmask, aslots))
         # One host sync per verify step.
         return (accept.cpu().numpy(), resid.cpu().numpy(),
                 full.cpu().numpy())
@@ -2045,16 +2061,16 @@ class InferenceEngine:
             toks, valid = self._program(
                 "decode", view, self.last_token, positions, temps, top_ks,
                 top_ps, eos_ids, remaining, self.active,
-                **self._grammar_decode_kwargs())
+                **self._grammar_decode_kwargs(), **self._lane_kwargs())
         return self._replay_chunk(toks, valid)
 
     def _p_decode(self, view, last_token, positions, temps, top_ks, top_ps,
-                  eos_ids, remaining, active, gmask=None):
+                  eos_ids, remaining, active, gmask=None, aslots=None):
         t = self._tensor
         toks, valid, self.cache = self._decode_for(view)(
             self.params, self.cache, t(last_token), t(positions),
             self.generator, t(temps), t(top_ks), t(top_ps), t(eos_ids),
-            t(remaining), t(active), **self._operand_kwargs(gmask))
+            t(remaining), t(active), **self._operand_kwargs(gmask, aslots))
         # One host sync per chunk: [chunk, slots] ids and validity.
         return toks.cpu().numpy(), valid.cpu().numpy()
 

@@ -23,6 +23,11 @@ r, out]}}) and ``lora.json`` carrying {rank, alpha, targets}.
   host in f32: rank zero-padded to the pool's bucket, alpha/rank folded
   into B, untrained targets zero. A lane write then copies each leaf to
   the device once, in place (ops/lora.write_lane).
+- Under a serving mesh each rank's pool holds its shard of every lane
+  (``cut``: the rank's parallel/sharding.shard_leaf). The leader's pool
+  alone decides residency, loads, evictions and LRU; its lane writes go
+  through ``write`` (the engine's), on which every follower reads the
+  same artifact, cuts it to its shard and writes the same lane.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ import torch
 from runbooks_tpu_torch.models.config import ModelConfig
 from runbooks_tpu_torch.models.transformer import param_logical_axes
 from runbooks_tpu_torch.ops.lora import (
+    adapter_tree_logical_axes,
     init_adapter_pool,
     nest_targets,
     target_dims,
@@ -114,14 +120,17 @@ def _restore_lora(path: str) -> dict:
     return lora
 
 
-def load_adapter_tree(path: str, cfg: ModelConfig, targets, rank: int):
+def load_adapter_tree(path: str, cfg: ModelConfig, targets, rank: int,
+                      cut=None):
     """One adapter artifact in the pool's layout: {"attn"/"mlp": {name:
     {"a": [L, d_in, rank], "b": [L, rank, d_out]}}} f32 tensors on the host
     covering EVERY pool target. Targets the adapter did not train are zero
     (a recycled lane must not keep the previous tenant's delta); trained
     ones are rank-padded with zeros and have alpha/rank folded into B.
     Raises AdapterLoadError on any mismatch, before anything is copied to
-    the device."""
+    the device. ``cut(leaf, axes)`` (a serving rank's
+    parallel/sharding.shard_leaf) then cuts each pair to the rank's lane
+    shape (ops/lora.adapter_tree_logical_axes)."""
     lora = _restore_lora(path)
     # Structure first, before any indexing: a malformed artifact raises
     # the typed error, never a KeyError that would escape the engine's
@@ -174,6 +183,9 @@ def load_adapter_tree(path: str, cfg: ModelConfig, targets, rank: int):
         pad_b = torch.zeros((L, rank, d_out))
         pad_b[:, :a_rank] = b * (alpha / float(a_rank))
         flat[t] = {"a": pad_a, "b": pad_b}
+    if cut is not None:
+        flat = {t: {k: cut(v, adapter_tree_logical_axes(t)[k])
+                    for k, v in ab.items()} for t, ab in flat.items()}
     return nest_targets(flat)
 
 
@@ -231,11 +243,15 @@ class AdapterPool:
     threads) counts into it while the engine thread swaps lanes.
 
     ``tree`` is the pool (ops/lora.init_adapter_pool) on ``device`` (the
-    engine's; None: the current CUDA device, raising without one)."""
+    engine's; None: the current CUDA device, raising without one). ``cut``
+    (a serving rank's parallel/sharding.shard_leaf): the pool and every
+    loaded adapter hold the rank's shard. ``write(adapter, lane, path)``
+    performs a lane write (default: ops/lora.write_lane into ``tree``; a
+    sharded engine's leader has every rank write it)."""
 
     def __init__(self, cfg: ModelConfig, pool_size: Optional[int] = None,
                  rank: Optional[int] = None, root: Optional[str] = None,
-                 loader=None, device=None):
+                 loader=None, device=None, cut=None, write=None):
         self.cfg = cfg
         self.pool_size = int(pool_size if pool_size is not None
                              else cfg.adapter_pool)
@@ -252,10 +268,12 @@ class AdapterPool:
             target_dims(cfg, t)
         self.root = root
         self._loader = loader or (lambda path: load_adapter_tree(
-            path, self.cfg, self.targets, self.rank))
+            path, self.cfg, self.targets, self.rank, cut))
         self.device = resolve_device(device)
         self.tree = init_adapter_pool(cfg, self.pool_size, self.rank,
-                                      self.targets, self.device)
+                                      self.targets, self.device, cut)
+        self._write = write or (lambda adapter, lane, path: write_lane(
+            self.tree, adapter, lane))
         self._lane_name: List[Optional[str]] = [None] * self.pool_size
         self._lane_ref = [0] * self.pool_size          # pinned by requests
         self._lane_used = [0] * self.pool_size         # LRU clock stamps
@@ -339,7 +357,8 @@ class AdapterPool:
         lane = self._victim_lane()
         if lane is None:
             return None
-        adapter = self._loader(self.resolve(name))
+        path = self.resolve(name)
+        adapter = self._loader(path)
         old = self._lane_name[lane]
         # The lane is written in place: a write that raises leaves it
         # unnamed (its content is no longer the old adapter's).
@@ -347,13 +366,18 @@ class AdapterPool:
         if old is not None:
             self.evictions += 1
             del self._by_name[old]
-        write_lane(self.tree, adapter, lane)
+        self._write(adapter, lane, path)
         self._lane_name[lane] = name
         self._by_name[name] = lane
         self._lane_ref[lane] = 1
         self._touch(lane)
         self.loads += 1
         return lane
+
+    def load(self, path: str):
+        """An artifact in this pool's lane layout (its shard under a
+        mesh), as ``acquire`` reads it."""
+        return self._loader(path)
 
     def release(self, lane: int) -> None:
         if lane < 0:

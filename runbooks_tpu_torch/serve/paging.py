@@ -45,6 +45,13 @@ int8 KV (``quantize_kv``) composes: pages hold int8 K/V plus one f32 scale
 per (layer, page, token, kv head); the view, the write-back, the host tier
 and the swaps carry the scales beside the values. A prefill dequantizes
 the shared prefix pages it gathers and quantizes the suffix it scatters.
+
+Under a serving mesh every rank's pool and host tier hold its own kv
+heads of each page. The allocator, the radix tree, the page tables and
+the host tier's free list are rank 0's: it decides every swap-out,
+swap-in, drop and preemption, and each page copy is a program
+(``kv_swap_out`` / ``kv_swap_in``) that every follower replays on its
+shard, into the host slot rank 0 picked.
 """
 
 from __future__ import annotations
@@ -233,7 +240,10 @@ class HostPagePool:
     only."""
 
     def __init__(self, cfg: ModelConfig, host_pages: int, page_size: int,
-                 pin_memory: bool = False, quantize_kv: bool = False):
+                 pin_memory: bool = False, quantize_kv: bool = False,
+                 kv_heads: Optional[int] = None):
+        """``kv_heads``: the kv heads a page holds (default all of them; a
+        serving rank holds its own, engine.local_kv_heads)."""
         if host_pages < 1:
             raise ValueError(
                 f"kv_host_pages must be >= 1 to enable the host tier, "
@@ -241,7 +251,8 @@ class HostPagePool:
         self.num_pages = int(host_pages)
         self.page_size = int(page_size)
         shape = (self.num_pages, cfg.num_layers, self.page_size,
-                 cfg.num_kv_heads, cfg.head_dim)
+                 cfg.num_kv_heads if kv_heads is None else kv_heads,
+                 cfg.head_dim)
         self.quantized = bool(quantize_kv)
         dtype = torch.int8 if self.quantized else cfg.activation_dtype
         self.k = torch.zeros(shape, dtype=dtype, pin_memory=pin_memory)
@@ -296,14 +307,16 @@ class HostPagePool:
 
     def store(self, slot: int, k: torch.Tensor, v: torch.Tensor,
               k_scale: Optional[torch.Tensor] = None,
-              v_scale: Optional[torch.Tensor] = None) -> None:
+              v_scale: Optional[torch.Tensor] = None,
+              checked: bool = True) -> None:
         """Copy one page's K/V ([layers, page_size, kv_heads, head_dim], on
         any device; with the scales [layers, page_size, kv_heads] exactly
         when quantized) into the slot's buffers. The copy has completed
         when this returns (a device-to-host copy_ without non_blocking
         waits for it), so the device page may be freed and reused at
-        once."""
-        if not self._used[slot]:
+        once. ``checked=False`` skips the free list's check: a serving
+        follower's tier, whose slots rank 0's tier allocates."""
+        if checked and not self._used[slot]:
             raise RuntimeError(f"store to unallocated host page {slot}")
         if (k_scale is not None) != self.quantized:
             raise ValueError(
@@ -315,10 +328,11 @@ class HostPagePool:
             self.k_scale[slot].copy_(k_scale)
             self.v_scale[slot].copy_(v_scale)
 
-    def load(self, slot: int) -> tuple:
+    def load(self, slot: int, checked: bool = True) -> tuple:
         """The slot's page payload (views of the buffers), as the swap-in
-        function takes it: (k, v), plus the scales when quantized."""
-        if not self._used[slot]:
+        function takes it: (k, v), plus the scales when quantized.
+        ``checked`` as in ``store``."""
+        if checked and not self._used[slot]:
             raise RuntimeError(f"load of unallocated host page {slot}")
         out = (self.k[slot], self.v[slot])
         if self.quantized:
@@ -1095,10 +1109,6 @@ class PagedInferenceEngine(InferenceEngine):
         """The paged entry points register in __init__, once they exist;
         decode and verify per view-page bucket as they are made."""
 
-    def _mesh_refusals(self) -> List[str]:
-        return (["the host KV tier (kv_host_pages)"]
-                if self._kv_host_pages_arg > 0 else [])
-
     # -- storage -------------------------------------------------------
 
     def _new_cache(self) -> PagePool:
@@ -1128,7 +1138,8 @@ class PagedInferenceEngine(InferenceEngine):
                 self.host_pool = HostPagePool(
                     self.cfg, self._kv_host_pages_arg, ps,
                     pin_memory=self.device.type == "cuda",
-                    quantize_kv=self.quantize_kv)
+                    quantize_kv=self.quantize_kv,
+                    kv_heads=local_kv_heads(self.cfg, self.tp))
             else:
                 self.host_pool.reset()
             self.pager.radix.host = self.host_pool
@@ -1153,11 +1164,17 @@ class PagedInferenceEngine(InferenceEngine):
             if h is None:
                 return None
         t0 = time.perf_counter()
-        # store() returns once the copy has completed: only then may the
-        # caller free the device page for reuse.
-        self.host_pool.store(h, *self._swap_out_fn(self.cache, page))
+        self._program("kv_swap_out", page, h)
         self._observe_swap("out", time.perf_counter() - t0)
         return h
+
+    def _p_kv_swap_out(self, page: int, h: int) -> None:
+        """Copy device page ``page`` (this rank's kv heads) into host slot
+        ``h``: rank 0's allocated slot, a follower's the same index. The
+        copy has completed when this returns: only then may the caller
+        free the device page for reuse."""
+        self.host_pool.store(h, *self._swap_out_fn(self.cache, page),
+                             checked=not self._follower)
 
     def _observe_swap(self, direction: str, seconds: float) -> None:
         self.swap_seconds[direction].append(seconds)
@@ -1173,10 +1190,14 @@ class PagedInferenceEngine(InferenceEngine):
         if self._swap_fault_hit():
             return False
         t0 = time.perf_counter()
-        self.cache = self._swap_in_fn(self.cache, page,
-                                      *self.host_pool.load(host_slot))
+        self._program("kv_swap_in", host_slot, page)
         self._observe_swap("in", time.perf_counter() - t0)
         return True
+
+    def _p_kv_swap_in(self, host_slot: int, page: int) -> None:
+        self.cache = self._swap_in_fn(
+            self.cache, page,
+            *self.host_pool.load(host_slot, checked=not self._follower))
 
     # -- programs ------------------------------------------------------
 
@@ -1543,15 +1564,17 @@ class PagedInferenceEngine(InferenceEngine):
                              drafted=int(draft_len.sum())):
             return self._program("paged_verify", vp, self.pager.page_table,
                                  tokens, positions, draft_len, temps,
-                                 top_ks, top_ps, self.active, **gkw)
+                                 top_ks, top_ps, self.active, **gkw,
+                                 **self._lane_kwargs())
 
     def _p_paged_verify(self, vp, page_table, tokens, positions, draft_len,
-                        temps, top_ks, top_ps, active, gmask=None):
+                        temps, top_ks, top_ps, active, gmask=None,
+                        aslots=None):
         t = self._tensor
         accept, resid, full, self.cache = self._verify_for(vp)(
             self.params, self.cache, t(page_table), t(tokens), t(positions),
             t(draft_len), self.generator, t(temps), t(top_ks), t(top_ps),
-            t(active), **self._operand_kwargs(gmask))
+            t(active), **self._operand_kwargs(gmask, aslots))
         # One host sync per verify step.
         return (accept.cpu().numpy(), resid.cpu().numpy(),
                 full.cpu().numpy())
@@ -1567,18 +1590,19 @@ class PagedInferenceEngine(InferenceEngine):
             toks, valid = self._program(
                 "paged_decode", vp, self.pager.page_table, self.last_token,
                 positions, temps, top_ks, top_ps, eos_ids, remaining,
-                self.active, **self._grammar_decode_kwargs())
+                self.active, **self._grammar_decode_kwargs(),
+                **self._lane_kwargs())
         return self._replay_chunk(toks, valid)
 
     def _p_paged_decode(self, vp, page_table, last_token, positions, temps,
                         top_ks, top_ps, eos_ids, remaining, active,
-                        gmask=None):
+                        gmask=None, aslots=None):
         t = self._tensor
         toks, valid, self.cache = self._decode_for(vp)(
             self.params, self.cache, t(page_table), t(last_token),
             t(positions), self.generator, t(temps), t(top_ks), t(top_ps),
             t(eos_ids), t(remaining), t(active),
-            **self._operand_kwargs(gmask))
+            **self._operand_kwargs(gmask, aslots))
         # One host sync per chunk.
         return toks.cpu().numpy(), valid.cpu().numpy()
 

@@ -25,9 +25,10 @@ f32, 2 layers; tests/tp_oracle.MOE), weights from the reference's
   other expert's term, so the forward logits, the engines' prefill logits
   and ids are bit-equal to one process's. With 3 experts (replicated)
   rank 0 alone sums the experts (``moe_owner``): bit-equal as well.
-  The same ranks refuse, by name, what the sharded engines leave out:
-  quantized weights and the int8 KV cache, the adapter pool, the host
-  tier, preemption and collective_matmul "ring".
+  The same ranks refuse collective_matmul "ring" by name, and build
+  what sharded serving takes: quantized weights (tensor 1 cuts no
+  contraction rows), the int8 KV cache, the adapter pool, the host tier
+  and preemption (served: tests/test_torch_mesh_features.py).
 """
 
 import dataclasses
@@ -268,12 +269,11 @@ def test_expert_ranks_refuse_what_the_sharded_engines_leave_out(world2):
         # Two kv heads on one tensor rank: the paged engine serves.
         assert r["paged"] is None
         assert "DeviceMesh" in r["not_a_mesh"]
-        for name, words in [
-                ("quantized", "quantized weights"),
-                ("quantize_kv", "int8 KV cache"),
-                ("adapter_pool", "adapter pool"),
-                ("host_tier", "host KV tier (kv_host_pages)"),
-                ("preemption", "preemption='swap'"),
-                ("collective_matmul", "collective_matmul='ring'")]:
-            assert r[name].startswith("NotImplementedError"), name
-            assert words in r[name] and "mesh_expert=2)" in r[name], r[name]
+        refused = r["collective_matmul"]
+        assert refused.startswith("NotImplementedError"), refused
+        assert "collective_matmul='ring'" in refused, refused
+        assert "mesh_expert=2)" in refused, refused
+        # Lifted: each is built on the expert ranks.
+        for name in ("quantized", "quantized_on_blocks", "quantize_kv",
+                     "adapter_pool", "host_tier", "preemption"):
+            assert r[name] is None, (name, r[name])

@@ -17,7 +17,6 @@ of each test.
 """
 
 import dataclasses
-import itertools
 
 import jax
 import numpy as np
@@ -34,6 +33,7 @@ from runbooks_tpu_torch.models import bridge
 from runbooks_tpu_torch.models.config import get_config
 from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
 from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+from tests import tp_oracle
 
 torch.set_num_threads(2)
 
@@ -44,18 +44,9 @@ SHARED = list(range(1, 33))          # two full pages of 16
 
 
 @pytest.fixture(autouse=True)
-def _stable_ties(monkeypatch):
-    counter = itertools.count(1)
-
-    class Node(jax_paging._RadixNode):
-        __slots__ = ("seq",)
-
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            self.seq = next(counter)
-
-    monkeypatch.setattr(jax_paging, "_RadixNode", Node)
-    monkeypatch.setattr(jax_paging, "id", lambda n: -n.seq, raising=False)
+def _stable_ties():
+    with tp_oracle.stable_ties():
+        yield
 
 
 @pytest.fixture(scope="module")

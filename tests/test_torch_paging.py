@@ -17,12 +17,11 @@ the JAX package's.
 The reference breaks LRU ties (nodes of one tick) by ``id(node)``, a
 memory address, so its eviction victims vary from run to run; the port
 breaks them by creation order (``paging._lru_key``). The ``_stable_ties``
-fixture gives the reference's nodes the same order for these tests,
-without touching the reference's files.
+fixture (tests/tp_oracle.stable_ties) gives the reference's nodes the
+same order for these tests, without touching the reference's files.
 """
 
 import dataclasses
-import itertools
 
 import jax
 import numpy as np
@@ -43,6 +42,7 @@ from runbooks_tpu_torch.serve.engine import (
     Request,
 )
 from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+from tests import tp_oracle
 
 torch.set_num_threads(2)
 
@@ -52,20 +52,9 @@ TINY = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
 
 
 @pytest.fixture(autouse=True)
-def _stable_ties(monkeypatch):
-    counter = itertools.count(1)
-
-    class Node(jax_paging._RadixNode):
-        __slots__ = ("seq",)
-
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            self.seq = next(counter)
-
-    monkeypatch.setattr(jax_paging, "_RadixNode", Node)
-    # The reference's heap keys and flag tables read id(node) through
-    # the module's globals.
-    monkeypatch.setattr(jax_paging, "id", lambda n: -n.seq, raising=False)
+def _stable_ties():
+    with tp_oracle.stable_ties():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -18,7 +18,6 @@ LRU tie-break (creation order, not memory address) in every test.
 """
 
 import dataclasses
-import itertools
 
 import jax
 import jax.numpy as jnp
@@ -42,6 +41,7 @@ from runbooks_tpu_torch.serve import lora_pool, paging
 from runbooks_tpu_torch.serve.engine import InferenceEngine, Request
 from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
 from runbooks_tpu_torch.utils.tree import tree_map
+from tests import tp_oracle
 
 torch.set_num_threads(2)
 
@@ -55,18 +55,9 @@ PROMPTS = [[5, 9, 17], list(range(1, 21)), [3, 4, 5, 6, 7, 8, 9, 10],
 
 
 @pytest.fixture(autouse=True)
-def _stable_ties(monkeypatch):
-    counter = itertools.count(1)
-
-    class Node(jax_paging._RadixNode):
-        __slots__ = ("seq",)
-
-        def __init__(self, *args, **kwargs):
-            super().__init__(*args, **kwargs)
-            self.seq = next(counter)
-
-    monkeypatch.setattr(jax_paging, "_RadixNode", Node)
-    monkeypatch.setattr(jax_paging, "id", lambda n: -n.seq, raising=False)
+def _stable_ties():
+    with tp_oracle.stable_ties():
+        yield
 
 
 @pytest.fixture(scope="module")

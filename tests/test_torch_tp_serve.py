@@ -233,33 +233,74 @@ def test_main_takes_the_mixtral_examples_expert_mesh(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("params,exc,words", [
     ({"mesh_sequence": 2}, NotImplementedError, "mesh_sequence=2"),
-    ({"mesh_expert": 2, "adapter_pool": 2}, NotImplementedError,
-     r"\['adapter_pool'\] under mesh_expert=2"),
-    ({"mesh_expert": 2, "mesh_tensor": 2, "quantize": "int8"},
-     NotImplementedError, "quantize=.*under mesh_expert=2, mesh_tensor=2"),
-    ({"mesh_expert": 2, "kv_host_pages": 8, "kv_paging": "paged"},
-     NotImplementedError, "kv_host_pages"),
-    ({"mesh_expert": 2, "preemption": "swap"}, NotImplementedError,
-     "preemption"),
     ({"mesh_stage": 2}, ValueError, "pipeline \\(stage\\)"),
     ({"mesh_tensro": 2}, ValueError, "unknown mesh axis"),
-    ({"mesh_tensor": 2, "kv_host_pages": 8, "kv_paging": "paged"},
-     NotImplementedError, "kv_host_pages"),
-    ({"mesh_tensor": 2, "adapter_pool": 2}, NotImplementedError,
-     "adapter_pool"),
-    ({"mesh_tensor": 2, "preemption": "swap"}, NotImplementedError,
-     "preemption"),
-    ({"mesh_tensor": 2, "quantize_kv": True}, NotImplementedError,
-     "quantize_kv"),
     ({"mesh_tensor": 2, "collective_matmul": "on"}, NotImplementedError,
      "collective_matmul"),
     ({"mesh_tensor": 2, "collective_matmul": "ring"}, NotImplementedError,
      "collective_matmul"),
+    # MODEL's heads of 16 quantize wo in one block of 64 rows: tensor 2
+    # would cut it at 32.
+    ({"mesh_tensor": 2, "quantize": "int8"}, NotImplementedError,
+     r"attn\.wo quantized int8 .*off-boundary quantized cut"),
 ])
 def test_main_refuses_what_the_tp_server_does_not_take(
         tmp_path, monkeypatch, params, exc, words):
     with pytest.raises(exc, match=words):
         _main_with(tmp_path, monkeypatch, params, backend="gloo")
+
+
+# Heads of 64 and an MLP of 256: the row-parallel cuts land on blocks.
+ON_BLOCKS = {"head_dim": 64, "intermediate_size": 256}
+
+
+@pytest.mark.parametrize("params,engine", [
+    ({"mesh_expert": 2, "adapter_pool": 2, "lora_rank": 16},
+     {"adapter_pool": 2, "lora_rank": 16}),
+    ({"mesh_expert": 2, "mesh_tensor": 2, "quantize": "int8"}, {}),
+    ({"mesh_expert": 2, "kvHostPages": 8, "kv_paging": "paged"},
+     {"kv_host_pages": 8, "kv_paging": True}),
+    ({"mesh_expert": 2, "preemption": "swap", "kvPaging": True},
+     {"preemption": "swap", "kv_paging": True}),
+    ({"mesh_tensor": 2, "kv_host_pages": 8, "kv_paging": "paged"},
+     {"kv_host_pages": 8, "kv_paging": True}),
+    ({"mesh_tensor": 2, "adapterPool": 2, "adapterDir": "/srv/adapters"},
+     {"adapter_pool": 2, "adapter_dir": "/srv/adapters"}),
+    ({"mesh_tensor": 2, "preemption": "swap", "kv_paging": "paged"},
+     {"preemption": "swap", "kv_paging": True}),
+    ({"mesh_tensor": 2, "quantizeKv": "on", "quantize": "int4"}, {}),
+], ids=["expert_adapter_pool", "expert_tensor_quantize", "expert_host_tier",
+        "expert_preemption", "tensor_host_tier", "tensor_adapter_pool",
+        "tensor_preemption", "tensor_quantize_kv"])
+def test_main_takes_the_lifted_knobs_under_a_mesh(tmp_path, monkeypatch,
+                                                  params, engine):
+    """The adapter pool, the host tier, preemption, quantize and
+    quantize_kv pass main's parse under a mesh of more than one rank: main
+    starts the sharded replica (stubbed: it needs GPUs), and each rank's
+    options and shard carry the knob in every spelling (served:
+    tests/test_torch_mesh_features.py)."""
+    p = dict(MODEL, **params)
+    p["model_overrides"] = dict(MODEL["model_overrides"], **ON_BLOCKS)
+    started = []
+    monkeypatch.setattr(api, "_main_tensor_parallel",
+                        lambda q, world, backend: started.append(
+                            (q, world, backend)) or 0)
+    (tmp_path / "params.json").write_text(json.dumps(p))
+    monkeypatch.setenv("RBT_CONTENT_DIR", str(tmp_path))
+    assert api.main() == 0
+    world = params.get("mesh_expert", 1) * params.get("mesh_tensor", 1)
+    assert started == [(p, world, "nccl")]
+    opts = api._server_options(p)
+    for key, value in engine.items():
+        assert opts[key] == value, key
+    mode = p.get("quantize", "none")
+    kv = api._param_on(p["quantizeKv"]) if "quantizeKv" in p else None
+    cfg, shard = api.load_model(p, device="cpu",
+                                shard=(params.get("mesh_tensor", 1), 1,
+                                       params.get("mesh_expert", 1)))
+    assert cfg.quantize == mode and cfg.quantize_kv == kv
+    wo = shard["layers"]["attn"]["wo"]
+    assert (type(wo).__name__ == "QuantizedArray") == (mode != "none")
 
 
 def test_main_refuses_a_multi_host_serving_mesh(tmp_path, monkeypatch):

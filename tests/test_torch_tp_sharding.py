@@ -355,11 +355,17 @@ def test_shard_params_cuts_whole_heads(model, over, tensor):
 
 
 def test_shard_params_refuses_quantized_weights():
+    """Quantized weights a rank would cut off a block are refused by
+    name: the debug config's wo quantizes its 128 rows in one block,
+    which tensor 2 would cut at 64. (Cuts on blocks are served:
+    tests/test_torch_mesh_features.py.)"""
     cfg = get_config("debug")
     params = port_quant.quantize_params(
         init_params(cfg, torch.Generator().manual_seed(0),
                     torch.device("cpu")), "int8")
-    with pytest.raises(NotImplementedError, match="quantized weights"):
+    with pytest.raises(NotImplementedError,
+                       match=r"attn\.wo quantized int8 in blocks of 128 "
+                             r"rows .*off-boundary quantized cut"):
         sharding.shard_params(params, sharding.serve_plan(cfg, 2), 0)
 
 

@@ -11,6 +11,10 @@ tests/tp_ranks.py, which never imports JAX.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import itertools
+
 import jax
 import numpy as np
 import torch
@@ -21,6 +25,7 @@ from runbooks_tpu.models.transformer import init_params as jax_init
 from runbooks_tpu.models.transformer import param_logical_axes
 from runbooks_tpu.parallel.mesh import MeshConfig, make_mesh
 from runbooks_tpu.parallel.sharding import tree_shardings
+from runbooks_tpu.serve import paging as jax_paging
 from runbooks_tpu.serve.engine import InferenceEngine, Request
 from runbooks_tpu.serve.paging import PagedInferenceEngine
 from runbooks_tpu_torch.models import bridge
@@ -55,6 +60,22 @@ MOE = dict(vocab_size=64, hidden_size=32, intermediate_size=48,
            moe_top_k=2, moe_capacity_factor=1.25)
 GEOMETRIES["moe4"] = ("debug", MOE)
 GEOMETRIES["moe3"] = ("debug", dict(MOE, moe_num_experts=3))
+
+# Sharded serving's features (tests/test_torch_mesh_features.py): heads
+# of 64 and an MLP of 256, so that the row-parallel wo and mlp wo cut
+# their contraction rows at tensor 2 on a quantization block of 128 (the
+# block a whole-tree quantize resolves), as llama3-8b's do at 2, 4 and 8.
+GEOMETRIES["feat"] = ("llama2-7b", dict(_BASE, hidden_size=64, num_heads=4,
+                                        num_kv_heads=2, head_dim=64,
+                                        intermediate_size=256))
+# The debug MoE with such heads (the experts stay unquantized).
+GEOMETRIES["moefeat"] = ("debug", dict(MOE, vocab_size=128, hidden_size=64,
+                                       head_dim=64, max_seq_len=64))
+# A falcon parallel block whose heads and MLP both shard at tensor 2: the
+# forward sums attention's and the MLP's partial products (their pooled
+# row-parallel deltas among them) in one all-reduce.
+GEOMETRIES["fused"] = ("falcon-7b", dict(_BASE, hidden_size=64,
+                                         num_heads=4, num_kv_heads=1))
 
 PROMPTS = [[5, 9, 17], [3, 4, 5, 6, 7], [40, 2], [8, 8, 8, 9]]
 REP_PROMPT = [5, 6, 7, 8] * 5 + [5, 6]
@@ -199,3 +220,58 @@ def check_speculative(tmp_path, geometry):
     # Rank 0's verdicts drive the host; the decode chunks between verify
     # steps broadcast rank 0's sampled ids.
     assert got["counts"]["all_gather"] > 0
+
+
+@contextlib.contextmanager
+def stable_ties():
+    """The reference's radix nodes with the port's LRU tie-break
+    (creation order instead of memory address; the reference's heap keys
+    and flag tables read id(node) through the module's globals). The
+    paging, host-tier and quantized-serving tests' autouse fixture."""
+    counter = itertools.count(1)
+    node, had_id = jax_paging._RadixNode, hasattr(jax_paging, "id")
+
+    class Node(node):
+        __slots__ = ("seq",)
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.seq = next(counter)
+
+    jax_paging._RadixNode = Node
+    jax_paging.id = lambda n: -n.seq
+    try:
+        yield
+    finally:
+        jax_paging._RadixNode = node
+        if not had_id:
+            del jax_paging.id
+
+
+def ref_features(jcfg, jparams, case: dict, mesh, adapter_dir=None) -> dict:
+    """The reference mesh engine on a ``tp_ranks.mesh_features`` case:
+    the host-tier scenario, or the case's greedy requests (on their
+    adapters, under ``adapter_dir``), the weights quantized by the
+    reference's quantize_params when the case says so."""
+    from runbooks_tpu.ops.quantization import quantize_params
+
+    if case.get("quantize"):
+        jparams = quantize_params(jax.tree.map(lambda x: x, jparams),
+                                  case["quantize"])
+    jcfg = dataclasses.replace(jcfg, **case.get("config", {}))
+    cls = PagedInferenceEngine if case["paged"] else InferenceEngine
+    engine = dict(case.get("engine", {}))
+    if adapter_dir is not None:
+        engine["adapter_dir"] = adapter_dir
+    with stable_ties():
+        engine = cls(jcfg, jparams, mesh=mesh, **engine)
+        if case.get("scenario") == "host_tier":
+            return tp_ranks.host_tier_scenario(engine, Request,
+                                               case["shared"])
+        adapters = case.get("adapters") or [None] * len(case["prompts"])
+        reqs = [Request(prompt_tokens=list(p),
+                        max_tokens=case["max_tokens"], temperature=0.0,
+                        adapter=a)
+                for p, a in zip(case["prompts"], adapters)]
+        engine.generate(reqs)
+    return {"ids": [r.output_tokens for r in reqs]}

@@ -267,6 +267,236 @@ def serve(rank, mesh, spec: dict, cases: list, tokens=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Sharded serving's features: the adapter pool, the host tier with
+# preemption, quantized weights and the int8 KV cache
+# ---------------------------------------------------------------------------
+
+def feature_engine(cfg, params, case: dict, mesh=None, adapter_dir=None):
+    """A features case's engine: its weights quantized first when it
+    says ``quantize`` (the whole tree, as one process holds it; a mesh
+    engine then cuts each QuantizedArray by whole blocks), its adapter
+    names resolved under ``adapter_dir``."""
+    from runbooks_tpu_torch.ops.quantization import quantize_params
+    from runbooks_tpu_torch.utils.tree import tree_map
+
+    if case.get("quantize"):
+        params = quantize_params(tree_map(lambda t: t, params),
+                                 case["quantize"])
+    engine = dict(case.get("engine", {}))
+    if adapter_dir is not None:
+        engine["adapter_dir"] = adapter_dir
+    return make_engine(cfg, params, dict(case, engine=engine), mesh)
+
+
+def host_tier_scenario(engine, request_cls, shared, sentinel=None) -> dict:
+    """tests/test_mesh_serving.py's host-tier case on a driving engine
+    (the reference's or the port's, ``request_cls`` its Request): a
+    registered prefix demoted to the host tier, a request that swaps it
+    back in, a batch request preempted by an interactive one and resumed.
+    The outputs, prompts and counters; with the build ``sentinel``, warmup
+    first and the sentinel's unexpected count across the steady loop.
+    (The reference's oracle runs without: warmup changes no output, and
+    its census compiles dominate the test's time.)"""
+    if sentinel is not None:
+        engine.warmup()
+    before = None if sentinel is None else sentinel.unexpected
+    try:
+        engine.register_prefix(shared)
+        evicted = engine.pager.radix.evict(10 ** 6)
+        ret = request_cls(prompt_tokens=shared + [50], max_tokens=5,
+                          temperature=0.0)
+        engine.submit(ret)
+        while not ret.finished:
+            engine.step()
+        batch = request_cls(prompt_tokens=list(shared), max_tokens=16,
+                            temperature=0.0, priority="batch")
+        engine.submit(batch)
+        for _ in range(3):
+            engine.step()
+        inter = request_cls(prompt_tokens=list(range(90, 106)),
+                            max_tokens=8, temperature=0.0,
+                            priority="interactive")
+        engine.submit(inter)
+        while engine.has_work():
+            engine.step()
+        return {"ids": [ret.output_tokens, batch.output_tokens,
+                        inter.output_tokens],
+                "prompts": [ret.prompt_tokens, batch.prompt_tokens,
+                            inter.prompt_tokens],
+                "evicted": evicted,
+                "swapped_out": engine.pager.radix.pages_swapped_out,
+                "swapped_in": engine.pager.pages_swapped_in,
+                "preemptions": engine.preemptions,
+                "resumed": engine.preempted_resumed,
+                "unexpected": (None if sentinel is None
+                               else sentinel.unexpected - before)}
+    finally:
+        if sentinel is not None:
+            engine.release_steady()
+
+
+def drive_features(engine, case: dict) -> dict:
+    """One features case on a driving engine (rank 0, or one process):
+    the host-tier scenario, or each of the case's "prompts" as a greedy
+    request on its adapter ("adapters", names under the engine's
+    adapter_dir; None: the base), all submitted together."""
+    from runbooks_tpu_torch.obs import device as obs_device
+    from runbooks_tpu_torch.serve.engine import Request
+
+    if case.get("scenario") == "host_tier":
+        return host_tier_scenario(engine, Request, case["shared"],
+                                  obs_device.SENTINEL)
+    adapters = case.get("adapters") or [None] * len(case["prompts"])
+    reqs = [Request(prompt_tokens=list(p), max_tokens=case["max_tokens"],
+                    temperature=0.0, adapter=a)
+            for p, a in zip(case["prompts"], adapters)]
+    engine.generate(reqs)
+    out = {"ids": [r.output_tokens for r in reqs]}
+    if engine.adapters is not None:
+        out["lanes"] = dict(engine.adapters._by_name)
+    return out
+
+
+def _pool_logits(cfg, engine, tokens, lanes) -> "numpy.ndarray":
+    """The forward's logits through the engine's pool (every rank, its
+    shard) on ``tokens`` with row i on lane ``lanes[i]``."""
+    from runbooks_tpu_torch.models.transformer import forward
+
+    with torch.no_grad():
+        logits, _ = forward(cfg, engine.params, torch.as_tensor(tokens),
+                            adapters=(engine.adapters.tree,
+                                      torch.as_tensor(lanes)),
+                            tp=engine.tp)
+    return logits.numpy()
+
+
+def _plant_column_fault(engine, cfg, path: str, lane: int) -> None:
+    """Rank 1's fault: lane ``lane``'s ``b`` of attn.wq (a column target)
+    taken from the other tensor rank's columns of the same adapter."""
+    import functools
+
+    from runbooks_tpu_torch.parallel.sharding import shard_leaf
+    from runbooks_tpu_torch.serve.lora_pool import load_adapter_tree
+
+    tp = engine.tp
+    other = (tp.rank // tp.size) * tp.size + (tp.tensor_rank + 1) % tp.size
+    wrong = load_adapter_tree(path, cfg, engine.adapters.targets,
+                              engine.adapters.rank,
+                              functools.partial(shard_leaf, plan=tp.plan,
+                                                rank=other))
+    engine.adapters.tree["attn"]["wq"]["b"][:, lane].copy_(
+        wrong["attn"]["wq"]["b"])
+
+
+def _feature_shapes(engine) -> dict:
+    """This rank's pool leaves' shapes and bytes, and its quantized
+    leaves' values / scales shapes and the tree's weight bytes."""
+    from runbooks_tpu_torch.ops.quantization import (
+        QuantizedArray,
+        tree_weight_bytes,
+    )
+
+    out = {"weight_bytes": tree_weight_bytes(engine.params),
+           "kv_dtype": str(engine.cache.k.dtype),
+           "kv_heads": int(engine.cache.k.shape[-2])}
+    if engine.adapters is not None:
+        out["pool"] = {f"{g}.{n}.{k}": tuple(v[k].shape)
+                       for g, sub in engine.adapters.tree.items()
+                       for n, v in sub.items() for k in ("a", "b")}
+        out["pool_bytes"] = engine.adapters.pool_bytes()
+    attn = engine.params["layers"]["attn"]
+    if isinstance(attn["wo"], QuantizedArray):
+        out["quantized"] = {
+            f"attn.{n}": (tuple(w.values.shape), tuple(w.scales.shape))
+            for n, w in attn.items() if isinstance(w, QuantizedArray)}
+        out["quantized"].update({
+            f"mlp.{n}": (tuple(w.values.shape), tuple(w.scales.shape))
+            for n, w in engine.params["layers"].get("mlp", {}).items()
+            if isinstance(w, QuantizedArray)})
+    return out
+
+
+def pool_forward(rank, mesh, spec: dict, adapter_dir: str, tenants: list,
+                 tokens) -> "numpy.ndarray":
+    """The sharded forward's logits on ``tokens`` through a pool of this
+    rank's shards (``spec``'s "config" overrides, e.g. its targets), the
+    tenants acquired in order (row i on tenant i's lane)."""
+    import dataclasses
+    import functools
+
+    import torch.distributed as dist
+
+    from runbooks_tpu_torch.models.transformer import forward
+    from runbooks_tpu_torch.parallel.sharding import (
+        TensorParallel,
+        serve_plan,
+        shard_leaf,
+        shard_params,
+    )
+    from runbooks_tpu_torch.serve.lora_pool import AdapterPool
+
+    cfg, params = _model(spec)
+    cfg = dataclasses.replace(cfg, **spec.get("config", {}))
+    size = lambda a: mesh.size(mesh.mesh_dim_names.index(a))  # noqa: E731
+    plan = serve_plan(cfg, size("tensor"), size("expert"))
+    pool = AdapterPool(cfg, pool_size=len(tenants), rank=8,
+                       root=adapter_dir, device="cpu",
+                       cut=functools.partial(shard_leaf, plan=plan,
+                                             rank=rank))
+    lanes = [pool.acquire(t) for t in tenants]
+    tp = TensorParallel(plan, rank, mesh.get_group("tensor"),
+                        dist.group.WORLD)
+    with torch.no_grad():
+        logits, _ = forward(cfg, shard_params(params, plan, rank),
+                            torch.as_tensor(tokens),
+                            adapters=(pool.tree, torch.as_tensor(lanes)),
+                            tp=tp)
+    return logits.numpy()
+
+
+def mesh_features(rank, mesh, spec: dict, cases: list, adapter_dir: str,
+                  fault: dict = None, pool_forwards: list = ()) -> dict:
+    """Each features case through an engine built on every rank with the
+    mesh (rank 0 drives, the followers replay): rank 0's outputs, every
+    rank's shapes and bytes (``_feature_shapes``) and build sentinel
+    count. With ``fault`` ({"case": index of a pooled case, "tokens",
+    "lanes"}), after that case every rank's forward logits through its
+    pool, then again with rank 1's ``_plant_column_fault`` on lane
+    fault["lanes"][0]. Then ``pool_forward`` of each of
+    ``pool_forwards`` (argument tuples)."""
+    from runbooks_tpu_torch.obs import device as obs_device
+
+    cfg, params = _model(spec)
+    results, shapes, planted = [], [], None
+    for i, case in enumerate(cases):
+        engine = feature_engine(cfg, params, case, mesh, adapter_dir)
+        shapes.append(_feature_shapes(engine))
+        unexpected = obs_device.SENTINEL.unexpected
+        if rank:
+            engine.serve_follower()
+            results.append({"unexpected": obs_device.SENTINEL.unexpected
+                            - unexpected})
+        else:
+            try:
+                results.append(drive_features(engine, case))
+            finally:
+                engine.stop_followers()
+        if fault is not None and fault["case"] == i:
+            lanes = fault["lanes"]
+            planted = {"logits": _pool_logits(cfg, engine, fault["tokens"],
+                                              lanes)}
+            if rank == 1:
+                _plant_column_fault(engine, cfg, os.path.join(
+                    adapter_dir, case["adapters"][0]), lanes[0])
+            planted["planted"] = _pool_logits(cfg, engine, fault["tokens"],
+                                              lanes)
+        del engine
+    return {"cases": results, "shapes": shapes, "fault": planted,
+            "pool_forwards": [pool_forward(rank, mesh, *a)
+                              for a in pool_forwards]}
+
+
 def serve_specs(rank, mesh, runs: list, refusal_spec: dict = None):
     """``serve`` of each (spec, cases, tokens) in turn (one spawn for
     several models); then, with ``refusal_spec``, ``refusals`` on that
@@ -278,10 +508,15 @@ def serve_specs(rank, mesh, runs: list, refusal_spec: dict = None):
 
 
 def refusals(rank, mesh, spec: dict, own_host_tier: bool = False) -> dict:
-    """What a mesh engine refuses, by message: the paged geometry check
-    and each feature out of the slice's scope under a mesh of more than
-    one rank. The host tier is tried on a debug model whose kv heads
-    shard, or (``own_host_tier``) on the spec's model."""
+    """What a mesh engine refuses, by message (None: it was built): the
+    paged geometry check, a mesh that is not a DeviceMesh,
+    collective_matmul "ring", and quantized weights on the spec's model
+    (refused where a rank's contraction rows fall off a quantization
+    block); and the features sharded serving takes, each built under the
+    mesh: the int8 KV cache and the adapter pool on the spec's model,
+    quantized weights on a debug model whose cuts land on blocks, the
+    host tier and preemption on a debug model whose kv heads shard, or
+    (``own_host_tier``) on the spec's model."""
     import dataclasses
 
     from runbooks_tpu_torch.models.config import get_config
@@ -289,26 +524,35 @@ def refusals(rank, mesh, spec: dict, own_host_tier: bool = False) -> dict:
     from runbooks_tpu_torch.ops.quantization import quantize_params
     from runbooks_tpu_torch.serve.engine import InferenceEngine
     from runbooks_tpu_torch.serve.paging import PagedInferenceEngine
+    from runbooks_tpu_torch.utils.tree import tree_map
 
     cfg, params = _model(spec)
-    debug = get_config("debug", num_layers=1)
-    debug_params = init_params(debug, torch.Generator().manual_seed(0),
-                               torch.device("cpu"))
+
+    def debug(**over):
+        c = get_config("debug", num_layers=1, **over)
+        return c, init_params(c, torch.Generator().manual_seed(0),
+                              torch.device("cpu"))
+
+    def quantized(c, p):
+        return quantize_params(tree_map(lambda t: t, p), "int8")
+
+    on_blocks = debug(head_dim=64, intermediate_size=512)
+    tier = (cfg, params) if own_host_tier else debug()
     tries = {
         "paged": lambda: PagedInferenceEngine(cfg, params, mesh=mesh,
                                               max_slots=2),
         "quantized": lambda: InferenceEngine(
-            cfg, quantize_params(dict(params), "int8"), mesh=mesh),
+            cfg, quantized(cfg, params), mesh=mesh),
+        "quantized_on_blocks": lambda: InferenceEngine(
+            on_blocks[0], quantized(*on_blocks), mesh=mesh),
         "quantize_kv": lambda: InferenceEngine(cfg, params, mesh=mesh,
                                                quantize_kv=True),
         "adapter_pool": lambda: InferenceEngine(cfg, params, mesh=mesh,
                                                 adapter_pool=2),
-        # On a geometry whose kv heads shard, so the tier is what fails.
-        "host_tier": lambda: PagedInferenceEngine(
-            *((cfg, params) if own_host_tier else (debug, debug_params)),
-            mesh=mesh, kv_host_pages=4),
-        "preemption": lambda: InferenceEngine(cfg, params, mesh=mesh,
-                                              preemption="swap"),
+        "host_tier": lambda: PagedInferenceEngine(*tier, mesh=mesh,
+                                                  kv_host_pages=4),
+        "preemption": lambda: PagedInferenceEngine(*tier, mesh=mesh,
+                                                   preemption="swap"),
         "collective_matmul": lambda: InferenceEngine(
             dataclasses.replace(cfg, collective_matmul="ring"), params,
             mesh=mesh),
